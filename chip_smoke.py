@@ -1,0 +1,455 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+Run from the root of a checkout with no arguments:
+
+    python3 chip_smoke.py
+
+Phases, each of which must pass (the script exits non-zero and prints
+no result line otherwise):
+
+1. print the card's name and power limit (``nvidia-smi``) and build the
+   CUDA kernels from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
+   source, started together);
+2. check every kernel of the serving path against its plain PyTorch
+   version on the card, at the shapes serving llama3.2-3b gives it, in
+   bfloat16 and float32, with the tolerance printed, and time kernel,
+   plain version and a library yardstick;
+3. serve 8 requests through ``ServeEngine`` at the full width and depth
+   of llama3.2-3b (28 layers, random weights from a seeded generator)
+   with a crossbar-pruned ticket (one seeded 128x128 tile bitmap per
+   projection, ~25 % live, shared by all layers), and check that every
+   request finishes, that every kernel was launched on that path, that
+   every logit is finite, and that block-sparse prefill through the
+   ticket's plan agrees with dense prefill on the masked weights.
+
+Before the last line it prints ``{"kernels": [...]}`` (per kernel: its
+launches in the serving run, its error against the plain version, its
+time, the plain version's, the bound and the library call's), the
+engine report and the card's name and power limit; the last line is
+``{"ok": true, "device": {...}}``.  Longer records go to ``chiprun_out/``.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+ROOT = Path(__file__).resolve().parent
+OUT = ROOT / "chiprun_out"
+
+# published H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+
+BSMM_SHAPES = ((3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072))
+BSMM_ROWS = (8, 128, 512)
+LIVE_FRACTION = 0.25
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def time_ms(fn, iters: int = 20, graph: bool = True) -> float:
+    """Mean device milliseconds per call over ``iters`` calls (CUDA
+    events).  With ``graph`` the calls are captured once into a CUDA
+    graph and replayed, so that host launch overhead does not hide the
+    device time of a kernel of a few microseconds; the plain versions,
+    which copy host indices, run eagerly."""
+    for i in range(3):
+        fn(i)
+    torch.cuda.synchronize()
+    run = lambda: [fn(i) for i in range(iters)]     # noqa: E731
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            run()
+        run = g.replay
+        run()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def tolerance(dtype, ref) -> float:
+    """bfloat16: 1e-2 of the output scale (outputs round to 8-bit
+    mantissas and the two sums run in different orders); float32:
+    1e-4 of it (K up to 8192 products summed in another order)."""
+    scale = max(1.0, ref.float().abs().max().item())
+    return (1e-2 if dtype == torch.bfloat16 else 1e-4) * scale
+
+
+def random_bitmap(rng, K: int, N: int):
+    """~25 % live 128x128 tiles; column tile 0 entirely dead."""
+    bm = rng.random((K // 128, N // 128)) < LIVE_FRACTION
+    bm[:, 0] = False
+    return bm
+
+
+def bsmm_bound_ms(M, K, N, plan, elem, dtype_name) -> tuple:
+    live_k = len(set(int(k) for j in range(len(plan.counts))
+                     for k in plan.idx[j, :plan.counts[j]]))
+    nbytes = (M * live_k * 128 * elem + plan.live_tiles * 128 * 128 * elem
+              + M * N * elem + plan.idx.size * 4 + plan.counts.size * 4)
+    flops = 2.0 * M * plan.live_tiles * 128 * 128
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_bsmm(B):
+    """Both bsmm kernels against their plain versions at every shape;
+    times at every bfloat16 shape.  Returns (errors, times)."""
+    rng = np.random.default_rng(1)
+    dev = "cuda"
+    err = {"bsmm": 0.0, "bsmm_epilogue": 0.0}
+    times = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for K, N in BSMM_SHAPES:
+            bm = random_bitmap(rng, K, N)
+            plan = B.make_tile_plan(np.kron(bm, np.ones((128, 128), bool)))
+            require(int((plan.counts == 0).sum()) > 0, "no dead column")
+            g = torch.Generator(device=dev).manual_seed(K + N)
+            w = (torch.randn(K, N, device=dev, generator=g) / K ** 0.5
+                 ).to(dtype)
+            bias = torch.randn(N, device=dev, generator=g).to(dtype)
+            for M in BSMM_ROWS:
+                x = torch.randn(M, K, device=dev, generator=g).to(dtype)
+                cases = [("bsmm", B.bsmm(x, w, plan), B.bsmm_plain(x, w, plan))]
+                for b, act in ((None, "silu"), (bias, "silu"), (bias, "relu"),
+                               (bias, "gelu"), (bias, None)):
+                    cases.append(("bsmm_epilogue",
+                                  B.bsmm_epilogue(x, w, plan, b, act),
+                                  B.bsmm_epilogue_plain(x, w, plan, b, act)))
+                torch.cuda.synchronize()
+                for name, got, want in cases:
+                    e = (got.float() - want.float()).abs().max().item()
+                    tol = tolerance(dtype, want)
+                    print(f"check {name} {str(dtype)[6:]} M={M} K={K} N={N} "
+                          f"max_abs_err={e:.3e} tol={tol:.3e}")
+                    require(torch.isfinite(got).all().item(),
+                            f"{name} non-finite")
+                    require(e <= tol, f"{name} disagrees with its plain "
+                            f"version at M={M} K={K} N={N} {dtype}")
+                    err[name] = max(err[name], e)
+                if dtype == torch.bfloat16 and M in (8, 512):
+                    times.append(time_bsmm(B, x, w, bm, plan, M, K, N))
+    return err, times
+
+
+def time_bsmm(B, x, w, bm, plan, M, K, N):
+    """Kernel, plain and torch.matmul (on the masked dense weight) times,
+    cycling weight copies so that the weights come from device memory
+    as they do across 28 layers."""
+    copies = max(2, int(400e6 // (w.numel() * w.element_size())) + 1)
+    ws = [w.clone() for _ in range(copies)]
+    dense = w * torch.as_tensor(np.kron(bm, np.ones((128, 128))),
+                                dtype=w.dtype, device=w.device)
+    ds = [dense.clone() for _ in range(copies)]
+    b = torch.zeros(N, dtype=x.dtype, device=x.device)
+    row = {"M": M, "K": K, "N": N, "dtype": "bfloat16",
+           "live_tiles": plan.live_tiles, "total_tiles": plan.total_tiles}
+    row["bsmm_ms"] = time_ms(lambda i: B.bsmm(x, ws[i % copies], plan))
+    row["bsmm_epilogue_ms"] = time_ms(
+        lambda i: B.bsmm_epilogue(x, ws[i % copies], plan, b, "silu"))
+    row["plain_ms"] = time_ms(lambda i: B.bsmm_plain(x, ws[i % copies], plan),
+                              iters=5, graph=False)
+    row["epilogue_plain_ms"] = time_ms(
+        lambda i: B.bsmm_epilogue_plain(x, ws[i % copies], plan, b, "silu"),
+        iters=5, graph=False)
+    row["matmul_ms"] = time_ms(lambda i: torch.matmul(x, ds[i % copies]))
+    row["bound_ms"], row["bound_by"] = bsmm_bound_ms(M, K, N, plan, 2,
+                                                     "bfloat16")
+    print("time bsmm " + json.dumps(row))
+    return row
+
+
+def paged_inputs(dtype, g):
+    B_, Hq, Hkv, hd, T = 8, 24, 8, 128, 128
+    lengths = [1, 127, 128, 129, 300, 511, 64, 1000]
+    NB = 8
+    P = 1 + sum(-(-n // T) for n in lengths) + 2
+    kp = torch.randn(P, T, Hkv, hd, device="cuda", generator=g).to(dtype)
+    vp = torch.randn(P, T, Hkv, hd, device="cuda", generator=g).to(dtype)
+    kp[0] = float("nan")          # scratch block: dead table entries
+    vp[0] = float("nan")
+    tables = torch.zeros(B_, NB, dtype=torch.int32)
+    nxt = 1
+    for b, n in enumerate(lengths):
+        for j in range(-(-n // T)):
+            tables[b, j] = nxt
+            nxt += 1
+    q = torch.randn(B_, Hq, hd, device="cuda", generator=g).to(dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    return q, kp, vp, tables.cuda(), lens
+
+
+def check_paged(PA):
+    g = torch.Generator(device="cuda").manual_seed(7)
+    err = 0.0
+    row = None
+    for dtype in (torch.bfloat16, torch.float32):
+        q, kp, vp, tables, lens = paged_inputs(dtype, g)
+        scale = q.shape[-1] ** -0.5
+        got = PA.paged_attention(q, kp, vp, tables, lens, scale=scale)
+        want = PA.paged_attention_ref(q, kp, vp, tables, lens, scale=scale)
+        torch.cuda.synchronize()
+        e = (got.float() - want.float()).abs().max().item()
+        tol = tolerance(dtype, want)
+        print(f"check paged_attention {str(dtype)[6:]} B=8 Hq=24 Hkv=8 "
+              f"hd=128 lengths={lens.tolist()} max_abs_err={e:.3e} "
+              f"tol={tol:.3e}")
+        require(torch.isfinite(got).all().item(),
+                "paged_attention saw a dead (NaN) block")
+        require(e <= tol, f"paged_attention disagrees ({dtype})")
+        err = max(err, e)
+        if dtype == torch.bfloat16:
+            row = time_paged(PA, q, kp, vp, tables, lens, scale)
+    return err, row
+
+
+def time_paged(PA, q, kp, vp, tables, lens, scale):
+    B_, Hq, hd = q.shape
+    Hkv = kp.shape[2]
+    kp = kp.clone()
+    vp = vp.clone()
+    kp[0] = 0.0        # the library yardstick reads dead entries too
+    vp[0] = 0.0
+    row = {"B": B_, "Hq": Hq, "Hkv": Hkv, "hd": hd, "lengths": lens.tolist()}
+    # cycle pool copies: 28 layers of pools do not stay in the L2
+    copies = int(400e6 // (2 * kp.numel() * kp.element_size())) + 1
+    pools = [(kp.clone(), vp.clone()) for _ in range(copies)]
+    row["ms"] = time_ms(lambda i: PA.paged_attention(
+        q, *pools[i % copies], tables, lens, scale=scale))
+    row["plain_ms"] = time_ms(lambda i: PA.paged_attention_ref(
+        q, kp, vp, tables, lens, scale=scale), iters=5, graph=False)
+    # yardstick: SDPA on K/V already gathered to dense, heads expanded
+    G = Hq // Hkv
+    k = PA.paged_gather(kp, tables).permute(0, 2, 1, 3)
+    v = PA.paged_gather(vp, tables).permute(0, 2, 1, 3)
+    k = k.repeat_interleave(G, dim=1).contiguous()
+    v = v.repeat_interleave(G, dim=1).contiguous()
+    L = k.shape[2]
+    mask = (torch.arange(L, device="cuda")[None] < lens[:, None].long())
+    mask = mask[:, None, None, :]
+    qq = q[:, :, None, :]
+    row["library_ms"] = time_ms(lambda i: F.scaled_dot_product_attention(
+        qq, k, v, attn_mask=mask, scale=scale))
+    elem = q.element_size()
+    live = int(lens.sum().item())
+    nbytes = (q.numel() * elem + live * Hkv * 2 * hd * elem
+              + B_ * Hq * hd * elem + tables.numel() * 4 + B_ * 4)
+    flops = live * Hq * 4.0 * hd
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    row["bound_ms"] = max(t_b, t_o)
+    row["bound_by"] = "bytes" if t_b >= t_o else "operations"
+    print("time paged_attention " + json.dumps(row))
+    return row
+
+
+def build_ticket(params, cfg, device):
+    """One seeded ~25 %-live 128x128 tile bitmap per projection, shared
+    by every layer (a (K, N) mask broadcast over the stacked repeats)."""
+    rng = np.random.default_rng(1234)
+    seg = params["segments"][0][0]
+    reps = cfg.n_layers
+    masks = {"attn": {}, "mlp": {}}
+    for group, keys in (("attn", ("wq", "wk", "wv", "wo")),
+                        ("mlp", ("up", "gate", "down"))):
+        for key in keys:
+            K, N = seg[group][key].shape[-2:]
+            bm = torch.as_tensor(random_bitmap(rng, K, N), device=device)
+            m = bm.repeat_interleave(128, 0).repeat_interleave(128, 1)
+            masks[group][key] = m.expand(reps, K, N)
+    return {"segments": [[masks]]}
+
+
+def serve(cfg, device):
+    from repro_torch._bridge import apply_masks
+    from repro_torch.kernels import bsmm as B
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import Request, ServeEngine
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = tfm.init_params(gen, cfg, device=device)
+    masks = build_ticket(params, cfg, device)
+    params = apply_masks(params, masks)
+    sync(device)
+    setup_s = time.perf_counter() - t0
+    eng = ServeEngine(params=params, cfg=cfg, masks=masks, batch_slots=8,
+                      capacity=512, device=device)
+    nonfinite = [0]
+    sample = eng._sample_row
+
+    def checked(row, rng):
+        nonfinite[0] += int((~np.isfinite(row)).sum())
+        return sample(row, rng)
+
+    eng._sample_row = checked
+    prng = np.random.default_rng(5)
+    lengths = (5, 17, 64, 127, 128, 129, 200, 300)
+    reqs = [Request(uid=i, prompt=prng.integers(1, cfg.vocab_size, size=n)
+                    .astype(np.int32), max_new_tokens=32)
+            for i, n in enumerate(lengths)]
+    for r in reqs:
+        eng.submit(r)
+
+    B.bsmm.launches = 0
+    B.bsmm_epilogue.launches = 0
+    PA.paged_attention.launches = 0
+    step_ms = []
+    t0 = time.perf_counter()
+    while not eng.idle:
+        before = eng.report.prefills
+        ts = time.perf_counter()
+        eng.step()
+        sync(device)
+        if eng.report.prefills == before:       # a decode-only tick
+            step_ms.append((time.perf_counter() - ts) * 1e3)
+    serve_s = time.perf_counter() - t0
+    launches = {"bsmm": B.bsmm.launches,
+                "bsmm_epilogue": B.bsmm_epilogue.launches,
+                "paged_attention": PA.paged_attention.launches}
+    rep = eng.report
+    require(all(r.done and len(r.tokens) == 32 for r in reqs),
+            "not every request finished")
+    require(nonfinite[0] == 0, f"{nonfinite[0]} non-finite logits")
+    require(all(v > 0 for v in launches.values()),
+            f"a kernel was not launched on the serving path: {launches}")
+    L = cfg.n_layers
+    passes = rep.prefills + rep.decode_steps
+    require(launches["bsmm"] == passes * L * 6
+            and launches["bsmm_epilogue"] == passes * L
+            and launches["paged_attention"] == rep.decode_steps * L,
+            f"launch counts {launches} do not match {rep.prefills} prefills "
+            f"and {rep.decode_steps} decode steps over {L} layers")
+
+    # block-sparse prefill through the plan vs dense prefill on the
+    # masked weights: same function, bf16 rounding in other places
+    n = 129
+    S = eng._bucket(n)
+    toks = np.zeros((1, S), np.int64)
+    toks[0, :n] = reqs[5].prompt
+    with torch.inference_mode():
+        batch = {"tokens": torch.as_tensor(toks, device=device)}
+        vl = torch.tensor([n], dtype=torch.int32, device=device)
+        got, _ = tfm.prefill(params, cfg, batch, S, valid_len=vl,
+                             plan=eng.plan)
+        want, _ = tfm.prefill(params, cfg, batch, S, valid_len=vl)
+    diff = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    tol = 5e-2 * scale
+    same_argmax = bool((got.argmax(-1) == want.argmax(-1)).all().item())
+    print(f"check plan prefill vs dense masked prefill ({cfg.dtype}, "
+          f"{L} layers, prompt {n}, bucket {S}): max_abs_err={diff:.4e} "
+          f"max|logit|={scale:.4e} tol={tol:.4e} same_argmax={same_argmax}")
+    require(bool(torch.isfinite(got).all().item()), "plan prefill non-finite")
+    require(diff <= tol, "plan prefill disagrees with dense prefill")
+
+    step_ms.sort()
+    summary = {
+        "setup_s": setup_s, "serve_s": serve_s,
+        "decode_only_steps": len(step_ms),
+        "decode_step_ms_p50": step_ms[len(step_ms) // 2] if step_ms else None,
+        "decode_step_ms_min": step_ms[0] if step_ms else None,
+        "launches": launches,
+        "launches_per_decode_step": {"bsmm": 6 * L, "bsmm_epilogue": L,
+                                     "paged_attention": L},
+        "prefill_plan_vs_dense_max_abs_err": diff,
+        "report": rep.__dict__,
+    }
+    return launches, summary
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script runs the port "
+              "on an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import bsmm as B
+    from repro_torch.kernels import paged_attention as PA
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"device: {smi}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}")
+    OUT.mkdir(exist_ok=True)
+
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    build_s = time.perf_counter() - t0
+    (OUT / "chip_smoke_build.log").write_text(
+        "\n".join(f"== {k}\n{v}" for k, v in logs.items()))
+    print(f"build: {build_s:.1f} s ({', '.join(logs) or 'cached'})")
+
+    with torch.inference_mode():
+        bsmm_err, bsmm_times = check_bsmm(B)
+        paged_err, paged_row = check_paged(PA)
+    launches, summary = serve(get_arch("llama3.2-3b"), "cuda")
+
+    rep_row = next(r for r in bsmm_times if r["M"] == 8 and r["N"] == 8192)
+    kernels = [
+        {"name": "bsmm", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/bsmm.cu",
+         "replaces": "src/repro/kernels/bsmm.py:118",
+         "launches": launches["bsmm"], "max_abs_err": bsmm_err["bsmm"],
+         "ms": rep_row["bsmm_ms"], "plain_ms": rep_row["plain_ms"],
+         "bound_ms": rep_row["bound_ms"], "bound_by": rep_row["bound_by"],
+         "library_ms": rep_row["matmul_ms"]},
+        {"name": "bsmm_epilogue", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/bsmm.cu",
+         "replaces": "src/repro/kernels/bsmm.py:136",
+         "launches": launches["bsmm_epilogue"],
+         "max_abs_err": bsmm_err["bsmm_epilogue"],
+         "ms": rep_row["bsmm_epilogue_ms"],
+         "plain_ms": rep_row["epilogue_plain_ms"],
+         "bound_ms": rep_row["bound_ms"], "bound_by": rep_row["bound_by"],
+         "library_ms": None},
+        {"name": "paged_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+         "replaces": "src/repro/kernels/paged_attention.py:171",
+         "launches": launches["paged_attention"], "max_abs_err": paged_err,
+         "ms": paged_row["ms"], "plain_ms": paged_row["plain_ms"],
+         "bound_ms": paged_row["bound_ms"], "bound_by": paged_row["bound_by"],
+         "library_ms": paged_row["library_ms"]},
+    ]
+    (OUT / "chip_smoke_kernels.json").write_text(json.dumps(
+        {"device": smi, "bsmm": bsmm_times, "paged_attention": paged_row,
+         "serve": summary}, indent=1, default=str))
+    print(json.dumps({"serve": summary}, default=str))
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

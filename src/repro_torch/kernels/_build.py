@@ -1,0 +1,111 @@
+"""Build the CUDA sources under ``csrc/`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
+``nvcc`` for ``sm_90a`` into its own shared library, at first use, into
+``kernels/build/`` (listed in ``.gitignore``).  The library's file name
+carries a hash of the source and the flags, so an edited source is
+rebuilt and an unchanged one is loaded as it is.  ``build_all`` starts
+one ``nvcc`` per source at once, so a cold build takes as long as the
+slowest source.
+
+The sources include no PyTorch header: a file that includes
+``torch/extension.h`` takes minutes to compile, a plain CUDA file
+seconds.  Pointers and the stream come from ``data_ptr()`` and
+``torch.cuda.current_stream().cuda_stream`` as Python ints; every C
+entry point returns ``cudaGetLastError()`` after its launch and the
+wrappers raise on a non-zero code.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, List, Sequence
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+SOURCES = ("bsmm", "paged_attention")
+
+NVCC_FLAGS = (
+    "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    # the same discipline torch's extension builder imposes: bfloat16
+    # converts only through the intrinsics
+    "-D__CUDA_NO_HALF_OPERATORS__", "-D__CUDA_NO_HALF_CONVERSIONS__",
+    "-D__CUDA_NO_BFLOAT16_CONVERSIONS__", "-D__CUDA_NO_HALF2_OPERATORS__",
+)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found (looked on PATH and in CUDA_HOME); "
+                       "the CUDA kernels can only be built where the CUDA "
+                       "toolkit is installed")
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def _command(name: str, out: Path) -> List[str]:
+    return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{name}.cu")]
+
+
+def build_all(names: Sequence[str] = SOURCES) -> Dict[str, str]:
+    """Compile every stale source at once (one nvcc each).
+
+    Returns ``{name: compiler log}`` (``-Xptxas=-v`` register and
+    shared-memory lines) for the sources it compiled; raises
+    ``RuntimeError`` with the log if any compile fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = _target(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (subprocess.Popen(_command(name, tmp),
+                                        stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    logs, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        logs[name] = log
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu:\n{log}")
+            continue
+        os.replace(tmp, out)         # atomic: concurrent builders agree
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return logs
+
+
+@functools.lru_cache(maxsize=None)
+def library(name: str) -> ctypes.CDLL:
+    """The loaded shared library for ``csrc/<name>.cu`` (built if stale)."""
+    build_all((name,))
+    return ctypes.CDLL(str(_target(name)))
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a C entry point
+    (every source exports ``kernel_error_string`` to name it)."""
+    if code != 0:
+        lib.kernel_error_string.restype = ctypes.c_char_p
+        lib.kernel_error_string.argtypes = [ctypes.c_int]
+        msg = lib.kernel_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} at launch ({msg})")

@@ -1,0 +1,364 @@
+"""Block-sparse matmul: the paper's "turned-off crossbar" on the H100.
+
+A 128x128 weight tile whose crossbar is power-gated is never read and
+never multiplied.  A ``TilePlan`` lists, for every output column tile j,
+the live K tiles ``idx[j, :counts[j]]``; the CUDA kernel in
+``csrc/bsmm.cu`` walks exactly those (it replaces the Pallas TPU kernels
+``repro/kernels/bsmm.py::_bsmm_kernel`` and ``::_bsmm_epilogue_kernel``).
+
+Dispatch: ``bsmm`` and ``bsmm_epilogue`` launch the kernel for CUDA
+tensors and run their plain PyTorch versions (``bsmm_plain``,
+``bsmm_epilogue_plain``) for CPU tensors; any other device raises.  Each
+wrapper counts its kernel launches in ``.launches``.  Serving runs under
+``torch.inference_mode()``; the backward kernels come with training.
+
+The host-side plan builders (``tile_bitmap``, ``compact_tile_indices``,
+``make_tile_plan``) are numpy copies of the reference's, so both
+packages derive the same plan from the same mask.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from dataclasses import dataclass, field
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import MXU_TILE
+from repro_torch.kernels import _build
+
+
+class GeometryError(ValueError):
+    """A mask/weight shape disagrees with the tile/crossbar geometry.
+
+    Carries the offending ``shape``, the ``tile`` edge, and a ``where``
+    location naming the projection."""
+
+    def __init__(self, reason: str, *, shape=None, tile=None, where=""):
+        self.reason = reason
+        self.shape = None if shape is None else tuple(shape)
+        self.tile = tile
+        self.where = where
+        parts = [reason]
+        if shape is not None:
+            parts.append(f"shape={self.shape}")
+        if tile is not None:
+            parts.append(f"tile={tile}")
+        if where:
+            parts.append(f"at {where}")
+        super().__init__(" | ".join(parts))
+
+
+def tile_bitmap(mask: np.ndarray, bk: int = MXU_TILE,
+                bn: int = MXU_TILE) -> np.ndarray:
+    """Elementwise {0,1} mask (K, N) → tile liveness (⌈K/bk⌉, ⌈N/bn⌉)."""
+    m = np.asarray(mask) != 0
+    K, N = m.shape
+    pk, pn = (-K) % bk, (-N) % bn
+    if pk or pn:
+        m = np.pad(m, ((0, pk), (0, pn)))
+    return m.reshape(m.shape[0] // bk, bk, m.shape[1] // bn, bn) \
+            .any(axis=(1, 3)).astype(np.int32)
+
+
+def compact_tile_indices(tile_mask: np.ndarray) -> Tuple[np.ndarray,
+                                                         np.ndarray, int]:
+    """Per column j of the (Kt, Nt) tile mask: live k indices + counts.
+
+    Returns (idx (Nt, KMAX) int32, count (Nt,) int32, KMAX).
+    Dead slots point at tile 0 and are never read.
+    """
+    tm = np.asarray(tile_mask) != 0
+    Kt, Nt = tm.shape
+    counts = tm.sum(axis=0).astype(np.int32)
+    kmax = max(int(counts.max()) if Nt else 0, 1)
+    idx = np.zeros((Nt, kmax), np.int32)
+    for j in range(Nt):
+        live = np.nonzero(tm[:, j])[0]
+        idx[j, : len(live)] = live
+    return idx, counts, kmax
+
+
+@dataclass(frozen=True, eq=False)
+class TilePlan:
+    """Static bsmm dispatch data for one pruned (K, N) weight.
+
+    The forward plan (``idx``/``counts``/``kmax``) steers ``x @ w`` past
+    dead K tiles; the transposed plan (``idx_t``/``counts_t``/``nmax``)
+    and the flat live-tile coordinates (``kk``/``nn``) are kept for the
+    backward kernels.  ``device_tensors`` caches the int32 copies the
+    kernel reads, one pair per device.
+    """
+    idx: np.ndarray          # (Nt, KMAX) int32 — live K-tile ids per column
+    counts: np.ndarray       # (Nt,) int32
+    kmax: int
+    tile: int
+    live_tiles: int
+    total_tiles: int
+    idx_t: Optional[np.ndarray] = None     # (Kt, NMAX) live N-tile ids per row
+    counts_t: Optional[np.ndarray] = None  # (Kt,)
+    nmax: int = 1
+    kk: Optional[np.ndarray] = None        # (L,) K-tile id of each live tile
+    nn: Optional[np.ndarray] = None        # (L,) N-tile id of each live tile
+    _dev: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = field(
+        default_factory=dict, repr=False)
+
+    def device_tensors(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(idx, counts) as int32 tensors on ``device``, copied once."""
+        device = torch.device(device)
+        got = self._dev.get(device)
+        if got is None:
+            got = (torch.as_tensor(self.idx, dtype=torch.int32).to(device),
+                   torch.as_tensor(self.counts, dtype=torch.int32).to(device))
+            self._dev[device] = got
+        return got
+
+
+def make_tile_plan(mask: np.ndarray, *, tile: int = MXU_TILE,
+                   strict: bool = False,
+                   where: str = "make_tile_plan") -> Optional[TilePlan]:
+    """Elementwise {0,1} mask (K, N) → ``TilePlan``.
+
+    A shape that does not tile evenly returns ``None`` (the caller's
+    dense path) — or, with ``strict=True``, raises ``GeometryError``.
+    An invalid ``tile`` always raises.
+    """
+    if tile <= 0:
+        raise GeometryError(f"tile edge must be positive, got {tile}",
+                            tile=tile, where=where)
+    m = np.asarray(mask)
+    if m.ndim != 2:
+        if strict:
+            raise GeometryError("mask must be 2-D to tile",
+                                shape=m.shape, tile=tile, where=where)
+        return None
+    K, N = m.shape
+    if K == 0 or N == 0 or K % tile or N % tile:
+        if strict:
+            raise GeometryError("mask shape does not tile evenly",
+                                shape=m.shape, tile=tile, where=where)
+        return None
+    bitmap = tile_bitmap(m, tile, tile)
+    idx, counts, kmax = compact_tile_indices(bitmap)
+    idx_t, counts_t, nmax = compact_tile_indices(bitmap.T)
+    kk, nn = np.nonzero(bitmap)
+    return TilePlan(idx=idx, counts=counts, kmax=kmax, tile=tile,
+                    live_tiles=int(bitmap.sum()),
+                    total_tiles=int(bitmap.size),
+                    idx_t=idx_t, counts_t=counts_t, nmax=nmax,
+                    kk=kk.astype(np.int32), nn=nn.astype(np.int32))
+
+
+# ---------------------------------------------------------------------------
+# Epilogue activations (f32 accumulator → act → output dtype)
+# ---------------------------------------------------------------------------
+_ACT_CODES = {None: 0, "relu": 1, "gelu": 2, "silu": 3}
+
+
+def _check_act(act: Optional[str]) -> None:
+    if act not in _ACT_CODES:
+        raise ValueError(f"unsupported epilogue act {act!r}; "
+                         f"known: {sorted(k for k in _ACT_CODES if k)}")
+
+
+def _epilogue(z: torch.Tensor, act: Optional[str]) -> torch.Tensor:
+    _check_act(act)
+    if act == "relu":
+        return torch.relu(z)
+    if act == "gelu":                      # jax.nn.gelu's default tanh form
+        return F.gelu(z, approximate="tanh")
+    if act == "silu":
+        return F.silu(z)
+    return z
+
+
+# ---------------------------------------------------------------------------
+# Plain versions: the same function, column tile by column tile
+# ---------------------------------------------------------------------------
+def _live_tile_product(x2: torch.Tensor, w: torch.Tensor,
+                       plan: TilePlan) -> torch.Tensor:
+    """f32 (M, N) = Σ over live tiles only, as the kernel sums."""
+    M, K = x2.shape
+    N = w.shape[1]
+    T = plan.tile
+    xt = x2.reshape(M, K // T, T)
+    wt = w.reshape(K // T, T, N)
+    out = torch.zeros((M, N), dtype=torch.float32, device=x2.device)
+    for j in range(N // T):
+        c = int(plan.counts[j])
+        if c == 0:
+            continue
+        live = torch.as_tensor(plan.idx[j, :c], dtype=torch.long,
+                               device=x2.device)
+        xg = xt.index_select(1, live).reshape(M, c * T).float()
+        wg = wt.index_select(0, live)[:, :, j * T:(j + 1) * T] \
+            .reshape(c * T, T).float()
+        out[:, j * T:(j + 1) * T] = xg @ wg
+    return out
+
+
+def bsmm_plain(x2: torch.Tensor, w: torch.Tensor,
+               plan: TilePlan) -> torch.Tensor:
+    """Plain version of kernel #1: ``x2 @ (w ⊙ tile bitmap)``, f32
+    accumulation, output in x2's dtype."""
+    return _live_tile_product(x2, w, plan).to(x2.dtype)
+
+
+def bsmm_epilogue_plain(x2: torch.Tensor, w: torch.Tensor, plan: TilePlan,
+                        bias: Optional[torch.Tensor],
+                        act: Optional[str]) -> torch.Tensor:
+    """Plain version of kernel #2: the product, ``+ bias`` in f32, the
+    activation in f32, then the cast."""
+    z = _live_tile_product(x2, w, plan)
+    if bias is not None:
+        z = z + bias.float()
+    return _epilogue(z, act).to(x2.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_VP = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = _build.library("bsmm")
+    lib.bsmm_launch.argtypes = [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
+                                _VP]
+    lib.bsmm_launch.restype = _I
+    lib.bsmm_epilogue_launch.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
+                                         _I, _I, _I, _I, _VP]
+    lib.bsmm_epilogue_launch.restype = _I
+    return lib
+
+
+def _check_operands(x2, w, plan: TilePlan, bias, where: str):
+    if x2.ndim != 2 or w.ndim != 2:
+        raise GeometryError("bsmm takes x (M, K) and w (K, N)",
+                            shape=(*x2.shape, *w.shape), where=where)
+    M, K = x2.shape
+    if w.shape[0] != K:
+        raise GeometryError("x/w contraction dims disagree",
+                            shape=(K, w.shape[0]), where=where)
+    N = w.shape[1]
+    if (plan.counts.shape[0] * plan.tile != N
+            or (plan.counts_t is not None
+                and plan.counts_t.shape[0] * plan.tile != K)):
+        raise GeometryError("TilePlan does not cover the weight",
+                            shape=(K, N), tile=plan.tile, where=where)
+    if x2.dtype != w.dtype or x2.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{where}: x and w must share float32 or bfloat16, "
+                        f"got {x2.dtype} and {w.dtype}")
+    if x2.device != w.device:
+        raise ValueError(f"{where}: x on {x2.device}, w on {w.device}")
+    if bias is not None and (bias.dtype != x2.dtype or bias.numel() != N
+                             or bias.device != x2.device):
+        raise ValueError(f"{where}: bias must be ({N},) {x2.dtype} on "
+                         f"{x2.device}")
+
+
+def _launch_args(x2, w, plan: TilePlan):
+    if plan.tile != MXU_TILE:
+        raise GeometryError(f"the CUDA kernel tiles at {MXU_TILE}",
+                            tile=plan.tile, where="bsmm")
+    if not (x2.is_contiguous() and w.is_contiguous()):
+        raise ValueError("bsmm: x and w must be contiguous")
+    if x2.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("bsmm: x and w must be 16-byte aligned (the kernel "
+                         "loads 16 bytes at a time)")
+    idx, counts = plan.device_tensors(x2.device)
+    M, K = x2.shape
+    N = w.shape[1]
+    out = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    return out, idx, counts, M, K, N, stream
+
+
+def bsmm(x2: torch.Tensor, w: torch.Tensor, plan: TilePlan) -> torch.Tensor:
+    """Kernel #1: ``x2 (M, K) @ (w ⊙ tile bitmap) (K, N)`` in x2's dtype."""
+    _check_operands(x2, w, plan, None, "bsmm")
+    if x2.device.type == "cpu":
+        return bsmm_plain(x2, w, plan)
+    if x2.device.type != "cuda":
+        raise ValueError(f"bsmm: unsupported device {x2.device}")
+    lib = _lib()
+    out, idx, counts, M, K, N, stream = _launch_args(x2, w, plan)
+    code = lib.bsmm_launch(x2.data_ptr(), w.data_ptr(), out.data_ptr(),
+                           idx.data_ptr(), counts.data_ptr(), M, K, N,
+                           plan.kmax, _DTYPE_CODES[x2.dtype], stream)
+    _build.check(lib, code, "bsmm")
+    bsmm.launches += 1
+    return out
+
+
+bsmm.launches = 0
+
+
+def bsmm_epilogue(x2: torch.Tensor, w: torch.Tensor, plan: TilePlan,
+                  bias: Optional[torch.Tensor] = None,
+                  act: Optional[str] = None) -> torch.Tensor:
+    """Kernel #2: kernel #1 with ``+ bias`` and relu/gelu/silu fused into
+    the flush, in the f32 accumulator."""
+    _check_act(act)
+    _check_operands(x2, w, plan, bias, "bsmm_epilogue")
+    if x2.device.type == "cpu":
+        return bsmm_epilogue_plain(x2, w, plan, bias, act)
+    if x2.device.type != "cuda":
+        raise ValueError(f"bsmm_epilogue: unsupported device {x2.device}")
+    if bias is not None and not bias.is_contiguous():
+        raise ValueError("bsmm_epilogue: bias must be contiguous")
+    lib = _lib()
+    out, idx, counts, M, K, N, stream = _launch_args(x2, w, plan)
+    code = lib.bsmm_epilogue_launch(
+        x2.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
+        out.data_ptr(), idx.data_ptr(), counts.data_ptr(), M, K, N, plan.kmax,
+        _DTYPE_CODES[x2.dtype], _ACT_CODES[act], stream)
+    _build.check(lib, code, "bsmm_epilogue")
+    bsmm_epilogue.launches += 1
+    return out
+
+
+bsmm_epilogue.launches = 0
+
+
+def plan_matmul(x, w, plan: Optional[TilePlan], bias=None,
+                act: Optional[str] = None):
+    """x (..., K) @ w (K, N) routed through the block-sparse kernel.
+
+    ``plan=None`` is the dense path: ``x @ w``, then bias and activation
+    unfused in x's dtype, as the reference does.  With a plan the rows
+    are flattened and handed to ``bsmm`` (no bias, no activation) or
+    ``bsmm_epilogue``; the kernel masks a ragged row count itself, so
+    rows are not padded.
+    """
+    if plan is None:
+        out = x @ w
+        if bias is not None:
+            out = out + bias
+        return _epilogue(out, act)
+    lead = x.shape[:-1]
+    K = x.shape[-1]
+    N = w.shape[-1]
+    planK = plan.counts_t.shape[0] * plan.tile \
+        if plan.counts_t is not None else None
+    planN = plan.counts.shape[0] * plan.tile
+    if w.shape[-2] != K:
+        raise GeometryError("x/w contraction dims disagree",
+                            shape=(K, w.shape[-2]), where="plan_matmul")
+    if N != planN or (planK is not None and K != planK):
+        raise GeometryError(
+            f"TilePlan covers ({planK}, {planN}) but the weight is "
+            f"({K}, {N}) — plan built from different masks?",
+            shape=(K, N), tile=plan.tile, where="plan_matmul")
+    x2 = x.reshape(-1, K).contiguous()
+    if bias is None and act is None:
+        out = bsmm(x2, w, plan)
+    else:
+        out = bsmm_epilogue(x2, w, plan, bias, act)
+    return out.reshape(*lead, N)

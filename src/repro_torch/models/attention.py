@@ -1,0 +1,207 @@
+"""Grouped-query attention: prefill, KV caches and paged decode.
+
+A port of the GQA half of ``repro.models.attention``: ``attend`` and
+``causal_attention`` are plain torch with the reference's finite
+``-1e30`` mask (scores and softmax in float32, outputs in the compute
+dtype); decode reads the paged block pool through the CUDA paged
+attention kernel.  MLA, sliding windows and dense-slot decode are not
+yet ported.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.kernels import bsmm
+from repro_torch.kernels.paged_attention import BLOCK_TOKENS, paged_attention
+from repro_torch.models.layers import apply_rope, xavier
+
+
+def gqa_init(gen, d_model: int, n_heads: int, n_kv_heads: int, head_dim: int,
+             qkv_bias: bool, dtype, device):
+    p = {
+        "wq": xavier(gen, (d_model, n_heads * head_dim), dtype, device),
+        "wk": xavier(gen, (d_model, n_kv_heads * head_dim), dtype, device),
+        "wv": xavier(gen, (d_model, n_kv_heads * head_dim), dtype, device),
+        "wo": xavier(gen, (n_heads * head_dim, d_model), dtype, device),
+    }
+    if qkv_bias:
+        p["bq"] = torch.zeros((n_heads * head_dim,), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((n_kv_heads * head_dim,), dtype=dtype,
+                              device=device)
+        p["bv"] = torch.zeros((n_kv_heads * head_dim,), dtype=dtype,
+                              device=device)
+    return p
+
+
+def attend(q, k, v, *, causal: bool, q_offset: int,
+           scale: Optional[float] = None, kv_valid_len=None):
+    """Exact attention for one query block against full keys.
+
+    q: (B,Sq,Hq,hd)  k,v: (B,Sk,Hkv,hd).  ``kv_valid_len``: mask keys at
+    or past this length — an int, or a (B,) tensor per row.
+    """
+    B, Sq, Hq, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
+    qg = q.reshape(B, Sq, Hkv, G, hd).float()
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * scale
+    kpos = torch.arange(Sk, device=q.device)
+    qpos = q_offset + torch.arange(Sq, device=q.device)
+    mask = torch.ones((1, Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (kpos[None, :] <= qpos[:, None])
+    if kv_valid_len is not None:
+        kvl = torch.as_tensor(kv_valid_len, device=q.device)
+        if kvl.ndim == 0:
+            mask = mask & (kpos < kvl)[None, None, :]
+        else:
+            mask = mask & (kpos[None, :] < kvl[:, None])[:, None, :]
+    scores = torch.where(mask[:, None, None], scores, -1e30)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", w, v.float())
+    return out.reshape(B, Sq, Hq, v.shape[-1]).to(q.dtype)
+
+
+def causal_attention(q, k, v, *, block_q: int = 512, q_offset: int = 0):
+    """Causal self-attention in query blocks of ``block_q`` (exact; only
+    one block's score matrix is live at a time)."""
+    S = q.shape[1]
+    if S <= block_q:
+        return attend(q, k, v, causal=True, q_offset=q_offset)
+    if S % block_q:
+        raise ValueError(f"S={S} must be a multiple of block_q={block_q}")
+    outs = [attend(q[:, i:i + block_q], k, v, causal=True,
+                   q_offset=q_offset + i)
+            for i in range(0, S, block_q)]
+    return torch.cat(outs, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Prefill with a dense KV cache
+# ---------------------------------------------------------------------------
+class KVCache(NamedTuple):
+    k: torch.Tensor          # (B, C, Hkv, hd)
+    v: torch.Tensor          # (B, C, Hkv, hd)
+    index: torch.Tensor      # () or (B,) int32 — tokens already written
+
+
+def gqa_qkv(params, x, *, n_heads, n_kv_heads, head_dim, positions,
+            rope_theta, plan=None):
+    B, S, _ = x.shape
+    plan = plan or {}
+    q = bsmm.plan_matmul(x, params["wq"], plan.get("wq"))
+    k = bsmm.plan_matmul(x, params["wk"], plan.get("wk"))
+    v = bsmm.plan_matmul(x, params["wv"], plan.get("wv"))
+    if "bq" in params:
+        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+    q = q.reshape(B, S, n_heads, head_dim)
+    k = k.reshape(B, S, n_kv_heads, head_dim)
+    v = v.reshape(B, S, n_kv_heads, head_dim)
+    q = apply_rope(q, positions, rope_theta)
+    k = apply_rope(k, positions, rope_theta)
+    return q, k, v
+
+
+def gqa_make_cache(params, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
+                   capacity: int, valid_len=None, plan=None):
+    """Prefill: returns (attn_out_projected, KVCache).
+
+    ``valid_len`` (B,) marks right-padded rows: the cache index starts
+    at ``valid_len`` instead of S, and decode masks the pad keys above
+    it.  ``plan`` routes q/k/v/o through the block-sparse kernel.
+    """
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    q, k, v = gqa_qkv(params, x, n_heads=n_heads, n_kv_heads=n_kv_heads,
+                      head_dim=head_dim, positions=positions,
+                      rope_theta=rope_theta, plan=plan)
+    if valid_len is not None and S > capacity:
+        raise ValueError("valid_len prefill needs S <= capacity, got "
+                         f"S={S}, capacity={capacity}")
+    out = causal_attention(q, k, v)
+    keep = min(S, capacity)
+    kc = k.new_zeros((B, capacity, *k.shape[2:]))
+    vc = torch.zeros_like(kc)
+    kc[:, :keep] = k[:, S - keep:]
+    vc[:, :keep] = v[:, S - keep:]
+    if valid_len is None:
+        index = torch.tensor(S, dtype=torch.int32, device=x.device)
+    else:
+        index = torch.as_tensor(valid_len, dtype=torch.int32,
+                                device=x.device).reshape(B)
+    proj = bsmm.plan_matmul(out.reshape(B, S, n_heads * head_dim),
+                            params["wo"], (plan or {}).get("wo"))
+    return proj, KVCache(kc, vc, index)
+
+
+# ---------------------------------------------------------------------------
+# Paged KV cache: shared block pool + per-sequence block tables
+# ---------------------------------------------------------------------------
+class PagedKVCache(NamedTuple):
+    """Pool-resident KV state for one attention layer; the engine owns
+    the block tables and lengths and passes them into every call."""
+    k_pool: torch.Tensor     # (P, BLOCK_TOKENS, Hkv, hd)
+    v_pool: torch.Tensor     # (P, BLOCK_TOKENS, Hkv, hd)
+
+
+def gqa_paged_spec(num_blocks: int, n_kv_heads: int, head_dim: int, dtype,
+                   block: int = BLOCK_TOKENS) -> PagedKVCache:
+    """Shape/dtype of one layer's pools, as meta tensors (no storage)."""
+    spec = torch.empty((num_blocks, block, n_kv_heads, head_dim), dtype=dtype,
+                       device="meta")
+    return PagedKVCache(k_pool=spec, v_pool=spec)
+
+
+def gqa_paged_adopt(paged: PagedKVCache, cache: KVCache, blocks):
+    """Scatter one request's dense prefill cache into pool blocks.
+
+    ``cache.k`` is (..., 1, S, Hkv, hd) and the pools (..., P, T, Hkv,
+    hd), the same leading axes on both (a stacked segment's repeats);
+    ``blocks`` lists ⌈S/T⌉ physical ids in logical order, ids past the
+    real length being the scratch block.  Writes the pools IN PLACE
+    (unlike the reference's functional update) and returns them.
+    """
+    kp, vp = paged.k_pool, paged.v_pool
+    S = cache.k.shape[-3]
+    T = kp.shape[-3]
+    nb = len(blocks)
+    if nb != -(-S // T):
+        raise ValueError(f"adopt needs ceil({S}/{T}) block ids, got {nb}")
+    for i, pid in enumerate(blocks):
+        w = min(T, S - i * T)
+        kp[..., int(pid), :w, :, :] = cache.k[..., 0, i * T:i * T + w, :, :]
+        vp[..., int(pid), :w, :, :] = cache.v[..., 0, i * T:i * T + w, :, :]
+    return paged
+
+
+def gqa_paged_decode(params, cache: PagedKVCache, x, *, n_heads, n_kv_heads,
+                     head_dim, rope_theta, tables, lens, plan=None):
+    """One paged decode step.  x: (B, 1, d).
+
+    ``tables`` (B, NB) int32 and ``lens`` (B,) int32 tensors: the new
+    token lands at logical position ``lens[b]`` (its block must already
+    be allocated; idle rows point at the scratch block) and attention
+    runs over ``lens + 1`` tokens.  The pools are written IN PLACE.
+    """
+    B, S, _ = x.shape
+    if S != 1:
+        raise ValueError(f"paged decode takes one token per row, got S={S}")
+    pos = lens.long()
+    q, k, v = gqa_qkv(params, x, n_heads=n_heads, n_kv_heads=n_kv_heads,
+                      head_dim=head_dim, positions=pos[:, None],
+                      rope_theta=rope_theta, plan=plan)
+    T = cache.k_pool.shape[1]
+    blk = tables[torch.arange(B, device=x.device), pos // T].long()
+    off = pos % T
+    cache.k_pool[blk, off] = k[:, 0]
+    cache.v_pool[blk, off] = v[:, 0]
+    out = paged_attention(q[:, 0].contiguous(), cache.k_pool, cache.v_pool,
+                          tables, (lens + 1).to(torch.int32),
+                          scale=1.0 / math.sqrt(head_dim))
+    proj = bsmm.plan_matmul(out.reshape(B, 1, n_heads * head_dim),
+                            params["wo"], (plan or {}).get("wo"))
+    return proj, cache

@@ -1,0 +1,118 @@
+"""Shared transformer layers: norms, MLPs, embeddings, rotary embeddings.
+
+Plain functions over dict pytrees of tensors, keyed like the reference's
+(``repro.models.layers``).  Norm and rotary math runs in float32 and is
+cast back to the input dtype exactly where the reference casts; matmul
+outputs stay in the compute dtype.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels.bsmm import plan_matmul
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float16": torch.float16}
+
+
+def _dtype(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+# ---------------------------------------------------------------------------
+# Initialisers (the reference draws with jax.random; values differ by
+# design, distributions match)
+# ---------------------------------------------------------------------------
+def xavier(gen: torch.Generator, shape, dtype, device, in_axis=0, out_axis=-1):
+    fan_in = shape[in_axis]
+    fan_out = shape[out_axis]
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    return torch.empty(shape, dtype=dtype, device=device).uniform_(
+        -limit, limit, generator=gen)
+
+
+def normal_init(gen: torch.Generator, shape, dtype, device, stddev=0.02):
+    return (torch.randn(shape, generator=gen, device=device)
+            * stddev).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+def rmsnorm_init(d: int, dtype, device):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(params, x, eps: float = 1e-6):
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP (gated SwiGLU / plain)
+# ---------------------------------------------------------------------------
+def mlp_init(gen, d_model: int, d_ff: int, gated: bool, bias: bool,
+             dtype, device):
+    p = {"up": xavier(gen, (d_model, d_ff), dtype, device),
+         "down": xavier(gen, (d_ff, d_model), dtype, device)}
+    if gated:
+        p["gate"] = xavier(gen, (d_model, d_ff), dtype, device)
+    if bias:
+        p["up_b"] = torch.zeros((d_ff,), dtype=dtype, device=device)
+        p["down_b"] = torch.zeros((d_model,), dtype=dtype, device=device)
+    return p
+
+
+def mlp(params, x, act: str = "silu", plan=None):
+    """``plan`` routes up/gate/down through the block-sparse kernel; bias
+    adds and the gate (or up) activation ride its fused epilogue."""
+    plan = plan or {}
+    if "gate" in params:
+        up = plan_matmul(x, params["up"], plan.get("up"),
+                         bias=params.get("up_b"))
+        h = plan_matmul(x, params["gate"], plan.get("gate"), act=act) * up
+    else:
+        h = plan_matmul(x, params["up"], plan.get("up"),
+                        bias=params.get("up_b"), act=act)
+    return plan_matmul(h, params["down"], plan.get("down"),
+                       bias=params.get("down_b"))
+
+
+# ---------------------------------------------------------------------------
+# Embeddings
+# ---------------------------------------------------------------------------
+def embed_init(gen, vocab: int, d: int, dtype, device):
+    return {"table": normal_init(gen, (vocab, d), dtype, device)}
+
+
+def embed(params, tokens):
+    return params["table"][tokens]
+
+
+def unembed(params, x):
+    """Project hidden states to logits (optionally with a tied table)."""
+    return x @ params["table"].T
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (split-half, not interleaved)
+# ---------------------------------------------------------------------------
+def rope_frequencies(head_dim: int, theta: float, device=None):
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=device) / head_dim
+    return 1.0 / (theta ** exponent)
+
+
+def apply_rope(x, positions, theta: float = 10_000.0):
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, device=x.device)       # (hd/2,)
+    ang = positions[..., :, None, None].float() * freqs        # (...,S,1,hd/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

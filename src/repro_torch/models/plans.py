@@ -1,0 +1,125 @@
+"""Mask pytree → per-projection ``TilePlan`` walker.
+
+A port of ``repro.models.plans.build_decode_plan`` for the attention
+(``wq/wk/wv/wo``) and MLP (``up/gate/down``) groups.  The plan mirrors
+``params["segments"]`` so ``models.transformer`` threads it layer by
+layer; the same plan drives prefill and decode.
+
+Stacked segments run one loop body over their repeats, so per-repeat
+bitmaps are **unioned over the repeats axis**: a tile is skipped only
+when it is dead in every layer of the segment.  That is conservative
+but exact — pruned weights are exact zeros.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import MXU_TILE
+from repro_torch.kernels.bsmm import GeometryError, TilePlan, make_tile_plan
+
+_ATTN_KEYS = ("wq", "wk", "wv", "wo")
+_MLP_KEYS = ("up", "gate", "down")
+
+
+@dataclass
+class PlanStats:
+    """Aggregate tile accounting across every routed projection."""
+    routed: int = 0             # projections with a bsmm plan
+    dense_fallback: int = 0     # prunable projections left dense
+    live_tiles: int = 0
+    total_tiles: int = 0
+    by_layer: List[Tuple[str, int, int]] = field(default_factory=list)
+
+    @property
+    def skipped_tile_fraction(self) -> float:
+        if self.total_tiles == 0:
+            return 0.0
+        return 1.0 - self.live_tiles / self.total_tiles
+
+
+def _union_mask(mask) -> Optional[np.ndarray]:
+    """Mask leaf (numpy array or tensor) → 2-D union over leading axes."""
+    if mask is None:
+        return None
+    if torch.is_tensor(mask):
+        m = mask != 0
+        if m.ndim > 2:
+            m = m.flatten(0, m.ndim - 3).any(dim=0)
+        m = m.cpu().numpy()
+    else:
+        m = np.asarray(mask)
+        if m.ndim > 2:
+            m = (m != 0).any(axis=tuple(range(m.ndim - 2)))
+    if m.ndim != 2:
+        return None
+    return m
+
+
+def _plan_group(masks: Dict[str, Any], keys, label: str, stats: PlanStats,
+                *, tile: int, strict: bool) -> Optional[Dict[str, TilePlan]]:
+    group: Dict[str, TilePlan] = {}
+    for key in keys:
+        m2 = _union_mask(masks.get(key))
+        if m2 is None:
+            continue
+        plan = make_tile_plan(m2, tile=tile, strict=strict,
+                              where=f"{label}.{key}")
+        if plan is None:                  # shape does not tile — stay dense
+            stats.dense_fallback += 1
+            continue
+        group[key] = plan
+        stats.routed += 1
+        stats.live_tiles += plan.live_tiles
+        stats.total_tiles += plan.total_tiles
+        stats.by_layer.append((f"{label}.{key}", plan.live_tiles,
+                               plan.total_tiles))
+    return group or None
+
+
+def build_decode_plan(masks, *, tile: int = MXU_TILE, strict: bool = False
+                      ) -> Tuple[Optional[list], PlanStats]:
+    """Mask pytree → (plan mirroring params['segments'], PlanStats).
+
+    Returns ``(None, empty stats)`` when the masks carry no routable
+    attention or MLP projection.  MoE groups are not yet ported and
+    raise.
+    """
+    if tile <= 0:
+        raise GeometryError(f"tile edge must be positive, got {tile}",
+                            tile=tile, where="build_decode_plan")
+    stats = PlanStats()
+    if not isinstance(masks, dict) or "segments" not in masks:
+        return None, stats
+    plan: list = []
+    any_entry = False
+    for s_idx, pos_trees in enumerate(masks["segments"]):
+        seg_plan = []
+        for pos, ptree in enumerate(pos_trees):
+            entry: Dict[str, Any] = {}
+            if not isinstance(ptree, dict):
+                seg_plan.append(None)
+                continue
+            if ptree.get("moe") is not None:
+                raise NotImplementedError("MoE tile plans are not yet ported")
+            attn = ptree.get("attn")
+            if isinstance(attn, dict) and "wq" in attn:
+                g = _plan_group(attn, _ATTN_KEYS, f"seg{s_idx}.{pos}.attn",
+                                stats, tile=tile, strict=strict)
+                if g:
+                    entry["attn"] = g
+            ffn = ptree.get("mlp")
+            if isinstance(ffn, dict):
+                g = _plan_group(ffn, _MLP_KEYS, f"seg{s_idx}.{pos}.mlp",
+                                stats, tile=tile, strict=strict)
+                if g:
+                    entry["mlp"] = g
+            any_entry = any_entry or bool(entry)
+            seg_plan.append(entry or None)
+        plan.append(seg_plan)
+    if not any_entry:
+        return None, stats
+    return plan, stats

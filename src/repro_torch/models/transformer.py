@@ -1,0 +1,300 @@
+"""Decoder-only LM assembly: prefill and paged decode.
+
+A port of ``repro.models.transformer`` for architectures whose every
+block is global GQA attention with a dense FFN (llama-style).  A model
+is a list of *segments*; within a segment the per-layer parameters are
+stacked on a leading repeats axis, and the reference's ``lax.scan``
+over it becomes a loop here.  Anything else — MLA, MoE, windowed or
+recurrent blocks, the training forward — raises "not yet ported".
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import List, Tuple
+
+import torch
+
+from repro_torch._bridge import (resolve_device, tree_index, tree_leaves,
+                                 tree_stack)
+from repro_torch.configs.base import ATTN, LOCAL_ATTN, RGLRU, ArchConfig
+from repro_torch.models import attention as attn_lib
+from repro_torch.models.layers import (_dtype, embed, embed_init, mlp,
+                                       mlp_init, rmsnorm, rmsnorm_init,
+                                       unembed, xavier)
+
+
+def _not_ported(what: str):
+    return NotImplementedError(f"{what} is not yet ported to repro_torch")
+
+
+def _check_ported(cfg: ArchConfig) -> None:
+    if set(cfg.blocks) != {ATTN}:
+        raise _not_ported(f"block kinds {sorted(set(cfg.blocks))}")
+    if cfg.mla is not None:
+        raise _not_ported("MLA attention")
+    if cfg.moe is not None:
+        raise _not_ported("MoE")
+    if cfg.norm != "rmsnorm":
+        raise _not_ported(f"norm {cfg.norm!r}")
+    if cfg.is_encoder_decoder or cfg.num_patch_tokens:
+        raise _not_ported("encoder-decoder and patch-token inputs")
+
+
+# ---------------------------------------------------------------------------
+# Segmentation
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class Segment:
+    sigs: Tuple[Tuple[str, bool], ...]   # per-position (kind, is_moe)
+    reps: int                            # how many times the pattern repeats
+    first_layer: int                     # absolute index of first layer
+
+
+def layer_signature(cfg: ArchConfig, i: int) -> Tuple[str, bool]:
+    kind = cfg.blocks[i]
+    is_moe = (cfg.moe is not None and cfg.d_ff > 0
+              and kind in (ATTN, LOCAL_ATTN, RGLRU)
+              and cfg.moe.is_moe_layer(i))
+    return (kind, is_moe)
+
+
+def segments_of(cfg: ArchConfig) -> List[Segment]:
+    sigs = [layer_signature(cfg, i) for i in range(cfg.n_layers)]
+    segs: List[Segment] = []
+    if cfg.block_pattern is not None:
+        P = len(cfg.block_pattern)
+        if cfg.moe is not None:
+            P = P * cfg.moe.moe_every // math.gcd(P, cfg.moe.moe_every)
+        reps = cfg.n_layers // P
+        if reps >= 1 and all(sigs[i] == sigs[i % P] for i in range(reps * P)):
+            segs.append(Segment(tuple(sigs[:P]), reps, 0))
+            start = reps * P
+        else:
+            start = 0
+        for i in range(start, cfg.n_layers):
+            segs.append(Segment((sigs[i],), 1, i))
+        return segs
+    i = 0
+    while i < cfg.n_layers:
+        j = i
+        while j < cfg.n_layers and sigs[j] == sigs[i]:
+            j += 1
+        segs.append(Segment((sigs[i],), j - i, i))
+        i = j
+    return segs
+
+
+# ---------------------------------------------------------------------------
+# Parameter init
+# ---------------------------------------------------------------------------
+def _layer_init(gen, cfg: ArchConfig, dtype, device):
+    d = cfg.d_model
+    p = {"norm1": rmsnorm_init(d, dtype, device),
+         "attn": attn_lib.gqa_init(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                   cfg.head_dim_, cfg.qkv_bias, dtype,
+                                   device)}
+    if cfg.d_ff > 0:
+        p["norm2"] = rmsnorm_init(d, dtype, device)
+        p["mlp"] = mlp_init(gen, d, cfg.d_ff, cfg.gated_mlp, cfg.mlp_bias,
+                            dtype, device)
+    return p
+
+
+def init_params(gen: torch.Generator, cfg: ArchConfig, *, device="cuda"):
+    """Full parameter pytree (embed, stacked segments, final norm, head),
+    keyed like the reference's, drawn from ``gen`` (a generator on
+    ``device``)."""
+    _check_ported(cfg)
+    dev = resolve_device(device)
+    dtype = _dtype(cfg.dtype)
+    seg_params = []
+    for seg in segments_of(cfg):
+        P = len(seg.sigs)
+        pos_trees = []
+        for pos in range(P):
+            layers = [_layer_init(gen, cfg, dtype, dev)
+                      for _ in range(seg.reps)]
+            pos_trees.append(layers[0] if seg.reps == 1
+                             else tree_stack(layers))
+            del layers
+        seg_params.append(pos_trees)
+    params = {
+        "embed": embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype, dev),
+        "final_norm": rmsnorm_init(cfg.d_model, dtype, dev),
+        "segments": seg_params,
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = {
+            "table": xavier(gen, (cfg.padded_vocab, cfg.d_model), dtype, dev,
+                            in_axis=1, out_axis=0)}
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Block application
+# ---------------------------------------------------------------------------
+def _apply_block(cfg: ArchConfig, p, x, mode: str, cache, capacity,
+                 valid_len=None, plan=None, paged=None):
+    """Returns (x, new_cache).  ``mode`` is "prefill" or "decode";
+    ``paged`` (tables, lens) carries the paged decode's block tables."""
+    plan = plan or {}
+    h = rmsnorm(p["norm1"], x)
+    kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+              head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta)
+    if mode == "prefill":
+        out, new_cache = attn_lib.gqa_make_cache(
+            p["attn"], h, capacity=capacity, valid_len=valid_len,
+            plan=plan.get("attn"), **kw)
+    elif paged is not None:
+        out, new_cache = attn_lib.gqa_paged_decode(
+            p["attn"], cache, h, tables=paged[0], lens=paged[1],
+            plan=plan.get("attn"), **kw)
+    else:
+        raise _not_ported(f"{mode!r} mode without paged KV")
+    x = x + out
+    if cfg.d_ff > 0:
+        h2 = rmsnorm(p["norm2"], x)
+        x = x + mlp(p["mlp"], h2, cfg.act, plan=plan.get("mlp"))
+    return x, new_cache
+
+
+def _run_segments(cfg, params, x, mode, caches, capacity, valid_len=None,
+                  plan=None, paged=None):
+    """Loop over segments and, inside each, over the stacked repeats
+    (the reference's ``lax.scan``).  Per-repeat parameters and pools are
+    views into the stacked tensors, so in-place pool writes land there;
+    prefill caches are stacked back onto the repeats axis."""
+    new_caches = []
+    for s_idx, (seg, pos_trees) in enumerate(zip(segments_of(cfg),
+                                                 params["segments"])):
+        seg_caches = caches[s_idx] if caches is not None else None
+        seg_plan = plan[s_idx] if plan is not None else None
+        per_rep = []
+        for r in range(seg.reps):
+            c_outs = []
+            for pos in range(len(seg.sigs)):
+                ptree = pos_trees[pos]
+                c = seg_caches[pos] if seg_caches is not None else None
+                if seg.reps > 1:
+                    ptree = tree_index(ptree, r)
+                    c = tree_index(c, r) if c is not None else None
+                pe = seg_plan[pos] if seg_plan is not None else None
+                x, c_new = _apply_block(cfg, ptree, x, mode, c, capacity,
+                                        valid_len=valid_len, plan=pe,
+                                        paged=paged)
+                c_outs.append(c_new)
+            per_rep.append(c_outs)
+        if seg.reps == 1:
+            new_caches.append(per_rep[0])
+        elif mode == "prefill":
+            new_caches.append(tree_stack(per_rep))
+        else:                      # paged pools were written in place
+            new_caches.append(seg_caches)
+    return x, new_caches
+
+
+def supports_masked_prefill(cfg: ArchConfig) -> bool:
+    """True when ``prefill`` takes a per-row ``valid_len`` (every block
+    global attention with a dense FFN, no patch prefix)."""
+    return (set(cfg.blocks) == {ATTN} and not cfg.num_patch_tokens
+            and cfg.moe is None and not cfg.is_encoder_decoder)
+
+
+def prefill(params, cfg: ArchConfig, batch, capacity: int, valid_len=None,
+            plan=None):
+    """Full-sequence prefill → (last-position logits (B,1,V), caches).
+
+    With ``valid_len`` (B,) the tokens are right-padded and the logits
+    are taken at each row's last valid position.  ``plan`` (from
+    ``models.plans.build_decode_plan``) routes the attention and MLP
+    projections through the block-sparse kernel.
+    """
+    _check_ported(cfg)
+    tokens = batch["tokens"]
+    x = embed(params["embed"], tokens)
+    none_caches = [[None for _ in seg.sigs] for seg in segments_of(cfg)]
+    x, caches = _run_segments(cfg, params, x, "prefill", none_caches,
+                              capacity, valid_len=valid_len, plan=plan)
+    if valid_len is None:
+        x_last = x[:, -1:]
+    else:
+        last = torch.as_tensor(valid_len, device=x.device).long() - 1
+        x_last = x[torch.arange(x.shape[0], device=x.device), last][:, None]
+    x_last = rmsnorm(params["final_norm"], x_last)
+    head = params.get("unembed", params["embed"])
+    return unembed(head, x_last), caches
+
+
+# ---------------------------------------------------------------------------
+# Paged decode: shared block pools instead of per-slot dense caches
+# ---------------------------------------------------------------------------
+def supports_paged_decode(cfg: ArchConfig) -> bool:
+    """True when ``decode_step_paged`` covers this architecture (every
+    block global attention, not encoder-decoder).  MLA pages in the
+    reference too, but its pools are not yet ported."""
+    return set(cfg.blocks) == {ATTN} and not cfg.is_encoder_decoder
+
+
+def paged_cache_spec(cfg: ArchConfig, num_blocks: int):
+    """Meta-tensor pytree mirroring params['segments']: one block pool
+    per attention layer, a leading reps axis on stacked segments."""
+    _check_ported(cfg)
+    dtype = _dtype(cfg.dtype)
+    out = []
+    for seg in segments_of(cfg):
+        pos_specs = []
+        for _sig in seg.sigs:
+            s = attn_lib.gqa_paged_spec(num_blocks, cfg.n_kv_heads,
+                                        cfg.head_dim_, dtype)
+            if seg.reps > 1:
+                s = attn_lib.PagedKVCache(
+                    *(t.expand(seg.reps, *t.shape) for t in s))
+            pos_specs.append(s)
+        out.append(pos_specs)
+    return out
+
+
+def make_paged_caches(cfg: ArchConfig, num_blocks: int, *, device):
+    """Zero-initialised block pools (see ``paged_cache_spec``)."""
+    dev = resolve_device(device)
+    return [[attn_lib.PagedKVCache(
+                *(torch.zeros(t.shape, dtype=t.dtype, device=dev)
+                  for t in spec))
+             for spec in seg] for seg in paged_cache_spec(cfg, num_blocks)]
+
+
+def paged_cache_bytes(spec) -> int:
+    """Bytes of every pool in a ``paged_cache_spec``."""
+    return sum(t.numel() * t.element_size() for t in tree_leaves(spec))
+
+
+def adopt_prefill(cfg: ArchConfig, paged_caches, dense_caches, blocks):
+    """Scatter one request's dense prefill caches (B=1, capacity == the
+    padded prefill length S) into pool blocks, IN PLACE.  ``blocks``:
+    ⌈S/BLOCK⌉ physical ids in logical order (ids past the real length
+    may be the scratch block).  Returns ``paged_caches``."""
+    segs = segments_of(cfg)
+    if len(segs) != len(paged_caches) or len(segs) != len(dense_caches):
+        raise ValueError("cache structure does not match config segments")
+    for seg_p, seg_d in zip(paged_caches, dense_caches):
+        for pc, dc in zip(seg_p, seg_d):
+            # a stacked segment's leading reps axis rides along in the
+            # adopt's ellipsis indexing
+            attn_lib.gqa_paged_adopt(pc, dc, blocks)
+    return paged_caches
+
+
+def decode_step_paged(params, cfg: ArchConfig, caches, token, tables, lens,
+                      plan=None):
+    """Paged decode step: token (B,1), ``tables`` (B, NB) and ``lens``
+    (B,) int32 tensors → (logits (B,1,V), pools).  Each layer appends
+    the new token's KV at ``tables[b, lens[b] // BLOCK]`` (in place) and
+    attends over ``lens[b] + 1`` tokens through the paged kernel."""
+    _check_ported(cfg)
+    x = embed(params["embed"], token)
+    x, caches = _run_segments(cfg, params, x, "decode", caches, None,
+                              plan=plan, paged=(tables, lens))
+    x = rmsnorm(params["final_norm"], x)
+    head = params.get("unembed", params["embed"])
+    return unembed(head, x), caches

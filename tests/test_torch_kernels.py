@@ -1,0 +1,327 @@
+"""The port's kernel modules against the reference's.
+
+``repro_torch.kernels.bsmm`` and ``.paged_attention`` on CPU tensors run
+their plain PyTorch versions; the reference runs its Pallas kernels in
+interpret mode.  Both get the same numpy inputs; float32 parity is held
+at rtol = atol = 1e-5.  Tests marked ``cuda`` hold each CUDA kernel
+against its plain version on the card and skip where there is none.
+"""
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import bsmm as rb
+from repro.kernels import paged_attention as rpa
+from repro_torch import _bridge
+from repro_torch.kernels import bsmm as tb
+from repro_torch.kernels import paged_attention as tpa
+
+torch.set_num_threads(2)
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
+    return torch.device("cuda")
+
+
+def _tile_mask(rng, K, N, density, dead_col=True):
+    bm = rng.random((K // 128, N // 128)) < density
+    if dead_col:
+        bm[:, 0] = False
+    return np.kron(bm, np.ones((128, 128), np.float32))
+
+
+def _operands(seed, M, K, N, density=0.4):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    w = (rng.standard_normal((K, N)) / np.sqrt(K)).astype(np.float32)
+    b = rng.standard_normal((N,)).astype(np.float32)
+    return x, w, b, _tile_mask(rng, K, N, density)
+
+
+# ---------------------------------------------------------------------------
+# TilePlan builders (numpy copies of the reference's)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("seed,K,N,density", [(0, 256, 384, 0.5),
+                                              (1, 512, 128, 0.2),
+                                              (2, 128, 512, 0.0),
+                                              (3, 384, 256, 1.0)])
+def test_tile_plan_matches_reference(seed, K, N, density):
+    mask = _tile_mask(np.random.default_rng(seed), K, N, density,
+                      dead_col=False)
+    want = rb.make_tile_plan(mask)
+    got = tb.make_tile_plan(mask)
+    for f in ("idx", "counts", "idx_t", "counts_t", "kk", "nn"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+    for f in ("kmax", "nmax", "tile", "live_tiles", "total_tiles"):
+        assert getattr(got, f) == getattr(want, f)
+
+
+def test_tile_plan_geometry():
+    assert tb.make_tile_plan(np.ones((100, 128))) is None
+    with pytest.raises(tb.GeometryError, match="does not tile"):
+        tb.make_tile_plan(np.ones((100, 128)), strict=True, where="t.wq")
+    with pytest.raises(tb.GeometryError, match="positive"):
+        tb.make_tile_plan(np.ones((128, 128)), tile=0)
+
+
+# ---------------------------------------------------------------------------
+# bsmm (kernels #1 and #2) — plain versions against the Pallas kernels
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("M,K,N", [(8, 256, 384), (5, 384, 256),
+                                   (130, 256, 256), (1, 128, 128)])
+def test_bsmm_matches_reference(M, K, N):
+    x, w, _, mask = _operands(M + K, M, K, N)
+    want = rb.plan_matmul(jnp.asarray(x), jnp.asarray(w),
+                          rb.make_tile_plan(mask))
+    got = tb.plan_matmul(torch.from_numpy(x), torch.from_numpy(w),
+                         tb.make_tile_plan(mask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("act,with_bias", [
+    ("relu", True), ("gelu", True), ("silu", True), (None, True),
+    ("relu", False), ("gelu", False), ("silu", False)])
+def test_bsmm_epilogue_matches_reference(act, with_bias):
+    x, w, b, mask = _operands(7, 24, 256, 384)
+    bias_r = jnp.asarray(b) if with_bias else None
+    bias_t = torch.from_numpy(b) if with_bias else None
+    want = rb.plan_matmul(jnp.asarray(x), jnp.asarray(w),
+                          rb.make_tile_plan(mask), bias=bias_r, act=act)
+    got = tb.plan_matmul(torch.from_numpy(x), torch.from_numpy(w),
+                         tb.make_tile_plan(mask), bias=bias_t, act=act)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_bsmm_dead_column_is_act_of_bias():
+    """counts[j] == 0: the column tile is act(bias) (0 without bias)."""
+    x, w, b, mask = _operands(3, 8, 256, 256)
+    plan = tb.make_tile_plan(mask)
+    assert plan.counts[0] == 0
+    xt, wt, bt = map(torch.from_numpy, (x, w, b))
+    assert torch.all(tb.bsmm(xt, wt, plan)[:, :128] == 0)
+    out = tb.bsmm_epilogue(xt, wt, plan, bt, "silu")
+    expect = torch.nn.functional.silu(bt[:128]).expand(8, 128)
+    torch.testing.assert_close(out[:, :128], expect, **TOL)
+
+
+def test_plan_matmul_dense_path_matches_reference():
+    x, w, b, _ = _operands(4, 6, 128, 256)
+    want = rb.plan_matmul(jnp.asarray(x), jnp.asarray(w), None,
+                          bias=jnp.asarray(b), act="gelu")
+    got = tb.plan_matmul(torch.from_numpy(x), torch.from_numpy(w), None,
+                         bias=torch.from_numpy(b), act="gelu")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_plan_matmul_rejects_stale_plan():
+    x, w, _, mask = _operands(5, 8, 256, 256)
+    stale = tb.make_tile_plan(mask[:, :128])
+    with pytest.raises(tb.GeometryError, match="plan_matmul"):
+        tb.plan_matmul(torch.from_numpy(x), torch.from_numpy(w), stale)
+    with pytest.raises(ValueError, match="unsupported epilogue act"):
+        tb.plan_matmul(torch.from_numpy(x), torch.from_numpy(w),
+                       tb.make_tile_plan(mask), act="tanh")
+
+
+def test_cpu_calls_run_the_plain_version_and_count_nothing():
+    x, w, b, mask = _operands(6, 8, 128, 128)
+    plan = tb.make_tile_plan(mask)
+    before = (tb.bsmm.launches, tb.bsmm_epilogue.launches)
+    tb.bsmm(torch.from_numpy(x), torch.from_numpy(w), plan)
+    tb.bsmm_epilogue(torch.from_numpy(x), torch.from_numpy(w), plan,
+                     torch.from_numpy(b), "relu")
+    assert (tb.bsmm.launches, tb.bsmm_epilogue.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# paged attention (kernel #6) — plain version against the Pallas kernel
+# ---------------------------------------------------------------------------
+def _pool_setup(seed, B, Hq, Hkv, hd, NB, P):
+    rng = np.random.default_rng(seed)
+    T = tpa.BLOCK_TOKENS
+    q = rng.standard_normal((B, Hq, hd)).astype(np.float32)
+    k_pool = rng.standard_normal((P, T, Hkv, hd)).astype(np.float32)
+    v_pool = rng.standard_normal((P, T, Hkv, hd)).astype(np.float32)
+    perm = rng.permutation(P - 1)[:B * NB].reshape(B, NB) + 1
+    lengths = rng.integers(1, NB * T + 1, size=B).astype(np.int32)
+    lengths[0] = 1
+    tables = np.zeros((B, NB), np.int32)
+    for b in range(B):
+        nb = -(-int(lengths[b]) // T)
+        tables[b, :nb] = perm[b, :nb]
+    return q, k_pool, v_pool, tables, lengths
+
+
+@pytest.mark.parametrize("seed,B,Hq,Hkv,hd", [(0, 3, 4, 2, 16),
+                                              (1, 4, 6, 2, 32),
+                                              (2, 2, 3, 3, 8)])
+def test_paged_attention_matches_reference(seed, B, Hq, Hkv, hd):
+    q, kp, vp, tables, lengths = _pool_setup(seed, B, Hq, Hkv, hd, NB=3, P=14)
+    scale = hd ** -0.5
+    want = rpa.paged_attention(*map(jnp.asarray, (q, kp, vp, tables,
+                                                  lengths)), scale=scale)
+    got = tpa.paged_attention(*map(torch.from_numpy, (q, kp, vp, tables,
+                                                      lengths)), scale=scale)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_paged_attention_ignores_dead_pool_contents():
+    """NaN in the scratch block, in unused blocks and past the length
+    inside the last live block never reaches the output."""
+    q, kp, vp, tables, lengths = _pool_setup(3, 2, 4, 2, 16, NB=3, P=8)
+    tables[:] = 0
+    tables[0, :2] = [1, 2]
+    tables[1, :1] = [3]
+    lengths[:] = [tpa.BLOCK_TOKENS + 5, 3]
+    args = lambda k, v: tuple(map(torch.from_numpy, (q, k, v, tables,  # noqa
+                                                     lengths)))
+    base = tpa.paged_attention(*args(kp, vp), scale=0.25)
+    kp2, vp2 = kp.copy(), vp.copy()
+    for p in (0, 4, 5, 6, 7):
+        kp2[p] = np.nan
+        vp2[p] = np.nan
+    kp2[2, 5:] = np.nan
+    vp2[3, 3:] = np.nan
+    got = tpa.paged_attention(*args(kp2, vp2), scale=0.25)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, base, rtol=0, atol=0)
+
+
+def test_paged_attention_fused_v_not_yet_ported():
+    q, kp, _, tables, lengths = _pool_setup(4, 2, 2, 1, 16, NB=2, P=6)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        tpa.paged_attention(*map(torch.from_numpy, (q, kp)), None,
+                            *map(torch.from_numpy, (tables, lengths)),
+                            scale=0.25, v_dim=8)
+
+
+def test_paged_gather_logical_order():
+    pool = torch.arange(8, dtype=torch.float32).reshape(4, 2, 1, 1)
+    dense = tpa.paged_gather(pool, torch.tensor([[3, 1]], dtype=torch.int32))
+    assert dense.flatten().tolist() == [6., 7., 2., 3.]
+
+
+def test_paged_geometry_errors():
+    q = torch.zeros(2, 3, 8)
+    pool = torch.zeros(4, 128, 2, 8)
+    with pytest.raises(tpa.GeometryError, match="multiple"):
+        tpa.paged_attention(q, pool, pool, torch.zeros(2, 1, dtype=torch.int32),
+                            torch.ones(2, dtype=torch.int32), scale=1.0)
+
+
+# ---------------------------------------------------------------------------
+# the weight bridge
+# ---------------------------------------------------------------------------
+def test_params_from_numpy_round_trip():
+    rng = np.random.default_rng(0)
+    tree = {"a": rng.standard_normal((3, 4)).astype(np.float32),
+            "segments": [[{"w": rng.standard_normal((2, 5)).astype(
+                np.float32), "n": None}]],
+            "i": np.arange(4, dtype=np.int32)}
+    t = _bridge.params_from_numpy(tree, device="cpu")
+    assert t["segments"][0][0]["n"] is None
+    assert t["i"].dtype == torch.int32
+    back = _bridge.to_numpy(t)
+    np.testing.assert_array_equal(back["a"], tree["a"])
+    np.testing.assert_array_equal(back["segments"][0][0]["w"],
+                                  tree["segments"][0][0]["w"])
+    bf = _bridge.params_from_numpy(tree, device="cpu", dtype=torch.bfloat16)
+    assert bf["a"].dtype == torch.bfloat16 and bf["i"].dtype == torch.int32
+    again = _bridge.params_from_numpy(_bridge.to_numpy(bf), device="cpu",
+                                      dtype=torch.bfloat16)
+    assert torch.equal(again["a"], bf["a"])
+
+
+def test_params_from_numpy_reads_jax_bfloat16():
+    a = jnp.asarray(np.linspace(-3, 3, 12).reshape(3, 4), jnp.bfloat16)
+    t = _bridge.params_from_numpy({"w": np.asarray(a)}, device="cpu")["w"]
+    assert t.dtype == torch.bfloat16
+    np.testing.assert_array_equal(t.float().numpy(),
+                                  np.asarray(a.astype(jnp.float32)))
+
+
+def test_path_str_matches_reference():
+    """Key paths from torch's pytree print like the reference's JAX ones,
+    so mask and checkpoint keys line up across the packages."""
+    import jax
+    from torch.utils import _pytree
+    from repro.core.masks import path_str as r_path_str
+    tree = {"segments": [[{"attn": {"wq": 0}}]], "embed": {"table": 0}}
+    want = [r_path_str(p) for p, _ in
+            jax.tree_util.tree_flatten_with_path(tree)[0]]
+    got = [_bridge.path_str(p) for p, _ in
+           _pytree.tree_flatten_with_path(tree)[0]]
+    assert sorted(got) == sorted(want) == ["embed/table",
+                                          "segments/0/0/attn/wq"]
+
+
+def test_resolve_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        _bridge.resolve_device("cuda")
+    assert _bridge.resolve_device("cpu").type == "cpu"
+
+
+def test_build_has_no_side_effects_on_import():
+    """Importing the kernel modules builds nothing and needs no nvcc."""
+    code = ("import repro_torch.kernels.bsmm, "
+            "repro_torch.kernels.paged_attention as p, sys; "
+            "import repro_torch.kernels._build as b; "
+            "print(b.library.cache_info().currsize)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True,
+                         env={"PYTHONPATH": "src", "PATH": ""},
+                         cwd=_repo_root())
+    assert out.stdout.strip() == "0"
+
+
+def _repo_root():
+    import pathlib
+    return str(pathlib.Path(__file__).resolve().parent.parent)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels against their plain versions (skip without a card)
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [8, 128, 300])
+def test_cuda_bsmm_matches_plain(cuda, dtype, M):
+    x, w, b, mask = _operands(M, M, 512, 384, density=0.3)
+    plan = tb.make_tile_plan(mask)
+    xt, wt, bt = (torch.from_numpy(a).to(cuda, dtype) for a in (x, w, b))
+    tol = dict(rtol=1e-2, atol=1e-2) if dtype == torch.bfloat16 \
+        else dict(rtol=1e-4, atol=1e-4)
+    n0 = tb.bsmm.launches
+    torch.testing.assert_close(tb.bsmm(xt, wt, plan),
+                               tb.bsmm_plain(xt, wt, plan), **tol)
+    assert tb.bsmm.launches == n0 + 1
+    for act in ("relu", "gelu", "silu"):
+        torch.testing.assert_close(
+            tb.bsmm_epilogue(xt, wt, plan, bt, act),
+            tb.bsmm_epilogue_plain(xt, wt, plan, bt, act), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_paged_attention_matches_plain(cuda, dtype):
+    q, kp, vp, tables, lengths = _pool_setup(5, 4, 6, 2, 128, NB=3, P=14)
+    kp[0] = np.nan
+    vp[0] = np.nan
+    args = [torch.from_numpy(a).to(cuda) for a in (q, kp, vp)]
+    args = [a.to(dtype) for a in args] + [torch.from_numpy(tables).to(cuda),
+                                          torch.from_numpy(lengths).to(cuda)]
+    tol = dict(rtol=1e-2, atol=1e-2) if dtype == torch.bfloat16 \
+        else dict(rtol=1e-5, atol=1e-5)
+    got = tpa.paged_attention(*args, scale=128 ** -0.5)
+    torch.testing.assert_close(
+        got, tpa.paged_attention_ref(*args, scale=128 ** -0.5), **tol)
