@@ -11,22 +11,31 @@ no result line otherwise):
 1. print the card's name and power limit (``nvidia-smi``) and build the
    CUDA kernels from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
    source, started together);
-2. check every kernel of the serving path against its plain PyTorch
-   version on the card, at the shapes serving llama3.2-3b gives it, in
-   bfloat16 and float32, with the tolerance printed, and time kernel,
-   plain version and a library yardstick;
+2. check every kernel against its plain PyTorch version on the card, at
+   the shapes serving and retraining llama3.2-3b give it (forward bsmm
+   and its epilogue, paged attention, the backward dx and dw with a
+   ragged row count), in bfloat16 and float32, with the tolerance
+   printed, and time kernel, plain version and a library yardstick;
 3. serve 8 requests through ``ServeEngine`` at the full width and depth
    of llama3.2-3b (28 layers, random weights from a seeded generator)
    with a crossbar-pruned ticket (one seeded 128x128 tile bitmap per
    projection, ~25 % live, shared by all layers), and check that every
    request finishes, that every kernel was launched on that path, that
    every logit is finite, and that block-sparse prefill through the
-   ticket's plan agrees with dense prefill on the masked weights.
+   ticket's plan agrees with dense prefill on the masked weights;
+4. check one loss backward through the ticket's plan against dense
+   autograd at full width and 2 layers;
+5. retrain the full-width, full-depth ticket for 4 steps through
+   ``LMAdapter.make_trainer(params, masks).run`` and check losses,
+   parameters, pruned coordinates, ``sent_fraction`` and the launches
+   of every kernel per step; then profile one more step.
 
 Before the last line it prints ``{"kernels": [...]}`` (per kernel: its
-launches in the serving run, its error against the plain version, its
-time, the plain version's, the bound and the library call's), the
-engine report and the card's name and power limit; the last line is
+launches in its path's run — serving for the forward kernels and paged
+attention, retraining for dx and dw — its error against the plain
+version, its time, the plain version's, the bound and the library
+call's), the serving, gradient-check and retrain summaries and the
+card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Longer records go to ``chiprun_out/``.
 """
 from __future__ import annotations
@@ -49,7 +58,8 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 BSMM_SHAPES = ((3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072))
-BSMM_ROWS = (8, 128, 512)
+GRAD_ROWS = (1024, 1000)      # LMAdapter's 8 x 128 tokens, and ragged
+BSMM_ROWS = (8, 128, 512) + GRAD_ROWS     # serving, then retraining
 LIVE_FRACTION = 0.25
 
 
@@ -129,8 +139,9 @@ def check_bsmm(B):
             for M in BSMM_ROWS:
                 x = torch.randn(M, K, device=dev, generator=g).to(dtype)
                 cases = [("bsmm", B.bsmm(x, w, plan), B.bsmm_plain(x, w, plan))]
+                # (None, None) is the backward's pre-activation recompute
                 for b, act in ((None, "silu"), (bias, "silu"), (bias, "relu"),
-                               (bias, "gelu"), (bias, None)):
+                               (bias, "gelu"), (bias, None), (None, None)):
                     cases.append(("bsmm_epilogue",
                                   B.bsmm_epilogue(x, w, plan, b, act),
                                   B.bsmm_epilogue_plain(x, w, plan, b, act)))
@@ -174,6 +185,100 @@ def time_bsmm(B, x, w, bm, plan, M, K, N):
     row["bound_ms"], row["bound_by"] = bsmm_bound_ms(M, K, N, plan, 2,
                                                      "bfloat16")
     print("time bsmm " + json.dumps(row))
+    return row
+
+
+def grad_bound_ms(kind, M, K, N, plan, elem, dtype_name) -> tuple:
+    """Least time for dx or dw: bytes each input read once and the
+    output written once (live columns and live tiles only), or the
+    live tiles' flops, whichever is larger."""
+    live_n = int((plan.counts > 0).sum())
+    live_k = int((plan.counts_t > 0).sum())
+    L = plan.live_tiles
+    if kind == "dx":
+        nbytes = (M * live_n * 128 * elem + L * 128 * 128 * elem
+                  + M * K * elem + plan.idx_t.size * 4
+                  + plan.counts_t.size * 4)
+    else:
+        nbytes = (M * live_k * 128 * elem + M * live_n * 128 * elem
+                  + K * N * elem + 2 * L * 4)
+    flops = 2.0 * M * L * 128 * 128
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_bsmm_grads(B):
+    """dx and dw kernels against their plain versions at the four
+    llama3.2-3b projection shapes, M = 1024 and a ragged 1000, bf16 and
+    f32; dw exactly zero on dead tiles; times at bf16 M = 1024.
+    Returns (errors, times)."""
+    rng = np.random.default_rng(2)
+    dev = "cuda"
+    err = {"bsmm_dx": 0.0, "bsmm_dw": 0.0}
+    times = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for K, N in BSMM_SHAPES:
+            bm = random_bitmap(rng, K, N)
+            plan = B.make_tile_plan(np.kron(bm, np.ones((128, 128), bool)))
+            dead = ~torch.as_tensor(bm, device=dev).repeat_interleave(
+                128, 0).repeat_interleave(128, 1)
+            g_ = torch.Generator(device=dev).manual_seed(K * 7 + N)
+            w = (torch.randn(K, N, device=dev, generator=g_) / K ** 0.5
+                 ).to(dtype)
+            for M in GRAD_ROWS:
+                x = torch.randn(M, K, device=dev, generator=g_).to(dtype)
+                g = torch.randn(M, N, device=dev, generator=g_).to(dtype)
+                cases = [("bsmm_dx", B.bsmm_dx(g, w, plan),
+                          B.bsmm_dx_plain(g, w, plan)),
+                         ("bsmm_dw", B.bsmm_dw(x, g, plan),
+                          B.bsmm_dw_plain(x, g, plan))]
+                torch.cuda.synchronize()
+                for name, got, want in cases:
+                    e = (got.float() - want.float()).abs().max().item()
+                    tol = tolerance(dtype, want)
+                    print(f"check {name} {str(dtype)[6:]} M={M} K={K} N={N} "
+                          f"max_abs_err={e:.3e} tol={tol:.3e}")
+                    require(torch.isfinite(got).all().item(),
+                            f"{name} non-finite")
+                    require(e <= tol, f"{name} disagrees with its plain "
+                            f"version at M={M} K={K} N={N} {dtype}")
+                    err[name] = max(err[name], e)
+                require(bool((cases[1][1][dead] == 0).all().item()),
+                        f"bsmm_dw wrote a dead tile at K={K} N={N}")
+                if dtype == torch.bfloat16 and M == GRAD_ROWS[0]:
+                    times.append(time_grads(B, x, g, w, bm, plan, M, K, N))
+    return err, times
+
+
+def time_grads(B, x, g, w, bm, plan, M, K, N):
+    """dx and dw kernel, plain and library times (library: torch.matmul
+    of g with the masked dense weight transposed, and of x^T with g),
+    cycling operand copies so that they come from device memory."""
+    copies = max(2, int(400e6 // (w.numel() * w.element_size())) + 1)
+    ops = [(w.clone(), x.clone(), g.clone()) for _ in range(copies)]
+    dense = w * torch.as_tensor(np.kron(bm, np.ones((128, 128))),
+                                dtype=w.dtype, device=w.device)
+    ds = [dense.clone() for _ in range(copies)]
+    xt = [o[1].T for o in ops]
+    row = {"M": M, "K": K, "N": N, "dtype": "bfloat16",
+           "live_tiles": plan.live_tiles, "total_tiles": plan.total_tiles}
+    row["dx_ms"] = time_ms(lambda i: B.bsmm_dx(ops[i % copies][2],
+                                               ops[i % copies][0], plan))
+    row["dw_ms"] = time_ms(lambda i: B.bsmm_dw(ops[i % copies][1],
+                                               ops[i % copies][2], plan))
+    row["dx_plain_ms"] = time_ms(lambda i: B.bsmm_dx_plain(g, w, plan),
+                                 iters=5, graph=False)
+    row["dw_plain_ms"] = time_ms(lambda i: B.bsmm_dw_plain(x, g, plan),
+                                 iters=5, graph=False)
+    row["dx_library_ms"] = time_ms(
+        lambda i: torch.matmul(ops[i % copies][2], ds[i % copies].T))
+    row["dw_library_ms"] = time_ms(
+        lambda i: torch.matmul(xt[i % copies], ops[i % copies][2]))
+    for kind in ("dx", "dw"):
+        row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = grad_bound_ms(
+            kind, M, K, N, plan, 2, "bfloat16")
+    print("time bsmm_grads " + json.dumps(row))
     return row
 
 
@@ -362,6 +467,7 @@ def serve(cfg, device):
     require(bool(torch.isfinite(got).all().item()), "plan prefill non-finite")
     require(diff <= tol, "plan prefill disagrees with dense prefill")
 
+    dispatch = time_decode_dispatch(eng, cfg, B, device)
     step_ms.sort()
     summary = {
         "setup_s": setup_s, "serve_s": serve_s,
@@ -372,9 +478,242 @@ def serve(cfg, device):
         "launches_per_decode_step": {"bsmm": 6 * L, "bsmm_epilogue": L,
                                      "paged_attention": L},
         "prefill_plan_vs_dense_max_abs_err": diff,
+        "decode_dispatch": dispatch,
         "report": rep.__dict__,
     }
     return launches, summary
+
+
+def time_decode_dispatch(eng, cfg, B, device) -> dict:
+    """Decode-step host time with ``bsmm_apply`` calling the forward
+    kernels directly (what serving runs: gradients are off) against
+    routing every planned product through the ``torch.autograd.Function``
+    the retrain path uses, alternating tick by tick on one engine so
+    that both see the same batch and cache lengths.  A measurement, not
+    a gate."""
+    from repro_torch.serve import Request
+
+    direct = B.bsmm_apply
+
+    def via_function(x, w, plan, bias=None, act=None):
+        return B.BsmmApply.apply(x, w, bias, plan, act)
+
+    prng = np.random.default_rng(6)
+    for i in range(8):
+        eng.submit(Request(uid=100 + i, prompt=prng.integers(
+            1, cfg.vocab_size, size=64).astype(np.int32), max_new_tokens=41))
+    ms = {"direct": [], "function": []}
+    tick = 0
+    try:
+        while not eng.idle:
+            mode = ("direct", "function")[tick % 2]
+            B.bsmm_apply = direct if mode == "direct" else via_function
+            before = eng.report.prefills
+            ts = time.perf_counter()
+            eng.step()
+            sync(device)
+            if eng.report.prefills == before:
+                ms[mode].append((time.perf_counter() - ts) * 1e3)
+                tick += 1
+    finally:
+        B.bsmm_apply = direct
+    out = {f"{k}_ms_p50": sorted(v)[len(v) // 2] for k, v in ms.items()}
+    out["steps_each"] = min(len(v) for v in ms.values())
+    print(f"decode dispatch: {json.dumps(out)}")
+    return out
+
+
+ROUTED = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
+          ("mlp", "up"), ("mlp", "gate"), ("mlp", "down"))
+
+
+def grad_check(cfg, device):
+    """One loss backward at full width and 2 layers on masked weights,
+    through the ticket's plan and densely (plan=None, torch autograd):
+    the masked gradients of every routed weight agree within 5e-2 of
+    their scale (bf16), and the plan path's are exactly zero on dead
+    tiles before masking."""
+    import dataclasses
+
+    from repro_torch._bridge import apply_masks, tree_map
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import lm_train_plan
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    gen = torch.Generator(device=device).manual_seed(3)
+    params = tfm.init_params(gen, cfg2, device=device)
+    masks = build_ticket(params, cfg2, device)
+    params = apply_masks(params, masks)
+    plan, _ = lm_train_plan(masks)
+    b = SyntheticLM(256, 128, seed=0).batch(0, 8)
+    batch = {k: torch.as_tensor(v, device=device) for k, v in b.items()}
+
+    def grads(plan):
+        p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        loss, _ = tfm.loss_fn(p, cfg2, batch, plan=plan)
+        layer = p["segments"][0][0]
+        return loss, torch.autograd.grad(
+            loss, [layer[g][k] for g, k in ROUTED])
+
+    loss_p, g_plan = grads(plan)
+    loss_d, g_dense = grads(None)
+    worst = 0.0
+    for (group, key), gp, gd in zip(ROUTED, g_plan, g_dense):
+        m = masks["segments"][0][0][group][key]
+        gpm, gdm = gp.float() * m, gd.float() * m
+        err = (gpm - gdm).abs().max().item()
+        scale = gdm.abs().max().item()
+        worst = max(worst, err / max(scale, 1e-30))
+        dead_clean = bool((gp[~m] == 0).all().item())
+        print(f"check grad {group}.{key} {tuple(gp.shape)} plan vs dense "
+              f"max_abs_err={err:.4e} max|grad|={scale:.4e} "
+              f"tol={5e-2 * scale:.4e} dead_tiles_zero={dead_clean}")
+        require(bool(torch.isfinite(gp).all().item()), "non-finite grad")
+        require(err <= 5e-2 * scale, f"plan grad of {group}.{key} disagrees "
+                "with the dense grad")
+        require(dead_clean, f"plan grad of {group}.{key} is not zero on "
+                "dead tiles")
+    print(f"check loss plan {loss_p.item():.6f} dense {loss_d.item():.6f}")
+    return {"grad_rel_err_max": worst, "loss_plan": loss_p.item(),
+            "loss_dense": loss_d.item()}
+
+
+def retrain(cfg, device, steps: int = 4):
+    """``LMAdapter.make_trainer(params, masks).run`` at full width and
+    depth: finite losses and parameters, pruned coordinates exactly zero,
+    ``sent_fraction`` equal to the mask share counted on the host, and
+    the launch counts a step must make.  Steps run one ``run(1)`` at a
+    time so that each is timed on the host clock (``run`` synchronises
+    the card)."""
+    from repro_torch._bridge import tree_leaves
+    from repro_torch.api import LMAdapter
+    from repro_torch.kernels import bsmm as B
+    from repro_torch.models import transformer as tfm
+
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    adapter = LMAdapter(cfg, batch_size=8, seq_len=128, device=device)
+    params = adapter.init_params(
+        torch.Generator(device=device).manual_seed(0))
+    masks = build_ticket(params, cfg, device)
+    trainer = adapter.make_trainer(params, masks, learning_rate=1e-4)
+    del params
+    sync(device)
+    setup_s = time.perf_counter() - t0
+
+    # live prunable coordinates plus every unmasked one, over all
+    total = sum(p.numel() for p in tree_leaves(trainer.state.params))
+    pruned = sum(p.numel() - int(m.count_nonzero().item())
+                 for p, m in _mask_pairs(trainer.state.params, masks))
+    want_sent = (total - pruned) / total
+
+    for f in (B.bsmm, B.bsmm_epilogue, B.bsmm_dx, B.bsmm_dw):
+        f.launches = 0
+    losses, sent, step_s = [], [], []
+    for _ in range(steps):
+        ts = time.perf_counter()
+        m = trainer.run(1)
+        step_s.append(time.perf_counter() - ts)
+        losses.append(m["loss"])
+        sent.append(m["sent_fraction"])
+    launches = {"bsmm": B.bsmm.launches,
+                "bsmm_epilogue": B.bsmm_epilogue.launches,
+                "bsmm_dx": B.bsmm_dx.launches, "bsmm_dw": B.bsmm_dw.launches}
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+
+    L = cfg.n_layers
+    remat = tfm.remat_enabled()
+    r = 2 if remat else 1
+    want = {"bsmm": 6 * r * L, "bsmm_epilogue": (r + 1) * L,
+            "bsmm_dx": 7 * L, "bsmm_dw": 7 * L}
+    print(f"retrain: remat={remat} layers={L} losses={losses} "
+          f"sent_fraction={sent[-1]} (host {want_sent}) launches={launches} "
+          f"per step want {want}")
+    require(all(np.isfinite(losses)), f"non-finite loss {losses}")
+    require(all(abs(s - want_sent) < 1e-12 for s in sent),
+            f"sent_fraction {sent} != host count {want_sent}")
+    require(all(launches[k] == steps * v for k, v in want.items()),
+            f"launch counts {launches} do not match {steps} steps of {want}")
+    finite = all(bool(torch.isfinite(p).all().item())
+                 for p in tree_leaves(trainer.state.params))
+    require(finite, "a parameter is non-finite after retraining")
+    for p, m in _mask_pairs(trainer.state.params, masks):
+        require(not bool(((p != 0) & ~m).any().item()),
+                "a pruned coordinate is non-zero after retraining")
+
+    tokens = 8 * 128
+    mid = sorted(step_s[1:])
+    step_med = mid[len(mid) // 2]
+    profile = profile_step(trainer) if on_card else None
+    return launches, {
+        "setup_s": setup_s, "steps": steps, "remat": remat,
+        "step_s": step_s, "step_s_median_2_to_4": step_med,
+        "tokens_per_s": tokens / step_med, "losses": losses,
+        "sent_fraction": sent[-1], "sent_fraction_host": want_sent,
+        "max_memory_allocated_bytes": peak,
+        "launches_per_step": want, "live_tiles": adapter.last_plan_stats
+        .live_tiles, "total_tiles": adapter.last_plan_stats.total_tiles,
+        "profile": profile}
+
+
+def _kernel_group(name: str) -> str:
+    """A profiled CUDA kernel's group: the bsmm kernels by role (dx is
+    the forward template with its last template argument, TRANS,
+    true), cuBLAS products, PyTorch's elementwise kernels, the rest."""
+    import re
+
+    if "bsmm_dw" in name:
+        return "bsmm_dw"
+    m = re.search(r"bsmm_\w+<([^>]*)>", name)
+    if m:
+        return "bsmm_dx" if m.group(1).replace(" ", "").endswith("true") \
+            else "bsmm_forward"
+    if "gemm" in name or "cutlass" in name or "nvjet" in name:
+        return "library_gemm"
+    if "elementwise" in name:
+        return "elementwise"
+    return "other"
+
+
+def profile_step(trainer) -> dict:
+    """One more step under ``torch.profiler`` (after the counted run):
+    device time by kernel name, the step's host-clock time and the
+    device's busy share (kernel time over it).  A measurement, not a
+    gate: where the profiler shows no device time it says so."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ts = time.perf_counter()
+        trainer.run(1)
+        wall_ms = (time.perf_counter() - ts) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows.sort(key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows)
+    if device_ms == 0:
+        return {"wall_ms": wall_ms, "device_ms": "not measured"}
+    groups = {}
+    for name, ms, _ in rows:
+        groups[_kernel_group(name)] = groups.get(_kernel_group(name),
+                                                 0.0) + ms
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "busy_share": device_ms / wall_ms, "by_group_ms": groups,
+            "top_kernels": [{"name": n[:120], "ms": ms, "calls": c}
+                            for n, ms, c in rows[:25]]}
+
+
+def _mask_pairs(params, masks):
+    """(parameter, bool mask) for every masked routed weight."""
+    for seg_p, seg_m in zip(params["segments"], masks["segments"]):
+        for pos_p, pos_m in zip(seg_p, seg_m):
+            for group, key in ROUTED:
+                yield pos_p[group][key], pos_m[group][key]
 
 
 def sync(device) -> None:
@@ -408,12 +747,17 @@ def main() -> int:
         "\n".join(f"== {k}\n{v}" for k, v in logs.items()))
     print(f"build: {build_s:.1f} s ({', '.join(logs) or 'cached'})")
 
+    cfg = get_arch("llama3.2-3b")
     with torch.inference_mode():
         bsmm_err, bsmm_times = check_bsmm(B)
         paged_err, paged_row = check_paged(PA)
-    launches, summary = serve(get_arch("llama3.2-3b"), "cuda")
+        grad_err, grad_times = check_bsmm_grads(B)
+    launches, summary = serve(cfg, "cuda")
+    grad_summary = grad_check(cfg, "cuda")
+    t_launches, train_summary = retrain(cfg, "cuda")
 
     rep_row = next(r for r in bsmm_times if r["M"] == 8 and r["N"] == 8192)
+    grad_row = next(r for r in grad_times if r["N"] == 8192)
     kernels = [
         {"name": "bsmm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/bsmm.cu",
@@ -439,10 +783,26 @@ def main() -> int:
          "bound_ms": paged_row["bound_ms"], "bound_by": paged_row["bound_by"],
          "library_ms": paged_row["library_ms"]},
     ]
+    for kind, line in (("dx", 322), ("dw", 399)):
+        kernels.append(
+            {"name": f"bsmm_{kind}", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/bsmm.cu",
+             "replaces": f"src/repro/kernels/bsmm.py:{line}",
+             "launches": t_launches[f"bsmm_{kind}"],
+             "max_abs_err": grad_err[f"bsmm_{kind}"],
+             "ms": grad_row[f"{kind}_ms"],
+             "plain_ms": grad_row[f"{kind}_plain_ms"],
+             "bound_ms": grad_row[f"{kind}_bound_ms"],
+             "bound_by": grad_row[f"{kind}_bound_by"],
+             "library_ms": grad_row[f"{kind}_library_ms"]})
     (OUT / "chip_smoke_kernels.json").write_text(json.dumps(
         {"device": smi, "bsmm": bsmm_times, "paged_attention": paged_row,
-         "serve": summary}, indent=1, default=str))
+         "bsmm_grads": grad_times, "serve": summary,
+         "grad_check": grad_summary, "retrain": train_summary},
+        indent=1, default=str))
     print(json.dumps({"serve": summary}, default=str))
+    print(json.dumps({"grad_check": grad_summary}))
+    print(json.dumps({"retrain": train_summary}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

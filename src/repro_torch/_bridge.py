@@ -2,8 +2,9 @@
 
 The reference's parameter pytree (dicts, lists and NamedTuples of JAX
 arrays, mapped to numpy by the caller) becomes the same nesting of torch
-tensors here, and back.  Also the device check every entry point runs,
-and the mask helpers copied from ``repro.core.masks``.
+tensors here, and back.  Also the device check every entry point runs
+and the pytree helpers; the mask helpers live in ``core.masks`` and are
+re-exported here.
 """
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+
+from repro_torch.core.masks import apply_masks, path_str  # noqa: F401
 
 
 def resolve_device(device) -> torch.device:
@@ -31,15 +34,16 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _map(fn: Callable, tree):
+def tree_map(fn: Callable, tree):
+    """``fn`` over every leaf (None stays None), same nesting."""
     if tree is None:
         return None
     if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):   # NamedTuple
-        return type(tree)(*(_map(fn, v) for v in tree))
+        return type(tree)(*(tree_map(fn, v) for v in tree))
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(fn, v) for v in tree)
+        return type(tree)(tree_map(fn, v) for v in tree)
     return fn(tree)
 
 
@@ -65,7 +69,7 @@ def params_from_numpy(tree, *, device, dtype=None):
             t = t.to(dtype)
         return t.to(dev)
 
-    return _map(conv, tree)
+    return tree_map(conv, tree)
 
 
 def to_numpy(tree):
@@ -79,57 +83,47 @@ def to_numpy(tree):
             t = t.float()
         return t.numpy()
 
-    return _map(conv, tree)
-
-
-def path_str(path) -> str:
-    """``torch.utils._pytree`` key path → "a/0/b" (same form as the
-    reference's ``core.masks.path_str``)."""
-    parts = []
-    for p in path:
-        if hasattr(p, "key"):
-            parts.append(str(p.key))
-        elif hasattr(p, "idx"):
-            parts.append(str(p.idx))
-        else:
-            parts.append(str(p))
-    return "/".join(parts)
-
-
-def apply_masks(params, masks):
-    """params ⊙ masks (identity where a mask leaf is None).
-
-    Mask leaves may be numpy arrays or tensors of any shape that
-    broadcasts to the parameter (a (K, N) mask on a (reps, K, N) stacked
-    weight prunes every layer alike)."""
-    def ap(p, m):
-        if m is None:
-            return p
-        m = torch.as_tensor(m, device=p.device)
-        return p * m.to(p.dtype)
-
-    def rec(p, m):
-        if m is None:
-            return p
-        if isinstance(p, dict):
-            return {k: rec(v, m.get(k)) for k, v in p.items()}
-        if isinstance(p, (list, tuple)):
-            return type(p)(rec(a, b) for a, b in zip(p, m))
-        return ap(p, m)
-
-    return rec(params, masks)
+    return tree_map(conv, tree)
 
 
 def tree_leaves(tree) -> list:
     out: list = []
-    _map(out.append, tree)
+    tree_map(out.append, tree)
     return out
+
+
+def tree_unflatten(tree, leaves) -> Any:
+    """``tree``'s nesting with its leaves replaced, in ``tree_leaves``
+    order, by ``leaves``."""
+    it = iter(leaves)
+    out = tree_map(lambda _: next(it), tree)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out
+
+
+def tree_zip(fn: Callable, tree, *others):
+    """``fn(leaf, *other_leaves)`` over trees of one nesting (leaves
+    paired in ``tree_leaves`` order); None leaves of ``tree`` stay
+    None."""
+    flat = [tree_leaves(o) for o in others]
+    return tree_unflatten(tree, [fn(*a) for a in zip(tree_leaves(tree),
+                                                      *flat)])
+
+
+def tree_unbind(tree, n: int) -> list:
+    """A stacked pytree → ``n`` per-repeat pytrees of views.  Each leaf
+    is unbound once, so a backward through all ``n`` views stacks their
+    grads in one step instead of adding ``n`` full-size zero-padded
+    slices."""
+    per_leaf = [t.unbind(0) for t in tree_leaves(tree)]
+    return [tree_unflatten(tree, [u[i] for u in per_leaf]) for i in range(n)]
 
 
 def tree_index(tree, i: int):
     """Slice every leaf of a stacked pytree at ``i`` on its leading axis
     (views: writes through them land in the stacked tensor)."""
-    return _map(lambda t: t[i], tree)
+    return tree_map(lambda t: t[i], tree)
 
 
 def tree_stack(trees: list) -> Any:

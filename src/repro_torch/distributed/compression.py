@@ -1,0 +1,113 @@
+"""Gradient compression for the data-parallel all-reduce (port of the
+compressors of ``repro.distributed.compression``; ``compressed_psum``
+and ``dp_allreduce_compressed`` come with distribution).
+
+Both compressors keep error feedback (the compression error is
+re-injected next step):
+
+  * ``TopKCompressor``      — keep the top-k fraction by |g| per leaf;
+  * ``MaskAwareCompressor`` — pruned coordinates are structurally zero
+    every step, so they are dropped from communication entirely, then
+    top-k is applied to the survivors.
+
+The residual starts as zeros that take no memory (an expanded 0-d
+tensor): the lossless mask-aware compressor returns it unchanged, so it
+never needs the 4 bytes per parameter a dense f32 buffer would hold.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Optional, Tuple
+
+import torch
+
+from repro_torch._bridge import tree_leaves, tree_map, tree_unflatten
+from repro_torch.core.masks import apply_masks
+
+
+def _zero_residual(params):
+    return tree_map(lambda p: torch.zeros((), dtype=torch.float32,
+                                          device=p.device).expand(p.shape),
+                    params)
+
+
+@dataclass
+class TopKCompressor:
+    k_fraction: float = 0.01
+
+    def init(self, params):
+        return _zero_residual(params)
+
+    def compress(self, grads, residual):
+        """Returns (sparse_grads, new_residual, stats).
+
+        sparse_grads has the dense shapes but only top-k nonzeros per
+        leaf; ``stats['sent_fraction']`` counts what would be sent."""
+        sent = 0
+        total = 0
+        sparse, new_res = [], []
+        for g, r in zip(tree_leaves(grads), tree_leaves(residual)):
+            flat = (g.to(torch.float32) + r).reshape(-1)
+            k = max(1, int(self.k_fraction * flat.numel()))
+            idx = torch.topk(flat.abs(), k).indices
+            out = torch.zeros_like(flat).index_copy_(0, idx, flat[idx])
+            sent += k
+            total += flat.numel()
+            sparse.append(out.reshape(g.shape).to(g.dtype))
+            new_res.append((flat - out).reshape(g.shape))
+        return (tree_unflatten(grads, sparse), tree_unflatten(grads, new_res),
+                {"sent_fraction": sent / max(total, 1)})
+
+
+def _leaf_pairs(tree, masks):
+    """(leaf, mask leaf or None) pairs of a pytree and its mask tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaf_pairs(v, None if masks is None else masks.get(k))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaf_pairs(v, None if masks is None else masks[i])
+    elif tree is not None:
+        yield tree, masks
+
+
+def _live_count(m, size: int) -> int:
+    """Live coordinates of a mask leaf over a parameter of ``size``
+    elements (a broadcast mask counts once per copy)."""
+    m = torch.as_tensor(m)
+    return int(torch.count_nonzero(m).item()) * (size // m.numel())
+
+
+@dataclass
+class MaskAwareCompressor:
+    """Skip pruned coordinates, then top-k the survivors.
+
+    With 95 % ReaLPrune sparsity the dense gradient all-reduce shrinks
+    20× before any lossy compression — the paper's hardware saving
+    reused as a communication saving."""
+    masks: Any
+    k_fraction: float = 1.0       # 1.0 = lossless w.r.t. surviving weights
+    _counts: Optional[Tuple[int, int]] = field(default=None, repr=False)
+
+    def init(self, params):
+        return _zero_residual(params)
+
+    def _sent_total(self, grads) -> Tuple[int, int]:
+        """(sent, total) coordinates: static, counted once."""
+        if self._counts is None:
+            sent = total = 0
+            for g, m in _leaf_pairs(grads, self.masks):
+                total += g.numel()
+                sent += g.numel() if m is None else _live_count(m, g.numel())
+            self._counts = (sent, total)
+        return self._counts
+
+    def compress(self, grads, residual):
+        sent, total = self._sent_total(grads)
+        masked = apply_masks(grads, self.masks)
+        if self.k_fraction < 1.0:
+            sparse, new_res, st = TopKCompressor(self.k_fraction).compress(
+                masked, residual)
+            st["sent_fraction"] *= sent / max(total, 1)
+            return sparse, new_res, st
+        return masked, residual, {"sent_fraction": sent / max(total, 1)}

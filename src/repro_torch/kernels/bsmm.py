@@ -2,15 +2,19 @@
 
 A 128x128 weight tile whose crossbar is power-gated is never read and
 never multiplied.  A ``TilePlan`` lists, for every output column tile j,
-the live K tiles ``idx[j, :counts[j]]``; the CUDA kernel in
-``csrc/bsmm.cu`` walks exactly those (it replaces the Pallas TPU kernels
-``repro/kernels/bsmm.py::_bsmm_kernel`` and ``::_bsmm_epilogue_kernel``).
+the live K tiles ``idx[j, :counts[j]]``; the CUDA kernels in
+``csrc/bsmm.cu`` walk exactly those.  They replace the Pallas TPU
+kernels of ``repro/kernels/bsmm.py``: ``_bsmm_kernel`` and
+``_bsmm_epilogue_kernel`` (forward), ``_bsmm_dx_kernel`` and
+``_bsmm_dw_kernel`` (backward).
 
-Dispatch: ``bsmm`` and ``bsmm_epilogue`` launch the kernel for CUDA
-tensors and run their plain PyTorch versions (``bsmm_plain``,
-``bsmm_epilogue_plain``) for CPU tensors; any other device raises.  Each
-wrapper counts its kernel launches in ``.launches``.  Serving runs under
-``torch.inference_mode()``; the backward kernels come with training.
+Dispatch: ``bsmm``, ``bsmm_epilogue``, ``bsmm_dx`` and ``bsmm_dw``
+launch their kernel for CUDA tensors and run their plain PyTorch
+versions (``*_plain``) for CPU tensors; any other device raises.  Each
+wrapper counts its kernel launches in ``.launches``.  ``bsmm_apply`` is
+the differentiable product (a ``torch.autograd.Function``): forward
+through ``bsmm``/``bsmm_epilogue``, backward through ``bsmm_dx`` and
+``bsmm_dw``, on either device.
 
 The host-side plan builders (``tile_bitmap``, ``compact_tile_indices``,
 ``make_tile_plan``) are numpy copies of the reference's, so both
@@ -21,7 +25,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -82,15 +86,25 @@ def compact_tile_indices(tile_mask: np.ndarray) -> Tuple[np.ndarray,
     return idx, counts, kmax
 
 
+class PlanTensors(NamedTuple):
+    """A ``TilePlan``'s int32 index arrays on one device."""
+    idx: torch.Tensor
+    counts: torch.Tensor
+    idx_t: torch.Tensor
+    counts_t: torch.Tensor
+    kk: torch.Tensor
+    nn: torch.Tensor
+
+
 @dataclass(frozen=True, eq=False)
 class TilePlan:
     """Static bsmm dispatch data for one pruned (K, N) weight.
 
     The forward plan (``idx``/``counts``/``kmax``) steers ``x @ w`` past
     dead K tiles; the transposed plan (``idx_t``/``counts_t``/``nmax``)
-    and the flat live-tile coordinates (``kk``/``nn``) are kept for the
-    backward kernels.  ``device_tensors`` caches the int32 copies the
-    kernel reads, one pair per device.
+    steers dx past dead N tiles and the flat live-tile coordinates
+    (``kk``/``nn``) list the tiles dw computes.  ``device_tensors``
+    caches the int32 copies the kernels read, once per device.
     """
     idx: np.ndarray          # (Nt, KMAX) int32 — live K-tile ids per column
     counts: np.ndarray       # (Nt,) int32
@@ -103,16 +117,22 @@ class TilePlan:
     nmax: int = 1
     kk: Optional[np.ndarray] = None        # (L,) K-tile id of each live tile
     nn: Optional[np.ndarray] = None        # (L,) N-tile id of each live tile
-    _dev: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = field(
-        default_factory=dict, repr=False)
+    _dev: Dict[torch.device, PlanTensors] = field(default_factory=dict,
+                                                   repr=False)
 
-    def device_tensors(self, device) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(idx, counts) as int32 tensors on ``device``, copied once."""
+    def device_tensors(self, device) -> PlanTensors:
+        """Every index array as an int32 tensor on ``device``, copied
+        once."""
         device = torch.device(device)
         got = self._dev.get(device)
         if got is None:
-            got = (torch.as_tensor(self.idx, dtype=torch.int32).to(device),
-                   torch.as_tensor(self.counts, dtype=torch.int32).to(device))
+            if self.idx_t is None or self.kk is None:
+                raise ValueError("TilePlan lacks backward metadata — rebuild "
+                                 "it with make_tile_plan()")
+            got = PlanTensors(*(
+                torch.as_tensor(a, dtype=torch.int32).to(device)
+                for a in (self.idx, self.counts, self.idx_t, self.counts_t,
+                          self.kk, self.nn)))
             self._dev[device] = got
         return got
 
@@ -218,6 +238,48 @@ def bsmm_epilogue_plain(x2: torch.Tensor, w: torch.Tensor, plan: TilePlan,
     return _epilogue(z, act).to(x2.dtype)
 
 
+def bsmm_dx_plain(g: torch.Tensor, w: torch.Tensor,
+                  plan: TilePlan) -> torch.Tensor:
+    """Plain version of kernel #3: ``g (M, N) @ (w ⊙ tile bitmap)ᵀ`` →
+    (M, K), K-row tile by K-row tile over its live N tiles, f32
+    accumulation, output in g's dtype."""
+    M, N = g.shape
+    K = w.shape[0]
+    T = plan.tile
+    gt = g.reshape(M, N // T, T)
+    out = torch.zeros((M, K), dtype=torch.float32, device=g.device)
+    for k in range(K // T):
+        c = int(plan.counts_t[k])
+        if c == 0:
+            continue
+        live = torch.as_tensor(plan.idx_t[k, :c], dtype=torch.long,
+                               device=g.device)
+        gg = gt.index_select(1, live).reshape(M, c * T).float()
+        wk = w[k * T:(k + 1) * T].reshape(T, N // T, T).index_select(1, live) \
+            .reshape(T, c * T).float()
+        out[:, k * T:(k + 1) * T] = gg @ wk.T
+    return out.to(g.dtype)
+
+
+def bsmm_dw_plain(x2: torch.Tensor, g: torch.Tensor,
+                  plan: TilePlan) -> torch.Tensor:
+    """Plain version of kernel #4: for each live tile l,
+    ``x2[:, kk[l]]ᵀ @ g[:, nn[l]]`` in f32, written into a zero dense
+    (K, N) grad in x2's dtype (the weight's); dead tiles stay zero."""
+    M, K = x2.shape
+    N = g.shape[1]
+    T = plan.tile
+    Kt, Nt = K // T, N // T
+    dw = torch.zeros((Kt, Nt, T, T), dtype=torch.float32, device=x2.device)
+    if plan.live_tiles:
+        kk = torch.as_tensor(plan.kk, dtype=torch.long, device=x2.device)
+        nn = torch.as_tensor(plan.nn, dtype=torch.long, device=x2.device)
+        xg = x2.reshape(M, Kt, T).index_select(1, kk).float()   # (M, L, T)
+        gg = g.reshape(M, Nt, T).index_select(1, nn).float()    # (M, L, T)
+        dw[kk, nn] = torch.einsum("mlk,mln->lkn", xg, gg)
+    return dw.permute(0, 2, 1, 3).reshape(K, N).to(x2.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -235,6 +297,12 @@ def _lib():
     lib.bsmm_epilogue_launch.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
                                          _I, _I, _I, _I, _VP]
     lib.bsmm_epilogue_launch.restype = _I
+    lib.bsmm_dx_launch.argtypes = [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
+                                   _VP]
+    lib.bsmm_dx_launch.restype = _I
+    lib.bsmm_dw_launch.argtypes = [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
+                                   _VP]
+    lib.bsmm_dw_launch.restype = _I
     return lib
 
 
@@ -263,21 +331,26 @@ def _check_operands(x2, w, plan: TilePlan, bias, where: str):
                          f"{x2.device}")
 
 
-def _launch_args(x2, w, plan: TilePlan):
+def _check_launch(plan: TilePlan, where: str, *ts) -> int:
+    """The kernels' own demands; returns the current stream."""
     if plan.tile != MXU_TILE:
         raise GeometryError(f"the CUDA kernel tiles at {MXU_TILE}",
-                            tile=plan.tile, where="bsmm")
-    if not (x2.is_contiguous() and w.is_contiguous()):
-        raise ValueError("bsmm: x and w must be contiguous")
-    if x2.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError("bsmm: x and w must be 16-byte aligned (the kernel "
-                         "loads 16 bytes at a time)")
-    idx, counts = plan.device_tensors(x2.device)
+                            tile=plan.tile, where=where)
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{where}: operands must be contiguous")
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"{where}: operands must be 16-byte aligned (the "
+                         "kernel loads 16 bytes at a time)")
+    return torch.cuda.current_stream(ts[0].device).cuda_stream
+
+
+def _launch_args(x2, w, plan: TilePlan):
+    stream = _check_launch(plan, "bsmm", x2, w)
+    dev = plan.device_tensors(x2.device)
     M, K = x2.shape
     N = w.shape[1]
     out = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
-    stream = torch.cuda.current_stream(x2.device).cuda_stream
-    return out, idx, counts, M, K, N, stream
+    return out, dev.idx, dev.counts, M, K, N, stream
 
 
 def bsmm(x2: torch.Tensor, w: torch.Tensor, plan: TilePlan) -> torch.Tensor:
@@ -327,22 +400,172 @@ def bsmm_epilogue(x2: torch.Tensor, w: torch.Tensor, plan: TilePlan,
 bsmm_epilogue.launches = 0
 
 
+def _check_grad_operands(a, b, plan: TilePlan, where: str):
+    """``a`` (M, A) and ``b`` (M, B) with the plan covering (A, B)
+    (dw: x and g) — or, for dx, (M, N) and the (K, N) weight."""
+    if a.ndim != 2 or b.ndim != 2:
+        raise GeometryError(f"{where} takes 2-D operands",
+                            shape=(*a.shape, *b.shape), where=where)
+    if plan.counts_t is None or plan.kk is None:
+        raise ValueError(f"{where}: TilePlan lacks backward metadata — "
+                         "rebuild it with make_tile_plan()")
+    if a.dtype != b.dtype or a.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{where}: operands must share float32 or bfloat16, "
+                        f"got {a.dtype} and {b.dtype}")
+    if a.device != b.device:
+        raise ValueError(f"{where}: operands on {a.device} and {b.device}")
+
+
+def bsmm_dx(g: torch.Tensor, w: torch.Tensor, plan: TilePlan) -> torch.Tensor:
+    """Kernel #3: ``g (M, N) @ (w ⊙ tile bitmap)ᵀ`` → (M, K) in g's
+    dtype, over the transposed plan's live N tiles only."""
+    _check_grad_operands(g, w, plan, "bsmm_dx")
+    M, N = g.shape
+    K = w.shape[0]
+    if (w.shape[1] != N or plan.counts.shape[0] * plan.tile != N
+            or plan.counts_t.shape[0] * plan.tile != K):
+        raise GeometryError("bsmm_dx: g, w and the TilePlan disagree",
+                            shape=(M, N, *w.shape), tile=plan.tile,
+                            where="bsmm_dx")
+    if g.device.type == "cpu":
+        return bsmm_dx_plain(g, w, plan)
+    if g.device.type != "cuda":
+        raise ValueError(f"bsmm_dx: unsupported device {g.device}")
+    stream = _check_launch(plan, "bsmm_dx", g, w)
+    dev = plan.device_tensors(g.device)
+    lib = _lib()
+    out = torch.empty((M, K), dtype=g.dtype, device=g.device)
+    code = lib.bsmm_dx_launch(g.data_ptr(), w.data_ptr(), out.data_ptr(),
+                              dev.idx_t.data_ptr(), dev.counts_t.data_ptr(),
+                              M, K, N, plan.nmax, _DTYPE_CODES[g.dtype],
+                              stream)
+    _build.check(lib, code, "bsmm_dx")
+    bsmm_dx.launches += 1
+    return out
+
+
+bsmm_dx.launches = 0
+
+
+def bsmm_dw(x2: torch.Tensor, g: torch.Tensor, plan: TilePlan) -> torch.Tensor:
+    """Kernel #4: the (K, N) weight grad of ``x2 (M, K) @ w`` for the
+    cotangent ``g (M, N)``, live tiles only, in x2's dtype; dead tiles
+    are exactly zero (never computed)."""
+    _check_grad_operands(x2, g, plan, "bsmm_dw")
+    M, K = x2.shape
+    N = g.shape[1]
+    if (g.shape[0] != M or plan.counts.shape[0] * plan.tile != N
+            or plan.counts_t.shape[0] * plan.tile != K):
+        raise GeometryError("bsmm_dw: x, g and the TilePlan disagree",
+                            shape=(*x2.shape, *g.shape), tile=plan.tile,
+                            where="bsmm_dw")
+    if x2.device.type == "cpu":
+        return bsmm_dw_plain(x2, g, plan)
+    if x2.device.type != "cuda":
+        raise ValueError(f"bsmm_dw: unsupported device {x2.device}")
+    stream = _check_launch(plan, "bsmm_dw", x2, g)
+    out = torch.zeros((K, N), dtype=x2.dtype, device=x2.device)
+    if plan.live_tiles == 0:            # nothing live: no launch
+        return out
+    dev = plan.device_tensors(x2.device)
+    lib = _lib()
+    code = lib.bsmm_dw_launch(x2.data_ptr(), g.data_ptr(), out.data_ptr(),
+                              dev.kk.data_ptr(), dev.nn.data_ptr(),
+                              plan.live_tiles, M, K, N,
+                              _DTYPE_CODES[x2.dtype], stream)
+    _build.check(lib, code, "bsmm_dw")
+    bsmm_dw.launches += 1
+    return out
+
+
+bsmm_dw.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The differentiable product (the reference's custom_vjp, bsmm.py:484-558)
+# ---------------------------------------------------------------------------
+def _act_vjp(z: torch.Tensor, g: torch.Tensor, act: str) -> torch.Tensor:
+    """Pull ``g`` back through the activation at ``z``, in z's dtype."""
+    with torch.enable_grad():
+        zz = z.detach().requires_grad_(True)
+        return torch.autograd.grad(_epilogue(zz, act), zz, g)[0]
+
+
+def _forward(x2, w, plan: TilePlan, bias, act):
+    """Kernel #1 when there is neither bias nor activation, else #2."""
+    if bias is None and act is None:
+        return bsmm(x2, w, plan)
+    return bsmm_epilogue(x2, w, plan, bias, act)
+
+
+class BsmmApply(torch.autograd.Function):
+    """``x (..., K) @ (w ⊙ tile bitmap) (+ bias, act)``: forward through
+    kernel #1 (or #2 with a bias or an activation), backward through #3
+    (dx) and #4 (dw).  With an activation the backward recomputes the
+    pre-activation block-sparsely through kernel #2 with no activation
+    and pulls the cotangent through the activation in x's dtype; with a
+    bias it returns ``db = dz.sum(0)`` beside dx and dw."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, plan, act):
+        x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        ctx.plan, ctx.act = plan, act
+        ctx.save_for_backward(x2, w, bias)
+        return _forward(x2, w, plan, bias, act) \
+            .reshape(*x.shape[:-1], w.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w, bias = ctx.saved_tensors
+        plan, act = ctx.plan, ctx.act
+        dz = g.reshape(-1, g.shape[-1]).contiguous()
+        if act is not None:
+            z = bsmm_epilogue(x2, w, plan, bias, None)
+            dz = _act_vjp(z, dz, act).contiguous()
+        dx = bsmm_dx(dz, w, plan).to(x2.dtype)
+        dw = bsmm_dw(x2, dz, plan).to(w.dtype)
+        db = None if bias is None else dz.sum(0).to(bias.dtype)
+        return dx.reshape(*g.shape[:-1], x2.shape[1]), dw, db, None, None
+
+
+def bsmm_apply(x, w, plan: TilePlan, bias=None, act: Optional[str] = None):
+    """Differentiable ``x (..., K) @ (w ⊙ tile bitmap) (K, N)``.
+
+    Forward and both backward products run block-sparse, so a retrain
+    step's cost scales with the live tiles in every pass.  The backward
+    is exact for the tile-masked product: dw is zero on dead tiles
+    (never computed).  The backward always computes dx and dw, so a
+    step launches a fixed number of kernels.  With gradients off
+    (serving runs under ``torch.inference_mode()``) the forward kernel
+    is called directly: no autograd node, nothing saved.
+    """
+    if plan.idx_t is None or plan.kk is None:
+        raise ValueError("TilePlan lacks backward metadata — rebuild it "
+                         "with make_tile_plan()")
+    _check_act(act)
+    if not torch.is_grad_enabled():
+        x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        return _forward(x2, w, plan, bias, act) \
+            .reshape(*x.shape[:-1], w.shape[1])
+    return BsmmApply.apply(x, w, bias, plan, act)
+
+
 def plan_matmul(x, w, plan: Optional[TilePlan], bias=None,
                 act: Optional[str] = None):
     """x (..., K) @ w (K, N) routed through the block-sparse kernel.
 
     ``plan=None`` is the dense path: ``x @ w``, then bias and activation
-    unfused in x's dtype, as the reference does.  With a plan the rows
-    are flattened and handed to ``bsmm`` (no bias, no activation) or
-    ``bsmm_epilogue``; the kernel masks a ragged row count itself, so
-    rows are not padded.
+    unfused in x's dtype, as the reference does.  With a plan the call
+    goes through ``bsmm_apply`` (differentiable on either device): the
+    rows are flattened and handed to ``bsmm`` (no bias, no activation)
+    or ``bsmm_epilogue``; the kernels mask a ragged row count
+    themselves, so rows are not padded.
     """
     if plan is None:
         out = x @ w
         if bias is not None:
             out = out + bias
         return _epilogue(out, act)
-    lead = x.shape[:-1]
     K = x.shape[-1]
     N = w.shape[-1]
     planK = plan.counts_t.shape[0] * plan.tile \
@@ -356,9 +579,4 @@ def plan_matmul(x, w, plan: Optional[TilePlan], bias=None,
             f"TilePlan covers ({planK}, {planN}) but the weight is "
             f"({K}, {N}) — plan built from different masks?",
             shape=(K, N), tile=plan.tile, where="plan_matmul")
-    x2 = x.reshape(-1, K).contiguous()
-    if bias is None and act is None:
-        out = bsmm(x2, w, plan)
-    else:
-        out = bsmm_epilogue(x2, w, plan, bias, act)
-    return out.reshape(*lead, N)
+    return bsmm_apply(x, w, plan, bias=bias, act=act)

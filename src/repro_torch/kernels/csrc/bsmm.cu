@@ -1,8 +1,14 @@
-// Block-sparse matmul forward for Hopper (sm_90a).
+// Block-sparse matmul, forward and backward, for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernels src/repro/kernels/bsmm.py::_bsmm_kernel
-// (plain) and ::_bsmm_epilogue_kernel (bias + relu/gelu/silu fused into
-// the flush).  Both are one template here: EPI selects the epilogue.
+// Replaces the Pallas TPU kernels of src/repro/kernels/bsmm.py:
+//   _bsmm_kernel (plain forward) and _bsmm_epilogue_kernel (bias +
+//   relu/gelu/silu fused into the flush): one template here, EPI
+//   selects the epilogue;
+//   _bsmm_dx_kernel (dx = g @ (w * bitmap)^T over the transposed plan):
+//   the same template with TRANS set, reading w's tiles along N;
+//   _bsmm_dw_kernel (dw tile = x^T g for every live tile): bsmm_dw_*
+//   below, which store each live tile straight into the zeroed dense
+//   grad instead of materialising (L, 128, 128) and scattering.
 //
 //   out[M, N] = sum over t < counts[j] of x[:, K-tile idx[j, t]] @ w[K-tile idx[j, t], N-tile j]
 //
@@ -27,6 +33,18 @@
 // and WMMA (mma.sync) is below wgmma's rate.  Small M uses narrow
 // 32-column blocks so that enough blocks pull weight bytes on every SM.
 // Times against the bound are in PERF.md.
+//
+// Backward.  dx walks, for its output column tile k (a K tile), the
+// live N tiles idx_t[k, :counts_t[k]]: the forward walk with the plan
+// transposed and w read as its transpose (TRANS), so dead tiles are
+// never read.  dw runs one block per live tile l and sums x[:, kk[l]]^T
+// @ g[:, nn[l]] over every row in f32; M is its contraction, so it is
+// bound by the operations at training row counts (2 * M flops per
+// element of a tile against 2 * 2 bytes read per row) and by the bytes
+// of x's and g's live columns when M is small.  Both mask a ragged M:
+// rows past M are loaded as zeros and never stored, so they add
+// nothing to dw.  Same limits as the forward: no cp.async/TMA double
+// buffering, WMMA (mma.sync) for bf16, CUDA-core FMA for f32.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
@@ -87,7 +105,9 @@ template <> struct Vec<__nv_bfloat16> {
   }
 };
 
-template <typename T, int BM, int BN, int BK, int TM, int TN, bool EPI>
+// out (M, N) = x (M, K) @ B, where B is w (K, N), or, with TRANS, the
+// transpose of w (N, K) (the dx product: x = g, w = the weight).
+template <typename T, int BM, int BN, int BK, int TM, int TN, bool EPI, bool TRANS>
 __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 bsmm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
                 const T* __restrict__ bias, T* __restrict__ out,
@@ -97,7 +117,7 @@ bsmm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
   constexpr int NT = (BM / TM) * NX;    // threads per block
   constexpr int V = Vec<T>::N;          // elements per 16-byte load
   __shared__ float xs[BK][BM + 1];      // x sub-tile, transposed (k, m)
-  __shared__ float ws[BK][BN];          // w sub-tile (k, n)
+  __shared__ float ws[BK][BN + (TRANS ? 1 : 0)];   // B sub-tile (k, n)
 
   const int n0 = blockIdx.x * BN;
   const int m0 = blockIdx.y * BM;
@@ -130,12 +150,22 @@ bsmm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
         for (int i = 0; i < V; ++i) xs[c + i][r] = v[i];
       }
-      for (int e = tid; e < BK * BN / V; e += NT) {   // 16 B loads along n
-        const int r = e / (BN / V), c = (e % (BN / V)) * V;
-        float v[V];
-        Vec<T>::load(w + (size_t)(kb + r) * N + n0 + c, v);
+      if (TRANS) {
+        for (int e = tid; e < BN * BK / V; e += NT) {   // 16 B loads along k of w's rows
+          const int r = e / (BK / V), c = (e % (BK / V)) * V;
+          float v[V];
+          Vec<T>::load(w + (size_t)(n0 + r) * K + kb + c, v);
 #pragma unroll
-        for (int i = 0; i < V; ++i) ws[r][c + i] = v[i];
+          for (int i = 0; i < V; ++i) ws[c + i][r] = v[i];
+        }
+      } else {
+        for (int e = tid; e < BK * BN / V; e += NT) {   // 16 B loads along n
+          const int r = e / (BN / V), c = (e % (BN / V)) * V;
+          float v[V];
+          Vec<T>::load(w + (size_t)(kb + r) * N + n0 + c, v);
+#pragma unroll
+          for (int i = 0; i < V; ++i) ws[r][c + i] = v[i];
+        }
       }
       __syncthreads();
 #pragma unroll 8
@@ -176,8 +206,9 @@ bsmm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
 // are and multiplied by WMMA 16x16x16 fragments into f32 accumulators.
 // 8 warps each own a 32 x 64 piece of the 128 x 128 output tile; the
 // flush goes fragment by fragment through a per-warp f32 staging tile,
-// where the epilogue is applied.
-template <bool EPI>
+// where the epilogue is applied.  With TRANS (dx) w's rows are staged
+// as they are, (n, k), and read as a column-major B fragment.
+template <bool EPI, bool TRANS>
 __global__ void __launch_bounds__(256)
 bsmm_wmma_kernel(const __nv_bfloat16* __restrict__ x,
                  const __nv_bfloat16* __restrict__ w,
@@ -187,9 +218,12 @@ bsmm_wmma_kernel(const __nv_bfloat16* __restrict__ x,
                  int act) {
   using namespace nvcuda;
   constexpr int BM = 128, BN = 128, BK = 64;
-  constexpr int LDA = BK + 8, LDB = BN + 8;   // padded, multiples of 8
+  constexpr int LDA = BK + 8;                    // padded, multiples of 8
+  constexpr int LDB = TRANS ? BK + 8 : BN + 8;   // Bs is (n, k) with TRANS
+  using BLayout = typename std::conditional<TRANS, nvcuda::wmma::col_major,
+                                            nvcuda::wmma::row_major>::type;
   __shared__ __align__(32) __nv_bfloat16 As[BM * LDA];
-  __shared__ __align__(32) __nv_bfloat16 Bs[BK * LDB];
+  __shared__ __align__(32) __nv_bfloat16 Bs[TRANS ? BN * LDB : BK * LDB];
   __shared__ __align__(32) float Cs[8][16 * 16];
 
   const int n0 = blockIdx.x * BN;
@@ -218,22 +252,33 @@ bsmm_wmma_kernel(const __nv_bfloat16* __restrict__ x,
         if (m < M) v = *reinterpret_cast<const uint4*>(x + (size_t)m * K + kb + c);
         *reinterpret_cast<uint4*>(As + r * LDA + c) = v;
       }
-      for (int e = tid; e < BK * BN / 8; e += 256) {
-        const int r = e / (BN / 8), c = (e % (BN / 8)) * 8;
-        *reinterpret_cast<uint4*>(Bs + r * LDB + c) =
-            *reinterpret_cast<const uint4*>(w + (size_t)(kb + r) * N + n0 + c);
+      if (TRANS) {
+        for (int e = tid; e < BN * BK / 8; e += 256) {   // w rows n0.., along k
+          const int r = e / (BK / 8), c = (e % (BK / 8)) * 8;
+          *reinterpret_cast<uint4*>(Bs + r * LDB + c) =
+              *reinterpret_cast<const uint4*>(w + (size_t)(n0 + r) * K + kb + c);
+        }
+      } else {
+        for (int e = tid; e < BK * BN / 8; e += 256) {
+          const int r = e / (BN / 8), c = (e % (BN / 8)) * 8;
+          *reinterpret_cast<uint4*>(Bs + r * LDB + c) =
+              *reinterpret_cast<const uint4*>(w + (size_t)(kb + r) * N + n0 + c);
+        }
       }
       __syncthreads();
 #pragma unroll
       for (int k16 = 0; k16 < BK; k16 += 16) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[4];
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, BLayout> fb[4];
 #pragma unroll
         for (int a = 0; a < 2; ++a)
           wmma::load_matrix_sync(fa[a], As + (wm * 32 + a * 16) * LDA + k16, LDA);
 #pragma unroll
-        for (int b = 0; b < 4; ++b)
-          wmma::load_matrix_sync(fb[b], Bs + k16 * LDB + wn * 64 + b * 16, LDB);
+        for (int b = 0; b < 4; ++b) {
+          const __nv_bfloat16* bp = TRANS ? Bs + (wn * 64 + b * 16) * LDB + k16
+                                          : Bs + k16 * LDB + wn * 64 + b * 16;
+          wmma::load_matrix_sync(fb[b], bp, LDB);
+        }
 #pragma unroll
         for (int a = 0; a < 2; ++a)
 #pragma unroll
@@ -267,7 +312,7 @@ bsmm_wmma_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-template <typename T, bool EPI>
+template <typename T, bool EPI, bool TRANS>
 cudaError_t launch(const void* x, const void* w, const void* bias, void* out,
                    const int* idx, const int* counts, int M, int K, int N,
                    int kmax, int act, cudaStream_t stream) {
@@ -278,37 +323,180 @@ cudaError_t launch(const void* x, const void* w, const void* bias, void* out,
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     if (M >= TILE) {
       dim3 grid(N / TILE, (M + TILE - 1) / TILE);
-      bsmm_wmma_kernel<EPI><<<grid, 256, 0, stream>>>(xp, wp, bp, op, idx, counts,
-                                                     M, K, N, kmax, act);
+      bsmm_wmma_kernel<EPI, TRANS><<<grid, 256, 0, stream>>>(xp, wp, bp, op, idx,
+                                                            counts, M, K, N, kmax, act);
       return cudaGetLastError();
     }
   }
   if (M >= TILE) {
     constexpr int BM = 128, BN = 128, BK = 32, TM = 8, TN = 8;
     dim3 grid(N / BN, (M + BM - 1) / BM);
-    bsmm_fwd_kernel<T, BM, BN, BK, TM, TN, EPI><<<grid, (BM / TM) * (BN / TN), 0, stream>>>(
-        xp, wp, bp, op, idx, counts, M, K, N, kmax, act);
+    bsmm_fwd_kernel<T, BM, BN, BK, TM, TN, EPI, TRANS>
+        <<<grid, (BM / TM) * (BN / TN), 0, stream>>>(xp, wp, bp, op, idx, counts,
+                                                      M, K, N, kmax, act);
   } else {
     // small M (decode): a whole plan tile per step, so one load round
     // trip per live tile instead of four
     constexpr int BM = 16, BN = 32, BK = 128, TM = 2, TN = 1;
     dim3 grid(N / BN, (M + BM - 1) / BM);
-    bsmm_fwd_kernel<T, BM, BN, BK, TM, TN, EPI><<<grid, (BM / TM) * (BN / TN), 0, stream>>>(
-        xp, wp, bp, op, idx, counts, M, K, N, kmax, act);
+    bsmm_fwd_kernel<T, BM, BN, BK, TM, TN, EPI, TRANS>
+        <<<grid, (BM / TM) * (BN / TN), 0, stream>>>(xp, wp, bp, op, idx, counts,
+                                                      M, K, N, kmax, act);
   }
   return cudaGetLastError();
 }
 
-template <bool EPI>
+template <bool EPI, bool TRANS>
 int dispatch(const void* x, const void* w, const void* bias, void* out,
              const int* idx, const int* counts, int M, int K, int N, int kmax,
              int dtype, int act, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float, EPI>(x, w, bias, out, idx, counts, M, K, N, kmax, act, s);
+    return launch<float, EPI, TRANS>(x, w, bias, out, idx, counts, M, K, N, kmax,
+                                     act, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16, EPI>(x, w, bias, out, idx, counts, M, K, N, kmax, act, s);
+    return launch<__nv_bfloat16, EPI, TRANS>(x, w, bias, out, idx, counts, M, K, N,
+                                             kmax, act, s);
   return cudaErrorInvalidValue;
+}
+
+// dw, f32 (and any type) on CUDA cores: one block per live tile l, a
+// 16 x 16 thread grid with an 8 x 8 register tile each covers the
+// 128 x 128 output; the row (contraction) loop steps by BR rows, staging
+// x[:, kk[l]] and g[:, nn[l]] as f32 with 16-byte loads.
+template <typename T>
+__global__ void __launch_bounds__(256)
+bsmm_dw_fma_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                   T* __restrict__ dw, const int* __restrict__ kk,
+                   const int* __restrict__ nn, int M, int K, int N) {
+  constexpr int BR = 32, TM = 8, TN = 8, NX = TILE / TN;
+  constexpr int V = Vec<T>::N;
+  __shared__ float xs[BR][TILE];   // (row, k)
+  __shared__ float gs[BR][TILE];   // (row, n)
+  const int k0 = kk[blockIdx.x] * TILE;
+  const int n0 = nn[blockIdx.x] * TILE;
+  const int tid = threadIdx.x;
+  const int tx = tid % NX, ty = tid / NX;
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int a = 0; a < TM; ++a)
+#pragma unroll
+    for (int b = 0; b < TN; ++b) acc[a][b] = 0.f;
+
+  for (int m0 = 0; m0 < M; m0 += BR) {
+    for (int e = tid; e < BR * TILE / V; e += 256) {
+      const int r = e / (TILE / V), c = (e % (TILE / V)) * V;
+      const int m = m0 + r;
+      float xv[V], gv[V];
+      if (m < M) {
+        Vec<T>::load(x + (size_t)m * K + k0 + c, xv);
+        Vec<T>::load(g + (size_t)m * N + n0 + c, gv);
+      } else {
+#pragma unroll
+        for (int i = 0; i < V; ++i) xv[i] = gv[i] = 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        xs[r][c + i] = xv[i];
+        gs[r][c + i] = gv[i];
+      }
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int r = 0; r < BR; ++r) {
+      float av[TM], bv[TN];
+#pragma unroll
+      for (int a = 0; a < TM; ++a) av[a] = xs[r][ty + a * (TILE / TM)];
+#pragma unroll
+      for (int b = 0; b < TN; ++b) bv[b] = gs[r][tx + b * NX];
+#pragma unroll
+      for (int a = 0; a < TM; ++a)
+#pragma unroll
+        for (int b = 0; b < TN; ++b) acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int a = 0; a < TM; ++a)
+#pragma unroll
+    for (int b = 0; b < TN; ++b)
+      dw[(size_t)(k0 + ty + a * (TILE / TM)) * N + n0 + tx + b * NX] =
+          from_f32<T>(acc[a][b]);
+}
+
+// dw, bfloat16 on the tensor cores: one block per live tile, 8 warps
+// each own a 32 x 64 piece of it.  x's rows are staged as they are,
+// (row, k), and read as a column-major A fragment (A = x^T); g's rows
+// (row, n) are the row-major B fragment.
+__global__ void __launch_bounds__(256)
+bsmm_dw_wmma_kernel(const __nv_bfloat16* __restrict__ x,
+                    const __nv_bfloat16* __restrict__ g,
+                    __nv_bfloat16* __restrict__ dw, const int* __restrict__ kk,
+                    const int* __restrict__ nn, int M, int K, int N) {
+  using namespace nvcuda;
+  constexpr int BR = 64, LD = TILE + 8;
+  __shared__ __align__(32) __nv_bfloat16 As[BR * LD];
+  __shared__ __align__(32) __nv_bfloat16 Bs[BR * LD];
+  __shared__ __align__(32) float Cs[8][16 * 16];
+  const int k0 = kk[blockIdx.x] * TILE;
+  const int n0 = nn[blockIdx.x] * TILE;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int wm = warp / 2, wn = warp % 2;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) wmma::fill_fragment(acc[a][b], 0.f);
+
+  for (int m0 = 0; m0 < M; m0 += BR) {
+    for (int e = tid; e < BR * TILE / 8; e += 256) {   // 16 B loads
+      const int r = e / (TILE / 8), c = (e % (TILE / 8)) * 8;
+      const int m = m0 + r;
+      uint4 xv = make_uint4(0u, 0u, 0u, 0u), gv = xv;
+      if (m < M) {
+        xv = *reinterpret_cast<const uint4*>(x + (size_t)m * K + k0 + c);
+        gv = *reinterpret_cast<const uint4*>(g + (size_t)m * N + n0 + c);
+      }
+      *reinterpret_cast<uint4*>(As + r * LD + c) = xv;
+      *reinterpret_cast<uint4*>(Bs + r * LD + c) = gv;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r16 = 0; r16 < BR; r16 += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> fa[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[4];
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+        wmma::load_matrix_sync(fa[a], As + r16 * LD + wm * 32 + a * 16, LD);
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        wmma::load_matrix_sync(fb[b], Bs + r16 * LD + wn * 64 + b * 16, LD);
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) wmma::mma_sync(acc[a][b], fa[a], fb[b], acc[a][b]);
+    }
+    __syncthreads();
+  }
+
+  float* cs = Cs[warp];
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      wmma::store_matrix_sync(cs, acc[a][b], 16, wmma::mem_row_major);
+      __syncwarp();
+      for (int e = lane; e < 256; e += 32) {
+        const int k = k0 + wm * 32 + a * 16 + e / 16;
+        const int n = n0 + wn * 64 + b * 16 + e % 16;
+        dw[(size_t)k * N + n] = __float2bfloat16(cs[e]);
+      }
+      __syncwarp();
+    }
+  }
 }
 
 }  // namespace
@@ -317,8 +505,8 @@ int dispatch(const void* x, const void* w, const void* bias, void* out,
 extern "C" int bsmm_launch(const void* x, const void* w, void* out,
                            const int* idx, const int* counts, int M, int K,
                            int N, int kmax, int dtype, void* stream) {
-  return dispatch<false>(x, w, nullptr, out, idx, counts, M, K, N, kmax, dtype,
-                         ACT_NONE, stream);
+  return dispatch<false, false>(x, w, nullptr, out, idx, counts, M, K, N, kmax,
+                                dtype, ACT_NONE, stream);
 }
 
 // bias may be null (then act(acc) alone); act: 0 none, 1 relu, 2 gelu (tanh), 3 silu.
@@ -327,8 +515,40 @@ extern "C" int bsmm_epilogue_launch(const void* x, const void* w,
                                     const int* idx, const int* counts, int M,
                                     int K, int N, int kmax, int dtype, int act,
                                     void* stream) {
-  return dispatch<true>(x, w, bias, out, idx, counts, M, K, N, kmax, dtype, act,
-                        stream);
+  return dispatch<true, false>(x, w, bias, out, idx, counts, M, K, N, kmax, dtype,
+                               act, stream);
+}
+
+// dx (M, K) = g (M, N) @ (w (K, N) * tile bitmap)^T over the transposed
+// plan: idx_t (K / 128, nmax) live N tiles of each K-row tile, counts_t.
+extern "C" int bsmm_dx_launch(const void* g, const void* w, void* dx,
+                              const int* idx_t, const int* counts_t, int M,
+                              int K, int N, int nmax, int dtype, void* stream) {
+  // the forward walk with contraction N and output width K
+  return dispatch<false, true>(g, w, nullptr, dx, idx_t, counts_t, M, N, K, nmax,
+                               dtype, ACT_NONE, stream);
+}
+
+// dw (K, N): for each of the L live tiles l, rows kk[l] * 128.. and
+// columns nn[l] * 128.. get x (M, K)[:, tile]^T @ g (M, N)[:, tile].
+// Dead tiles are not written: the caller passes a zeroed dw.
+extern "C" int bsmm_dw_launch(const void* x, const void* g, void* dw,
+                              const int* kk, const int* nn, int L, int M, int K,
+                              int N, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (L <= 0) return cudaSuccess;
+  if (dtype == 0) {
+    bsmm_dw_fma_kernel<float><<<L, 256, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(g),
+        static_cast<float*>(dw), kk, nn, M, K, N);
+  } else if (dtype == 1) {
+    bsmm_dw_wmma_kernel<<<L, 256, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(g),
+        static_cast<__nv_bfloat16*>(dw), kk, nn, M, K, N);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
 }
 
 extern "C" const char* kernel_error_string(int code) {

@@ -3,9 +3,10 @@
 A port of the GQA half of ``repro.models.attention``: ``attend`` and
 ``causal_attention`` are plain torch with the reference's finite
 ``-1e30`` mask (scores and softmax in float32, outputs in the compute
-dtype); decode reads the paged block pool through the CUDA paged
-attention kernel.  MLA, sliding windows and dense-slot decode are not
-yet ported.
+dtype), as the reference's training and prefill attention is plain jnp;
+``gqa_forward`` is the training forward; decode reads the paged block
+pool through the CUDA paged attention kernel.  MLA, sliding windows and
+dense-slot decode are not yet ported.
 """
 from __future__ import annotations
 
@@ -104,6 +105,28 @@ def gqa_qkv(params, x, *, n_heads, n_kv_heads, head_dim, positions,
     q = apply_rope(q, positions, rope_theta)
     k = apply_rope(k, positions, rope_theta)
     return q, k, v
+
+
+def gqa_forward(params, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
+                window: Optional[int] = None, block_q: int = 512,
+                plan=None):
+    """Training self-attention over a full sequence → projected output.
+
+    ``plan`` routes the q/k/v/o projections through the differentiable
+    block-sparse product, so the retrain backward skips dead tiles too.
+    Sliding windows are not yet ported.
+    """
+    if window is not None:
+        raise NotImplementedError("sliding-window attention is not yet "
+                                  "ported to repro_torch")
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    q, k, v = gqa_qkv(params, x, n_heads=n_heads, n_kv_heads=n_kv_heads,
+                      head_dim=head_dim, positions=positions,
+                      rope_theta=rope_theta, plan=plan)
+    out = causal_attention(q, k, v, block_q=block_q)
+    return bsmm.plan_matmul(out.reshape(B, S, n_heads * head_dim),
+                            params["wo"], (plan or {}).get("wo"))
 
 
 def gqa_make_cache(params, x, *, n_heads, n_kv_heads, head_dim, rope_theta,

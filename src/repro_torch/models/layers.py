@@ -116,3 +116,21 @@ def apply_rope(x, positions, theta: float = 10_000.0):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+def softmax_cross_entropy(logits, labels, mask=None, z_loss: float = 0.0):
+    """Mean CE over valid positions; logits (..., V) in any dtype, labels
+    of any integer dtype (``gather`` wants int64)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    loss = lse - ll
+    if z_loss:
+        loss = loss + z_loss * lse.square()
+    if mask is not None:
+        mask = mask.float()
+        return (loss * mask).sum() / mask.sum().clamp_min(1.0)
+    return loss.mean()

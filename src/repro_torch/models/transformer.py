@@ -1,11 +1,14 @@
-"""Decoder-only LM assembly: prefill and paged decode.
+"""Decoder-only LM assembly: training forward, prefill and paged decode.
 
 A port of ``repro.models.transformer`` for architectures whose every
 block is global GQA attention with a dense FFN (llama-style).  A model
 is a list of *segments*; within a segment the per-layer parameters are
 stacked on a leading repeats axis, and the reference's ``lax.scan``
 over it becomes a loop here.  Anything else — MLA, MoE, windowed or
-recurrent blocks, the training forward — raises "not yet ported".
+recurrent blocks — raises "not yet ported".
+
+Entry points: ``forward``/``loss_fn`` (training, full-sequence logits),
+``prefill`` and ``decode_step_paged`` (serving).
 """
 from __future__ import annotations
 
@@ -14,14 +17,35 @@ from dataclasses import dataclass
 from typing import List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._bridge import (resolve_device, tree_index, tree_leaves,
-                                 tree_stack)
+                                 tree_stack, tree_unbind)
 from repro_torch.configs.base import ATTN, LOCAL_ATTN, RGLRU, ArchConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.layers import (_dtype, embed, embed_init, mlp,
                                        mlp_init, rmsnorm, rmsnorm_init,
-                                       unembed, xavier)
+                                       softmax_cross_entropy, unembed, xavier)
+
+# Activation rematerialisation for the training forward: each layer
+# runs under torch.utils.checkpoint, so its internals are recomputed in
+# the backward instead of stored (the reference's jax.checkpoint around
+# each scanned block).  Policy "full" recomputes everything; the
+# reference's "dots" policy (save matmul outputs) is not yet ported.
+_REMAT_TRAIN = True
+
+
+def set_remat(flag: bool, policy: str = "full"):
+    global _REMAT_TRAIN
+    if policy != "full":
+        raise NotImplementedError(f"remat policy {policy!r} is not yet "
+                                  "ported to repro_torch")
+    _REMAT_TRAIN = flag
+
+
+def remat_enabled() -> bool:
+    """Whether the training forward checkpoints each layer."""
+    return _REMAT_TRAIN
 
 
 def _not_ported(what: str):
@@ -136,13 +160,17 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, *, device="cuda"):
 # ---------------------------------------------------------------------------
 def _apply_block(cfg: ArchConfig, p, x, mode: str, cache, capacity,
                  valid_len=None, plan=None, paged=None):
-    """Returns (x, new_cache).  ``mode`` is "prefill" or "decode";
-    ``paged`` (tables, lens) carries the paged decode's block tables."""
+    """Returns (x, new_cache).  ``mode`` is "forward" (training),
+    "prefill" or "decode"; ``paged`` (tables, lens) carries the paged
+    decode's block tables."""
     plan = plan or {}
     h = rmsnorm(p["norm1"], x)
     kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
               head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta)
-    if mode == "prefill":
+    new_cache = None
+    if mode == "forward":
+        out = attn_lib.gqa_forward(p["attn"], h, plan=plan.get("attn"), **kw)
+    elif mode == "prefill":
         out, new_cache = attn_lib.gqa_make_cache(
             p["attn"], h, capacity=capacity, valid_len=valid_len,
             plan=plan.get("attn"), **kw)
@@ -164,34 +192,78 @@ def _run_segments(cfg, params, x, mode, caches, capacity, valid_len=None,
     """Loop over segments and, inside each, over the stacked repeats
     (the reference's ``lax.scan``).  Per-repeat parameters and pools are
     views into the stacked tensors, so in-place pool writes land there;
-    prefill caches are stacked back onto the repeats axis."""
+    prefill caches are stacked back onto the repeats axis.  The training
+    forward unbinds each stacked leaf once (see ``tree_unbind``) and,
+    with remat on, checkpoints every layer."""
     new_caches = []
+    remat = _REMAT_TRAIN and mode == "forward"
     for s_idx, (seg, pos_trees) in enumerate(zip(segments_of(cfg),
                                                  params["segments"])):
         seg_caches = caches[s_idx] if caches is not None else None
         seg_plan = plan[s_idx] if plan is not None else None
+        unbound = (tree_unbind(pos_trees, seg.reps)
+                   if mode == "forward" and seg.reps > 1 else None)
         per_rep = []
         for r in range(seg.reps):
             c_outs = []
             for pos in range(len(seg.sigs)):
                 ptree = pos_trees[pos]
                 c = seg_caches[pos] if seg_caches is not None else None
-                if seg.reps > 1:
+                if unbound is not None:
+                    ptree = unbound[r][pos]
+                elif seg.reps > 1:
                     ptree = tree_index(ptree, r)
                     c = tree_index(c, r) if c is not None else None
                 pe = seg_plan[pos] if seg_plan is not None else None
-                x, c_new = _apply_block(cfg, ptree, x, mode, c, capacity,
-                                        valid_len=valid_len, plan=pe,
-                                        paged=paged)
+                if remat:
+                    x = checkpoint(_forward_block, cfg, ptree, x, pe,
+                                   use_reentrant=False,
+                                   preserve_rng_state=False)
+                    c_new = None
+                else:
+                    x, c_new = _apply_block(cfg, ptree, x, mode, c,
+                                            capacity, valid_len=valid_len,
+                                            plan=pe, paged=paged)
                 c_outs.append(c_new)
             per_rep.append(c_outs)
+        if mode == "forward":
+            continue
         if seg.reps == 1:
             new_caches.append(per_rep[0])
         elif mode == "prefill":
             new_caches.append(tree_stack(per_rep))
         else:                      # paged pools were written in place
             new_caches.append(seg_caches)
-    return x, new_caches
+    return x, (None if mode == "forward" else new_caches)
+
+
+def _forward_block(cfg, p, x, plan):
+    return _apply_block(cfg, p, x, "forward", None, None, plan=plan)[0]
+
+
+def forward(params, cfg: ArchConfig, batch, plan=None):
+    """Training forward: full-sequence logits (B, S, V) and the MoE aux
+    loss (always 0 here: MoE is not yet ported).  ``batch["tokens"]``:
+    (B, S) integers.  ``plan`` (from ``train.plans.lm_train_plan``)
+    routes the attention and MLP projections through the block-sparse
+    kernels, forward and backward."""
+    _check_ported(cfg)
+    x = embed(params["embed"], batch["tokens"])
+    x, _ = _run_segments(cfg, params, x, "forward", None, None, plan=plan)
+    x = rmsnorm(params["final_norm"], x)
+    head = params.get("unembed", params["embed"])
+    return unembed(head, x), torch.zeros((), dtype=torch.float32,
+                                         device=x.device)
+
+
+def loss_fn(params, cfg: ArchConfig, batch, aux_weight: float = 0.01,
+            plan=None):
+    """Mean next-token cross-entropy (over ``batch["loss_mask"]`` when
+    given) plus ``aux_weight`` × the aux loss → (loss, metrics)."""
+    logits, aux = forward(params, cfg, batch, plan=plan)
+    ce = softmax_cross_entropy(logits, batch["labels"],
+                               batch.get("loss_mask"))
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
 def supports_masked_prefill(cfg: ArchConfig) -> bool:

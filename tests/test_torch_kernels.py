@@ -9,16 +9,20 @@ against its plain version on the card and skip where there is none.
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels import bsmm as rb
+from repro.kernels import ops as rops
 from repro.kernels import paged_attention as rpa
 from repro_torch import _bridge
 from repro_torch.kernels import bsmm as tb
+from repro_torch.kernels import ops as tops
 from repro_torch.kernels import paged_attention as tpa
+from repro_torch.kernels import ref as tref
 
 torch.set_num_threads(2)
 
@@ -140,6 +144,185 @@ def test_cpu_calls_run_the_plain_version_and_count_nothing():
     tb.bsmm_epilogue(torch.from_numpy(x), torch.from_numpy(w), plan,
                      torch.from_numpy(b), "relu")
     assert (tb.bsmm.launches, tb.bsmm_epilogue.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# bsmm backward (kernels #3 and #4) — plain versions through bsmm_apply
+# against the reference's custom VJP
+# ---------------------------------------------------------------------------
+_EPILOGUES = [(None, False), (None, True), ("relu", True), ("relu", False),
+              ("gelu", True), ("gelu", False), ("silu", True),
+              ("silu", False)]
+GRAD_TOL = dict(rtol=1e-4, atol=1e-3)      # as tests/test_bsmm_grad.py
+
+
+def _vjp_both(x, w, b, mask, g, act, with_bias):
+    """(out, dx, dw, db) of plan_matmul from both packages for the
+    cotangent g."""
+    bias_r = jnp.asarray(b) if with_bias else None
+
+    def rfn(x, w, *bias):
+        return rb.plan_matmul(x, w, rb.make_tile_plan(mask),
+                              bias=bias[0] if bias else None, act=act)
+
+    rargs = (jnp.asarray(x), jnp.asarray(w)) + ((bias_r,) if with_bias
+                                                else ())
+    rout, vjp = jax.vjp(rfn, *rargs)
+    rgrads = vjp(jnp.asarray(g))
+    targs = [torch.from_numpy(a).requires_grad_(True)
+             for a in ((x, w, b) if with_bias else (x, w))]
+    tout = tb.plan_matmul(targs[0], targs[1], tb.make_tile_plan(mask),
+                          bias=targs[2] if with_bias else None, act=act)
+    tgrads = torch.autograd.grad(tout, targs, torch.from_numpy(g))
+    return (np.asarray(rout), [np.asarray(a) for a in rgrads],
+            tout.detach().numpy(), [a.numpy() for a in tgrads])
+
+
+@pytest.mark.parametrize("M", [5, 24, 300])
+@pytest.mark.parametrize("act,with_bias", _EPILOGUES)
+def test_bsmm_apply_grads_match_reference(M, act, with_bias):
+    """Forward, dx, dw and db through ``plan_matmul`` against
+    ``jax.vjp`` of the reference's (column tile 0 all dead); dw is
+    exactly zero on dead tiles."""
+    x, w, b, mask = _operands(M * 3 + 1, M, 256, 384)
+    g = np.random.default_rng(M).standard_normal((M, 384)).astype(np.float32)
+    rout, rgrads, tout, tgrads = _vjp_both(x, w, b, mask, g, act, with_bias)
+    np.testing.assert_allclose(tout, rout, **TOL)
+    for name, got, want in zip(("dx", "dw", "db"), tgrads, rgrads):
+        np.testing.assert_allclose(got, want, err_msg=name, **GRAD_TOL)
+    dead = np.kron(tb.tile_bitmap(mask) == 0, np.ones((128, 128), bool))
+    assert dead[:, :128].all() and not np.any(tgrads[1][dead])
+
+
+def test_bsmm_apply_all_dead_mask():
+    x, w, b, _ = _operands(9, 7, 128, 256)
+    mask = np.zeros((128, 256), np.float32)
+    g = np.ones((7, 256), np.float32)
+    rout, rgrads, tout, tgrads = _vjp_both(x, w, b, mask, g, "silu", True)
+    np.testing.assert_allclose(tout, rout, **TOL)
+    assert not np.any(tgrads[0]) and not np.any(tgrads[1])
+    for got, want in zip(tgrads, rgrads):
+        np.testing.assert_allclose(got, want, **GRAD_TOL)
+
+
+def test_plan_matmul_grad_goes_through_bsmm_apply(monkeypatch):
+    """On the CPU the planned product is the autograd Function the card
+    runs, and its backward calls the plain dx and dw once each (it no
+    longer differentiates through the plain forward's ops)."""
+    x, w, b, mask = _operands(8, 6, 256, 256)
+    plan = tb.make_tile_plan(mask)
+    calls = {"dx": 0, "dw": 0}
+    dx_plain, dw_plain = tb.bsmm_dx_plain, tb.bsmm_dw_plain
+
+    def count(name, fn):
+        def wrapped(*a):
+            calls[name] += 1
+            return fn(*a)
+        return wrapped
+
+    monkeypatch.setattr(tb, "bsmm_dx_plain", count("dx", dx_plain))
+    monkeypatch.setattr(tb, "bsmm_dw_plain", count("dw", dw_plain))
+    xt = torch.from_numpy(x).reshape(2, 3, 256).requires_grad_(True)
+    wt = torch.from_numpy(w).requires_grad_(True)
+    out = tb.plan_matmul(xt, wt, plan)
+    assert type(out.grad_fn)._forward_cls is tb.BsmmApply
+    assert out.shape == (2, 3, 256)
+    out.sum().backward()
+    assert calls == {"dx": 1, "dw": 1}
+    assert xt.grad.shape == xt.shape and wt.grad.shape == wt.shape
+    bt = torch.from_numpy(b).requires_grad_(True)
+    out = tb.plan_matmul(xt, wt, plan, bias=bt, act="gelu")
+    assert type(out.grad_fn)._forward_cls is tb.BsmmApply
+    out.sum().backward()
+    assert calls == {"dx": 2, "dw": 2} and bt.grad is not None
+    with torch.inference_mode():          # serving: no graph, nothing saved
+        assert tb.plan_matmul(xt, wt, plan).grad_fn is None
+
+
+def test_bsmm_dx_dw_plain_match_reference():
+    """The plain backward versions against the reference's dx and dw
+    Pallas kernels, ragged M, column tile 0 dead."""
+    x, w, _, mask = _operands(11, 13, 384, 256)
+    g = np.random.default_rng(2).standard_normal((13, 256)).astype(
+        np.float32)
+    rplan = rb.make_tile_plan(mask)
+    xp = np.pad(x, ((0, 3), (0, 0)))
+    gp = np.pad(g, ((0, 3), (0, 0)))
+    want_dx = rb._bsmm_dx(jnp.asarray(gp), jnp.asarray(w), rplan, bm=16)
+    want_dw = rb._bsmm_dw(jnp.asarray(xp), jnp.asarray(gp), rplan, bm=16,
+                          out_dtype=jnp.float32)
+    plan = tb.make_tile_plan(mask)
+    got_dx = tb.bsmm_dx(torch.from_numpy(g), torch.from_numpy(w), plan)
+    got_dw = tb.bsmm_dw(torch.from_numpy(x), torch.from_numpy(g), plan)
+    np.testing.assert_allclose(got_dx.numpy(), np.asarray(want_dx)[:13],
+                               **TOL)
+    np.testing.assert_allclose(got_dw.numpy(), np.asarray(want_dw), **TOL)
+
+
+def test_bsmm_grad_wrappers_check_operands():
+    x, w, _, mask = _operands(12, 4, 256, 128)
+    plan = tb.make_tile_plan(mask)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    g = torch.zeros(4, 128)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tb.bsmm_dx(g.double(), wt.double(), plan)
+    with pytest.raises(tb.GeometryError, match="bsmm_dw"):
+        tb.bsmm_dw(xt, torch.zeros(4, 256), plan)
+    with pytest.raises(tb.GeometryError, match="bsmm_dx"):
+        tb.bsmm_dx(torch.zeros(4, 256), wt, plan)
+    before = (tb.bsmm_dx.launches, tb.bsmm_dw.launches)
+    tb.bsmm_dx(g, wt, plan)
+    tb.bsmm_dw(xt, g, plan)
+    assert (tb.bsmm_dx.launches, tb.bsmm_dw.launches) == before
+    devs = plan.device_tensors("cpu")
+    assert devs.kk.tolist() == plan.kk.tolist()
+    assert plan.device_tensors("cpu") is devs
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 256, 128), (5, 256, 128),
+                                   (64, 256, 256), (3, 128, 384)])
+def test_sparse_dense_grads_match_dense_oracle(M, K, N):
+    """Output, dx and dw of ``sparse_dense`` against ``jax.vjp`` of the
+    reference's (Pallas in interpret mode) and against the dense masked
+    oracle."""
+    rng = np.random.RandomState(M * 7 + K + N)
+    mask = (rng.rand(K, N) < 0.4).astype(np.float32)
+    if N >= 256:
+        mask[:, 128:256] = 0.0              # an all-dead tile column
+    x = rng.randn(M, K).astype(np.float32)
+    w = rng.randn(K, N).astype(np.float32)
+    rout, vjp = jax.vjp(lambda x, w: rops.sparse_dense(x, w, mask),
+                        jnp.asarray(x), jnp.asarray(w))
+    rdx, rdw = vjp(2 * rout)                # the cotangent of Σ out²
+    want = tuple(torch.from_numpy(np.array(a)) for a in (rout, rdx, rdw))
+    grads = []
+    for fn in (lambda x, w: tops.sparse_dense(x, w, mask),
+               lambda x, w: tref.masked_matmul_ref(x, w,
+                                                   torch.from_numpy(mask))):
+        xt = torch.from_numpy(x).requires_grad_(True)
+        wt = torch.from_numpy(w).requires_grad_(True)
+        out = fn(xt, wt)
+        out.square().sum().backward()
+        grads.append((out.detach(), xt.grad, wt.grad))
+    (o1, dx1, dw1), (o2, dx2, dw2) = grads
+    torch.testing.assert_close(o1, want[0], rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(dx1, want[1], rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(dw1, want[2], rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(o1, o2, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(dx1, dx2, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(dw1, dw2, rtol=1e-4, atol=1e-3)
+
+
+def test_sparse_dense_ragged_k_falls_back_and_tile_density():
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((4, 100)).astype(np.float32)
+    w = rng.standard_normal((100, 128)).astype(np.float32)
+    mask = (rng.random((100, 128)) < 0.5).astype(np.float32)
+    want = rops.sparse_dense(jnp.asarray(x), jnp.asarray(w), mask)
+    got = tops.sparse_dense(torch.from_numpy(x), torch.from_numpy(w), mask)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    m2 = _tile_mask(rng, 384, 256, 0.5)
+    assert tops.tile_density(m2) == rops.tile_density(m2)
 
 
 # ---------------------------------------------------------------------------
@@ -325,3 +508,46 @@ def test_cuda_paged_attention_matches_plain(cuda, dtype):
     got = tpa.paged_attention(*args, scale=128 ** -0.5)
     torch.testing.assert_close(
         got, tpa.paged_attention_ref(*args, scale=128 ** -0.5), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [8, 300, 1024])
+def test_cuda_bsmm_dx_dw_match_plain(cuda, dtype, M):
+    x, w, _, mask = _operands(M + 1, M, 512, 384, density=0.3)
+    g = np.random.default_rng(M).standard_normal((M, 384)).astype(np.float32)
+    plan = tb.make_tile_plan(mask)
+    xt, wt, gt = (torch.from_numpy(a).to(cuda, dtype) for a in (x, w, g))
+    tol = dict(rtol=1e-2, atol=1e-2) if dtype == torch.bfloat16 \
+        else dict(rtol=1e-4, atol=1e-4)
+    n0 = (tb.bsmm_dx.launches, tb.bsmm_dw.launches)
+    torch.testing.assert_close(tb.bsmm_dx(gt, wt, plan),
+                               tb.bsmm_dx_plain(gt, wt, plan), **tol)
+    dw = tb.bsmm_dw(xt, gt, plan)
+    torch.testing.assert_close(dw, tb.bsmm_dw_plain(xt, gt, plan), **tol)
+    assert (tb.bsmm_dx.launches, tb.bsmm_dw.launches) == (n0[0] + 1,
+                                                          n0[1] + 1)
+    dead = torch.from_numpy(np.kron(tb.tile_bitmap(mask) == 0,
+                                    np.ones((128, 128), bool))).to(cuda)
+    assert not dw[dead].any()
+
+
+@pytest.mark.cuda
+def test_cuda_plan_matmul_backward_matches_plain(cuda):
+    """A backward through plan_matmul on the card yields gradients (not
+    None) equal to the same backward on the CPU's plain versions."""
+    x, w, b, mask = _operands(21, 40, 256, 384)
+    plan = tb.make_tile_plan(mask)
+    g = np.random.default_rng(1).standard_normal((40, 384)).astype(
+        np.float32)
+    grads = {}
+    for dev in ("cpu", cuda):
+        args = [torch.from_numpy(a).to(dev).requires_grad_(True)
+                for a in (x, w, b)]
+        out = tb.plan_matmul(args[0], args[1], plan, bias=args[2],
+                             act="silu")
+        out.backward(torch.from_numpy(g).to(dev))
+        assert all(a.grad is not None for a in args)
+        grads[str(dev)] = [a.grad.cpu() for a in args]
+    for got, want in zip(grads[str(cuda)], grads["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
