@@ -14,8 +14,10 @@ no result line otherwise):
 2. check every kernel against its plain PyTorch version on the card, at
    the shapes serving and retraining llama3.2-3b give it (forward bsmm
    and its epilogue, paged attention, the backward dx and dw with a
-   ragged row count), in bfloat16 and float32, with the tolerance
-   printed, and time kernel, plain version and a library yardstick;
+   ragged row count) and serving deepseek-v3 gives it (the fused-V
+   paged attention of absorbed MLA, and bsmm batched over 256 experts),
+   in bfloat16 and float32, with the tolerance printed, and time
+   kernel, plain version and a library yardstick;
 3. serve 8 requests through ``ServeEngine`` at the full width and depth
    of llama3.2-3b (28 layers, random weights from a seeded generator)
    with a crossbar-pruned ticket (one seeded 128x128 tile bitmap per
@@ -28,18 +30,29 @@ no result line otherwise):
 5. retrain the full-width, full-depth ticket for 4 steps through
    ``LMAdapter.make_trainer(params, masks).run`` and check losses,
    parameters, pruned coordinates, ``sent_fraction`` and the launches
-   of every kernel per step; then profile one more step.
+   of every kernel per step; then profile one more step;
+6. free the llama models and serve 8 requests through ``ServeEngine`` on
+   deepseek-v3 at full width with its one cut, 61 layers to 4 (three
+   dense, one MoE layer of 256 experts, top-8, one shared expert; MLA
+   attention; ~30 GB of bf16 parameters), with a ticket of one seeded
+   tile bitmap per projection shared by every layer and expert, and
+   check that every request finishes with finite logits, that the
+   fused-V kernel ran once per layer and decode step (the GQA kernel
+   never), that the bsmm, epilogue and batched launches match the
+   model, and that block-sparse prefill agrees with dense prefill.
 
 Before the last line it prints ``{"kernels": [...]}`` (per kernel: its
-launches in its path's run — serving for the forward kernels and paged
-attention, retraining for dx and dw — its error against the plain
+launches in its path's run — llama serving for the 2-D forward kernels
+and GQA paged attention, retraining for dx and dw, deepseek serving for
+the batched bsmm and the fused-V kernel — its error against the plain
 version, its time, the plain version's, the bound and the library
-call's), the serving, gradient-check and retrain summaries and the
-card's name and power limit; the last line is
+call's), the serving, gradient-check, retrain and deepseek summaries
+and the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Longer records go to ``chiprun_out/``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -109,26 +122,37 @@ def random_bitmap(rng, K: int, N: int):
     return bm
 
 
-def bsmm_bound_ms(M, K, N, plan, elem, dtype_name) -> tuple:
+def bsmm_bound_ms(M, K, N, plan, elem, dtype_name, experts=1) -> tuple:
+    """Each expert's rows' live columns, live weight tiles and output
+    once (one plan for all experts), or their flops."""
     live_k = len(set(int(k) for j in range(len(plan.counts))
                      for k in plan.idx[j, :plan.counts[j]]))
-    nbytes = (M * live_k * 128 * elem + plan.live_tiles * 128 * 128 * elem
-              + M * N * elem + plan.idx.size * 4 + plan.counts.size * 4)
-    flops = 2.0 * M * plan.live_tiles * 128 * 128
+    nbytes = (experts * (M * live_k * 128 * elem
+                         + plan.live_tiles * 128 * 128 * elem + M * N * elem)
+              + plan.idx.size * 4 + plan.counts.size * 4)
+    flops = 2.0 * experts * M * plan.live_tiles * 128 * 128
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_bsmm(B):
+# (bias, activation) cases; (None, None) is the backward's pre-activation
+# recompute
+EPILOGUES = ((None, "silu"), ("bias", "silu"), ("bias", "relu"),
+             ("bias", "gelu"), ("bias", None), (None, None))
+
+
+def check_bsmm(B, shapes=BSMM_SHAPES, rows=BSMM_ROWS, epilogues=EPILOGUES,
+               timed=True, seed=1):
     """Both bsmm kernels against their plain versions at every shape;
-    times at every bfloat16 shape.  Returns (errors, times)."""
-    rng = np.random.default_rng(1)
+    with ``timed``, times at the bfloat16 shapes.  Returns (errors,
+    times)."""
+    rng = np.random.default_rng(seed)
     dev = "cuda"
     err = {"bsmm": 0.0, "bsmm_epilogue": 0.0}
     times = []
     for dtype in (torch.bfloat16, torch.float32):
-        for K, N in BSMM_SHAPES:
+        for K, N in shapes:
             bm = random_bitmap(rng, K, N)
             plan = B.make_tile_plan(np.kron(bm, np.ones((128, 128), bool)))
             require(int((plan.counts == 0).sum()) > 0, "no dead column")
@@ -136,12 +160,11 @@ def check_bsmm(B):
             w = (torch.randn(K, N, device=dev, generator=g) / K ** 0.5
                  ).to(dtype)
             bias = torch.randn(N, device=dev, generator=g).to(dtype)
-            for M in BSMM_ROWS:
+            for M in rows:
                 x = torch.randn(M, K, device=dev, generator=g).to(dtype)
                 cases = [("bsmm", B.bsmm(x, w, plan), B.bsmm_plain(x, w, plan))]
-                # (None, None) is the backward's pre-activation recompute
-                for b, act in ((None, "silu"), (bias, "silu"), (bias, "relu"),
-                               (bias, "gelu"), (bias, None), (None, None)):
+                for b, act in epilogues:
+                    b = bias if b == "bias" else None
                     cases.append(("bsmm_epilogue",
                                   B.bsmm_epilogue(x, w, plan, b, act),
                                   B.bsmm_epilogue_plain(x, w, plan, b, act)))
@@ -156,8 +179,9 @@ def check_bsmm(B):
                     require(e <= tol, f"{name} disagrees with its plain "
                             f"version at M={M} K={K} N={N} {dtype}")
                     err[name] = max(err[name], e)
-                if dtype == torch.bfloat16 and M in (8, 512):
+                if timed and dtype == torch.bfloat16 and M in (8, 512):
                     times.append(time_bsmm(B, x, w, bm, plan, M, K, N))
+            del w
     return err, times
 
 
@@ -282,71 +306,97 @@ def time_grads(B, x, g, w, bm, plan, M, K, N):
     return row
 
 
-def paged_inputs(dtype, g):
-    B_, Hq, Hkv, hd, T = 8, 24, 8, 128, 128
-    lengths = [1, 127, 128, 129, 300, 511, 64, 1000]
-    NB = 8
-    P = 1 + sum(-(-n // T) for n in lengths) + 2
+PAGED_LENGTHS = [1, 127, 128, 129, 300, 511, 64, 1000]
+
+
+def paged_inputs(dtype, g, Hq, Hkv, hd, fused):
+    """Batch 8 at the lengths above, a NaN scratch block behind every
+    dead table entry; ``fused`` leaves out the value pool (values are
+    the first lanes of each key row)."""
+    B_, T, NB = 8, 128, 8
+    P = 1 + sum(-(-n // T) for n in PAGED_LENGTHS) + 2
     kp = torch.randn(P, T, Hkv, hd, device="cuda", generator=g).to(dtype)
-    vp = torch.randn(P, T, Hkv, hd, device="cuda", generator=g).to(dtype)
     kp[0] = float("nan")          # scratch block: dead table entries
-    vp[0] = float("nan")
+    vp = None
+    if not fused:
+        vp = torch.randn(P, T, Hkv, hd, device="cuda", generator=g).to(dtype)
+        vp[0] = float("nan")
     tables = torch.zeros(B_, NB, dtype=torch.int32)
     nxt = 1
-    for b, n in enumerate(lengths):
+    for b, n in enumerate(PAGED_LENGTHS):
         for j in range(-(-n // T)):
             tables[b, j] = nxt
             nxt += 1
     q = torch.randn(B_, Hq, hd, device="cuda", generator=g).to(dtype)
-    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    lens = torch.tensor(PAGED_LENGTHS, dtype=torch.int32, device="cuda")
     return q, kp, vp, tables.cuda(), lens
 
 
-def check_paged(PA):
-    g = torch.Generator(device="cuda").manual_seed(7)
+def check_paged(PA, Hq=24, Hkv=8, hd=128, dv=None, scale=None, seed=7):
+    """Paged attention against its plain version, bf16 and f32, timed in
+    bf16: by default the GQA form (kernel #6) at llama3.2-3b's heads;
+    with ``dv`` the fused-V form (kernel #7), values the first dv lanes
+    of each key row."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    fused = dv is not None
+    name = "paged_attention_fused_v" if fused else "paged_attention"
+    scale = scale or hd ** -0.5
     err = 0.0
     row = None
     for dtype in (torch.bfloat16, torch.float32):
-        q, kp, vp, tables, lens = paged_inputs(dtype, g)
-        scale = q.shape[-1] ** -0.5
-        got = PA.paged_attention(q, kp, vp, tables, lens, scale=scale)
-        want = PA.paged_attention_ref(q, kp, vp, tables, lens, scale=scale)
+        q, kp, vp, tables, lens = paged_inputs(dtype, g, Hq, Hkv, hd, fused)
+        got = PA.paged_attention(q, kp, vp, tables, lens, scale=scale,
+                                 v_dim=dv)
+        want = PA.paged_attention_ref(q, kp, vp, tables, lens, scale=scale,
+                                      v_dim=dv)
         torch.cuda.synchronize()
         e = (got.float() - want.float()).abs().max().item()
         tol = tolerance(dtype, want)
-        print(f"check paged_attention {str(dtype)[6:]} B=8 Hq=24 Hkv=8 "
-              f"hd=128 lengths={lens.tolist()} max_abs_err={e:.3e} "
-              f"tol={tol:.3e}")
+        print(f"check {name} {str(dtype)[6:]} B=8 Hq={Hq} Hkv={Hkv} "
+              f"hd={hd} dv={dv or hd} lengths={lens.tolist()} "
+              f"max_abs_err={e:.3e} tol={tol:.3e}")
         require(torch.isfinite(got).all().item(),
-                "paged_attention saw a dead (NaN) block")
-        require(e <= tol, f"paged_attention disagrees ({dtype})")
+                f"{name} saw a dead (NaN) block")
+        require(e <= tol, f"{name} disagrees ({dtype})")
         err = max(err, e)
         if dtype == torch.bfloat16:
-            row = time_paged(PA, q, kp, vp, tables, lens, scale)
+            row = time_paged(PA, name, q, kp, vp, tables, lens, scale, dv)
     return err, row
 
 
-def time_paged(PA, q, kp, vp, tables, lens, scale):
+def time_paged(PA, name, q, kp, vp, tables, lens, scale, dv):
     B_, Hq, hd = q.shape
     Hkv = kp.shape[2]
+    dv = dv or hd
     kp = kp.clone()
-    vp = vp.clone()
     kp[0] = 0.0        # the library yardstick reads dead entries too
-    vp[0] = 0.0
-    row = {"B": B_, "Hq": Hq, "Hkv": Hkv, "hd": hd, "lengths": lens.tolist()}
-    # cycle pool copies: 28 layers of pools do not stay in the L2
-    copies = int(400e6 // (2 * kp.numel() * kp.element_size())) + 1
-    pools = [(kp.clone(), vp.clone()) for _ in range(copies)]
+    if vp is not None:
+        vp = vp.clone()
+        vp[0] = 0.0
+    row = {"B": B_, "Hq": Hq, "Hkv": Hkv, "hd": hd, "dv": dv,
+           "lengths": lens.tolist()}
+    # cycle pool copies: a model's layers of pools do not stay in the L2
+    pool_bytes = (kp.numel() + (0 if vp is None else vp.numel())) \
+        * kp.element_size()
+    copies = int(400e6 // pool_bytes) + 1
+    pools = [(kp.clone(), None if vp is None else vp.clone())
+             for _ in range(copies)]
     row["ms"] = time_ms(lambda i: PA.paged_attention(
-        q, *pools[i % copies], tables, lens, scale=scale))
+        q, *pools[i % copies], tables, lens, scale=scale,
+        v_dim=None if vp is not None else dv))
     row["plain_ms"] = time_ms(lambda i: PA.paged_attention_ref(
-        q, kp, vp, tables, lens, scale=scale), iters=5, graph=False)
-    # yardstick: SDPA on K/V already gathered to dense, heads expanded
+        q, kp, vp, tables, lens, scale=scale,
+        v_dim=None if vp is not None else dv), iters=5, graph=False)
+    # yardstick: SDPA on K/V already gathered to dense, each KV head
+    # expanded to its query heads (fused: V = K[..., :dv])
     G = Hq // Hkv
     k = PA.paged_gather(kp, tables).permute(0, 2, 1, 3)
-    v = PA.paged_gather(vp, tables).permute(0, 2, 1, 3)
     k = k.repeat_interleave(G, dim=1).contiguous()
-    v = v.repeat_interleave(G, dim=1).contiguous()
+    if vp is None:
+        v = k[..., :dv].contiguous()
+    else:
+        v = PA.paged_gather(vp, tables).permute(0, 2, 1, 3)
+        v = v.repeat_interleave(G, dim=1).contiguous()
     L = k.shape[2]
     mask = (torch.arange(L, device="cuda")[None] < lens[:, None].long())
     mask = mask[:, None, None, :]
@@ -355,14 +405,15 @@ def time_paged(PA, q, kp, vp, tables, lens, scale):
         qq, k, v, attn_mask=mask, scale=scale))
     elem = q.element_size()
     live = int(lens.sum().item())
-    nbytes = (q.numel() * elem + live * Hkv * 2 * hd * elem
-              + B_ * Hq * hd * elem + tables.numel() * 4 + B_ * 4)
-    flops = live * Hq * 4.0 * hd
+    row_bytes = Hkv * (hd if vp is None else 2 * hd) * elem
+    nbytes = (q.numel() * elem + live * row_bytes + B_ * Hq * dv * elem
+              + tables.numel() * 4 + B_ * 4)
+    flops = live * Hq * 2.0 * (hd + dv)
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
     t_o = flops / PEAK_FLOPS["bfloat16"] * 1e3
     row["bound_ms"] = max(t_b, t_o)
     row["bound_by"] = "bytes" if t_b >= t_o else "operations"
-    print("time paged_attention " + json.dumps(row))
+    print(f"time {name} " + json.dumps(row))
     return row
 
 
@@ -663,11 +714,17 @@ def retrain(cfg, device, steps: int = 4):
 def _kernel_group(name: str) -> str:
     """A profiled CUDA kernel's group: the bsmm kernels by role (dx is
     the forward template with its last template argument, TRANS,
-    true), cuBLAS products, PyTorch's elementwise kernels, the rest."""
+    true; the weight-streaming kernel runs the expert-batched products),
+    paged attention, cuBLAS products, PyTorch's elementwise kernels,
+    the rest."""
     import re
 
     if "bsmm_dw" in name:
         return "bsmm_dw"
+    if "bsmm_stream" in name:
+        return "bsmm_batched"
+    if "paged_attention" in name:
+        return "paged_attention"
     m = re.search(r"bsmm_\w+<([^>]*)>", name)
     if m:
         return "bsmm_dx" if m.group(1).replace(" ", "").endswith("true") \
@@ -680,8 +737,14 @@ def _kernel_group(name: str) -> str:
 
 
 def profile_step(trainer) -> dict:
-    """One more step under ``torch.profiler`` (after the counted run):
-    device time by kernel name, the step's host-clock time and the
+    """One more retrain step under ``torch.profiler`` (after the counted
+    run); see ``profile_call``."""
+    return profile_call(lambda: trainer.run(1))
+
+
+def profile_call(fn) -> dict:
+    """``fn()`` under ``torch.profiler``: device time by kernel name,
+    the call's host-clock time (``fn`` must end synchronised) and the
     device's busy share (kernel time over it).  A measurement, not a
     gate: where the profiler shows no device time it says so."""
     from torch.profiler import ProfilerActivity, profile
@@ -689,7 +752,7 @@ def profile_step(trainer) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         ts = time.perf_counter()
-        trainer.run(1)
+        fn()
         wall_ms = (time.perf_counter() - ts) * 1e3
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
@@ -714,6 +777,263 @@ def _mask_pairs(params, masks):
         for pos_p, pos_m in zip(seg_p, seg_m):
             for group, key in ROUTED:
                 yield pos_p[group][key], pos_m[group][key]
+
+
+# ---------------------------------------------------------------------------
+# deepseek-v3: the expert-batched bsmm and the serving phase
+# ---------------------------------------------------------------------------
+EXPERT_SHAPES = ((7168, 2048), (2048, 7168))    # up/gate, down
+# the 2-D bsmm shapes of deepseek-v3's dense FFNs (up/gate, down) and
+# shared expert, at its decode rows, the 17-token prompt and the longest
+DEEPSEEK_BSMM_SHAPES = ((7168, 18432), (18432, 7168)) + EXPERT_SHAPES
+DEEPSEEK_BSMM_ROWS = (8, 17, 300)
+EXPERT_ROWS = (8, 16, 20)     # rows per expert: decode, prefill, ragged
+EXPERTS = 256
+
+
+def check_bsmm_batched(B):
+    """The expert-batched bsmm against its plain version at deepseek-v3's
+    expert shapes (E = 256, one shared plan), M = 8, 16 and a ragged 20,
+    bf16 and f32; timed in bf16 at M = 8 and 16 beside torch.bmm on the
+    dense masked experts."""
+    rng = np.random.default_rng(3)
+    err = 0.0
+    times = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for K, N in EXPERT_SHAPES:
+            bm = random_bitmap(rng, K, N)
+            plan = B.make_tile_plan(np.kron(bm, np.ones((128, 128), bool)))
+            g = torch.Generator(device="cuda").manual_seed(K + 3 * N)
+            w = torch.randn(EXPERTS, K, N, device="cuda", generator=g,
+                            dtype=dtype) / K ** 0.5
+            for M in EXPERT_ROWS:
+                a = torch.randn(EXPERTS, M, K, device="cuda", generator=g,
+                                dtype=dtype)
+                got = B.bsmm_batched(a, w, plan)
+                want = B.bsmm_batched_plain(a, w, plan)
+                torch.cuda.synchronize()
+                e = (got.float() - want.float()).abs().max().item()
+                tol = tolerance(dtype, want)
+                print(f"check bsmm_batched {str(dtype)[6:]} E={EXPERTS} M={M} "
+                      f"K={K} N={N} max_abs_err={e:.3e} tol={tol:.3e}")
+                require(torch.isfinite(got).all().item(),
+                        "bsmm_batched non-finite")
+                require(e <= tol, f"bsmm_batched disagrees with its plain "
+                        f"version at M={M} K={K} N={N} {dtype}")
+                err = max(err, e)
+                if dtype == torch.bfloat16 and M in (8, 16):
+                    times.append(time_bsmm_batched(B, a, w, bm, plan, M, K,
+                                                   N))
+                del got, want
+            del w
+            torch.cuda.empty_cache()
+    return err, times
+
+
+def time_bsmm_batched(B, a, w, bm, plan, M, K, N):
+    """Kernel, plain and torch.bmm (dense masked experts) times; one
+    call reads gigabytes of weights, so nothing stays in the L2."""
+    row = {"E": EXPERTS, "M": M, "K": K, "N": N, "dtype": "bfloat16",
+           "live_tiles": plan.live_tiles, "total_tiles": plan.total_tiles}
+    row["ms"] = time_ms(lambda i: B.bsmm_batched(a, w, plan), iters=10)
+    row["plain_ms"] = time_ms(lambda i: B.bsmm_batched_plain(a, w, plan),
+                              iters=3, graph=False)
+    dense = w * torch.as_tensor(np.kron(bm, np.ones((128, 128))),
+                                dtype=w.dtype, device=w.device)
+    row["library_ms"] = time_ms(lambda i: torch.bmm(a, dense), iters=10)
+    del dense
+    row["bound_ms"], row["bound_by"] = bsmm_bound_ms(
+        M, K, N, plan, 2, "bfloat16", experts=EXPERTS)
+    print("time bsmm_batched " + json.dumps(row))
+    return row
+
+
+def build_expert_ticket(params, device):
+    """deepseek-v3's ticket: one seeded ~25 %-live 128x128 tile bitmap
+    per routed projection (dense-FFN, expert and shared-expert up, gate
+    and down), shared by every layer of a segment and every expert as
+    an expanded view, like ``build_ticket``.  MLA projections and the
+    router stay unpruned (the reference plans neither)."""
+    rng = np.random.default_rng(4321)
+
+    def bitmap(shape):
+        K, N = shape[-2:]
+        bm = torch.as_tensor(random_bitmap(rng, K, N), device=device)
+        return bm.repeat_interleave(128, 0).repeat_interleave(128, 1) \
+            .expand(shape)
+
+    def group(p):
+        m = {k: bitmap(p[k].shape) for k in ("up", "gate", "down")}
+        if "shared" in p:
+            m["shared"] = group(p["shared"])
+        return m
+
+    return {"segments": [[{g: group(p[g]) for g in ("mlp", "moe") if g in p}
+                          for p in pos_trees]
+                         for pos_trees in params["segments"]]}
+
+
+def serve_deepseek(cfg, device):
+    """Serve 8 requests through ``ServeEngine`` on deepseek-v3 at full
+    width, 4 layers (3 dense, 1 MoE of 256 experts), a crossbar ticket
+    shared by every layer and expert; check finishing, finite logits,
+    the launch counts the model implies and plan-vs-dense prefill."""
+    from repro_torch._bridge import tree_leaves
+    from repro_torch.core.masks import apply_masks_
+    from repro_torch.kernels import bsmm as B
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import Request, ServeEngine
+
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = tfm.init_params(gen, cfg, device=device)
+    masks = build_expert_ticket(params, device)
+    apply_masks_(params, masks)            # full-width copies do not fit
+    sync(device)
+    setup_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    eng = ServeEngine(params=params, cfg=cfg, masks=masks, batch_slots=8,
+                      capacity=512, device=device)
+    nonfinite = [0]
+    sample = eng._sample_row
+
+    def checked(row, rng):
+        nonfinite[0] += int((~np.isfinite(row)).sum())
+        return sample(row, rng)
+
+    eng._sample_row = checked
+    prng = np.random.default_rng(8)
+    lengths = (5, 17, 64, 127, 128, 129, 200, 300)
+    budgets = [16 + (i * 16) // 7 for i in range(len(lengths))]   # 16..32
+    reqs = [Request(uid=i, prompt=prng.integers(1, cfg.vocab_size, size=n)
+                    .astype(np.int32), max_new_tokens=budgets[i])
+            for i, n in enumerate(lengths)]
+    for r in reqs:
+        eng.submit(r)
+
+    counters = ((B.bsmm, "launches"), (B.bsmm_epilogue, "launches"),
+                (B.bsmm_batched, "launches"), (PA.paged_attention, "launches"),
+                (PA.paged_attention, "fused_launches"))
+    for f, attr in counters:
+        setattr(f, attr, 0)
+    step_ms = []
+    t0 = time.perf_counter()
+    while not eng.idle:
+        before = eng.report.prefills
+        ts = time.perf_counter()
+        eng.step()
+        sync(device)
+        if eng.report.prefills == before:       # a decode-only tick
+            step_ms.append((time.perf_counter() - ts) * 1e3)
+    serve_s = time.perf_counter() - t0
+    launches = {"bsmm": B.bsmm.launches,
+                "bsmm_epilogue": B.bsmm_epilogue.launches,
+                "bsmm_batched": B.bsmm_batched.launches,
+                "paged_attention": PA.paged_attention.launches,
+                "paged_attention_fused_v": PA.paged_attention.fused_launches}
+    rep = eng.report
+    require(all(r.done and len(r.tokens) == r.max_new_tokens for r in reqs),
+            "not every deepseek request finished")
+    require(nonfinite[0] == 0, f"{nonfinite[0]} non-finite logits")
+    # per pass: a dense layer runs up and down through bsmm and the gate
+    # through the epilogue; a MoE layer runs its three expert products
+    # batched and its shared expert like a dense FFN; MLA runs dense
+    n_moe = sum(1 for i in range(cfg.n_layers)
+                if tfm.layer_signature(cfg, i)[1])
+    n_dense = cfg.n_layers - n_moe
+    passes = rep.prefills + rep.decode_steps
+    want = {"bsmm": passes * 2 * (n_dense + n_moe),
+            "bsmm_epilogue": passes * (n_dense + n_moe),
+            "bsmm_batched": passes * 3 * n_moe,
+            "paged_attention": 0,
+            "paged_attention_fused_v": rep.decode_steps * cfg.n_layers}
+    print(f"deepseek launches {launches}, want {want} ({rep.prefills} "
+          f"prefills, {rep.decode_steps} decode steps, {n_dense} dense and "
+          f"{n_moe} MoE layers)")
+    require(launches == want, "deepseek launch counts do not match the model")
+
+    # block-sparse prefill through the plan vs dense prefill on the
+    # masked weights, at one exact-length prompt
+    n = 129
+    with torch.inference_mode():
+        batch = {"tokens": torch.as_tensor(reqs[5].prompt[None].astype(
+            np.int64), device=device)}
+        got, _ = tfm.prefill(params, cfg, batch, n, plan=eng.plan)
+        want_l, _ = tfm.prefill(params, cfg, batch, n)
+    diff = (got.float() - want_l.float()).abs().max().item()
+    scale = want_l.float().abs().max().item()
+    tol = 5e-2 * scale
+    same_argmax = bool((got.argmax(-1) == want_l.argmax(-1)).all().item())
+    print(f"check deepseek plan prefill vs dense masked prefill ({cfg.dtype},"
+          f" {cfg.n_layers} layers, exact length {n}): max_abs_err={diff:.4e} "
+          f"max|logit|={scale:.4e} tol={tol:.4e} same_argmax={same_argmax}")
+    require(bool(torch.isfinite(got).all().item()), "plan prefill non-finite")
+    require(diff <= tol, "deepseek plan prefill disagrees with dense prefill")
+
+    step_ms.sort()
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    profile = profile_decode(eng, cfg, device) if on_card else None
+    summary = {
+        "config": cfg.name, "n_layers": cfg.n_layers, "parameters": n_params,
+        "setup_s": setup_s, "serve_s": serve_s,
+        "decode_only_steps": len(step_ms),
+        "decode_step_ms_p50": step_ms[len(step_ms) // 2] if step_ms else None,
+        "decode_step_ms_min": step_ms[0] if step_ms else None,
+        "tokens_per_s": rep.tokens_per_s,
+        "ttft_p50_s": rep.ttft_p50, "ttft_p95_s": rep.ttft_p95,
+        "max_memory_allocated_bytes": peak,
+        "skipped_tile_fraction": rep.skipped_tile_fraction,
+        "launches": launches, "launches_want": want,
+        "prefill_plan_vs_dense_max_abs_err": diff,
+        "prefill_plan_vs_dense_tol": tol,
+        "decode_profile": profile,
+        "report": rep.__dict__,
+    }
+    print("deepseek serve: " + json.dumps(
+        {k: summary[k] for k in ("decode_step_ms_p50", "decode_step_ms_min",
+                                 "tokens_per_s", "ttft_p50_s", "ttft_p95_s",
+                                 "max_memory_allocated_bytes",
+                                 "skipped_tile_fraction")}))
+    return launches, summary
+
+
+def profile_decode(eng, cfg, device) -> dict:
+    """One decode-only tick with 8 busy slots under ``torch.profiler``:
+    8 more requests are prefilled first, then the next tick is profiled
+    (``profile_call``); the engine then runs to the end."""
+    from repro_torch.serve import Request
+
+    prng = np.random.default_rng(9)
+    for i in range(8):
+        eng.submit(Request(uid=200 + i, prompt=prng.integers(
+            1, cfg.vocab_size, size=64).astype(np.int32), max_new_tokens=4))
+    eng.step()                      # prefills all 8 and decodes once
+    eng.step()                      # warm decode-only tick
+    sync(device)
+
+    def tick():
+        eng.step()
+        sync(device)
+
+    out = profile_call(tick)
+    eng.run()
+    print("deepseek decode profile: " + json.dumps(
+        {k: v for k, v in out.items() if k != "top_kernels"}))
+    return out
+
+
+def deepseek_config():
+    """deepseek-v3-671b as registered, with its one cut: 61 layers -> 4
+    (three dense, one MoE: every block signature once)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch("deepseek-v3-671b"), n_layers=4)
 
 
 def sync(device) -> None:
@@ -752,12 +1072,32 @@ def main() -> int:
         bsmm_err, bsmm_times = check_bsmm(B)
         paged_err, paged_row = check_paged(PA)
         grad_err, grad_times = check_bsmm_grads(B)
+        # deepseek-v3's absorbed MLA: one latent head of r + dr = 576
+        # lanes under 128 query heads, values its first 512, scale
+        # 1/sqrt(qk_nope + qk_rope)
+        mla_err, mla_row = check_paged(PA, Hq=128, Hkv=1, hd=576, dv=512,
+                                       scale=192 ** -0.5, seed=11)
+        batched_err, batched_times = check_bsmm_batched(B)
+        # the dense FFN's gate and the shared expert's run the epilogue
+        # with silu and no bias
+        ds_err, _ = check_bsmm(B, DEEPSEEK_BSMM_SHAPES, DEEPSEEK_BSMM_ROWS,
+                               ((None, "silu"),), timed=False, seed=5)
+        bsmm_err = {k: max(v, ds_err[k]) for k, v in bsmm_err.items()}
+    torch.cuda.empty_cache()
     launches, summary = serve(cfg, "cuda")
     grad_summary = grad_check(cfg, "cuda")
     t_launches, train_summary = retrain(cfg, "cuda")
+    # the llama models are gone (each phase's locals); hand their memory
+    # back before the ~30 GB deepseek-v3 model is drawn
+    gc.collect()
+    torch.cuda.empty_cache()
+    ds_launches, ds_summary = serve_deepseek(deepseek_config(), "cuda")
 
     rep_row = next(r for r in bsmm_times if r["M"] == 8 and r["N"] == 8192)
     grad_row = next(r for r in grad_times if r["N"] == 8192)
+    # the expert up/gate shape at decode rows
+    batched_row = next(r for r in batched_times
+                       if r["M"] == 8 and r["N"] == 2048)
     kernels = [
         {"name": "bsmm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/bsmm.cu",
@@ -795,14 +1135,36 @@ def main() -> int:
              "bound_ms": grad_row[f"{kind}_bound_ms"],
              "bound_by": grad_row[f"{kind}_bound_by"],
              "library_ms": grad_row[f"{kind}_library_ms"]})
+    kernels += [
+        {"name": "bsmm_batched", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/bsmm.cu",
+         "replaces": "src/repro/kernels/bsmm.py:118",
+         "launches": ds_launches["bsmm_batched"], "max_abs_err": batched_err,
+         "ms": batched_row["ms"], "plain_ms": batched_row["plain_ms"],
+         "bound_ms": batched_row["bound_ms"],
+         "bound_by": batched_row["bound_by"],
+         "library_ms": batched_row["library_ms"]},
+        {"name": "paged_attention_fused_v", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+         "replaces": "src/repro/kernels/paged_attention.py:133",
+         "launches": ds_launches["paged_attention_fused_v"],
+         "max_abs_err": mla_err, "ms": mla_row["ms"],
+         "plain_ms": mla_row["plain_ms"], "bound_ms": mla_row["bound_ms"],
+         "bound_by": mla_row["bound_by"],
+         "library_ms": mla_row["library_ms"]},
+    ]
     (OUT / "chip_smoke_kernels.json").write_text(json.dumps(
         {"device": smi, "bsmm": bsmm_times, "paged_attention": paged_row,
-         "bsmm_grads": grad_times, "serve": summary,
-         "grad_check": grad_summary, "retrain": train_summary},
+         "bsmm_grads": grad_times, "paged_attention_fused_v": mla_row,
+         "bsmm_batched": batched_times, "serve": summary,
+         "grad_check": grad_summary, "retrain": train_summary,
+         "serve_deepseek": ds_summary},
         indent=1, default=str))
     print(json.dumps({"serve": summary}, default=str))
     print(json.dumps({"grad_check": grad_summary}))
     print(json.dumps({"retrain": train_summary}, default=str))
+    print(json.dumps({"serve_deepseek": {k: v for k, v in ds_summary.items()
+                                         if k != "report"}}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

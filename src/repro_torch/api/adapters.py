@@ -74,6 +74,7 @@ class LMAdapter(ModelAdapter):
                  step_deadline_s: Optional[float] = None,
                  use_bsmm: Optional[bool] = None, device="cuda"):
         from repro_torch.models import transformer as tfm
+        tfm.check_trainable(cfg)
         self._tfm = tfm
         self.cfg = cfg
         self.device = resolve_device(device)

@@ -14,7 +14,7 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
-# block kinds (only ATTN is served by this port so far)
+# block kinds (only ATTN — GQA or MLA — is served by this port so far)
 ATTN = "attn"
 LOCAL_ATTN = "local"
 RGLRU = "rglru"
@@ -136,6 +136,7 @@ def get_arch(name: str) -> ArchConfig:
 def _ensure_loaded():
     # configs register themselves on import; the port carries only the
     # architectures it can serve
+    import repro_torch.configs.deepseek_v3_671b  # noqa: F401
     import repro_torch.configs.llama3_2_3b  # noqa: F401
 
 

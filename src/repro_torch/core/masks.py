@@ -7,8 +7,9 @@ leaf may also broadcast to its parameter: a (K, N) mask on a stacked
 
 Prunable for LMs: every ≥2-D projection matrix — embeddings,
 unembedding, norms, routers, biases and conv kernels excluded (the
-reference's exclusion list, copied).  The CNN predicates come with the
-CNN slice.
+reference's exclusion list, copied), and for each model family the
+reference's predicate (``family_prunable``) where the port serves the
+family (dense and MoE so far).
 """
 from __future__ import annotations
 
@@ -46,6 +47,36 @@ def lm_prunable(path: str, leaf) -> bool:
                    for tok in _LM_EXCLUDE)
 
 
+# ---------------------------------------------------------------------------
+# Per-family predicates (the reference's, copied, for the families the
+# port can serve; the others come with their slices)
+# ---------------------------------------------------------------------------
+def moe_prunable(path: str, leaf) -> bool:
+    """MoE transformers: dense projections plus the stacked per-expert
+    ``up``/``gate``/``down`` tensors ``(E, d, d_ff)`` (and their stacked
+    ``(reps, E, d, d_ff)`` forms).  Routers stay dense — killing router
+    columns would silently disable experts without freeing crossbars."""
+    return lm_prunable(path, leaf)
+
+
+_FAMILY_PRUNABLE = {
+    "dense": lm_prunable,
+    "moe": moe_prunable,
+}
+_NOT_YET_PORTED = ("hybrid", "ssm", "vlm", "audio", "cnn")
+
+
+def family_prunable(family: str):
+    """The prunability predicate for a registered config family."""
+    if family in _NOT_YET_PORTED:
+        raise NotImplementedError(f"the {family!r} prunability predicate is "
+                                  "not yet ported to repro_torch")
+    if family not in _FAMILY_PRUNABLE:
+        raise KeyError(f"no prunable predicate for family {family!r}; "
+                       f"known: {sorted(_FAMILY_PRUNABLE)}")
+    return _FAMILY_PRUNABLE[family]
+
+
 def make_masks(params, prunable: Callable[[str, Any], bool]):
     """Full-ones float32 masks (on each leaf's device) for prunable
     leaves, None elsewhere."""
@@ -79,6 +110,26 @@ def apply_masks(params, masks):
         return p * _as_factor(m, p)
 
     return rec(params, masks)
+
+
+def apply_masks_(params, masks):
+    """``apply_masks`` IN PLACE: each masked leaf is multiplied by its
+    mask where it lies, so no masked copy of a full-width weight is
+    made.  Returns ``params``."""
+    def rec(p, m):
+        if m is None:
+            return
+        if isinstance(p, dict):
+            for k, v in p.items():
+                rec(v, m.get(k))
+        elif isinstance(p, (list, tuple)):
+            for a, b in zip(p, m):
+                rec(a, b)
+        else:
+            p.mul_(_as_factor(m, p))
+
+    rec(params, masks)
+    return params
 
 
 def mask_grads(grads, masks):

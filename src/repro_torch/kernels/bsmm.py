@@ -6,10 +6,12 @@ the live K tiles ``idx[j, :counts[j]]``; the CUDA kernels in
 ``csrc/bsmm.cu`` walk exactly those.  They replace the Pallas TPU
 kernels of ``repro/kernels/bsmm.py``: ``_bsmm_kernel`` and
 ``_bsmm_epilogue_kernel`` (forward), ``_bsmm_dx_kernel`` and
-``_bsmm_dw_kernel`` (backward).
+``_bsmm_dw_kernel`` (backward).  ``bsmm_batched`` is kernel #1 over a
+stack of experts sharing one plan, in one launch: the counterpart of
+the reference's ``jax.vmap`` of ``plan_matmul`` over the expert axis.
 
-Dispatch: ``bsmm``, ``bsmm_epilogue``, ``bsmm_dx`` and ``bsmm_dw``
-launch their kernel for CUDA tensors and run their plain PyTorch
+Dispatch: ``bsmm``, ``bsmm_epilogue``, ``bsmm_batched``, ``bsmm_dx`` and
+``bsmm_dw`` launch their kernel for CUDA tensors and run their plain PyTorch
 versions (``*_plain``) for CPU tensors; any other device raises.  Each
 wrapper counts its kernel launches in ``.launches``.  ``bsmm_apply`` is
 the differentiable product (a ``torch.autograd.Function``): forward
@@ -238,6 +240,30 @@ def bsmm_epilogue_plain(x2: torch.Tensor, w: torch.Tensor, plan: TilePlan,
     return _epilogue(z, act).to(x2.dtype)
 
 
+def bsmm_batched_plain(a: torch.Tensor, w: torch.Tensor,
+                       plan: TilePlan) -> torch.Tensor:
+    """Plain version of the expert-batched kernel #1: ``a[e] (M, K) @
+    (w[e] (K, N) ⊙ tile bitmap)`` for every expert e, one plan for all,
+    f32 accumulation, output (E, M, N) in a's dtype."""
+    E, M, K = a.shape
+    N = w.shape[2]
+    T = plan.tile
+    at = a.reshape(E, M, K // T, T)
+    wt = w.reshape(E, K // T, T, N)
+    out = torch.zeros((E, M, N), dtype=torch.float32, device=a.device)
+    for j in range(N // T):
+        c = int(plan.counts[j])
+        if c == 0:
+            continue
+        live = torch.as_tensor(plan.idx[j, :c], dtype=torch.long,
+                               device=a.device)
+        ag = at.index_select(2, live).reshape(E, M, c * T).float()
+        wg = wt[..., j * T:(j + 1) * T].index_select(1, live) \
+            .reshape(E, c * T, T).float()
+        out[..., j * T:(j + 1) * T] = torch.bmm(ag, wg)
+    return out.to(a.dtype)
+
+
 def bsmm_dx_plain(g: torch.Tensor, w: torch.Tensor,
                   plan: TilePlan) -> torch.Tensor:
     """Plain version of kernel #3: ``g (M, N) @ (w ⊙ tile bitmap)ᵀ`` →
@@ -297,6 +323,9 @@ def _lib():
     lib.bsmm_epilogue_launch.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
                                          _I, _I, _I, _I, _VP]
     lib.bsmm_epilogue_launch.restype = _I
+    lib.bsmm_batched_launch.argtypes = [_VP, _VP, _VP, _VP, _VP, _I, _I, _I,
+                                        _I, _I, _I, _VP]
+    lib.bsmm_batched_launch.restype = _I
     lib.bsmm_dx_launch.argtypes = [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
                                    _VP]
     lib.bsmm_dx_launch.restype = _I
@@ -398,6 +427,44 @@ def bsmm_epilogue(x2: torch.Tensor, w: torch.Tensor, plan: TilePlan,
 
 
 bsmm_epilogue.launches = 0
+
+
+_MAX_GRID_Z = 65535     # experts one batched launch takes (CUDA grid z)
+
+
+def bsmm_batched(a: torch.Tensor, w: torch.Tensor,
+                 plan: TilePlan) -> torch.Tensor:
+    """Kernel #1 batched over experts: ``a (E, M, K)`` and ``w (E, K, N)``
+    → ``out[e] = a[e] @ (w[e] ⊙ tile bitmap)``, (E, M, N) in a's dtype,
+    in ONE launch whose grid runs over the experts.  The plan is shared:
+    build it from the union of the expert masks (``models.plans``)."""
+    if a.ndim != 3 or w.ndim != 3 or a.shape[0] != w.shape[0]:
+        raise GeometryError("bsmm_batched takes a (E, M, K) and w (E, K, N)",
+                            shape=(*a.shape, *w.shape), where="bsmm_batched")
+    E, M, K = a.shape
+    _check_operands(a[0], w[0], plan, None, "bsmm_batched")
+    N = w.shape[2]
+    if a.device.type == "cpu":
+        return bsmm_batched_plain(a, w, plan)
+    if a.device.type != "cuda":
+        raise ValueError(f"bsmm_batched: unsupported device {a.device}")
+    if E > _MAX_GRID_Z:
+        raise GeometryError(f"bsmm_batched takes at most {_MAX_GRID_Z} "
+                            "experts", shape=a.shape, where="bsmm_batched")
+    stream = _check_launch(plan, "bsmm_batched", a, w)
+    dev = plan.device_tensors(a.device)
+    lib = _lib()
+    out = torch.empty((E, M, N), dtype=a.dtype, device=a.device)
+    code = lib.bsmm_batched_launch(a.data_ptr(), w.data_ptr(), out.data_ptr(),
+                                   dev.idx.data_ptr(), dev.counts.data_ptr(),
+                                   E, M, K, N, plan.kmax,
+                                   _DTYPE_CODES[a.dtype], stream)
+    _build.check(lib, code, "bsmm_batched")
+    bsmm_batched.launches += 1
+    return out
+
+
+bsmm_batched.launches = 0
 
 
 def _check_grad_operands(a, b, plan: TilePlan, where: str):

@@ -22,6 +22,17 @@
 // register tile of f32 accumulators.  The flush adds the bias
 // (in f32), applies the activation and casts to the output type.
 //
+// The expert-batched form (bsmm_batched_launch) is the same kernel with
+// grid z over E experts, each block offsetting x, w and out by its
+// expert's strides: the reference vmaps the Pallas call over the expert
+// axis into one launch, and so does this, with the one plan that the
+// union of the expert masks gives.  MoE rows per expert are few (8 at
+// decode, 16-24 at prefill) and the grid is wide (experts x column
+// tiles), so it takes bsmm_stream_kernel, which streams each live weight
+// tile through registers instead of staging it in shared memory.  Only
+// the batched form (E > 1) takes it: the 2-D launches keep the kernels
+// below, whatever their grid.
+//
 // bfloat16 at M >= 128 (prefill) multiplies on the tensor cores with
 // WMMA fragments (bsmm_wmma_kernel); float32, and every M < 128, use
 // CUDA-core FMA.
@@ -112,13 +123,17 @@ __global__ void __launch_bounds__((BM / TM) * (BN / TN))
 bsmm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
                 const T* __restrict__ bias, T* __restrict__ out,
                 const int* __restrict__ idx, const int* __restrict__ counts,
-                int M, int K, int N, int kmax, int act) {
+                int M, int K, int N, int kmax, int act, long long sx,
+                long long sw, long long so) {
   constexpr int NX = BN / TN;           // threads along N
   constexpr int NT = (BM / TM) * NX;    // threads per block
   constexpr int V = Vec<T>::N;          // elements per 16-byte load
   __shared__ float xs[BK][BM + 1];      // x sub-tile, transposed (k, m)
   __shared__ float ws[BK][BN + (TRANS ? 1 : 0)];   // B sub-tile (k, n)
 
+  x += blockIdx.z * sx;                 // this block's expert (batched form)
+  w += blockIdx.z * sw;
+  out += blockIdx.z * so;
   const int n0 = blockIdx.x * BN;
   const int m0 = blockIdx.y * BM;
   const int j = n0 / TILE;
@@ -215,7 +230,7 @@ bsmm_wmma_kernel(const __nv_bfloat16* __restrict__ x,
                  const __nv_bfloat16* __restrict__ bias,
                  __nv_bfloat16* __restrict__ out, const int* __restrict__ idx,
                  const int* __restrict__ counts, int M, int K, int N, int kmax,
-                 int act) {
+                 int act, long long sx, long long sw, long long so) {
   using namespace nvcuda;
   constexpr int BM = 128, BN = 128, BK = 64;
   constexpr int LDA = BK + 8;                    // padded, multiples of 8
@@ -226,6 +241,9 @@ bsmm_wmma_kernel(const __nv_bfloat16* __restrict__ x,
   __shared__ __align__(32) __nv_bfloat16 Bs[TRANS ? BN * LDB : BK * LDB];
   __shared__ __align__(32) float Cs[8][16 * 16];
 
+  x += blockIdx.z * sx;                 // this block's expert (batched form)
+  w += blockIdx.z * sw;
+  out += blockIdx.z * so;
   const int n0 = blockIdx.x * BN;
   const int m0 = blockIdx.y * BM;
   const int j = n0 / TILE;
@@ -312,36 +330,194 @@ bsmm_wmma_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+// E > 1 is the expert-batched form: grid z runs over E (x, w, out)
+// triples, sx, sw, so elements apart, that share one plan.
+// Few rows, many blocks (the expert-batched decode): every weight byte
+// feeds at most 8 rows, so the product is a stream of weight bytes.  A
+// block owns one 128-column plan tile j, 8 rows and one expert; for each
+// live K tile it starts all of its weight loads at once, straight from
+// global memory into registers (16 bytes along N a thread, so a warp
+// reads whole 256-byte row pieces), stages the 8 x 128 slice of x as
+// f32 in shared memory, and multiplies.  The tile's 128 k rows are split
+// over KG thread groups, whose partial sums meet once, after the last
+// tile, through shared memory.  It needs a wide grid to keep enough
+// loads in flight (one block per column tile, not per 32 columns), so
+// `launch` takes it only for the expert-batched form and only when the
+// grid fills the card twice over.
+template <typename T> struct Raw;     // CPT values of T in 16 bytes
+template <> struct Raw<float> {
+  static constexpr int CPT = 4;
+  __device__ __forceinline__ static void unpack(const uint4& v, float* out) {
+    out[0] = __uint_as_float(v.x); out[1] = __uint_as_float(v.y);
+    out[2] = __uint_as_float(v.z); out[3] = __uint_as_float(v.w);
+  }
+};
+template <> struct Raw<__nv_bfloat16> {
+  static constexpr int CPT = 8;
+  __device__ __forceinline__ static void unpack(const uint4& v, float* out) {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
+  }
+};
+
+constexpr int SM_ROWS = 8;            // rows per block of the stream kernel
+
+template <typename T, bool EPI>
+__global__ void __launch_bounds__(256)
+bsmm_stream_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                   const T* __restrict__ bias, T* __restrict__ out,
+                   const int* __restrict__ idx, const int* __restrict__ counts,
+                   int M, int K, int N, int kmax, int act, long long sx,
+                   long long sw, long long so) {
+  constexpr int MR = SM_ROWS;
+  constexpr int CPT = Raw<T>::CPT;     // columns per thread
+  constexpr int NG = TILE / CPT;       // column groups (16 bf16, 32 f32)
+  constexpr int KG = 256 / NG;         // k groups (16 bf16, 8 f32)
+  constexpr int KPT = TILE / KG;       // k rows per thread per tile
+  constexpr int V = Vec<T>::N;
+  constexpr int WARPS = 8;
+  __shared__ __align__(16) float xs[MR][TILE];          // x slice (m, k)
+  __shared__ __align__(16) float red[WARPS][MR][TILE];  // partial sums
+
+  x += blockIdx.z * sx;                 // this block's expert (batched form)
+  w += blockIdx.z * sw;
+  out += blockIdx.z * so;
+  const int m0 = blockIdx.x * MR;
+  const int j = blockIdx.y;
+  const int n0 = j * TILE;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
+  const int ng = tid % NG, kg = tid / NG;
+  const T* wcol = w + n0 + ng * CPT;
+
+  float acc[MR][CPT];
+#pragma unroll
+  for (int a = 0; a < MR; ++a)
+#pragma unroll
+    for (int b = 0; b < CPT; ++b) acc[a][b] = 0.f;
+
+  const int cnt = counts[j];
+  for (int t = 0; t < cnt; ++t) {
+    const int kb = idx[j * kmax + t] * TILE;
+    uint4 raw[KPT];                     // this tile's weights, in flight
+#pragma unroll
+    for (int i = 0; i < KPT; ++i)
+      raw[i] = *reinterpret_cast<const uint4*>(wcol + (size_t)(kb + kg + i * KG) * N);
+    for (int e = tid; e < MR * TILE / V; e += 256) {
+      const int r = e / (TILE / V), c = (e % (TILE / V)) * V;
+      const int m = m0 + r;
+      float v[V];
+      if (m < M) {
+        Vec<T>::load(x + (size_t)m * K + kb + c, v);
+      } else {
+#pragma unroll
+        for (int i = 0; i < V; ++i) v[i] = 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < V; ++i) xs[r][c + i] = v[i];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < KPT; ++i) {
+      const int k = kg + i * KG;
+      float wf[CPT];
+      Raw<T>::unpack(raw[i], wf);
+#pragma unroll
+      for (int a = 0; a < MR; ++a) {
+        const float xv = xs[a][k];
+#pragma unroll
+        for (int b = 0; b < CPT; ++b) acc[a][b] = fmaf(xv, wf[b], acc[a][b]);
+      }
+    }
+    __syncthreads();
+  }
+
+  // the KG partial sums of each output: the k groups of a warp first
+#pragma unroll
+  for (int o = NG; o < 32; o <<= 1)
+#pragma unroll
+    for (int a = 0; a < MR; ++a)
+#pragma unroll
+      for (int b = 0; b < CPT; ++b)
+        acc[a][b] += __shfl_xor_sync(0xffffffffu, acc[a][b], o);
+  if (lane < NG) {
+#pragma unroll
+    for (int a = 0; a < MR; ++a)
+#pragma unroll
+      for (int b = 0; b < CPT; ++b) red[warp][a][ng * CPT + b] = acc[a][b];
+  }
+  __syncthreads();
+  for (int e = tid; e < MR * TILE; e += 256) {
+    const int a = e / TILE, n = e % TILE;
+    const int m = m0 + a;
+    if (m >= M) continue;
+    float z = 0.f;
+#pragma unroll
+    for (int r = 0; r < WARPS; ++r) z += red[r][a][n];
+    if (EPI) {
+      if (bias != nullptr) z += to_f32(bias[n0 + n]);
+      z = activate(z, act);
+    }
+    out[(size_t)m * N + n0 + n] = from_f32<T>(z);
+  }
+}
+
+// the card's SM count, read once (the port drives one card)
+static int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
 template <typename T, bool EPI, bool TRANS>
 cudaError_t launch(const void* x, const void* w, const void* bias, void* out,
                    const int* idx, const int* counts, int M, int K, int N,
-                   int kmax, int act, cudaStream_t stream) {
+                   int kmax, int act, int E, long long sx, long long sw,
+                   long long so, cudaStream_t stream) {
   const T* xp = static_cast<const T*>(x);
   const T* wp = static_cast<const T*>(w);
   const T* bp = static_cast<const T*>(bias);
   T* op = static_cast<T*>(out);
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     if (M >= TILE) {
-      dim3 grid(N / TILE, (M + TILE - 1) / TILE);
-      bsmm_wmma_kernel<EPI, TRANS><<<grid, 256, 0, stream>>>(xp, wp, bp, op, idx,
-                                                            counts, M, K, N, kmax, act);
+      dim3 grid(N / TILE, (M + TILE - 1) / TILE, E);
+      bsmm_wmma_kernel<EPI, TRANS><<<grid, 256, 0, stream>>>(
+          xp, wp, bp, op, idx, counts, M, K, N, kmax, act, sx, sw, so);
       return cudaGetLastError();
     }
   }
-  if (M >= TILE) {
+  const long long stream_blocks =
+      (long long)E * (N / TILE) * ((M + SM_ROWS - 1) / SM_ROWS);
+  if (E > 1 && !TRANS && M <= 4 * SM_ROWS &&
+      stream_blocks >= 2 * sm_count()) {
+    // expert-batched, few rows over a grid that fills the card twice:
+    // stream the weights (the 2-D entry points keep their kernels)
+    dim3 grid((M + SM_ROWS - 1) / SM_ROWS, N / TILE, E);
+    bsmm_stream_kernel<T, EPI><<<grid, 256, 0, stream>>>(
+        xp, wp, bp, op, idx, counts, M, K, N, kmax, act, sx, sw, so);
+  } else if (M >= TILE) {
     constexpr int BM = 128, BN = 128, BK = 32, TM = 8, TN = 8;
-    dim3 grid(N / BN, (M + BM - 1) / BM);
+    dim3 grid(N / BN, (M + BM - 1) / BM, E);
     bsmm_fwd_kernel<T, BM, BN, BK, TM, TN, EPI, TRANS>
         <<<grid, (BM / TM) * (BN / TN), 0, stream>>>(xp, wp, bp, op, idx, counts,
-                                                      M, K, N, kmax, act);
+                                                      M, K, N, kmax, act, sx, sw, so);
   } else {
     // small M (decode): a whole plan tile per step, so one load round
     // trip per live tile instead of four
     constexpr int BM = 16, BN = 32, BK = 128, TM = 2, TN = 1;
-    dim3 grid(N / BN, (M + BM - 1) / BM);
+    dim3 grid(N / BN, (M + BM - 1) / BM, E);
     bsmm_fwd_kernel<T, BM, BN, BK, TM, TN, EPI, TRANS>
         <<<grid, (BM / TM) * (BN / TN), 0, stream>>>(xp, wp, bp, op, idx, counts,
-                                                      M, K, N, kmax, act);
+                                                      M, K, N, kmax, act, sx, sw, so);
   }
   return cudaGetLastError();
 }
@@ -349,14 +525,15 @@ cudaError_t launch(const void* x, const void* w, const void* bias, void* out,
 template <bool EPI, bool TRANS>
 int dispatch(const void* x, const void* w, const void* bias, void* out,
              const int* idx, const int* counts, int M, int K, int N, int kmax,
-             int dtype, int act, void* stream) {
+             int dtype, int act, void* stream, int E = 1, long long sx = 0,
+             long long sw = 0, long long so = 0) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float, EPI, TRANS>(x, w, bias, out, idx, counts, M, K, N, kmax,
-                                     act, s);
+                                     act, E, sx, sw, so, s);
   if (dtype == 1)
     return launch<__nv_bfloat16, EPI, TRANS>(x, w, bias, out, idx, counts, M, K, N,
-                                             kmax, act, s);
+                                             kmax, act, E, sx, sw, so, s);
   return cudaErrorInvalidValue;
 }
 
@@ -517,6 +694,19 @@ extern "C" int bsmm_epilogue_launch(const void* x, const void* w,
                                     void* stream) {
   return dispatch<true, false>(x, w, bias, out, idx, counts, M, K, N, kmax, dtype,
                                act, stream);
+}
+
+// The expert-batched forward (the reference's jax.vmap of plan_matmul over
+// experts, src/repro/models/moe.py:81-83): out[e] (M, N) = x[e] (M, K) @
+// (w[e] (K, N) * tile bitmap) for e < E, contiguous (E, M, K), (E, K, N)
+// and (E, M, N), one plan shared by every expert, one launch (grid z = e).
+extern "C" int bsmm_batched_launch(const void* x, const void* w, void* out,
+                                   const int* idx, const int* counts, int E,
+                                   int M, int K, int N, int kmax, int dtype,
+                                   void* stream) {
+  return dispatch<false, false>(x, w, nullptr, out, idx, counts, M, K, N, kmax,
+                                dtype, ACT_NONE, stream, E, (long long)M * K,
+                                (long long)K * N, (long long)M * N);
 }
 
 // dx (M, K) = g (M, N) @ (w (K, N) * tile bitmap)^T over the transposed

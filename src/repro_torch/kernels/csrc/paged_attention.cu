@@ -1,20 +1,32 @@
-// Paged decode attention (grouped-query form) for Hopper (sm_90a).
+// Paged decode attention for Hopper (sm_90a), in both of the
+// reference's forms.
 //
-// Replaces the Pallas TPU kernel
-// src/repro/kernels/paged_attention.py::_paged_kernel_kv.
+// Replaces the Pallas TPU kernels of src/repro/kernels/paged_attention.py:
+//   _paged_kernel_kv (grouped-query form: values from their own pool) and
+//   _paged_kernel (fused-V form of absorbed MLA: the values are the first
+//   dv lanes of each key row, the pool holding concat(c_kv, k_rope)).
 //
-//   q (B, Hq, hd), k_pool / v_pool (P, T, Hkv, hd|dv), tables (B, NB),
-//   lengths (B,) >= 1  ->  out (B, Hq, dv)
+//   q (B, Hq, hd), k_pool (P, T, Hkv, hd), v_pool (P, T, Hkv, dv) or, fused,
+//   none; tables (B, NB), lengths (B,) >= 1  ->  out (B, Hq, dv)
 //
-// One thread block per (KV head h, sequence b): the G = Hq / Hkv query
-// heads of the group share every K/V row the block reads.  The block
-// walks only the live logical blocks j < ceil(len / T), reading
-// pool[tables[b, j]]; table entries past them (the engine points them
-// at scratch block 0) are never touched, nor are the rows of the last
-// live block past len.  Scores are q . k in f32 (bf16 loads cast up),
-// then times `scale`, as the reference does; the softmax streams over
-// blocks with the running max m, the sum l and the accumulator kept in
-// f32 shared memory, and the flush writes acc / l in q's type.
+// One thread block per (KV head h, head group, sequence b): the G = Hq /
+// Hkv query heads of a KV head are split into groups of at most GB, and
+// a block takes one group, so that its f32 state fits in shared memory
+// at MLA's G = 128, hd = 576, dv = 512 (a whole group would need ~880 KB)
+// and a batch of 8 sequences fills 128 blocks.  The groups of one KV head
+// read the same K rows, the later ones from the L2.  Values are read
+// through (v_pool, v_ld): the GQA form passes its value pool with row
+// stride dv, the fused form passes the key pool again with row stride
+// hd, so the values are the first dv lanes of each key row and no second
+// pool exists.
+//
+// The block walks only the live logical blocks j < ceil(len / T), reading
+// pool[tables[b, j]]; table entries past them (the engine points them at
+// scratch block 0) are never touched, nor are the rows of the last live
+// block past len.  Scores are q . k in f32 (bf16 loads cast up), then
+// times `scale`, as the reference does; the softmax streams over blocks
+// with the running max m, the sum l and the accumulator kept in f32
+// shared memory, and the flush writes acc / l in q's type.
 //
 // Per block of T tokens: (1) scores, eight threads per key row, each
 // loading 16-byte pieces of it (a row is one contiguous hd run), summed
@@ -23,18 +35,20 @@
 // partial sums combined through shared memory.
 //
 // What bounds it on the H100: the K/V bytes of the live context (each
-// element is used for 2 G flops), so it is bound by memory.  The block
-// walks a sequence's blocks one after another, so the longest sequence
-// sets the time, and at decode batch 8 there are 64 blocks for 132 SMs;
-// splitting a sequence over blocks is later work.  Its time against
-// the bound is in PERF.md.
+// element is used for 2 G flops), so the GQA form is bound by memory.
+// The fused form at G = 128 does ~240 flops per latent-row byte, near
+// the card's bf16 ridge (~295); this kernel does them in f32 on the CUDA
+// cores, not the tensor cores, so its operations are what it waits on.
+// The block walks a sequence's blocks one after another, so the longest
+// sequence sets the time; splitting a sequence over blocks is later
+// work.  Its time against the bound is in PERF.md.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int MAX_G = 16;         // query heads per KV head the kernel takes
+constexpr int GB = 8;             // query heads per block (a head group)
 constexpr float NEG = -1e30f;     // finite mask value, as the reference's _NEG
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
@@ -93,16 +107,20 @@ __device__ __forceinline__ float warp_max(float v) {
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-paged_attention_kv_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                          const T* __restrict__ v_pool,
-                          const int* __restrict__ tables,
-                          const int* __restrict__ lengths, T* __restrict__ out,
-                          int Hq, int Hkv, int hd, int dv, int T_, int NB,
-                          float scale) {
+paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
+                       const T* __restrict__ v_pool,
+                       const int* __restrict__ tables,
+                       const int* __restrict__ lengths, T* __restrict__ out,
+                       int Hq, int Hkv, int hd, int dv, int v_ld, int T_,
+                       int NB, float scale) {
   constexpr int V = Vec<T>::N;
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
   const int G = Hq / Hkv;
+  const int ngb = (G + GB - 1) / GB;     // head groups per KV head
+  const int gbs = min(G, GB);            // smem rows per group
+  const int h = blockIdx.x / ngb;
+  const int g0 = (blockIdx.x % ngb) * GB;
+  const int gn = min(GB, G - g0);        // heads of this block's group
+  const int b = blockIdx.y;
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
@@ -110,18 +128,18 @@ paged_attention_kv_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   const int TG = THREADS / ND;      // token groups in the p @ v pass
 
   extern __shared__ float smem[];
-  float* qs = smem;                 // (G, hd)
-  float* s = qs + G * hd;           // (G, T) scores, then probabilities
-  float* acc = s + G * T_;          // (G, dv)
-  float* red = acc + G * dv;        // (TG, G, dv) partial p @ v
-  float* m = red + TG * G * dv;     // (G,)
-  float* l = m + G;                 // (G,)
-  float* corr = l + G;              // (G,)
+  float* qs = smem;                 // (gbs, hd)
+  float* s = qs + gbs * hd;         // (gbs, T) scores, then probabilities
+  float* acc = s + gbs * T_;        // (gbs, dv)
+  float* red = acc + gbs * dv;      // (TG, gbs, dv) partial p @ v
+  float* m = red + TG * gbs * dv;   // (gbs,)
+  float* l = m + gbs;               // (gbs,)
+  float* corr = l + gbs;            // (gbs,)
 
-  for (int e = tid; e < G * hd; e += THREADS)
-    qs[e] = to_f32(q[((size_t)b * Hq + h * G) * hd + e]);
-  for (int e = tid; e < G * dv; e += THREADS) acc[e] = 0.f;
-  if (tid < G) {
+  const size_t qrow = (size_t)b * Hq + (size_t)h * G + g0;   // first head
+  for (int e = tid; e < gn * hd; e += THREADS) qs[e] = to_f32(q[qrow * hd + e]);
+  for (int e = tid; e < gn * dv; e += THREADS) acc[e] = 0.f;
+  if (tid < gn) {
     m[tid] = NEG;
     l[tid] = 0.f;
   }
@@ -138,17 +156,17 @@ paged_attention_kv_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 
     // (1) scores: TPR threads per key row (T_ is a multiple of THREADS / TPR)
     for (int t = tid / TPR; t < T_; t += THREADS / TPR) {
-      float part[MAX_G];
+      float part[GB];
 #pragma unroll
-      for (int g = 0; g < MAX_G; ++g) part[g] = 0.f;
+      for (int g = 0; g < GB; ++g) part[g] = 0.f;
       if (t < live) {
         const T* krow = k_pool + ((p * T_ + t) * Hkv + h) * hd;
         for (int c = sub * V; c < hd; c += TPR * V) {
           float kv[V];
           Vec<T>::load(krow + c, kv);
 #pragma unroll
-          for (int g = 0; g < MAX_G; ++g) {
-            if (g < G) {
+          for (int g = 0; g < GB; ++g) {
+            if (g < gn) {
 #pragma unroll
               for (int i = 0; i < V; ++i) part[g] = fmaf(qs[g * hd + c + i], kv[i], part[g]);
             }
@@ -156,8 +174,8 @@ paged_attention_kv_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
         }
       }
 #pragma unroll
-      for (int g = 0; g < MAX_G; ++g) {
-        if (g < G) {
+      for (int g = 0; g < GB; ++g) {
+        if (g < gn) {
           float v = part[g];
           v += __shfl_xor_sync(0xffffffffu, v, 4);
           v += __shfl_xor_sync(0xffffffffu, v, 2);
@@ -169,7 +187,7 @@ paged_attention_kv_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     __syncthreads();
 
     // (2) streaming softmax update: one warp per query head
-    for (int g = warp; g < G; g += WARPS) {
+    for (int g = warp; g < gn; g += WARPS) {
       float mx = NEG;
       for (int t = lane; t < T_; t += 32) mx = fmaxf(mx, s[g * T_ + t]);
       mx = warp_max(mx);
@@ -193,16 +211,16 @@ paged_attention_kv_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 
     // (3) partial p @ v over this thread's token group, live rows only
     if (tg < TG) {
-      float pa[MAX_G][2];
+      float pa[GB][2];
 #pragma unroll
-      for (int g = 0; g < MAX_G; ++g) pa[g][0] = pa[g][1] = 0.f;
-      const T* vcol = v_pool + (p * T_ * Hkv + h) * dv + 2 * dp;
+      for (int g = 0; g < GB; ++g) pa[g][0] = pa[g][1] = 0.f;
+      const T* vcol = v_pool + (p * T_ * Hkv + h) * v_ld + 2 * dp;
 #pragma unroll 4
       for (int t = tg; t < live; t += TG) {
-        const float2 vv = Vec<T>::load2(vcol + (size_t)t * Hkv * dv);
+        const float2 vv = Vec<T>::load2(vcol + (size_t)t * Hkv * v_ld);
 #pragma unroll
-        for (int g = 0; g < MAX_G; ++g) {
-          if (g < G) {
+        for (int g = 0; g < GB; ++g) {
+          if (g < gn) {
             const float pg = s[g * T_ + t];
             pa[g][0] = fmaf(pg, vv.x, pa[g][0]);
             pa[g][1] = fmaf(pg, vv.y, pa[g][1]);
@@ -210,53 +228,64 @@ paged_attention_kv_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
         }
       }
 #pragma unroll
-      for (int g = 0; g < MAX_G; ++g) {
-        if (g < G) {
-          red[(tg * G + g) * dv + 2 * dp] = pa[g][0];
-          red[(tg * G + g) * dv + 2 * dp + 1] = pa[g][1];
+      for (int g = 0; g < GB; ++g) {
+        if (g < gn) {
+          red[(tg * gbs + g) * dv + 2 * dp] = pa[g][0];
+          red[(tg * gbs + g) * dv + 2 * dp + 1] = pa[g][1];
         }
       }
     }
     __syncthreads();
-    for (int e = tid; e < G * dv; e += THREADS) {
+    for (int e = tid; e < gn * dv; e += THREADS) {
       const int g = e / dv;
       float a = acc[e] * corr[g];
-      for (int r = 0; r < TG; ++r) a += red[r * G * dv + e];
+      for (int r = 0; r < TG; ++r) a += red[r * gbs * dv + e];
       acc[e] = a;
     }
     __syncthreads();
   }
 
-  for (int e = tid; e < G * dv; e += THREADS) {
-    const int g = e / dv, d = e % dv;
-    out[((size_t)b * Hq + h * G + g) * dv + d] = from_f32<T>(acc[e] / l[g]);
+  for (int e = tid; e < gn * dv; e += THREADS) {
+    const int g = e / dv;
+    out[qrow * dv + e] = from_f32<T>(acc[e] / l[g]);
   }
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
                    const int* tables, const int* lengths, void* out, int B,
-                   int Hq, int Hkv, int hd, int dv, int T_, int NB, float scale,
-                   cudaStream_t stream) {
+                   int Hq, int Hkv, int hd, int dv, int v_ld, int T_, int NB,
+                   float scale, cudaStream_t stream) {
   const int G = Hq / Hkv;
+  const int gbs = G < GB ? G : GB;
+  const int ngb = (G + GB - 1) / GB;
   const int TG = THREADS / (dv / 2);
-  const size_t smem = sizeof(float) * ((size_t)G * (hd + T_ + dv) +
-                                       (size_t)TG * G * dv + 3 * (size_t)G);
-  dim3 grid(Hkv, B);
-  paged_attention_kv_kernel<T><<<grid, THREADS, smem, stream>>>(
+  const size_t smem = sizeof(float) * ((size_t)gbs * (hd + T_ + dv) +
+                                       (size_t)TG * gbs * dv + 3 * (size_t)gbs);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        paged_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  dim3 grid(Hkv * ngb, B);
+  paged_attention_kernel<T><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pool),
       static_cast<const T*>(v_pool), tables, lengths, static_cast<T*>(out), Hq,
-      Hkv, hd, dv, T_, NB, scale);
+      Hkv, hd, dv, v_ld, T_, NB, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  The wrapper checks what the kernel
-// needs: Hq % Hkv == 0 and Hq / Hkv <= 16; hd a multiple of 8 x (16 bytes
-// of the dtype); T a multiple of 32; dv even with dv / 2 dividing 256;
-// 16-byte aligned pools; and (G (hd + T + dv) + (512 / dv) G dv + 3 G) x 4
-// bytes of shared memory <= 48 KiB.  Returns cudaGetLastError().
+// dtype: 0 = float32, 1 = bfloat16.  v_pool == nullptr selects the fused
+// form: values are the first dv lanes of each k_pool row.  The wrapper
+// checks what the kernel needs: Hq % Hkv == 0; hd a multiple of 8 x (16
+// bytes of the dtype); T a multiple of 32; dv even with dv / 2 dividing
+// 256 (dv <= hd in the fused form); 16-byte aligned pools; and
+// (g (hd + T + dv) + (512 / dv) g dv + 3 g) x 4 bytes of shared memory,
+// g = min(Hq / Hkv, 8), within the 227 KB a block may take.  Returns
+// cudaGetLastError().
 extern "C" int paged_attention_launch(const void* q, const void* k_pool,
                                       const void* v_pool, const int* tables,
                                       const int* lengths, void* out, int B,
@@ -264,12 +293,15 @@ extern "C" int paged_attention_launch(const void* q, const void* k_pool,
                                       int NB, float scale, int dtype,
                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool fused = v_pool == nullptr;
+  const void* vp = fused ? k_pool : v_pool;
+  const int v_ld = fused ? hd : dv;
   if (dtype == 0)
-    return launch<float>(q, k_pool, v_pool, tables, lengths, out, B, Hq, Hkv, hd,
-                         dv, T_, NB, scale, s);
+    return launch<float>(q, k_pool, vp, tables, lengths, out, B, Hq, Hkv, hd,
+                         dv, v_ld, T_, NB, scale, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k_pool, v_pool, tables, lengths, out, B, Hq,
-                                 Hkv, hd, dv, T_, NB, scale, s);
+    return launch<__nv_bfloat16>(q, k_pool, vp, tables, lengths, out, B, Hq,
+                                 Hkv, hd, dv, v_ld, T_, NB, scale, s);
   return cudaErrorInvalidValue;
 }
 

@@ -3,13 +3,17 @@
 The KV cache is a shared pool of ``BLOCK_TOKENS``-token blocks; every
 sequence owns a block table listing the physical blocks that hold its
 context in logical order.  ``paged_attention`` launches the CUDA kernel
-in ``csrc/paged_attention.cu`` (it replaces the Pallas TPU kernel
-``repro/kernels/paged_attention.py::_paged_kernel_kv``) for CUDA tensors
-and runs ``paged_attention_ref``, its plain version, for CPU tensors;
-``paged_attention.launches`` counts kernel launches.
+in ``csrc/paged_attention.cu`` for CUDA tensors and runs
+``paged_attention_ref``, its plain version, for CPU tensors.
 
-Only the grouped-query form with its own value pool is ported; the MLA
-fused-V form (``v_pool=None``) raises until the MLA slice.
+Two forms, as in the reference: grouped-query attention with its own
+value pool (kernel #6, replacing ``repro/kernels/paged_attention.py::
+_paged_kernel_kv``), and the fused-V form of absorbed MLA
+(``v_pool=None, v_dim=r``: the values are the first ``r`` lanes of each
+key row, the pool holding ``concat(c_kv, k_rope)``; kernel #7, replacing
+``_paged_kernel``).  One CUDA kernel serves both; the launches of each
+form are counted apart, ``paged_attention.launches`` (#6) and
+``paged_attention.fused_launches`` (#7).
 """
 from __future__ import annotations
 
@@ -27,9 +31,9 @@ from repro_torch.kernels.bsmm import GeometryError
 BLOCK_TOKENS = MXU_TILE
 
 _NEG = -1e30    # finite mask value (matches models.attention.attend)
-_MAX_G = 16     # query heads per KV head the CUDA kernel takes
+_GB = 8         # query heads per block of the CUDA kernel (a head group)
 _THREADS = 256  # threads per block of the CUDA kernel
-_SMEM_LIMIT = 48 * 1024
+_SMEM_LIMIT = 232448    # shared memory one block may take on the H100
 
 
 class PagedGeometry(NamedTuple):
@@ -81,11 +85,6 @@ def _check_geometry(q, k_pool, v_pool, tables, lengths,
                          NB=tables.shape[1], P=P, dv=dv)
 
 
-def _fused_v_not_ported():
-    return NotImplementedError("the fused-V (MLA) paged attention form is "
-                               "not yet ported")
-
-
 def paged_gather(pool, tables):
     """pool (P, T, ...) × tables (B, NB) → (B, NB*T, ...) in logical
     token order: token ``t`` of sequence ``b`` is
@@ -98,18 +97,17 @@ def paged_gather(pool, tables):
 
 def paged_attention_ref(q, k_pool, v_pool, tables, lengths, *,
                         scale: float, v_dim: Optional[int] = None):
-    """Plain version of kernel #6: gather the table rows, single-pass
-    masked softmax in f32 — the grouped math ``models.attention.attend``
-    uses.
+    """Plain version of kernels #6 and #7: gather the table rows,
+    single-pass masked softmax in f32 — the grouped math
+    ``models.attention.attend`` uses.  With ``v_pool=None`` the values
+    are the first ``v_dim`` lanes of the gathered keys.
 
     Keys and values past each length are zeroed before use, so dead
     pool contents (even NaN) never reach the output; on finite pools
     this is the reference's ``paged_attention_ref`` exactly."""
     geo = _check_geometry(q, k_pool, v_pool, tables, lengths, v_dim)
-    if v_pool is None:
-        raise _fused_v_not_ported()
     k = paged_gather(k_pool, tables)                  # (B, L, Hkv, hd)
-    v = paged_gather(v_pool, tables)
+    v = k[..., :geo.dv] if v_pool is None else paged_gather(v_pool, tables)
     B, L = k.shape[0], k.shape[1]
     G = geo.Hq // geo.Hkv
     valid = (torch.arange(L, device=q.device)[None]
@@ -127,16 +125,18 @@ def paged_attention_ref(q, k_pool, v_pool, tables, lengths, *,
 
 def _check_kernel_geometry(geo: PagedGeometry, elem: int) -> None:
     """What the CUDA kernel takes (see csrc/paged_attention.cu)."""
-    G = geo.Hq // geo.Hkv
+    g = min(geo.Hq // geo.Hkv, _GB)
     tg = _THREADS // (geo.dv // 2) if geo.dv >= 2 else 0
-    smem = 4 * (G * (geo.hd + geo.T + geo.dv) + tg * G * geo.dv + 3 * G)
-    if (G > _MAX_G or geo.hd % (16 // elem) or geo.T % 32 or geo.dv % 2
-            or geo.dv > 2 * _THREADS or smem > _SMEM_LIMIT):
+    smem = 4 * (g * (geo.hd + geo.T + geo.dv) + tg * g * geo.dv + 3 * g)
+    if (geo.hd % (16 // elem) or geo.T % 32 or geo.dv % 2
+            or geo.dv > 2 * _THREADS or _THREADS % max(geo.dv // 2, 1)
+            or smem > _SMEM_LIMIT):
         raise GeometryError(
-            f"the CUDA kernel takes G <= {_MAX_G}, hd a multiple of "
-            f"{16 // elem}, T a multiple of 32, an even dv <= {2 * _THREADS} "
-            f"and <= {_SMEM_LIMIT} bytes of shared memory (needs {smem})",
-            shape=(G, geo.hd, geo.T, geo.dv), where="paged_attention")
+            f"the CUDA kernel takes hd a multiple of {16 // elem}, T a "
+            f"multiple of 32, an even dv with dv/2 dividing {_THREADS} and "
+            f"<= {_SMEM_LIMIT} bytes of shared memory (needs {smem})",
+            shape=(geo.Hq // geo.Hkv, geo.hd, geo.T, geo.dv),
+            where="paged_attention")
 
 
 @functools.lru_cache(maxsize=None)
@@ -154,11 +154,13 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 def paged_attention(q, k_pool, v_pool, tables, lengths, *,
                     scale: float, v_dim: Optional[int] = None):
-    """Paged decode attention over a block pool (kernel #6).
+    """Paged decode attention over a block pool (kernel #6, or #7 with
+    ``v_pool=None``).
 
     q:        (B, Hq, hd) — one query per sequence
     k_pool:   (P, T, Hkv, hd) — the shared physical block pool
-    v_pool:   (P, T, Hkv, dv)
+    v_pool:   (P, T, Hkv, dv), or None with ``v_dim=dv <= hd`` for the
+              fused MLA form (values = ``k_pool[..., :dv]``)
     tables:   (B, NB) int32 — physical block per logical block; entries
               past a sequence's live blocks must still be valid pool ids
               (the engine points them at its scratch block)
@@ -168,41 +170,43 @@ def paged_attention(q, k_pool, v_pool, tables, lengths, *,
     Returns (B, Hq, dv) in q's dtype.
     """
     geo = _check_geometry(q, k_pool, v_pool, tables, lengths, v_dim)
-    if v_pool is None:
-        raise _fused_v_not_ported()
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pool, v_pool, tables, lengths,
-                                   scale=scale)
+                                   scale=scale, v_dim=v_dim)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
+    pools = (k_pool,) if v_pool is None else (k_pool, v_pool)
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
                     ("tables", tables), ("lengths", lengths)):
-        if t.device != q.device:
+        if t is not None and t.device != q.device:
             raise ValueError(f"paged_attention: {name} on {t.device}, q on "
                              f"{q.device}")
-    if q.dtype not in _DTYPE_CODES or k_pool.dtype != q.dtype \
-            or v_pool.dtype != q.dtype:
+    if q.dtype not in _DTYPE_CODES or any(t.dtype != q.dtype for t in pools):
         raise TypeError("paged_attention: q and the pools must share float32 "
                         "or bfloat16")
     if tables.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise TypeError("paged_attention: tables and lengths must be int32")
-    if not all(t.is_contiguous() for t in (q, k_pool, v_pool, tables,
-                                           lengths)):
+    if not all(t.is_contiguous() for t in (q, *pools, tables, lengths)):
         raise ValueError("paged_attention: operands must be contiguous")
     _check_kernel_geometry(geo, q.element_size())
-    if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
+    if any(t.data_ptr() % 16 for t in (q, *pools)):
         raise ValueError("paged_attention: q and the pools must be 16-byte "
                          "aligned")
     lib = _lib()
     out = torch.empty((geo.B, geo.Hq, geo.dv), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = lib.paged_attention_launch(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
+        q.data_ptr(), k_pool.data_ptr(),
+        None if v_pool is None else v_pool.data_ptr(), tables.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), geo.B, geo.Hq, geo.Hkv, geo.hd,
         geo.dv, geo.T, geo.NB, float(scale), _DTYPE_CODES[q.dtype], stream)
     _build.check(lib, code, "paged_attention")
-    paged_attention.launches += 1
+    if v_pool is None:
+        paged_attention.fused_launches += 1
+    else:
+        paged_attention.launches += 1
     return out
 
 
-paged_attention.launches = 0
+paged_attention.launches = 0          # kernel #6, the GQA form
+paged_attention.fused_launches = 0    # kernel #7, the fused-V form

@@ -1,12 +1,15 @@
-"""Grouped-query attention: prefill, KV caches and paged decode.
+"""Attention: grouped-query (GQA) and DeepSeek-style MLA — prefill, KV
+caches and paged decode.
 
-A port of the GQA half of ``repro.models.attention``: ``attend`` and
+A port of ``repro.models.attention``: ``attend`` and
 ``causal_attention`` are plain torch with the reference's finite
 ``-1e30`` mask (scores and softmax in float32, outputs in the compute
 dtype), as the reference's training and prefill attention is plain jnp;
 ``gqa_forward`` is the training forward; decode reads the paged block
-pool through the CUDA paged attention kernel.  MLA, sliding windows and
-dense-slot decode are not yet ported.
+pool through the CUDA paged attention kernel — the GQA form for GQA,
+the fused-V form for MLA's latent pool (absorbed decode: scores and
+values in the latent space).  Sliding windows and dense-slot decode
+(``gqa_decode``, ``mla_decode``) are not yet ported.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import torch
 
 from repro_torch.kernels import bsmm
 from repro_torch.kernels.paged_attention import BLOCK_TOKENS, paged_attention
-from repro_torch.models.layers import apply_rope, xavier
+from repro_torch.models.layers import apply_rope, rmsnorm, rmsnorm_init, xavier
 
 
 def gqa_init(gen, d_model: int, n_heads: int, n_kv_heads: int, head_dim: int,
@@ -228,3 +231,175 @@ def gqa_paged_decode(params, cache: PagedKVCache, x, *, n_heads, n_kv_heads,
     proj = bsmm.plan_matmul(out.reshape(B, 1, n_heads * head_dim),
                             params["wo"], (plan or {}).get("wo"))
     return proj, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek multi-head latent attention)
+# ---------------------------------------------------------------------------
+def mla_init(gen, d_model: int, n_heads: int, mla, dtype, device):
+    dn, dr, dv = mla.qk_nope_head_dim, mla.qk_rope_head_dim, mla.v_head_dim
+    r = mla.kv_lora_rank
+    return {
+        "w_dq": xavier(gen, (d_model, mla.q_lora_rank), dtype, device),
+        "q_norm": rmsnorm_init(mla.q_lora_rank, dtype, device),
+        "w_uq": xavier(gen, (mla.q_lora_rank, n_heads * (dn + dr)), dtype,
+                       device),
+        "w_dkv": xavier(gen, (d_model, r + dr), dtype, device),
+        "kv_norm": rmsnorm_init(r, dtype, device),
+        "w_uk": xavier(gen, (r, n_heads * dn), dtype, device),
+        "w_uv": xavier(gen, (r, n_heads * dv), dtype, device),
+        "wo": xavier(gen, (n_heads * dv, d_model), dtype, device),
+    }
+
+
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor       # (B, C, kv_lora_rank)
+    k_rope: torch.Tensor     # (B, C, qk_rope_head_dim)
+    index: Optional[torch.Tensor]
+
+
+def _mla_qkv_latent(params, x, mla, n_heads, rope_theta, positions):
+    """Shared front end: per-head q (nope, rope), latent c_kv and the
+    shared k_rope.  The MLA projections run dense: the reference builds
+    no tile plan for them."""
+    B, S, _ = x.shape
+    dn, dr = mla.qk_nope_head_dim, mla.qk_rope_head_dim
+    r = mla.kv_lora_rank
+    cq = rmsnorm(params["q_norm"], x @ params["w_dq"])
+    q = (cq @ params["w_uq"]).reshape(B, S, n_heads, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, positions, rope_theta)
+    dkv = x @ params["w_dkv"]                       # (B, S, r + dr)
+    c_kv = rmsnorm(params["kv_norm"], dkv[..., :r])
+    k_rope = apply_rope(dkv[..., r:][:, :, None, :], positions,
+                        rope_theta)[:, :, 0, :]     # one shared rope head
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_attend(params, q_nope, q_rope, c_kv, k_rope, *, n_heads, mla,
+                block_q: int):
+    """Expand the latents to per-head K/V and attend causally."""
+    B, S = c_kv.shape[:2]
+    dn, dr, dv = mla.qk_nope_head_dim, mla.qk_rope_head_dim, mla.v_head_dim
+    k_nope = (c_kv @ params["w_uk"]).reshape(B, S, n_heads, dn)
+    v = (c_kv @ params["w_uv"]).reshape(B, S, n_heads, dv)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, n_heads, dr)],
+                  dim=-1)
+    # causal_attention scales by 1/sqrt(dn + dr), q's width: the MLA scale
+    out = causal_attention(q, k, v, block_q=block_q)
+    return out.reshape(B, S, n_heads * dv) @ params["wo"]
+
+
+def mla_forward(params, x, *, n_heads, mla, rope_theta, block_q: int = 512):
+    """Prefill MLA over a full sequence: expand the latents to per-head
+    K/V (q and k of width dn + dr, v of width dv) and attend."""
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv_latent(
+        params, x, mla, n_heads, rope_theta, positions)
+    return _mla_attend(params, q_nope, q_rope, c_kv, k_rope,
+                       n_heads=n_heads, mla=mla, block_q=block_q)
+
+
+def mla_make_cache(params, x, *, n_heads, mla, rope_theta, capacity: int,
+                   block_q: int = 512, valid_len=None):
+    """Prefill: returns (attn_out_projected, MLACache of the latents).
+    The front end runs once (the reference runs it twice, with the same
+    result)."""
+    B, S, _ = x.shape
+    if valid_len is not None and S > capacity:
+        raise ValueError(f"valid_len prefill needs S <= capacity, "
+                         f"got S={S}, capacity={capacity}")
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv_latent(
+        params, x, mla, n_heads, rope_theta, positions)
+    out = _mla_attend(params, q_nope, q_rope, c_kv, k_rope,
+                      n_heads=n_heads, mla=mla, block_q=block_q)
+    keep = min(S, capacity)
+    cc = c_kv.new_zeros((B, capacity, mla.kv_lora_rank))
+    kr = k_rope.new_zeros((B, capacity, mla.qk_rope_head_dim))
+    cc[:, :keep] = c_kv[:, S - keep:]
+    kr[:, :keep] = k_rope[:, S - keep:]
+    if valid_len is None:
+        index = torch.tensor(S, dtype=torch.int32, device=x.device)
+    else:
+        index = torch.as_tensor(valid_len, dtype=torch.int32,
+                                device=x.device).reshape(B)
+    return out, MLACache(cc, kr, index)
+
+
+# ---------------------------------------------------------------------------
+# Paged MLA: latent rows (c_kv ‖ k_rope) in a shared block pool
+# ---------------------------------------------------------------------------
+class PagedLatentCache(NamedTuple):
+    """Paged absorbed-MLA state: one pool of latent rows per layer.
+
+    Each token stores ``concat(c_kv, k_rope)`` — width ``r + dr`` — as a
+    single "kv head"; the fused-V paged kernel reads the values as the
+    first ``r`` lanes of each row."""
+    pool: torch.Tensor       # (P, BLOCK_TOKENS, 1, kv_lora_rank + rope_dim)
+
+
+def mla_paged_spec(num_blocks: int, mla, dtype,
+                   block: int = BLOCK_TOKENS) -> PagedLatentCache:
+    """Shape/dtype of one layer's latent pool, as a meta tensor."""
+    width = mla.kv_lora_rank + mla.qk_rope_head_dim
+    return PagedLatentCache(pool=torch.empty((num_blocks, block, 1, width),
+                                             dtype=dtype, device="meta"))
+
+
+def mla_paged_adopt(paged: PagedLatentCache, cache: MLACache, blocks):
+    """Scatter one request's dense MLA prefill cache into pool blocks.
+
+    ``cache.c_kv`` is (..., 1, S, r) and the pool (..., P, T, 1, r + dr),
+    the same leading axes on both (a stacked segment's repeats).  Writes
+    the pool IN PLACE (unlike the reference's functional update) and
+    returns it."""
+    pool = paged.pool
+    S = cache.c_kv.shape[-2]
+    T = pool.shape[-3]
+    nb = len(blocks)
+    if nb != -(-S // T):
+        raise ValueError(f"adopt needs ceil({S}/{T}) block ids, got {nb}")
+    rows = torch.cat([cache.c_kv[..., 0, :, :], cache.k_rope[..., 0, :, :]],
+                     dim=-1)                        # (..., S, r + dr)
+    for i, pid in enumerate(blocks):
+        w = min(T, S - i * T)
+        pool[..., int(pid), :w, 0, :] = rows[..., i * T:i * T + w, :]
+    return paged
+
+
+def mla_paged_decode(params, cache: PagedLatentCache, x, *, n_heads, mla,
+                     rope_theta, tables, lens):
+    """One paged absorbed-MLA decode step.  See ``gqa_paged_decode``.
+
+    The new latent row ``concat(c_kv, k_rope)`` is written first; then
+    ``q_eff = concat(q_nope · W_uk, q_rope)`` (f32, cast to the pool's
+    dtype) attends over ``lens + 1`` latent rows through the fused-V
+    kernel with the MLA scale ``1/sqrt(dn + dr)``, and ``W_uv`` lifts
+    the latent context back to per-head values."""
+    B, S, _ = x.shape
+    if S != 1:
+        raise ValueError(f"paged decode takes one token per row, got S={S}")
+    dn, dr, dv = mla.qk_nope_head_dim, mla.qk_rope_head_dim, mla.v_head_dim
+    r = mla.kv_lora_rank
+    pos = lens.long()
+    q_nope, q_rope, c_new, kr_new = _mla_qkv_latent(
+        params, x, mla, n_heads, rope_theta, pos[:, None])
+    pool = cache.pool
+    T = pool.shape[1]
+    blk = tables[torch.arange(B, device=x.device), pos // T].long()
+    pool[blk, pos % T, 0] = torch.cat([c_new[:, 0], kr_new[:, 0]], dim=-1)
+    # absorb W_uk into q (f32 products, as the reference's
+    # preferred_element_type=float32)
+    w_uk = params["w_uk"].reshape(r, n_heads, dn)
+    q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].float(), w_uk.float())
+    q_eff = torch.cat([q_lat, q_rope[:, 0].float()], dim=-1)   # (B, H, r+dr)
+    ctx = paged_attention(q_eff.to(pool.dtype).contiguous(), pool, None,
+                          tables, (lens + 1).to(torch.int32),
+                          scale=1.0 / math.sqrt(dn + dr), v_dim=r)  # (B,H,r)
+    w_uv = params["w_uv"].reshape(r, n_heads, dv)
+    out = torch.einsum("bhr,rhd->bhd", ctx.float(), w_uv.float())
+    out = out.reshape(B, 1, n_heads * dv).to(x.dtype)
+    return out @ params["wo"], cache

@@ -67,6 +67,16 @@ def mlp_init(gen, d_model: int, d_ff: int, gated: bool, bias: bool,
     return p
 
 
+def _act(name: str, x):
+    """The reference's ``_act``: silu, or gelu in its tanh form (what
+    ``jax.nn.gelu`` computes by default)."""
+    if name == "silu":
+        return torch.nn.functional.silu(x)
+    if name == "gelu":
+        return torch.nn.functional.gelu(x, approximate="tanh")
+    raise ValueError(name)
+
+
 def mlp(params, x, act: str = "silu", plan=None):
     """``plan`` routes up/gate/down through the block-sparse kernel; bias
     adds and the gate (or up) activation ride its fused epilogue."""

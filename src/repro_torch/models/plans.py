@@ -1,14 +1,17 @@
 """Mask pytree → per-projection ``TilePlan`` walker.
 
-A port of ``repro.models.plans.build_decode_plan`` for the attention
-(``wq/wk/wv/wo``) and MLP (``up/gate/down``) groups.  The plan mirrors
-``params["segments"]`` so ``models.transformer`` threads it layer by
-layer; the same plan drives prefill and decode.
+A port of ``repro.models.plans.build_decode_plan``: the attention
+(``wq/wk/wv/wo``), MLP (``up/gate/down``) and MoE groups (the stacked
+expert tensors ``up/gate/down`` and the ``shared`` expert MLP).  MLA
+attention carries no ``wq`` and runs dense, as in the reference.  The
+plan mirrors ``params["segments"]`` so ``models.transformer`` threads
+it layer by layer; the same plan drives prefill and decode.
 
-Stacked segments run one loop body over their repeats, so per-repeat
-bitmaps are **unioned over the repeats axis**: a tile is skipped only
-when it is dead in every layer of the segment.  That is conservative
-but exact — pruned weights are exact zeros.
+Stacked segments run one loop body over their repeats and the experts
+of a layer share one batched launch, so bitmaps are **unioned over the
+repeats and expert axes**: a tile is skipped only when it is dead in
+every layer and expert sharing the product.  That is conservative but
+exact — pruned weights are exact zeros.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from repro_torch.kernels.bsmm import GeometryError, TilePlan, make_tile_plan
 
 _ATTN_KEYS = ("wq", "wk", "wv", "wo")
 _MLP_KEYS = ("up", "gate", "down")
+_EXPERT_KEYS = ("up", "gate", "down")   # stacked (E, d, d_ff) MoE tensors
 
 
 @dataclass
@@ -42,14 +46,19 @@ class PlanStats:
 
 
 def _union_mask(mask) -> Optional[np.ndarray]:
-    """Mask leaf (numpy array or tensor) → 2-D union over leading axes."""
+    """Mask leaf (numpy array or tensor) → 2-D union over leading axes.
+
+    A tensor is reduced one leading axis at a time, so an expanded view
+    (a ticket's (K, N) mask broadcast to (reps, E, K, N)) is never
+    copied to its full size; an axis of stride 0 repeats one slice, so
+    its union is that slice."""
     if mask is None:
         return None
     if torch.is_tensor(mask):
-        m = mask != 0
-        if m.ndim > 2:
-            m = m.flatten(0, m.ndim - 3).any(dim=0)
-        m = m.cpu().numpy()
+        m = mask
+        while m.ndim > 2:
+            m = m[0] if m.stride(0) == 0 else m.any(dim=0)
+        m = (m != 0).cpu().numpy()
     else:
         m = np.asarray(mask)
         if m.ndim > 2:
@@ -85,8 +94,7 @@ def build_decode_plan(masks, *, tile: int = MXU_TILE, strict: bool = False
     """Mask pytree → (plan mirroring params['segments'], PlanStats).
 
     Returns ``(None, empty stats)`` when the masks carry no routable
-    attention or MLP projection.  MoE groups are not yet ported and
-    raise.
+    projection (MLA attention is never routed).
     """
     if tile <= 0:
         raise GeometryError(f"tile edge must be positive, got {tile}",
@@ -103,8 +111,6 @@ def build_decode_plan(masks, *, tile: int = MXU_TILE, strict: bool = False
             if not isinstance(ptree, dict):
                 seg_plan.append(None)
                 continue
-            if ptree.get("moe") is not None:
-                raise NotImplementedError("MoE tile plans are not yet ported")
             attn = ptree.get("attn")
             if isinstance(attn, dict) and "wq" in attn:
                 g = _plan_group(attn, _ATTN_KEYS, f"seg{s_idx}.{pos}.attn",
@@ -117,6 +123,24 @@ def build_decode_plan(masks, *, tile: int = MXU_TILE, strict: bool = False
                                 stats, tile=tile, strict=strict)
                 if g:
                     entry["mlp"] = g
+            moe = ptree.get("moe")
+            if isinstance(moe, dict):
+                # stacked (E, d, d_ff) expert tensors union over the
+                # expert axis (and the repeats axis) into ONE shared
+                # plan: the batched expert kernel runs every expert
+                # with it
+                g = _plan_group(moe, _EXPERT_KEYS, f"seg{s_idx}.{pos}.moe",
+                                stats, tile=tile, strict=strict)
+                moe_entry: Dict[str, Any] = dict(g) if g else {}
+                shared = moe.get("shared")
+                if isinstance(shared, dict):
+                    sg = _plan_group(shared, _MLP_KEYS,
+                                     f"seg{s_idx}.{pos}.moe.shared",
+                                     stats, tile=tile, strict=strict)
+                    if sg:
+                        moe_entry["shared"] = sg
+                if moe_entry:
+                    entry["moe"] = moe_entry
             any_entry = any_entry or bool(entry)
             seg_plan.append(entry or None)
         plan.append(seg_plan)

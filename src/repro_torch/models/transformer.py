@@ -1,11 +1,12 @@
 """Decoder-only LM assembly: training forward, prefill and paged decode.
 
 A port of ``repro.models.transformer`` for architectures whose every
-block is global GQA attention with a dense FFN (llama-style).  A model
-is a list of *segments*; within a segment the per-layer parameters are
-stacked on a leading repeats axis, and the reference's ``lax.scan``
-over it becomes a loop here.  Anything else — MLA, MoE, windowed or
-recurrent blocks — raises "not yet ported".
+block is global attention — GQA (llama-style) or MLA — with a dense or
+MoE FFN (deepseek-style).  A model is a list of *segments*; within a
+segment the per-layer parameters are stacked on a leading repeats axis,
+and the reference's ``lax.scan`` over it becomes a loop here.  Windowed
+or recurrent blocks raise "not yet ported", and so does training
+(``forward``/``loss_fn``) an MLA or MoE model.
 
 Entry points: ``forward``/``loss_fn`` (training, full-sequence logits),
 ``prefill`` and ``decode_step_paged`` (serving).
@@ -23,6 +24,7 @@ from repro_torch._bridge import (resolve_device, tree_index, tree_leaves,
                                  tree_stack, tree_unbind)
 from repro_torch.configs.base import ATTN, LOCAL_ATTN, RGLRU, ArchConfig
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (_dtype, embed, embed_init, mlp,
                                        mlp_init, rmsnorm, rmsnorm_init,
                                        softmax_cross_entropy, unembed, xavier)
@@ -52,17 +54,24 @@ def _not_ported(what: str):
     return NotImplementedError(f"{what} is not yet ported to repro_torch")
 
 
-def _check_ported(cfg: ArchConfig) -> None:
+def _check_ported(cfg: ArchConfig, *, training: bool = False) -> None:
+    """Serving covers GQA and MLA attention with dense or MoE FFNs;
+    training (the forward with gradients) covers GQA with dense FFNs."""
     if set(cfg.blocks) != {ATTN}:
         raise _not_ported(f"block kinds {sorted(set(cfg.blocks))}")
-    if cfg.mla is not None:
-        raise _not_ported("MLA attention")
-    if cfg.moe is not None:
-        raise _not_ported("MoE")
+    if training and cfg.mla is not None:
+        raise _not_ported("training MLA attention")
+    if training and cfg.moe is not None:
+        raise _not_ported("training MoE")
     if cfg.norm != "rmsnorm":
         raise _not_ported(f"norm {cfg.norm!r}")
     if cfg.is_encoder_decoder or cfg.num_patch_tokens:
         raise _not_ported("encoder-decoder and patch-token inputs")
+
+
+def check_trainable(cfg: ArchConfig) -> None:
+    """Raise "not yet ported" unless ``forward``/``loss_fn`` cover cfg."""
+    _check_ported(cfg, training=True)
 
 
 # ---------------------------------------------------------------------------
@@ -112,16 +121,25 @@ def segments_of(cfg: ArchConfig) -> List[Segment]:
 # ---------------------------------------------------------------------------
 # Parameter init
 # ---------------------------------------------------------------------------
-def _layer_init(gen, cfg: ArchConfig, dtype, device):
+def _layer_init(gen, cfg: ArchConfig, sig, dtype, device):
+    _kind, is_moe = sig
     d = cfg.d_model
-    p = {"norm1": rmsnorm_init(d, dtype, device),
-         "attn": attn_lib.gqa_init(gen, d, cfg.n_heads, cfg.n_kv_heads,
-                                   cfg.head_dim_, cfg.qkv_bias, dtype,
-                                   device)}
+    p = {"norm1": rmsnorm_init(d, dtype, device)}
+    if cfg.mla is not None:
+        p["attn"] = attn_lib.mla_init(gen, d, cfg.n_heads, cfg.mla, dtype,
+                                      device)
+    else:
+        p["attn"] = attn_lib.gqa_init(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                      cfg.head_dim_, cfg.qkv_bias, dtype,
+                                      device)
     if cfg.d_ff > 0:
         p["norm2"] = rmsnorm_init(d, dtype, device)
-        p["mlp"] = mlp_init(gen, d, cfg.d_ff, cfg.gated_mlp, cfg.mlp_bias,
-                            dtype, device)
+        if is_moe:
+            p["moe"] = moe_lib.moe_init(gen, d, cfg.moe, cfg.gated_mlp,
+                                        dtype, device)
+        else:
+            p["mlp"] = mlp_init(gen, d, cfg.d_ff, cfg.gated_mlp,
+                                cfg.mlp_bias, dtype, device)
     return p
 
 
@@ -137,7 +155,7 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, *, device="cuda"):
         P = len(seg.sigs)
         pos_trees = []
         for pos in range(P):
-            layers = [_layer_init(gen, cfg, dtype, dev)
+            layers = [_layer_init(gen, cfg, seg.sigs[pos], dtype, dev)
                       for _ in range(seg.reps)]
             pos_trees.append(layers[0] if seg.reps == 1
                              else tree_stack(layers))
@@ -165,26 +183,46 @@ def _apply_block(cfg: ArchConfig, p, x, mode: str, cache, capacity,
     decode's block tables."""
     plan = plan or {}
     h = rmsnorm(p["norm1"], x)
+    new_cache = None
+    if mode == "decode" and paged is None:
+        raise _not_ported("decode without paged KV")
+    if cfg.mla is not None:
+        kw = dict(n_heads=cfg.n_heads, mla=cfg.mla, rope_theta=cfg.rope_theta)
+        if mode == "forward":
+            out = attn_lib.mla_forward(p["attn"], h, **kw)
+        elif mode == "prefill":
+            out, new_cache = attn_lib.mla_make_cache(
+                p["attn"], h, capacity=capacity, valid_len=valid_len, **kw)
+        else:
+            out, new_cache = attn_lib.mla_paged_decode(
+                p["attn"], cache, h, tables=paged[0], lens=paged[1], **kw)
+        return _apply_ffn(cfg, p, x + out, plan), new_cache
     kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
               head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta)
-    new_cache = None
     if mode == "forward":
         out = attn_lib.gqa_forward(p["attn"], h, plan=plan.get("attn"), **kw)
     elif mode == "prefill":
         out, new_cache = attn_lib.gqa_make_cache(
             p["attn"], h, capacity=capacity, valid_len=valid_len,
             plan=plan.get("attn"), **kw)
-    elif paged is not None:
+    else:
         out, new_cache = attn_lib.gqa_paged_decode(
             p["attn"], cache, h, tables=paged[0], lens=paged[1],
             plan=plan.get("attn"), **kw)
-    else:
-        raise _not_ported(f"{mode!r} mode without paged KV")
-    x = x + out
-    if cfg.d_ff > 0:
-        h2 = rmsnorm(p["norm2"], x)
-        x = x + mlp(p["mlp"], h2, cfg.act, plan=plan.get("mlp"))
-    return x, new_cache
+    return _apply_ffn(cfg, p, x + out, plan), new_cache
+
+
+def _apply_ffn(cfg: ArchConfig, p, x, plan):
+    """The block's second half: dense MLP or MoE (its aux loss only
+    matters to training, which does not run MoE here)."""
+    if cfg.d_ff <= 0:
+        return x
+    h2 = rmsnorm(p["norm2"], x)
+    if "moe" in p:
+        mo = moe_lib.moe_forward(p["moe"], h2, cfg.moe, cfg.act,
+                                 cfg.gated_mlp, plan=plan.get("moe"))
+        return x + mo.y
+    return x + mlp(p["mlp"], h2, cfg.act, plan=plan.get("mlp"))
 
 
 def _run_segments(cfg, params, x, mode, caches, capacity, valid_len=None,
@@ -246,8 +284,9 @@ def forward(params, cfg: ArchConfig, batch, plan=None):
     loss (always 0 here: MoE is not yet ported).  ``batch["tokens"]``:
     (B, S) integers.  ``plan`` (from ``train.plans.lm_train_plan``)
     routes the attention and MLP projections through the block-sparse
-    kernels, forward and backward."""
-    _check_ported(cfg)
+    kernels, forward and backward.  MLA and MoE models are not yet
+    trainable here."""
+    check_trainable(cfg)
     x = embed(params["embed"], batch["tokens"])
     x, _ = _run_segments(cfg, params, x, "forward", None, None, plan=plan)
     x = rmsnorm(params["final_norm"], x)
@@ -268,7 +307,9 @@ def loss_fn(params, cfg: ArchConfig, batch, aux_weight: float = 0.01,
 
 def supports_masked_prefill(cfg: ArchConfig) -> bool:
     """True when ``prefill`` takes a per-row ``valid_len`` (every block
-    global attention with a dense FFN, no patch prefix)."""
+    global attention with a dense FFN, no patch prefix).  MoE routing
+    computes expert capacity over all positions (pad tokens would shift
+    which real tokens are dropped), so MoE prefills at exact length."""
     return (set(cfg.blocks) == {ATTN} and not cfg.num_patch_tokens
             and cfg.moe is None and not cfg.is_encoder_decoder)
 
@@ -303,25 +344,28 @@ def prefill(params, cfg: ArchConfig, batch, capacity: int, valid_len=None,
 # ---------------------------------------------------------------------------
 def supports_paged_decode(cfg: ArchConfig) -> bool:
     """True when ``decode_step_paged`` covers this architecture (every
-    block global attention, not encoder-decoder).  MLA pages in the
-    reference too, but its pools are not yet ported."""
+    block global attention — GQA or MLA — not encoder-decoder)."""
     return set(cfg.blocks) == {ATTN} and not cfg.is_encoder_decoder
 
 
 def paged_cache_spec(cfg: ArchConfig, num_blocks: int):
     """Meta-tensor pytree mirroring params['segments']: one block pool
-    per attention layer, a leading reps axis on stacked segments."""
+    per attention layer (a ``PagedKVCache`` for GQA, a
+    ``PagedLatentCache`` for MLA), a leading reps axis on stacked
+    segments."""
     _check_ported(cfg)
     dtype = _dtype(cfg.dtype)
     out = []
     for seg in segments_of(cfg):
         pos_specs = []
         for _sig in seg.sigs:
-            s = attn_lib.gqa_paged_spec(num_blocks, cfg.n_kv_heads,
-                                        cfg.head_dim_, dtype)
+            if cfg.mla is not None:
+                s = attn_lib.mla_paged_spec(num_blocks, cfg.mla, dtype)
+            else:
+                s = attn_lib.gqa_paged_spec(num_blocks, cfg.n_kv_heads,
+                                            cfg.head_dim_, dtype)
             if seg.reps > 1:
-                s = attn_lib.PagedKVCache(
-                    *(t.expand(seg.reps, *t.shape) for t in s))
+                s = type(s)(*(t.expand(seg.reps, *t.shape) for t in s))
             pos_specs.append(s)
         out.append(pos_specs)
     return out
@@ -330,9 +374,8 @@ def paged_cache_spec(cfg: ArchConfig, num_blocks: int):
 def make_paged_caches(cfg: ArchConfig, num_blocks: int, *, device):
     """Zero-initialised block pools (see ``paged_cache_spec``)."""
     dev = resolve_device(device)
-    return [[attn_lib.PagedKVCache(
-                *(torch.zeros(t.shape, dtype=t.dtype, device=dev)
-                  for t in spec))
+    return [[type(spec)(*(torch.zeros(t.shape, dtype=t.dtype, device=dev)
+                          for t in spec))
              for spec in seg] for seg in paged_cache_spec(cfg, num_blocks)]
 
 
@@ -349,11 +392,13 @@ def adopt_prefill(cfg: ArchConfig, paged_caches, dense_caches, blocks):
     segs = segments_of(cfg)
     if len(segs) != len(paged_caches) or len(segs) != len(dense_caches):
         raise ValueError("cache structure does not match config segments")
+    adopt = (attn_lib.mla_paged_adopt if cfg.mla is not None
+             else attn_lib.gqa_paged_adopt)
     for seg_p, seg_d in zip(paged_caches, dense_caches):
         for pc, dc in zip(seg_p, seg_d):
             # a stacked segment's leading reps axis rides along in the
             # adopt's ellipsis indexing
-            attn_lib.gqa_paged_adopt(pc, dc, blocks)
+            adopt(pc, dc, blocks)
     return paged_caches
 
 

@@ -2,18 +2,21 @@
 
 A port of ``repro.serve.engine.ServeEngine``'s paged path.  The engine
 keeps a fixed array of decode *slots*.  Each request is prefilled on its
-own — right-padded to a length bucket and masked with ``valid_len`` —
-and its dense prefill cache is scattered into blocks of a shared KV
-pool (``serve.paging.BlockPool`` over ``models.transformer`` pools).
+own — right-padded to a length bucket and masked with ``valid_len``, or,
+where the model cannot mask padding (MoE routing), at the prompt's own
+length — and its dense prefill cache is scattered into blocks of a
+shared KV (or MLA latent) pool (``serve.paging.BlockPool`` over
+``models.transformer`` pools).
 All slots then advance through one paged decode step per token, each at
 its own position, and a finished slot is refilled from the queue at the
 next tick.  A request is admitted when ``ceil((prompt + budget) /
 BLOCK)`` blocks can be reserved, so decode never runs out of blocks.
 
-Given the pruned ticket's ``masks``, every attention and MLP projection
-of prefill and decode goes through the block-sparse kernel
-(``kernels.bsmm``), skipping dead 128x128 crossbar tiles, and decode
-attention reads only live KV blocks (``kernels.paged_attention``).
+Given the pruned ticket's ``masks``, every GQA attention, MLP and MoE
+expert projection of prefill and decode goes through the block-sparse
+kernels (``kernels.bsmm``; the experts batched, one launch per
+projection), skipping dead 128x128 crossbar tiles, and decode attention
+reads only live KV (or MLA latent) blocks (``kernels.paged_attention``).
 
 Not yet ported: dense-slot (non-paged) engines, hot-swap generations
 (``swap``/``rollback``), meshes and heartbeats.  Sampling happens on the
@@ -177,6 +180,7 @@ class ServeEngine:
         self.kv_blocks = int(kv_blocks)
         self.max_context = (self.kv_blocks - 1) * BLOCK_TOKENS
         self._buckets = _default_buckets(self.max_context)
+        self._masked_prefill = tfm.supports_masked_prefill(cfg)
         self.queue_limit = queue_limit
         self.clock = clock or time.perf_counter
 
@@ -267,21 +271,22 @@ class ServeEngine:
         return self._buckets[-1]
 
     def _prefill_request(self, req: Request, rng):
-        """Single-request bucketed prefill → (first token, caches, S).
+        """Single-request prefill → (first token, caches, S).
 
-        The dense cache's capacity is the padded prompt length S: it
-        lives only until it is scattered into pool blocks."""
+        Bucketed and masked where the model supports it, else at the
+        prompt's exact length (S = n).  The dense cache's capacity is S:
+        it lives only until it is scattered into pool blocks."""
         prompt = np.asarray(req.prompt, np.int32)
         n = len(prompt)
-        S = self._bucket(n)
+        S = self._bucket(n) if self._masked_prefill else n
         toks = np.zeros((1, S), np.int64)
         toks[0, :n] = prompt                            # right-pad
+        valid_len = (torch.tensor([n], dtype=torch.int32, device=self.device)
+                     if self._masked_prefill else None)
         logits, caches = tfm.prefill(
             self.params, self.cfg,
             {"tokens": torch.as_tensor(toks, device=self.device)}, S,
-            valid_len=torch.tensor([n], dtype=torch.int32,
-                                   device=self.device),
-            plan=self.plan)
+            valid_len=valid_len, plan=self.plan)
         tok = self._sample_row(logits[0, -1].float().cpu().numpy(), rng)
         return tok, caches, S
 
