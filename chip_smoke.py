@@ -39,15 +39,31 @@ no result line otherwise):
    check that every request finishes with finite logits, that the
    fused-V kernel ran once per layer and decode step (the GQA kernel
    never), that the bsmm, epilogue and batched launches match the
-   model, and that block-sparse prefill agrees with dense prefill.
+   model, and that block-sparse prefill agrees with dense prefill;
+7. run Algorithm 1 on vgg11 at its published widths through
+   ``make_adapter("vgg11", scale="full")`` and ``PruningSession(...).run()``
+   (the family's recipe cut to 4 prune rounds of 100 steps at a 5 %
+   rate, batch 128, ``SyntheticImages``), print every round's event, the accuracies, the
+   round and step times and the hardware report's crossbar savings,
+   export, re-import and finetune the ticket; then run kernel #9 on
+   every pruned leaf of the ticket (held to its plain version and to
+   the host crossbar count, at the session's geometry and at 64 x 256),
+   retrain an FC-tiling variant of vgg11 (``fc=(512,)``, a test variant)
+   under a ~25 %-live FC mask checking its bsmm launches per step, and
+   run the LTP baseline's product (kernel #5) on its FC layer; with
+   every kernel count set to 0 before and read after;
+8. check one full-width resnet18 train step on the card against the
+   CPU (float32, TF32 off).
 
-Before the last line it prints ``{"kernels": [...]}`` (per kernel: its
-launches in its path's run — llama serving for the 2-D forward kernels
-and GQA paged attention, retraining for dx and dw, deepseek serving for
-the batched bsmm and the fused-V kernel — its error against the plain
-version, its time, the plain version's, the bound and the library
-call's), the serving, gradient-check, retrain and deepseek summaries
-and the card's name and power limit; the last line is
+Phase 2 also holds tile stats (#9) and the masked LTP product (#5)
+against their plain versions and times them.  Before the last line it
+prints ``{"kernels": [...]}`` (per kernel: its launches in its path's
+run — llama serving for the 2-D forward kernels and GQA paged
+attention, retraining for dx and dw, deepseek serving for the batched
+bsmm and the fused-V kernel, the CNN path for #5 and #9 — its error
+against the plain version, its time, the plain version's, the bound and
+the library call's), the serving, gradient-check, retrain, deepseek and
+CNN summaries and the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  Longer records go to ``chiprun_out/``.
 """
 from __future__ import annotations
@@ -1036,6 +1052,462 @@ def deepseek_config():
     return dataclasses.replace(get_arch("deepseek-v3-671b"), n_layers=4)
 
 
+# ---------------------------------------------------------------------------
+# the CNN slice: Algorithm 1 on vgg11 at full width, the device-side
+# crossbar accounting of its ticket (kernel #9), an FC-tiling variant's
+# block-sparse retrain and the LTP baseline's product (kernel #5)
+# ---------------------------------------------------------------------------
+CNN_ROUNDS = 4          # prune rounds (max_iters; the paper runs to 20)
+CNN_STEPS = 100         # train steps per round (cnn-full: 300-400)
+CNN_RATE = 0.05         # per prune round (cnn-full: 0.25, 0.25, 0.20)
+CNN_TOLERANCE = 0.02    # accuracy gate, as examples/prune_cnn_lottery.py
+CNN_BATCH = 128
+LTP_SHAPE = (3072, 8192)
+LTP_ROWS = (8, 1024)
+STATS_CASES = ((4608, 512, torch.float32, 128, 128),     # vgg11's convs 6-7
+               (3072, 8192, torch.bfloat16, 128, 128),
+               (1000, 333, torch.float32, 64, 256))      # ragged, non-square
+
+
+def rel_err(got, want) -> float:
+    """Largest |got - want| relative to |want| (0 where both are 0)."""
+    d = (got.float() - want.float()).abs()
+    return (d / want.float().abs().clamp_min(1e-30)).max().item()
+
+
+def check_tile_stats(TS):
+    """Kernel #9 against its plain version (liveness exact, sums within
+    1e-5 relative) at vgg11's 4608 x 512 conv matrix (f32), a 3072 x 8192
+    bf16 weight and a ragged 64 x 256 geometry; timed at the first two.
+    Returns (max relative sums error, times)."""
+    err, times = 0.0, []
+    for K, N, dtype, bk, bn in STATS_CASES:
+        g = torch.Generator(device="cuda").manual_seed(K + N)
+        w = torch.randn(K, N, device="cuda", generator=g).to(dtype)
+        w[:2 * bk, :bn] = 0            # dead tiles
+        live, sums = TS.tile_stats(w, bk=bk, bn=bn)
+        p_live, p_sums = TS.tile_stats_plain(w, bk, bn)
+        torch.cuda.synchronize()
+        e = rel_err(sums, p_sums)
+        print(f"check tile_stats {str(dtype)[6:]} K={K} N={N} tile={bk}x{bn} "
+              f"live_equal={bool((live == p_live).all().item())} "
+              f"sums_rel_err={e:.3e} tol=1e-05")
+        require(bool((live == p_live).all().item()),
+                "tile_stats liveness disagrees with its plain version")
+        require(e <= 1e-5, "tile_stats sums disagree with their plain version")
+        require(int(live[0, 0].item()) == 0, "a dead tile reads as live")
+        err = max(err, e)
+        if (bk, bn) == (128, 128):
+            elem = w.element_size()
+            nbytes = K * N * elem + live.numel() * 8
+            row = {"K": K, "N": N, "dtype": str(dtype)[6:],
+                   "ms": time_ms(lambda i: TS.tile_stats(w, bk=bk, bn=bn)),
+                   "plain_ms": time_ms(lambda i: TS.tile_stats_plain(w, bk, bn),
+                                       iters=5, graph=False),
+                   "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                   "bound_by": "bytes", "library_ms": None}
+            print("time tile_stats " + json.dumps(row))
+            times.append(row)
+    return err, times
+
+
+def check_masked(B):
+    """Kernel #5 against its plain version on 3072 x 8192, f32 and bf16,
+    M = 8 and 1024, with (a) an iid ~90 %-sparse LTP mask (nearly every
+    tile live) and (b) a ~25 %-live tile bitmap expanded; timed beside
+    kernel #1 on the same tile plan (the crossbar-aware product, which
+    skips the dead tiles' bytes too) and torch.matmul on the dense
+    masked weight.  The mask is in w's dtype, as the reference's.
+    Returns (max error, times)."""
+    rng = np.random.default_rng(9)
+    K, N = LTP_SHAPE
+    err, times = 0.0, []
+    for dtype in (torch.bfloat16, torch.float32):
+        g = torch.Generator(device="cuda").manual_seed(77)
+        w = (torch.randn(K, N, device="cuda", generator=g) / K ** 0.5
+             ).to(dtype)
+        tile = np.kron(random_bitmap(rng, K, N), np.ones((128, 128), bool))
+        masks = {"ltp_iid_10pct": torch.rand(K, N, device="cuda",
+                                             generator=g) < 0.1,
+                 "tile_25pct": torch.as_tensor(tile, device="cuda")}
+        for kind, mb in masks.items():
+            m = mb.to(dtype)
+            plan = B.make_tile_plan(mb.cpu().numpy())
+            wm = w * m
+            for M in LTP_ROWS:
+                x = torch.randn(M, K, device="cuda", generator=g).to(dtype)
+                bm = M if M < 128 else 128
+                got = B.masked_matmul(x, w, m, bm=bm)
+                want = B.masked_matmul_plain(x, w, m)
+                torch.cuda.synchronize()
+                e = (got.float() - want.float()).abs().max().item()
+                tol = tolerance(dtype, want)
+                print(f"check masked_matmul {str(dtype)[6:]} {kind} M={M} "
+                      f"K={K} N={N} max_abs_err={e:.3e} tol={tol:.3e}")
+                require(torch.isfinite(got).all().item(),
+                        "masked_matmul non-finite")
+                require(e <= tol, f"masked_matmul disagrees with its plain "
+                        f"version at M={M} {kind} {dtype}")
+                err = max(err, e)
+                elem = w.element_size()
+                nbytes = 2 * K * N * elem + M * K * elem + M * N * elem
+                flops = 2.0 * M * plan.live_tiles * 128 * 128
+                t_b = nbytes / HBM_BYTES_PER_S * 1e3
+                t_o = flops / PEAK_FLOPS[str(dtype)[6:]] * 1e3
+                row = {"M": M, "K": K, "N": N, "dtype": str(dtype)[6:],
+                       "mask": kind, "live_tiles": plan.live_tiles,
+                       "total_tiles": plan.total_tiles,
+                       "ms": time_ms(lambda i: B.masked_matmul(x, w, m, bm=bm)),
+                       "plain_ms": time_ms(
+                           lambda i: B.masked_matmul_plain(x, w, m), iters=5,
+                           graph=False),
+                       "bsmm_ms": time_ms(lambda i: B.bsmm(x, wm, plan)),
+                       "library_ms": time_ms(lambda i: torch.matmul(x, wm)),
+                       "bound_ms": max(t_b, t_o),
+                       "bound_by": "bytes" if t_b >= t_o else "operations"}
+                print("time masked_matmul " + json.dumps(row))
+                times.append(row)
+            del wm
+    return err, times
+
+
+def _timed(adapter, device, train_s, losses, accs):
+    """Wrap the adapter's train and evaluate to record each train's
+    wall time (synchronised) and loss, and every accuracy."""
+    train, evaluate = adapter.train, adapter.evaluate
+
+    def timed_train(*a, **kw):
+        ts = time.perf_counter()
+        out = train(*a, **kw)
+        sync(device)
+        train_s.append(time.perf_counter() - ts)
+        losses.append(float(adapter.last_metrics["loss"]))
+        return out
+
+    def recorded_evaluate(*a, **kw):
+        accs.append(evaluate(*a, **kw))
+        return accs[-1]
+
+    adapter.train, adapter.evaluate = timed_train, recorded_evaluate
+
+
+def cnn_session(device, rounds=CNN_ROUNDS, steps=CNN_STEPS):
+    """Algorithm 1 on vgg11 at its published widths, through the entry
+    points a user calls: ``make_adapter(scale="full")`` and
+    ``PruningSession(...).run()`` with the family's tuned recipe cut to
+    ``steps`` per round, ``rounds`` prune rounds and a prune rate of
+    ``CNN_RATE`` a round; then the hardware report, the ticket's export
+    and re-import, and a finetune.  Data is ``SyntheticImages`` (the
+    datasets are not in the repository).  The rate is cut because the
+    gate scores each prune before any retraining: after 100 steps on
+    this data a 25 % structured prune drops vgg11's accuracy to
+    0.2-0.8, and no round would pass."""
+    import dataclasses
+    import shutil
+
+    from repro_torch._bridge import tree_leaves
+    from repro_torch.api import PruningSession, get_recipe, make_adapter
+    from repro_torch.configs import PruneConfig
+    from repro_torch.core import lottery
+
+    adapter = make_adapter("vgg11", scale="full", steps=steps,
+                           batch_size=CNN_BATCH, lr=0.1, lr_decay=0.95,
+                           device=device)
+    require(adapter.use_bsmm == (torch.device(device).type == "cuda"),
+            "CNNAdapter's use_bsmm does not follow its device")
+    train_s, losses, accs, events = [], [], [], []
+    _timed(adapter, device, train_s, losses, accs)
+    family = get_recipe(adapter.recipe).with_retrain_steps(steps)
+    recipe = family.replace(stages=tuple(
+        dataclasses.replace(s, rate=CNN_RATE) if s.kind == "prune" else s
+        for s in family.stages))
+    t0 = time.perf_counter()
+    event_t = []
+
+    def on_event(e):
+        sync(device)
+        events.append(e)
+        event_t.append(time.perf_counter())
+
+    sess = PruningSession(adapter, PruneConfig(
+        max_iters=rounds, accuracy_tolerance=CNN_TOLERANCE),
+        recipe=recipe, callbacks=[on_event])
+    res = sess.run()
+    sync(device)
+    run_s = time.perf_counter() - t0
+    # each round's wall time (the first also holds the baseline's train)
+    round_s = [b - a for a, b in zip([t0] + event_t, event_t)]
+    for e in events:
+        print(f"cnn event {e.iteration} [{e.stage}] {e.kind} "
+              f"{e.granularity}: {'accepted' if e.accepted else 'undone'} "
+              f"sparsity {e.sparsity_before:.4f} -> {e.sparsity_after:.4f} "
+              f"accuracy {e.accuracy:.4f}")
+    rep = sess.hardware_report()
+    ticket = OUT / "cnn_ticket"
+    sess.export_ticket(str(ticket))
+    w_back, m_back = lottery.import_ticket(str(ticket), sess.init_params,
+                                           res.masks)
+    meta = lottery.ticket_meta(str(ticket))
+    shutil.rmtree(ticket)
+    same = all(bool(torch.equal(a, b)) for a, b in zip(
+        tree_leaves(w_back) + tree_leaves(m_back),
+        tree_leaves(sess.init_params) + tree_leaves(res.masks)))
+    tuned = sess.finetune(steps=steps)
+    final_acc = adapter.evaluate(tuned, res.masks)
+    train_s = list(train_s)             # the profiled train is not counted
+    profile = (profile_call(lambda: adapter.train(res.params, res.masks, 3))
+               if torch.device(device).type == "cuda" else None)
+    require(all(np.isfinite(losses)), f"non-finite CNN loss {losses}")
+    require(any(e.accepted and e.kind == "prune" for e in events),
+            "no prune round was accepted")
+    require(same, "the re-imported ticket differs from the exported one")
+    require(meta.get("arch") == "vgg11", f"ticket meta {meta}")
+    require(all(bool(torch.isfinite(t).all().item())
+                for t in tree_leaves(tuned)), "non-finite finetuned weight")
+    n_steps = steps * len(train_s)
+    summary = {
+        "config": "vgg11", "params": adapter.cfg.param_count(),
+        "rounds": rounds, "steps_per_round": steps, "batch": CNN_BATCH,
+        "rate": CNN_RATE, "accuracy_tolerance": CNN_TOLERANCE,
+        "recipe": recipe.name, "cudnn_allow_tf32":
+            torch.backends.cudnn.allow_tf32,
+        "events": [{"stage": e.stage, "kind": e.kind,
+                    "granularity": e.granularity, "accepted": e.accepted,
+                    "sparsity": e.sparsity_after, "accuracy": e.accuracy}
+                   for e in events],
+        "baseline_accuracy": accs[0], "final_accuracy": final_acc,
+        "sparsity": res.sparsity, "losses": losses,
+        "train_s": train_s, "round_s": round_s, "session_s": run_s,
+        "train_steps_per_s": n_steps / sum(train_s),
+        "profile_3_steps": profile,
+        "quantize_bits": sess.quantize_bits,
+        "hardware": {"xbar_savings": rep.xbar_savings,
+                     "cell_savings": rep.cell_savings,
+                     "xbars_unpruned": rep.xbars_unpruned,
+                     "xbars_needed": rep.xbars_needed,
+                     "xbars_needed_strict": rep.xbars_needed_strict,
+                     "activation_savings": rep.activation_savings}}
+    print("cnn session: " + json.dumps({k: v for k, v in summary.items()
+                                        if k != "losses"}))
+    return sess, res, summary
+
+
+def cnn_ticket_stats(sess, res):
+    """Kernel #9 on every pruned leaf of the session's ticket (w_init ⊙
+    mask on the card, convs unrolled im2col to (IC·K·K, OC) with rows
+    (ic, kx, ky)) through ``tile_stats_for_config`` at the session's
+    geometry and at 64 x 256: liveness equal to the plain version and
+    its count equal to the host ``xbar_stats(...).xbars_needed_strict``
+    of that leaf's mask, sums within 1e-5 relative."""
+    from repro_torch._bridge import to_numpy
+    from repro_torch.configs import PruneConfig
+    from repro_torch.core import crossbar as xb
+    from repro_torch.core.masks import tree_flatten_with_path
+    from repro_torch.kernels import tile_stats as TS
+
+    params = dict(tree_flatten_with_path(res.params))
+    leaves = [(p, m) for p, m in tree_flatten_with_path(res.masks)
+              if m is not None]
+    out = {}
+    for cfg in (sess.cfg, PruneConfig(xbar_rows=64, xbar_cols=256)):
+        xr, xc = cfg.xbar_rows, cfg.xbar_cols
+        live_total = strict_total = 0
+        err = 0.0
+        for path, m in leaves:
+            w = params[path]
+            conv = sess.adapter.conv_pred(path)
+            mat = (w.permute(2, 0, 1, 3).reshape(-1, w.shape[3]) if conv
+                   else w).contiguous()
+            live, sums = TS.tile_stats_for_config(mat, cfg)
+            p_live, p_sums = TS.tile_stats_plain(mat, xr, xc)
+            host = xb.xbar_stats(xb.leaf_matrices(to_numpy(m), conv)[0][0]
+                                 != 0, xr, xc).xbars_needed_strict
+            n_live = int(live.sum().item())
+            require(bool((live == p_live).all().item()),
+                    f"tile_stats liveness of {path} disagrees with plain")
+            require(n_live == host, f"{path}: {n_live} live tiles on the "
+                    f"card, {host} crossbars on the host at {xr}x{xc}")
+            e = rel_err(sums, p_sums)
+            require(e <= 1e-5, f"tile_stats sums of {path} off by {e:.3e}")
+            err = max(err, e)
+            live_total += n_live
+            strict_total += host
+        out[f"{xr}x{xc}"] = {"leaves": len(leaves), "live_tiles": live_total,
+                             "xbars_needed_strict_host": strict_total,
+                             "sums_rel_err": err}
+    print("cnn ticket tile_stats: " + json.dumps(out))
+    return out
+
+
+def cnn_fc_variant(device, steps=CNN_STEPS):
+    """A test variant, not a published config: vgg11's convs with one
+    512-wide FC layer (``fc=(512,)``), whose 512 x 512 weight tiles at
+    128.  Retrained one round under a ~25 %-live tile mask, its FC layer
+    runs kernel #2 forward (and again to recompute the pre-activation
+    in the backward), #3 and #4 backward, every step.  Then the LTP
+    baseline's product of its FC layer (kernel #5) under an unstructured
+    ``ltp`` prune of the retrained ticket, at the retrain's row count."""
+    import dataclasses
+
+    from repro_torch.api import CNNAdapter
+    from repro_torch.configs import get_cnn
+    from repro_torch.core.algorithm import prune_step
+    from repro_torch.core.masks import make_masks
+    from repro_torch.kernels import bsmm as B
+
+    cfg = dataclasses.replace(get_cnn("vgg11"), fc=(512,),
+                              name="vgg11-fc512-test")
+    adapter = CNNAdapter(cfg, steps=steps, batch_size=CNN_BATCH, lr=0.1,
+                         device=device)
+    params = adapter.init_params(torch.Generator(device=device).manual_seed(1))
+    masks = make_masks(params, adapter.prunable)
+    bm = np.random.default_rng(4).random((4, 4)) < 0.25
+    bm[0, 0] = True
+    masks["fc"][0]["w"] = torch.as_tensor(
+        np.kron(bm, np.ones((128, 128))), dtype=torch.float32, device=device)
+    counters = (B.bsmm, B.bsmm_epilogue, B.bsmm_dx, B.bsmm_dw)
+    before = {f.__name__: f.launches for f in counters}
+    tuned = adapter.train(params, masks)
+    sync(device)
+    per_step = {f.__name__: (f.launches - before[f.__name__]) / steps
+                for f in counters}
+    want = {"bsmm": 0, "bsmm_epilogue": 2, "bsmm_dx": 1, "bsmm_dw": 1}
+    loss = float(adapter.last_metrics["loss"])
+    print(f"cnn fc variant: {adapter.last_plan_stats.routed} routed, "
+          f"{adapter.last_plan_stats.live_tiles}/"
+          f"{adapter.last_plan_stats.total_tiles} tiles live, loss {loss}, "
+          f"launches per step {per_step}, want {want}")
+    require(np.isfinite(loss), "non-finite FC-variant loss")
+    require(per_step == want, "FC-variant bsmm launches per step")
+    require(not bool(((tuned["fc"][0]["w"] != 0)
+                      & (masks["fc"][0]["w"] == 0)).any().item()),
+            "a pruned FC coordinate is non-zero after retraining")
+
+    ltp = prune_step(tuned, masks, "ltp", 0.5, adapter.conv_pred)
+    w, m = tuned["fc"][0]["w"], ltp["fc"][0]["w"]
+    g = torch.Generator(device=device).manual_seed(5)
+    x = torch.relu(torch.randn(CNN_BATCH, w.shape[0], device=device,
+                               generator=g))
+    got = B.masked_matmul(x, w, m)
+    want_out = B.masked_matmul_plain(x, w, m)
+    sync(device)
+    e = (got - want_out).abs().max().item()
+    tol = tolerance(torch.float32, want_out)
+    live = float((m != 0).float().mean().item())
+    print(f"cnn ltp product: fc mask {live:.4f} live, "
+          f"max_abs_err={e:.3e} tol={tol:.3e}")
+    require(e <= tol, "the LTP product disagrees with its plain version")
+    return {"config": cfg.name, "steps": steps, "loss": loss,
+            "launches_per_step": per_step,
+            "live_tiles": adapter.last_plan_stats.live_tiles,
+            "total_tiles": adapter.last_plan_stats.total_tiles,
+            "ltp_fc_live_fraction": live, "ltp_max_abs_err": e}
+
+
+def cnn_phase(device):
+    """The CNN path, with every kernel's count set to 0 just before and
+    read just after: the vgg11 session, its ticket's crossbar accounting
+    on the card (#9), the FC-tiling variant (#2, #3, #4) and the LTP
+    product (#5)."""
+    from repro_torch.kernels import bsmm as B
+    from repro_torch.kernels import tile_stats as TS
+
+    counters = (B.bsmm, B.bsmm_epilogue, B.bsmm_dx, B.bsmm_dw,
+                B.masked_matmul, TS.tile_stats)
+    for f in counters:
+        f.launches = 0
+    sess, res, summary = cnn_session(device)
+    summary["ticket_tile_stats"] = cnn_ticket_stats(sess, res)
+    summary["fc_variant"] = cnn_fc_variant(device)
+    launches = {f.__name__: f.launches for f in counters}
+    print(f"cnn launches {launches}")
+    for name in ("bsmm_epilogue", "bsmm_dx", "bsmm_dw", "masked_matmul",
+                 "tile_stats"):
+        require(launches[name] > 0, f"the CNN path never launched {name}")
+    summary["launches"] = launches
+    return launches, summary
+
+
+def resnet_step_check(batch=16):
+    """One full-width resnet18 train step (loss, gradients, new BN state)
+    on the card against the same step on the CPU, from one seeded
+    initialisation, in float32 with TF32 off for the check (cuDNN and
+    matmul): the stride-2 SAME padding and the shortcut BatchNorm on the
+    card.  At initialisation the last stage's gradients come out of
+    BatchNorm's backward as small differences of large terms, so float32
+    rounding alone moves them by up to ~20 % (the CPU in float32 against
+    the CPU in float64).  So both float32 runs are held against a
+    float64 CPU run: every leaf of the card's loss, gradients and state
+    must be within 2x the CPU float32 run's error of it, plus 1e-5 of
+    the leaf's scale."""
+    from repro_torch._bridge import tree_leaves, tree_map, tree_unflatten
+    from repro_torch.configs import get_cnn
+    from repro_torch.core.masks import tree_flatten_with_path
+    from repro_torch.data import SyntheticImages
+    from repro_torch.models import cnn
+
+    cfg = get_cnn("resnet18")
+    params, state = cnn.init_params(torch.Generator().manual_seed(0), cfg,
+                                    device="cpu")
+    b = SyntheticImages().batch(0, batch)
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        for key, dev, dtype in (("cpu64", "cpu", torch.float64),
+                                ("cpu", "cpu", torch.float32),
+                                ("cuda", "cuda", torch.float32)):
+            p = tree_map(lambda t: t.to(dev, dtype), params)
+            s = tree_map(lambda t: t.to(dev, dtype), state)
+            batch_d = {"images": torch.as_tensor(b["images"], device=dev,
+                                                 dtype=dtype),
+                       "labels": torch.as_tensor(b["labels"], device=dev)}
+            req = [t.clone().requires_grad_(True) for t in tree_leaves(p)]
+            ts = time.perf_counter()
+            loss, (new_state, _) = cnn.loss_fn(tree_unflatten(p, req), s, cfg,
+                                               batch_d, train=True)
+            grads = torch.autograd.grad(loss, req)
+            sync(dev)
+            out[key] = ([loss.detach().reshape(1)] + list(grads)
+                        + tree_leaves(new_state), time.perf_counter() - ts)
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = flags
+    path_of = {id(t): p for tree in (params, state)
+               for p, t in tree_flatten_with_path(tree)}
+    names = (["loss"] + [f"grad {path_of[id(t)]}" for t in tree_leaves(params)]
+             + [f"state {path_of[id(t)]}" for t in tree_leaves(state)])
+    rows = []
+    for n, x64, x32, xc in zip(names, out["cpu64"][0], out["cpu"][0],
+                               out["cuda"][0]):
+        x64 = x64.double()
+        scale = max(x64.abs().max().item(), 1e-30)
+        e_cpu = (x32.double() - x64).abs().max().item()
+        e_card = (xc.cpu().double() - x64).abs().max().item()
+        rows.append((e_card / (2 * e_cpu + 1e-5 * scale), n, e_card / scale,
+                     e_cpu / scale))
+    rows.sort()
+    for ratio, n, e_card, e_cpu in rows[-4:]:
+        print(f"  resnet18 {n}: card {e_card:.3e}, cpu f32 {e_cpu:.3e} of "
+              f"its scale off float64 (ratio to tolerance {ratio:.3f})")
+    worst = rows[-1]
+    loss64, loss_card = out["cpu64"][0][0].item(), out["cuda"][0][0].item()
+    print(f"check resnet18 step card vs cpu (batch {batch}, f32, TF32 off): "
+          f"loss {loss_card:.7f} vs float64 {loss64:.7f}; worst leaf "
+          f"{worst[1]} at {worst[0]:.3f} of its tolerance (2x the CPU "
+          "float32 error + 1e-5 of scale)")
+    require(worst[0] <= 1.0, "resnet18 loss, gradients or BN state on the "
+            "card are further from float64 than float32 rounding allows")
+    return {"batch": batch, "loss_card": loss_card, "loss_cpu64": loss64,
+            "worst_leaf": worst[1], "worst_ratio_to_tolerance": worst[0],
+            "worst_card_rel_err": max(r[2] for r in rows),
+            "worst_cpu_f32_rel_err": max(r[3] for r in rows), "tf32": False,
+            "step_s_card": out["cuda"][1], "step_s_cpu": out["cpu"][1],
+            "leaves": len(rows)}
+
+
 def sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
@@ -1051,6 +1523,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import bsmm as B
     from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import tile_stats as TS
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1083,6 +1556,8 @@ def main() -> int:
         ds_err, _ = check_bsmm(B, DEEPSEEK_BSMM_SHAPES, DEEPSEEK_BSMM_ROWS,
                                ((None, "silu"),), timed=False, seed=5)
         bsmm_err = {k: max(v, ds_err[k]) for k, v in bsmm_err.items()}
+        stats_err, stats_times = check_tile_stats(TS)
+        masked_err, masked_times = check_masked(B)
     torch.cuda.empty_cache()
     launches, summary = serve(cfg, "cuda")
     grad_summary = grad_check(cfg, "cuda")
@@ -1092,6 +1567,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     ds_launches, ds_summary = serve_deepseek(deepseek_config(), "cuda")
+    # deepseek-v3's ~30 GB are gone with its phase; the CNN slice needs
+    # a few GB
+    gc.collect()
+    torch.cuda.empty_cache()
+    cnn_launches, cnn_summary = cnn_phase("cuda")
+    resnet_summary = resnet_step_check()
+    cnn_summary["resnet18_step_check"] = resnet_summary
 
     rep_row = next(r for r in bsmm_times if r["M"] == 8 and r["N"] == 8192)
     grad_row = next(r for r in grad_times if r["N"] == 8192)
@@ -1153,18 +1635,45 @@ def main() -> int:
          "bound_by": mla_row["bound_by"],
          "library_ms": mla_row["library_ms"]},
     ]
+    # the LTP baseline at decode rows with its own (iid) mask; tile stats
+    # at the size of vgg11's largest conv matrices
+    masked_row = next(r for r in masked_times if r["M"] == 8
+                      and r["dtype"] == "bfloat16"
+                      and r["mask"] == "ltp_iid_10pct")
+    stats_row = stats_times[0]
+    kernels += [
+        {"name": "masked_matmul", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/masked_matmul.cu",
+         "replaces": "src/repro/kernels/bsmm.py:617",
+         "launches": cnn_launches["masked_matmul"],
+         "max_abs_err": masked_err, "ms": masked_row["ms"],
+         "plain_ms": masked_row["plain_ms"],
+         "bound_ms": masked_row["bound_ms"],
+         "bound_by": masked_row["bound_by"],
+         "library_ms": masked_row["library_ms"]},
+        {"name": "tile_stats", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/tile_stats.cu",
+         "replaces": "src/repro/kernels/tile_stats.py:41",
+         "launches": cnn_launches["tile_stats"],
+         "max_abs_err": stats_err, "ms": stats_row["ms"],
+         "plain_ms": stats_row["plain_ms"], "bound_ms": stats_row["bound_ms"],
+         "bound_by": stats_row["bound_by"], "library_ms": None},
+    ]
     (OUT / "chip_smoke_kernels.json").write_text(json.dumps(
         {"device": smi, "bsmm": bsmm_times, "paged_attention": paged_row,
          "bsmm_grads": grad_times, "paged_attention_fused_v": mla_row,
          "bsmm_batched": batched_times, "serve": summary,
          "grad_check": grad_summary, "retrain": train_summary,
-         "serve_deepseek": ds_summary},
+         "serve_deepseek": ds_summary, "tile_stats": stats_times,
+         "masked_matmul": masked_times, "cnn": cnn_summary},
         indent=1, default=str))
     print(json.dumps({"serve": summary}, default=str))
     print(json.dumps({"grad_check": grad_summary}))
     print(json.dumps({"retrain": train_summary}, default=str))
     print(json.dumps({"serve_deepseek": {k: v for k, v in ds_summary.items()
                                          if k != "report"}}, default=str))
+    print(json.dumps({"cnn": {k: v for k, v in cnn_summary.items()
+                              if k != "losses"}}, default=str))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

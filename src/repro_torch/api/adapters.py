@@ -1,40 +1,62 @@
 """Model adapters: init/train/eval/prunability behind one protocol (port
-of ``repro.api.adapters``; ``LMAdapter`` only — ``CNNAdapter``,
-``EncDecAdapter`` and ``FunctionAdapter`` come with their slices).
+of ``repro.api.adapters``; ``EncDecAdapter`` comes with its slice).
 
 Algorithm 1 is model-agnostic: the only model-specific pieces are how
 to initialise parameters, train them under a mask, score them, and
-decide which leaves are prunable.  ``LMAdapter`` builds its retraining
-on ``train.loop.Trainer``: with masks, every routed projection's
-forward, dx and dw run through the block-sparse kernels.
+decide which leaves are prunable.  The family-specific pieces —
+prunability predicate, conv-path predicate, granularity schedule,
+recipe — are data on the adapter, set by ``api.registry.make_adapter``.
+
+``CNNAdapter`` and ``LMAdapter`` build their retraining on
+``train.loop.Trainer``: with masks, every routed product (the CNN's FC
+layers and head when they tile at 128; every LM projection) runs
+forward, dx and dw through the block-sparse kernels.  ``FunctionAdapter``
+wraps plain closures.  Entry points take ``device=`` (default "cuda",
+raising without a card unless given "cpu").
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch._bridge import resolve_device, tree_leaves, tree_map
-from repro_torch.core.masks import apply_masks, lm_prunable
-from repro_torch.data import DataPipeline, SyntheticLM
+from repro_torch.core.masks import (apply_masks, cnn_conv_path, cnn_prunable,
+                                    lm_prunable)
+from repro_torch.core.quantize import fake_quantize_tree
+from repro_torch.data import DataPipeline, SyntheticImages, SyntheticLM
 from repro_torch.distributed.compression import MaskAwareCompressor
 from repro_torch.models.plans import PlanStats
-from repro_torch.optim import adamw, constant, masked, warmup_cosine
-from repro_torch.train import Trainer, lm_train_plan
+from repro_torch.optim import (adamw, constant, exponential_epoch_decay,
+                               masked, sgd, warmup_cosine)
+from repro_torch.train import Trainer, cnn_train_plan, lm_train_plan
 
 
 class ModelAdapter:
     """Protocol: everything a pruning session needs from a model.
 
     ``train``/``evaluate`` take ``masks=None`` for the dense model.
-    ``evaluate`` returns a scalar where HIGHER IS BETTER (adapters for
-    likelihood models return negative loss).
+    ``evaluate`` returns a scalar where HIGHER IS BETTER (accuracy for
+    classifiers; adapters for likelihood models return negative loss).
+
+    ``prunable_pred`` / ``conv_path_pred`` / ``granularities`` /
+    ``recipe`` are the per-family registry data; subclasses set
+    defaults and ``make_adapter`` overrides them from the family entry.
+    ``train`` accepts ``quantize_bits``: when set, the step
+    fake-quantizes the prunable weights (straight-through) — the
+    ``quantize`` recipe stage.
     """
 
     cfg: Any = None
     family: str = "custom"
+    # None → the session falls back to PruneConfig.granularities
+    granularities: Optional[Sequence[str]] = None
+    # family-tuned Recipe (or registered recipe name); None → schedule
+    recipe: Optional[Any] = None
     prunable_pred: Optional[Callable[[str, Any], bool]] = None
+    conv_path_pred: Optional[Callable[[str], bool]] = None
 
     def init_params(self, gen):
         raise NotImplementedError
@@ -42,6 +64,12 @@ class ModelAdapter:
     def train(self, params, masks=None, steps: Optional[int] = None, *,
               quantize_bits: Optional[int] = None):
         raise NotImplementedError
+
+    def _qat(self, quantize_bits: Optional[int]):
+        """Loss-input transform for quantization-aware retraining."""
+        if quantize_bits is None:
+            return lambda p: p
+        return lambda p: fake_quantize_tree(p, self.prunable, quantize_bits)
 
     def evaluate(self, params, masks=None) -> float:
         raise NotImplementedError
@@ -51,6 +79,139 @@ class ModelAdapter:
             raise NotImplementedError(
                 f"{type(self).__name__} has no prunable_pred")
         return self.prunable_pred(path, leaf)
+
+    def conv_pred(self, path: str) -> bool:
+        return bool(self.conv_path_pred(path)) if self.conv_path_pred \
+            else False
+
+
+@dataclasses.dataclass
+class FunctionAdapter(ModelAdapter):
+    """Wrap plain closures — the bridge for ``core.algorithm.realprune``
+    callers and for scripted, deterministic tests."""
+
+    params: Any = None
+    train_fn: Callable = None           # (params, masks) -> params
+    eval_fn: Callable = None            # (params, masks) -> float
+    prunable: Callable = None           # (path, leaf) -> bool
+    conv_pred: Callable = None          # (path) -> bool
+    cfg: Any = None
+
+    def init_params(self, gen):
+        return tree_map(lambda x: x, self.params)
+
+    def train(self, params, masks=None, steps=None, *, quantize_bits=None):
+        # scripted closures predate QAT; bits are accepted and ignored
+        return self.train_fn(params, masks)
+
+    def evaluate(self, params, masks=None) -> float:
+        return float(self.eval_fn(params, masks))
+
+
+def _to_device(masks, device):
+    return tree_map(lambda m: torch.as_tensor(m, device=device), masks)
+
+
+class CNNAdapter(ModelAdapter):
+    """CNN (VGG/ResNet family) on image batches, trained via ``Trainer``
+    with SGD + momentum and the paper's per-epoch LR decay.
+
+    BatchNorm statistics thread through the Trainer's aux-state channel;
+    each ``train`` call restarts them from initialisation (every prune
+    iteration retrains the rewound ticket from scratch, paper line 3).
+
+    ``use_bsmm``: when retraining under masks, the FC/head products go
+    through the block-sparse kernels with a plan rebuilt from the
+    CURRENT masks on every ``train`` call (shapes that don't tile 128
+    stay dense).  ``None`` (default) turns it on when ``device`` is
+    CUDA; on the CPU the kernels' plain versions would run, which is a
+    correctness path, not a fast one.
+    """
+
+    family = "cnn"
+
+    def __init__(self, cfg, *, data=None, steps: int = 80,
+                 batch_size: int = 64, lr: float = 0.05,
+                 lr_decay: float = 0.95, decay_every: Optional[int] = None,
+                 eval_batches: int = 3, eval_batch_size: int = 128,
+                 momentum: float = 0.9, log_every: int = 0,
+                 use_bsmm: Optional[bool] = None, device="cuda"):
+        from repro_torch.models import cnn as cnn_lib
+        self._cnn = cnn_lib
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.prunable_pred = cnn_prunable
+        self.conv_path_pred = cnn_conv_path
+        self.data = data or SyntheticImages(image_size=cfg.image_size,
+                                            noise=0.25)
+        self.steps = steps
+        self.batch_size = batch_size
+        self.lr, self.lr_decay = lr, lr_decay
+        self.decay_every = decay_every
+        self.eval_batches = eval_batches
+        self.eval_batch_size = eval_batch_size
+        self.momentum = momentum
+        self.log_every = log_every
+        self.use_bsmm = (self.device.type == "cuda" if use_bsmm is None
+                         else use_bsmm)
+        self.last_plan_stats = PlanStats()
+        self.last_metrics: Dict[str, float] = {}
+        self._bn0 = None
+        self._bn = None
+
+    # -- protocol ----------------------------------------------------------
+    def init_params(self, gen: torch.Generator):
+        """Parameters drawn from ``gen`` (a generator on the adapter's
+        device); the BN state starts from its initial value."""
+        params, bn = self._cnn.init_params(gen, self.cfg, device=self.device)
+        self._bn0 = bn
+        self._bn = bn
+        return params
+
+    def _batch(self, step, size):
+        b = self.data.batch(step, size)
+        return {"images": torch.as_tensor(b["images"], device=self.device),
+                "labels": torch.as_tensor(b["labels"], device=self.device)}
+
+    def train(self, params, masks=None, steps=None, *, quantize_bits=None):
+        if self._bn0 is None:
+            raise RuntimeError("call init_params before train")
+        steps = steps or self.steps
+        sched = exponential_epoch_decay(
+            self.lr, self.lr_decay, self.decay_every or max(steps // 2, 1))
+        opt = sgd(sched, momentum=self.momentum)
+        if masks is not None:
+            masks = _to_device(masks, self.device)
+            opt = masked(opt, masks)
+            params = apply_masks(params, masks)
+        plans, self.last_plan_stats = (
+            cnn_train_plan(masks) if masks is not None and self.use_bsmm
+            else (None, PlanStats()))
+        qat = self._qat(quantize_bits)
+        cfg, cnn = self.cfg, self._cnn
+
+        def loss(p, state, batch):
+            l, (new_state, _) = cnn.loss_fn(qat(p), state, cfg, batch,
+                                            train=True, plans=plans)
+            return l, (new_state, {})
+
+        trainer = Trainer(
+            loss_fn=loss, optimizer=opt, params=params,
+            data_iter=DataPipeline(
+                lambda s: self.data.batch(s, self.batch_size), prefetch=0),
+            aux_state=self._bn0, device=self.device)
+        self.last_metrics = trainer.run(steps, log_every=self.log_every)
+        self._bn = trainer.state.aux
+        return trainer.state.params
+
+    def evaluate(self, params, masks=None) -> float:
+        accs = []
+        with torch.no_grad():
+            for i in range(self.eval_batches):
+                b = self._batch(10_000 + i, self.eval_batch_size)
+                accs.append(float(self._cnn.accuracy(
+                    params, self._bn, self.cfg, b["images"], b["labels"])))
+        return float(np.mean(accs))
 
 
 class LMAdapter(ModelAdapter):
@@ -128,8 +289,7 @@ class LMAdapter(ModelAdapter):
         opt = adamw(sched)
         compressor = None
         if masks is not None:
-            masks = tree_map(lambda m: torch.as_tensor(m, device=self.device),
-                             masks)
+            masks = _to_device(masks, self.device)
             opt = masked(opt, masks)
             params = apply_masks(params, masks)
             # only live coordinates would go on the wire: the masked

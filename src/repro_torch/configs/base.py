@@ -1,8 +1,9 @@
 """Architecture configs for the PyTorch port.
 
-A copy of the parts of ``repro.configs.base`` the serving slice needs
-(``ArchConfig`` and the dataclasses its fields name, ``MXU_TILE``,
-``scaled_down``, the registry).  The port keeps its own copy instead of
+A copy of the parts of ``repro.configs.base`` the ported slices need
+(``ArchConfig`` and the dataclasses its fields name, the CNN configs
+``ConvSpec``/``CNNConfig``, ``MXU_TILE``, ``scaled_down``,
+``scaled_down_cnn``, the registries).  The port keeps its own copy instead of
 importing ``repro``: the card's machine has no JAX, and importing any
 ``repro`` module pulls it in.  Field names, defaults and derived
 properties match the reference one for one, so a config built by either
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 # block kinds (only ATTN — GQA or MLA — is served by this port so far)
 ATTN = "attn"
@@ -118,11 +119,54 @@ class ArchConfig:
         return ((self.vocab_size + mult - 1) // mult) * mult
 
 
+# ---------------------------------------------------------------------------
+# CNN configs (the paper's own models: VGG-11/16/19, ResNet-18 on CIFAR-10)
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class ConvSpec:
+    out_channels: int
+    kernel: int = 3
+    stride: int = 1
+    pool: bool = False       # 2x2 maxpool after this conv (VGG style)
+    residual: bool = False   # start of a ResNet basic block
+
+
+@dataclass(frozen=True)
+class CNNConfig:
+    name: str
+    family: str
+    convs: Tuple[ConvSpec, ...]
+    fc: Tuple[int, ...]
+    num_classes: int = 10
+    in_channels: int = 3
+    image_size: int = 32
+    prune: PruneConfig = field(default_factory=PruneConfig)
+    source: str = ""
+
+    def param_count(self) -> int:
+        total, ic = 0, self.in_channels
+        for c in self.convs:
+            total += c.out_channels * ic * c.kernel * c.kernel
+            ic = c.out_channels
+        feat = ic
+        for f in self.fc:
+            total += feat * f
+            feat = f
+        total += feat * self.num_classes
+        return total
+
+
 _ARCH_REGISTRY = {}
+_CNN_REGISTRY = {}
 
 
-def register(cfg: ArchConfig) -> ArchConfig:
-    _ARCH_REGISTRY[cfg.name] = cfg
+def register(cfg):
+    if isinstance(cfg, ArchConfig):
+        _ARCH_REGISTRY[cfg.name] = cfg
+    elif isinstance(cfg, CNNConfig):
+        _CNN_REGISTRY[cfg.name] = cfg
+    else:
+        raise TypeError(type(cfg))
     return cfg
 
 
@@ -133,11 +177,46 @@ def get_arch(name: str) -> ArchConfig:
     return _ARCH_REGISTRY[name]
 
 
+def get_cnn(name: str) -> CNNConfig:
+    _ensure_loaded()
+    if name not in _CNN_REGISTRY:
+        raise KeyError(f"unknown cnn {name!r}; known: {sorted(_CNN_REGISTRY)}")
+    return _CNN_REGISTRY[name]
+
+
+def list_archs() -> Sequence[str]:
+    _ensure_loaded()
+    return sorted(_ARCH_REGISTRY)
+
+
+def list_cnns() -> Sequence[str]:
+    _ensure_loaded()
+    return sorted(_CNN_REGISTRY)
+
+
 def _ensure_loaded():
     # configs register themselves on import; the port carries only the
-    # architectures it can serve
+    # architectures it can run
     import repro_torch.configs.deepseek_v3_671b  # noqa: F401
     import repro_torch.configs.llama3_2_3b  # noqa: F401
+    import repro_torch.configs.resnet18  # noqa: F401
+    import repro_torch.configs.vgg11  # noqa: F401
+    import repro_torch.configs.vgg16  # noqa: F401
+    import repro_torch.configs.vgg19  # noqa: F401
+
+
+def scaled_down_cnn(cfg: CNNConfig, *, max_channels: int = 16,
+                    max_fc: int = 64, **overrides) -> CNNConfig:
+    """Reduced same-structure CNN config for CPU tests: the conv stack
+    keeps its depth/stride/pool/residual pattern with channel counts
+    capped, so the crossbar unrolls stay family-shaped."""
+    convs = tuple(dataclasses.replace(c, out_channels=min(c.out_channels,
+                                                          max_channels))
+                  for c in cfg.convs)
+    small = dict(convs=convs, fc=tuple(min(f, max_fc) for f in cfg.fc),
+                 name=cfg.name + "-smoke")
+    small.update(overrides)
+    return dataclasses.replace(cfg, **small)
 
 
 def scaled_down(cfg: ArchConfig, **overrides) -> ArchConfig:

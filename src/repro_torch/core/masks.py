@@ -5,11 +5,18 @@ A mask pytree mirrors the parameter pytree: prunable leaves get a
 leaf may also broadcast to its parameter: a (K, N) mask on a stacked
 (reps, K, N) weight prunes every layer alike.
 
-Prunable for LMs: every ≥2-D projection matrix — embeddings,
-unembedding, norms, routers, biases and conv kernels excluded (the
-reference's exclusion list, copied), and for each model family the
-reference's predicate (``family_prunable``) where the port serves the
-family (dense and MoE so far).
+Prunable (the reference's predicates, copied):
+  * CNN: all conv kernels and FC matrices (paths under convs/shortcuts/
+    fc/head) — BN scales/biases excluded.
+  * LM: every ≥2-D projection matrix — embeddings, unembedding, norms,
+    routers, biases and conv kernels excluded.
+``family_prunable`` maps each model family the port runs (dense, moe,
+cnn) to its predicate.
+
+``tree_flatten_with_path`` walks a pytree in the reference's (JAX's)
+leaf order — dict keys sorted, ``None`` a leaf — so everything that
+depends on leaf order (global prune selection ties, checkpoint
+manifests, hardware reports) agrees with the reference.
 """
 from __future__ import annotations
 
@@ -17,7 +24,6 @@ from typing import Any, Callable, List, Tuple
 
 import numpy as np
 import torch
-from torch.utils import _pytree
 
 # path substrings excluded from pruning for LM params
 _LM_EXCLUDE = ("embed", "unembed", "norm", "router", "lam", "conv",
@@ -26,7 +32,7 @@ _LM_EXCLUDE = ("embed", "unembed", "norm", "router", "lam", "conv",
 
 
 def path_str(path) -> str:
-    """``torch.utils._pytree`` key path → "a/0/b" (same form as the
+    """A key path (``torch.utils._pytree``'s or JAX's) → "a/0/b" (the
     reference's ``core.masks.path_str``)."""
     parts = []
     for p in path:
@@ -39,6 +45,42 @@ def path_str(path) -> str:
     return "/".join(parts)
 
 
+def tree_flatten_with_path(tree) -> List[Tuple[str, Any]]:
+    """[(path string, leaf)] in JAX's order: dict keys sorted, lists,
+    tuples and NamedTuples in order, ``None`` kept as a leaf."""
+    out: List[Tuple[str, Any]] = []
+
+    def visit(node, path):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                visit(node[k], path + (str(k),))
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                visit(v, path + (str(i),))
+        else:
+            out.append(("/".join(path), node))
+
+    visit(tree, ())
+    return out
+
+
+def tree_map_with_path(fn: Callable[[str, Any], Any], tree):
+    """``fn(path string, leaf)`` over every leaf (``None`` included),
+    same nesting."""
+    def rec(node, path):
+        if isinstance(node, dict):
+            return {k: rec(v, path + (str(k),)) for k, v in node.items()}
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*(rec(v, path + (str(i),))
+                                for i, v in enumerate(node)))
+        if isinstance(node, (list, tuple)):
+            return type(node)(rec(v, path + (str(i),))
+                              for i, v in enumerate(node))
+        return fn("/".join(path), node)
+
+    return rec(tree, ())
+
+
 def lm_prunable(path: str, leaf) -> bool:
     if leaf.ndim < 2:
         return False
@@ -47,9 +89,28 @@ def lm_prunable(path: str, leaf) -> bool:
                    for tok in _LM_EXCLUDE)
 
 
+def cnn_prunable(path: str, leaf) -> bool:
+    low = path.lower()
+    if "bn" in low or "scale" in low or "bias" in low:
+        return False
+    if low.endswith("/b"):
+        return False
+    return leaf.ndim >= 2
+
+
+def cnn_is_conv(path: str, leaf) -> bool:
+    return leaf.ndim == 4
+
+
+def cnn_conv_path(path: str) -> bool:
+    """Path-level conv predicate for CNN params (the ``conv_pred``
+    adapters and the family registry share)."""
+    return "convs" in path or "shortcuts" in path
+
+
 # ---------------------------------------------------------------------------
 # Per-family predicates (the reference's, copied, for the families the
-# port can serve; the others come with their slices)
+# port runs; the others come with their slices)
 # ---------------------------------------------------------------------------
 def moe_prunable(path: str, leaf) -> bool:
     """MoE transformers: dense projections plus the stacked per-expert
@@ -62,8 +123,9 @@ def moe_prunable(path: str, leaf) -> bool:
 _FAMILY_PRUNABLE = {
     "dense": lm_prunable,
     "moe": moe_prunable,
+    "cnn": cnn_prunable,
 }
-_NOT_YET_PORTED = ("hybrid", "ssm", "vlm", "audio", "cnn")
+_NOT_YET_PORTED = ("hybrid", "ssm", "vlm", "audio")
 
 
 def family_prunable(family: str):
@@ -81,11 +143,11 @@ def make_masks(params, prunable: Callable[[str, Any], bool]):
     """Full-ones float32 masks (on each leaf's device) for prunable
     leaves, None elsewhere."""
     def mk(path, leaf):
-        if prunable(path_str(path), leaf):
+        if prunable(path, leaf):
             return torch.ones(leaf.shape, dtype=torch.float32,
                               device=leaf.device)
         return None
-    return _pytree.tree_map_with_path(mk, params)
+    return tree_map_with_path(mk, params)
 
 
 def _as_factor(m, p: torch.Tensor) -> torch.Tensor:
@@ -149,7 +211,7 @@ def _count(m) -> Tuple[int, int]:
 def sparsity(masks) -> Tuple[int, int]:
     """(pruned_weights, total_prunable_weights)."""
     total = pruned = 0
-    for m in _pytree.tree_leaves(masks):
+    for _, m in tree_flatten_with_path(masks):
         if m is None:
             continue
         size, live = _count(m)
@@ -164,7 +226,27 @@ def sparsity_fraction(masks) -> float:
 
 
 def flat_mask_items(masks) -> List[Tuple[str, Any]]:
-    """[(path, mask)] for prunable leaves, in pytree order (masks come
-    back as they are: numpy arrays or tensors)."""
-    flat, _ = _pytree.tree_flatten_with_path(masks)
-    return [(path_str(p), m) for p, m in flat if m is not None]
+    """[(path, mask)] for prunable leaves, in the reference's order
+    (masks come back as they are: numpy arrays or tensors)."""
+    return [(p, m) for p, m in tree_flatten_with_path(masks)
+            if m is not None]
+
+
+def tree_set(tree, path: str, value):
+    """Functionally set a leaf by its path string (numpy or tensors)."""
+    keys = path.split("/")
+
+    def rec(node, ks):
+        k = ks[0]
+        if isinstance(node, dict):
+            new = dict(node)
+            new[k] = value if len(ks) == 1 else rec(node[k], ks[1:])
+            return new
+        if isinstance(node, (list, tuple)):
+            idx = int(k)
+            items = list(node)
+            items[idx] = value if len(ks) == 1 else rec(items[idx], ks[1:])
+            return type(node)(items) if not isinstance(node, list) else items
+        raise TypeError(f"cannot descend into {type(node)} at {k}")
+
+    return rec(tree, keys)

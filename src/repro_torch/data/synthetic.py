@@ -1,9 +1,14 @@
-"""Deterministic synthetic token streams (port of the LM half of
-``repro.data.synthetic``, numpy only, bit-identical batches).
+"""Deterministic synthetic datasets (port of ``repro.data.synthetic``
+without the audio set; numpy only, bit-identical batches).
 
 Stateless: batch = f(seed, step), so a restart at step k reproduces the
-exact stream.  ``SyntheticImages`` and ``SyntheticAudio`` come with
-their slices.
+exact stream.
+
+SyntheticLM     — token streams with learnable n-gram structure.
+SyntheticImages — CIFAR-like 32×32×3 images: the class is which of 10
+                  fixed random pattern templates is embedded (plus
+                  noise), so accuracy is meaningful.
+``SyntheticAudio`` comes with the encoder-decoder slice.
 """
 from __future__ import annotations
 
@@ -45,3 +50,28 @@ class SyntheticLM:
             toks[:, i] = nxt
         return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
+
+
+@dataclass(frozen=True)
+class SyntheticImages:
+    num_classes: int = 10
+    image_size: int = 32
+    channels: int = 3
+    seed: int = 0
+    noise: float = 0.3
+
+    def _templates(self) -> np.ndarray:
+        rng = np.random.RandomState(self.seed)
+        return rng.randn(self.num_classes, self.image_size, self.image_size,
+                         self.channels).astype(np.float32)
+
+    def batch(self, step: int, batch_size: int) -> Dict[str, np.ndarray]:
+        tmpl = self._templates()
+        rng = np.random.RandomState((self.seed * 1_000_003 + step + 7)
+                                    % (2 ** 31 - 1))
+        labels = rng.randint(0, self.num_classes, batch_size)
+        imgs = tmpl[labels] + self.noise * rng.randn(
+            batch_size, self.image_size, self.image_size,
+            self.channels).astype(np.float32)
+        return {"images": imgs.astype(np.float32),
+                "labels": labels.astype(np.int32)}

@@ -12,7 +12,11 @@ the reference's ``jax.vmap`` of ``plan_matmul`` over the expert axis.
 
 Dispatch: ``bsmm``, ``bsmm_epilogue``, ``bsmm_batched``, ``bsmm_dx`` and
 ``bsmm_dw`` launch their kernel for CUDA tensors and run their plain PyTorch
-versions (``*_plain``) for CPU tensors; any other device raises.  Each
+versions (``*_plain``) for CPU tensors; any other device raises.
+``masked_matmul`` (the reference's ``masked_matmul_pallas``, kernel #5,
+``csrc/masked_matmul.cu``) is the crossbar-unaware LTP baseline beside
+them: a dense grid that reads every weight and mask tile and skips only
+the product of all-zero mask tiles.  Each
 wrapper counts its kernel launches in ``.launches``.  ``bsmm_apply`` is
 the differentiable product (a ``torch.autograd.Function``): forward
 through ``bsmm``/``bsmm_epilogue``, backward through ``bsmm_dx`` and
@@ -546,6 +550,102 @@ def bsmm_dw(x2: torch.Tensor, g: torch.Tensor, plan: TilePlan) -> torch.Tensor:
 
 
 bsmm_dw.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The crossbar-unaware LTP baseline: every tile read, dead tiles skip the math
+# ---------------------------------------------------------------------------
+_MASK_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.bool: 2,
+               torch.uint8: 2}
+
+
+def _check_masked(x, w, mask, bm: int, bk: int, bn: int):
+    if x.ndim != 2 or w.ndim != 2 or mask.shape != w.shape:
+        raise GeometryError("masked_matmul takes x (M, K), w (K, N) and a "
+                            "mask shaped like w",
+                            shape=(*x.shape, *w.shape, *mask.shape),
+                            where="masked_matmul")
+    M, K = x.shape
+    N = w.shape[1]
+    if w.shape[0] != K:
+        raise GeometryError("x/w contraction dims disagree",
+                            shape=(K, w.shape[0]), where="masked_matmul")
+    if min(bm, bk, bn) <= 0 or M % bm or K % bk or N % bn:
+        raise GeometryError(f"shapes must tile {(bm, bk, bn)}",
+                            shape=(M, K, N), where="masked_matmul")
+    if x.dtype != w.dtype or x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"masked_matmul: x and w must share float32 or "
+                        f"bfloat16, got {x.dtype} and {w.dtype}")
+    if not x.device == w.device == mask.device:
+        raise ValueError(f"masked_matmul: x on {x.device}, w on {w.device}, "
+                         f"mask on {mask.device}")
+
+
+def masked_matmul_plain(x: torch.Tensor, w: torch.Tensor, mask: torch.Tensor,
+                        bk: int = MXU_TILE, bn: int = MXU_TILE) -> torch.Tensor:
+    """Plain version of kernel #5: ``x @ (w ⊙ mask)`` with the product
+    taken in w's dtype, every (bk, bn) tile whose mask is all zero
+    contributing nothing (a skipped tile adds no term, whatever w holds
+    there), f32 accumulation, output in x's dtype."""
+    K, N = w.shape
+    live = (mask != 0).reshape(K // bk, bk, N // bn, bn).any(dim=3) \
+        .any(dim=1)
+    keep = live.repeat_interleave(bk, 0).repeat_interleave(bn, 1)
+    wm = torch.where(keep, w * mask.to(w.dtype), torch.zeros((), dtype=w.dtype,
+                                                            device=w.device))
+    return torch.matmul(x.float(), wm.float()).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _masked_lib():
+    lib = _build.library("masked_matmul")
+    lib.masked_matmul_launch.argtypes = [_VP, _VP, _VP, _VP, _I, _I, _I, _I,
+                                         _I, _VP]
+    lib.masked_matmul_launch.restype = _I
+    return lib
+
+
+def masked_matmul(x: torch.Tensor, w: torch.Tensor, mask: torch.Tensor, *,
+                  bm: int = MXU_TILE, bk: int = MXU_TILE,
+                  bn: int = MXU_TILE) -> torch.Tensor:
+    """Kernel #5 (the reference's ``masked_matmul_pallas``):
+    ``x (M, K) @ (w ⊙ mask) (K, N)`` over a dense grid of (bm, bk, bn)
+    tiles, f32 accumulation, output in x's dtype.  Every tile of w and
+    of the mask is read; the product is skipped only for a (bk, bn)
+    tile whose mask is all zero — the crossbar-unaware LTP baseline's
+    cost.  Raises ``GeometryError`` when M, K or N do not tile.  The
+    CUDA kernel tiles at (bk, bn) = (128, 128) and masks ragged rows
+    itself, so ``bm`` only sets which row counts are accepted."""
+    _check_masked(x, w, mask, bm, bk, bn)
+    if x.device.type == "cpu":
+        return masked_matmul_plain(x, w, mask, bk, bn)
+    if x.device.type != "cuda":
+        raise ValueError(f"masked_matmul: unsupported device {x.device}")
+    if (bk, bn) != (MXU_TILE, MXU_TILE):
+        raise GeometryError(f"the CUDA kernel tiles at {MXU_TILE}",
+                            tile=(bk, bn), where="masked_matmul")
+    if mask.dtype not in _MASK_CODES:
+        raise TypeError(f"masked_matmul: the CUDA kernel takes a float32, "
+                        f"bfloat16 or one-byte mask, got {mask.dtype}")
+    ts = (x, w, mask)
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("masked_matmul: operands must be contiguous")
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError("masked_matmul: operands must be 16-byte aligned")
+    M, K = x.shape
+    N = w.shape[1]
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    lib = _masked_lib()
+    code = lib.masked_matmul_launch(
+        x.data_ptr(), w.data_ptr(), mask.data_ptr(), out.data_ptr(), M, K, N,
+        _DTYPE_CODES[x.dtype], _MASK_CODES[mask.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, code, "masked_matmul")
+    masked_matmul.launches += 1
+    return out
+
+
+masked_matmul.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,7 @@
 has been ReaLPruned: it derives the tile plan from the mask (host side)
 and runs the differentiable block-sparse product.  Shapes that do not
 tile fall back to the dense masked oracle, as in the reference.
-``tile_stats`` (the reference's kernel #9) is not yet ported.
+``tile_stats`` is the device-side per-tile (liveness, Σ|w|), kernel #9.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from repro_torch.configs.base import MXU_TILE
 from repro_torch.kernels import ref
 from repro_torch.kernels.bsmm import (make_tile_plan, plan_matmul,  # noqa: F401
                                       tile_bitmap)
+from repro_torch.kernels.tile_stats import tile_stats  # noqa: F401
 
 
 def tile_density(mask: np.ndarray, bk: int = MXU_TILE,

@@ -1,11 +1,14 @@
 """Plain torch oracles for the kernels (port of ``repro.kernels.ref``).
 
-Only the oracle this slice needs is here; ``bsmm.py`` and
-``paged_attention.py`` keep each kernel's plain version beside it.
+Only the oracles the ported slices need are here; ``bsmm.py``,
+``tile_stats.py`` and ``paged_attention.py`` keep each kernel's plain
+version beside it.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.configs.base import MXU_TILE
 
 
 def masked_matmul_ref(x, w, mask):
@@ -13,3 +16,14 @@ def masked_matmul_ref(x, w, mask):
     accumulation, output in x's dtype."""
     wm = w * mask.to(w.dtype)
     return torch.matmul(x.float(), wm.float()).to(x.dtype)
+
+
+def tile_stats_ref(w, bk: int = MXU_TILE, bn: int = MXU_TILE):
+    """Per (bk, bn) tile: (any-nonzero, Σ|w|) — oracle for tile_stats.
+
+    w: (K, N) → (nt_k, nt_n) bool liveness + (nt_k, nt_n) f32 |w| sums,
+    ragged edges zero-padded (``tile_stats_plain`` with a bool
+    liveness, as the reference's oracle returns it)."""
+    from repro_torch.kernels.tile_stats import tile_stats_plain
+    live, sums = tile_stats_plain(w, bk, bn)
+    return live.bool(), sums

@@ -9,9 +9,10 @@ backward kernels.  PyTorch runs eagerly: there is no ``jit``, and the
 reference's buffer donation becomes the optimizers' in-place state
 update (``optim.optimizers``).
 
-``Trainer`` adds the operational layer: deterministic data, a straggler
-deadline and hook.  Checkpointing (the reference's ``CheckpointManager``)
-is not yet ported.
+``Trainer`` adds the operational layer: auto-resume from the newest
+committed checkpoint (``checkpoint.CheckpointManager``, the reference's
+on-disk format), periodic saves, deterministic data, a straggler
+deadline and hook.
 """
 from __future__ import annotations
 
@@ -20,11 +21,13 @@ import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch._bridge import (resolve_device, tree_leaves, tree_map,
                                  tree_unflatten)
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.optim import Optimizer
 
 log = logging.getLogger("train")
@@ -141,23 +144,24 @@ def init_opt_state(optimizer: Optimizer, params, compressor=None):
 
 
 class Trainer:
-    """Operational wrapper: data → train step → (survive stragglers).
+    """Operational wrapper: resume → train → checkpoint → (survive).
 
     ``data_iter`` yields dicts of arrays or tensors; each batch is moved
     to ``device`` (default "cuda": without a card it raises unless given
-    ``device="cpu"``).  ``ckpt_dir`` is not yet ported and raises."""
+    ``device="cpu"``).  With ``ckpt_dir`` the trainer resumes from the
+    newest committed checkpoint there, saves every ``ckpt_every`` steps
+    and at the end of ``run`` (params, optimizer state, step, and the
+    aux state when there is one)."""
 
     def __init__(self, *, loss_fn, optimizer: Optimizer, params,
                  data_iter, ckpt_dir: Optional[str] = None,
+                 ckpt_every: int = 100,
                  microbatch: Optional[int] = None, remat: bool = False,
                  compressor=None,
                  aux_state=None,
                  step_deadline_s: Optional[float] = None,
                  on_straggler: Optional[Callable[[int, float], None]] = None,
                  device="cuda"):
-        if ckpt_dir is not None:
-            raise NotImplementedError("checkpointing (CheckpointManager) is "
-                                      "not yet ported to repro_torch")
         self.device = resolve_device(device)
         self._has_aux = aux_state is not None
         self.step_fn = make_train_step(loss_fn, optimizer,
@@ -166,6 +170,9 @@ class Trainer:
                                        has_aux_state=self._has_aux)
         self.optimizer = optimizer
         self.data_iter = data_iter
+        self.ckpt = (CheckpointManager(ckpt_dir, async_save=True)
+                     if ckpt_dir else None)
+        self.ckpt_every = ckpt_every
         self.state = TrainState(
             params, init_opt_state(optimizer, params, compressor), 0,
             aux_state)
@@ -174,6 +181,32 @@ class Trainer:
             lambda step, dt: log.warning(
                 "straggler: step %d took %.2fs (deadline %.2fs)", step, dt,
                 self.step_deadline_s))
+        self._maybe_resume()
+
+    def _maybe_resume(self):
+        if self.ckpt is None:
+            return
+        tmpl = {"params": self.state.params,
+                "opt_state": self.state.opt_state,
+                "step": np.zeros((), np.int32)}
+        if self._has_aux:
+            tmpl["aux"] = self.state.aux
+        step, tree = self.ckpt.restore(tmpl)
+        if step is not None:
+            self.state = TrainState(tree["params"], tree["opt_state"],
+                                    int(tree["step"]),
+                                    tree.get("aux", self.state.aux))
+            log.info("resumed from checkpoint at step %d", self.state.step)
+
+    def save(self, blocking: bool = False):
+        if self.ckpt is None:
+            return
+        tree = {"params": self.state.params,
+                "opt_state": self.state.opt_state,
+                "step": np.asarray(self.state.step, np.int32)}
+        if self._has_aux:
+            tree["aux"] = self.state.aux
+        self.ckpt.save(self.state.step, tree, blocking=blocking)
 
     def _batch(self):
         return {k: torch.as_tensor(v, device=self.device)
@@ -200,7 +233,12 @@ class Trainer:
                 self.on_straggler(self.state.step, dt)
             self.state = TrainState(params, opt_state, self.state.step + 1,
                                     aux)
+            if self.ckpt is not None and self.state.step % self.ckpt_every == 0:
+                self.save()
             if log_every and self.state.step % log_every == 0:
                 log.info("step %d loss %.4f (%.3fs)", self.state.step,
                          float(metrics["loss"]), dt)
+        if self.ckpt is not None:
+            self.save(blocking=True)
+            self.ckpt.wait()
         return {k: float(v) for k, v in metrics.items()}

@@ -1,7 +1,7 @@
 """The port's kernel modules against the reference's.
 
-``repro_torch.kernels.bsmm`` and ``.paged_attention`` on CPU tensors run
-their plain PyTorch versions; the reference runs its Pallas kernels in
+``repro_torch.kernels.bsmm`` (with ``masked_matmul``), ``.tile_stats``
+and ``.paged_attention`` on CPU tensors run their plain PyTorch versions; the reference runs its Pallas kernels in
 interpret mode.  Both get the same numpy inputs; float32 parity is held
 at rtol = atol = 1e-5.  Tests marked ``cuda`` hold each CUDA kernel
 against its plain version on the card and skip where there is none.
@@ -15,14 +15,19 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs.base import PruneConfig as RPruneConfig
 from repro.kernels import bsmm as rb
 from repro.kernels import ops as rops
 from repro.kernels import paged_attention as rpa
+from repro.kernels import ref as rref
+from repro.kernels import tile_stats as rts
 from repro_torch import _bridge
+from repro_torch.configs import PruneConfig
 from repro_torch.kernels import bsmm as tb
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels import tile_stats as tts
 
 torch.set_num_threads(2)
 
@@ -144,6 +149,128 @@ def test_cpu_calls_run_the_plain_version_and_count_nothing():
     tb.bsmm_epilogue(torch.from_numpy(x), torch.from_numpy(w), plan,
                      torch.from_numpy(b), "relu")
     assert (tb.bsmm.launches, tb.bsmm_epilogue.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# tile stats (kernel #9): liveness exact, sums at rtol 1e-5, at two
+# geometries (one ragged), float32 and bfloat16
+# ---------------------------------------------------------------------------
+_TS_CASES = [(0, 256, 384, 128, 128), (1, 300, 200, 64, 256)]
+
+
+def _stats_weight(seed, K, N, bk, bn):
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal((K, N)).astype(np.float32)
+    w[:bk, :bn] = 0.0                   # one dead tile
+    w[bk:2 * bk, -1] = 0.0
+    return w
+
+
+@pytest.mark.parametrize("seed,K,N,bk,bn", _TS_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tile_stats_matches_reference(seed, K, N, bk, bn, dtype):
+    w = _stats_weight(seed, K, N, bk, bn)
+    wj = jnp.asarray(w, dtype)
+    wt = torch.from_numpy(w).to(getattr(torch, dtype))
+    want = rops.tile_stats(wj, bk=bk, bn=bn, interpret=True)
+    got = tops.tile_stats(wt, bk=bk, bn=bn)
+    assert got[0].dtype == torch.int32 and got[1].dtype == torch.float32
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
+                               rtol=1e-5, atol=0)
+    assert got[0][0, 0] == 0
+    # the PruneConfig geometry path, and the boolean oracle
+    cfg_got = tts.tile_stats_for_config(wt, PruneConfig(xbar_rows=bk,
+                                                        xbar_cols=bn))
+    cfg_want = rts.tile_stats_for_config(wj, RPruneConfig(xbar_rows=bk,
+                                                          xbar_cols=bn))
+    np.testing.assert_array_equal(cfg_got[0].numpy(), np.asarray(cfg_want[0]))
+    np.testing.assert_allclose(cfg_got[1].numpy(), np.asarray(cfg_want[1]),
+                               rtol=1e-5, atol=0)
+    r_live, r_sums = rref.tile_stats_ref(wj, bk, bn)
+    t_live, t_sums = tref.tile_stats_ref(wt, bk, bn)
+    assert t_live.dtype == torch.bool
+    np.testing.assert_array_equal(t_live.numpy(), np.asarray(r_live))
+    np.testing.assert_allclose(t_sums.numpy(), np.asarray(r_sums), rtol=1e-5)
+
+
+def test_tile_stats_rejects_bad_operands():
+    with pytest.raises(ValueError, match="2-D"):
+        tts.tile_stats(torch.zeros(2, 3, 4))
+    with pytest.raises(ValueError, match="positive"):
+        tts.tile_stats(torch.zeros(4, 4), bk=0)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tts.tile_stats(torch.zeros(4, 4, dtype=torch.float64))
+
+
+# ---------------------------------------------------------------------------
+# masked matmul (kernel #5): the crossbar-unaware LTP baseline
+# ---------------------------------------------------------------------------
+def _masked_operands(seed, M, K, N, density=0.1):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    w = (rng.standard_normal((K, N)) / np.sqrt(K)).astype(np.float32)
+    mask = (rng.random((K, N)) < density).astype(np.float32)
+    mask[:128, 128:256] = 0.0           # an all-dead tile
+    return x, w, mask
+
+
+@pytest.mark.parametrize("M,bm", [(8, 8), (128, 128), (256, 128)])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
+                                       ("bfloat16", 1e-2)])
+def test_masked_matmul_matches_reference(M, bm, dtype, tol):
+    x, w, mask = _masked_operands(M, M, 256, 384)
+    want = rb.masked_matmul_pallas(jnp.asarray(x, dtype), jnp.asarray(w, dtype),
+                                   jnp.asarray(mask, dtype), bm=bm,
+                                   interpret=True)
+    td = getattr(torch, dtype)
+    got = tb.masked_matmul(torch.from_numpy(x).to(td),
+                           torch.from_numpy(w).to(td),
+                           torch.from_numpy(mask).to(td), bm=bm)
+    assert got.dtype == td and got.shape == (M, 384)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=tol, atol=tol)
+
+
+def test_masked_matmul_skips_all_dead_tiles_only():
+    """A dead tile adds nothing even where w holds NaN; a live tile's
+    entries are masked elementwise, as in the reference."""
+    x, w, mask = _masked_operands(3, 8, 256, 384, density=0.5)
+    w[:128, 128:256] = np.nan           # under the all-dead tile
+    want = rb.masked_matmul_pallas(jnp.asarray(x), jnp.asarray(w),
+                                   jnp.asarray(mask), bm=8, interpret=True)
+    got = tb.masked_matmul(torch.from_numpy(x), torch.from_numpy(w),
+                           torch.from_numpy(mask), bm=8)
+    assert np.isfinite(np.asarray(want)).all()
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    # a bool mask means the same product
+    got_b = tb.masked_matmul(torch.from_numpy(x), torch.from_numpy(w),
+                             torch.from_numpy(mask != 0), bm=8)
+    torch.testing.assert_close(got_b, got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("M,K,N,bm", [(12, 256, 256, 8), (8, 200, 256, 8),
+                                      (8, 256, 300, 8), (100, 128, 128, 128)])
+def test_masked_matmul_geometry_errors(M, K, N, bm):
+    x, w, mask = (np.zeros((M, K), np.float32), np.zeros((K, N), np.float32),
+                  np.zeros((K, N), np.float32))
+    with pytest.raises(rb.GeometryError, match="must tile"):
+        rb.masked_matmul_pallas(jnp.asarray(x), jnp.asarray(w),
+                                jnp.asarray(mask), bm=bm, interpret=True)
+    with pytest.raises(tb.GeometryError, match="must tile"):
+        tb.masked_matmul(torch.from_numpy(x), torch.from_numpy(w),
+                         torch.from_numpy(mask), bm=bm)
+
+
+def test_new_kernels_count_nothing_on_the_cpu():
+    x, w, mask = _masked_operands(4, 8, 128, 128)
+    before = (tb.masked_matmul.launches, tts.tile_stats.launches)
+    tb.masked_matmul(torch.from_numpy(x), torch.from_numpy(w),
+                     torch.from_numpy(mask), bm=8)
+    tts.tile_stats(torch.from_numpy(w))
+    assert (tb.masked_matmul.launches, tts.tile_stats.launches) == before
 
 
 # ---------------------------------------------------------------------------
@@ -466,7 +593,8 @@ def test_resolve_device_raises_without_cuda(monkeypatch):
 def test_build_has_no_side_effects_on_import():
     """Importing the kernel modules builds nothing and needs no nvcc."""
     code = ("import repro_torch.kernels.bsmm, "
-            "repro_torch.kernels.paged_attention as p, sys; "
+            "repro_torch.kernels.paged_attention as p, sys, "
+            "repro_torch.kernels.tile_stats, repro_torch.kernels.ops; "
             "import repro_torch.kernels._build as b; "
             "print(b.library.cache_info().currsize)")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -560,3 +688,33 @@ def test_cuda_plan_matmul_backward_matches_plain(cuda):
         grads[str(dev)] = [a.grad.cpu() for a in args]
     for got, want in zip(grads[str(cuda)], grads["cpu"]):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("seed,K,N,bk,bn", _TS_CASES)
+def test_cuda_tile_stats_matches_plain(cuda, dtype, seed, K, N, bk, bn):
+    w = torch.from_numpy(_stats_weight(seed, K, N, bk, bn)).to(cuda, dtype)
+    n0 = tts.tile_stats.launches
+    live, sums = tts.tile_stats(w, bk=bk, bn=bn)
+    assert tts.tile_stats.launches == n0 + 1
+    p_live, p_sums = tts.tile_stats_plain(w, bk, bn)
+    torch.testing.assert_close(live, p_live, rtol=0, atol=0)
+    torch.testing.assert_close(sums, p_sums, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mask_dtype", [torch.float32, torch.bfloat16,
+                                        torch.bool])
+@pytest.mark.parametrize("M", [8, 256])
+def test_cuda_masked_matmul_matches_plain(cuda, dtype, mask_dtype, M):
+    x, w, mask = _masked_operands(M, M, 256, 384)
+    xt, wt = (torch.from_numpy(a).to(cuda, dtype) for a in (x, w))
+    mt = torch.from_numpy(mask).to(cuda, mask_dtype)
+    tol = dict(rtol=1e-2, atol=1e-2) if dtype == torch.bfloat16 \
+        else dict(rtol=1e-4, atol=1e-4)
+    n0 = tb.masked_matmul.launches
+    got = tb.masked_matmul(xt, wt, mt, bm=8)
+    assert tb.masked_matmul.launches == n0 + 1
+    torch.testing.assert_close(got, tb.masked_matmul_plain(xt, wt, mt), **tol)

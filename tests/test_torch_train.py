@@ -478,8 +478,6 @@ def test_not_yet_ported_paths_raise(setup):
     s = setup
     ad = LMAdapter(s["tcfg"], device="cpu", **ADAPTER)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        ad.make_trainer(_tparams(s), s["masks"], ckpt_dir="/nonexistent")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
         ad.make_trainer(_tparams(s), s["masks"], quantize_bits=8)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         ttfm.set_remat(True, "dots")
