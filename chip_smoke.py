@@ -17,7 +17,9 @@ no result line otherwise):
    ragged row count) and serving deepseek-v3 gives it (the fused-V
    paged attention of absorbed MLA, and bsmm batched over 256 experts),
    in bfloat16 and float32, with the tolerance printed, and time
-   kernel, plain version and a library yardstick;
+   kernel, plain version and a library yardstick; flash attention at
+   llama3.2-3b's prefill shapes (S 300, 512, 4096; full and float32 at
+   512) and deepseek-v3's MLA prefill (hd 192, dv 128);
 3. serve 8 requests through ``ServeEngine`` at the full width and depth
    of llama3.2-3b (28 layers, random weights from a seeded generator)
    with a crossbar-pruned ticket (one seeded 128x128 tile bitmap per
@@ -25,6 +27,16 @@ no result line otherwise):
    request finishes, that every kernel was launched on that path, that
    every logit is finite, and that block-sparse prefill through the
    ticket's plan agrees with dense prefill on the masked weights;
+3b. the serving control plane at the same size: two crossbar tickets
+   (seeded bitmaps) exported through ``core.lottery`` and registered in
+   a ``TicketManager`` (fingerprints through ``smoke_decode``), a
+   ``FleetRouter`` of two engines fleet-swapped from ticket A to B
+   mid-stream (in-flight streams held to a no-swap run, later
+   admissions on B's generation), one heartbeat failover of engine 0
+   on an injected clock (every uid done, moved streams held to the
+   never-failed run), a dense-slot (``paged=False``) engine against the
+   paged one, flash attention launched once per layer and prefill, one
+   profiled prefill, and ``api.cli serve --engines 2`` at full width;
 4. check one loss backward through the ticket's plan against dense
    autograd at full width and 2 layers;
 5. retrain the full-width, full-depth ticket for 4 steps through
@@ -60,11 +72,12 @@ against their plain versions and times them.  Before the last line it
 prints ``{"kernels": [...]}`` (per kernel: its launches in its path's
 run — llama serving for the 2-D forward kernels and GQA paged
 attention, retraining for dx and dw, deepseek serving for the batched
-bsmm and the fused-V kernel, the CNN path for #5 and #9 — its error
+bsmm and the fused-V kernel, the CNN path for #5 and #9, the control
+plane for flash attention (#8) — its error
 against the plain version, its time, the plain version's, the bound and
-the library call's), the serving, gradient-check, retrain, deepseek and
-CNN summaries and the card's name and power limit; the last line is
-``{"ok": true, "device": {...}}``.  Longer records go to ``chiprun_out/``.
+the library call's), the serving, control-plane, gradient-check,
+retrain, deepseek and CNN summaries and the card's name and power
+limit; the last line is ``{"ok": true, "device": {...}}``.  Longer records go to ``chiprun_out/``.
 """
 from __future__ import annotations
 
@@ -433,10 +446,75 @@ def time_paged(PA, name, q, kp, vp, tables, lens, scale, dv):
     return row
 
 
-def build_ticket(params, cfg, device):
+# ---------------------------------------------------------------------------
+# kernel #8: flash attention, the serving prefill's attention
+# ---------------------------------------------------------------------------
+# (S, Hq, Hkv, hd, dv, causal, dtype): llama3.2-3b's prefill at a ragged
+# prompt, a bucket and a long prompt; one full (non-causal) and one
+# float32 shape; deepseek-v3's MLA prefill (q/k width 192, values 128)
+FLASH_SHAPES = ((300, 24, 8, 128, 128, True, torch.bfloat16),
+                (512, 24, 8, 128, 128, True, torch.bfloat16),
+                (4096, 24, 8, 128, 128, True, torch.bfloat16),
+                (512, 24, 8, 128, 128, False, torch.bfloat16),
+                (512, 24, 8, 128, 128, True, torch.float32),
+                (512, 128, 128, 192, 128, True, torch.bfloat16))
+
+
+def flash_bound_ms(S, Hq, Hkv, hd, dv, causal, elem, dtype_name) -> tuple:
+    """q, k, v read once and the output written once, or the flops of
+    q k^T and p @ v over the (causal: lower-triangle) score pairs."""
+    nbytes = S * (Hq * hd + Hkv * (hd + dv) + Hq * dv) * elem
+    pairs = S * (S + 1) / 2 if causal else S * S
+    flops = 2.0 * Hq * pairs * (hd + dv)
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+
+def check_flash(FA):
+    """Flash attention against its plain version at every shape above,
+    with the tolerance printed; times kernel, plain version and SDPA
+    (the library yardstick, never on the path).  Returns (error, rows)."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    err, rows = 0.0, []
+    for S, Hq, Hkv, hd, dv, causal, dtype in FLASH_SHAPES:
+        q = torch.randn(1, S, Hq, hd, device="cuda", generator=g).to(dtype)
+        k = torch.randn(1, S, Hkv, hd, device="cuda", generator=g).to(dtype)
+        v = torch.randn(1, S, Hkv, dv, device="cuda", generator=g).to(dtype)
+        got = FA.flash_attention(q, k, v, causal=causal)
+        want = FA.flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        e = (got.float() - want.float()).abs().max().item()
+        tol = tolerance(dtype, want)
+        name = str(dtype)[6:]
+        print(f"check flash_attention {name} S={S} Hq={Hq} Hkv={Hkv} hd={hd} "
+              f"dv={dv} causal={causal} max_abs_err={e:.3e} tol={tol:.3e}")
+        require(torch.isfinite(got).all().item(), "flash_attention non-finite")
+        require(e <= tol, f"flash_attention disagrees with its plain version "
+                f"at S={S} Hq={Hq} hd={hd} {dtype}")
+        err = max(err, e)
+        row = {"S": S, "Hq": Hq, "Hkv": Hkv, "hd": hd, "dv": dv,
+               "causal": causal, "dtype": name}
+        row["ms"] = time_ms(lambda i: FA.flash_attention(q, k, v,
+                                                         causal=causal))
+        row["plain_ms"] = time_ms(
+            lambda i: FA.flash_attention_plain(q, k, v, causal=causal),
+            iters=3, graph=False)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        row["library_ms"] = time_ms(lambda i: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=Hq != Hkv))
+        row["bound_ms"], row["bound_by"] = flash_bound_ms(
+            S, Hq, Hkv, hd, dv, causal, q.element_size(), name)
+        print("time flash_attention " + json.dumps(row))
+        rows.append(row)
+        del q, k, v, got, want, qt, kt, vt
+    return err, rows
+
+
+def build_ticket(params, cfg, device, seed=1234):
     """One seeded ~25 %-live 128x128 tile bitmap per projection, shared
     by every layer (a (K, N) mask broadcast over the stacked repeats)."""
-    rng = np.random.default_rng(1234)
+    rng = np.random.default_rng(seed)
     seg = params["segments"][0][0]
     reps = cfg.n_layers
     masks = {"attn": {}, "mlp": {}}
@@ -453,6 +531,7 @@ def build_ticket(params, cfg, device):
 def serve(cfg, device):
     from repro_torch._bridge import apply_masks
     from repro_torch.kernels import bsmm as B
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.models import transformer as tfm
     from repro_torch.serve import Request, ServeEngine
@@ -485,6 +564,7 @@ def serve(cfg, device):
     B.bsmm.launches = 0
     B.bsmm_epilogue.launches = 0
     PA.paged_attention.launches = 0
+    FA.flash_attention.launches = 0
     step_ms = []
     t0 = time.perf_counter()
     while not eng.idle:
@@ -497,7 +577,8 @@ def serve(cfg, device):
     serve_s = time.perf_counter() - t0
     launches = {"bsmm": B.bsmm.launches,
                 "bsmm_epilogue": B.bsmm_epilogue.launches,
-                "paged_attention": PA.paged_attention.launches}
+                "paged_attention": PA.paged_attention.launches,
+                "flash_attention": FA.flash_attention.launches}
     rep = eng.report
     require(all(r.done and len(r.tokens) == 32 for r in reqs),
             "not every request finished")
@@ -508,7 +589,8 @@ def serve(cfg, device):
     passes = rep.prefills + rep.decode_steps
     require(launches["bsmm"] == passes * L * 6
             and launches["bsmm_epilogue"] == passes * L
-            and launches["paged_attention"] == rep.decode_steps * L,
+            and launches["paged_attention"] == rep.decode_steps * L
+            and launches["flash_attention"] == rep.prefills * L,
             f"launch counts {launches} do not match {rep.prefills} prefills "
             f"and {rep.decode_steps} decode steps over {L} layers")
 
@@ -544,6 +626,7 @@ def serve(cfg, device):
         "launches": launches,
         "launches_per_decode_step": {"bsmm": 6 * L, "bsmm_epilogue": L,
                                      "paged_attention": L},
+        "flash_launches_per_prefill": L,
         "prefill_plan_vs_dense_max_abs_err": diff,
         "decode_dispatch": dispatch,
         "report": rep.__dict__,
@@ -588,6 +671,311 @@ def time_decode_dispatch(eng, cfg, B, device) -> dict:
     out["steps_each"] = min(len(v) for v in ms.values())
     print(f"decode dispatch: {json.dumps(out)}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the serving control plane: tickets, a fleet, hot-swap, failover,
+# dense-slot decode and the command line, at full width
+# ---------------------------------------------------------------------------
+CP_REQUESTS = 16        # fleet requests (prompts 5-300 tokens)
+CP_MAX_NEW = 16
+CP_SWAP_AFTER = 2       # fleet ticks before the swap lands
+CP_DENSE_REQUESTS = 8
+
+
+def ticket_masks(params, cfg, seed, device):
+    """Masks for every ``lm_prunable`` leaf, as bool: the seeded ~25 %-live
+    tile bitmap on each attention and MLP projection (shared by every
+    layer, as ``build_ticket``), all-ones elsewhere."""
+    from repro_torch.core.masks import lm_prunable, tree_map_with_path
+
+    shared = build_ticket(params, cfg, device, seed=seed)["segments"][0][0]
+
+    def mk(path, w):
+        if w is None or not lm_prunable(path, w):
+            return None
+        group, key = path.split("/")[-2:]
+        if group in shared and key in shared[group]:
+            return shared[group][key].bool()
+        return torch.ones(w.shape, dtype=torch.bool, device=device)
+    return tree_map_with_path(mk, params)
+
+
+def _fleet_prefills(router) -> int:
+    return sum(fe.engine.report.prefills for fe in router.frontends)
+
+
+def _drive(router, prompts, max_new, uid0=0):
+    for i, p in enumerate(prompts):
+        router.submit(p, uid=uid0 + i, max_new_tokens=max_new)
+
+
+def control_plane(cfg, device, requests=CP_REQUESTS):
+    """Two tickets exported through ``core.lottery`` and registered in a
+    ``TicketManager`` (fingerprints through ``smoke_decode``), a
+    ``FleetRouter`` of two engines fleet-swapped from ticket A to B
+    mid-stream (in-flight streams held to a no-swap run, later
+    admissions on B's generation), one heartbeat failover of engine 0
+    (every uid done, moved streams held to the never-failed run), a
+    dense-slot engine against the paged one, and ``api.cli serve`` at
+    full width.  Every prefill attends through kernel #8: its launches
+    are held to one per layer per prefill."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.api import cli
+    from repro_torch.core import lottery
+    from repro_torch.core.masks import lm_prunable
+    from repro_torch.distributed.fault_tolerance import HeartbeatMonitor
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import FleetRouter, Request, TicketManager
+
+    L = cfg.n_layers
+    t_phase = time.perf_counter()
+    FA.flash_attention.launches = 0
+    gen = torch.Generator(device=device).manual_seed(0)
+    template = tfm.init_params(gen, cfg, device=device)
+    mgr = TicketManager(cfg=cfg, params_template=template,
+                        prunable=lm_prunable, prefill_fn=tfm.prefill,
+                        decode_fn=tfm.decode_step, device=device)
+    # the tickets share the template's initial weights (seed 0) and carry
+    # their masks only: importing fills the weights from the template
+    times = {}
+    with tempfile.TemporaryDirectory(dir=OUT) as tdir:
+        for name, seed in (("a", 1234), ("b", 4321)):
+            t0 = time.perf_counter()
+            lottery.export_ticket(f"{tdir}/{name}", None,
+                                  ticket_masks(template, cfg, seed, device),
+                                  meta={"arch": cfg.name})
+            t1 = time.perf_counter()
+            rec = mgr.register(name, f"{tdir}/{name}")
+            sync(device)
+            times[f"export_{name}_s"] = t1 - t0
+            times[f"register_{name}_s"] = time.perf_counter() - t1
+            print(f"ticket {name}: exported in {t1 - t0:.1f} s, registered "
+                  f"in {times[f'register_{name}_s']:.1f} s, fingerprint "
+                  f"{rec.fingerprint}")
+    fp = {n: r.fingerprint for n, r in mgr.tickets.items()}
+    require(fp["a"] != fp["b"], "the two tickets share a fingerprint")
+    want_flash = 2 * L                       # one probe prefill each
+
+    prng = np.random.default_rng(21)
+    lengths = np.linspace(5, 300, requests).astype(int)
+    prompts = [prng.integers(1, cfg.vocab_size, size=int(n)).astype(np.int32)
+               for n in lengths]
+
+    def fleet(**kw):
+        return FleetRouter([mgr.make_engine("a", batch_slots=8, capacity=512,
+                                            **kw) for _ in range(2)])
+
+    # the no-swap, never-failed oracle
+    oracle_router = fleet()
+    _drive(oracle_router, prompts, CP_MAX_NEW)
+    t0 = time.perf_counter()
+    oracle_router.drain()
+    sync(device)
+    oracle_s = time.perf_counter() - t0
+    oracle = {r.uid: list(r.tokens) for r in oracle_router.finished}
+    n_pref = _fleet_prefills(oracle_router)
+    want_flash += n_pref * L
+    require(len(oracle) == requests, "the oracle fleet lost requests")
+    orep = oracle_router.report
+    del oracle_router
+
+    # fleet swap A -> B mid-stream
+    router = fleet()
+    _drive(router, prompts, CP_MAX_NEW)
+    router.pump(CP_SWAP_AFTER)
+    in_flight = {rec.uid for rec in router.records.values()
+                 if rec.req is not None and rec.req.status == "active"}
+    t0 = time.perf_counter()
+    ev = mgr.swap(router, "b")
+    sync(device)
+    swap_verify_s = time.perf_counter() - t0
+    require(ev.accepted, f"fleet swap rejected: {ev.reason}")
+    want_flash += len(ev.events) * L         # one probe prefill per engine
+    post = [prng.integers(1, cfg.vocab_size, size=40).astype(np.int32)
+            for _ in range(2)]
+    _drive(router, post, CP_MAX_NEW, uid0=1000)
+    router.drain()
+    sync(device)
+    n_pref = _fleet_prefills(router)
+    want_flash += n_pref * L
+    done = {r.uid: r for r in router.finished}
+    require(len(done) == requests + len(post), "the swapped fleet lost "
+            "requests")
+    require(in_flight and all(done[u].generation == 0 for u in in_flight),
+            f"in-flight requests {sorted(in_flight)} did not finish on "
+            "generation 0")
+    diverged = sorted(u for u in in_flight if done[u].tokens != oracle[u])
+    print(f"fleet swap: {len(in_flight)} in flight at the swap, "
+          f"{len(diverged)} diverged from the no-swap run {diverged}; "
+          f"verify {swap_verify_s * 1e3:.1f} ms; post-swap generations "
+          f"{[done[1000 + i].generation for i in range(len(post))]}")
+    require(not diverged, "in-flight streams differ from the no-swap run")
+    require(all(done[1000 + i].generation == ev.gid
+                for i in range(len(post))),
+            "post-swap admissions did not run on ticket B's generation")
+    srep = router.report
+    del router, done
+
+    # heartbeat failover of engine 0 on an injected clock
+    t = [0.0]
+    with tempfile.TemporaryDirectory(dir=OUT) as hb_dir:
+        monitor = HeartbeatMonitor(root=hb_dir, deadline_s=5.0,
+                                   clock=lambda: t[0])
+        router = FleetRouter(
+            [mgr.make_engine("a", batch_slots=8, capacity=512,
+                             clock=lambda: t[0]) for _ in range(2)],
+            monitor=monitor)
+        _drive(router, prompts, CP_MAX_NEW)
+        router.pump(CP_SWAP_AFTER)               # both beat at t = 0
+        t[0] = 6.0                               # engine 0 wedges
+        monitor.beat("engine1")
+        router.pump(1)
+        require(router.live == {1}, f"failover left {router.live} live")
+        router.drain()
+        sync(device)
+    n_pref = _fleet_prefills(router)
+    want_flash += n_pref * L
+    moved = [r for r in router.records.values() if r.redispatches]
+    require(len(router.finished) == requests
+            and all(r.status == "done" for r in router.finished),
+            "not every uid reached done after the failover")
+    fdiv = sorted(r.uid for r in moved if r.tokens != oracle[r.uid])
+    print(f"failover: {router.report.failovers} failover, {len(moved)} "
+          f"moved ({sum(1 for r in moved if r.tokens)} with tokens "
+          f"emitted), {len(fdiv)} diverged from the never-failed run {fdiv}")
+    require(moved and not fdiv, "re-admitted streams differ from the "
+            "never-failed fleet")
+    frep = router.report
+    del router
+
+    # dense-slot engine against the paged one, 8 requests each: every
+    # other prompt, so that the longest (> 256 tokens) prefill at 511
+    # rows on the dense engine (capacity 512) and at 512 on the paged one
+    dense_prompts = prompts[1::2][:CP_DENSE_REQUESTS]
+    step_ms = {}
+    logits_err = 0.0
+    for paged in (False, True):
+        eng = mgr.make_engine("a", batch_slots=8, capacity=512, paged=paged)
+        for i, p in enumerate(dense_prompts):
+            eng.submit(Request(uid=i, prompt=p, max_new_tokens=CP_MAX_NEW))
+        ms = []
+        while not eng.idle:
+            before = eng.report.prefills
+            ts = time.perf_counter()
+            eng.step()
+            sync(device)
+            if eng.report.prefills == before:
+                ms.append((time.perf_counter() - ts) * 1e3)
+        want_flash += eng.report.prefills * L
+        require(all(len(r.tokens) == CP_MAX_NEW for r in eng._finished),
+                f"the {'paged' if paged else 'dense-slot'} engine lost "
+                "tokens")
+        step_ms["paged" if paged else "dense"] = sorted(ms)[len(ms) // 2]
+        if paged:
+            paged_eng = eng
+        else:
+            dense_eng = eng
+    # each engine's prefill of one prompt, at its own bucket and cache
+    # capacity: the same function at different row counts
+    rec_a = mgr.tickets["a"]
+    worst = None
+    with torch.inference_mode():
+        for p in dense_prompts:
+            n = len(p)
+            outs = []
+            for eng in (dense_eng, paged_eng):
+                S = eng._bucket(n)
+                toks = np.zeros((1, S), np.int64)
+                toks[0, :n] = p
+                cap = S if eng.paged else eng.capacity
+                lg, _ = tfm.prefill(
+                    rec_a.params, cfg,
+                    {"tokens": torch.as_tensor(toks, device=device)}, cap,
+                    valid_len=torch.tensor([n], dtype=torch.int32,
+                                           device=device),
+                    plan=eng.plan)
+                outs.append(lg[0, -1].float())
+            want_flash += 2 * L
+            e = (outs[0] - outs[1]).abs().max().item()
+            scale = outs[1].abs().max().item()
+            if worst is None or e / scale > worst[0] / worst[1]:
+                worst = (e, scale, n, dense_eng._bucket(n),
+                         paged_eng._bucket(n))
+            logits_err = max(logits_err, e)
+    e, scale, n, sd, sp = worst
+    tol = 5e-2 * scale
+    print(f"check dense-slot vs paged prefill logits (bf16, {L} layers, "
+          f"prompt {n}, buckets {sd} vs {sp}): max_abs_err={e:.4e} "
+          f"max|logit|={scale:.4e} tol={tol:.4e}")
+    require(e <= tol, "dense-slot prefill disagrees with paged prefill")
+    plan_a = paged_eng.plan
+    del dense_eng, paged_eng, eng
+
+    launches = FA.flash_attention.launches
+    print(f"flash_attention launches {launches}, want {want_flash} "
+          f"({L} per prefill)")
+    require(launches == want_flash, "a prefill did not attend through "
+            "kernel #8 once per layer")
+
+    # one prefill at a 512-token bucket under the profiler
+    batch = {"tokens": torch.as_tensor(
+        prng.integers(1, cfg.vocab_size, size=(1, 512)), device=device)}
+
+    def pf():
+        with torch.inference_mode():
+            tfm.prefill(rec_a.params, cfg, batch, 512, plan=plan_a)
+        sync(device)
+
+    pf()
+    prof = profile_call(pf)
+    share = (prof["by_group_ms"].get("flash_attention", 0.0)
+             / prof["device_ms"]) if "by_group_ms" in prof else None
+    print(f"prefill profile (512 tokens): device {prof['device_ms']} ms, "
+          f"flash share {share}")
+
+    # the command line, in process, at full width
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        code = cli.main(["serve", "--arch", "llama3.2-3b", "--scale", "full",
+                         "--engines", "2", "--requests", "4", "--json"])
+    cli_s = time.perf_counter() - t0
+    cli_out = json.loads(out.getvalue().strip().splitlines()[-1])
+    print(f"cli serve: exit {code}, {json.dumps(cli_out)[:300]}")
+    require(code == 0 and cli_out["event"] == "serve_fleet"
+            and cli_out["requests"] == 4, "cli serve failed")
+
+    summary = {
+        "requests": requests, "max_new": CP_MAX_NEW, **times,
+        "fingerprints": {k: list(v) for k, v in fp.items()},
+        "swap_verify_ms": swap_verify_s * 1e3,
+        "swap_in_flight": len(in_flight),
+        "oracle_drain_s": oracle_s,
+        "fleet_ttft_p50_s": orep.ttft_p50, "fleet_ttft_p95_s": orep.ttft_p95,
+        "fleet_tokens_per_s": orep.tokens_per_s,
+        "swap_fleet_tokens_per_s": srep.tokens_per_s,
+        "failover_moved": len(moved), "failover_tokens_per_s":
+            frep.tokens_per_s,
+        "decode_step_ms_p50": step_ms,
+        "dense_vs_paged_prefill_max_abs_err": logits_err,
+        "flash_launches": launches,
+        "prefill_profile": {k: v for k, v in prof.items()
+                            if k != "top_kernels"},
+        "prefill_flash_share": share,
+        "cli": cli_out, "cli_s": cli_s,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    print("control plane: " + json.dumps(
+        {k: summary[k] for k in ("swap_verify_ms", "fleet_ttft_p50_s",
+                                 "fleet_ttft_p95_s", "fleet_tokens_per_s",
+                                 "decode_step_ms_p50", "prefill_flash_share",
+                                 "phase_s")}))
+    return {"flash_attention": launches}, summary
 
 
 ROUTED = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
@@ -741,6 +1129,8 @@ def _kernel_group(name: str) -> str:
         return "bsmm_batched"
     if "paged_attention" in name:
         return "paged_attention"
+    if "flash_attention" in name:
+        return "flash_attention"
     m = re.search(r"bsmm_\w+<([^>]*)>", name)
     if m:
         return "bsmm_dx" if m.group(1).replace(" ", "").endswith("true") \
@@ -897,6 +1287,7 @@ def serve_deepseek(cfg, device):
     from repro_torch._bridge import tree_leaves
     from repro_torch.core.masks import apply_masks_
     from repro_torch.kernels import bsmm as B
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.models import transformer as tfm
     from repro_torch.serve import Request, ServeEngine
@@ -934,7 +1325,8 @@ def serve_deepseek(cfg, device):
 
     counters = ((B.bsmm, "launches"), (B.bsmm_epilogue, "launches"),
                 (B.bsmm_batched, "launches"), (PA.paged_attention, "launches"),
-                (PA.paged_attention, "fused_launches"))
+                (PA.paged_attention, "fused_launches"),
+                (FA.flash_attention, "launches"))
     for f, attr in counters:
         setattr(f, attr, 0)
     step_ms = []
@@ -951,7 +1343,8 @@ def serve_deepseek(cfg, device):
                 "bsmm_epilogue": B.bsmm_epilogue.launches,
                 "bsmm_batched": B.bsmm_batched.launches,
                 "paged_attention": PA.paged_attention.launches,
-                "paged_attention_fused_v": PA.paged_attention.fused_launches}
+                "paged_attention_fused_v": PA.paged_attention.fused_launches,
+                "flash_attention": FA.flash_attention.launches}
     rep = eng.report
     require(all(r.done and len(r.tokens) == r.max_new_tokens for r in reqs),
             "not every deepseek request finished")
@@ -967,7 +1360,8 @@ def serve_deepseek(cfg, device):
             "bsmm_epilogue": passes * (n_dense + n_moe),
             "bsmm_batched": passes * 3 * n_moe,
             "paged_attention": 0,
-            "paged_attention_fused_v": rep.decode_steps * cfg.n_layers}
+            "paged_attention_fused_v": rep.decode_steps * cfg.n_layers,
+            "flash_attention": rep.prefills * cfg.n_layers}
     print(f"deepseek launches {launches}, want {want} ({rep.prefills} "
           f"prefills, {rep.decode_steps} decode steps, {n_dense} dense and "
           f"{n_moe} MoE layers)")
@@ -1522,6 +1916,7 @@ def main() -> int:
     from repro_torch.configs import get_arch
     from repro_torch.kernels import _build
     from repro_torch.kernels import bsmm as B
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.kernels import tile_stats as TS
 
@@ -1558,8 +1953,16 @@ def main() -> int:
         bsmm_err = {k: max(v, ds_err[k]) for k, v in bsmm_err.items()}
         stats_err, stats_times = check_tile_stats(TS)
         masked_err, masked_times = check_masked(B)
+        flash_err, flash_times = check_flash(FA)
     torch.cuda.empty_cache()
     launches, summary = serve(cfg, "cuda")
+    # the serve phase's model is gone; the control plane holds two
+    # tickets' weights, all freed before the retrain phase's 56.5 GB peak
+    gc.collect()
+    torch.cuda.empty_cache()
+    cp_launches, cp_summary = control_plane(cfg, "cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
     grad_summary = grad_check(cfg, "cuda")
     t_launches, train_summary = retrain(cfg, "cuda")
     # the llama models are gone (each phase's locals); hand their memory
@@ -1659,15 +2062,31 @@ def main() -> int:
          "plain_ms": stats_row["plain_ms"], "bound_ms": stats_row["bound_ms"],
          "bound_by": stats_row["bound_by"], "library_ms": None},
     ]
+    # llama3.2-3b's prefill at a 512-token bucket, causal, bf16
+    flash_row = next(r for r in flash_times if r["S"] == 512 and r["causal"]
+                     and r["Hq"] == 24 and r["dtype"] == "bfloat16")
+    kernels.append(
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:68",
+         "launches": cp_launches["flash_attention"],
+         "max_abs_err": flash_err, "ms": flash_row["ms"],
+         "plain_ms": flash_row["plain_ms"], "bound_ms": flash_row["bound_ms"],
+         "bound_by": flash_row["bound_by"],
+         "library_ms": flash_row["library_ms"]})
     (OUT / "chip_smoke_kernels.json").write_text(json.dumps(
         {"device": smi, "bsmm": bsmm_times, "paged_attention": paged_row,
          "bsmm_grads": grad_times, "paged_attention_fused_v": mla_row,
          "bsmm_batched": batched_times, "serve": summary,
          "grad_check": grad_summary, "retrain": train_summary,
          "serve_deepseek": ds_summary, "tile_stats": stats_times,
-         "masked_matmul": masked_times, "cnn": cnn_summary},
+         "masked_matmul": masked_times, "cnn": cnn_summary,
+         "flash_attention": flash_times, "control_plane": cp_summary},
         indent=1, default=str))
     print(json.dumps({"serve": summary}, default=str))
+    print(json.dumps({"control_plane": {k: v for k, v in cp_summary.items()
+                                        if k != "prefill_profile"}},
+                     default=str))
     print(json.dumps({"grad_check": grad_summary}))
     print(json.dumps({"retrain": train_summary}, default=str))
     print(json.dumps({"serve_deepseek": {k: v for k, v in ds_summary.items()

@@ -1,5 +1,6 @@
-"""``repro_torch.api`` — the entry point for pruning and retraining
-(port of ``repro.api``; the CLI and ``EncDecAdapter`` come later).
+"""``repro_torch.api`` — the entry point for pruning, retraining and
+serving (port of ``repro.api``; ``EncDecAdapter`` comes later).  The
+command line is ``python -m repro_torch.api`` (``api.cli``).
 
     from repro_torch.api import PruningSession, make_adapter
     adapter = make_adapter("vgg11", scale="full", batch_size=128)
@@ -8,7 +9,7 @@
     session.export_ticket("tickets/vgg11")
 """
 from repro_torch.api.adapters import (  # noqa: F401
-    CNNAdapter, FunctionAdapter, LMAdapter, ModelAdapter,
+    CNNAdapter, FunctionAdapter, LMAdapter, ModelAdapter, ServeUnsupported,
 )
 from repro_torch.api.recipes import (  # noqa: F401
     Recipe, Stage, ablate_stage, available_recipes, from_granularities,

@@ -1,5 +1,6 @@
-"""Model adapters: init/train/eval/prunability behind one protocol (port
-of ``repro.api.adapters``; ``EncDecAdapter`` comes with its slice).
+"""Model adapters: init/train/eval/prunability/serving behind one
+protocol (port of ``repro.api.adapters``; ``EncDecAdapter`` comes with
+its slice).
 
 Algorithm 1 is model-agnostic: the only model-specific pieces are how
 to initialise parameters, train them under a mask, score them, and
@@ -17,7 +18,7 @@ raising without a card unless given "cpu").
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +33,22 @@ from repro_torch.models.plans import PlanStats
 from repro_torch.optim import (adamw, constant, exponential_epoch_decay,
                                masked, sgd, warmup_cosine)
 from repro_torch.train import Trainer, cnn_train_plan, lm_train_plan
+
+
+class ServeUnsupported(NotImplementedError):
+    """An adapter whose family has no ServeEngine path.
+
+    Structured (arch/family/reason) so callers — the CLI ``serve``
+    subcommand in particular — can report *why* per architecture
+    instead of surfacing a bare traceback.
+    """
+
+    def __init__(self, arch: str, family: str, reason: str):
+        self.arch = arch
+        self.family = family
+        self.reason = reason
+        super().__init__(f"{arch} ({family}): serving unsupported — "
+                         f"{reason}")
 
 
 class ModelAdapter:
@@ -83,6 +100,13 @@ class ModelAdapter:
     def conv_pred(self, path: str) -> bool:
         return bool(self.conv_path_pred(path)) if self.conv_path_pred \
             else False
+
+    def serve_fns(self) -> Tuple[Callable, Callable]:
+        """(prefill_fn, decode_fn) for the ServeEngine handoff."""
+        cfg_name = getattr(self.cfg, "name", "<unknown>")
+        raise ServeUnsupported(
+            cfg_name, self.family,
+            f"{type(self).__name__} exposes no prefill/decode pair")
 
 
 @dataclasses.dataclass
@@ -332,6 +356,9 @@ class LMAdapter(ModelAdapter):
                 "bytes_per_step": int(round(sf * total)) * 4,
             }
         return trainer.state.params
+
+    def serve_fns(self):
+        return self._tfm.prefill, self._tfm.decode_step
 
     def evaluate(self, params, masks=None) -> float:
         losses = []

@@ -48,6 +48,8 @@ class FamilySpec:
     scale_tiny: Callable[[Any], Any] = lambda cfg: cfg
     # adapter kwargs that make scale="tiny" runs CPU-seconds cheap
     smoke_kwargs: Mapping[str, Any] = dataclasses.field(default_factory=dict)
+    # the adapter exposes a ServeEngine prefill/decode pair
+    serves: bool = False
 
 
 _FAMILIES: Dict[str, FamilySpec] = {}
@@ -135,6 +137,7 @@ register_family(FamilySpec(
     recipe="dense-full",
     scale_tiny=_tiny_arch,
     smoke_kwargs=_LM_SMOKE,
+    serves=True,
 ))
 
 register_family(FamilySpec(
@@ -153,6 +156,16 @@ def list_adaptable() -> Sequence[str]:
     """Every registered arch name the port knows (``make_adapter``
     raises "not yet ported" for those of an unported family)."""
     return list(list_archs()) + list(list_cnns())
+
+
+def unported_family(name: str) -> Optional[str]:
+    """The family of a registered arch name whose adapter family is not
+    yet ported (None when it is, or the name is a CNN)."""
+    if name in list_archs():
+        family = get_arch(name).family
+        if family not in _FAMILIES:
+            return family
+    return None
 
 
 def resolve_config(arch):

@@ -399,12 +399,26 @@ class PruningSession:
             kwargs.setdefault("quantize_bits", self.quantize_bits)
         return self.adapter.train(res.params, res.masks, steps, **kwargs)
 
-    def serve_engine(self, **kwargs):
-        """Hand the ticket to a ``ServeEngine``: not yet ported (the
-        reference serves LM tickets only; this port serves LMs through
-        ``serve.ServeEngine`` directly)."""
-        raise NotImplementedError("PruningSession.serve_engine is not yet "
-                                  "ported to repro_torch")
+    def serve_engine(self, *, batch_slots: int = 8, capacity: int = 512,
+                     greedy: Optional[bool] = None, temperature: float = 0.0,
+                     sample_seed: int = 0, use_bsmm: Optional[bool] = None):
+        """Hand the pruned ticket straight to a ``ServeEngine`` on the
+        adapter's device.
+
+        The ticket's masks ride along, so the engine derives the
+        per-layer 128×128 tile bitmaps and routes prefill AND decode
+        projections through the block-sparse kernel (``use_bsmm=False``
+        opts out).
+        """
+        from repro_torch.serve import ServeEngine
+        res = self._require_result()
+        prefill_fn, decode_fn = self.adapter.serve_fns()
+        return ServeEngine(params=res.params, cfg=self.adapter.cfg,
+                           prefill_fn=prefill_fn, decode_fn=decode_fn,
+                           batch_slots=batch_slots, capacity=capacity,
+                           greedy=greedy, temperature=temperature,
+                           sample_seed=sample_seed, masks=res.masks,
+                           use_bsmm=use_bsmm, device=self.adapter.device)
 
     def hardware_report(self, activation_volumes=None) -> HWReport:
         """Crossbar accounting of the final masks at the session's

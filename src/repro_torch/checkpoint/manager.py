@@ -108,8 +108,10 @@ class CheckpointManager:
     def save(self, step: int, tree, blocking: Optional[bool] = None):
         """Checkpoint ``tree`` at ``step`` (atomically)."""
         host_tree = tree_map(lambda x: np.array(to_numpy(x), copy=True), tree)
+        # one write at a time: a blocking save of the step an async save
+        # is still writing would race it on the same temporary directory
+        self.wait()
         if self.async_save and not (blocking or False):
-            self.wait()
             self._thread = threading.Thread(
                 target=self._write, args=(step, host_tree), daemon=True)
             self._thread.start()

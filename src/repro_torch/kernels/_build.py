@@ -28,7 +28,8 @@ from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("bsmm", "paged_attention", "tile_stats", "masked_matmul")
+SOURCES = ("bsmm", "paged_attention", "tile_stats", "masked_matmul",
+           "flash_attention")
 
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,15 +1,19 @@
 """Attention: grouped-query (GQA) and DeepSeek-style MLA — prefill, KV
-caches and paged decode.
+caches, dense-slot decode and paged decode.
 
 A port of ``repro.models.attention``: ``attend`` and
 ``causal_attention`` are plain torch with the reference's finite
 ``-1e30`` mask (scores and softmax in float32, outputs in the compute
-dtype), as the reference's training and prefill attention is plain jnp;
-``gqa_forward`` is the training forward; decode reads the paged block
-pool through the CUDA paged attention kernel — the GQA form for GQA,
-the fused-V form for MLA's latent pool (absorbed decode: scores and
-values in the latent space).  Sliding windows and dense-slot decode
-(``gqa_decode``, ``mla_decode``) are not yet ported.
+dtype), as the reference's training attention is plain jnp; the
+training forwards (``gqa_forward``, ``mla_forward``) use them.  Serving
+prefill (``gqa_make_cache``, ``mla_make_cache``) attends through the
+flash attention kernel (``kernels.flash_attention``, kernel #8), which
+the reference wrote for its long-prefill cells.  Dense-slot decode
+(``gqa_decode``, ``mla_decode``) is plain torch over per-slot caches,
+as in the reference; paged decode reads the block pool through the CUDA
+paged attention kernel — the GQA form for GQA, the fused-V form for
+MLA's latent pool (absorbed decode: scores and values in the latent
+space).  Sliding windows are not yet ported.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import bsmm
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import BLOCK_TOKENS, paged_attention
 from repro_torch.models.layers import apply_rope, rmsnorm, rmsnorm_init, xavier
 
@@ -148,20 +153,76 @@ def gqa_make_cache(params, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
     if valid_len is not None and S > capacity:
         raise ValueError("valid_len prefill needs S <= capacity, got "
                          f"S={S}, capacity={capacity}")
-    out = causal_attention(q, k, v)
+    out = flash_attention(q, k, v, causal=True)
     keep = min(S, capacity)
     kc = k.new_zeros((B, capacity, *k.shape[2:]))
     vc = torch.zeros_like(kc)
     kc[:, :keep] = k[:, S - keep:]
     vc[:, :keep] = v[:, S - keep:]
-    if valid_len is None:
-        index = torch.tensor(S, dtype=torch.int32, device=x.device)
-    else:
-        index = torch.as_tensor(valid_len, dtype=torch.int32,
-                                device=x.device).reshape(B)
     proj = bsmm.plan_matmul(out.reshape(B, S, n_heads * head_dim),
                             params["wo"], (plan or {}).get("wo"))
-    return proj, KVCache(kc, vc, index)
+    return proj, KVCache(kc, vc, _cache_index(valid_len, B, S, x.device))
+
+
+def _cache_index(valid_len, B: int, S: int, device):
+    """A prefill cache's index: S, or the (B,) valid lengths — a tensor
+    of its own, since dense-slot decode advances it in place."""
+    if valid_len is None:
+        return torch.tensor(S, dtype=torch.int32, device=device)
+    return torch.as_tensor(valid_len, device=device).to(
+        torch.int32).reshape(B).clone()
+
+
+def _decode_positions(index, B: int, capacity: int):
+    """Dense-slot decode bookkeeping for cache index ``index`` (a scalar
+    for a batch in lockstep, or (B,) per slot): the new token's rope
+    positions (B, 1), the cache row it is written to (clamped to the last
+    one past capacity, as the reference) and the valid lengths after the
+    write."""
+    pos = index.long()
+    positions = pos[:, None] if pos.ndim == 1 else pos.expand(B, 1)
+    slot = pos.clamp(max=capacity - 1)
+    valid = (pos + 1).clamp(max=capacity)
+    return positions, slot, valid
+
+
+def _write_row(cache_t, slot, new):
+    """cache_t (B, C, ...) row ``slot`` (scalar or per row (B,)) ←
+    new (B, 1, ...), in place."""
+    if slot.ndim == 1:
+        cache_t[torch.arange(cache_t.shape[0], device=cache_t.device),
+                slot] = new[:, 0]
+    else:
+        cache_t.index_copy_(1, slot.reshape(1), new)
+
+
+def gqa_decode(params, cache: KVCache, x, *, n_heads, n_kv_heads, head_dim,
+               rope_theta, plan=None):
+    """One dense-slot decode step.  x: (B, 1, d).
+
+    ``cache.index`` is a scalar (the batch in lockstep) or (B,) (every
+    slot at its own position); the new token's K/V go to that row of the
+    cache and attention runs over the valid rows of each slot (plain
+    torch ``attend``, as the reference).  The cache's K, V and index are
+    updated IN PLACE (the reference returns new arrays); ``plan`` routes
+    q/k/v/o through the block-sparse kernel.
+    """
+    B, S, _ = x.shape
+    if S != 1:
+        raise ValueError(f"decode takes one token per row, got S={S}")
+    positions, slot, valid = _decode_positions(cache.index, B,
+                                               cache.k.shape[1])
+    q, k, v = gqa_qkv(params, x, n_heads=n_heads, n_kv_heads=n_kv_heads,
+                      head_dim=head_dim, positions=positions,
+                      rope_theta=rope_theta, plan=plan)
+    _write_row(cache.k, slot, k)
+    _write_row(cache.v, slot, v)
+    out = attend(q, cache.k, cache.v, causal=False, q_offset=0,
+                 kv_valid_len=valid)
+    cache.index.add_(1)
+    proj = bsmm.plan_matmul(out.reshape(B, 1, n_heads * head_dim),
+                            params["wo"], (plan or {}).get("wo"))
+    return proj, cache
 
 
 # ---------------------------------------------------------------------------
@@ -277,8 +338,10 @@ def _mla_qkv_latent(params, x, mla, n_heads, rope_theta, positions):
 
 
 def _mla_attend(params, q_nope, q_rope, c_kv, k_rope, *, n_heads, mla,
-                block_q: int):
-    """Expand the latents to per-head K/V and attend causally."""
+                block_q: int, flash: bool):
+    """Expand the latents to per-head K/V and attend causally: through
+    the flash kernel (serving prefill, ``flash=True``) or the plain
+    ``causal_attention`` (the training forward)."""
     B, S = c_kv.shape[:2]
     dn, dr, dv = mla.qk_nope_head_dim, mla.qk_rope_head_dim, mla.v_head_dim
     k_nope = (c_kv @ params["w_uk"]).reshape(B, S, n_heads, dn)
@@ -286,8 +349,11 @@ def _mla_attend(params, q_nope, q_rope, c_kv, k_rope, *, n_heads, mla,
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, n_heads, dr)],
                   dim=-1)
-    # causal_attention scales by 1/sqrt(dn + dr), q's width: the MLA scale
-    out = causal_attention(q, k, v, block_q=block_q)
+    # both scale by 1/sqrt(dn + dr), q's width: the MLA scale
+    if flash:
+        out = flash_attention(q, k.contiguous(), v, causal=True)
+    else:
+        out = causal_attention(q, k, v, block_q=block_q)
     return out.reshape(B, S, n_heads * dv) @ params["wo"]
 
 
@@ -299,7 +365,8 @@ def mla_forward(params, x, *, n_heads, mla, rope_theta, block_q: int = 512):
     q_nope, q_rope, c_kv, k_rope = _mla_qkv_latent(
         params, x, mla, n_heads, rope_theta, positions)
     return _mla_attend(params, q_nope, q_rope, c_kv, k_rope,
-                       n_heads=n_heads, mla=mla, block_q=block_q)
+                       n_heads=n_heads, mla=mla, block_q=block_q,
+                       flash=False)
 
 
 def mla_make_cache(params, x, *, n_heads, mla, rope_theta, capacity: int,
@@ -315,18 +382,47 @@ def mla_make_cache(params, x, *, n_heads, mla, rope_theta, capacity: int,
     q_nope, q_rope, c_kv, k_rope = _mla_qkv_latent(
         params, x, mla, n_heads, rope_theta, positions)
     out = _mla_attend(params, q_nope, q_rope, c_kv, k_rope,
-                      n_heads=n_heads, mla=mla, block_q=block_q)
+                      n_heads=n_heads, mla=mla, block_q=block_q, flash=True)
     keep = min(S, capacity)
     cc = c_kv.new_zeros((B, capacity, mla.kv_lora_rank))
     kr = k_rope.new_zeros((B, capacity, mla.qk_rope_head_dim))
     cc[:, :keep] = c_kv[:, S - keep:]
     kr[:, :keep] = k_rope[:, S - keep:]
-    if valid_len is None:
-        index = torch.tensor(S, dtype=torch.int32, device=x.device)
-    else:
-        index = torch.as_tensor(valid_len, dtype=torch.int32,
-                                device=x.device).reshape(B)
-    return out, MLACache(cc, kr, index)
+    return out, MLACache(cc, kr, _cache_index(valid_len, B, S, x.device))
+
+
+def mla_decode(params, cache: MLACache, x, *, n_heads, mla, rope_theta):
+    """Absorbed-form dense-slot MLA decode: scores and values in the
+    latent space (plain torch, as the reference).  ``cache.index`` is a
+    scalar or (B,) — see ``gqa_decode``; the cache is updated IN PLACE."""
+    B, S, _ = x.shape
+    if S != 1:
+        raise ValueError(f"decode takes one token per row, got S={S}")
+    dn, dr, dv = mla.qk_nope_head_dim, mla.qk_rope_head_dim, mla.v_head_dim
+    r = mla.kv_lora_rank
+    C = cache.c_kv.shape[1]
+    positions, slot, valid = _decode_positions(cache.index, B, C)
+    q_nope, q_rope, c_new, kr_new = _mla_qkv_latent(
+        params, x, mla, n_heads, rope_theta, positions)
+    _write_row(cache.c_kv, slot, c_new)
+    _write_row(cache.k_rope, slot, kr_new)
+    # absorb W_uk into q (f32 products, as the reference's
+    # preferred_element_type=float32)
+    w_uk = params["w_uk"].reshape(r, n_heads, dn)
+    q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0].float(), w_uk.float())
+    cc, kr = cache.c_kv.float(), cache.k_rope.float()
+    s_lat = torch.einsum("bhr,bsr->bhs", q_lat, cc)
+    s_rope = torch.einsum("bhd,bsd->bhs", q_rope[:, 0].float(), kr)
+    scores = (s_lat + s_rope) / math.sqrt(dn + dr)
+    n_valid = valid[:, None, None] if valid.ndim == 1 else valid
+    live = torch.arange(C, device=x.device)[None, None, :] < n_valid
+    w = torch.softmax(torch.where(live, scores, -1e30), dim=-1)
+    ctx_lat = torch.einsum("bhs,bsr->bhr", w, cc)
+    w_uv = params["w_uv"].reshape(r, n_heads, dv)
+    out = torch.einsum("bhr,rhd->bhd", ctx_lat, w_uv.float())
+    out = out.reshape(B, 1, n_heads * dv).to(x.dtype)
+    cache.index.add_(1)
+    return out @ params["wo"], cache
 
 
 # ---------------------------------------------------------------------------

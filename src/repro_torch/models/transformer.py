@@ -9,7 +9,9 @@ or recurrent blocks raise "not yet ported", and so does training
 (``forward``/``loss_fn``) an MLA or MoE model.
 
 Entry points: ``forward``/``loss_fn`` (training, full-sequence logits),
-``prefill`` and ``decode_step_paged`` (serving).
+``prefill``, ``decode_step`` (dense per-slot caches) and
+``decode_step_paged`` (serving).  Prefill attends through the flash
+attention kernel; the training forward through plain torch.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch._bridge import (resolve_device, tree_index, tree_leaves,
-                                 tree_stack, tree_unbind)
+                                 tree_map, tree_stack, tree_unbind)
 from repro_torch.configs.base import ATTN, LOCAL_ATTN, RGLRU, ArchConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
@@ -180,12 +182,11 @@ def _apply_block(cfg: ArchConfig, p, x, mode: str, cache, capacity,
                  valid_len=None, plan=None, paged=None):
     """Returns (x, new_cache).  ``mode`` is "forward" (training),
     "prefill" or "decode"; ``paged`` (tables, lens) carries the paged
-    decode's block tables."""
+    decode's block tables, and decode without it runs over dense
+    per-slot caches."""
     plan = plan or {}
     h = rmsnorm(p["norm1"], x)
     new_cache = None
-    if mode == "decode" and paged is None:
-        raise _not_ported("decode without paged KV")
     if cfg.mla is not None:
         kw = dict(n_heads=cfg.n_heads, mla=cfg.mla, rope_theta=cfg.rope_theta)
         if mode == "forward":
@@ -193,9 +194,11 @@ def _apply_block(cfg: ArchConfig, p, x, mode: str, cache, capacity,
         elif mode == "prefill":
             out, new_cache = attn_lib.mla_make_cache(
                 p["attn"], h, capacity=capacity, valid_len=valid_len, **kw)
-        else:
+        elif paged is not None:
             out, new_cache = attn_lib.mla_paged_decode(
                 p["attn"], cache, h, tables=paged[0], lens=paged[1], **kw)
+        else:
+            out, new_cache = attn_lib.mla_decode(p["attn"], cache, h, **kw)
         return _apply_ffn(cfg, p, x + out, plan), new_cache
     kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
               head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta)
@@ -205,10 +208,13 @@ def _apply_block(cfg: ArchConfig, p, x, mode: str, cache, capacity,
         out, new_cache = attn_lib.gqa_make_cache(
             p["attn"], h, capacity=capacity, valid_len=valid_len,
             plan=plan.get("attn"), **kw)
-    else:
+    elif paged is not None:
         out, new_cache = attn_lib.gqa_paged_decode(
             p["attn"], cache, h, tables=paged[0], lens=paged[1],
             plan=plan.get("attn"), **kw)
+    else:
+        out, new_cache = attn_lib.gqa_decode(
+            p["attn"], cache, h, plan=plan.get("attn"), **kw)
     return _apply_ffn(cfg, p, x + out, plan), new_cache
 
 
@@ -270,7 +276,7 @@ def _run_segments(cfg, params, x, mode, caches, capacity, valid_len=None,
             new_caches.append(per_rep[0])
         elif mode == "prefill":
             new_caches.append(tree_stack(per_rep))
-        else:                      # paged pools were written in place
+        else:                      # pools and caches were written in place
             new_caches.append(seg_caches)
     return x, (None if mode == "forward" else new_caches)
 
@@ -337,6 +343,36 @@ def prefill(params, cfg: ArchConfig, batch, capacity: int, valid_len=None,
     x_last = rmsnorm(params["final_norm"], x_last)
     head = params.get("unembed", params["embed"])
     return unembed(head, x_last), caches
+
+
+def decode_step(params, cfg: ArchConfig, caches, token, plan=None):
+    """Dense-slot decode step: token (B, 1) → (logits (B,1,V), caches).
+
+    ``caches`` are prefill caches (or the engine's slot caches built
+    from them): each layer writes the new token's K/V (or MLA latents)
+    at its cache index and attends over the valid rows, IN PLACE.
+    ``plan`` routes the projections through the block-sparse kernel."""
+    _check_ported(cfg)
+    x = embed(params["embed"], token)
+    x, caches = _run_segments(cfg, params, x, "decode", caches, None,
+                              plan=plan)
+    x = rmsnorm(params["final_norm"], x)
+    head = params.get("unembed", params["embed"])
+    return unembed(head, x), caches
+
+
+def cache_batch_axes(cfg: ArchConfig, caches):
+    """Pytree of ints matching ``caches``: the batch axis of each leaf
+    (1 in a stacked segment, whose leaves lead with the repeats axis, 0
+    otherwise).  A scalar cache index has no batch axis yet (its ndim
+    equals the axis); the engine appends one when it builds slot
+    caches."""
+    segs = segments_of(cfg)
+    if len(segs) != len(caches):
+        raise ValueError(f"cache structure has {len(caches)} segments, "
+                         f"config implies {len(segs)}")
+    return [tree_map(lambda _, a=1 if seg.reps > 1 else 0: a, seg_c)
+            for seg, seg_c in zip(segs, caches)]
 
 
 # ---------------------------------------------------------------------------

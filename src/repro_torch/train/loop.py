@@ -151,14 +151,20 @@ class Trainer:
     ``device="cpu"``).  With ``ckpt_dir`` the trainer resumes from the
     newest committed checkpoint there, saves every ``ckpt_every`` steps
     and at the end of ``run`` (params, optimizer state, step, and the
-    aux state when there is one)."""
+    aux state when there is one), keeping the newest ``keep`` committed
+    steps; ``async_ckpt`` writes them on a background thread.
+    ``donate`` is accepted for the reference's signature and changes
+    nothing: the port's optimizer already updates the parameters in
+    place, which is what donating the buffers buys the reference."""
 
     def __init__(self, *, loss_fn, optimizer: Optimizer, params,
                  data_iter, ckpt_dir: Optional[str] = None,
-                 ckpt_every: int = 100,
+                 ckpt_every: int = 100, keep: int = 3,
+                 async_ckpt: bool = True,
                  microbatch: Optional[int] = None, remat: bool = False,
                  compressor=None,
                  aux_state=None,
+                 donate: bool = True,
                  step_deadline_s: Optional[float] = None,
                  on_straggler: Optional[Callable[[int, float], None]] = None,
                  device="cuda"):
@@ -170,7 +176,8 @@ class Trainer:
                                        has_aux_state=self._has_aux)
         self.optimizer = optimizer
         self.data_iter = data_iter
-        self.ckpt = (CheckpointManager(ckpt_dir, async_save=True)
+        self.ckpt = (CheckpointManager(ckpt_dir, keep=keep,
+                                       async_save=async_ckpt)
                      if ckpt_dir else None)
         self.ckpt_every = ckpt_every
         self.state = TrainState(

@@ -47,6 +47,7 @@ from repro.train.plans import cnn_train_plan as r_cnn_train_plan
 from repro_torch import _bridge
 from repro_torch.api import CNNAdapter, FunctionAdapter, PruningSession
 from repro_torch.api import make_adapter
+from repro_torch.api import ServeUnsupported
 from repro_torch.api import recipes as trecipes
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import CNNConfig, ConvSpec, PruneConfig, get_cnn
@@ -539,6 +540,36 @@ def test_trainer_checkpoint_save_and_resume(tmp_path):
                                first.state.opt_state["mu"]["w"].numpy())
 
 
+@pytest.mark.parametrize("async_ckpt", [True, False])
+def test_trainer_keep_prunes_old_checkpoints(tmp_path, async_ckpt):
+    """Trainer(ckpt_every=1, keep=1) leaves one committed step on disk,
+    as the reference's Trainer does on the same run (synchronous: the
+    reference's last periodic async save and its final blocking save of
+    the same step race); ``donate`` is accepted (a no-op in the port)."""
+    from repro import optim as ropt
+    from repro.train.loop import Trainer as RTrainer
+
+    def data():
+        return ({"x": np.full((2, 4), float(i), np.float32)}
+                for i in range(10))
+
+    Trainer(loss_fn=lambda p, b: ((b["x"] @ p["w"]).square().mean(), {}),
+            optimizer=sgd(constant(0.01)), params={"w": torch.ones(4, 3)},
+            data_iter=data(), ckpt_dir=str(tmp_path / "t"), ckpt_every=1,
+            keep=1, async_ckpt=async_ckpt, donate=False,
+            device="cpu").run(3, log_every=0)
+    RTrainer(loss_fn=lambda p, b: (jnp.square(b["x"] @ p["w"]).mean(), {}),
+             optimizer=ropt.sgd(ropt.constant(0.01)),
+             params={"w": jnp.ones((4, 3))}, data_iter=data(),
+             ckpt_dir=str(tmp_path / "r"), ckpt_every=1, keep=1,
+             async_ckpt=False, donate=False).run(3, log_every=0)
+    got = sorted(p.name for p in (tmp_path / "t").iterdir())
+    want = sorted(p.name for p in (tmp_path / "r").iterdir())
+    assert got == want
+    assert [n for n in got if n.startswith("step_")
+            and not n.endswith(".COMMITTED")] == ["step_00000003"]
+
+
 def test_tickets_load_across_packages(tmp_path):
     rcfg, tcfg, rparams, _, tparams, _ = _model("resnet18", seed=4)
     rmasks = r_prune_step(rparams, r_make_masks(rparams, r_cnn_prunable),
@@ -590,7 +621,8 @@ def test_session_export_finetune_and_report(tmp_path):
     _assert_trees_close(m, _np_masks(res.masks), rtol=0, atol=0)
     tuned = sess.finetune(steps=2)
     assert all(torch.isfinite(t).all() for t in _bridge.tree_leaves(tuned))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    # a CNN ticket has no serving path: the reference's structured refusal
+    with pytest.raises(ServeUnsupported, match="no prefill/decode pair"):
         sess.serve_engine()
 
 

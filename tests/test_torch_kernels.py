@@ -17,13 +17,16 @@ import torch
 
 from repro.configs.base import PruneConfig as RPruneConfig
 from repro.kernels import bsmm as rb
+from repro.kernels import flash_attention as rfa
 from repro.kernels import ops as rops
 from repro.kernels import paged_attention as rpa
 from repro.kernels import ref as rref
 from repro.kernels import tile_stats as rts
+from repro.models import attention as rattn
 from repro_torch import _bridge
 from repro_torch.configs import PruneConfig
 from repro_torch.kernels import bsmm as tb
+from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import ref as tref
@@ -718,3 +721,96 @@ def test_cuda_masked_matmul_matches_plain(cuda, dtype, mask_dtype, M):
     got = tb.masked_matmul(xt, wt, mt, bm=8)
     assert tb.masked_matmul.launches == n0 + 1
     torch.testing.assert_close(got, tb.masked_matmul_plain(xt, wt, mt), **tol)
+
+
+# ---------------------------------------------------------------------------
+# kernel #8: flash attention
+# ---------------------------------------------------------------------------
+def _qkv(seed, B, S, Hq, Hkv, hd, dv=None):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, S, Hq, hd)).astype(np.float32),
+            rng.standard_normal((B, S, Hkv, hd)).astype(np.float32),
+            rng.standard_normal((B, S, Hkv, dv or hd)).astype(np.float32))
+
+
+def _flash_pair(q, k, v, dtype, causal=True, bq=128, bk=128):
+    """(the port's plain flash_attention, the Pallas kernel in interpret
+    mode) on the same inputs, both as float32 numpy."""
+    jd = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    want = rfa.flash_attention(*(jnp.asarray(a, jd) for a in (q, k, v)),
+                               causal=causal, bq=bq, bk=bk, interpret=True)
+    got = tfa.flash_attention(*(torch.from_numpy(a).to(dtype)
+                                for a in (q, k, v)), causal=causal, bq=bq,
+                              bk=bk)
+    assert got.dtype == dtype
+    return got.float().numpy(), np.asarray(want, np.float32)
+
+
+@pytest.mark.parametrize("S,bq,bk", [(128, 64, 64), (256, 64, 128),
+                                     (256, 128, 64)])
+@pytest.mark.parametrize("Hq,Hkv", [(4, 4), (8, 2), (6, 1)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_matches_reference(S, bq, bk, Hq, Hkv, causal):
+    """The reference's sweep (tests/test_kernels_flash.py), causal and
+    full, float32 at 2e-4."""
+    got, want = _flash_pair(*_qkv(S + Hq, 2, S, Hq, Hkv, 32), torch.float32,
+                            causal=causal, bq=bq, bk=bk)
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 3e-2)])
+def test_flash_attention_dtypes_match_reference(dtype, tol):
+    got, want = _flash_pair(*_qkv(1, 1, 128, 4, 4, 64), dtype)
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+
+
+def test_flash_attention_large_logits_stable():
+    """Logits x30: the online max rescaling keeps everything finite and
+    on the reference."""
+    q, k, v = _qkv(7, 1, 128, 2, 2, 16)
+    got, want = _flash_pair(q * 30.0, k * 30.0, v, torch.float32)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("S", [1, 5, 300])
+@pytest.mark.parametrize("dv", [None, 32])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_ragged_and_narrow_values(S, dv, causal):
+    """Beyond the Pallas grid: any S and a value width dv < hd, against
+    the reference's plain attention (causal_attention / attend)."""
+    q, k, v = _qkv(S, 2, S, 6, 2, 64, dv)
+    got = tfa.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                              causal=causal).numpy()
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    want = (rattn.causal_attention(jq, jk, jv) if causal
+            else rattn.attend(jq, jk, jv, causal=False, q_offset=0))
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_flash_attention_rejects_bad_geometry():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(0, 1, 8, 6, 4, 16))
+    with pytest.raises(tb.GeometryError, match="multiple"):
+        tfa.flash_attention(q, k, v)
+    q, k, v = (torch.from_numpy(a) for a in _qkv(0, 1, 8, 4, 2, 16, 32))
+    with pytest.raises(tb.GeometryError, match="dv <= hd"):
+        tfa.flash_attention(q, k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,Hq,Hkv,hd,dv,causal", [
+    (300, 24, 8, 128, 128, True), (129, 6, 1, 64, 32, False),
+    (64, 8, 8, 192, 128, True)])
+def test_cuda_flash_attention_matches_plain(cuda, dtype, S, Hq, Hkv, hd, dv,
+                                            causal):
+    q, k, v = (torch.from_numpy(a).to(cuda, dtype)
+               for a in _qkv(S, 1, S, Hq, Hkv, hd, dv))
+    n0 = tfa.flash_attention.launches
+    got = tfa.flash_attention(q, k, v, causal=causal)
+    assert tfa.flash_attention.launches == n0 + 1
+    tol = dict(rtol=1e-2, atol=1e-2) if dtype == torch.bfloat16 \
+        else dict(rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(
+        got, tfa.flash_attention_plain(q, k, v, causal=causal), **tol)

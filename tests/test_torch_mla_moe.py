@@ -270,13 +270,32 @@ def test_mla_paged_adopt_and_decode_match_reference(setup):
 
 
 def test_mla_dense_slot_decode_not_yet_ported(setup):
-    """Decode without a paged pool (the reference's ``mla_decode`` over
-    dense slots) raises."""
+    """Decode without a paged pool — the reference's ``mla_decode`` over
+    dense per-slot caches, ported since — matches the reference: two
+    steps over two slots at their own positions (a masked prefill), and
+    over a lockstep batch (a scalar cache index)."""
     s = setup
-    p = _bridge.tree_index(s["tparams"]["segments"][1][0], 0)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ttfm._apply_block(s["tcfg"], p, torch.zeros(1, 1, 256), "decode",
-                          None, None)
+    rp = jax.tree.map(lambda a: a[0], s["rparams"]["segments"][1][0]["attn"])
+    tp = _bridge.tree_index(s["tparams"]["segments"][1][0]["attn"], 0)
+    x = np.random.default_rng(7).standard_normal((2, 9, 256)) \
+        .astype(np.float32)
+    for valid_len in ([9, 4], None):
+        _, rc = rattn.mla_make_cache(
+            rp, jnp.asarray(x), capacity=12, **_mla_kw(s["rcfg"]),
+            valid_len=None if valid_len is None else jnp.asarray(valid_len))
+        _, tc = tattn.mla_make_cache(
+            tp, torch.from_numpy(x), capacity=12, **_mla_kw(s["tcfg"]),
+            valid_len=None if valid_len is None else torch.tensor(valid_len))
+        for step in range(2):
+            xd = np.random.default_rng(step).standard_normal((2, 1, 256)) \
+                .astype(np.float32)
+            ro, rc = rattn.mla_decode(rp, rc, jnp.asarray(xd),
+                                      **_mla_kw(s["rcfg"]))
+            to, tc = tattn.mla_decode(tp, tc, torch.from_numpy(xd),
+                                      **_mla_kw(s["tcfg"]))
+            np.testing.assert_allclose(to.numpy(), np.asarray(ro), **TOL)
+        for a, b in zip(rc, tc):
+            np.testing.assert_allclose(b.numpy(), np.asarray(a), **TOL)
 
 
 # ---------------------------------------------------------------------------
@@ -440,7 +459,7 @@ def test_engine_streams_match_reference(setup, temperature):
               "live_tiles", "total_tiles", "kv_blocks", "kv_blocks_live",
               "kv_blocks_peak", "kv_block_bytes", "kv_bytes_per_token"):
         assert getattr(tr, f) == getattr(rr, f), f
-    eng.pool.check()
+    eng.generations[-1].pool.check()
 
 
 def test_training_mla_moe_not_yet_ported(setup):
