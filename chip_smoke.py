@@ -18,24 +18,34 @@ no result line otherwise):
    paged attention of absorbed MLA, and bsmm batched over 256 experts),
    in bfloat16 and float32, with the tolerance printed, and time
    kernel, plain version and a library yardstick; flash attention at
-   llama3.2-3b's prefill shapes (S 300, 512, 4096; full and float32 at
-   512) and deepseek-v3's MLA prefill (hd 192, dv 128);
+   llama3.2-3b's prefill shapes (S 128, 300, 512, 1024, 4096; full and
+   float32 at 512) and deepseek-v3's MLA prefill (hd 192, dv 128), each
+   dtype on its own route (bfloat16: the wgmma kernel, float32: the
+   CUDA-core one), every bfloat16 shape faster than its plain version
+   and closer to SDPA than the CUDA-core kernel was, where that was
+   timed; and
+   print the wgmma kernel's registers, spills (``-Xptxas=-v``) and
+   shared memory;
 3. serve 8 requests through ``ServeEngine`` at the full width and depth
    of llama3.2-3b (28 layers, random weights from a seeded generator)
    with a crossbar-pruned ticket (one seeded 128x128 tile bitmap per
    projection, ~25 % live, shared by all layers), and check that every
-   request finishes, that every kernel was launched on that path, that
-   every logit is finite, and that block-sparse prefill through the
-   ticket's plan agrees with dense prefill on the masked weights;
+   request finishes, that every kernel was launched on that path (every
+   prefill's flash attention on the wgmma route), that every logit is
+   finite, and that block-sparse prefill through the ticket's plan
+   agrees with dense prefill on the masked weights;
 3b. the serving control plane at the same size: two crossbar tickets
    (seeded bitmaps) exported through ``core.lottery`` and registered in
    a ``TicketManager`` (fingerprints through ``smoke_decode``), a
    ``FleetRouter`` of two engines fleet-swapped from ticket A to B
    mid-stream (in-flight streams held to a no-swap run, later
-   admissions on B's generation), one heartbeat failover of engine 0
-   on an injected clock (every uid done, moved streams held to the
-   never-failed run), a dense-slot (``paged=False``) engine against the
-   paged one, flash attention launched once per layer and prefill, one
+   admissions on B's generation), the same swap again at temperature
+   0.8 (in-flight sampled streams held to a sampled no-swap run, each
+   with at least 2 distinct tokens), one heartbeat failover of engine 0
+   on an injected clock (every uid done, moved greedy streams held to
+   the never-failed run, their distinct tokens printed), a dense-slot
+   (``paged=False``) engine against the paged one, flash attention
+   launched once per layer and prefill, all on the wgmma route, one
    profiled prefill, and ``api.cli serve --engines 2`` at full width;
 4. check one loss backward through the ticket's plan against dense
    autograd at full width and 2 layers;
@@ -51,7 +61,8 @@ no result line otherwise):
    check that every request finishes with finite logits, that the
    fused-V kernel ran once per layer and decode step (the GQA kernel
    never), that the bsmm, epilogue and batched launches match the
-   model, and that block-sparse prefill agrees with dense prefill;
+   model, that flash attention ran once per layer and prefill on the
+   wgmma route, and that block-sparse prefill agrees with dense prefill;
 7. run Algorithm 1 on vgg11 at its published widths through
    ``make_adapter("vgg11", scale="full")`` and ``PruningSession(...).run()``
    (the family's recipe cut to 4 prune rounds of 100 steps at a 5 %
@@ -457,7 +468,16 @@ FLASH_SHAPES = ((300, 24, 8, 128, 128, True, torch.bfloat16),
                 (4096, 24, 8, 128, 128, True, torch.bfloat16),
                 (512, 24, 8, 128, 128, False, torch.bfloat16),
                 (512, 24, 8, 128, 128, True, torch.float32),
-                (512, 128, 128, 192, 128, True, torch.bfloat16))
+                (512, 128, 128, 192, 128, True, torch.bfloat16),
+                # the smallest serving bucket, and one between
+                (128, 24, 8, 128, 128, True, torch.bfloat16),
+                (1024, 24, 8, 128, 128, True, torch.bfloat16))
+# #8 / SDPA of the CUDA-core kernel that ran every dtype before the
+# wgmma route (an H100 80GB HBM3 at 700 W; PERF.md §6), keyed
+# (S, Hq, causal)
+FLASH_SDPA_RATIO_BEFORE = {(300, 24, True): 11.0, (512, 24, True): 23.3,
+                           (4096, 24, True): 59.8, (512, 24, False): 31.9,
+                           (512, 128, True): 44.5}
 
 
 def flash_bound_ms(S, Hq, Hkv, hd, dv, causal, elem, dtype_name) -> tuple:
@@ -474,27 +494,38 @@ def flash_bound_ms(S, Hq, Hkv, hd, dv, causal, elem, dtype_name) -> tuple:
 def check_flash(FA):
     """Flash attention against its plain version at every shape above,
     with the tolerance printed; times kernel, plain version and SDPA
-    (the library yardstick, never on the path).  Returns (error, rows)."""
+    (the library yardstick, never on the path).  Each call must run the
+    route of its dtype (bfloat16: the wgmma kernel, float32: the
+    CUDA-core one); every bfloat16 shape must beat its plain version
+    and, where the CUDA-core kernel was timed, its ratio to SDPA.  Returns
+    (error, rows)."""
     g = torch.Generator(device="cuda").manual_seed(13)
     err, rows = 0.0, []
     for S, Hq, Hkv, hd, dv, causal, dtype in FLASH_SHAPES:
         q = torch.randn(1, S, Hq, hd, device="cuda", generator=g).to(dtype)
         k = torch.randn(1, S, Hkv, hd, device="cuda", generator=g).to(dtype)
         v = torch.randn(1, S, Hkv, dv, device="cuda", generator=g).to(dtype)
+        route = "wgmma" if dtype == torch.bfloat16 else "simt"
+        before = FA.flash_attention.launches_by_route[route]
         got = FA.flash_attention(q, k, v, causal=causal)
+        require(FA.flash_attention.launches_by_route[route] == before + 1,
+                f"flash_attention {dtype} did not run the {route} kernel")
         want = FA.flash_attention_plain(q, k, v, causal=causal)
         torch.cuda.synchronize()
         e = (got.float() - want.float()).abs().max().item()
         tol = tolerance(dtype, want)
         name = str(dtype)[6:]
-        print(f"check flash_attention {name} S={S} Hq={Hq} Hkv={Hkv} hd={hd} "
-              f"dv={dv} causal={causal} max_abs_err={e:.3e} tol={tol:.3e}")
+        print(f"check flash_attention {name} ({route}) S={S} Hq={Hq} Hkv={Hkv} "
+              f"hd={hd} dv={dv} causal={causal} max_abs_err={e:.3e} "
+              f"tol={tol:.3e}" + (" (the f32-p CUDA-core kernel: 3.9e-3)"
+                                  if route == "wgmma" else ""))
         require(torch.isfinite(got).all().item(), "flash_attention non-finite")
         require(e <= tol, f"flash_attention disagrees with its plain version "
                 f"at S={S} Hq={Hq} hd={hd} {dtype}")
         err = max(err, e)
         row = {"S": S, "Hq": Hq, "Hkv": Hkv, "hd": hd, "dv": dv,
-               "causal": causal, "dtype": name}
+               "causal": causal, "dtype": name, "route": route,
+               "max_abs_err": e}
         row["ms"] = time_ms(lambda i: FA.flash_attention(q, k, v,
                                                          causal=causal))
         row["plain_ms"] = time_ms(
@@ -505,10 +536,48 @@ def check_flash(FA):
             qt, kt, vt, is_causal=causal, enable_gqa=Hq != Hkv))
         row["bound_ms"], row["bound_by"] = flash_bound_ms(
             S, Hq, Hkv, hd, dv, causal, q.element_size(), name)
+        row["sdpa_ratio"] = row["ms"] / row["library_ms"]
+        row["bound_ratio"] = row["ms"] / row["bound_ms"]
         print("time flash_attention " + json.dumps(row))
+        if route == "wgmma":
+            was = FLASH_SDPA_RATIO_BEFORE.get((S, Hq, causal))
+            print(f"flash_attention S={S} Hq={Hq} causal={causal}: #8/SDPA "
+                  f"{row['sdpa_ratio']:.2f}x (CUDA-core kernel: "
+                  f"{f'{was}x' if was else 'not timed'}), #8/bound "
+                  f"{row['bound_ratio']:.1f}x, #8/plain "
+                  f"{row['ms'] / row['plain_ms']:.3f}")
+            require(row["ms"] < row["plain_ms"], f"flash_attention S={S} "
+                    "is slower than its plain version")
+            require(was is None or row["sdpa_ratio"] < was,
+                    f"flash_attention S={S} Hq={Hq} lost ground to SDPA")
         rows.append(row)
         del q, k, v, got, want, qt, kt, vt
     return err, rows
+
+
+def flash_build_report(FA, log: str) -> dict:
+    """The bf16 kernel's registers and spills per instantiation, from
+    ``-Xptxas=-v`` in the build log, and its dynamic shared memory at
+    llama's and deepseek's prefill widths."""
+    import re
+
+    regs = {}
+    for entry in log.split("Compiling entry function")[1:]:
+        m = re.search(r"flash_attention_wgmma_kernelILi(\d)ELi(\d)ELi(\d+)E",
+                      entry)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", entry)
+        used = re.search(r"Used (\d+) registers", entry)
+        if m and spill and used:
+            regs["<%s,%s,%s>" % m.groups()] = {
+                "registers": int(used.group(1)),
+                "spill_bytes": int(spill.group(1)) + int(spill.group(2))}
+    smem = {f"hd={hd},dv={dv}": FA.wgmma_smem_bytes(hd, dv)
+            for hd, dv in ((128, 128), (192, 128))}
+    print(f"ptxas flash_attention_wgmma_kernel<HC,DC,BK>: "
+          f"{json.dumps(regs) if regs else 'not rebuilt (cached library)'}; "
+          f"dynamic shared memory {json.dumps(smem)} bytes")
+    return {"ptxas": regs, "smem_bytes": smem}
 
 
 def build_ticket(params, cfg, device, seed=1234):
@@ -526,6 +595,17 @@ def build_ticket(params, cfg, device, seed=1234):
             m = bm.repeat_interleave(128, 0).repeat_interleave(128, 1)
             masks[group][key] = m.expand(reps, K, N)
     return {"segments": [[masks]]}
+
+
+def require_flash_routes(FA, want: int, where: str) -> None:
+    """Every prefill of a bf16 model attends through the wgmma kernel:
+    its route count equals the flash launches the path requires, and
+    the CUDA-core (float32) kernel never runs there."""
+    by_route = dict(FA.flash_attention.launches_by_route)
+    print(f"{where}: flash_attention launches by route {by_route}, want "
+          f"wgmma={want}, simt=0")
+    require(by_route == {"wgmma": want, "simt": 0},
+            f"{where}: a prefill did not attend through the wgmma kernel")
 
 
 def serve(cfg, device):
@@ -565,6 +645,7 @@ def serve(cfg, device):
     B.bsmm_epilogue.launches = 0
     PA.paged_attention.launches = 0
     FA.flash_attention.launches = 0
+    FA.flash_attention.launches_by_route.update(wgmma=0, simt=0)
     step_ms = []
     t0 = time.perf_counter()
     while not eng.idle:
@@ -593,6 +674,7 @@ def serve(cfg, device):
             and launches["flash_attention"] == rep.prefills * L,
             f"launch counts {launches} do not match {rep.prefills} prefills "
             f"and {rep.decode_steps} decode steps over {L} layers")
+    require_flash_routes(FA, rep.prefills * L, "llama serving")
 
     # block-sparse prefill through the plan vs dense prefill on the
     # masked weights: same function, bf16 rounding in other places
@@ -681,6 +763,8 @@ CP_REQUESTS = 16        # fleet requests (prompts 5-300 tokens)
 CP_MAX_NEW = 16
 CP_SWAP_AFTER = 2       # fleet ticks before the swap lands
 CP_DENSE_REQUESTS = 8
+CP_TEMPERATURE = 0.8    # the sampled swap leg
+CP_SAMPLE_SEED = 7
 
 
 def ticket_masks(params, cfg, seed, device):
@@ -735,6 +819,7 @@ def control_plane(cfg, device, requests=CP_REQUESTS):
     L = cfg.n_layers
     t_phase = time.perf_counter()
     FA.flash_attention.launches = 0
+    FA.flash_attention.launches_by_route.update(wgmma=0, simt=0)
     gen = torch.Generator(device=device).manual_seed(0)
     template = tfm.init_params(gen, cfg, device=device)
     mgr = TicketManager(cfg=cfg, params_template=template,
@@ -821,6 +906,48 @@ def control_plane(cfg, device, requests=CP_REQUESTS):
     srep = router.report
     del router, done
 
+    # the same swap with sampling: each request draws from its own
+    # stream (ServeEngine._rng_for: the sample seed and its uid), so an
+    # in-flight stream must not move either; a sampled stream holds more
+    # than one token, so the check reaches past each request's first
+    sampled = dict(temperature=CP_TEMPERATURE, sample_seed=CP_SAMPLE_SEED)
+    oracle_router = fleet(**sampled)
+    _drive(oracle_router, prompts, CP_MAX_NEW)
+    oracle_router.drain()
+    sync(device)
+    want_flash += _fleet_prefills(oracle_router) * L
+    s_oracle = {r.uid: list(r.tokens) for r in oracle_router.finished}
+    require(len(s_oracle) == requests, "the sampled oracle fleet lost "
+            "requests")
+    del oracle_router
+    router = fleet(**sampled)
+    _drive(router, prompts, CP_MAX_NEW)
+    router.pump(CP_SWAP_AFTER)
+    s_in_flight = sorted(rec.uid for rec in router.records.values()
+                         if rec.req is not None
+                         and rec.req.status == "active")
+    ev = mgr.swap(router, "b")
+    require(ev.accepted, f"sampled fleet swap rejected: {ev.reason}")
+    want_flash += len(ev.events) * L
+    router.drain()
+    sync(device)
+    want_flash += _fleet_prefills(router) * L
+    done = {r.uid: r for r in router.finished}
+    require(len(done) == requests, "the sampled swapped fleet lost requests")
+    require(s_in_flight and all(done[u].generation == 0 for u in s_in_flight),
+            "sampled in-flight requests did not finish on generation 0")
+    s_div = [u for u in s_in_flight if done[u].tokens != s_oracle[u]]
+    s_distinct = {u: len(set(done[u].tokens)) for u in s_in_flight}
+    print(f"sampled fleet swap (temperature {CP_TEMPERATURE}, sample_seed "
+          f"{CP_SAMPLE_SEED}): {len(s_in_flight)} in flight, {len(s_div)} "
+          f"diverged from the sampled no-swap run {s_div}; distinct tokens "
+          f"per stream {s_distinct}")
+    require(not s_div, "sampled in-flight streams differ from the sampled "
+            "no-swap run")
+    require(min(s_distinct.values()) >= 2, "a sampled in-flight stream "
+            "repeats one token: the swap check would not discriminate")
+    del router, done
+
     # heartbeat failover of engine 0 on an injected clock
     t = [0.0]
     with tempfile.TemporaryDirectory(dir=OUT) as hb_dir:
@@ -845,9 +972,14 @@ def control_plane(cfg, device, requests=CP_REQUESTS):
             and all(r.status == "done" for r in router.finished),
             "not every uid reached done after the failover")
     fdiv = sorted(r.uid for r in moved if r.tokens != oracle[r.uid])
+    # greedy only: a re-admitted request draws from a fresh sampler
+    # (repro's fleet promises no identical sampled continuation), so
+    # this leg's streams may repeat one token and the check is weak
+    f_distinct = {r.uid: len(set(r.tokens)) for r in moved}
     print(f"failover: {router.report.failovers} failover, {len(moved)} "
           f"moved ({sum(1 for r in moved if r.tokens)} with tokens "
-          f"emitted), {len(fdiv)} diverged from the never-failed run {fdiv}")
+          f"emitted), {len(fdiv)} diverged from the never-failed run {fdiv}; "
+          f"distinct tokens per moved stream (greedy) {f_distinct}")
     require(moved and not fdiv, "re-admitted streams differ from the "
             "never-failed fleet")
     frep = router.report
@@ -921,6 +1053,7 @@ def control_plane(cfg, device, requests=CP_REQUESTS):
           f"({L} per prefill)")
     require(launches == want_flash, "a prefill did not attend through "
             "kernel #8 once per layer")
+    require_flash_routes(FA, want_flash, "control plane")
 
     # one prefill at a 512-token bucket under the profiler
     batch = {"tokens": torch.as_tensor(
@@ -955,6 +1088,10 @@ def control_plane(cfg, device, requests=CP_REQUESTS):
         "fingerprints": {k: list(v) for k, v in fp.items()},
         "swap_verify_ms": swap_verify_s * 1e3,
         "swap_in_flight": len(in_flight),
+        "swap_sampled_in_flight": len(s_in_flight),
+        "swap_sampled_distinct_tokens_min": min(s_distinct.values()),
+        "swap_sampled_distinct_tokens": s_distinct,
+        "failover_distinct_tokens": f_distinct,
         "oracle_drain_s": oracle_s,
         "fleet_ttft_p50_s": orep.ttft_p50, "fleet_ttft_p95_s": orep.ttft_p95,
         "fleet_tokens_per_s": orep.tokens_per_s,
@@ -971,7 +1108,10 @@ def control_plane(cfg, device, requests=CP_REQUESTS):
         "phase_s": time.perf_counter() - t_phase,
     }
     print("control plane: " + json.dumps(
-        {k: summary[k] for k in ("swap_verify_ms", "fleet_ttft_p50_s",
+        {k: summary[k] for k in ("swap_verify_ms",
+                                 "swap_sampled_distinct_tokens_min",
+                                 "failover_distinct_tokens",
+                                 "fleet_ttft_p50_s",
                                  "fleet_ttft_p95_s", "fleet_tokens_per_s",
                                  "decode_step_ms_p50", "prefill_flash_share",
                                  "phase_s")}))
@@ -1329,6 +1469,7 @@ def serve_deepseek(cfg, device):
                 (FA.flash_attention, "launches"))
     for f, attr in counters:
         setattr(f, attr, 0)
+    FA.flash_attention.launches_by_route.update(wgmma=0, simt=0)
     step_ms = []
     t0 = time.perf_counter()
     while not eng.idle:
@@ -1366,6 +1507,7 @@ def serve_deepseek(cfg, device):
           f"prefills, {rep.decode_steps} decode steps, {n_dense} dense and "
           f"{n_moe} MoE layers)")
     require(launches == want, "deepseek launch counts do not match the model")
+    require_flash_routes(FA, want["flash_attention"], "deepseek serving")
 
     # block-sparse prefill through the plan vs dense prefill on the
     # masked weights, at one exact-length prompt
@@ -1954,6 +2096,7 @@ def main() -> int:
         stats_err, stats_times = check_tile_stats(TS)
         masked_err, masked_times = check_masked(B)
         flash_err, flash_times = check_flash(FA)
+    flash_build = flash_build_report(FA, logs.get("flash_attention", ""))
     torch.cuda.empty_cache()
     launches, summary = serve(cfg, "cuda")
     # the serve phase's model is gone; the control plane holds two
@@ -2081,7 +2224,8 @@ def main() -> int:
          "grad_check": grad_summary, "retrain": train_summary,
          "serve_deepseek": ds_summary, "tile_stats": stats_times,
          "masked_matmul": masked_times, "cnn": cnn_summary,
-         "flash_attention": flash_times, "control_plane": cp_summary},
+         "flash_attention": flash_times, "flash_attention_build": flash_build,
+         "control_plane": cp_summary},
         indent=1, default=str))
     print(json.dumps({"serve": summary}, default=str))
     print(json.dumps({"control_plane": {k: v for k, v in cp_summary.items()

@@ -22,6 +22,12 @@ the differentiable product (a ``torch.autograd.Function``): forward
 through ``bsmm``/``bsmm_epilogue``, backward through ``bsmm_dx`` and
 ``bsmm_dw``, on either device.
 
+Every wrapper checks its operand contract (devices, dtypes, contiguity,
+16-byte aligned bases) on every device, so a CPU call refuses what the
+card refuses; the CUDA kernels' own limits, the 128 tile
+(``kernel_tile``) and the grid's expert count (``batched_grid``), are
+checked on the card route only.
+
 The host-side plan builders (``tile_bitmap``, ``compact_tile_indices``,
 ``make_tile_plan``) are numpy copies of the reference's, so both
 packages derive the same plan from the same mask.
@@ -362,33 +368,47 @@ def _check_operands(x2, w, plan: TilePlan, bias, where: str):
                              or bias.device != x2.device):
         raise ValueError(f"{where}: bias must be ({N},) {x2.dtype} on "
                          f"{x2.device}")
+    if bias is not None and not bias.is_contiguous():
+        raise ValueError(f"{where}: bias must be contiguous")
 
 
-def _check_launch(plan: TilePlan, where: str, *ts) -> int:
-    """The kernels' own demands; returns the current stream."""
-    if plan.tile != MXU_TILE:
-        raise GeometryError(f"the CUDA kernel tiles at {MXU_TILE}",
-                            tile=plan.tile, where=where)
+def _check_layout(where: str, *ts) -> None:
+    """The kernels' operand layout, checked on every device: contiguous
+    operands whose bases are 16-byte aligned (the kernels load 16 bytes
+    at a time)."""
     if not all(t.is_contiguous() for t in ts):
         raise ValueError(f"{where}: operands must be contiguous")
     if any(t.data_ptr() % 16 for t in ts):
         raise ValueError(f"{where}: operands must be 16-byte aligned (the "
                          "kernel loads 16 bytes at a time)")
-    return torch.cuda.current_stream(ts[0].device).cuda_stream
+
+
+def kernel_tile(where: str, *edges: int) -> None:
+    """The tile edges the CUDA kernels take: 128 (the plain versions take
+    any edge the shapes tile by)."""
+    if any(e != MXU_TILE for e in edges):
+        raise GeometryError(f"the CUDA kernel tiles at {MXU_TILE}",
+                            tile=edges[0] if len(edges) == 1 else edges,
+                            where=where)
+
+
+def _stream(t) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _launch_args(x2, w, plan: TilePlan):
-    stream = _check_launch(plan, "bsmm", x2, w)
+    kernel_tile("bsmm", plan.tile)
     dev = plan.device_tensors(x2.device)
     M, K = x2.shape
     N = w.shape[1]
     out = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
-    return out, dev.idx, dev.counts, M, K, N, stream
+    return out, dev.idx, dev.counts, M, K, N, _stream(x2)
 
 
 def bsmm(x2: torch.Tensor, w: torch.Tensor, plan: TilePlan) -> torch.Tensor:
     """Kernel #1: ``x2 (M, K) @ (w ⊙ tile bitmap) (K, N)`` in x2's dtype."""
     _check_operands(x2, w, plan, None, "bsmm")
+    _check_layout("bsmm", x2, w)
     if x2.device.type == "cpu":
         return bsmm_plain(x2, w, plan)
     if x2.device.type != "cuda":
@@ -413,12 +433,11 @@ def bsmm_epilogue(x2: torch.Tensor, w: torch.Tensor, plan: TilePlan,
     the flush, in the f32 accumulator."""
     _check_act(act)
     _check_operands(x2, w, plan, bias, "bsmm_epilogue")
+    _check_layout("bsmm_epilogue", x2, w)
     if x2.device.type == "cpu":
         return bsmm_epilogue_plain(x2, w, plan, bias, act)
     if x2.device.type != "cuda":
         raise ValueError(f"bsmm_epilogue: unsupported device {x2.device}")
-    if bias is not None and not bias.is_contiguous():
-        raise ValueError("bsmm_epilogue: bias must be contiguous")
     lib = _lib()
     out, idx, counts, M, K, N, stream = _launch_args(x2, w, plan)
     code = lib.bsmm_epilogue_launch(
@@ -436,6 +455,14 @@ bsmm_epilogue.launches = 0
 _MAX_GRID_Z = 65535     # experts one batched launch takes (CUDA grid z)
 
 
+def batched_grid(E: int) -> None:
+    """The expert count one batched launch takes: the CUDA grid's z
+    extent (the plain version takes any)."""
+    if E > _MAX_GRID_Z:
+        raise GeometryError(f"bsmm_batched takes at most {_MAX_GRID_Z} "
+                            "experts", shape=(E,), where="bsmm_batched")
+
+
 def bsmm_batched(a: torch.Tensor, w: torch.Tensor,
                  plan: TilePlan) -> torch.Tensor:
     """Kernel #1 batched over experts: ``a (E, M, K)`` and ``w (E, K, N)``
@@ -447,15 +474,15 @@ def bsmm_batched(a: torch.Tensor, w: torch.Tensor,
                             shape=(*a.shape, *w.shape), where="bsmm_batched")
     E, M, K = a.shape
     _check_operands(a[0], w[0], plan, None, "bsmm_batched")
+    _check_layout("bsmm_batched", a, w)
     N = w.shape[2]
     if a.device.type == "cpu":
         return bsmm_batched_plain(a, w, plan)
     if a.device.type != "cuda":
         raise ValueError(f"bsmm_batched: unsupported device {a.device}")
-    if E > _MAX_GRID_Z:
-        raise GeometryError(f"bsmm_batched takes at most {_MAX_GRID_Z} "
-                            "experts", shape=a.shape, where="bsmm_batched")
-    stream = _check_launch(plan, "bsmm_batched", a, w)
+    batched_grid(E)
+    kernel_tile("bsmm_batched", plan.tile)
+    stream = _stream(a)
     dev = plan.device_tensors(a.device)
     lib = _lib()
     out = torch.empty((E, M, N), dtype=a.dtype, device=a.device)
@@ -498,11 +525,13 @@ def bsmm_dx(g: torch.Tensor, w: torch.Tensor, plan: TilePlan) -> torch.Tensor:
         raise GeometryError("bsmm_dx: g, w and the TilePlan disagree",
                             shape=(M, N, *w.shape), tile=plan.tile,
                             where="bsmm_dx")
+    _check_layout("bsmm_dx", g, w)
     if g.device.type == "cpu":
         return bsmm_dx_plain(g, w, plan)
     if g.device.type != "cuda":
         raise ValueError(f"bsmm_dx: unsupported device {g.device}")
-    stream = _check_launch(plan, "bsmm_dx", g, w)
+    kernel_tile("bsmm_dx", plan.tile)
+    stream = _stream(g)
     dev = plan.device_tensors(g.device)
     lib = _lib()
     out = torch.empty((M, K), dtype=g.dtype, device=g.device)
@@ -530,11 +559,13 @@ def bsmm_dw(x2: torch.Tensor, g: torch.Tensor, plan: TilePlan) -> torch.Tensor:
         raise GeometryError("bsmm_dw: x, g and the TilePlan disagree",
                             shape=(*x2.shape, *g.shape), tile=plan.tile,
                             where="bsmm_dw")
+    _check_layout("bsmm_dw", x2, g)
     if x2.device.type == "cpu":
         return bsmm_dw_plain(x2, g, plan)
     if x2.device.type != "cuda":
         raise ValueError(f"bsmm_dw: unsupported device {x2.device}")
-    stream = _check_launch(plan, "bsmm_dw", x2, g)
+    kernel_tile("bsmm_dw", plan.tile)
+    stream = _stream(x2)
     out = torch.zeros((K, N), dtype=x2.dtype, device=x2.device)
     if plan.live_tiles == 0:            # nothing live: no launch
         return out
@@ -617,21 +648,15 @@ def masked_matmul(x: torch.Tensor, w: torch.Tensor, mask: torch.Tensor, *,
     CUDA kernel tiles at (bk, bn) = (128, 128) and masks ragged rows
     itself, so ``bm`` only sets which row counts are accepted."""
     _check_masked(x, w, mask, bm, bk, bn)
+    if mask.dtype not in _MASK_CODES:
+        raise TypeError(f"masked_matmul: the mask must be float32, "
+                        f"bfloat16 or one byte a value, got {mask.dtype}")
+    _check_layout("masked_matmul", x, w, mask)
     if x.device.type == "cpu":
         return masked_matmul_plain(x, w, mask, bk, bn)
     if x.device.type != "cuda":
         raise ValueError(f"masked_matmul: unsupported device {x.device}")
-    if (bk, bn) != (MXU_TILE, MXU_TILE):
-        raise GeometryError(f"the CUDA kernel tiles at {MXU_TILE}",
-                            tile=(bk, bn), where="masked_matmul")
-    if mask.dtype not in _MASK_CODES:
-        raise TypeError(f"masked_matmul: the CUDA kernel takes a float32, "
-                        f"bfloat16 or one-byte mask, got {mask.dtype}")
-    ts = (x, w, mask)
-    if not all(t.is_contiguous() for t in ts):
-        raise ValueError("masked_matmul: operands must be contiguous")
-    if any(t.data_ptr() % 16 for t in ts):
-        raise ValueError("masked_matmul: operands must be 16-byte aligned")
+    kernel_tile("masked_matmul", bk, bn)
     M, K = x.shape
     N = w.shape[1]
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)

@@ -14,6 +14,11 @@ key row, the pool holding ``concat(c_kv, k_rope)``; kernel #7, replacing
 ``_paged_kernel``).  One CUDA kernel serves both; the launches of each
 form are counted apart, ``paged_attention.launches`` (#6) and
 ``paged_attention.fused_launches`` (#7).
+
+The operand contract (``_check_operands``: devices, dtypes, contiguity,
+alignment) is checked on every device, so a CPU call refuses what the
+card refuses; the kernel's geometry limits (``_check_kernel_geometry``)
+are the card route's own.
 """
 from __future__ import annotations
 
@@ -139,6 +144,28 @@ def _check_kernel_geometry(geo: PagedGeometry, elem: int) -> None:
             where="paged_attention")
 
 
+def _check_operands(q, k_pool, v_pool, tables, lengths) -> None:
+    """The kernel's operand contract, checked on every device: one
+    device, q and the pools in one of float32 or bfloat16, int32 tables
+    and lengths, contiguous operands, 16-byte aligned q and pools."""
+    pools = (k_pool,) if v_pool is None else (k_pool, v_pool)
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
+                    ("tables", tables), ("lengths", lengths)):
+        if t is not None and t.device != q.device:
+            raise ValueError(f"paged_attention: {name} on {t.device}, q on "
+                             f"{q.device}")
+    if q.dtype not in _DTYPE_CODES or any(t.dtype != q.dtype for t in pools):
+        raise TypeError("paged_attention: q and the pools must share float32 "
+                        "or bfloat16")
+    if tables.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise TypeError("paged_attention: tables and lengths must be int32")
+    if not all(t.is_contiguous() for t in (q, *pools, tables, lengths)):
+        raise ValueError("paged_attention: operands must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, *pools)):
+        raise ValueError("paged_attention: q and the pools must be 16-byte "
+                         "aligned")
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.library("paged_attention")
@@ -170,28 +197,13 @@ def paged_attention(q, k_pool, v_pool, tables, lengths, *,
     Returns (B, Hq, dv) in q's dtype.
     """
     geo = _check_geometry(q, k_pool, v_pool, tables, lengths, v_dim)
+    _check_operands(q, k_pool, v_pool, tables, lengths)
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pool, v_pool, tables, lengths,
                                    scale=scale, v_dim=v_dim)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
-    pools = (k_pool,) if v_pool is None else (k_pool, v_pool)
-    for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
-                    ("tables", tables), ("lengths", lengths)):
-        if t is not None and t.device != q.device:
-            raise ValueError(f"paged_attention: {name} on {t.device}, q on "
-                             f"{q.device}")
-    if q.dtype not in _DTYPE_CODES or any(t.dtype != q.dtype for t in pools):
-        raise TypeError("paged_attention: q and the pools must share float32 "
-                        "or bfloat16")
-    if tables.dtype != torch.int32 or lengths.dtype != torch.int32:
-        raise TypeError("paged_attention: tables and lengths must be int32")
-    if not all(t.is_contiguous() for t in (q, *pools, tables, lengths)):
-        raise ValueError("paged_attention: operands must be contiguous")
     _check_kernel_geometry(geo, q.element_size())
-    if any(t.data_ptr() % 16 for t in (q, *pools)):
-        raise ValueError("paged_attention: q and the pools must be 16-byte "
-                         "aligned")
     lib = _lib()
     out = torch.empty((geo.B, geo.Hq, geo.dv), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream

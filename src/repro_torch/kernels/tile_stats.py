@@ -11,8 +11,9 @@ or column of tiles reads as zero.
 Dispatch: ``tile_stats`` launches the CUDA kernel of
 ``csrc/tile_stats.cu`` (the replacement of the reference's Pallas
 ``_tile_stats_kernel``) for a CUDA tensor and runs ``tile_stats_plain``
-for a CPU tensor; any other device raises.  It counts its launches in
-``tile_stats.launches``.
+for a CPU tensor; any other device raises.  The operand contract (a
+contiguous float32 or bfloat16 weight) is checked on every device.  It
+counts its launches in ``tile_stats.launches``.
 """
 from __future__ import annotations
 
@@ -66,12 +67,12 @@ def tile_stats(w: torch.Tensor, *, bk: int = MXU_TILE,
     """Kernel #9: w (K, N) → (live (⌈K/bk⌉, ⌈N/bn⌉) int32, sums of |w|
     (same shape) float32)."""
     _check(w, bk, bn)
+    if not w.is_contiguous():
+        raise ValueError("tile_stats: w must be contiguous")
     if w.device.type == "cpu":
         return tile_stats_plain(w, bk, bn)
     if w.device.type != "cuda":
         raise ValueError(f"tile_stats: unsupported device {w.device}")
-    if not w.is_contiguous():
-        raise ValueError("tile_stats: w must be contiguous")
     K, N = w.shape
     shape = (-(-K // bk), -(-N // bn))
     live = torch.empty(shape, dtype=torch.int32, device=w.device)

@@ -541,6 +541,203 @@ def test_paged_geometry_errors():
 
 
 # ---------------------------------------------------------------------------
+# the operand contract: checked on the CPU as on the card
+# ---------------------------------------------------------------------------
+def _misaligned(*shape, dtype=torch.float32):
+    """A contiguous tensor whose base sits 4 bytes off a 16-byte line."""
+    n = int(np.prod(shape))
+    buf = torch.zeros(n + 4, dtype=dtype)
+    off = next(i for i in range(1, 8) if
+               (buf.data_ptr() + i * buf.element_size()) % 16)
+    t = buf[off:off + n].view(*shape)
+    assert t.is_contiguous() and t.data_ptr() % 16
+    return t
+
+
+def _strided(*shape, dtype=torch.float32):
+    """A non-contiguous view of the given shape (a transpose)."""
+    t = torch.zeros(*reversed(shape), dtype=dtype).permute(
+        *reversed(range(len(shape))))
+    assert not t.is_contiguous()
+    return t
+
+
+def _bsmm_case(fault):
+    plan = tb.make_tile_plan(np.ones((256, 128), np.float32))
+    x, w = torch.zeros(8, 256), torch.zeros(256, 128)
+    if fault == "view":
+        w = _strided(256, 128)
+    elif fault == "dtype":
+        x = x.bfloat16()
+    else:
+        x = _misaligned(8, 256)
+    return lambda: tb.bsmm(x, w, plan)
+
+
+def _epilogue_case(fault):
+    plan = tb.make_tile_plan(np.ones((256, 128), np.float32))
+    x, w, b = torch.zeros(8, 256), torch.zeros(256, 128), torch.zeros(128)
+    if fault == "view":
+        x = _strided(8, 256)
+    elif fault == "dtype":
+        w = w.bfloat16()
+    else:
+        w = _misaligned(256, 128)
+    return lambda: tb.bsmm_epilogue(x, w, plan, b, "relu")
+
+
+def _batched_case(fault):
+    plan = tb.make_tile_plan(np.ones((128, 128), np.float32))
+    a, w = torch.zeros(2, 8, 128), torch.zeros(2, 128, 128)
+    if fault == "view":
+        a = _strided(2, 8, 128)
+    elif fault == "dtype":
+        a = a.bfloat16()
+    else:
+        a = _misaligned(2, 8, 128)
+    return lambda: tb.bsmm_batched(a, w, plan)
+
+
+def _dx_case(fault):
+    plan = tb.make_tile_plan(np.ones((256, 128), np.float32))
+    g, w = torch.zeros(8, 128), torch.zeros(256, 128)
+    if fault == "view":
+        g = _strided(8, 128)
+    elif fault == "dtype":
+        g = g.bfloat16()
+    else:
+        g = _misaligned(8, 128)
+    return lambda: tb.bsmm_dx(g, w, plan)
+
+
+def _dw_case(fault):
+    plan = tb.make_tile_plan(np.ones((256, 128), np.float32))
+    x, g = torch.zeros(8, 256), torch.zeros(8, 128)
+    if fault == "view":
+        g = _strided(8, 128)
+    elif fault == "dtype":
+        x = x.bfloat16()
+    else:
+        x = _misaligned(8, 256)
+    return lambda: tb.bsmm_dw(x, g, plan)
+
+
+def _masked_case(fault):
+    x, w, m = torch.zeros(8, 128), torch.zeros(128, 128), torch.ones(128, 128)
+    if fault == "view":
+        m = _strided(128, 128)
+    elif fault == "dtype":
+        w = w.bfloat16()
+    else:
+        m = _misaligned(128, 128)
+    return lambda: tb.masked_matmul(x, w, m, bm=8)
+
+
+def _paged_case(fault):
+    q, kp, vp, tables, lengths = (torch.from_numpy(a) for a in _pool_setup(
+        0, 2, 4, 2, 16, NB=2, P=6))
+    if fault == "view":
+        q = _strided(2, 4, 16)
+    elif fault == "dtype":
+        vp = vp.bfloat16()
+    elif fault == "index_dtype":
+        lengths = lengths.long()
+    else:
+        q = _misaligned(2, 4, 16)
+    return lambda: tpa.paged_attention(q, kp, vp, tables, lengths, scale=0.25)
+
+
+def _tile_stats_case(fault):
+    w = _strided(256, 128) if fault == "view" else torch.zeros(
+        256, 128, dtype=torch.float64)
+    return lambda: tts.tile_stats(w)
+
+
+def _flash_case(fault):
+    q, k, v = (torch.from_numpy(a) for a in _qkv(0, 1, 16, 4, 2, 32))
+    if fault == "view":
+        k = _strided(1, 16, 2, 32)
+    else:
+        v = v.bfloat16()
+    return lambda: tfa.flash_attention(q, k, v)
+
+
+_CONTRACT = {"view": (ValueError, "contiguous"),
+             "dtype": (TypeError, "float32 or bfloat16|float32, bfloat16"),
+             "index_dtype": (TypeError, "int32"),
+             "misaligned": (ValueError, "16-byte aligned")}
+
+
+@pytest.mark.parametrize("case,fault", [
+    *((c, f) for c in (_bsmm_case, _epilogue_case, _batched_case, _dx_case,
+                       _dw_case, _masked_case, _paged_case)
+      for f in ("view", "dtype", "misaligned")),
+    (_paged_case, "index_dtype"), (_tile_stats_case, "view"),
+    (_tile_stats_case, "dtype"), (_flash_case, "view"),
+    (_flash_case, "dtype")], ids=lambda v: getattr(v, "__name__", v))
+def test_wrappers_refuse_on_the_cpu_what_the_card_refuses(case, fault):
+    """A strided view, mixed dtypes, int64 indices or a misaligned base
+    raise on the CPU the error the card route raises, before any plain
+    version runs."""
+    exc, match = _CONTRACT[fault]
+    with pytest.raises(exc, match=match):
+        case(fault)()
+
+
+def test_card_only_geometry_rules():
+    """The kernels' own limits, held by named functions the card route
+    calls; the plain versions take more (a tile of 64, a T of 100)."""
+    bf = torch.bfloat16
+    for hd, dv in ((128, 128), (192, 128), (64, 32)):
+        q, k, v = (torch.from_numpy(a).to(bf)
+                   for a in _qkv(0, 1, 9, 4, 2, hd, dv))
+        tfa.wgmma_geometry(q, k, v)
+    q, k, v = (torch.from_numpy(a).to(bf) for a in _qkv(0, 1, 9, 1, 1, 20))
+    with pytest.raises(tb.GeometryError, match="multiples of 8"):
+        tfa.wgmma_geometry(q, k, v)      # row stride Hq * hd = 20
+    q, k, v = (torch.from_numpy(a).to(bf) for a in _qkv(0, 1, 9, 2, 1, 64))
+    q = _misaligned(*q.shape, dtype=bf)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa.wgmma_geometry(q, k, v)
+    tfa.kernel_widths(256, 192)
+    with pytest.raises(tb.GeometryError, match="hd <= 256"):
+        tfa.kernel_widths(264, 128)
+    with pytest.raises(tb.GeometryError, match="dv <= 192"):
+        tfa.wgmma_geometry(*(torch.zeros(1, 2, 1, d, dtype=bf)
+                             for d in (256, 256, 200)))
+    tb.kernel_tile("bsmm", 128)
+    tb.kernel_tile("masked_matmul", 128, 128)
+    with pytest.raises(tb.GeometryError, match="tiles at 128"):
+        tb.kernel_tile("bsmm", 64)
+    with pytest.raises(tb.GeometryError, match="tiles at 128"):
+        tb.kernel_tile("masked_matmul", 128, 64)
+    tb.batched_grid(256)
+    with pytest.raises(tb.GeometryError, match="at most 65535"):
+        tb.batched_grid(65536)
+    ok = tpa.PagedGeometry(B=8, Hq=24, hd=128, Hkv=8, T=128, NB=8, P=64,
+                           dv=128)
+    tpa._check_kernel_geometry(ok, 2)
+    with pytest.raises(tb.GeometryError, match="multiple of 32"):
+        tpa._check_kernel_geometry(ok._replace(T=100), 2)
+    # the plain versions take what the kernels refuse
+    x, w, _, mask = _operands(3, 8, 256, 128)
+    plan64 = tb.make_tile_plan(mask, tile=64)
+    assert tb.bsmm(torch.from_numpy(x), torch.from_numpy(w), plan64).shape \
+        == (8, 128)
+
+
+def test_flash_routes_count_nothing_on_the_cpu():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(2, 1, 33, 4, 2, 64))
+    before = (tfa.flash_attention.launches,
+              dict(tfa.flash_attention.launches_by_route))
+    for dtype in (torch.float32, torch.bfloat16):
+        tfa.flash_attention(q.to(dtype), k.to(dtype), v.to(dtype))
+    assert before == (tfa.flash_attention.launches,
+                      tfa.flash_attention.launches_by_route)
+    assert set(before[1]) == {"wgmma", "simt"}
+
+
+# ---------------------------------------------------------------------------
 # the weight bridge
 # ---------------------------------------------------------------------------
 def test_params_from_numpy_round_trip():
@@ -802,14 +999,20 @@ def test_flash_attention_rejects_bad_geometry():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,Hq,Hkv,hd,dv,causal", [
     (300, 24, 8, 128, 128, True), (129, 6, 1, 64, 32, False),
-    (64, 8, 8, 192, 128, True)])
+    (64, 8, 8, 192, 128, True), (1, 24, 8, 128, 128, True),
+    (129, 24, 8, 128, 128, True)])
 def test_cuda_flash_attention_matches_plain(cuda, dtype, S, Hq, Hkv, hd, dv,
                                             causal):
+    """Both routes against the plain version; bfloat16 runs the wgmma
+    kernel, float32 the CUDA-core one."""
     q, k, v = (torch.from_numpy(a).to(cuda, dtype)
                for a in _qkv(S, 1, S, Hq, Hkv, hd, dv))
+    route = "wgmma" if dtype == torch.bfloat16 else "simt"
     n0 = tfa.flash_attention.launches
+    r0 = tfa.flash_attention.launches_by_route[route]
     got = tfa.flash_attention(q, k, v, causal=causal)
     assert tfa.flash_attention.launches == n0 + 1
+    assert tfa.flash_attention.launches_by_route[route] == r0 + 1
     tol = dict(rtol=1e-2, atol=1e-2) if dtype == torch.bfloat16 \
         else dict(rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(
