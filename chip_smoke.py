@@ -33,7 +33,16 @@ no result line otherwise):
    request finishes, that every kernel was launched on that path (every
    prefill's flash attention on the wgmma route), that every logit is
    finite, and that block-sparse prefill through the ticket's plan
-   agrees with dense prefill on the masked weights;
+   agrees with dense prefill on the masked weights; then profile one
+   decode-only tick of 8 busy slots (device time by kernel group);
+2b. the crossbar-unaware LTP baseline of llama3.2-3b's MLP at full width
+   (up and gate 3072 x 8192, down 8192 x 3072, bf16, seeded weights
+   pruned to the largest 10 % of |w| by the ``ltp`` criterion), every
+   product through kernel #5, at decode rows (8) and prefill rows
+   (1024): with #5's counts set to 0 before and read after, the decode
+   products on its ``stream`` kernel and the prefill products on its
+   ``wgmma`` kernel, the output held to the same MLP through the plain
+   version, and timed beside ``torch.matmul`` on the masked weights;
 3b. the serving control plane at the same size: two crossbar tickets
    (seeded bitmaps) exported through ``core.lottery`` and registered in
    a ``TicketManager`` (fingerprints through ``smoke_decode``), a
@@ -73,22 +82,32 @@ no result line otherwise):
    the host crossbar count, at the session's geometry and at 64 x 256),
    retrain an FC-tiling variant of vgg11 (``fc=(512,)``, a test variant)
    under a ~25 %-live FC mask checking its bsmm launches per step, and
-   run the LTP baseline's product (kernel #5) on its FC layer; with
-   every kernel count set to 0 before and read after;
+   run the LTP baseline's product (kernel #5) on its FC layer (on the
+   CUDA-core ``fma`` kernel, split over K); with every kernel count set
+   to 0 before and read after;
 8. check one full-width resnet18 train step on the card against the
    CPU (float32, TF32 off).
 
 Phase 2 also holds tile stats (#9) and the masked LTP product (#5)
-against their plain versions and times them.  Before the last line it
+against their plain versions and times them: #5 on every kernel
+(``stream`` below 64 rows, ``wgmma`` for bf16 from 64, ``fma`` for f32
+from 64, each call held to its kernel's count and its split count), two
+calls bitwise equal, NaN under a dead tile
+kept out and NaN under a live tile's zero let through as the plain
+version does, and the CNN path's FC shape timed; paged attention (#6,
+#7) row by row alone held bitwise to the batch.  Before the last line it
 prints ``{"kernels": [...]}`` (per kernel: its launches in its path's
 run — llama serving for the 2-D forward kernels and GQA paged
 attention, retraining for dx and dw, deepseek serving for the batched
-bsmm and the fused-V kernel, the CNN path for #5 and #9, the control
-plane for flash attention (#8) — its error
+bsmm and the fused-V kernel, the LTP MLP and the CNN path for #5, the
+CNN path for #9, the control plane for flash attention (#8) — its error
 against the plain version, its time, the plain version's, the bound and
-the library call's), the serving, control-plane, gradient-check,
-retrain, deepseek and CNN summaries and the card's name and power
-limit; the last line is ``{"ok": true, "device": {...}}``.  Longer records go to ``chiprun_out/``.
+the library call's; #5 its launches by kernel and path and its split
+launches), the serving, LTP MLP,
+control-plane, gradient-check, retrain, deepseek and CNN summaries,
+each phase's seconds and the card's name and power limit; the last line
+is ``{"ok": true, "device": {...}}``.  Longer records go to
+``chiprun_out/``.
 """
 from __future__ import annotations
 
@@ -373,10 +392,11 @@ def paged_inputs(dtype, g, Hq, Hkv, hd, fused):
 
 
 def check_paged(PA, Hq=24, Hkv=8, hd=128, dv=None, scale=None, seed=7):
-    """Paged attention against its plain version, bf16 and f32, timed in
-    bf16: by default the GQA form (kernel #6) at llama3.2-3b's heads;
-    with ``dv`` the fused-V form (kernel #7), values the first dv lanes
-    of each key row."""
+    """Paged attention against its plain version, bf16 and f32, each
+    row's output also computed alone and held bitwise to its output in
+    the batch, timed in bf16: by default the GQA form (kernel #6) at
+    llama3.2-3b's heads; with ``dv`` the fused-V form (kernel #7),
+    values the first dv lanes of each key row."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     fused = dv is not None
     name = "paged_attention_fused_v" if fused else "paged_attention"
@@ -398,6 +418,13 @@ def check_paged(PA, Hq=24, Hkv=8, hd=128, dv=None, scale=None, seed=7):
         require(torch.isfinite(got).all().item(),
                 f"{name} saw a dead (NaN) block")
         require(e <= tol, f"{name} disagrees ({dtype})")
+        # batch invariance: each row alone gives the bits it had in the batch
+        alone = [torch.equal(PA.paged_attention(
+            q[b:b + 1].contiguous(), kp, vp, tables[b:b + 1].contiguous(),
+            lens[b:b + 1].contiguous(), scale=scale, v_dim=dv)[0], got[b])
+            for b in range(len(PAGED_LENGTHS))]
+        print(f"check {name} {str(dtype)[6:]} row alone == in batch: {alone}")
+        require(all(alone), f"{name} is not batch-invariant ({dtype})")
         err = max(err, e)
         if dtype == torch.bfloat16:
             row = time_paged(PA, name, q, kp, vp, tables, lens, scale, dv)
@@ -699,6 +726,7 @@ def serve(cfg, device):
     require(diff <= tol, "plan prefill disagrees with dense prefill")
 
     dispatch = time_decode_dispatch(eng, cfg, B, device)
+    profile = profile_decode(eng, cfg, device, "llama")
     step_ms.sort()
     summary = {
         "setup_s": setup_s, "serve_s": serve_s,
@@ -711,6 +739,7 @@ def serve(cfg, device):
         "flash_launches_per_prefill": L,
         "prefill_plan_vs_dense_max_abs_err": diff,
         "decode_dispatch": dispatch,
+        "decode_profile": profile,
         "report": rep.__dict__,
     }
     return launches, summary
@@ -1259,8 +1288,9 @@ def _kernel_group(name: str) -> str:
     """A profiled CUDA kernel's group: the bsmm kernels by role (dx is
     the forward template with its last template argument, TRANS,
     true; the weight-streaming kernel runs the expert-batched products),
-    paged attention, cuBLAS products, PyTorch's elementwise kernels,
-    the rest."""
+    paged attention (with its combine kernel), flash attention, the LTP
+    product's kernels (with the split-K reduction), cuBLAS products,
+    PyTorch's elementwise kernels, the rest."""
     import re
 
     if "bsmm_dw" in name:
@@ -1271,6 +1301,8 @@ def _kernel_group(name: str) -> str:
         return "paged_attention"
     if "flash_attention" in name:
         return "flash_attention"
+    if "masked" in name:
+        return "masked_matmul"
     m = re.search(r"bsmm_\w+<([^>]*)>", name)
     if m:
         return "bsmm_dx" if m.group(1).replace(" ", "").endswith("true") \
@@ -1554,7 +1586,7 @@ def serve_deepseek(cfg, device):
     return launches, summary
 
 
-def profile_decode(eng, cfg, device) -> dict:
+def profile_decode(eng, cfg, device, label="deepseek") -> dict:
     """One decode-only tick with 8 busy slots under ``torch.profiler``:
     8 more requests are prefilled first, then the next tick is profiled
     (``profile_call``); the engine then runs to the end."""
@@ -1574,7 +1606,7 @@ def profile_decode(eng, cfg, device) -> dict:
 
     out = profile_call(tick)
     eng.run()
-    print("deepseek decode profile: " + json.dumps(
+    print(f"{label} decode profile: " + json.dumps(
         {k: v for k, v in out.items() if k != "top_kernels"}))
     return out
 
@@ -1647,17 +1679,119 @@ def check_tile_stats(TS):
     return err, times
 
 
+def masked_call(B, x, w, m):
+    """One call of kernel #5, held to the kernel ``masked_route`` names
+    (every M < 64 on ``stream``, every bfloat16 M >= 64 on ``wgmma``,
+    float32 from 64 rows on ``fma``) by the per-kernel counts, and to
+    ``masked_splits`` by the split count; returns (output, kernel)."""
+    M, K = x.shape
+    N = w.shape[1]
+    want = B.masked_route(M, K, N, x.dtype)
+    require(want == ("stream" if M < 64 else
+                     "wgmma" if x.dtype == torch.bfloat16 else "fma"),
+            f"masked_route gives {want} at M={M} {x.dtype}")
+    split = want != "wgmma" and len(B.masked_splits(M, K, N)) > 1
+    before = dict(B.masked_matmul.launches_by_route)
+    s0 = B.masked_matmul.split_launches
+    out = B.masked_matmul(x, w, m, bm=1)
+    after = B.masked_matmul.launches_by_route
+    require({k: after[k] - before[k] for k in after}
+            == {k: int(k == want) for k in after}
+            and B.masked_matmul.split_launches - s0 == int(split),
+            f"masked_matmul at M={M} {x.dtype} did not run the {want} "
+            f"kernel{' split over K' if split else ''}")
+    return out, want
+
+
+def check_masked_nan(B, x, w, m_tile, m_iid):
+    """NaN in w under a dead tile (column tile 0 of the tile mask) leaves
+    the output finite; NaN under a zero mask element of a live tile
+    gives NaN exactly where the plain version has it."""
+    w2 = w.clone()
+    w2[:128, :128] = float("nan")
+    require(torch.isfinite(masked_call(B, x, w2, m_tile)[0]).all().item(),
+            "masked_matmul let NaN under a dead tile through")
+    k, n = ((m_iid[:128, :128] == 0).nonzero()[0]).tolist()
+    w2 = w.clone()
+    w2[k, n] = float("nan")
+    got = torch.isnan(masked_call(B, x, w2, m_iid)[0])
+    want = torch.isnan(B.masked_matmul_plain(x, w2, m_iid))
+    print(f"check masked_matmul NaN rules {str(x.dtype)[6:]} M={x.shape[0]}: "
+          f"dead tile finite, live tile NaN in {int(got.any(0).sum())} "
+          f"column(s) as the plain version")
+    require(bool(got[:, n].all()) and torch.equal(got, want),
+            "masked_matmul's NaN under a live tile differs from its plain "
+            "version")
+
+
+def masked_row(B, x, w, m, mb, kind, route):
+    """Kernel, plain, kernel #1 (on the same tile plan) and torch.matmul
+    (on the dense masked weight) times, and the bound: every byte of w
+    and mask, x and out, or the live tiles' flops."""
+    M, K = x.shape
+    N = w.shape[1]
+    plan = B.make_tile_plan(mb.cpu().numpy())
+    wm = w * m
+    elem = w.element_size()
+    nbytes = K * N * (elem + m.element_size()) + M * K * elem + M * N * elem
+    flops = 2.0 * M * plan.live_tiles * 128 * 128
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = flops / PEAK_FLOPS[str(x.dtype)[6:]] * 1e3
+    row = {"M": M, "K": K, "N": N, "dtype": str(x.dtype)[6:],
+           "mask": kind, "mask_dtype": str(m.dtype)[6:], "route": route,
+           "splits": 1 if route == "wgmma" else len(B.masked_splits(M, K, N)),
+           "live_tiles": plan.live_tiles, "total_tiles": plan.total_tiles,
+           "ms": time_ms(lambda i: B.masked_matmul(x, w, m, bm=1)),
+           "plain_ms": time_ms(lambda i: B.masked_matmul_plain(x, w, m),
+                               iters=5, graph=False),
+           "bsmm_ms": time_ms(lambda i: B.bsmm(x, wm, plan)),
+           "library_ms": time_ms(lambda i: torch.matmul(x, wm)),
+           "bound_ms": max(t_b, t_o),
+           "bound_by": "bytes" if t_b >= t_o else "operations"}
+    print("time masked_matmul " + json.dumps(row))
+    return row
+
+
+MASKED_CHECK_ROWS = (1, 12, 40, 100, 128, 300)   # every route, ragged rows
+FC_SHAPE = (CNN_BATCH, 512, 512)          # vgg11-fc512's FC weight
+
+
 def check_masked(B):
     """Kernel #5 against its plain version on 3072 x 8192, f32 and bf16,
     M = 8 and 1024, with (a) an iid ~90 %-sparse LTP mask (nearly every
-    tile live) and (b) a ~25 %-live tile bitmap expanded; timed beside
-    kernel #1 on the same tile plan (the crossbar-aware product, which
-    skips the dead tiles' bytes too) and torch.matmul on the dense
-    masked weight.  The mask is in w's dtype, as the reference's.
-    Returns (max error, times)."""
+    tile live) and (b) a ~25 %-live tile bitmap expanded; every call
+    held to its route, a second call held bitwise to the first, the NaN
+    rules at both row counts; timed beside kernel #1 on the same tile
+    plan (the crossbar-aware product, which skips the dead tiles' bytes
+    too) and torch.matmul on the dense masked weight.  The mask is in
+    w's dtype, as the reference's.  Then bf16 at M = 1, 12, 40, 100, 128
+    and 300 (untimed), and the CNN path's own call, the 512 x 512 f32 FC
+    weight at M = 128 under a 50 % iid mask, timed.  Returns (max error,
+    times, the wgmma route's shared memory by mask dtype)."""
     rng = np.random.default_rng(9)
     K, N = LTP_SHAPE
     err, times = 0.0, []
+    smem = {str(d)[6:]: B.masked_wgmma_smem_bytes(d)
+            for d in (torch.bool, torch.bfloat16, torch.float32)}
+    print(f"masked_matmul wgmma route: shared memory by mask dtype {smem} "
+          f"bytes (a block may take 232448)")
+
+    def checked(x, w, m, what):
+        got, route = masked_call(B, x, w, m)
+        want = B.masked_matmul_plain(x, w, m)
+        torch.cuda.synchronize()
+        e = (got.float() - want.float()).abs().max().item()
+        tol = tolerance(x.dtype, want)
+        same = torch.equal(got, masked_call(B, x, w, m)[0])
+        print(f"check masked_matmul {str(x.dtype)[6:]} {what} M={x.shape[0]} "
+              f"K={w.shape[0]} N={w.shape[1]} route={route} "
+              f"max_abs_err={e:.3e} tol={tol:.3e} repeat_bitwise={same}")
+        require(torch.isfinite(got).all().item(), "masked_matmul non-finite")
+        require(e <= tol, f"masked_matmul disagrees with its plain version "
+                f"at M={x.shape[0]} {what} {x.dtype}")
+        require(same, "two masked_matmul calls gave different bits")
+        return e, route
+
     for dtype in (torch.bfloat16, torch.float32):
         g = torch.Generator(device="cuda").manual_seed(77)
         w = (torch.randn(K, N, device="cuda", generator=g) / K ** 0.5
@@ -1666,45 +1800,130 @@ def check_masked(B):
         masks = {"ltp_iid_10pct": torch.rand(K, N, device="cuda",
                                              generator=g) < 0.1,
                  "tile_25pct": torch.as_tensor(tile, device="cuda")}
-        for kind, mb in masks.items():
-            m = mb.to(dtype)
-            plan = B.make_tile_plan(mb.cpu().numpy())
-            wm = w * m
-            for M in LTP_ROWS:
-                x = torch.randn(M, K, device="cuda", generator=g).to(dtype)
-                bm = M if M < 128 else 128
-                got = B.masked_matmul(x, w, m, bm=bm)
-                want = B.masked_matmul_plain(x, w, m)
-                torch.cuda.synchronize()
-                e = (got.float() - want.float()).abs().max().item()
-                tol = tolerance(dtype, want)
-                print(f"check masked_matmul {str(dtype)[6:]} {kind} M={M} "
-                      f"K={K} N={N} max_abs_err={e:.3e} tol={tol:.3e}")
-                require(torch.isfinite(got).all().item(),
-                        "masked_matmul non-finite")
-                require(e <= tol, f"masked_matmul disagrees with its plain "
-                        f"version at M={M} {kind} {dtype}")
+        for M in LTP_ROWS:
+            x = torch.randn(M, K, device="cuda", generator=g).to(dtype)
+            for kind, mb in masks.items():
+                m = mb.to(dtype)
+                e, route = checked(x, w, m, kind)
                 err = max(err, e)
-                elem = w.element_size()
-                nbytes = 2 * K * N * elem + M * K * elem + M * N * elem
-                flops = 2.0 * M * plan.live_tiles * 128 * 128
-                t_b = nbytes / HBM_BYTES_PER_S * 1e3
-                t_o = flops / PEAK_FLOPS[str(dtype)[6:]] * 1e3
-                row = {"M": M, "K": K, "N": N, "dtype": str(dtype)[6:],
-                       "mask": kind, "live_tiles": plan.live_tiles,
-                       "total_tiles": plan.total_tiles,
-                       "ms": time_ms(lambda i: B.masked_matmul(x, w, m, bm=bm)),
-                       "plain_ms": time_ms(
-                           lambda i: B.masked_matmul_plain(x, w, m), iters=5,
-                           graph=False),
-                       "bsmm_ms": time_ms(lambda i: B.bsmm(x, wm, plan)),
-                       "library_ms": time_ms(lambda i: torch.matmul(x, wm)),
-                       "bound_ms": max(t_b, t_o),
-                       "bound_by": "bytes" if t_b >= t_o else "operations"}
-                print("time masked_matmul " + json.dumps(row))
-                times.append(row)
-            del wm
-    return err, times
+                times.append(masked_row(B, x, w, m, mb, kind, route))
+            check_masked_nan(B, x, w, masks["tile_25pct"].to(dtype),
+                             masks["ltp_iid_10pct"].to(dtype))
+        if dtype == torch.bfloat16:
+            m = masks["ltp_iid_10pct"].to(dtype)
+            for M in MASKED_CHECK_ROWS:
+                x = torch.randn(M, K, device="cuda", generator=g).to(dtype)
+                err = max(err, checked(x, w, m, "ltp_iid_10pct")[0])
+        del w, masks
+    M, K, N = FC_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(512)
+    w = torch.randn(K, N, device="cuda", generator=g) / K ** 0.5
+    mb = torch.rand(K, N, device="cuda", generator=g) < 0.5
+    x = torch.relu(torch.randn(M, K, device="cuda", generator=g))
+    e, route = checked(x, w, mb.float(), "fc_ltp_50pct")
+    require(route == "fma" and len(B.masked_splits(M, K, N)) > 1,
+            "the CNN path's FC call did not take the split CUDA-core kernel")
+    err = max(err, e)
+    times.append(masked_row(B, x, w, mb.float(), mb, "fc_ltp_50pct", route))
+    return err, times, smem
+
+
+LTP_MLP_ROWS = (8, 1024)    # decode (the serve phase's 8 slots), prefill
+LTP_MLP_KEEP = 0.1          # the ltp prune keeps the largest 10 % of |w|
+
+
+def ltp_mlp(cfg, device):
+    """The crossbar-unaware LTP baseline where kernel #5's ``stream`` and
+    ``wgmma`` kernels run: one layer of llama3.2-3b's gated MLP at full
+    width (``mlp_init``: up and gate d_model x d_ff, down d_ff x d_model,
+    bf16, seeded), pruned by the ``ltp`` criterion (each weight its own
+    group scored by |w|, as ``core.strategies.LTPStrategy`` scores it,
+    the lowest 90 % across the three weights killed at once, as
+    ``select_global_prune`` picks; computed on the card, since the host
+    prune step loops per weight), run as ``down(act(x @ gate) * (x @
+    up))`` with every product through #5, at decode rows (8) and prefill
+    rows (1024).  #5's counts are set to 0 just before and read just
+    after: three launches a row count, the decode ones on ``stream``
+    (split over K), the prefill ones on ``wgmma``.  The output is held
+    to the same MLP through ``masked_matmul_plain``, and the MLP is
+    timed beside ``torch.matmul`` on the masked weights."""
+    from repro_torch.kernels import bsmm as B
+    from repro_torch.models.layers import _act, mlp_init
+
+    g = torch.Generator(device=device).manual_seed(21)
+    p = mlp_init(g, cfg.d_model, cfg.d_ff, gated=True, bias=False,
+                 dtype=torch.bfloat16, device=device)
+    keys = ("up", "gate", "down")
+    mags = torch.cat([p[k].abs().float().flatten() for k in keys])
+    thr = torch.sort(mags).values[int((1 - LTP_MLP_KEEP) * mags.numel())]
+    del mags
+    masks = {k: (p[k].abs().float() > thr).to(torch.bfloat16) for k in keys}
+    wm = {k: p[k] * masks[k] for k in keys}
+    xs = {M: torch.randn(M, cfg.d_model, device=device, generator=g)
+          .to(torch.bfloat16) for M in LTP_MLP_ROWS}
+
+    def forward(mm, x):
+        up = mm(x, "up")
+        return mm(_act(cfg.act, mm(x, "gate")) * up, "down")
+
+    def kernel(x, k):
+        return B.masked_matmul(x, p[k], masks[k], bm=1)
+
+    def plain(x, k):
+        return B.masked_matmul_plain(x, p[k], masks[k])
+
+    def library(x, k):
+        return torch.matmul(x, wm[k])
+
+    B.masked_matmul.launches = 0
+    B.masked_matmul.launches_by_route.update(stream=0, wgmma=0, fma=0)
+    B.masked_matmul.split_launches = 0
+    outs = {M: forward(kernel, x) for M, x in xs.items()}
+    sync(device)
+    by_route = dict(B.masked_matmul.launches_by_route)
+    summary = {"launches": B.masked_matmul.launches,
+               "launches_by_route": by_route,
+               "split_launches": B.masked_matmul.split_launches}
+    print(f"ltp mlp: masked_matmul launches {summary}")
+    require(by_route == {"stream": 3, "wgmma": 3, "fma": 0}
+            and summary["launches"] == 6 and summary["split_launches"] == 3,
+            "the LTP MLP's decode products did not stream split-K or its "
+            "prefill products did not run the wgmma kernel")
+    live, tiles = {}, 0
+    for k in keys:
+        K, N = masks[k].shape
+        t = (masks[k] != 0).reshape(K // 128, 128, N // 128, 128) \
+            .any(3).any(1)
+        live[k] = float((masks[k] != 0).float().mean().item())
+        tiles += int(t.sum().item()) * 128 * 128
+    nbytes = sum(p[k].numel() * 4 for k in keys)         # bf16 w and mask
+    rows, err = [], 0.0
+    for M, x in xs.items():
+        want = forward(plain, x)
+        got = outs[M]
+        e = (got.float() - want.float()).abs().max().item()
+        tol = tolerance(torch.bfloat16, want)
+        print(f"check ltp mlp M={M}: max_abs_err={e:.3e} tol={tol:.3e}")
+        require(bool(torch.isfinite(got).all().item()),
+                "the LTP MLP gave non-finite output")
+        require(e <= tol, f"the LTP MLP disagrees with its plain version at "
+                f"M={M}")
+        err = max(err, e)
+        t_b = (nbytes + 2 * M * (2 * cfg.d_model + 3 * cfg.d_ff)) \
+            / HBM_BYTES_PER_S * 1e3
+        t_o = 2.0 * M * tiles / PEAK_FLOPS["bfloat16"] * 1e3
+        row = {"M": M, "ms": time_ms(lambda i: forward(kernel, x)),
+               "plain_ms": time_ms(lambda i: forward(plain, x), iters=5,
+                                   graph=False),
+               "library_ms": time_ms(lambda i: forward(library, x)),
+               "bound_ms": max(t_b, t_o),
+               "bound_by": "bytes" if t_b >= t_o else "operations"}
+        print("time ltp_mlp " + json.dumps(row))
+        rows.append(row)
+    summary.update(max_abs_err=err, live_fraction=live,
+                   live_tile_fraction=tiles / sum(p[k].numel() for k in keys),
+                   times=rows)
+    return summary
 
 
 def _timed(adapter, device, train_s, losses, accs):
@@ -1952,11 +2171,23 @@ def cnn_phase(device):
                 B.masked_matmul, TS.tile_stats)
     for f in counters:
         f.launches = 0
+    by_route = B.masked_matmul.launches_by_route
+    for k in by_route:
+        by_route[k] = 0
+    B.masked_matmul.split_launches = 0
     sess, res, summary = cnn_session(device)
     summary["ticket_tile_stats"] = cnn_ticket_stats(sess, res)
     summary["fc_variant"] = cnn_fc_variant(device)
     launches = {f.__name__: f.launches for f in counters}
-    print(f"cnn launches {launches}")
+    n = launches["masked_matmul"]
+    summary["masked_matmul_launches_by_route"] = dict(by_route)
+    summary["masked_matmul_split_launches"] = B.masked_matmul.split_launches
+    print(f"cnn launches {launches}, masked_matmul by kernel "
+          f"{dict(by_route)}, split {B.masked_matmul.split_launches}")
+    require(by_route == {"stream": 0, "wgmma": 0, "fma": n}
+            and B.masked_matmul.split_launches == n,
+            "the CNN path's LTP product did not take the split CUDA-core "
+            "kernel")
     for name in ("bsmm_epilogue", "bsmm_dx", "bsmm_dw", "masked_matmul",
                  "tile_stats"):
         require(launches[name] > 0, f"the CNN path never launched {name}")
@@ -2078,6 +2309,14 @@ def main() -> int:
     print(f"build: {build_s:.1f} s ({', '.join(logs) or 'cached'})")
 
     cfg = get_arch("llama3.2-3b")
+    phases = {"build": build_s}
+    mark = [time.perf_counter()]
+
+    def phase(name):                 # seconds since the last mark
+        now = time.perf_counter()
+        phases[name] = now - mark[0]
+        mark[0] = now
+
     with torch.inference_mode():
         bsmm_err, bsmm_times = check_bsmm(B)
         paged_err, paged_row = check_paged(PA)
@@ -2094,25 +2333,33 @@ def main() -> int:
                                ((None, "silu"),), timed=False, seed=5)
         bsmm_err = {k: max(v, ds_err[k]) for k, v in bsmm_err.items()}
         stats_err, stats_times = check_tile_stats(TS)
-        masked_err, masked_times = check_masked(B)
+        masked_err, masked_times, masked_smem = check_masked(B)
         flash_err, flash_times = check_flash(FA)
     flash_build = flash_build_report(FA, logs.get("flash_attention", ""))
+    phase("kernel_checks")
+    with torch.inference_mode():
+        ltp_summary = ltp_mlp(cfg, "cuda")
+    phase("ltp_mlp")
     torch.cuda.empty_cache()
     launches, summary = serve(cfg, "cuda")
+    phase("serve")
     # the serve phase's model is gone; the control plane holds two
     # tickets' weights, all freed before the retrain phase's 56.5 GB peak
     gc.collect()
     torch.cuda.empty_cache()
     cp_launches, cp_summary = control_plane(cfg, "cuda")
+    phase("control_plane")
     gc.collect()
     torch.cuda.empty_cache()
     grad_summary = grad_check(cfg, "cuda")
     t_launches, train_summary = retrain(cfg, "cuda")
+    phase("grad_check_retrain")
     # the llama models are gone (each phase's locals); hand their memory
     # back before the ~30 GB deepseek-v3 model is drawn
     gc.collect()
     torch.cuda.empty_cache()
     ds_launches, ds_summary = serve_deepseek(deepseek_config(), "cuda")
+    phase("serve_deepseek")
     # deepseek-v3's ~30 GB are gone with its phase; the CNN slice needs
     # a few GB
     gc.collect()
@@ -2120,6 +2367,7 @@ def main() -> int:
     cnn_launches, cnn_summary = cnn_phase("cuda")
     resnet_summary = resnet_step_check()
     cnn_summary["resnet18_step_check"] = resnet_summary
+    phase("cnn")
 
     rep_row = next(r for r in bsmm_times if r["M"] == 8 and r["N"] == 8192)
     grad_row = next(r for r in grad_times if r["N"] == 8192)
@@ -2181,8 +2429,9 @@ def main() -> int:
          "bound_by": mla_row["bound_by"],
          "library_ms": mla_row["library_ms"]},
     ]
-    # the LTP baseline at decode rows with its own (iid) mask; tile stats
-    # at the size of vgg11's largest conv matrices
+    # the LTP baseline at decode rows with its own (iid) mask, the LTP
+    # MLP's up and gate shape; tile stats at the size of vgg11's largest
+    # conv matrices
     masked_row = next(r for r in masked_times if r["M"] == 8
                       and r["dtype"] == "bfloat16"
                       and r["mask"] == "ltp_iid_10pct")
@@ -2191,7 +2440,14 @@ def main() -> int:
         {"name": "masked_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/masked_matmul.cu",
          "replaces": "src/repro/kernels/bsmm.py:617",
-         "launches": cnn_launches["masked_matmul"],
+         "launches": cnn_launches["masked_matmul"] + ltp_summary["launches"],
+         "launches_by_path": {"llama_ltp_mlp": ltp_summary["launches"],
+                              "cnn": cnn_launches["masked_matmul"]},
+         "launches_by_route": {
+             k: v + cnn_summary["masked_matmul_launches_by_route"][k]
+             for k, v in ltp_summary["launches_by_route"].items()},
+         "split_launches": ltp_summary["split_launches"]
+         + cnn_summary["masked_matmul_split_launches"],
          "max_abs_err": masked_err, "ms": masked_row["ms"],
          "plain_ms": masked_row["plain_ms"],
          "bound_ms": masked_row["bound_ms"],
@@ -2223,20 +2479,25 @@ def main() -> int:
          "bsmm_batched": batched_times, "serve": summary,
          "grad_check": grad_summary, "retrain": train_summary,
          "serve_deepseek": ds_summary, "tile_stats": stats_times,
-         "masked_matmul": masked_times, "cnn": cnn_summary,
+         "masked_matmul": masked_times, "ltp_mlp": ltp_summary,
+         "masked_matmul_wgmma_smem": masked_smem, "cnn": cnn_summary,
          "flash_attention": flash_times, "flash_attention_build": flash_build,
-         "control_plane": cp_summary},
+         "control_plane": cp_summary, "phase_s": phases},
         indent=1, default=str))
-    print(json.dumps({"serve": summary}, default=str))
+    print(json.dumps({"serve": {**summary, "decode_profile": {
+        k: v for k, v in summary["decode_profile"].items()
+        if k != "top_kernels"}}}, default=str))
     print(json.dumps({"control_plane": {k: v for k, v in cp_summary.items()
                                         if k != "prefill_profile"}},
                      default=str))
+    print(json.dumps({"ltp_mlp": ltp_summary}))
     print(json.dumps({"grad_check": grad_summary}))
     print(json.dumps({"retrain": train_summary}, default=str))
     print(json.dumps({"serve_deepseek": {k: v for k, v in ds_summary.items()
                                          if k != "report"}}, default=str))
     print(json.dumps({"cnn": {k: v for k, v in cnn_summary.items()
                               if k != "losses"}}, default=str))
+    print(json.dumps({"phase_s": phases}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

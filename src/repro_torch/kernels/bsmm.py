@@ -16,7 +16,10 @@ versions (``*_plain``) for CPU tensors; any other device raises.
 ``masked_matmul`` (the reference's ``masked_matmul_pallas``, kernel #5,
 ``csrc/masked_matmul.cu``) is the crossbar-unaware LTP baseline beside
 them: a dense grid that reads every weight and mask tile and skips only
-the product of all-zero mask tiles.  Each
+the product of all-zero mask tiles, through the CUDA kernel that
+``masked_route`` picks from the shapes (split-K streaming below 64 rows,
+TMA and ``wgmma`` for bfloat16 from 64, CUDA-core FMA for float32),
+counted by kernel in ``masked_matmul.launches_by_route``.  Each
 wrapper counts its kernel launches in ``.launches``.  ``bsmm_apply`` is
 the differentiable product (a ``torch.autograd.Function``): forward
 through ``bsmm``/``bsmm_epilogue``, backward through ``bsmm_dx`` and
@@ -627,13 +630,82 @@ def masked_matmul_plain(x: torch.Tensor, w: torch.Tensor, mask: torch.Tensor,
     return torch.matmul(x.float(), wm.float()).to(x.dtype)
 
 
+#: SMs of the H100; the split-K routes size their grids by it
+_SMS = 132
+#: below this many rows kernel #5 streams split-K (decode rows)
+_STREAM_M = 64
+_FMA_ROWS = 64          # rows per block of the CUDA-core route
+#: the C entry point's kernel codes (csrc/masked_matmul.cu)
+_MASKED_KERNELS = {"stream": 0, "fma": 1, "wgmma": 2}
+
+
+def _masked_row_blocks(M: int) -> int:
+    """Row blocks of kernel #5's grid at M rows: the streaming kernel
+    takes 8 or 32 rows a block, the CUDA-core kernel 64."""
+    if M < _STREAM_M:
+        rows = 8 if M <= 8 else 32
+    else:
+        rows = _FMA_ROWS
+    return -(-M // rows)
+
+
+def masked_splits(M: int, K: int, N: int) -> Tuple[Tuple[int, int], ...]:
+    """The K-splits of kernel #5's launch at (M, K, N), as (k0, k1) row
+    ranges: each a whole number of 128-row tiles, none empty, together
+    covering [0, K).  Below 64 rows the grid (column tiles x row blocks
+    x splits) covers at least two waves of the card's 132 SMs, and at up
+    to 8 rows as many blocks as three to an SM where that is more (the
+    streaming kernel holds three there, so a grid of up to 396 blocks
+    runs in one round); at 64 rows or more the CUDA-core route splits
+    only when its grid would fill less than one wave, and the wgmma
+    route never splits.  It depends on the shape alone, never on the
+    data, so a call is bitwise repeatable at a fixed (M, K, N); a row's
+    bits may change with M."""
+    kt, cols, rows = K // MXU_TILE, N // MXU_TILE, _masked_row_blocks(M)
+    g = cols * rows
+    if M < _STREAM_M:
+        per_sm = 3 if M <= 8 else 1         # blocks an SM holds
+        s = max(-(-2 * _SMS // g), per_sm * _SMS // g)
+    elif g < _SMS:
+        s = -(-_SMS // g)
+    else:
+        s = 1
+    s = max(1, min(kt, s))
+    per = -(-kt // s)
+    return tuple((k * MXU_TILE, min(k + per, kt) * MXU_TILE)
+                 for k in range(0, kt, per))
+
+
+def masked_route(M: int, K: int, N: int, dtype: torch.dtype) -> str:
+    """Which CUDA kernel computes kernel #5 at (M, K, N, dtype), by the
+    name ``masked_matmul.launches_by_route`` counts it under:
+
+    - ``"stream"``: every M < 64 (decode rows), both dtypes: split-K
+      weight streaming;
+    - ``"wgmma"``: bfloat16 at M >= 64 (TMA and ``wgmma``), never split;
+    - ``"fma"``: float32 at M >= 64 on the CUDA cores, split where
+      ``masked_splits`` cuts K (its grid would fill less than one
+      wave)."""
+    if M < _STREAM_M:
+        return "stream"
+    return "wgmma" if dtype == torch.bfloat16 else "fma"
+
+
 @functools.lru_cache(maxsize=None)
 def _masked_lib():
     lib = _build.library("masked_matmul")
-    lib.masked_matmul_launch.argtypes = [_VP, _VP, _VP, _VP, _I, _I, _I, _I,
-                                         _I, _VP]
+    lib.masked_matmul_launch.argtypes = [_VP, _VP, _VP, _VP, _VP, _I, _I, _I,
+                                         _I, _I, _I, _I, _I, _VP]
     lib.masked_matmul_launch.restype = _I
+    lib.masked_matmul_wgmma_smem.argtypes = [_I]
+    lib.masked_matmul_wgmma_smem.restype = _I
     return lib
+
+
+def masked_wgmma_smem_bytes(mask_dtype: torch.dtype) -> int:
+    """Dynamic shared memory of kernel #5's wgmma route for a mask of
+    ``mask_dtype``, as its launch asks for it (builds the library)."""
+    return _masked_lib().masked_matmul_wgmma_smem(_MASK_CODES[mask_dtype])
 
 
 def masked_matmul(x: torch.Tensor, w: torch.Tensor, mask: torch.Tensor, *,
@@ -645,8 +717,11 @@ def masked_matmul(x: torch.Tensor, w: torch.Tensor, mask: torch.Tensor, *,
     of the mask is read; the product is skipped only for a (bk, bn)
     tile whose mask is all zero — the crossbar-unaware LTP baseline's
     cost.  Raises ``GeometryError`` when M, K or N do not tile.  The
-    CUDA kernel tiles at (bk, bn) = (128, 128) and masks ragged rows
-    itself, so ``bm`` only sets which row counts are accepted."""
+    CUDA kernels tile at (bk, bn) = (128, 128) and mask ragged rows
+    themselves, so ``bm`` only sets which row counts are accepted.  The
+    kernel is chosen by ``masked_route`` and K is cut by
+    ``masked_splits``, from the shapes alone; the split partials are
+    summed in split order, so two calls give the same bits."""
     _check_masked(x, w, mask, bm, bk, bn)
     if mask.dtype not in _MASK_CODES:
         raise TypeError(f"masked_matmul: the mask must be float32, "
@@ -659,18 +734,31 @@ def masked_matmul(x: torch.Tensor, w: torch.Tensor, mask: torch.Tensor, *,
     kernel_tile("masked_matmul", bk, bn)
     M, K = x.shape
     N = w.shape[1]
+    route = masked_route(M, K, N, x.dtype)
+    splits = ((0, K),) if route == "wgmma" else masked_splits(M, K, N)
+    per = (splits[0][1] - splits[0][0]) // MXU_TILE
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    ws = torch.empty((len(splits), M, N), dtype=torch.float32,
+                     device=x.device) if len(splits) > 1 else None
     lib = _masked_lib()
     code = lib.masked_matmul_launch(
-        x.data_ptr(), w.data_ptr(), mask.data_ptr(), out.data_ptr(), M, K, N,
+        x.data_ptr(), w.data_ptr(), mask.data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), M, K, N,
         _DTYPE_CODES[x.dtype], _MASK_CODES[mask.dtype],
+        _MASKED_KERNELS[route], per, len(splits),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, code, "masked_matmul")
     masked_matmul.launches += 1
+    masked_matmul.launches_by_route[route] += 1
+    masked_matmul.split_launches += len(splits) > 1
     return out
 
 
 masked_matmul.launches = 0
+#: launches by the kernel that ran (``masked_route``'s names)
+masked_matmul.launches_by_route = {k: 0 for k in _MASKED_KERNELS}
+#: launches whose K was cut (``masked_splits``), whichever kernel ran
+masked_matmul.split_launches = 0
 
 
 # ---------------------------------------------------------------------------

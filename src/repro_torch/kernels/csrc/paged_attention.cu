@@ -9,39 +9,45 @@
 //   q (B, Hq, hd), k_pool (P, T, Hkv, hd), v_pool (P, T, Hkv, dv) or, fused,
 //   none; tables (B, NB), lengths (B,) >= 1  ->  out (B, Hq, dv)
 //
-// One thread block per (KV head h, head group, sequence b): the G = Hq /
-// Hkv query heads of a KV head are split into groups of at most GB, and
-// a block takes one group, so that its f32 state fits in shared memory
-// at MLA's G = 128, hd = 576, dv = 512 (a whole group would need ~880 KB)
-// and a batch of 8 sequences fills 128 blocks.  The groups of one KV head
-// read the same K rows, the later ones from the L2.  Values are read
-// through (v_pool, v_ld): the GQA form passes its value pool with row
-// stride dv, the fused form passes the key pool again with row stride
-// hd, so the values are the first dv lanes of each key row and no second
-// pool exists.
+// Split-KV ("flash-decoding"): the grid is (Hkv x head groups, B, NB).
+// Block (h, b, j) takes logical block j of sequence b for one group of
+// at most GB of the G = Hq / Hkv query heads of KV head h; it exits at
+// once if j >= ceil(len_b / T), so table entries past the live blocks
+// (the engine points them at scratch block 0) are never touched.  Over
+// the live rows of pool[tables[b, j]] it computes, in f32, the scores
+// q . k times `scale`, their max m_j, the sum l_j of exp(s - m_j) and
+// acc_j = exp(s - m_j) @ v, and writes (acc_j, m_j, l_j) to an f32
+// workspace (B, Hq, NB, dv + 2).  paged_attention_combine_kernel, one
+// block per (query head, sequence), merges the live partials in j order
+// (m = max m_j, l = sum l_j e^(m_j - m), acc = sum acc_j e^(m_j - m)) and
+// writes acc / l in q's type.  The split is a fixed chunk of T tokens and
+// the merge order is fixed, so a row's bits depend on its own length and
+// contents only, never on the batch around it (greedy streams survive a
+// swap or a failover through that).  The grid needs no read of `lengths`
+// on the host, so a launch can be captured in a CUDA graph.  Rows past
+// len inside the last live block are never read into a product.
 //
-// The block walks only the live logical blocks j < ceil(len / T), reading
-// pool[tables[b, j]]; table entries past them (the engine points them at
-// scratch block 0) are never touched, nor are the rows of the last live
-// block past len.  Scores are q . k in f32 (bf16 loads cast up), then
-// times `scale`, as the reference does; the softmax streams over blocks
-// with the running max m, the sum l and the accumulator kept in f32
-// shared memory, and the flush writes acc / l in q's type.
-//
-// Per block of T tokens: (1) scores, eight threads per key row, each
-// loading 16-byte pieces of it (a row is one contiguous hd run), summed
-// with three shuffles; (2) the softmax update, one warp per query head;
-// (3) p @ v, threads along pairs of value dims and TG token groups,
-// partial sums combined through shared memory.
+// Per block: (0) the GQA form puts the live K and V rows of its pool block
+// in flight at once (cp.async.cg, 16 bytes a piece: 32 KB each for llama's
+// T = 128, hd = 128 in bf16) while q is staged, then (1) scores, eight
+// threads per key row, summed with three shuffles; (2) max and exp-sum,
+// one warp per query head; (3) p @ v, threads along pairs of value dims
+// and TG token groups, partial sums combined through shared memory in a
+// fixed order.  The fused (MLA) form's rows are 576 lanes wide: a staged
+// block would not fit beside its state, so it reads K/V rows from the
+// L2 in the same three passes (the head groups of one block read the
+// same rows).  Values are read through (v_pool, v_ld): the fused form
+// passes the key pool again with row stride hd.
 //
 // What bounds it on the H100: the K/V bytes of the live context (each
-// element is used for 2 G flops), so the GQA form is bound by memory.
-// The fused form at G = 128 does ~240 flops per latent-row byte, near
-// the card's bf16 ridge (~295); this kernel does them in f32 on the CUDA
-// cores, not the tensor cores, so its operations are what it waits on.
-// The block walks a sequence's blocks one after another, so the longest
-// sequence sets the time; splitting a sequence over blocks is later
-// work.  Its time against the bound is in PERF.md.
+// element is used for 2 G flops), so the GQA form is bound by memory;
+// splitting the sequences gives llama's B = 8 decode 168 working blocks
+// where one block per sequence gave 64, and the staged loads keep ~64 KB
+// in flight per block.  The fused form at G = 128 does ~240 flops per
+// latent-row byte, near the card's bf16 ridge (~295), on the CUDA cores
+// in f32, so its operations bound it; the split spreads its work over
+// every live (sequence, block) pair.  Times against the bound are in
+// PERF.md.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -53,6 +59,7 @@ constexpr float NEG = -1e30f;     // finite mask value, as the reference's _NEG
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int TPR = 8;            // threads per key row in the score pass
+constexpr int COMBINE_THREADS = 128;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -105,203 +112,260 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-template <typename T>
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+
+// STAGED: the GQA form, K and V rows staged in shared memory; else the
+// fused form, rows read from global memory (v_pool = k_pool, v_ld = hd)
+template <typename T, bool STAGED>
 __global__ void __launch_bounds__(THREADS)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                       const T* __restrict__ v_pool,
-                       const int* __restrict__ tables,
-                       const int* __restrict__ lengths, T* __restrict__ out,
-                       int Hq, int Hkv, int hd, int dv, int v_ld, int T_,
-                       int NB, float scale) {
+paged_attention_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
+                             const T* __restrict__ v_pool,
+                             const int* __restrict__ tables,
+                             const int* __restrict__ lengths,
+                             float* __restrict__ part, int Hq, int Hkv, int hd,
+                             int dv, int v_ld, int T_, int NB, float scale) {
   constexpr int V = Vec<T>::N;
+  const int b = blockIdx.y;
+  const int j = blockIdx.z;
+  const int n = lengths[b];
+  if (j * T_ >= n) return;               // past the live blocks: never read
+  const int live = min(T_, n - j * T_);
+  const size_t p = (size_t)tables[(size_t)b * NB + j];
+
   const int G = Hq / Hkv;
   const int ngb = (G + GB - 1) / GB;     // head groups per KV head
   const int gbs = min(G, GB);            // smem rows per group
   const int h = blockIdx.x / ngb;
   const int g0 = (blockIdx.x % ngb) * GB;
   const int gn = min(GB, G - g0);        // heads of this block's group
-  const int b = blockIdx.y;
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
   const int ND = dv / 2;            // value-dim pairs
   const int TG = THREADS / ND;      // token groups in the p @ v pass
 
-  extern __shared__ float smem[];
-  float* qs = smem;                 // (gbs, hd)
+  extern __shared__ __align__(16) uint8_t smem[];
+  T* ks = reinterpret_cast<T*>(smem);                  // (T, hd), staged form
+  T* vs = ks + (STAGED ? (size_t)T_ * hd : 0);         // (T, dv), staged form
+  float* qs = reinterpret_cast<float*>(vs + (STAGED ? (size_t)T_ * dv : 0));  // (gbs, hd)
   float* s = qs + gbs * hd;         // (gbs, T) scores, then probabilities
-  float* acc = s + gbs * T_;        // (gbs, dv)
-  float* red = acc + gbs * dv;      // (TG, gbs, dv) partial p @ v
-  float* m = red + TG * gbs * dv;   // (gbs,)
-  float* l = m + gbs;               // (gbs,)
-  float* corr = l + gbs;            // (gbs,)
+  float* red = s + gbs * T_;        // (TG, gbs, dv) partial p @ v
+  float* ml = red + TG * gbs * dv;  // (gbs, 2): m_j, l_j
 
+  const T* kblk = k_pool + (p * T_ * Hkv + h) * hd;      // row t at t * Hkv * hd
+  const T* vblk = v_pool + (p * T_ * Hkv + h) * v_ld;    // row t at t * Hkv * v_ld
+  if constexpr (STAGED) {
+    const int kc = hd / V, vc = dv / V;
+    for (int c = tid; c < live * kc; c += THREADS) {
+      const int t = c / kc, e = (c % kc) * V;
+      cp_async16(ks + t * hd + e, kblk + (size_t)t * Hkv * hd + e);
+    }
+    cp_async_commit();
+    for (int c = tid; c < live * vc; c += THREADS) {
+      const int t = c / vc, e = (c % vc) * V;
+      cp_async16(vs + t * dv + e, vblk + (size_t)t * Hkv * v_ld + e);
+    }
+    cp_async_commit();
+  }
   const size_t qrow = (size_t)b * Hq + (size_t)h * G + g0;   // first head
   for (int e = tid; e < gn * hd; e += THREADS) qs[e] = to_f32(q[qrow * hd + e]);
-  for (int e = tid; e < gn * dv; e += THREADS) acc[e] = 0.f;
-  if (tid < gn) {
-    m[tid] = NEG;
-    l[tid] = 0.f;
-  }
+  if constexpr (STAGED) cp_async_wait<1>();    // this thread's K pieces
   __syncthreads();
 
-  const int n = lengths[b];
-  const int nblk = (n + T_ - 1) / T_;
+  // (1) scores: TPR threads per key row (T is a multiple of THREADS / TPR)
   const int sub = tid % TPR;        // piece of the key row this thread reads
-  const int dp = tid % ND;          // value-dim pair of this thread
-  const int tg = tid / ND;          // token group of this thread
-  for (int j = 0; j < nblk; ++j) {
-    const size_t p = (size_t)tables[(size_t)b * NB + j];
-    const int live = min(T_, n - j * T_);
-
-    // (1) scores: TPR threads per key row (T_ is a multiple of THREADS / TPR)
-    for (int t = tid / TPR; t < T_; t += THREADS / TPR) {
-      float part[GB];
+  for (int t = tid / TPR; t < T_; t += THREADS / TPR) {
+    float acc[GB];
 #pragma unroll
-      for (int g = 0; g < GB; ++g) part[g] = 0.f;
-      if (t < live) {
-        const T* krow = k_pool + ((p * T_ + t) * Hkv + h) * hd;
-        for (int c = sub * V; c < hd; c += TPR * V) {
-          float kv[V];
-          Vec<T>::load(krow + c, kv);
-#pragma unroll
-          for (int g = 0; g < GB; ++g) {
-            if (g < gn) {
-#pragma unroll
-              for (int i = 0; i < V; ++i) part[g] = fmaf(qs[g * hd + c + i], kv[i], part[g]);
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < GB; ++g) {
-        if (g < gn) {
-          float v = part[g];
-          v += __shfl_xor_sync(0xffffffffu, v, 4);
-          v += __shfl_xor_sync(0xffffffffu, v, 2);
-          v += __shfl_xor_sync(0xffffffffu, v, 1);
-          if (sub == 0) s[g * T_ + t] = t < live ? v * scale : NEG;
-        }
-      }
-    }
-    __syncthreads();
-
-    // (2) streaming softmax update: one warp per query head
-    for (int g = warp; g < gn; g += WARPS) {
-      float mx = NEG;
-      for (int t = lane; t < T_; t += 32) mx = fmaxf(mx, s[g * T_ + t]);
-      mx = warp_max(mx);
-      const float m_prev = m[g];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int t = lane; t < T_; t += 32) {
-        const float pv = expf(s[g * T_ + t] - m_new);
-        s[g * T_ + t] = pv;
-        sum += pv;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float c = expf(m_prev - m_new);
-        corr[g] = c;
-        l[g] = l[g] * c + sum;
-        m[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // (3) partial p @ v over this thread's token group, live rows only
-    if (tg < TG) {
-      float pa[GB][2];
-#pragma unroll
-      for (int g = 0; g < GB; ++g) pa[g][0] = pa[g][1] = 0.f;
-      const T* vcol = v_pool + (p * T_ * Hkv + h) * v_ld + 2 * dp;
-#pragma unroll 4
-      for (int t = tg; t < live; t += TG) {
-        const float2 vv = Vec<T>::load2(vcol + (size_t)t * Hkv * v_ld);
+    for (int g = 0; g < GB; ++g) acc[g] = 0.f;
+    if (t < live) {
+      const T* krow = STAGED ? ks + (size_t)t * hd : kblk + (size_t)t * Hkv * hd;
+      for (int c = sub * V; c < hd; c += TPR * V) {
+        float kv[V];
+        Vec<T>::load(krow + c, kv);
 #pragma unroll
         for (int g = 0; g < GB; ++g) {
           if (g < gn) {
-            const float pg = s[g * T_ + t];
-            pa[g][0] = fmaf(pg, vv.x, pa[g][0]);
-            pa[g][1] = fmaf(pg, vv.y, pa[g][1]);
+#pragma unroll
+            for (int i = 0; i < V; ++i) acc[g] = fmaf(qs[g * hd + c + i], kv[i], acc[g]);
           }
         }
       }
+    }
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      if (g < gn) {
+        float v = acc[g];
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        if (sub == 0) s[g * T_ + t] = t < live ? v * scale : NEG;
+      }
+    }
+  }
+  __syncthreads();
+
+  // (2) the block's max and exp-sum: one warp per query head
+  for (int g = warp; g < gn; g += WARPS) {
+    float mx = NEG;
+    for (int t = lane; t < T_; t += 32) mx = fmaxf(mx, s[g * T_ + t]);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int t = lane; t < T_; t += 32) {
+      const float pv = expf(s[g * T_ + t] - mx);
+      s[g * T_ + t] = pv;
+      sum += pv;
+    }
+    sum = warp_sum(sum);
+    if (lane == 0) {
+      ml[2 * g] = mx;
+      ml[2 * g + 1] = sum;
+    }
+  }
+  if constexpr (STAGED) cp_async_wait<0>();    // this thread's V pieces
+  __syncthreads();
+
+  // (3) partial p @ v over this thread's token group, live rows only
+  const int dp = tid % ND;          // value-dim pair of this thread
+  const int tg = tid / ND;          // token group of this thread
+  if (tg < TG) {
+    float pa[GB][2];
+#pragma unroll
+    for (int g = 0; g < GB; ++g) pa[g][0] = pa[g][1] = 0.f;
+#pragma unroll 4
+    for (int t = tg; t < live; t += TG) {
+      const float2 vv = Vec<T>::load2(STAGED ? vs + (size_t)t * dv + 2 * dp
+                                             : vblk + (size_t)t * Hkv * v_ld + 2 * dp);
 #pragma unroll
       for (int g = 0; g < GB; ++g) {
         if (g < gn) {
-          red[(tg * gbs + g) * dv + 2 * dp] = pa[g][0];
-          red[(tg * gbs + g) * dv + 2 * dp + 1] = pa[g][1];
+          const float pg = s[g * T_ + t];
+          pa[g][0] = fmaf(pg, vv.x, pa[g][0]);
+          pa[g][1] = fmaf(pg, vv.y, pa[g][1]);
         }
       }
     }
-    __syncthreads();
-    for (int e = tid; e < gn * dv; e += THREADS) {
-      const int g = e / dv;
-      float a = acc[e] * corr[g];
-      for (int r = 0; r < TG; ++r) a += red[r * gbs * dv + e];
-      acc[e] = a;
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      if (g < gn) {
+        red[(tg * gbs + g) * dv + 2 * dp] = pa[g][0];
+        red[(tg * gbs + g) * dv + 2 * dp + 1] = pa[g][1];
+      }
     }
-    __syncthreads();
   }
-
+  __syncthreads();
+  const int W = dv + 2;
   for (int e = tid; e < gn * dv; e += THREADS) {
-    const int g = e / dv;
-    out[qrow * dv + e] = from_f32<T>(acc[e] / l[g]);
+    const int g = e / dv, d = e % dv;
+    float a = 0.f;
+    for (int r = 0; r < TG; ++r) a += red[(r * gbs + g) * dv + d];
+    part[((qrow + g) * NB + j) * W + d] = a;
+  }
+  if (tid < gn) {
+    part[((qrow + tid) * NB + j) * W + dv] = ml[2 * tid];
+    part[((qrow + tid) * NB + j) * W + dv + 1] = ml[2 * tid + 1];
   }
 }
 
+// out[b, hq] = the merge of row b's live partials, in j order
 template <typename T>
+__global__ void __launch_bounds__(COMBINE_THREADS)
+paged_attention_combine_kernel(const float* __restrict__ part,
+                               const int* __restrict__ lengths, T* __restrict__ out,
+                               int Hq, int dv, int T_, int NB) {
+  const int hq = blockIdx.x, b = blockIdx.y;
+  const int nblk = (lengths[b] + T_ - 1) / T_;
+  const int W = dv + 2;
+  const float* base = part + ((size_t)b * Hq + hq) * NB * W;
+  float m = NEG;
+  for (int j = 0; j < nblk; ++j) m = fmaxf(m, base[j * W + dv]);
+  float l = 0.f;
+  for (int j = 0; j < nblk; ++j) l += base[j * W + dv + 1] * expf(base[j * W + dv] - m);
+  for (int d = threadIdx.x; d < dv; d += COMBINE_THREADS) {
+    float a = 0.f;
+    for (int j = 0; j < nblk; ++j) a += base[j * W + d] * expf(base[j * W + dv] - m);
+    out[((size_t)b * Hq + hq) * dv + d] = from_f32<T>(a / l);
+  }
+}
+
+template <typename T, bool STAGED>
 cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
-                   const int* tables, const int* lengths, void* out, int B,
-                   int Hq, int Hkv, int hd, int dv, int v_ld, int T_, int NB,
-                   float scale, cudaStream_t stream) {
+                   const int* tables, const int* lengths, void* out, float* part,
+                   int B, int Hq, int Hkv, int hd, int dv, int v_ld, int T_,
+                   int NB, float scale, cudaStream_t stream) {
   const int G = Hq / Hkv;
   const int gbs = G < GB ? G : GB;
   const int ngb = (G + GB - 1) / GB;
   const int TG = THREADS / (dv / 2);
-  const size_t smem = sizeof(float) * ((size_t)gbs * (hd + T_ + dv) +
-                                       (size_t)TG * gbs * dv + 3 * (size_t)gbs);
+  const size_t smem =
+      (STAGED ? sizeof(T) * (size_t)T_ * (hd + dv) : 0) +
+      sizeof(float) * ((size_t)gbs * (hd + T_) + (size_t)TG * gbs * dv + 2 * (size_t)gbs);
+  auto kernel = paged_attention_split_kernel<T, STAGED>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        paged_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  dim3 grid(Hkv * ngb, B);
-  paged_attention_kernel<T><<<grid, THREADS, smem, stream>>>(
+  dim3 grid(Hkv * ngb, B, NB);
+  kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), tables, lengths, static_cast<T*>(out), Hq,
-      Hkv, hd, dv, v_ld, T_, NB, scale);
+      static_cast<const T*>(v_pool), tables, lengths, part, Hq, Hkv, hd, dv,
+      v_ld, T_, NB, scale);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  paged_attention_combine_kernel<T><<<dim3(Hq, B), COMBINE_THREADS, 0, stream>>>(
+      part, lengths, static_cast<T*>(out), Hq, dv, T_, NB);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  v_pool == nullptr selects the fused
-// form: values are the first dv lanes of each k_pool row.  The wrapper
-// checks what the kernel needs: Hq % Hkv == 0; hd a multiple of 8 x (16
-// bytes of the dtype); T a multiple of 32; dv even with dv / 2 dividing
-// 256 (dv <= hd in the fused form); 16-byte aligned pools; and
-// (g (hd + T + dv) + (512 / dv) g dv + 3 g) x 4 bytes of shared memory,
-// g = min(Hq / Hkv, 8), within the 227 KB a block may take.  Returns
-// cudaGetLastError().
+// form: values are the first dv lanes of each k_pool row.  part is an f32
+// workspace of B x Hq x NB x (dv + 2) floats.  The wrapper checks what
+// the kernels need (paged_attention._check_kernel_geometry): Hq % Hkv ==
+// 0; hd a multiple of 16 bytes of the dtype (and dv too in the GQA form);
+// T a multiple of 32; dv even with dv / 2 dividing 256 (dv <= hd in the
+// fused form); 16-byte aligned pools; and
+//   (GQA: T (hd + dv) x elem) + (g (hd + T) + (512 / dv) g dv + 2 g) x 4
+// bytes of shared memory, g = min(Hq / Hkv, 8), within the 227 KB a
+// block may take.  Returns cudaGetLastError().
 extern "C" int paged_attention_launch(const void* q, const void* k_pool,
                                       const void* v_pool, const int* tables,
-                                      const int* lengths, void* out, int B,
-                                      int Hq, int Hkv, int hd, int dv, int T_,
-                                      int NB, float scale, int dtype,
+                                      const int* lengths, void* out, void* part,
+                                      int B, int Hq, int Hkv, int hd, int dv,
+                                      int T_, int NB, float scale, int dtype,
                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool fused = v_pool == nullptr;
-  const void* vp = fused ? k_pool : v_pool;
-  const int v_ld = fused ? hd : dv;
-  if (dtype == 0)
-    return launch<float>(q, k_pool, vp, tables, lengths, out, B, Hq, Hkv, hd,
-                         dv, v_ld, T_, NB, scale, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k_pool, vp, tables, lengths, out, B, Hq,
-                                 Hkv, hd, dv, v_ld, T_, NB, scale, s);
+  float* ws = static_cast<float*>(part);
+  if (v_pool == nullptr) {
+    if (dtype == 0)
+      return launch<float, false>(q, k_pool, k_pool, tables, lengths, out, ws, B,
+                                  Hq, Hkv, hd, dv, hd, T_, NB, scale, s);
+    if (dtype == 1)
+      return launch<__nv_bfloat16, false>(q, k_pool, k_pool, tables, lengths, out,
+                                          ws, B, Hq, Hkv, hd, dv, hd, T_, NB, scale, s);
+  } else {
+    if (dtype == 0)
+      return launch<float, true>(q, k_pool, v_pool, tables, lengths, out, ws, B,
+                                 Hq, Hkv, hd, dv, dv, T_, NB, scale, s);
+    if (dtype == 1)
+      return launch<__nv_bfloat16, true>(q, k_pool, v_pool, tables, lengths, out,
+                                         ws, B, Hq, Hkv, hd, dv, dv, T_, NB, scale, s);
+  }
   return cudaErrorInvalidValue;
 }
 

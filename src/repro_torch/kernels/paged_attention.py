@@ -2,7 +2,7 @@
 
 The KV cache is a shared pool of ``BLOCK_TOKENS``-token blocks; every
 sequence owns a block table listing the physical blocks that hold its
-context in logical order.  ``paged_attention`` launches the CUDA kernel
+context in logical order.  ``paged_attention`` launches the CUDA kernels
 in ``csrc/paged_attention.cu`` for CUDA tensors and runs
 ``paged_attention_ref``, its plain version, for CPU tensors.
 
@@ -11,13 +11,16 @@ value pool (kernel #6, replacing ``repro/kernels/paged_attention.py::
 _paged_kernel_kv``), and the fused-V form of absorbed MLA
 (``v_pool=None, v_dim=r``: the values are the first ``r`` lanes of each
 key row, the pool holding ``concat(c_kv, k_rope)``; kernel #7, replacing
-``_paged_kernel``).  One CUDA kernel serves both; the launches of each
-form are counted apart, ``paged_attention.launches`` (#6) and
-``paged_attention.fused_launches`` (#7).
+``_paged_kernel``).  Both split each sequence into its logical blocks
+(one CUDA block per live (sequence, block, head group), partials in an
+f32 workspace) and merge the partials in block order in a second kernel.
+The launches of each form are counted apart,
+``paged_attention.launches`` (#6) and ``paged_attention.fused_launches``
+(#7), once per call.
 
 The operand contract (``_check_operands``: devices, dtypes, contiguity,
 alignment) is checked on every device, so a CPU call refuses what the
-card refuses; the kernel's geometry limits (``_check_kernel_geometry``)
+card refuses; the kernels' geometry limits (``_check_kernel_geometry``)
 are the card route's own.
 """
 from __future__ import annotations
@@ -128,18 +131,26 @@ def paged_attention_ref(q, k_pool, v_pool, tables, lengths, *,
     return o.reshape(B, geo.Hq, geo.dv).to(q.dtype)
 
 
-def _check_kernel_geometry(geo: PagedGeometry, elem: int) -> None:
-    """What the CUDA kernel takes (see csrc/paged_attention.cu)."""
+def _check_kernel_geometry(geo: PagedGeometry, elem: int,
+                           fused: bool = False) -> None:
+    """What the CUDA kernels take (see csrc/paged_attention.cu): the GQA
+    form stages a pool block's K and V rows in shared memory beside the
+    f32 state of a head group; the fused form keeps only the state."""
     g = min(geo.Hq // geo.Hkv, _GB)
     tg = _THREADS // (geo.dv // 2) if geo.dv >= 2 else 0
-    smem = 4 * (g * (geo.hd + geo.T + geo.dv) + tg * g * geo.dv + 3 * g)
-    if (geo.hd % (16 // elem) or geo.T % 32 or geo.dv % 2
+    vec = 16 // elem
+    smem = 4 * (g * (geo.hd + geo.T) + tg * g * geo.dv + 2 * g)
+    if not fused:
+        smem += elem * geo.T * (geo.hd + geo.dv)
+    if (geo.hd % vec or geo.T % 32 or geo.dv % 2
+            or (not fused and geo.dv % vec)
             or geo.dv > 2 * _THREADS or _THREADS % max(geo.dv // 2, 1)
             or smem > _SMEM_LIMIT):
         raise GeometryError(
-            f"the CUDA kernel takes hd a multiple of {16 // elem}, T a "
-            f"multiple of 32, an even dv with dv/2 dividing {_THREADS} and "
-            f"<= {_SMEM_LIMIT} bytes of shared memory (needs {smem})",
+            f"the CUDA kernel takes hd (and, with a value pool, dv) a "
+            f"multiple of {vec}, T a multiple of 32, an even dv with dv/2 "
+            f"dividing {_THREADS} and <= {_SMEM_LIMIT} bytes of shared "
+            f"memory (needs {smem})",
             shape=(geo.Hq // geo.Hkv, geo.hd, geo.T, geo.dv),
             where="paged_attention")
 
@@ -170,8 +181,8 @@ def _check_operands(q, k_pool, v_pool, tables, lengths) -> None:
 def _lib():
     lib = _build.library("paged_attention")
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.paged_attention_launch.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i,
-                                           i, i, i, ctypes.c_float, i, vp]
+    lib.paged_attention_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i,
+                                           i, i, i, i, ctypes.c_float, i, vp]
     lib.paged_attention_launch.restype = i
     return lib
 
@@ -203,14 +214,18 @@ def paged_attention(q, k_pool, v_pool, tables, lengths, *,
                                    scale=scale, v_dim=v_dim)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
-    _check_kernel_geometry(geo, q.element_size())
+    _check_kernel_geometry(geo, q.element_size(), fused=v_pool is None)
     lib = _lib()
     out = torch.empty((geo.B, geo.Hq, geo.dv), dtype=q.dtype, device=q.device)
+    # the partials (acc, m, l) of every (sequence, head, logical block)
+    part = torch.empty((geo.B, geo.Hq, geo.NB, geo.dv + 2),
+                       dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = lib.paged_attention_launch(
         q.data_ptr(), k_pool.data_ptr(),
         None if v_pool is None else v_pool.data_ptr(), tables.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), geo.B, geo.Hq, geo.Hkv, geo.hd,
+        lengths.data_ptr(), out.data_ptr(), part.data_ptr(), geo.B, geo.Hq,
+        geo.Hkv, geo.hd,
         geo.dv, geo.T, geo.NB, float(scale), _DTYPE_CODES[q.dtype], stream)
     _build.check(lib, code, "paged_attention")
     if v_pool is None:

@@ -267,6 +267,71 @@ def test_masked_matmul_geometry_errors(M, K, N, bm):
                          torch.from_numpy(mask), bm=bm)
 
 
+_SPLIT_SHAPES = [(1, 128, 128), (8, 3072, 8192), (8, 8192, 3072),
+                 (40, 3072, 1024), (63, 384, 256), (64, 3072, 3072),
+                 (128, 512, 512), (300, 1280, 384), (1024, 3072, 8192)]
+
+
+@pytest.mark.parametrize("M,K,N", _SPLIT_SHAPES)
+def test_masked_splits_are_whole_tiles(M, K, N):
+    """Kernel #5's K-splits: whole 128-row tiles, none empty, in order,
+    covering [0, K); a function of (M, K, N) alone."""
+    splits = tb.masked_splits(M, K, N)
+    assert splits == tb.masked_splits(M, K, N)
+    assert splits[0][0] == 0 and splits[-1][1] == K
+    for (k0, k1), (n0, _) in zip(splits, splits[1:] + ((K, None),)):
+        assert k0 % 128 == 0 and k1 % 128 == 0 and k0 < k1 == n0
+    per = splits[0][1] - splits[0][0]
+    assert all(k1 - k0 == per for k0, k1 in splits[:-1])
+    assert splits[-1][1] - splits[-1][0] <= per
+
+
+@pytest.mark.parametrize("M,K,N", _SPLIT_SHAPES)
+def test_masked_route_by_shape_and_dtype(M, K, N):
+    """Below 64 rows both dtypes stream split-K; from 64 rows bfloat16
+    takes wgmma and float32 the CUDA-core kernel, which splits K where
+    its grid would fill less than one wave of 132 SMs."""
+    bf, f32 = (tb.masked_route(M, K, N, d)
+               for d in (torch.bfloat16, torch.float32))
+    if M < 64:
+        assert bf == f32 == "stream"
+    else:
+        assert (bf, f32) == ("wgmma", "fma")
+        fma_grid = (N // 128) * -(-M // 64)
+        assert (len(tb.masked_splits(M, K, N)) > 1) == (
+            fma_grid < 132 and K > 128)
+
+
+def test_masked_splits_fill_two_waves_at_decode():
+    """At M = 8 on 3072 x 8192 the split-K grid covers two waves of the
+    H100's 132 SMs (the unsplit grid was 64 blocks), and fits the three
+    blocks an SM holds in one round."""
+    splits = tb.masked_splits(8, 3072, 8192)
+    assert 2 * 132 <= (8192 // 128) * len(splits) <= 3 * 132
+    assert len(splits) == 6
+
+
+def test_masked_cnn_fc_call_takes_splitk():
+    """The CNN path's own launch, the 512 x 512 FC weight at M = 128 in
+    float32, runs the CUDA-core kernel, which has 8 output blocks
+    unsplit: it splits K."""
+    assert tb.masked_route(128, 512, 512, torch.float32) == "fma"
+    assert len(tb.masked_splits(128, 512, 512)) == 4
+
+
+def test_masked_routes_count_nothing_on_the_cpu():
+    x, w, mask = _masked_operands(6, 8, 256, 128)
+    before = dict(tb.masked_matmul.launches_by_route)
+    splits = tb.masked_matmul.split_launches
+    assert set(before) == {"stream", "wgmma", "fma"}
+    for dtype in (torch.float32, torch.bfloat16):
+        tb.masked_matmul(torch.from_numpy(x).to(dtype),
+                         torch.from_numpy(w).to(dtype),
+                         torch.from_numpy(mask), bm=8)
+    assert tb.masked_matmul.launches_by_route == before
+    assert tb.masked_matmul.split_launches == splits
+
+
 def test_new_kernels_count_nothing_on_the_cpu():
     x, w, mask = _masked_operands(4, 8, 128, 128)
     before = (tb.masked_matmul.launches, tts.tile_stats.launches)
@@ -509,11 +574,9 @@ def test_paged_attention_ignores_dead_pool_contents():
     torch.testing.assert_close(got, base, rtol=0, atol=0)
 
 
-def test_paged_attention_fused_v_not_yet_ported():
-    """The fused-V (MLA) form is ported now, although the name says
-    otherwise (it keeps the name it had while that form raised "not yet
-    ported"): its plain version equals the reference's Pallas kernel,
-    and NaN in the scratch block never reaches it."""
+def test_paged_attention_fused_v_matches_reference():
+    """The fused-V (MLA) form's plain version equals the reference's
+    Pallas kernel, and NaN in the scratch block never reaches it."""
     q, kp, _, tables, lengths = _pool_setup(4, 2, 2, 1, 16, NB=2, P=6)
     want = rpa.paged_attention(*map(jnp.asarray, (q, kp)), None,
                                *map(jnp.asarray, (tables, lengths)),
@@ -524,6 +587,98 @@ def test_paged_attention_fused_v_not_yet_ported():
                               scale=0.25, v_dim=8)
     assert got.shape == (2, 2, 8)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def _split_plain(q, k_pool, v_pool, tables, lengths, *,
+                 scale: float, v_dim=None):
+    """The CUDA kernels' split and merge in plain PyTorch: per sequence b
+    and live logical block j, over the block's live rows only, the
+    partial ``m_j = max s``, ``l_j = sum exp(s - m_j)`` and ``acc_j =
+    exp(s - m_j) @ v`` in f32; then ``m = max m_j``, ``l = sum l_j
+    e^(m_j - m)`` and ``acc = sum acc_j e^(m_j - m)`` added in j order,
+    and ``acc / l`` in q's dtype.  Each row is computed alone, from its
+    own length and blocks, so its bits do not depend on the batch."""
+    geo = tpa._check_geometry(q, k_pool, v_pool, tables, lengths, v_dim)
+    G, T, dv = geo.Hq // geo.Hkv, geo.T, geo.dv
+    out = torch.empty((geo.B, geo.Hq, dv), dtype=q.dtype, device=q.device)
+    lens = [int(n) for n in lengths.tolist()]
+    rows = tables.tolist()
+    for b in range(geo.B):
+        qg = q[b].float().reshape(geo.Hkv, G, geo.hd)
+        parts = []
+        for j in range(-(-lens[b] // T)):
+            live = min(T, lens[b] - j * T)
+            k = k_pool[rows[b][j], :live].float()            # (live, Hkv, hd)
+            v = k[..., :dv] if v_pool is None \
+                else v_pool[rows[b][j], :live].float()
+            s = torch.einsum("kgd,tkd->kgt", qg, k) * scale
+            m = s.amax(-1)
+            e = torch.exp(s - m[..., None])
+            parts.append((m, e.sum(-1), torch.einsum("kgt,tkd->kgd", e, v)))
+        m = torch.stack([p[0] for p in parts]).amax(0)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(geo.Hkv, G, dv, dtype=torch.float32,
+                          device=q.device)
+        for mj, lj, aj in parts:
+            c = torch.exp(mj - m)
+            l = l + lj * c
+            acc = acc + aj * c[..., None]
+        out[b] = (acc / l[..., None]).reshape(geo.Hq, dv).to(q.dtype)
+    return out
+
+
+@pytest.mark.parametrize("seed,B,Hq,Hkv,hd,fused", [(0, 3, 4, 2, 16, False),
+                                                    (1, 4, 6, 2, 32, False),
+                                                    (2, 2, 3, 3, 8, False),
+                                                    (4, 3, 4, 1, 16, True)])
+def test_paged_split_plain_matches_reference(seed, B, Hq, Hkv, hd, fused):
+    """The CUDA kernels' split-KV partials and their merge in block
+    order, in plain PyTorch, equal the reference's Pallas kernel."""
+    q, kp, vp, tables, lengths = _pool_setup(seed, B, Hq, Hkv, hd, NB=3,
+                                             P=14)
+    vp, dv = (None, hd // 2) if fused else (vp, None)
+    want = rpa.paged_attention(
+        *map(jnp.asarray, (q, kp)), None if fused else jnp.asarray(vp),
+        *map(jnp.asarray, (tables, lengths)), scale=hd ** -0.5, v_dim=dv)
+    got = _split_plain(
+        *map(torch.from_numpy, (q, kp)),
+        None if fused else torch.from_numpy(vp),
+        *map(torch.from_numpy, (tables, lengths)), scale=hd ** -0.5,
+        v_dim=dv)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_paged_split_plain_is_batch_invariant():
+    """A row's split-KV result has the same bits alone as inside a batch
+    of other lengths, and dead pool contents never reach it."""
+    q, kp, vp, tables, lengths = _pool_setup(5, 5, 6, 2, 16, NB=3, P=16)
+    kp[0] = np.nan
+    vp[0] = np.nan
+    args = [torch.from_numpy(a) for a in (q, kp, vp, tables, lengths)]
+    full = _split_plain(*args, scale=0.25)
+    assert torch.isfinite(full).all()
+    for b in range(5):
+        one = _split_plain(
+            args[0][b:b + 1], args[1], args[2], args[3][b:b + 1],
+            args[4][b:b + 1], scale=0.25)
+        assert torch.equal(one[0], full[b])
+
+
+def test_paged_kernel_geometry_by_form():
+    """The GQA kernel stages a pool block's K and V rows in shared
+    memory; the fused (MLA) kernel does not, so MLA's widths fit only
+    the fused form."""
+    mla = tpa.PagedGeometry(B=8, Hq=128, hd=576, Hkv=1, T=128, NB=8, P=64,
+                            dv=512)
+    tpa._check_kernel_geometry(mla, 2, fused=True)
+    with pytest.raises(tb.GeometryError, match="shared"):
+        tpa._check_kernel_geometry(mla, 2)
+    llama = mla._replace(Hq=24, hd=128, Hkv=8, dv=128)
+    tpa._check_kernel_geometry(llama, 2)
+    tpa._check_kernel_geometry(llama, 4)
+    with pytest.raises(tb.GeometryError, match="multiple of 8"):
+        tpa._check_kernel_geometry(llama._replace(dv=4), 2)
+    tpa._check_kernel_geometry(llama._replace(dv=4), 2, fused=True)
 
 
 def test_paged_gather_logical_order():
@@ -918,6 +1073,85 @@ def test_cuda_masked_matmul_matches_plain(cuda, dtype, mask_dtype, M):
     got = tb.masked_matmul(xt, wt, mt, bm=8)
     assert tb.masked_matmul.launches == n0 + 1
     torch.testing.assert_close(got, tb.masked_matmul_plain(xt, wt, mt), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,dtype,mask_dtype", [
+    (1, torch.bfloat16, torch.bfloat16), (8, torch.float32, torch.float32),
+    (40, torch.bfloat16, torch.bool), (64, torch.float32, torch.bool),
+    (100, torch.bfloat16, torch.bfloat16), (128, torch.bfloat16, torch.bool),
+    (128, torch.float32, torch.float32), (256, torch.bfloat16, torch.float32),
+    (300, torch.bfloat16, torch.bfloat16),
+    (1024, torch.bfloat16, torch.bfloat16)])
+def test_cuda_masked_routes_match_plain(cuda, M, dtype, mask_dtype):
+    """Each route of kernel #5 against its plain version, counted on the
+    kernel ``masked_route`` names, and as split where ``masked_splits``
+    cuts K."""
+    x, w, mask = _masked_operands(M + 7, M, 1024, 1280)
+    xt, wt = (torch.from_numpy(a).to(cuda, dtype) for a in (x, w))
+    mt = torch.from_numpy(mask).to(cuda, mask_dtype)
+    tol = dict(rtol=1e-2, atol=1e-2) if dtype == torch.bfloat16 \
+        else dict(rtol=1e-4, atol=1e-4)
+    route = tb.masked_route(M, 1024, 1280, dtype)
+    before = dict(tb.masked_matmul.launches_by_route)
+    splits = tb.masked_matmul.split_launches
+    got = tb.masked_matmul(xt, wt, mt, bm=1)
+    after = tb.masked_matmul.launches_by_route
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == route) for k in after}
+    assert tb.masked_matmul.split_launches - splits == int(
+        route != "wgmma" and len(tb.masked_splits(M, 1024, 1280)) > 1)
+    torch.testing.assert_close(got, tb.masked_matmul_plain(xt, wt, mt), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,dtype", [(8, torch.bfloat16), (8, torch.float32),
+                                     (128, torch.float32),
+                                     (256, torch.bfloat16)])
+def test_cuda_masked_nan_rules_and_determinism(cuda, M, dtype):
+    """NaN in w under a dead tile leaves the output finite; NaN under a
+    zero mask element of a live tile gives NaN in the same places as
+    the plain version; two calls give the same bits."""
+    x, w, mask = _masked_operands(M + 3, M, 512, 384)
+    xt, mt = (torch.from_numpy(a).to(cuda, dtype) for a in (x, mask))
+    w[:128, 128:256] = np.nan               # under the all-dead tile
+    wt = torch.from_numpy(w).to(cuda, dtype)
+    out = tb.masked_matmul(xt, wt, mt, bm=1)
+    assert torch.isfinite(out).all()
+    assert torch.equal(out, tb.masked_matmul(xt, wt, mt, bm=1))
+    k, n = np.argwhere(mask[128:256, :128] == 0)[0]
+    w[128 + k, n] = np.nan                  # under a zero of a live tile
+    wt = torch.from_numpy(w).to(cuda, dtype)
+    got = torch.isnan(tb.masked_matmul(xt, wt, mt, bm=1))
+    assert got[:, n].all()
+    assert torch.equal(got, torch.isnan(tb.masked_matmul_plain(xt, wt, mt)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_cuda_paged_attention_row_alone_equals_in_batch(cuda, fused):
+    """Split-KV on the card: a row's output has the same bits alone as in
+    a batch of other lengths, repeats bitwise, and agrees with the split
+    and merge in plain PyTorch."""
+    q, kp, vp, tables, lengths = _pool_setup(6, 5, 8, 2, 128, NB=3, P=16)
+    kp[0] = np.nan
+    vp[0] = np.nan
+    args = [torch.from_numpy(a).to(cuda) for a in (q, kp, vp, tables,
+                                                    lengths)]
+    args[:3] = [a.bfloat16() for a in args[:3]]
+    if fused:
+        args[2] = None
+    kw = dict(scale=0.1, v_dim=64 if fused else None)
+    full = tpa.paged_attention(*args, **kw)
+    assert torch.isfinite(full).all()
+    assert torch.equal(full, tpa.paged_attention(*args, **kw))
+    torch.testing.assert_close(full, _split_plain(*args, **kw), rtol=1e-2,
+                               atol=1e-2)
+    for b in range(5):
+        one = tpa.paged_attention(args[0][b:b + 1].contiguous(), args[1],
+                                  args[2], args[3][b:b + 1].contiguous(),
+                                  args[4][b:b + 1].contiguous(), **kw)
+        assert torch.equal(one[0], full[b])
 
 
 # ---------------------------------------------------------------------------
