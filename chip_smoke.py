@@ -88,6 +88,14 @@ no result line otherwise):
 8. check one full-width resnet18 train step on the card against the
    CPU (float32, TF32 off).
 
+Phase 2 holds the 2-D block-sparse forward (#1, #2) at 8, 63, 64, 128,
+300, 512, 1000 and 1024 rows and dw (#4) at 1000 and 1024, each call
+to the route and split count its plan gives (``launches_by_route``,
+``split_launches``), two calls bitwise equal, and, at 8 and 512 rows,
+a row's bits unchanged when the other rows change; it times #1/#2 at
+8, 512 and 1024 rows and #4 at 1024 at all four llama shapes.  The
+serving, retrain and CNN phases hold #1, #2 and #4 to the routes and
+split launches their rows and plans give.
 Phase 2 also holds tile stats (#9) and the masked LTP product (#5)
 against their plain versions and times them: #5 on every kernel
 (``stream`` below 64 rows, ``wgmma`` for bf16 from 64, ``fma`` for f32
@@ -102,8 +110,8 @@ attention, retraining for dx and dw, deepseek serving for the batched
 bsmm and the fused-V kernel, the LTP MLP and the CNN path for #5, the
 CNN path for #9, the control plane for flash attention (#8) — its error
 against the plain version, its time, the plain version's, the bound and
-the library call's; #5 its launches by kernel and path and its split
-launches), the serving, LTP MLP,
+the library call's; #1, #2, #4 and #5 their launches by route and their
+split launches, #5 also by path), the serving, LTP MLP,
 control-plane, gradient-check, retrain, deepseek and CNN summaries,
 each phase's seconds and the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Longer records go to
@@ -131,7 +139,10 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 BSMM_SHAPES = ((3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072))
 GRAD_ROWS = (1024, 1000)      # LMAdapter's 8 x 128 tokens, and ragged
-BSMM_ROWS = (8, 128, 512) + GRAD_ROWS     # serving, then retraining
+# decode (8 slots), the stream route's last row count, the wgmma/fma
+# routes' first, prefill buckets and ragged prefill, then retraining
+BSMM_ROWS = (8, 63, 64, 128, 300, 512) + GRAD_ROWS
+BSMM_TIMED_ROWS = (8, 512, 1024)
 LIVE_FRACTION = 0.25
 
 
@@ -140,29 +151,39 @@ def require(cond: bool, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
+_TIMING_STREAM = []     # the one side stream time_ms warms up and captures on
+
+
 def time_ms(fn, iters: int = 20, graph: bool = True) -> float:
     """Mean device milliseconds per call over ``iters`` calls (CUDA
     events).  With ``graph`` the calls are captured once into a CUDA
     graph and replayed, so that host launch overhead does not hide the
     device time of a kernel of a few microseconds; the plain versions,
-    which copy host indices, run eagerly."""
-    for i in range(3):
-        fn(i)
-    torch.cuda.synchronize()
-    run = lambda: [fn(i) for i in range(iters)]     # noqa: E731
-    if graph:
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
+    which copy host indices, run eagerly.  Warm-up, capture and timing
+    run on one side stream, so that what a kernel allocates once per
+    stream (bsmm's split workspace) exists before the capture."""
+    if not _TIMING_STREAM:
+        _TIMING_STREAM.append(torch.cuda.Stream())
+    stream = _TIMING_STREAM[0]
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for i in range(3):
+            fn(i)
+        torch.cuda.synchronize()
+        run = lambda: [fn(i) for i in range(iters)]     # noqa: E731
+        if graph:
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g, stream=stream):
+                run()
+            run = g.replay
             run()
-        run = g.replay
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
         run()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    run()
-    end.record()
-    torch.cuda.synchronize()
+        end.record()
+        torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
 
 
@@ -201,11 +222,29 @@ EPILOGUES = ((None, "silu"), ("bias", "silu"), ("bias", "relu"),
              ("bias", "gelu"), ("bias", None), (None, None))
 
 
+def held(fn, want_route, want_splits, *args, **kw):
+    """``fn(*args, **kw)`` (a 2-D bsmm or dw wrapper), required to launch
+    once on ``want_route`` and to count as split exactly when
+    ``want_splits`` > 1."""
+    before = dict(fn.launches_by_route)
+    s0 = fn.split_launches
+    out = fn(*args, **kw)
+    after = fn.launches_by_route
+    require({k: after[k] - before[k] for k in after}
+            == {k: int(k == want_route) for k in after}
+            and fn.split_launches - s0 == int(want_splits > 1),
+            f"{fn.__name__} did not run on {want_route} with {want_splits} "
+            "splits")
+    return out
+
+
 def check_bsmm(B, shapes=BSMM_SHAPES, rows=BSMM_ROWS, epilogues=EPILOGUES,
                timed=True, seed=1):
-    """Both bsmm kernels against their plain versions at every shape;
-    with ``timed``, times at the bfloat16 shapes.  Returns (errors,
-    times)."""
+    """Both 2-D bsmm kernels against their plain versions at every shape,
+    each call held to the route and split count its plan gives, two
+    calls bitwise equal, and at 8 and 512 rows row 0's bits unchanged
+    when the other rows change; with ``timed``, times at the bfloat16
+    rows of BSMM_TIMED_ROWS.  Returns (errors, times)."""
     rng = np.random.default_rng(seed)
     dev = "cuda"
     err = {"bsmm": 0.0, "bsmm_epilogue": 0.0}
@@ -221,24 +260,45 @@ def check_bsmm(B, shapes=BSMM_SHAPES, rows=BSMM_ROWS, epilogues=EPILOGUES,
             bias = torch.randn(N, device=dev, generator=g).to(dtype)
             for M in rows:
                 x = torch.randn(M, K, device=dev, generator=g).to(dtype)
-                cases = [("bsmm", B.bsmm(x, w, plan), B.bsmm_plain(x, w, plan))]
+                route, S = plan.route_and_splits("fwd", M, dtype)
+                got = held(B.bsmm, route, S, x, w, plan)
+                cases = [("bsmm", got, B.bsmm_plain(x, w, plan))]
+                same = torch.equal(got, B.bsmm(x, w, plan))
                 for b, act in epilogues:
                     b = bias if b == "bias" else None
-                    cases.append(("bsmm_epilogue",
-                                  B.bsmm_epilogue(x, w, plan, b, act),
+                    e_got = held(B.bsmm_epilogue, route, S, x, w, plan, b,
+                                 act)
+                    same &= torch.equal(
+                        e_got, B.bsmm_epilogue(x, w, plan, b, act))
+                    cases.append(("bsmm_epilogue", e_got,
                                   B.bsmm_epilogue_plain(x, w, plan, b, act)))
+                require(same, f"two bsmm calls differ at M={M} K={K} N={N} "
+                        f"{dtype}")
+                if M in (8, 512):
+                    other = x.clone()
+                    other[1:] = torch.randn(M - 1, K, device=dev,
+                                            generator=g).to(dtype)
+                    require(torch.equal(B.bsmm(other, w, plan)[0], got[0])
+                            and torch.equal(
+                                B.bsmm_epilogue(other, w, plan, bias,
+                                                "silu")[0],
+                                B.bsmm_epilogue(x, w, plan, bias,
+                                                "silu")[0]),
+                            f"a bsmm row depends on the other rows at M={M} "
+                            f"K={K} N={N} {dtype}")
                 torch.cuda.synchronize()
-                for name, got, want in cases:
-                    e = (got.float() - want.float()).abs().max().item()
+                for name, got_, want in cases:
+                    e = (got_.float() - want.float()).abs().max().item()
                     tol = tolerance(dtype, want)
                     print(f"check {name} {str(dtype)[6:]} M={M} K={K} N={N} "
-                          f"max_abs_err={e:.3e} tol={tol:.3e}")
-                    require(torch.isfinite(got).all().item(),
+                          f"{route} splits={S} max_abs_err={e:.3e} "
+                          f"tol={tol:.3e}")
+                    require(torch.isfinite(got_).all().item(),
                             f"{name} non-finite")
                     require(e <= tol, f"{name} disagrees with its plain "
                             f"version at M={M} K={K} N={N} {dtype}")
                     err[name] = max(err[name], e)
-                if timed and dtype == torch.bfloat16 and M in (8, 512):
+                if timed and dtype == torch.bfloat16 and M in BSMM_TIMED_ROWS:
                     times.append(time_bsmm(B, x, w, bm, plan, M, K, N))
             del w
     return err, times
@@ -254,8 +314,10 @@ def time_bsmm(B, x, w, bm, plan, M, K, N):
                                 dtype=w.dtype, device=w.device)
     ds = [dense.clone() for _ in range(copies)]
     b = torch.zeros(N, dtype=x.dtype, device=x.device)
-    row = {"M": M, "K": K, "N": N, "dtype": "bfloat16",
-           "live_tiles": plan.live_tiles, "total_tiles": plan.total_tiles}
+    route, S = plan.route_and_splits("fwd", M, x.dtype)
+    row = {"M": M, "K": K, "N": N, "dtype": "bfloat16", "route": route,
+           "splits": S, "live_tiles": plan.live_tiles,
+           "total_tiles": plan.total_tiles}
     row["bsmm_ms"] = time_ms(lambda i: B.bsmm(x, ws[i % copies], plan))
     row["bsmm_epilogue_ms"] = time_ms(
         lambda i: B.bsmm_epilogue(x, ws[i % copies], plan, b, "silu"))
@@ -294,8 +356,9 @@ def grad_bound_ms(kind, M, K, N, plan, elem, dtype_name) -> tuple:
 def check_bsmm_grads(B):
     """dx and dw kernels against their plain versions at the four
     llama3.2-3b projection shapes, M = 1024 and a ragged 1000, bf16 and
-    f32; dw exactly zero on dead tiles; times at bf16 M = 1024.
-    Returns (errors, times)."""
+    f32; dw held to its route and split count, two dw calls bitwise
+    equal, exactly zero on dead tiles; times at bf16 M = 1024.  Returns
+    (errors, times)."""
     rng = np.random.default_rng(2)
     dev = "cuda"
     err = {"bsmm_dx": 0.0, "bsmm_dw": 0.0}
@@ -312,10 +375,13 @@ def check_bsmm_grads(B):
             for M in GRAD_ROWS:
                 x = torch.randn(M, K, device=dev, generator=g_).to(dtype)
                 g = torch.randn(M, N, device=dev, generator=g_).to(dtype)
+                route, S = plan.route_and_splits("dw", M, dtype)
+                dw = held(B.bsmm_dw, route, S, x, g, plan)
                 cases = [("bsmm_dx", B.bsmm_dx(g, w, plan),
                           B.bsmm_dx_plain(g, w, plan)),
-                         ("bsmm_dw", B.bsmm_dw(x, g, plan),
-                          B.bsmm_dw_plain(x, g, plan))]
+                         ("bsmm_dw", dw, B.bsmm_dw_plain(x, g, plan))]
+                require(torch.equal(dw, B.bsmm_dw(x, g, plan)),
+                        f"two bsmm_dw calls differ at M={M} K={K} N={N}")
                 torch.cuda.synchronize()
                 for name, got, want in cases:
                     e = (got.float() - want.float()).abs().max().item()
@@ -327,7 +393,7 @@ def check_bsmm_grads(B):
                     require(e <= tol, f"{name} disagrees with its plain "
                             f"version at M={M} K={K} N={N} {dtype}")
                     err[name] = max(err[name], e)
-                require(bool((cases[1][1][dead] == 0).all().item()),
+                require(bool((dw[dead] == 0).all().item()),
                         f"bsmm_dw wrote a dead tile at K={K} N={N}")
                 if dtype == torch.bfloat16 and M == GRAD_ROWS[0]:
                     times.append(time_grads(B, x, g, w, bm, plan, M, K, N))
@@ -344,8 +410,10 @@ def time_grads(B, x, g, w, bm, plan, M, K, N):
                                 dtype=w.dtype, device=w.device)
     ds = [dense.clone() for _ in range(copies)]
     xt = [o[1].T for o in ops]
-    row = {"M": M, "K": K, "N": N, "dtype": "bfloat16",
-           "live_tiles": plan.live_tiles, "total_tiles": plan.total_tiles}
+    route, S = plan.route_and_splits("dw", M, x.dtype)
+    row = {"M": M, "K": K, "N": N, "dtype": "bfloat16", "dw_route": route,
+           "dw_splits": S, "live_tiles": plan.live_tiles,
+           "total_tiles": plan.total_tiles}
     row["dx_ms"] = time_ms(lambda i: B.bsmm_dx(ops[i % copies][2],
                                                ops[i % copies][0], plan))
     row["dw_ms"] = time_ms(lambda i: B.bsmm_dw(ops[i % copies][1],
@@ -635,6 +703,56 @@ def require_flash_routes(FA, want: int, where: str) -> None:
             f"{where}: a prefill did not attend through the wgmma kernel")
 
 
+BSMM_ROUTED = ("bsmm", "bsmm_epilogue", "bsmm_dw")
+
+
+def reset_bsmm_routes(B) -> None:
+    """Set the 2-D forward's and dw's launch, route and split counts to
+    0."""
+    for name in BSMM_ROUTED:
+        f = getattr(B, name)
+        f.launches = 0
+        f.split_launches = 0
+        for k in f.launches_by_route:
+            f.launches_by_route[k] = 0
+
+
+def bsmm_routes(B) -> dict:
+    """The 2-D forward's and dw's launches by route and split launches."""
+    return {name: {"launches_by_route": dict(getattr(B, name)
+                                             .launches_by_route),
+                   "split_launches": getattr(B, name).split_launches}
+            for name in BSMM_ROUTED}
+
+
+LLAMA_PROJECTIONS = (("attn", ("wq", "wk", "wv", "wo")),
+                     ("mlp", ("up", "gate", "down")))
+PLAIN_PROJECTIONS = ("wq", "wk", "wv", "wo", "up", "down")   # the gate: #2
+
+
+def ticket_plans(B, masks) -> dict:
+    """The tile plan of each projection of a llama ticket (its layers
+    share one mask)."""
+    seg = masks["segments"][0][0]
+    return {key: B.make_tile_plan(seg[group][key][0].cpu().numpy())
+            for group, keys in LLAMA_PROJECTIONS for key in keys}
+
+
+def is_cut(plan, kind, M) -> bool:
+    return plan.route_and_splits(kind, M, torch.bfloat16)[1] > 1
+
+
+def expected_splits(B, masks, rows, L) -> dict:
+    """Split launches of llama's 2-D products over passes of ``rows``
+    rows (bf16): the gate runs the epilogue kernel (silu), the other six
+    projections the plain one, once per layer."""
+    plans = ticket_plans(B, masks)
+    return {"bsmm": L * sum(is_cut(plans[k], "fwd", M) for M in rows
+                            for k in PLAIN_PROJECTIONS),
+            "bsmm_epilogue": L * sum(is_cut(plans["gate"], "fwd", M)
+                                     for M in rows)}
+
+
 def serve(cfg, device):
     from repro_torch._bridge import apply_masks
     from repro_torch.kernels import bsmm as B
@@ -668,8 +786,7 @@ def serve(cfg, device):
     for r in reqs:
         eng.submit(r)
 
-    B.bsmm.launches = 0
-    B.bsmm_epilogue.launches = 0
+    reset_bsmm_routes(B)
     PA.paged_attention.launches = 0
     FA.flash_attention.launches = 0
     FA.flash_attention.launches_by_route.update(wgmma=0, simt=0)
@@ -702,6 +819,20 @@ def serve(cfg, device):
             f"launch counts {launches} do not match {rep.prefills} prefills "
             f"and {rep.decode_steps} decode steps over {L} layers")
     require_flash_routes(FA, rep.prefills * L, "llama serving")
+    # one pass a prefill (the prompt's bucket of rows) or a decode step
+    # (8 rows): below 64 rows on the stream route, from 64 on wgmma
+    rows = [8] * rep.decode_steps + [eng._bucket(len(r.prompt))
+                                     for r in reqs]
+    short = sum(M < 64 for M in rows)
+    routes = bsmm_routes(B)
+    want_splits = expected_splits(B, masks, rows, L)
+    for name, per in (("bsmm", 6 * L), ("bsmm_epilogue", L)):
+        want = {"stream": short * per, "wgmma": (len(rows) - short) * per,
+                "fma": 0, "split_launches": want_splits[name]}
+        got = {**routes[name]["launches_by_route"],
+               "split_launches": routes[name]["split_launches"]}
+        require(len(rows) == passes and got == want,
+                f"{name} routes {got} on the serving path, want {want}")
 
     # block-sparse prefill through the plan vs dense prefill on the
     # masked weights: same function, bf16 rounding in other places
@@ -733,7 +864,7 @@ def serve(cfg, device):
         "decode_only_steps": len(step_ms),
         "decode_step_ms_p50": step_ms[len(step_ms) // 2] if step_ms else None,
         "decode_step_ms_min": step_ms[0] if step_ms else None,
-        "launches": launches,
+        "launches": launches, "bsmm_routes": routes,
         "launches_per_decode_step": {"bsmm": 6 * L, "bsmm_epilogue": L,
                                      "paged_attention": L},
         "flash_launches_per_prefill": L,
@@ -1235,8 +1366,9 @@ def retrain(cfg, device, steps: int = 4):
                  for p, m in _mask_pairs(trainer.state.params, masks))
     want_sent = (total - pruned) / total
 
-    for f in (B.bsmm, B.bsmm_epilogue, B.bsmm_dx, B.bsmm_dw):
+    for f in (B.bsmm_dx,):
         f.launches = 0
+    reset_bsmm_routes(B)
     losses, sent, step_s = [], [], []
     for _ in range(steps):
         ts = time.perf_counter()
@@ -1262,6 +1394,27 @@ def retrain(cfg, device, steps: int = 4):
             f"sent_fraction {sent} != host count {want_sent}")
     require(all(launches[k] == steps * v for k, v in want.items()),
             f"launch counts {launches} do not match {steps} steps of {want}")
+    # every routed product at 8 x 128 rows in bf16 on the wgmma kernels,
+    # cut where its plan says: r forwards of the six plain projections,
+    # r + 1 of the gate (the backward recomputes its pre-activation), one
+    # dw of each of the seven
+    routes = bsmm_routes(B)
+    plans = ticket_plans(B, masks)
+    M = 8 * 128
+    want_cut = {
+        "bsmm": steps * r * L * sum(is_cut(plans[k], "fwd", M)
+                                    for k in PLAIN_PROJECTIONS),
+        "bsmm_epilogue": steps * (r + 1) * L * is_cut(plans["gate"], "fwd",
+                                                      M),
+        "bsmm_dw": steps * L * sum(is_cut(p, "dw", M)
+                                   for p in plans.values())}
+    for name in ("bsmm", "bsmm_epilogue", "bsmm_dw"):
+        want_routes = {k: launches[name] * (k == "wgmma")
+                       for k in routes[name]["launches_by_route"]}
+        require(routes[name]["launches_by_route"] == want_routes
+                and routes[name]["split_launches"] == want_cut[name],
+                f"{name} routes {routes[name]} in retraining, want "
+                f"{want_routes} and {want_cut[name]} split launches")
     finite = all(bool(torch.isfinite(p).all().item())
                  for p in tree_leaves(trainer.state.params))
     require(finite, "a parameter is non-finite after retraining")
@@ -1279,7 +1432,8 @@ def retrain(cfg, device, steps: int = 4):
         "tokens_per_s": tokens / step_med, "losses": losses,
         "sent_fraction": sent[-1], "sent_fraction_host": want_sent,
         "max_memory_allocated_bytes": peak,
-        "launches_per_step": want, "live_tiles": adapter.last_plan_stats
+        "launches_per_step": want, "bsmm_routes": routes,
+        "live_tiles": adapter.last_plan_stats
         .live_tiles, "total_tiles": adapter.last_plan_stats.total_tiles,
         "profile": profile}
 
@@ -1295,6 +1449,8 @@ def _kernel_group(name: str) -> str:
 
     if "bsmm_dw" in name:
         return "bsmm_dw"
+    if "bsmm2d" in name:
+        return "bsmm_forward"
     if "bsmm_stream" in name:
         return "bsmm_batched"
     if "paged_attention" in name:
@@ -2122,10 +2278,30 @@ def cnn_fc_variant(device, steps=CNN_STEPS):
         np.kron(bm, np.ones((128, 128))), dtype=torch.float32, device=device)
     counters = (B.bsmm, B.bsmm_epilogue, B.bsmm_dx, B.bsmm_dw)
     before = {f.__name__: f.launches for f in counters}
+    routes0 = bsmm_routes(B)
     tuned = adapter.train(params, masks)
     sync(device)
     per_step = {f.__name__: (f.launches - before[f.__name__]) / steps
                 for f in counters}
+    routes = {name: {k: v - routes0[name]["launches_by_route"][k]
+                     for k, v in r["launches_by_route"].items()}
+              for name, r in bsmm_routes(B).items()}
+    splits = {name: r["split_launches"] - routes0[name]["split_launches"]
+              for name, r in bsmm_routes(B).items()}
+    # the FC layer's 512 x 512 product at the batch's 128 rows in f32:
+    # the CUDA-core kernels, uncut (4 K tiles a column at most)
+    fc_plan = B.make_tile_plan(masks["fc"][0]["w"].cpu().numpy())
+    cut = [fc_plan.route_and_splits(k, CNN_BATCH, torch.float32)
+           for k in ("fwd", "dw")]
+    print(f"cnn fc variant routes {routes}, split launches {splits}, "
+          f"plan routes {cut}")
+    require(cut == [("fma", 1), ("fma", 1)]
+            and routes == {"bsmm": {"stream": 0, "wgmma": 0, "fma": 0},
+                           "bsmm_epilogue": {"stream": 0, "wgmma": 0,
+                                             "fma": 2 * steps},
+                           "bsmm_dw": {"wgmma": 0, "fma": steps}}
+            and not any(splits.values()),
+            "the FC variant's bsmm did not run its CUDA-core routes uncut")
     want = {"bsmm": 0, "bsmm_epilogue": 2, "bsmm_dx": 1, "bsmm_dw": 1}
     loss = float(adapter.last_metrics["loss"])
     print(f"cnn fc variant: {adapter.last_plan_stats.routed} routed, "
@@ -2153,7 +2329,7 @@ def cnn_fc_variant(device, steps=CNN_STEPS):
           f"max_abs_err={e:.3e} tol={tol:.3e}")
     require(e <= tol, "the LTP product disagrees with its plain version")
     return {"config": cfg.name, "steps": steps, "loss": loss,
-            "launches_per_step": per_step,
+            "launches_per_step": per_step, "bsmm_routes": routes,
             "live_tiles": adapter.last_plan_stats.live_tiles,
             "total_tiles": adapter.last_plan_stats.total_tiles,
             "ltp_fc_live_fraction": live, "ltp_max_abs_err": e}
@@ -2334,6 +2510,10 @@ def main() -> int:
         bsmm_err = {k: max(v, ds_err[k]) for k, v in bsmm_err.items()}
         stats_err, stats_times = check_tile_stats(TS)
         masked_err, masked_times, masked_smem = check_masked(B)
+        # the wgmma ring of #1/#2/#4: two blocks an SM, or one alone
+        bsmm_smem = {"two_an_sm": B.wgmma_smem_bytes(False),
+                     "alone": B.wgmma_smem_bytes(True)}
+        print(f"bsmm wgmma dynamic shared memory: {bsmm_smem}")
         flash_err, flash_times = check_flash(FA)
     flash_build = flash_build_report(FA, logs.get("flash_attention", ""))
     phase("kernel_checks")
@@ -2374,11 +2554,13 @@ def main() -> int:
     # the expert up/gate shape at decode rows
     batched_row = next(r for r in batched_times
                        if r["M"] == 8 and r["N"] == 2048)
+    serve_routes = summary["bsmm_routes"]
     kernels = [
         {"name": "bsmm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/bsmm.cu",
          "replaces": "src/repro/kernels/bsmm.py:118",
-         "launches": launches["bsmm"], "max_abs_err": bsmm_err["bsmm"],
+         "launches": launches["bsmm"], **serve_routes["bsmm"],
+         "max_abs_err": bsmm_err["bsmm"],
          "ms": rep_row["bsmm_ms"], "plain_ms": rep_row["plain_ms"],
          "bound_ms": rep_row["bound_ms"], "bound_by": rep_row["bound_by"],
          "library_ms": rep_row["matmul_ms"]},
@@ -2386,6 +2568,7 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/bsmm.cu",
          "replaces": "src/repro/kernels/bsmm.py:136",
          "launches": launches["bsmm_epilogue"],
+         **serve_routes["bsmm_epilogue"],
          "max_abs_err": bsmm_err["bsmm_epilogue"],
          "ms": rep_row["bsmm_epilogue_ms"],
          "plain_ms": rep_row["epilogue_plain_ms"],
@@ -2405,6 +2588,7 @@ def main() -> int:
              "source": "src/repro_torch/kernels/csrc/bsmm.cu",
              "replaces": f"src/repro/kernels/bsmm.py:{line}",
              "launches": t_launches[f"bsmm_{kind}"],
+             **train_summary["bsmm_routes"].get(f"bsmm_{kind}", {}),
              "max_abs_err": grad_err[f"bsmm_{kind}"],
              "ms": grad_row[f"{kind}_ms"],
              "plain_ms": grad_row[f"{kind}_plain_ms"],
@@ -2480,7 +2664,8 @@ def main() -> int:
          "grad_check": grad_summary, "retrain": train_summary,
          "serve_deepseek": ds_summary, "tile_stats": stats_times,
          "masked_matmul": masked_times, "ltp_mlp": ltp_summary,
-         "masked_matmul_wgmma_smem": masked_smem, "cnn": cnn_summary,
+         "masked_matmul_wgmma_smem": masked_smem,
+         "bsmm_wgmma_smem": bsmm_smem, "cnn": cnn_summary,
          "flash_attention": flash_times, "flash_attention_build": flash_build,
          "control_plane": cp_summary, "phase_s": phases},
         indent=1, default=str))

@@ -12,7 +12,18 @@ the reference's ``jax.vmap`` of ``plan_matmul`` over the expert axis.
 
 Dispatch: ``bsmm``, ``bsmm_epilogue``, ``bsmm_batched``, ``bsmm_dx`` and
 ``bsmm_dw`` launch their kernel for CUDA tensors and run their plain PyTorch
-versions (``*_plain``) for CPU tensors; any other device raises.
+versions (``*_plain``) for CPU tensors; any other device raises.  The 2-D
+forward (#1 and #2) takes the CUDA route ``bsmm_route`` picks from the
+call's shape (weight streaming below 64 rows, TMA and ``wgmma`` for
+bfloat16 from 64, CUDA-core FMA for float32) and cuts each column tile's
+live list into ``bsmm_splits`` pieces, summed in split order inside the
+same launch; dw (#4) takes ``bsmm_dw_route`` and cuts each live tile's
+rows into ``bsmm_dw_splits`` pieces.  On ``wgmma`` (and bfloat16 dw) the
+pieces of a tile form one thread-block cluster and meet in shared
+memory; on ``stream`` and ``fma`` they meet in a workspace allocated
+once per device and stream (``_scratch``).  Those wrappers count their
+launches by route in ``.launches_by_route`` and their split launches in
+``.split_launches``.
 ``masked_matmul`` (the reference's ``masked_matmul_pallas``, kernel #5,
 ``csrc/masked_matmul.cu``) is the crossbar-unaware LTP baseline beside
 them: a dense grid that reads every weight and mask tile and skips only
@@ -119,7 +130,8 @@ class TilePlan:
     dead K tiles; the transposed plan (``idx_t``/``counts_t``/``nmax``)
     steers dx past dead N tiles and the flat live-tile coordinates
     (``kk``/``nn``) list the tiles dw computes.  ``device_tensors``
-    caches the int32 copies the kernels read, once per device.
+    caches the int32 copies the kernels read, once per device, and
+    ``route_and_splits`` the CUDA route and split count of a call shape.
     """
     idx: np.ndarray          # (Nt, KMAX) int32 — live K-tile ids per column
     counts: np.ndarray       # (Nt,) int32
@@ -134,6 +146,9 @@ class TilePlan:
     nn: Optional[np.ndarray] = None        # (L,) N-tile id of each live tile
     _dev: Dict[torch.device, PlanTensors] = field(default_factory=dict,
                                                    repr=False)
+    _split: Dict[tuple, Tuple[str, int]] = field(default_factory=dict,
+                                                 repr=False)
+    _launch: Dict[tuple, tuple] = field(default_factory=dict, repr=False)
 
     def device_tensors(self, device) -> PlanTensors:
         """Every index array as an int32 tensor on ``device``, copied
@@ -149,6 +164,39 @@ class TilePlan:
                 for a in (self.idx, self.counts, self.idx_t, self.counts_t,
                           self.kk, self.nn)))
             self._dev[device] = got
+        return got
+
+    def route_and_splits(self, kind: str, M: int,
+                         dtype: torch.dtype) -> Tuple[str, int]:
+        """``(bsmm_route, bsmm_splits)`` for the forward (``kind`` "fwd")
+        or ``(bsmm_dw_route, bsmm_dw_splits)`` for dw ("dw") at M rows of
+        ``dtype``, computed once per shape."""
+        key = (kind, M, dtype)
+        got = self._split.get(key)
+        if got is None:
+            if kind == "fwd":
+                K = len(self.counts_t) * self.tile if self.counts_t is not None \
+                    else None
+                N = len(self.counts) * self.tile
+                got = (bsmm_route(M, K, N, dtype, self),
+                       bsmm_splits(M, K, N, dtype, self))
+            else:
+                got = (bsmm_dw_route(dtype),
+                       bsmm_dw_splits(self.live_tiles, M, dtype))
+            self._split[key] = got
+        return got
+
+    def launch_consts(self, M: int, dtype: torch.dtype) -> tuple:
+        """The 2-D forward's (route, splits, route code, counters, kmax)
+        at M rows of ``dtype``: one lookup a call."""
+        key = (M, dtype)
+        got = self._launch.get(key)
+        if got is None:
+            route, S = self.route_and_splits("fwd", M, dtype)
+            per_col, rows = _route_blocks(route, M)
+            got = (route, S, _BSMM_ROUTES[route],
+                   len(self.counts) * per_col * rows, self.kmax)
+            self._launch[key] = got
         return got
 
 
@@ -330,22 +378,186 @@ _I = ctypes.c_int
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.library("bsmm")
-    lib.bsmm_launch.argtypes = [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
-                                _VP]
-    lib.bsmm_launch.restype = _I
-    lib.bsmm_epilogue_launch.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
-                                         _I, _I, _I, _I, _VP]
-    lib.bsmm_epilogue_launch.restype = _I
+    lib.bsmm2d_launch.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP]
+    lib.bsmm2d_launch.restype = _I
     lib.bsmm_batched_launch.argtypes = [_VP, _VP, _VP, _VP, _VP, _I, _I, _I,
                                         _I, _I, _I, _VP]
     lib.bsmm_batched_launch.restype = _I
     lib.bsmm_dx_launch.argtypes = [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
                                    _VP]
     lib.bsmm_dx_launch.restype = _I
-    lib.bsmm_dw_launch.argtypes = [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
-                                   _VP]
+    lib.bsmm_dw_launch.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
+                                   _I, _I, _I, _I, _VP]
     lib.bsmm_dw_launch.restype = _I
+    lib.bsmm_wgmma_smem.argtypes = [_I]
+    lib.bsmm_wgmma_smem.restype = _I
     return lib
+
+
+def wgmma_smem_bytes(alone: bool) -> int:
+    """Dynamic shared memory a block of the wgmma kernels (the 2-D
+    forward's ``wgmma`` route and bfloat16 dw) asks for (builds the
+    library): a ring of 32 KB stages, its barriers and 1 KB of
+    alignment; three stages, so that two blocks fit an SM, in a grid of
+    more blocks than the card has SMs, six where each block has its SM
+    to itself (``alone``)."""
+    return _lib().bsmm_wgmma_smem(int(alone))
+
+
+# ---------------------------------------------------------------------------
+# Routes and splits of the 2-D forward (#1, #2) and of dw (#4), chosen on
+# the host from the call's shape and plan alone
+# ---------------------------------------------------------------------------
+#: SMs of the H100; the split rules size their grids by it
+_SMS = 132
+#: below this many rows the 2-D forward (and kernel #5) streams weights
+_STREAM_M = 64
+#: the 2-D forward's route codes (csrc/bsmm.cu bsmm2d_launch)
+_BSMM_ROUTES = {"stream": 0, "fma": 1, "wgmma": 2}
+_DW_ROUTES = ("wgmma", "fma")
+_STREAM_COLS = 32       # columns a block of the stream route
+_WGMMA_ROWS = 128       # rows a block of the wgmma route
+_FMA_ROWS = 64          # rows a block of the CUDA-core routes (#1, #5)
+#: pieces at most of one 128 x 128 output tile on wgmma, fma and dw
+#: (wgmma's and bf16 dw's pieces form one thread-block cluster)
+_MAX_TILE_PIECES = 4
+#: blocks of the stream route an SM holds at once (its launch bounds)
+_STREAM_PER_SM = 3
+#: the least tiles (forward) or 64/32-row steps (dw) a piece of the
+#: longest list keeps: shorter pieces cost more than they save
+#: (measured on the H100: PERF.md)
+_MIN_PIECE_TILES = 2
+_MIN_PIECE_STEPS = 16
+#: split grids of the wgmma route keep to one block an SM with room for
+#: the pieces' clusters to pack into the card's GPCs
+_CLUSTER_GRID = 96
+#: split grids of the fma route keep to four blocks an SM
+_FMA_PER_SM = 4
+
+
+def bsmm_route(M: int, K: int, N: int, dtype: torch.dtype,
+               plan: TilePlan) -> str:
+    """Which CUDA kernel computes the 2-D forward (#1 and #2) at M rows
+    of ``dtype``, by the name ``bsmm.launches_by_route`` counts it under:
+
+    - ``"stream"``: every M < 64 (decode rows), both dtypes: each column
+      tile's live list split into pieces, weights streamed through a
+      ``cp.async`` ring;
+    - ``"wgmma"``: bfloat16 from 64 rows, TMA and ``wgmma``;
+    - ``"fma"``: float32 from 64 rows, on the CUDA cores (no TF32).
+
+    ``K``, ``N`` and ``plan`` do not change the route (the batched form
+    and dx keep their own kernels)."""
+    if M < _STREAM_M:
+        return "stream"
+    return "wgmma" if dtype == torch.bfloat16 else "fma"
+
+
+def split_pieces(count: int, S: int) -> Tuple[Tuple[int, int], ...]:
+    """The pieces ``[t0, t1)`` of a live list of ``count`` tiles cut for
+    ``S`` splits: ``min(S, max(count, 1))`` contiguous pieces of whole
+    tiles whose sizes differ by at most one (an empty list is one empty
+    piece).  The kernels cut every column tile's list (and dw every
+    tile's rows) by this rule."""
+    parts = min(S, max(count, 1))
+    return tuple((z * count // parts, (z + 1) * count // parts)
+                 for z in range(parts))
+
+
+def _route_blocks(route: str, M: int) -> Tuple[int, int]:
+    """(blocks a column tile, row blocks) of a route's grid at M rows."""
+    if route == "stream":
+        return MXU_TILE // _STREAM_COLS, -(-M // (8 if M <= 8 else 32))
+    return 1, -(-M // (_WGMMA_ROWS if route == "wgmma" else _FMA_ROWS))
+
+
+def bsmm_splits(M: int, K: int, N: int, dtype: torch.dtype,
+                plan: TilePlan) -> int:
+    """How many pieces the 2-D forward cuts each column tile's live list
+    into at (M, K, N, dtype, plan) (1: no split).  A column's list is cut
+    into ``split_pieces(counts[j], S)``, never more pieces than it has
+    tiles; only the blocks of live columns work.
+
+    Every piece of the longest list keeps at least 2 tiles.
+
+    - ``stream``: the most pieces (up to 16) whose working blocks all
+      stay resident at once, 3 an SM on the card's 132 SMs: one round of
+      blocks, each streaming as many tiles as that allows;
+    - ``wgmma``: the most pieces, at most 4, whose grid stays within 96
+      blocks (one block an SM, with room for the pieces' clusters to
+      pack into the card's GPCs);
+    - ``fma``: the most pieces, at most 4, within four blocks an SM.
+
+    The caps come from timing every split count on the H100 (PERF.md).
+
+    A function of the shape and the plan alone, so a call is bitwise
+    repeatable at a fixed (M, K, N, plan)."""
+    route = bsmm_route(M, K, N, dtype, plan)
+    per_col, rows = _route_blocks(route, M)
+    counts = np.asarray(plan.counts)
+    top = int(counts.max()) if counts.size else 0
+
+    def working(S):
+        return per_col * rows * int(np.minimum(counts, S).sum())
+
+    longest = max(1, top // _MIN_PIECE_TILES)
+    if route == "stream":
+        return max([S for S in range(1, min(longest, 16) + 1)
+                    if working(S) <= _STREAM_PER_SM * _SMS] or [1])
+    grid = (N // MXU_TILE) * rows
+    cap = min(_MAX_TILE_PIECES, longest)
+    per = _CLUSTER_GRID if route == "wgmma" else _FMA_PER_SM * _SMS
+    return max(1, min(cap, per // grid))
+
+
+def bsmm_dw_route(dtype: torch.dtype) -> str:
+    """dw's CUDA kernel (``bsmm_dw.launches_by_route``): ``"wgmma"`` (TMA
+    and ``wgmma``) for bfloat16, ``"fma"`` (CUDA cores) for float32."""
+    return "wgmma" if dtype == torch.bfloat16 else "fma"
+
+
+def bsmm_dw_splits(L: int, M: int, dtype: torch.dtype) -> int:
+    """How many pieces dw cuts each live tile's rows (its contraction)
+    into: pieces only while the ``L`` tiles' grid stays within one block
+    an SM, at most 4, each keeping at least 16 row steps (64 rows
+    bfloat16, 32 float32: shorter pieces measured slower); else 1."""
+    if L <= 0:
+        return 1
+    steps = -(-M // (64 if dtype == torch.bfloat16 else 32))
+    return max(1, min(_MAX_TILE_PIECES, steps // _MIN_PIECE_STEPS, _SMS // L))
+
+
+#: the split workspace and counters, one pair per (device, stream):
+#: launches on one stream run in order, so they share it (like a BLAS
+#: library's workspace), and every caller of the kernels uses the same
+_SCRATCH: Dict[Tuple[torch.device, int],
+               Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _scratch(device: torch.device, stream: int, ws_numel: int,
+             counters: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The f32 workspace that split pieces of the ``stream`` and ``fma``
+    kernels store their partial tiles in and the int32 counters that find
+    the last piece of an output block, of ``device`` and ``stream``:
+    allocated once and grown, never per call.  The kernels leave the
+    counters at zero.  They grow outside any graph capture only: warm a
+    call up on the capturing stream first, and replay no graph captured
+    before they grew."""
+    key = (device, stream)
+    got = _SCRATCH.get(key)
+    if got is None or got[0].numel() < ws_numel or got[1].numel() < counters:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "bsmm: the split workspace must grow outside graph capture "
+                "(call once on this stream before capturing)")
+        have = (0, 0) if got is None else (got[0].numel(), got[1].numel())
+        got = (torch.empty(max(ws_numel, have[0], 1), dtype=torch.float32,
+                           device=device),
+               torch.zeros(max(counters, have[1], 1), dtype=torch.int32,
+                           device=device))
+        _SCRATCH[key] = got
+    return got
 
 
 def _check_operands(x2, w, plan: TilePlan, bias, where: str):
@@ -399,41 +611,62 @@ def _stream(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _launch_args(x2, w, plan: TilePlan):
-    kernel_tile("bsmm", plan.tile)
-    dev = plan.device_tensors(x2.device)
+def _launch_2d(x2, w, plan: TilePlan, bias, act, epi: int,
+               where: str) -> Tuple[torch.Tensor, str, int]:
+    """Launch the 2-D forward on the route and split count ``plan``
+    gives the call's shape; returns (out, route, splits)."""
+    kernel_tile(where, plan.tile)
+    device = x2.device
+    dev = plan.device_tensors(device)
     M, K = x2.shape
     N = w.shape[1]
-    out = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
-    return out, dev.idx, dev.counts, M, K, N, _stream(x2)
+    route, S, code, counters, kmax = plan.launch_consts(M, x2.dtype)
+    stream = _stream(x2)
+    out = torch.empty((M, N), dtype=x2.dtype, device=device)
+    ws = cnt = None
+    if S > 1 and route != "wgmma":     # wgmma's pieces meet in a cluster
+        ws, cnt = _scratch(device, stream, S * M * N, counters)
+        ws, cnt = ws.data_ptr(), cnt.data_ptr()
+    lib = _lib()
+    err = lib.bsmm2d_launch(
+        x2.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
+        out.data_ptr(), ws, cnt, dev.idx.data_ptr(), dev.counts.data_ptr(), M,
+        K, N, kmax, _DTYPE_CODES[x2.dtype], epi, _ACT_CODES[act], code, S,
+        stream)
+    if err:
+        _build.check(lib, err, where)
+    return out, route, S
 
 
 def bsmm(x2: torch.Tensor, w: torch.Tensor, plan: TilePlan) -> torch.Tensor:
-    """Kernel #1: ``x2 (M, K) @ (w ⊙ tile bitmap) (K, N)`` in x2's dtype."""
+    """Kernel #1: ``x2 (M, K) @ (w ⊙ tile bitmap) (K, N)`` in x2's dtype,
+    on the CUDA route ``bsmm_route`` names, each column tile's live list
+    cut as ``bsmm_splits`` says."""
     _check_operands(x2, w, plan, None, "bsmm")
     _check_layout("bsmm", x2, w)
     if x2.device.type == "cpu":
         return bsmm_plain(x2, w, plan)
     if x2.device.type != "cuda":
         raise ValueError(f"bsmm: unsupported device {x2.device}")
-    lib = _lib()
-    out, idx, counts, M, K, N, stream = _launch_args(x2, w, plan)
-    code = lib.bsmm_launch(x2.data_ptr(), w.data_ptr(), out.data_ptr(),
-                           idx.data_ptr(), counts.data_ptr(), M, K, N,
-                           plan.kmax, _DTYPE_CODES[x2.dtype], stream)
-    _build.check(lib, code, "bsmm")
+    out, route, S = _launch_2d(x2, w, plan, None, None, 0, "bsmm")
     bsmm.launches += 1
+    bsmm.launches_by_route[route] += 1
+    bsmm.split_launches += S > 1
     return out
 
 
 bsmm.launches = 0
+#: launches by the kernel that ran (``bsmm_route``'s names)
+bsmm.launches_by_route = {k: 0 for k in _BSMM_ROUTES}
+#: launches whose live lists were cut (``bsmm_splits`` > 1)
+bsmm.split_launches = 0
 
 
 def bsmm_epilogue(x2: torch.Tensor, w: torch.Tensor, plan: TilePlan,
                   bias: Optional[torch.Tensor] = None,
                   act: Optional[str] = None) -> torch.Tensor:
     """Kernel #2: kernel #1 with ``+ bias`` and relu/gelu/silu fused into
-    the flush, in the f32 accumulator."""
+    the flush, in the f32 accumulator (after the split pieces' sum)."""
     _check_act(act)
     _check_operands(x2, w, plan, bias, "bsmm_epilogue")
     _check_layout("bsmm_epilogue", x2, w)
@@ -441,18 +674,16 @@ def bsmm_epilogue(x2: torch.Tensor, w: torch.Tensor, plan: TilePlan,
         return bsmm_epilogue_plain(x2, w, plan, bias, act)
     if x2.device.type != "cuda":
         raise ValueError(f"bsmm_epilogue: unsupported device {x2.device}")
-    lib = _lib()
-    out, idx, counts, M, K, N, stream = _launch_args(x2, w, plan)
-    code = lib.bsmm_epilogue_launch(
-        x2.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
-        out.data_ptr(), idx.data_ptr(), counts.data_ptr(), M, K, N, plan.kmax,
-        _DTYPE_CODES[x2.dtype], _ACT_CODES[act], stream)
-    _build.check(lib, code, "bsmm_epilogue")
+    out, route, S = _launch_2d(x2, w, plan, bias, act, 1, "bsmm_epilogue")
     bsmm_epilogue.launches += 1
+    bsmm_epilogue.launches_by_route[route] += 1
+    bsmm_epilogue.split_launches += S > 1
     return out
 
 
 bsmm_epilogue.launches = 0
+bsmm_epilogue.launches_by_route = {k: 0 for k in _BSMM_ROUTES}
+bsmm_epilogue.split_launches = 0
 
 
 _MAX_GRID_Z = 65535     # experts one batched launch takes (CUDA grid z)
@@ -553,7 +784,9 @@ bsmm_dx.launches = 0
 def bsmm_dw(x2: torch.Tensor, g: torch.Tensor, plan: TilePlan) -> torch.Tensor:
     """Kernel #4: the (K, N) weight grad of ``x2 (M, K) @ w`` for the
     cotangent ``g (M, N)``, live tiles only, in x2's dtype; dead tiles
-    are exactly zero (never computed)."""
+    are exactly zero (never computed).  The CUDA kernel is
+    ``bsmm_dw_route``'s, each tile's rows cut as ``bsmm_dw_splits``
+    says and the pieces summed in order."""
     _check_grad_operands(x2, g, plan, "bsmm_dw")
     M, K = x2.shape
     N = g.shape[1]
@@ -572,18 +805,30 @@ def bsmm_dw(x2: torch.Tensor, g: torch.Tensor, plan: TilePlan) -> torch.Tensor:
     out = torch.zeros((K, N), dtype=x2.dtype, device=x2.device)
     if plan.live_tiles == 0:            # nothing live: no launch
         return out
+    L = plan.live_tiles
+    route, S = plan.route_and_splits("dw", M, x2.dtype)
+    ws = cnt = None
+    if S > 1 and route == "fma":        # wgmma's pieces meet in a cluster
+        ws, cnt = _scratch(x2.device, stream, S * L * MXU_TILE * MXU_TILE, L)
     dev = plan.device_tensors(x2.device)
     lib = _lib()
     code = lib.bsmm_dw_launch(x2.data_ptr(), g.data_ptr(), out.data_ptr(),
-                              dev.kk.data_ptr(), dev.nn.data_ptr(),
-                              plan.live_tiles, M, K, N,
-                              _DTYPE_CODES[x2.dtype], stream)
+                              None if ws is None else ws.data_ptr(),
+                              None if cnt is None else cnt.data_ptr(),
+                              dev.kk.data_ptr(), dev.nn.data_ptr(), L, M, K,
+                              N, _DTYPE_CODES[x2.dtype], S, stream)
     _build.check(lib, code, "bsmm_dw")
     bsmm_dw.launches += 1
+    bsmm_dw.launches_by_route[route] += 1
+    bsmm_dw.split_launches += S > 1
     return out
 
 
 bsmm_dw.launches = 0
+#: launches by the kernel that ran (``bsmm_dw_route``'s names)
+bsmm_dw.launches_by_route = {k: 0 for k in _DW_ROUTES}
+#: launches whose rows were cut (``bsmm_dw_splits`` > 1)
+bsmm_dw.split_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -630,11 +875,6 @@ def masked_matmul_plain(x: torch.Tensor, w: torch.Tensor, mask: torch.Tensor,
     return torch.matmul(x.float(), wm.float()).to(x.dtype)
 
 
-#: SMs of the H100; the split-K routes size their grids by it
-_SMS = 132
-#: below this many rows kernel #5 streams split-K (decode rows)
-_STREAM_M = 64
-_FMA_ROWS = 64          # rows per block of the CUDA-core route
 #: the C entry point's kernel codes (csrc/masked_matmul.cu)
 _MASKED_KERNELS = {"stream": 0, "fma": 1, "wgmma": 2}
 

@@ -155,6 +155,260 @@ def test_cpu_calls_run_the_plain_version_and_count_nothing():
 
 
 # ---------------------------------------------------------------------------
+# the 2-D forward's routes and splits (kernels #1, #2) and dw's (#4):
+# rules on the host, and a plain emulation of the split-order sum held
+# to the Pallas kernels
+# ---------------------------------------------------------------------------
+_LLAMA_SHAPES = [(3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072)]
+
+
+def _llama_plan(K, N, seed=1):
+    """A seeded ~25 %-live tile plan with column tile 0 dead, as
+    chip_smoke.random_bitmap makes them."""
+    bm = np.random.default_rng(seed + K + N).random((K // 128, N // 128)) \
+        < 0.25
+    bm[:, 0] = False
+    return tb.make_tile_plan(np.kron(bm, np.ones((128, 128), bool)))
+
+
+def _working_blocks(plan, route, M, S):
+    per_col, rows = tb._route_blocks(route, M)
+    return per_col * rows * sum(len(tb.split_pieces(int(c), S))
+                                for c in plan.counts if c > 0)
+
+
+@pytest.mark.parametrize("K,N", _LLAMA_SHAPES)
+@pytest.mark.parametrize("M", [1, 8, 63, 64, 300, 512, 1024])
+def test_bsmm_route_by_rows_and_dtype(K, N, M):
+    """Below 64 rows both dtypes stream; from 64 rows bfloat16 takes
+    wgmma and float32 the CUDA-core kernel; a 2-D call never takes the
+    expert-batched kernel."""
+    plan = _llama_plan(K, N)
+    bf, f32 = (tb.bsmm_route(M, K, N, d, plan)
+               for d in (torch.bfloat16, torch.float32))
+    if M < 64:
+        assert bf == f32 == "stream"
+    else:
+        assert (bf, f32) == ("wgmma", "fma")
+    assert set(tb.bsmm.launches_by_route) == {"stream", "wgmma", "fma"}
+    assert set(tb.bsmm_epilogue.launches_by_route) == {"stream", "wgmma",
+                                                       "fma"}
+
+
+@pytest.mark.parametrize("K,N", _LLAMA_SHAPES)
+@pytest.mark.parametrize("M", [8, 63, 64, 512, 1024])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bsmm_splits_are_whole_tiles(K, N, M, dtype):
+    """Each column's live list is cut into contiguous pieces of whole
+    tiles, in order, never more pieces than it has tiles, none empty
+    (an empty list is one empty piece); the split count is a function
+    of the shape and the plan alone."""
+    plan = _llama_plan(K, N)
+    S = tb.bsmm_splits(M, K, N, dtype, plan)
+    assert S == tb.bsmm_splits(M, K, N, dtype, plan) >= 1
+    assert plan.route_and_splits("fwd", M, dtype) == (
+        tb.bsmm_route(M, K, N, dtype, plan), S)
+    for c in plan.counts:
+        pieces = tb.split_pieces(int(c), S)
+        assert pieces[0][0] == 0 and pieces[-1][1] == c
+        assert all(a[1] == b[0] for a, b in zip(pieces, pieces[1:]))
+        assert len(pieces) <= max(int(c), 1)
+        assert all(t1 > t0 for t0, t1 in pieces) or c == 0
+        sizes = [t1 - t0 for t0, t1 in pieces]
+        assert max(sizes) - min(sizes) <= 1
+
+
+@pytest.mark.parametrize("K,N", _LLAMA_SHAPES)
+def test_bsmm_stream_splits_at_decode(K, N):
+    """At 8 rows (decode) the stream route takes the most pieces whose
+    working blocks all stay resident at once (3 an SM on 132 SMs), each
+    piece of the longest list keeping 2 tiles: one round of blocks, at
+    least a wave of them where the live counts allow it."""
+    plan = _llama_plan(K, N)
+    top = int(plan.counts.max())
+    S = tb.bsmm_splits(8, K, N, torch.bfloat16, plan)
+    got = _working_blocks(plan, "stream", 8, S)
+    assert got <= 3 * 132
+    assert S == top // 2 or _working_blocks(plan, "stream", 8, S + 1) > 396
+    assert got >= 132 or S == top // 2
+
+
+@pytest.mark.parametrize("K,N", _LLAMA_SHAPES)
+@pytest.mark.parametrize("M", [64, 128, 300, 512, 1024])
+def test_bsmm_tile_route_splits(K, N, M):
+    """From 64 rows: at most 4 pieces, each piece of the longest list
+    keeping 2 tiles; on wgmma the most whose grid stays within 96 blocks
+    (one an SM, with room for the clusters to pack); on fma the most
+    within four blocks an SM."""
+    plan = _llama_plan(K, N)
+    top = int(plan.counts.max())
+    for dtype, route, per in ((torch.bfloat16, "wgmma", 96),
+                              (torch.float32, "fma", 4 * 132)):
+        S = tb.bsmm_splits(M, K, N, dtype, plan)
+        grid = (N // 128) * tb._route_blocks(route, M)[1]
+        assert S == max(1, min(4, top // 2, per // grid))
+        assert S == 1 or min(t1 - t0 for t0, t1 in
+                             tb.split_pieces(top, S)) >= 2
+
+
+def test_bsmm_splits_at_the_llama_shapes():
+    """The llama shapes' bf16 split counts: q/o, k/v and down in 4 at
+    decode and at prefill's first buckets (64, 128 rows), k/v (9 live
+    tiles at most) also at 300 and 512; the up projection's 252 working
+    blocks and every shape at 1024 rows uncut."""
+    want = {(3072, 3072): {8: 4, 64: 4, 128: 4, 300: 1, 512: 1, 1024: 1},
+            (3072, 1024): {8: 4, 64: 4, 128: 4, 300: 4, 512: 3, 1024: 1},
+            (3072, 8192): {8: 1, 64: 1, 128: 1, 300: 1, 512: 1, 1024: 1},
+            (8192, 3072): {8: 4, 64: 4, 128: 4, 300: 1, 512: 1, 1024: 1}}
+    for (K, N), by_rows in want.items():
+        plan = _llama_plan(K, N)
+        assert {M: tb.bsmm_splits(M, K, N, torch.bfloat16, plan)
+                for M in by_rows} == by_rows
+
+
+def test_bsmm_dw_split_rule():
+    """dw cuts each live tile's rows while its grid stays within one
+    block an SM, at most 4 pieces of at least 16 row steps (64 rows
+    bfloat16, 32 float32): L = 41 splits from 2048 rows (not at the
+    retrain's 1024, where the pieces measured slower), L = 148 and
+    L >= 264 never."""
+    assert tb.bsmm_dw_splits(41, 1024, torch.bfloat16) == 1
+    assert tb.bsmm_dw_splits(41, 2048, torch.bfloat16) == 2
+    assert tb.bsmm_dw_splits(41, 4096, torch.bfloat16) == 3
+    assert tb.bsmm_dw_splits(30, 4096, torch.bfloat16) == 4
+    assert tb.bsmm_dw_splits(41, 1024, torch.float32) == 2
+    for L in (148, 264, 384):
+        assert tb.bsmm_dw_splits(L, 1 << 16, torch.bfloat16) == 1
+    assert tb.bsmm_dw_route(torch.bfloat16) == "wgmma"
+    assert tb.bsmm_dw_route(torch.float32) == "fma"
+    assert set(tb.bsmm_dw.launches_by_route) == {"wgmma", "fma"}
+
+
+def _split_fwd_plain(x, w, plan, S, bias=None, act=None):
+    """The split forward as the kernels compute it, in numpy f32: each
+    column tile's live list cut by ``split_pieces``, each piece's
+    product summed over its tiles, the pieces added in split order, then
+    bias and activation."""
+    M = x.shape[0]
+    T = plan.tile
+    out = np.zeros((M, w.shape[1]), np.float32)
+    for j, c in enumerate(plan.counts):
+        total = None
+        for t0, t1 in tb.split_pieces(int(c), S):
+            part = np.zeros((M, T), np.float32)
+            for kt in plan.idx[j, t0:t1]:
+                part += x[:, kt * T:(kt + 1) * T] @ w[kt * T:(kt + 1) * T,
+                                                      j * T:(j + 1) * T]
+            total = part if total is None else total + part
+        out[:, j * T:(j + 1) * T] = total
+    if bias is not None:
+        out = out + bias
+    return tb._epilogue(torch.from_numpy(out), act).numpy()
+
+
+def _split_dw_plain(x, g, plan, S, step):
+    """dw as the kernels compute it: each live tile's rows cut into
+    pieces of whole ``step``-row steps, the pieces added in order."""
+    M = x.shape[0]
+    T = plan.tile
+    dw = np.zeros((x.shape[1], g.shape[1]), np.float32)
+    for k, n in zip(plan.kk, plan.nn):
+        total = None
+        for s0, s1 in tb.split_pieces(-(-M // step), S):
+            r0, r1 = s0 * step, min(s1 * step, M)
+            part = x[r0:r1, k * T:(k + 1) * T].T @ g[r0:r1, n * T:(n + 1) * T]
+            total = part if total is None else total + part
+        dw[k * T:(k + 1) * T, n * T:(n + 1) * T] = total
+    return dw
+
+
+def _pallas_fwd(x, w, mask, bias=None, act=None, bm=16):
+    """The reference's Pallas forward in interpret mode, rows padded to
+    its block."""
+    M = x.shape[0]
+    xp = np.pad(x, ((0, -M % bm), (0, 0)))
+    rplan = rb.make_tile_plan(mask)
+    out = rb._bsmm_compact(jnp.asarray(xp), jnp.asarray(w), rplan.idx,
+                           rplan.counts, rplan.kmax, bm=bm, bk=128, bn=128,
+                           interpret=True,
+                           bias=None if bias is None else jnp.asarray(bias),
+                           act=act)
+    return np.asarray(out)[:M]
+
+
+@pytest.mark.parametrize("M", [13, 70])
+@pytest.mark.parametrize("S", [1, 2, 3])
+@pytest.mark.parametrize("act,with_bias", [(None, False), ("silu", True),
+                                           ("gelu", True), ("relu", False)])
+def test_bsmm_split_sum_matches_reference(M, S, act, with_bias):
+    """The split-order sum (kept here, not in the package) against the
+    Pallas forward and its fused epilogue, ragged rows, column tile 0
+    dead: float32 at 1e-5."""
+    x, w, b, mask = _operands(M + S, M, 640, 384, density=0.6)
+    plan = tb.make_tile_plan(mask)
+    assert plan.counts[0] == 0 and plan.kmax >= 3
+    bias = b if with_bias else None
+    got = _split_fwd_plain(x, w, plan, S, bias, act)
+    if act is None and bias is None:
+        want = _pallas_fwd(x, w, mask)
+    else:
+        want = _pallas_fwd(x, w, mask, bias, act)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu", "relu", None])
+def test_bsmm_split_dead_column_is_act_of_bias(act):
+    """Under splits an all-dead column tile is one empty piece: its
+    output is act(bias) exactly, and 0 without a bias."""
+    x, w, b, mask = _operands(9, 8, 512, 384, density=0.7)
+    plan = tb.make_tile_plan(mask)
+    assert plan.counts[0] == 0
+    got = _split_fwd_plain(x, w, plan, 3, b, act)
+    want = tb._epilogue(torch.from_numpy(b[:128]), act).numpy()
+    np.testing.assert_array_equal(got[:, :128], np.broadcast_to(want,
+                                                                (8, 128)))
+    assert not _split_fwd_plain(x, w, plan, 3)[:, :128].any()
+
+
+@pytest.mark.parametrize("M", [13, 200])
+@pytest.mark.parametrize("S,step", [(1, 64), (2, 64), (4, 32), (3, 32)])
+def test_bsmm_dw_split_sum_matches_reference(M, S, step):
+    """dw's split-order sum over row pieces against the Pallas dw kernel
+    (ragged rows padded with zeros), float32 at 1e-5; dead tiles zero."""
+    x, w, _, mask = _operands(M + 2, M, 384, 256, density=0.5)
+    g = np.random.default_rng(M).standard_normal((M, 256)).astype(
+        np.float32)
+    plan = tb.make_tile_plan(mask)
+    got = _split_dw_plain(x, g, plan, S, step)
+    pad = ((0, -M % 16), (0, 0))
+    want = rb._bsmm_dw(jnp.asarray(np.pad(x, pad)),
+                       jnp.asarray(np.pad(g, pad)), rb.make_tile_plan(mask),
+                       bm=16, out_dtype=jnp.float32)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+    dead = np.kron(tb.tile_bitmap(mask) == 0, np.ones((128, 128), bool))
+    assert not got[dead].any()
+
+
+def test_bsmm_routes_count_nothing_on_the_cpu():
+    x, w, b, mask = _operands(8, 70, 256, 256)
+    plan = tb.make_tile_plan(mask)
+    g = np.random.default_rng(0).standard_normal((70, 256)).astype(
+        np.float32)
+    counters = (tb.bsmm, tb.bsmm_epilogue, tb.bsmm_dw)
+    before = [(dict(f.launches_by_route), f.split_launches)
+              for f in counters]
+    for dtype in (torch.float32, torch.bfloat16):
+        xt, wt, bt, gt = (torch.from_numpy(a).to(dtype) for a in (x, w, b, g))
+        tb.bsmm(xt[:8].contiguous(), wt, plan)
+        tb.bsmm(xt, wt, plan)
+        tb.bsmm_epilogue(xt, wt, plan, bt, "silu")
+        tb.bsmm_dw(xt, gt, plan)
+    assert [(dict(f.launches_by_route), f.split_launches)
+            for f in counters] == before
+    assert not tb._SCRATCH
+
+
+# ---------------------------------------------------------------------------
 # tile stats (kernel #9): liveness exact, sums at rtol 1e-5, at two
 # geometries (one ragged), float32 and bfloat16
 # ---------------------------------------------------------------------------
@@ -984,6 +1238,51 @@ def test_cuda_bsmm_matches_plain(cuda, dtype, M):
         torch.testing.assert_close(
             tb.bsmm_epilogue(xt, wt, plan, bt, act),
             tb.bsmm_epilogue_plain(xt, wt, plan, bt, act), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [8, 40, 64, 300])
+def test_cuda_bsmm_routes_counted_and_repeatable(cuda, dtype, M):
+    """Each call runs on the route ``bsmm_route`` names, is counted as
+    split where ``bsmm_splits`` cuts the lists, and two calls give the
+    same bits; a row's bits do not depend on the other rows."""
+    x, w, b, mask = _operands(M + 5, M, 1024, 1280, density=0.5)
+    plan = tb.make_tile_plan(mask)
+    xt, wt, bt = (torch.from_numpy(a).to(cuda, dtype) for a in (x, w, b))
+    route, S = plan.route_and_splits("fwd", M, dtype)
+    for fn, args in ((tb.bsmm, ()), (tb.bsmm_epilogue, (bt, "gelu"))):
+        before = dict(fn.launches_by_route)
+        splits = fn.split_launches
+        got = fn(xt, wt, plan, *args)
+        again = fn(xt, wt, plan, *args)
+        after = fn.launches_by_route
+        assert {k: after[k] - before[k] for k in after} == {
+            k: 2 * int(k == route) for k in after}
+        assert fn.split_launches - splits == 2 * int(S > 1)
+        assert torch.equal(got, again)
+        other = xt.clone()
+        other[1:] = -other[1:]
+        assert torch.equal(fn(other, wt, plan, *args)[0], got[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [8, 300])
+def test_cuda_bsmm_dw_routes_counted_and_repeatable(cuda, dtype, M):
+    x, w, _, mask = _operands(M + 9, M, 512, 384, density=0.3)
+    g = np.random.default_rng(M).standard_normal((M, 384)).astype(np.float32)
+    plan = tb.make_tile_plan(mask)
+    xt, gt = (torch.from_numpy(a).to(cuda, dtype) for a in (x, g))
+    route, S = plan.route_and_splits("dw", M, dtype)
+    before = dict(tb.bsmm_dw.launches_by_route)
+    splits = tb.bsmm_dw.split_launches
+    got = tb.bsmm_dw(xt, gt, plan)
+    assert torch.equal(got, tb.bsmm_dw(xt, gt, plan))
+    after = tb.bsmm_dw.launches_by_route
+    assert {k: after[k] - before[k] for k in after} == {
+        k: 2 * int(k == route) for k in after}
+    assert tb.bsmm_dw.split_launches - splits == 2 * int(S > 1)
 
 
 @pytest.mark.cuda

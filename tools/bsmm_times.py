@@ -1,0 +1,213 @@
+#!/usr/bin/env python3
+"""Time the block-sparse matmul kernels of a checkout's PyTorch/CUDA port.
+
+    python3 tools/bsmm_times.py --root <checkout> [--label NAME] [--sweep]
+
+Imports ``repro_torch`` from ``<checkout>/src``, so that two checkouts
+(a commit and its parent) can be timed one after the other on the same
+card, builds its ``bsmm`` kernels and times, in bfloat16, on seeded
+~25 %-live tile plans (``chip_smoke.random_bitmap``, column tile 0
+dead) at the four llama3.2-3b projection shapes (3072x3072, 3072x1024,
+3072x8192, 8192x3072):
+
+- ``bsmm`` (#1) and ``bsmm_epilogue`` (#2, bias and silu) at 8, 512 and
+  1024 rows;
+- ``bsmm_dx`` (#3) and ``bsmm_dw`` (#4) at 1024 rows;
+- ``bsmm_batched`` (#1b) at deepseek-v3's expert up/gate shape (256
+  experts, 8 rows, 7168x2048);
+
+each as the mean device milliseconds of a CUDA-graph replay
+(``chip_smoke.time_ms``), cycling weight copies so that weights come
+from device memory, beside one PyTorch call on the same inputs
+(``torch.matmul`` on the dense masked weight, ``x.T @ g``, ``torch.bmm``)
+and the bound (``chip_smoke.bsmm_bound_ms`` / ``grad_bound_ms``).
+Where the checkout's ``TilePlan`` names routes (``route_and_splits``) it
+records the route and split count of each call.  ``--sweep`` also times
+#1 and #4 with each live list (dw: each tile's rows) cut into 1-4
+pieces, on a fresh plan with the checkout's split rule
+(``bsmm_splits`` / ``bsmm_dw_splits``) set to that count.  It prints one
+JSON line.  Needs one CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import (BSMM_SHAPES, EXPERTS, bsmm_bound_ms,  # noqa: E402
+                        grad_bound_ms, random_bitmap, time_ms)
+
+FWD_ROWS = (8, 512, 1024)
+GRAD_ROWS = 1024
+BATCHED = (8, 7168, 2048)       # rows per expert, K, N
+
+
+def _plan(B, rng, K, N):
+    bm = random_bitmap(rng, K, N)
+    return bm, B.make_tile_plan(np.kron(bm, np.ones((128, 128), bool)))
+
+
+def _route(plan, kind, M):
+    if not hasattr(plan, "route_and_splits"):
+        return None, None
+    return plan.route_and_splits(kind, M, torch.bfloat16)
+
+
+def _forced(B, bm, S):
+    """A fresh plan of ``bm`` whose calls cut their lists into ``S``
+    pieces (the checkout's split rules answer ``S`` while it is made and
+    first used)."""
+    plan = B.make_tile_plan(np.kron(bm, np.ones((128, 128), bool)))
+    rules = B.bsmm_splits, B.bsmm_dw_splits
+    B.bsmm_splits = B.bsmm_dw_splits = lambda *a: S
+    try:
+        for kind in ("fwd", "dw"):
+            for M in FWD_ROWS:
+                plan.route_and_splits(kind, M, torch.bfloat16)
+    finally:
+        B.bsmm_splits, B.bsmm_dw_splits = rules
+    return plan
+
+
+def _masked(w, bm):
+    return w * torch.as_tensor(np.kron(bm, np.ones((128, 128))),
+                               dtype=w.dtype, device=w.device)
+
+
+def forward_rows(B, rng, sweep):
+    rows = []
+    for K, N in BSMM_SHAPES:
+        bm, plan = _plan(B, rng, K, N)
+        g = torch.Generator(device="cuda").manual_seed(K + N)
+        w = (torch.randn(K, N, device="cuda", generator=g) / K ** 0.5
+             ).bfloat16()
+        copies = max(2, int(400e6 // (w.numel() * 2)) + 1)
+        ws = [w.clone() for _ in range(copies)]
+        ds = [_masked(v, bm) for v in ws]
+        b = torch.randn(N, device="cuda", generator=g).bfloat16()
+        for M in FWD_ROWS:
+            x = torch.randn(M, K, device="cuda", generator=g).bfloat16()
+            route, S = _route(plan, "fwd", M)
+            row = {"kernel": "bsmm", "M": M, "K": K, "N": N,
+                   "route": route, "splits": S,
+                   "live_tiles": plan.live_tiles}
+            row["ms"] = time_ms(lambda i: B.bsmm(x, ws[i % copies], plan))
+            row["epilogue_ms"] = time_ms(
+                lambda i: B.bsmm_epilogue(x, ws[i % copies], plan, b, "silu"))
+            row["library_ms"] = time_ms(
+                lambda i: torch.matmul(x, ds[i % copies]))
+            row["bound_ms"], row["bound_by"] = bsmm_bound_ms(
+                M, K, N, plan, 2, "bfloat16")
+            if sweep:
+                row["ms_by_splits"] = {}
+                for S in range(1, 5):
+                    p = _forced(B, bm, S)
+                    row["ms_by_splits"][S] = time_ms(
+                        lambda i: B.bsmm(x, ws[i % copies], p))
+            rows.append(row)
+        del ws, ds
+    return rows
+
+
+def grad_rows(B, rng, sweep):
+    rows = []
+    M = GRAD_ROWS
+    for K, N in BSMM_SHAPES:
+        bm, plan = _plan(B, rng, K, N)
+        g_ = torch.Generator(device="cuda").manual_seed(K * 7 + N)
+        w = (torch.randn(K, N, device="cuda", generator=g_) / K ** 0.5
+             ).bfloat16()
+        copies = max(2, int(400e6 // (w.numel() * 2)) + 1)
+        ops = [(w.clone(),
+                torch.randn(M, K, device="cuda", generator=g_).bfloat16(),
+                torch.randn(M, N, device="cuda", generator=g_).bfloat16())
+               for _ in range(copies)]
+        ds = [_masked(o[0], bm) for o in ops]
+        route, S = _route(plan, "dw", M)
+        row = {"kernel": "bsmm_grads", "M": M, "K": K, "N": N,
+               "dw_route": route, "dw_splits": S,
+               "live_tiles": plan.live_tiles}
+        row["dx_ms"] = time_ms(lambda i: B.bsmm_dx(ops[i % copies][2],
+                                                   ops[i % copies][0], plan))
+        row["dw_ms"] = time_ms(lambda i: B.bsmm_dw(ops[i % copies][1],
+                                                   ops[i % copies][2], plan))
+        row["dx_library_ms"] = time_ms(
+            lambda i: torch.matmul(ops[i % copies][2], ds[i % copies].T))
+        row["dw_library_ms"] = time_ms(
+            lambda i: torch.matmul(ops[i % copies][1].T, ops[i % copies][2]))
+        for kind in ("dx", "dw"):
+            row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = grad_bound_ms(
+                kind, M, K, N, plan, 2, "bfloat16")
+        if sweep:
+            row["dw_ms_by_splits"] = {}
+            for S in range(1, 5):
+                p = _forced(B, bm, S)
+                row["dw_ms_by_splits"][S] = time_ms(
+                    lambda i: B.bsmm_dw(ops[i % copies][1],
+                                        ops[i % copies][2], p))
+        rows.append(row)
+        del ops, ds
+    return rows
+
+
+def batched_row(B, rng):
+    M, K, N = BATCHED
+    bm, plan = _plan(B, rng, K, N)
+    g = torch.Generator(device="cuda").manual_seed(K + 3 * N)
+    w = torch.randn(EXPERTS, K, N, device="cuda", generator=g,
+                    dtype=torch.bfloat16) / K ** 0.5
+    a = torch.randn(EXPERTS, M, K, device="cuda", generator=g,
+                    dtype=torch.bfloat16)
+    row = {"kernel": "bsmm_batched", "E": EXPERTS, "M": M, "K": K, "N": N,
+           "live_tiles": plan.live_tiles}
+    row["ms"] = time_ms(lambda i: B.bsmm_batched(a, w, plan), iters=10)
+    dense = _masked(w, bm)
+    row["library_ms"] = time_ms(lambda i: torch.bmm(a, dense), iters=10)
+    row["bound_ms"], row["bound_by"] = bsmm_bound_ms(
+        M, K, N, plan, 2, "bfloat16", experts=EXPERTS)
+    return row
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", required=True, type=Path,
+                    help="checkout whose src/repro_torch is timed")
+    ap.add_argument("--label", default="")
+    ap.add_argument("--sweep", action="store_true",
+                    help="also time #1 and #4 cut into 1-4 pieces")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("bsmm_times: CUDA is not available", file=sys.stderr)
+        return 2
+    root = args.root.resolve()
+    sys.path.insert(0, str(root / "src"))
+    import repro_torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import bsmm as B
+
+    if root not in Path(repro_torch.__file__).resolve().parents:
+        print(f"bsmm_times: imported {repro_torch.__file__}, not the "
+              f"package under {root}", file=sys.stderr)
+        return 2
+    _build.build_all(("bsmm",))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    rng = np.random.default_rng(1)
+    with torch.inference_mode():
+        rows = forward_rows(B, rng, args.sweep)
+        rows += grad_rows(B, rng, args.sweep)
+        rows.append(batched_row(B, rng))
+    print(json.dumps({"label": args.label, "root": str(root), "device": smi,
+                      "rows": rows}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

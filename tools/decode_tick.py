@@ -16,12 +16,19 @@ first round a warm-up.  It prints one JSON line:
   (p50, min, mean, count);
 - ``profiled_tick``: one more decode-only tick of 8 busy slots under
   ``torch.profiler``: wall, device time, and the device time and
-  launches of the paged-attention kernels;
+  launches of the paged-attention kernels and of the 2-D block-sparse
+  forward (kernels #1 and #2, ``chip_smoke._kernel_group``'s
+  ``bsmm_forward``);
 - ``paged_call``: ``paged_attention`` at the decode shape (B = 8, 24/8
   heads, hd 128, bf16, the requests' lengths after 16 new tokens), 200
   calls issued back to back: host microseconds a call before the
   synchronise (what dispatching a call costs the host) and
-  microseconds a call until the card is done.
+  microseconds a call until the card is done;
+- ``bsmm_call``: ``bsmm`` at the decode shape (8 rows, the up
+  projection's 3072 x 8192 under a seeded ~25 %-live tile plan, bf16),
+  timed the same way in 5 rounds (median and least), with the
+  wrapper's launches a call and the card memory allocated across a
+  round beyond its outputs (0 when no call allocates scratch).
 
 Needs one CUDA card.
 """
@@ -38,7 +45,7 @@ import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import build_ticket  # noqa: E402
+from chip_smoke import _kernel_group, build_ticket, random_bitmap  # noqa: E402
 
 PROMPTS = (5, 17, 64, 127, 128, 129, 200, 300)
 NEW_TOKENS = 32
@@ -60,10 +67,13 @@ def profiled_tick(eng) -> dict:
             if e.device_type == torch.autograd.DeviceType.CUDA]
     device = sum(r[1] for r in rows)
     paged = [r for r in rows if "paged_attention" in r[0]]
+    bsmm = [r for r in rows if _kernel_group(r[0]) == "bsmm_forward"]
     return {"wall_ms": wall,
             "device_ms": device if device else "not measured",
             "paged_ms": sum(r[1] for r in paged),
-            "paged_launches": sum(r[2] for r in paged)}
+            "paged_launches": sum(r[2] for r in paged),
+            "bsmm2d_ms": sum(r[1] for r in bsmm),
+            "bsmm2d_launches": sum(r[2] for r in bsmm)}
 
 
 def paged_call(PA, cfg, device) -> dict:
@@ -95,6 +105,40 @@ def paged_call(PA, cfg, device) -> dict:
             "until_done_us": done / CALLS * 1e6}
 
 
+def bsmm_call(B, device, rounds: int = 5) -> dict:
+    """Host and card microseconds a ``bsmm`` call at the decode shape
+    (the median and least of ``rounds`` rounds of CALLS calls), the
+    wrapper's launches a call, and the bytes the calls allocated beyond
+    their outputs."""
+    K, N, M = 3072, 8192, 8
+    bm = random_bitmap(np.random.default_rng(9), K, N)
+    plan = B.make_tile_plan(np.kron(bm, np.ones((128, 128), bool)))
+    g = torch.Generator(device=device).manual_seed(4)
+    x = torch.randn(M, K, device=device, generator=g).bfloat16()
+    w = (torch.randn(K, N, device=device, generator=g) / K ** 0.5).bfloat16()
+    for _ in range(20):
+        B.bsmm(x, w, plan)
+    torch.cuda.synchronize()
+    host, done, extra = [], [], 0
+    n0 = B.bsmm.launches
+    for _ in range(rounds):
+        before = torch.cuda.memory_allocated()
+        outs = []
+        ts = time.perf_counter()
+        for _ in range(CALLS):
+            outs.append(B.bsmm(x, w, plan))
+        host.append((time.perf_counter() - ts) / CALLS * 1e6)
+        torch.cuda.synchronize()
+        done.append((time.perf_counter() - ts) / CALLS * 1e6)
+        extra = max(extra, torch.cuda.memory_allocated() - before
+                    - sum(o.numel() * o.element_size() for o in outs))
+        del outs
+    return {"host_us": statistics.median(host), "host_us_min": min(host),
+            "until_done_us": statistics.median(done),
+            "launches_per_call": (B.bsmm.launches - n0) / (rounds * CALLS),
+            "extra_bytes_allocated": extra}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", required=True, type=Path,
@@ -111,6 +155,7 @@ def main() -> int:
     from repro_torch._bridge import apply_masks
     from repro_torch.configs import get_arch
     from repro_torch.kernels import _build
+    from repro_torch.kernels import bsmm as B
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.models import transformer as tfm
     from repro_torch.serve import Request, ServeEngine
@@ -152,12 +197,13 @@ def main() -> int:
                 ticks.append((time.perf_counter() - ts) * 1e3)
     with torch.inference_mode():
         call = paged_call(PA, cfg, device)
+        b_call = bsmm_call(B, device)
     ticks.sort()
     print(json.dumps({
         "label": args.label, "root": str(root),
         "tick_ms": {"p50": ticks[len(ticks) // 2], "min": ticks[0],
                     "mean": statistics.fmean(ticks), "count": len(ticks)},
-        "profiled_tick": prof, "paged_call": call}))
+        "profiled_tick": prof, "paged_call": call, "bsmm_call": b_call}))
     return 0
 
 
