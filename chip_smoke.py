@@ -61,15 +61,17 @@ no result line otherwise):
 5. retrain the full-width, full-depth ticket for 4 steps through
    ``LMAdapter.make_trainer(params, masks).run`` and check losses,
    parameters, pruned coordinates, ``sent_fraction`` and the launches
-   of every kernel per step; then profile one more step;
+   of every kernel per step (dx and dw all on their ``wgmma`` kernels);
+   then profile one more step, which must show dx kernel time;
 6. free the llama models and serve 8 requests through ``ServeEngine`` on
    deepseek-v3 at full width with its one cut, 61 layers to 4 (three
    dense, one MoE layer of 256 experts, top-8, one shared expert; MLA
    attention; ~30 GB of bf16 parameters), with a ticket of one seeded
    tile bitmap per projection shared by every layer and expert, and
    check that every request finishes with finite logits, that the
-   fused-V kernel ran once per layer and decode step (the GQA kernel
-   never), that the bsmm, epilogue and batched launches match the
+   fused-V kernel ran once per layer and decode step, every launch on
+   its ``wgmma`` kernel (the GQA kernel never), that the bsmm, epilogue
+   and batched launches match the
    model, that flash attention ran once per layer and prefill on the
    wgmma route, and that block-sparse prefill agrees with dense prefill;
 7. run Algorithm 1 on vgg11 at its published widths through
@@ -89,13 +91,14 @@ no result line otherwise):
    CPU (float32, TF32 off).
 
 Phase 2 holds the 2-D block-sparse forward (#1, #2) at 8, 63, 64, 128,
-300, 512, 1000 and 1024 rows and dw (#4) at 1000 and 1024, each call
-to the route and split count its plan gives (``launches_by_route``,
-``split_launches``), two calls bitwise equal, and, at 8 and 512 rows,
-a row's bits unchanged when the other rows change; it times #1/#2 at
-8, 512 and 1024 rows and #4 at 1024 at all four llama shapes.  The
-serving, retrain and CNN phases hold #1, #2 and #4 to the routes and
-split launches their rows and plans give.
+300, 512, 1000 and 1024 rows and dx (#3) and dw (#4) at 1000 and 1024
+(dx also with an all-dead K-row tile), each call to the route and
+split count its plan gives (``launches_by_route``, ``split_launches``),
+two calls bitwise equal, and, at 8 and 512 rows, a row's bits
+unchanged when the other rows change; it times #1/#2 at 8, 512 and
+1024 rows and #3/#4 at 1024 at all four llama shapes.  The serving,
+retrain and CNN phases hold #1–#4 to the routes and split launches
+their rows and plans give.
 Phase 2 also holds tile stats (#9) and the masked LTP product (#5)
 against their plain versions and times them: #5 on every kernel
 (``stream`` below 64 rows, ``wgmma`` for bf16 from 64, ``fma`` for f32
@@ -103,14 +106,16 @@ from 64, each call held to its kernel's count and its split count), two
 calls bitwise equal, NaN under a dead tile
 kept out and NaN under a live tile's zero let through as the plain
 version does, and the CNN path's FC shape timed; paged attention (#6,
-#7) row by row alone held bitwise to the batch.  Before the last line it
+#7) with NaN behind dead table entries and past each length, row by
+row alone held bitwise to the batch, #7 in bf16 on its ``wgmma``
+kernel and in f32 on its CUDA-core one.  Before the last line it
 prints ``{"kernels": [...]}`` (per kernel: its launches in its path's
 run — llama serving for the 2-D forward kernels and GQA paged
 attention, retraining for dx and dw, deepseek serving for the batched
 bsmm and the fused-V kernel, the LTP MLP and the CNN path for #5, the
 CNN path for #9, the control plane for flash attention (#8) — its error
 against the plain version, its time, the plain version's, the bound and
-the library call's; #1, #2, #4 and #5 their launches by route and their
+the library call's; #1–#5 and #7 their launches by route, #1–#5 their
 split launches, #5 also by path), the serving, LTP MLP,
 control-plane, gradient-check, retrain, deepseek and CNN summaries,
 each phase's seconds and the card's name and power limit; the last line
@@ -223,8 +228,8 @@ EPILOGUES = ((None, "silu"), ("bias", "silu"), ("bias", "relu"),
 
 
 def held(fn, want_route, want_splits, *args, **kw):
-    """``fn(*args, **kw)`` (a 2-D bsmm or dw wrapper), required to launch
-    once on ``want_route`` and to count as split exactly when
+    """``fn(*args, **kw)`` (a 2-D bsmm, dx or dw wrapper), required to
+    launch once on ``want_route`` and to count as split exactly when
     ``want_splits`` > 1."""
     before = dict(fn.launches_by_route)
     s0 = fn.split_launches
@@ -356,9 +361,10 @@ def grad_bound_ms(kind, M, K, N, plan, elem, dtype_name) -> tuple:
 def check_bsmm_grads(B):
     """dx and dw kernels against their plain versions at the four
     llama3.2-3b projection shapes, M = 1024 and a ragged 1000, bf16 and
-    f32; dw held to its route and split count, two dw calls bitwise
-    equal, exactly zero on dead tiles; times at bf16 M = 1024.  Returns
-    (errors, times)."""
+    f32; each call held to its route and split count, two dx and two dw
+    calls bitwise equal, dw exactly zero on dead tiles; then dx at a
+    plan with an all-dead K-row tile (zeros there); times at bf16 M =
+    1024.  Returns (errors, times)."""
     rng = np.random.default_rng(2)
     dev = "cuda"
     err = {"bsmm_dx": 0.0, "bsmm_dw": 0.0}
@@ -377,17 +383,22 @@ def check_bsmm_grads(B):
                 g = torch.randn(M, N, device=dev, generator=g_).to(dtype)
                 route, S = plan.route_and_splits("dw", M, dtype)
                 dw = held(B.bsmm_dw, route, S, x, g, plan)
-                cases = [("bsmm_dx", B.bsmm_dx(g, w, plan),
-                          B.bsmm_dx_plain(g, w, plan)),
+                dx_route, dx_S = plan.route_and_splits("dx", M, dtype)
+                dx = held(B.bsmm_dx, dx_route, dx_S, g, w, plan)
+                cases = [("bsmm_dx", dx, B.bsmm_dx_plain(g, w, plan)),
                          ("bsmm_dw", dw, B.bsmm_dw_plain(x, g, plan))]
                 require(torch.equal(dw, B.bsmm_dw(x, g, plan)),
                         f"two bsmm_dw calls differ at M={M} K={K} N={N}")
+                require(torch.equal(dx, B.bsmm_dx(g, w, plan)),
+                        f"two bsmm_dx calls differ at M={M} K={K} N={N}")
                 torch.cuda.synchronize()
                 for name, got, want in cases:
                     e = (got.float() - want.float()).abs().max().item()
                     tol = tolerance(dtype, want)
+                    route_s = f"{dx_route} splits={dx_S}" \
+                        if name == "bsmm_dx" else f"{route} splits={S}"
                     print(f"check {name} {str(dtype)[6:]} M={M} K={K} N={N} "
-                          f"max_abs_err={e:.3e} tol={tol:.3e}")
+                          f"{route_s} max_abs_err={e:.3e} tol={tol:.3e}")
                     require(torch.isfinite(got).all().item(),
                             f"{name} non-finite")
                     require(e <= tol, f"{name} disagrees with its plain "
@@ -397,7 +408,39 @@ def check_bsmm_grads(B):
                         f"bsmm_dw wrote a dead tile at K={K} N={N}")
                 if dtype == torch.bfloat16 and M == GRAD_ROWS[0]:
                     times.append(time_grads(B, x, g, w, bm, plan, M, K, N))
+    err["bsmm_dx"] = max(err["bsmm_dx"], check_dx_dead_rows(B, rng))
     return err, times
+
+
+def check_dx_dead_rows(B, rng):
+    """dx at 3072x1024 with K-row tile 0 all dead, ragged 1000 rows, bf16
+    and f32, each on its route: zeros in that tile's 128 columns and the
+    plain version elsewhere.  Returns the largest error."""
+    K, N = BSMM_SHAPES[1]
+    bm = random_bitmap(rng, K, N)
+    bm[0] = False
+    bm[1, 1] = True               # and a live tile, so no list is all empty
+    plan = B.make_tile_plan(np.kron(bm, np.ones((128, 128), bool)))
+    g_ = torch.Generator(device="cuda").manual_seed(17)
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        w = (torch.randn(K, N, device="cuda", generator=g_) / K ** 0.5
+             ).to(dtype)
+        g = torch.randn(1000, N, device="cuda", generator=g_).to(dtype)
+        route, S = plan.route_and_splits("dx", 1000, dtype)
+        got = held(B.bsmm_dx, route, S, g, w, plan)
+        want = B.bsmm_dx_plain(g, w, plan)
+        torch.cuda.synchronize()
+        e = (got.float() - want.float()).abs().max().item()
+        tol = tolerance(dtype, want)
+        zeros = bool((got[:, :128] == 0).all().item())
+        print(f"check bsmm_dx {str(dtype)[6:]} M=1000 K={K} N={N} {route} "
+              f"splits={S} dead K-row tile 0 zero={zeros} "
+              f"max_abs_err={e:.3e} tol={tol:.3e}")
+        require(zeros and e <= tol, f"bsmm_dx at an all-dead K-row tile "
+                f"({dtype})")
+        worst = max(worst, e)
+    return worst
 
 
 def time_grads(B, x, g, w, bm, plan, M, K, N):
@@ -411,9 +454,10 @@ def time_grads(B, x, g, w, bm, plan, M, K, N):
     ds = [dense.clone() for _ in range(copies)]
     xt = [o[1].T for o in ops]
     route, S = plan.route_and_splits("dw", M, x.dtype)
+    dx_route, dx_S = plan.route_and_splits("dx", M, x.dtype)
     row = {"M": M, "K": K, "N": N, "dtype": "bfloat16", "dw_route": route,
-           "dw_splits": S, "live_tiles": plan.live_tiles,
-           "total_tiles": plan.total_tiles}
+           "dw_splits": S, "dx_route": dx_route, "dx_splits": dx_S,
+           "live_tiles": plan.live_tiles, "total_tiles": plan.total_tiles}
     row["dx_ms"] = time_ms(lambda i: B.bsmm_dx(ops[i % copies][2],
                                                ops[i % copies][0], plan))
     row["dw_ms"] = time_ms(lambda i: B.bsmm_dw(ops[i % copies][1],
@@ -438,7 +482,8 @@ PAGED_LENGTHS = [1, 127, 128, 129, 300, 511, 64, 1000]
 
 def paged_inputs(dtype, g, Hq, Hkv, hd, fused):
     """Batch 8 at the lengths above, a NaN scratch block behind every
-    dead table entry; ``fused`` leaves out the value pool (values are
+    dead table entry and NaN in the rows past each length inside its
+    last live block; ``fused`` leaves out the value pool (values are
     the first lanes of each key row)."""
     B_, T, NB = 8, 128, 8
     P = 1 + sum(-(-n // T) for n in PAGED_LENGTHS) + 2
@@ -454,27 +499,39 @@ def paged_inputs(dtype, g, Hq, Hkv, hd, fused):
         for j in range(-(-n // T)):
             tables[b, j] = nxt
             nxt += 1
+        tail = n - (n - 1) // T * T           # live rows of the last block
+        for pool in (kp, vp):
+            if pool is not None:
+                pool[nxt - 1, tail:] = float("nan")
     q = torch.randn(B_, Hq, hd, device="cuda", generator=g).to(dtype)
     lens = torch.tensor(PAGED_LENGTHS, dtype=torch.int32, device="cuda")
     return q, kp, vp, tables.cuda(), lens
 
 
-def check_paged(PA, Hq=24, Hkv=8, hd=128, dv=None, scale=None, seed=7):
+def check_paged(PA, Hq=24, Hkv=8, hd=128, dv=None, scale=None, seed=7,
+                fused_routes=None):
     """Paged attention against its plain version, bf16 and f32, each
     row's output also computed alone and held bitwise to its output in
-    the batch, timed in bf16: by default the GQA form (kernel #6) at
-    llama3.2-3b's heads; with ``dv`` the fused-V form (kernel #7),
-    values the first dv lanes of each key row."""
+    the batch, two batch calls bitwise equal, timed in bf16: by default
+    the GQA form (kernel #6) at llama3.2-3b's heads; with ``dv`` the
+    fused-V form (kernel #7), values the first dv lanes of each key
+    row, every call held to the route ``fused_routes`` names for its
+    dtype."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     fused = dv is not None
     name = "paged_attention_fused_v" if fused else "paged_attention"
     scale = scale or hd ** -0.5
     err = 0.0
     row = None
+    by_route = PA.paged_attention.fused_launches_by_route
     for dtype in (torch.bfloat16, torch.float32):
         q, kp, vp, tables, lens = paged_inputs(dtype, g, Hq, Hkv, hd, fused)
+        before = dict(by_route)
         got = PA.paged_attention(q, kp, vp, tables, lens, scale=scale,
                                  v_dim=dv)
+        require(torch.equal(got, PA.paged_attention(
+            q, kp, vp, tables, lens, scale=scale, v_dim=dv)),
+            f"two {name} calls differ ({dtype})")
         want = PA.paged_attention_ref(q, kp, vp, tables, lens, scale=scale,
                                       v_dim=dv)
         torch.cuda.synchronize()
@@ -493,6 +550,13 @@ def check_paged(PA, Hq=24, Hkv=8, hd=128, dv=None, scale=None, seed=7):
             for b in range(len(PAGED_LENGTHS))]
         print(f"check {name} {str(dtype)[6:]} row alone == in batch: {alone}")
         require(all(alone), f"{name} is not batch-invariant ({dtype})")
+        if fused_routes:
+            calls = 2 + len(PAGED_LENGTHS)
+            got_routes = {k: by_route[k] - before[k] for k in by_route}
+            print(f"check {name} {str(dtype)[6:]} routes {got_routes}")
+            require(got_routes == {k: calls * (k == fused_routes[dtype])
+                                   for k in by_route},
+                    f"{name} did not run on {fused_routes[dtype]} ({dtype})")
         err = max(err, e)
         if dtype == torch.bfloat16:
             row = time_paged(PA, name, q, kp, vp, tables, lens, scale, dv)
@@ -503,11 +567,10 @@ def time_paged(PA, name, q, kp, vp, tables, lens, scale, dv):
     B_, Hq, hd = q.shape
     Hkv = kp.shape[2]
     dv = dv or hd
-    kp = kp.clone()
-    kp[0] = 0.0        # the library yardstick reads dead entries too
+    # the library yardstick reads dead entries and rows too
+    kp = torch.nan_to_num(kp, nan=0.0)
     if vp is not None:
-        vp = vp.clone()
-        vp[0] = 0.0
+        vp = torch.nan_to_num(vp, nan=0.0)
     row = {"B": B_, "Hq": Hq, "Hkv": Hkv, "hd": hd, "dv": dv,
            "lengths": lens.tolist()}
     # cycle pool copies: a model's layers of pools do not stay in the L2
@@ -529,6 +592,8 @@ def time_paged(PA, name, q, kp, vp, tables, lens, scale, dv):
     k = k.repeat_interleave(G, dim=1).contiguous()
     if vp is None:
         v = k[..., :dv].contiguous()
+        row["route"] = PA.fused_route(PA._check_geometry(
+            q, kp, vp, tables, lens, dv), q.dtype)
     else:
         v = PA.paged_gather(vp, tables).permute(0, 2, 1, 3)
         v = v.repeat_interleave(G, dim=1).contiguous()
@@ -703,12 +768,12 @@ def require_flash_routes(FA, want: int, where: str) -> None:
             f"{where}: a prefill did not attend through the wgmma kernel")
 
 
-BSMM_ROUTED = ("bsmm", "bsmm_epilogue", "bsmm_dw")
+BSMM_ROUTED = ("bsmm", "bsmm_epilogue", "bsmm_dx", "bsmm_dw")
 
 
 def reset_bsmm_routes(B) -> None:
-    """Set the 2-D forward's and dw's launch, route and split counts to
-    0."""
+    """Set the 2-D forward's, dx's and dw's launch, route and split
+    counts to 0."""
     for name in BSMM_ROUTED:
         f = getattr(B, name)
         f.launches = 0
@@ -718,7 +783,8 @@ def reset_bsmm_routes(B) -> None:
 
 
 def bsmm_routes(B) -> dict:
-    """The 2-D forward's and dw's launches by route and split launches."""
+    """The 2-D forward's, dx's and dw's launches by route and split
+    launches."""
     return {name: {"launches_by_route": dict(getattr(B, name)
                                              .launches_by_route),
                    "split_launches": getattr(B, name).split_launches}
@@ -1366,8 +1432,6 @@ def retrain(cfg, device, steps: int = 4):
                  for p, m in _mask_pairs(trainer.state.params, masks))
     want_sent = (total - pruned) / total
 
-    for f in (B.bsmm_dx,):
-        f.launches = 0
     reset_bsmm_routes(B)
     losses, sent, step_s = [], [], []
     for _ in range(steps):
@@ -1397,7 +1461,7 @@ def retrain(cfg, device, steps: int = 4):
     # every routed product at 8 x 128 rows in bf16 on the wgmma kernels,
     # cut where its plan says: r forwards of the six plain projections,
     # r + 1 of the gate (the backward recomputes its pre-activation), one
-    # dw of each of the seven
+    # dx and one dw of each of the seven
     routes = bsmm_routes(B)
     plans = ticket_plans(B, masks)
     M = 8 * 128
@@ -1406,9 +1470,11 @@ def retrain(cfg, device, steps: int = 4):
                                     for k in PLAIN_PROJECTIONS),
         "bsmm_epilogue": steps * (r + 1) * L * is_cut(plans["gate"], "fwd",
                                                       M),
+        "bsmm_dx": steps * L * sum(is_cut(p, "dx", M)
+                                   for p in plans.values()),
         "bsmm_dw": steps * L * sum(is_cut(p, "dw", M)
                                    for p in plans.values())}
-    for name in ("bsmm", "bsmm_epilogue", "bsmm_dw"):
+    for name in BSMM_ROUTED:
         want_routes = {k: launches[name] * (k == "wgmma")
                        for k in routes[name]["launches_by_route"]}
         require(routes[name]["launches_by_route"] == want_routes
@@ -1426,6 +1492,12 @@ def retrain(cfg, device, steps: int = 4):
     mid = sorted(step_s[1:])
     step_med = mid[len(mid) // 2]
     profile = profile_step(trainer) if on_card else None
+    if profile and profile["device_ms"] != "not measured":
+        dx_ms = profile["by_group_ms"].get("bsmm_dx", 0.0)
+        print(f"retrain profile: bsmm_dx {dx_ms} ms of "
+              f"{profile['device_ms']} device ms")
+        require(dx_ms > 0, "the profiled retrain step shows no bsmm_dx "
+                "kernel time")
     return launches, {
         "setup_s": setup_s, "steps": steps, "remat": remat,
         "step_s": step_s, "step_s_median_2_to_4": step_med,
@@ -1440,13 +1512,16 @@ def retrain(cfg, device, steps: int = 4):
 
 def _kernel_group(name: str) -> str:
     """A profiled CUDA kernel's group: the bsmm kernels by role (dx is
-    the forward template with its last template argument, TRANS,
-    true; the weight-streaming kernel runs the expert-batched products),
-    paged attention (with its combine kernel), flash attention, the LTP
-    product's kernels (with the split-K reduction), cuBLAS products,
-    PyTorch's elementwise kernels, the rest."""
+    ``bsmm_dx_wgmma_kernel``, or the forward template with its last
+    template argument, TRANS, true; the weight-streaming kernel runs the
+    expert-batched products), paged attention (with its combine kernel),
+    flash attention, the LTP product's kernels (with the split-K
+    reduction), cuBLAS products, PyTorch's elementwise kernels, the
+    rest."""
     import re
 
+    if "bsmm_dx" in name:
+        return "bsmm_dx"
     if "bsmm_dw" in name:
         return "bsmm_dw"
     if "bsmm2d" in name:
@@ -1658,6 +1733,7 @@ def serve_deepseek(cfg, device):
     for f, attr in counters:
         setattr(f, attr, 0)
     FA.flash_attention.launches_by_route.update(wgmma=0, simt=0)
+    PA.paged_attention.fused_launches_by_route.update(wgmma=0, simt=0)
     step_ms = []
     t0 = time.perf_counter()
     while not eng.idle:
@@ -1696,6 +1772,12 @@ def serve_deepseek(cfg, device):
           f"{n_moe} MoE layers)")
     require(launches == want, "deepseek launch counts do not match the model")
     require_flash_routes(FA, want["flash_attention"], "deepseek serving")
+    fused_routes = dict(PA.paged_attention.fused_launches_by_route)
+    print(f"deepseek serving: fused-V launches by route {fused_routes}")
+    require(fused_routes == {"wgmma": want["paged_attention_fused_v"],
+                             "simt": 0},
+            "a deepseek decode step's fused-V attention left the wgmma "
+            "kernel")
 
     # block-sparse prefill through the plan vs dense prefill on the
     # masked weights, at one exact-length prompt
@@ -1729,6 +1811,7 @@ def serve_deepseek(cfg, device):
         "max_memory_allocated_bytes": peak,
         "skipped_tile_fraction": rep.skipped_tile_fraction,
         "launches": launches, "launches_want": want,
+        "fused_launches_by_route": fused_routes,
         "prefill_plan_vs_dense_max_abs_err": diff,
         "prefill_plan_vs_dense_tol": tol,
         "decode_profile": profile,
@@ -2292,13 +2375,14 @@ def cnn_fc_variant(device, steps=CNN_STEPS):
     # the CUDA-core kernels, uncut (4 K tiles a column at most)
     fc_plan = B.make_tile_plan(masks["fc"][0]["w"].cpu().numpy())
     cut = [fc_plan.route_and_splits(k, CNN_BATCH, torch.float32)
-           for k in ("fwd", "dw")]
+           for k in ("fwd", "dx", "dw")]
     print(f"cnn fc variant routes {routes}, split launches {splits}, "
           f"plan routes {cut}")
-    require(cut == [("fma", 1), ("fma", 1)]
+    require(cut == [("fma", 1), ("simt", 1), ("fma", 1)]
             and routes == {"bsmm": {"stream": 0, "wgmma": 0, "fma": 0},
                            "bsmm_epilogue": {"stream": 0, "wgmma": 0,
                                              "fma": 2 * steps},
+                           "bsmm_dx": {"simt": steps, "wgmma": 0},
                            "bsmm_dw": {"wgmma": 0, "fma": steps}}
             and not any(splits.values()),
             "the FC variant's bsmm did not run its CUDA-core routes uncut")
@@ -2500,8 +2584,9 @@ def main() -> int:
         # deepseek-v3's absorbed MLA: one latent head of r + dr = 576
         # lanes under 128 query heads, values its first 512, scale
         # 1/sqrt(qk_nope + qk_rope)
-        mla_err, mla_row = check_paged(PA, Hq=128, Hkv=1, hd=576, dv=512,
-                                       scale=192 ** -0.5, seed=11)
+        mla_err, mla_row = check_paged(
+            PA, Hq=128, Hkv=1, hd=576, dv=512, scale=192 ** -0.5, seed=11,
+            fused_routes={torch.bfloat16: "wgmma", torch.float32: "simt"})
         batched_err, batched_times = check_bsmm_batched(B)
         # the dense FFN's gate and the shared expert's run the epilogue
         # with silu and no bias
@@ -2608,6 +2693,7 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:133",
          "launches": ds_launches["paged_attention_fused_v"],
+         "launches_by_route": ds_summary["fused_launches_by_route"],
          "max_abs_err": mla_err, "ms": mla_row["ms"],
          "plain_ms": mla_row["plain_ms"], "bound_ms": mla_row["bound_ms"],
          "bound_by": mla_row["bound_by"],

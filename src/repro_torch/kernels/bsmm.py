@@ -18,12 +18,14 @@ call's shape (weight streaming below 64 rows, TMA and ``wgmma`` for
 bfloat16 from 64, CUDA-core FMA for float32) and cuts each column tile's
 live list into ``bsmm_splits`` pieces, summed in split order inside the
 same launch; dw (#4) takes ``bsmm_dw_route`` and cuts each live tile's
-rows into ``bsmm_dw_splits`` pieces.  On ``wgmma`` (and bfloat16 dw) the
-pieces of a tile form one thread-block cluster and meet in shared
-memory; on ``stream`` and ``fma`` they meet in a workspace allocated
-once per device and stream (``_scratch``).  Those wrappers count their
-launches by route in ``.launches_by_route`` and their split launches in
-``.split_launches``.
+rows into ``bsmm_dw_splits`` pieces; dx (#3) takes ``bsmm_dx_route``
+(TMA and ``wgmma`` for bfloat16 from 64 rows) and cuts each K-row
+tile's live list into ``bsmm_dx_splits`` pieces.  On ``wgmma`` (and
+bfloat16 dw) the pieces of a tile form one thread-block cluster and
+meet in shared memory; on ``stream`` and ``fma`` they meet in a
+workspace allocated once per device and stream (``_scratch``).  Those
+wrappers count their launches by route in ``.launches_by_route`` and
+their split launches in ``.split_launches``.
 ``masked_matmul`` (the reference's ``masked_matmul_pallas``, kernel #5,
 ``csrc/masked_matmul.cu``) is the crossbar-unaware LTP baseline beside
 them: a dense grid that reads every weight and mask tile and skips only
@@ -168,18 +170,22 @@ class TilePlan:
 
     def route_and_splits(self, kind: str, M: int,
                          dtype: torch.dtype) -> Tuple[str, int]:
-        """``(bsmm_route, bsmm_splits)`` for the forward (``kind`` "fwd")
-        or ``(bsmm_dw_route, bsmm_dw_splits)`` for dw ("dw") at M rows of
+        """``(bsmm_route, bsmm_splits)`` for the forward (``kind`` "fwd"),
+        ``(bsmm_dx_route, bsmm_dx_splits)`` for dx ("dx") or
+        ``(bsmm_dw_route, bsmm_dw_splits)`` for dw ("dw") at M rows of
         ``dtype``, computed once per shape."""
         key = (kind, M, dtype)
         got = self._split.get(key)
         if got is None:
+            K = len(self.counts_t) * self.tile if self.counts_t is not None \
+                else None
+            N = len(self.counts) * self.tile
             if kind == "fwd":
-                K = len(self.counts_t) * self.tile if self.counts_t is not None \
-                    else None
-                N = len(self.counts) * self.tile
                 got = (bsmm_route(M, K, N, dtype, self),
                        bsmm_splits(M, K, N, dtype, self))
+            elif kind == "dx":
+                got = (bsmm_dx_route(M, dtype),
+                       bsmm_dx_splits(M, K, N, dtype, self))
             else:
                 got = (bsmm_dw_route(dtype),
                        bsmm_dw_splits(self.live_tiles, M, dtype))
@@ -385,7 +391,7 @@ def _lib():
                                         _I, _I, _I, _VP]
     lib.bsmm_batched_launch.restype = _I
     lib.bsmm_dx_launch.argtypes = [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
-                                   _VP]
+                                   _I, _I, _VP]
     lib.bsmm_dx_launch.restype = _I
     lib.bsmm_dw_launch.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
                                    _I, _I, _I, _I, _VP]
@@ -397,7 +403,7 @@ def _lib():
 
 def wgmma_smem_bytes(alone: bool) -> int:
     """Dynamic shared memory a block of the wgmma kernels (the 2-D
-    forward's ``wgmma`` route and bfloat16 dw) asks for (builds the
+    forward's ``wgmma`` route, bfloat16 dx and dw) asks for (builds the
     library): a ring of 32 KB stages, its barriers and 1 KB of
     alignment; three stages, so that two blocks fit an SM, in a grid of
     more blocks than the card has SMs, six where each block has its SM
@@ -416,6 +422,8 @@ _STREAM_M = 64
 #: the 2-D forward's route codes (csrc/bsmm.cu bsmm2d_launch)
 _BSMM_ROUTES = {"stream": 0, "fma": 1, "wgmma": 2}
 _DW_ROUTES = ("wgmma", "fma")
+#: dx's route codes (csrc/bsmm.cu bsmm_dx_launch)
+_DX_ROUTES = {"simt": 0, "wgmma": 1}
 _STREAM_COLS = 32       # columns a block of the stream route
 _WGMMA_ROWS = 128       # rows a block of the wgmma route
 _FMA_ROWS = 64          # rows a block of the CUDA-core routes (#1, #5)
@@ -509,6 +517,30 @@ def bsmm_splits(M: int, K: int, N: int, dtype: torch.dtype,
     cap = min(_MAX_TILE_PIECES, longest)
     per = _CLUSTER_GRID if route == "wgmma" else _FMA_PER_SM * _SMS
     return max(1, min(cap, per // grid))
+
+
+def bsmm_dx_route(M: int, dtype: torch.dtype) -> str:
+    """dx's CUDA kernel (``bsmm_dx.launches_by_route``): ``"wgmma"``
+    (TMA and ``wgmma``, w read K-major) for bfloat16 from 64 rows,
+    ``"simt"`` (the CUDA-core transposed walk) for float32 and for
+    bfloat16 below 64 rows."""
+    return "wgmma" if dtype == torch.bfloat16 and M >= _STREAM_M else "simt"
+
+
+def bsmm_dx_splits(M: int, K: int, N: int, dtype: torch.dtype,
+                   plan: TilePlan) -> int:
+    """How many pieces dx cuts each K-row tile's live N list
+    (``counts_t``) into, under the forward's ``wgmma`` rule: at most 4,
+    each piece of the longest list keeping 2 tiles, the grid (K / 128
+    column tiles x 128-row blocks) within 96 blocks; 1 on ``simt``.  A
+    function of the shape and the plan alone."""
+    if bsmm_dx_route(M, dtype) != "wgmma":
+        return 1
+    counts = np.asarray(plan.counts_t)
+    top = int(counts.max()) if counts.size else 0
+    grid = (K // MXU_TILE) * -(-M // _WGMMA_ROWS)
+    cap = min(_MAX_TILE_PIECES, max(1, top // _MIN_PIECE_TILES))
+    return max(1, min(cap, _CLUSTER_GRID // grid))
 
 
 def bsmm_dw_route(dtype: torch.dtype) -> str:
@@ -750,7 +782,9 @@ def _check_grad_operands(a, b, plan: TilePlan, where: str):
 
 def bsmm_dx(g: torch.Tensor, w: torch.Tensor, plan: TilePlan) -> torch.Tensor:
     """Kernel #3: ``g (M, N) @ (w ⊙ tile bitmap)ᵀ`` → (M, K) in g's
-    dtype, over the transposed plan's live N tiles only."""
+    dtype, over the transposed plan's live N tiles only, on the CUDA
+    route ``bsmm_dx_route`` names, each K-row tile's live list cut as
+    ``bsmm_dx_splits`` says."""
     _check_grad_operands(g, w, plan, "bsmm_dx")
     M, N = g.shape
     K = w.shape[0]
@@ -767,18 +801,25 @@ def bsmm_dx(g: torch.Tensor, w: torch.Tensor, plan: TilePlan) -> torch.Tensor:
     kernel_tile("bsmm_dx", plan.tile)
     stream = _stream(g)
     dev = plan.device_tensors(g.device)
+    route, S = plan.route_and_splits("dx", M, g.dtype)
     lib = _lib()
     out = torch.empty((M, K), dtype=g.dtype, device=g.device)
     code = lib.bsmm_dx_launch(g.data_ptr(), w.data_ptr(), out.data_ptr(),
                               dev.idx_t.data_ptr(), dev.counts_t.data_ptr(),
                               M, K, N, plan.nmax, _DTYPE_CODES[g.dtype],
-                              stream)
+                              _DX_ROUTES[route], S, stream)
     _build.check(lib, code, "bsmm_dx")
     bsmm_dx.launches += 1
+    bsmm_dx.launches_by_route[route] += 1
+    bsmm_dx.split_launches += S > 1
     return out
 
 
 bsmm_dx.launches = 0
+#: launches by the kernel that ran (``bsmm_dx_route``'s names)
+bsmm_dx.launches_by_route = {k: 0 for k in _DX_ROUTES}
+#: launches whose live lists were cut (``bsmm_dx_splits`` > 1)
+bsmm_dx.split_launches = 0
 
 
 def bsmm_dw(x2: torch.Tensor, g: torch.Tensor, plan: TilePlan) -> torch.Tensor:

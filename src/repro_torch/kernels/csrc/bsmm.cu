@@ -5,8 +5,8 @@
 //   relu/gelu/silu fused into the flush): the 2-D forward routes below,
 //   EPI selecting the epilogue;
 //   _bsmm_dx_kernel (dx = g @ (w * bitmap)^T over the transposed plan):
-//   bsmm_fwd_kernel / bsmm_wmma_kernel with TRANS set, reading w's tiles
-//   along N;
+//   bsmm_dx_wgmma_kernel for bfloat16 from 64 rows, bsmm_fwd_kernel with
+//   TRANS set otherwise, both reading w's tiles along N;
 //   _bsmm_dw_kernel (dw tile = x^T g for every live tile): bsmm_dw_*
 //   below, which store each live tile straight into the zeroed dense
 //   grad instead of materialising (L, 128, 128) and scattering.
@@ -72,9 +72,25 @@
 // tile through registers instead of staging it in shared memory.
 //
 // Backward.  dx walks, for its output column tile k (a K tile), the
-// live N tiles idx_t[k, :counts_t[k]]: the legacy forward walk with the
-// plan transposed and w read as its transpose (TRANS): WMMA for bf16 at
-// M >= 128, CUDA-core FMA otherwise.  dw runs one block per live tile l
+// live N tiles idx_t[k, :counts_t[k]] (the transposed plan), on one of
+// two routes chosen on the host (bsmm.bsmm_dx_route / bsmm_dx_splits):
+// - wgmma, bfloat16 from 64 rows: route 2's machinery with B read
+//   K-major.  For dx the contraction index n is the contiguous one in a
+//   row of w (K, N), so a stage is one 64-column x 128-row TMA box of g
+//   at (n, m0) (A, exactly as the forward reads x) and one of w at (n,
+//   k0) (B, 128 K rows of 64 n each: wgmma's K-major B, tnspB = 0, 32
+//   bytes a k16 step, the stride byte offset one 8-row atom).  Block
+//   (mb, k, z) multiplies rows mb * 128.. by piece z of k's live list;
+//   pieces meet in a cluster as route 2's, with no epilogue; an all-dead
+//   K-row tile stores zeros.  f32 accumulation, one rounding to bf16 at
+//   the store.  At training row counts (2 M flops a live weight
+//   element) its operations bound it at llama's wide shapes and the
+//   bytes of g, w and dx at the narrow ones; a fixed cost a launch and
+//   the longest K-row list, walked by one block, keep it above both.
+// - simt, float32 and bfloat16 below 64 rows: the legacy CUDA-core walk
+//   (bsmm_fwd_kernel with TRANS, w staged as its transpose).
+// Two dx calls at a fixed (M, K, N, plan) give the same bits, and a
+// row's bits never depend on the other rows.  dw runs one block per live tile l
 // and piece z of its rows (its contraction), split where the L live
 // tiles leave SMs idle: bf16 multiplies with TMA + wgmma (A = the x tile
 // read MN-major from shared memory, i.e. x^T; B = the g tile, MN-major),
@@ -249,9 +265,7 @@ bsmm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict_
 // are and multiplied by WMMA 16x16x16 fragments into f32 accumulators.
 // 8 warps each own a 32 x 64 piece of the 128 x 128 output tile; the
 // flush goes fragment by fragment through a per-warp f32 staging tile.
-// With TRANS (dx) w's rows are staged as they are, (n, k), and read as a
-// column-major B fragment.
-template <bool TRANS>
+// Only the expert-batched forward takes it (dx has its own routes).
 __global__ void __launch_bounds__(256)
 bsmm_wmma_kernel(const __nv_bfloat16* __restrict__ x,
                  const __nv_bfloat16* __restrict__ w,
@@ -261,11 +275,9 @@ bsmm_wmma_kernel(const __nv_bfloat16* __restrict__ x,
   using namespace nvcuda;
   constexpr int BM = 128, BN = 128, BK = 64;
   constexpr int LDA = BK + 8;                    // padded, multiples of 8
-  constexpr int LDB = TRANS ? BK + 8 : BN + 8;   // Bs is (n, k) with TRANS
-  using BLayout = typename std::conditional<TRANS, nvcuda::wmma::col_major,
-                                            nvcuda::wmma::row_major>::type;
+  constexpr int LDB = BN + 8;
   __shared__ __align__(32) __nv_bfloat16 As[BM * LDA];
-  __shared__ __align__(32) __nv_bfloat16 Bs[TRANS ? BN * LDB : BK * LDB];
+  __shared__ __align__(32) __nv_bfloat16 Bs[BK * LDB];
   __shared__ __align__(32) float Cs[8][16 * 16];
 
   x += blockIdx.z * sx;                 // this block's expert (batched form)
@@ -297,33 +309,22 @@ bsmm_wmma_kernel(const __nv_bfloat16* __restrict__ x,
         if (m < M) v = *reinterpret_cast<const uint4*>(x + (size_t)m * K + kb + c);
         *reinterpret_cast<uint4*>(As + r * LDA + c) = v;
       }
-      if (TRANS) {
-        for (int e = tid; e < BN * BK / 8; e += 256) {   // w rows n0.., along k
-          const int r = e / (BK / 8), c = (e % (BK / 8)) * 8;
-          *reinterpret_cast<uint4*>(Bs + r * LDB + c) =
-              *reinterpret_cast<const uint4*>(w + (size_t)(n0 + r) * K + kb + c);
-        }
-      } else {
-        for (int e = tid; e < BK * BN / 8; e += 256) {
-          const int r = e / (BN / 8), c = (e % (BN / 8)) * 8;
-          *reinterpret_cast<uint4*>(Bs + r * LDB + c) =
-              *reinterpret_cast<const uint4*>(w + (size_t)(kb + r) * N + n0 + c);
-        }
+      for (int e = tid; e < BK * BN / 8; e += 256) {
+        const int r = e / (BN / 8), c = (e % (BN / 8)) * 8;
+        *reinterpret_cast<uint4*>(Bs + r * LDB + c) =
+            *reinterpret_cast<const uint4*>(w + (size_t)(kb + r) * N + n0 + c);
       }
       __syncthreads();
 #pragma unroll
       for (int k16 = 0; k16 < BK; k16 += 16) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, BLayout> fb[4];
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[4];
 #pragma unroll
         for (int a = 0; a < 2; ++a)
           wmma::load_matrix_sync(fa[a], As + (wm * 32 + a * 16) * LDA + k16, LDA);
 #pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const __nv_bfloat16* bp = TRANS ? Bs + (wn * 64 + b * 16) * LDB + k16
-                                          : Bs + k16 * LDB + wn * 64 + b * 16;
-          wmma::load_matrix_sync(fb[b], bp, LDB);
-        }
+        for (int b = 0; b < 4; ++b)
+          wmma::load_matrix_sync(fb[b], Bs + k16 * LDB + wn * 64 + b * 16, LDB);
 #pragma unroll
         for (int a = 0; a < 2; ++a)
 #pragma unroll
@@ -500,10 +501,10 @@ cudaError_t launch(const void* x, const void* w, void* out, const int* idx,
   const T* xp = static_cast<const T*>(x);
   const T* wp = static_cast<const T*>(w);
   T* op = static_cast<T*>(out);
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && !TRANS) {
     if (M >= TILE) {
       dim3 grid(N / TILE, (M + TILE - 1) / TILE, E);
-      bsmm_wmma_kernel<TRANS><<<grid, 256, 0, stream>>>(
+      bsmm_wmma_kernel<<<grid, 256, 0, stream>>>(
           xp, wp, op, idx, counts, M, K, N, kmax, sx, sw, so);
       return cudaGetLastError();
     }
@@ -1083,10 +1084,12 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #define WG_D4(i) "+f"(d[i]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3])
 #define WG_D16(i) WG_D4(i), WG_D4((i) + 4), WG_D4((i) + 8), WG_D4((i) + 12)
 
-// d (64 x 128 f32) += A (64 x 16, smem) B (16 x 128, smem, MN-major: two
-// 64-column boxes BOX bytes apart, the descriptor's leading byte offset).
-// A is K-major (TA = 0: the forward's x) or MN-major (TA = 1: dw's x^T).
-template <int TA>
+// d (64 x 128 f32) += A (64 x 16, smem) B (16 x 128, smem).  A is
+// K-major (TA = 0: the forward's x, dx's g) or MN-major (TA = 1: dw's
+// x^T); B is MN-major (TB = 1: the forward's w and dw's g, two 64-column
+// boxes BOX bytes apart, the descriptor's leading byte offset) or
+// K-major (TB = 0: dx's w, 128 rows of 64 contraction elements).
+template <int TA, int TB>
 __device__ __forceinline__ void mma_n128(float (&d)[64], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -1095,15 +1098,15 @@ __device__ __forceinline__ void mma_n128(float (&d)[64], uint64_t da, uint64_t d
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
-      ", %64, %65, p, 1, 1, %67, 1;\n}"
+      ", %64, %65, p, 1, 1, %67, %68;\n}"
       : WG_D16(0), WG_D16(16), WG_D16(32), WG_D16(48)
-      : "l"(da), "l"(db), "r"(1), "n"(TA));
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
 #undef WG_D16
 #undef WG_D4
 
-enum Mode { FWD = 0, DW = 1 };
+enum Mode { FWD = 0, DW = 1, DX = 2 };
 
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(bar) : "memory");
@@ -1114,10 +1117,11 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;" :: "n"(CONSUMERS) : "memory");
 }
 
-// The mainloop shared by the forward and dw: nst stages of BKS
-// contraction rows, each A (two 64-row boxes) and B (two 64-column
-// boxes) by TMA; `coords(g, c)` gives stage g's four box coordinates
-// (A box 0, A box 1, B box 0, B box 1 as (inner, outer) pairs).  The
+// The mainloop shared by the forward, dw and dx: nst stages of BKS
+// contraction rows, each A and B 16 KB by TMA; `coords(g, c)` gives
+// stage g's box coordinates as (inner, outer) pairs: A box 0, A box 1
+// (dw: two 64-row boxes of x; FWD and DX one 64 x 128 box), B box 0, B
+// box 1 (FWD and DW: two 64-column boxes; DX one 64 x 128 box of w).  The
 // producer warp's first thread keeps every free slot of the ring
 // loading; the consumer warpgroup keeps one stage of wgmmas in flight
 // and frees a slot (its empty barrier) as soon as the wgmmas that read
@@ -1138,14 +1142,10 @@ __device__ __forceinline__ void mainloop(const CUtensorMap* amap, const CUtensor
       int c[8];
       coords(g, c);
       mbar_expect_tx(fb, STAGE);
-      if (MODE == FWD) {
-        tma_load_2d(st, amap, fb, c[0], c[1]);             // one 64 x 128 box
-      } else {
-        tma_load_2d(st, amap, fb, c[0], c[1]);
-        tma_load_2d(st + BOX, amap, fb, c[2], c[3]);
-      }
-      tma_load_2d(st + 2 * BOX, bmap, fb, c[4], c[5]);
-      tma_load_2d(st + 3 * BOX, bmap, fb, c[6], c[7]);
+      tma_load_2d(st, amap, fb, c[0], c[1]);               // FWD, DX: 64 x 128
+      if (MODE == DW) tma_load_2d(st + BOX, amap, fb, c[2], c[3]);
+      tma_load_2d(st + 2 * BOX, bmap, fb, c[4], c[5]);     // DX: 64 x 128
+      if (MODE != DX) tma_load_2d(st + 3 * BOX, bmap, fb, c[6], c[7]);
     }
     return;
   }
@@ -1157,13 +1157,17 @@ __device__ __forceinline__ void mainloop(const CUtensorMap* amap, const CUtensor
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BKS / 16; ++kk) {
-      const uint64_t db = desc_sw128(b + kk * 16 * ROW, BOX, ATOM);
+      // B: MN-major, 16 rows a step; dx's w K-major, 32 bytes a step
+      const uint64_t db = MODE == DX ? desc_sw128(b + kk * 32, 16, ATOM)
+                                     : desc_sw128(b + kk * 16 * ROW, BOX, ATOM);
 #pragma unroll
       for (int sl = 0; sl < 2; ++sl) {
         if (MODE == FWD)   // x rows sl * 64.., K-major: 16 columns = 32 bytes a step
-          mma_n128<0>(d[sl], desc_sw128(a + sl * BOX + kk * 32, 16, ATOM), db);
+          mma_n128<0, 1>(d[sl], desc_sw128(a + sl * BOX + kk * 32, 16, ATOM), db);
+        else if (MODE == DX)   // g rows sl * 64.., as the forward's x
+          mma_n128<0, 0>(d[sl], desc_sw128(a + sl * BOX + kk * 32, 16, ATOM), db);
         else               // x^T: box sl holds k sl * 64.., MN-major: 16 rows a step
-          mma_n128<1>(d[sl], desc_sw128(a + sl * BOX + kk * 16 * ROW, BOX, ATOM), db);
+          mma_n128<1, 1>(d[sl], desc_sw128(a + sl * BOX + kk * 16 * ROW, BOX, ATOM), db);
       }
     }
     wgmma_commit();
@@ -1359,6 +1363,47 @@ bsmm_dw_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
               });
 }
 
+// dx: grid (row blocks, K / 128 output column tiles, S).  Block (mb, k,
+// z) multiplies g's rows mb * 128.. by piece z of K-row tile k's live N
+// tiles, w read K-major (128 k rows of 64 n a stage); the cluster stores
+// the bf16 tile of dx (M, K), zeros where k's list is empty.
+template <int ST>
+__global__ void __launch_bounds__(THREADS, 2)
+bsmm_dx_wgmma_kernel(const __grid_constant__ CUtensorMap gmap,
+                     const __grid_constant__ CUtensorMap wmap,
+                     __nv_bfloat16* __restrict__ dx, const int* __restrict__ idx_t,
+                     const int* __restrict__ counts_t, int M, int K, int nmax, int S) {
+  const int m0 = blockIdx.x * BM;
+  const int k = blockIdx.y;
+  const int k0 = k * TILE;
+  const int z = blockIdx.z;
+  int parts, t0, t1;
+  piece(counts_t[k], S, z, parts, t0, t1);
+  if (z >= parts) t0 = t1 = 0;           // an empty piece still sums a slice
+  extern __shared__ uint8_t smem_raw[];
+  uint32_t base;
+  const uint32_t full_bar = init_barriers<ST>(smem_raw, base);
+  const int* live = idx_t + (size_t)k * nmax + t0;
+
+  float d[2][64];
+#pragma unroll
+  for (int sl = 0; sl < 2; ++sl)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) d[sl][i] = 0.f;
+
+  mainloop<DX, ST>(&gmap, &wmap, base, full_bar, 2 * (t1 - t0),
+               [&](int g, int* c) {
+                 const int nc = live[g / 2] * TILE + (g % 2) * BKS;
+                 c[0] = nc; c[1] = m0;                   // g (64 n) x (128 rows)
+                 c[4] = nc; c[5] = k0;                   // w (64 n) x (128 k)
+               },
+               d);
+  cluster_sum(d, smem_raw + (base - smem_u32(smem_raw)), parts, min(BM, M - m0),
+              [&](int r, int c, float a, float b) {
+                store2(dx + (size_t)(m0 + r) * K + k0 + c, a, b);
+              });
+}
+
 // cuTensorMapEncodeTiled through the runtime's driver entry point, so that
 // the library links against cudart only
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -1470,6 +1515,30 @@ int launch_dw_ring(const CUtensorMap& xm, const CUtensorMap& gm, void* dw, const
   if (a != cudaSuccess) return a;
   return launch_clusters(kernel, grid, dim3(1, S, 1), Ring<ST>::SMEM, s, xm, gm,
                          static_cast<__nv_bfloat16*>(dw), kk, nn, M, N, S);
+}
+
+template <int ST>
+int launch_dx_ring(const CUtensorMap& gm, const CUtensorMap& wm, void* dx, const int* idx_t,
+                   const int* counts_t, int M, int K, int nmax, int S, dim3 grid,
+                   cudaStream_t s) {
+  static bool ready = false;
+  auto kernel = bsmm_dx_wgmma_kernel<ST>;
+  const cudaError_t a = allow_smem(kernel, Ring<ST>::SMEM, ready);
+  if (a != cudaSuccess) return a;
+  return launch_clusters(kernel, grid, dim3(1, 1, S), Ring<ST>::SMEM, s, gm, wm,
+                         static_cast<__nv_bfloat16*>(dx), idx_t, counts_t, M, K, nmax, S);
+}
+
+int launch_dx(const void* g, const void* w, void* dx, const int* idx_t, const int* counts_t,
+              int M, int K, int N, int nmax, int S, cudaStream_t s) {
+  CUtensorMap gm, wm;
+  int e = make_map(&gm, g, M, N, BM);
+  if (e == 0) e = make_map(&wm, w, K, N, BM);   // 128 k rows of 64 n: K-major B
+  if (e != 0) return e;
+  dim3 grid((M + BM - 1) / BM, K / BN, S);
+  if (alone(grid))
+    return launch_dx_ring<ALONE>(gm, wm, dx, idx_t, counts_t, M, K, nmax, S, grid, s);
+  return launch_dx_ring<SHARED>(gm, wm, dx, idx_t, counts_t, M, K, nmax, S, grid, s);
 }
 
 int launch_dw(const void* x, const void* g, void* dw, const int* kk, const int* nn, int L,
@@ -1672,9 +1741,22 @@ extern "C" int bsmm_batched_launch(const void* x, const void* w, void* out,
 
 // dx (M, K) = g (M, N) @ (w (K, N) * tile bitmap)^T over the transposed
 // plan: idx_t (K / 128, nmax) live N tiles of each K-row tile, counts_t.
+// route (bsmm.bsmm_dx_route): 0 = simt (float32, or bfloat16 below 64
+// rows; splits must be 1), 1 = wgmma (bfloat16 from 64 rows; each list
+// cut into `splits` <= 4 pieces, a cluster).  Returns 0, a cudaError_t,
+// or 10000 + the CUresult of a failed tensor-map encoding.
 extern "C" int bsmm_dx_launch(const void* g, const void* w, void* dx,
                               const int* idx_t, const int* counts_t, int M,
-                              int K, int N, int nmax, int dtype, void* stream) {
+                              int K, int N, int nmax, int dtype, int route,
+                              int splits, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || K % TILE || N % TILE || nmax <= 0 || splits <= 0)
+    return cudaErrorInvalidValue;
+  if (route == 1) {
+    if (dtype != 1 || M < 64 || splits > wg::MAX_PIECES) return cudaErrorInvalidValue;
+    return wg::launch_dx(g, w, dx, idx_t, counts_t, M, K, N, nmax, splits,
+                         static_cast<cudaStream_t>(stream));
+  }
+  if (route != 0 || splits != 1 || (dtype == 1 && M >= 64)) return cudaErrorInvalidValue;
   // the forward walk with contraction N and output width K
   return dispatch<true>(g, w, dx, idx_t, counts_t, M, N, K, nmax, dtype, stream);
 }

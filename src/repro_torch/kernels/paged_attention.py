@@ -14,9 +14,13 @@ key row, the pool holding ``concat(c_kv, k_rope)``; kernel #7, replacing
 ``_paged_kernel``).  Both split each sequence into its logical blocks
 (one CUDA block per live (sequence, block, head group), partials in an
 f32 workspace) and merge the partials in block order in a second kernel.
-The launches of each form are counted apart,
+The fused form takes the route ``fused_route`` names: ``"wgmma"`` (TMA
+and ``wgmma`` over 64 query heads a block) for bfloat16 at geometries
+like deepseek-v3's, ``"simt"`` (the CUDA-core kernel of the GQA form)
+otherwise.  The launches of each form are counted apart,
 ``paged_attention.launches`` (#6) and ``paged_attention.fused_launches``
-(#7), once per call.
+(#7, by route in ``paged_attention.fused_launches_by_route``), once per
+call.
 
 The operand contract (``_check_operands``: devices, dtypes, contiguity,
 alignment) is checked on every device, so a CPU call refuses what the
@@ -42,6 +46,10 @@ _NEG = -1e30    # finite mask value (matches models.attention.attend)
 _GB = 8         # query heads per block of the CUDA kernel (a head group)
 _THREADS = 256  # threads per block of the CUDA kernel
 _SMEM_LIMIT = 232448    # shared memory one block may take on the H100
+#: the fused form's route codes (csrc/paged_attention.cu)
+_FUSED_ROUTES = {"simt": 0, "wgmma": 1}
+_WG_HEADS = 64          # query heads a block of the fused wgmma kernel
+_WG_CHUNK = 64          # lanes a 128-byte swizzled row
 
 
 class PagedGeometry(NamedTuple):
@@ -131,11 +139,49 @@ def paged_attention_ref(q, k_pool, v_pool, tables, lengths, *,
     return o.reshape(B, geo.Hq, geo.dv).to(q.dtype)
 
 
+def fused_wgmma_smem_bytes(hd: int) -> int:
+    """Dynamic shared memory of a block of the fused form's ``wgmma``
+    kernel at head width ``hd``: per 64-lane chunk of hd, q's 64 heads
+    (8 KB) and the pool block's 128 rows (16 KB), both 128-byte
+    swizzled, and one 8-byte mbarrier; the two warpgroups' row maxima
+    and sums (1 KB f32); 1 KB to align the base to the swizzle atom."""
+    hc = -(-hd // _WG_CHUNK)
+    return hc * (_WG_HEADS * 128 + BLOCK_TOKENS * 128 + 8) + 4 * 2 * 2 \
+        * _WG_HEADS + 1024
+
+
+def fused_route(geo: PagedGeometry, dtype: torch.dtype) -> str:
+    """Which CUDA kernel computes the fused-V form (#7), by the name
+    ``paged_attention.fused_launches_by_route`` counts it under:
+    ``"wgmma"`` for bfloat16 with the query heads of a KV head a multiple
+    of 64, hd a multiple of 64 whose q and K chunks fit one block's
+    shared memory (hd <= 576), dv a multiple of 128 up to min(512, hd)
+    (each of two warpgroups owns dv / 2 value lanes) and 128-token
+    blocks; ``"simt"`` (the CUDA-core kernel) otherwise."""
+    G = geo.Hq // geo.Hkv
+    if (dtype == torch.bfloat16 and G % _WG_HEADS == 0
+            and geo.hd % _WG_CHUNK == 0 and geo.dv % (2 * _WG_CHUNK) == 0
+            and geo.dv <= min(512, geo.hd) and geo.T == BLOCK_TOKENS
+            and fused_wgmma_smem_bytes(geo.hd) <= _SMEM_LIMIT):
+        return "wgmma"
+    return "simt"
+
+
 def _check_kernel_geometry(geo: PagedGeometry, elem: int,
-                           fused: bool = False) -> None:
+                           fused: bool = False, route: str = "simt") -> None:
     """What the CUDA kernels take (see csrc/paged_attention.cu): the GQA
     form stages a pool block's K and V rows in shared memory beside the
-    f32 state of a head group; the fused form keeps only the state."""
+    f32 state of a head group; the fused form's CUDA-core kernel keeps
+    only the state, its ``wgmma`` kernel q's heads and the block's rows
+    (``fused_wgmma_smem_bytes``)."""
+    if route == "wgmma":
+        smem = fused_wgmma_smem_bytes(geo.hd)
+        if smem > _SMEM_LIMIT:
+            raise GeometryError(
+                f"the fused wgmma kernel needs {smem} bytes of shared "
+                f"memory, over {_SMEM_LIMIT}", shape=(geo.hd, geo.dv),
+                where="paged_attention")
+        return
     g = min(geo.Hq // geo.Hkv, _GB)
     tg = _THREADS // (geo.dv // 2) if geo.dv >= 2 else 0
     vec = 16 // elem
@@ -182,7 +228,8 @@ def _lib():
     lib = _build.library("paged_attention")
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.paged_attention_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i,
-                                           i, i, i, i, ctypes.c_float, i, vp]
+                                           i, i, i, i, i, ctypes.c_float, i,
+                                           i, vp]
     lib.paged_attention_launch.restype = i
     return lib
 
@@ -214,7 +261,9 @@ def paged_attention(q, k_pool, v_pool, tables, lengths, *,
                                    scale=scale, v_dim=v_dim)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
-    _check_kernel_geometry(geo, q.element_size(), fused=v_pool is None)
+    fused = v_pool is None
+    route = fused_route(geo, q.dtype) if fused else "simt"
+    _check_kernel_geometry(geo, q.element_size(), fused=fused, route=route)
     lib = _lib()
     out = torch.empty((geo.B, geo.Hq, geo.dv), dtype=q.dtype, device=q.device)
     # the partials (acc, m, l) of every (sequence, head, logical block)
@@ -225,11 +274,12 @@ def paged_attention(q, k_pool, v_pool, tables, lengths, *,
         q.data_ptr(), k_pool.data_ptr(),
         None if v_pool is None else v_pool.data_ptr(), tables.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), part.data_ptr(), geo.B, geo.Hq,
-        geo.Hkv, geo.hd,
-        geo.dv, geo.T, geo.NB, float(scale), _DTYPE_CODES[q.dtype], stream)
+        geo.Hkv, geo.hd, geo.dv, geo.T, geo.NB, geo.P, float(scale),
+        _DTYPE_CODES[q.dtype], _FUSED_ROUTES[route], stream)
     _build.check(lib, code, "paged_attention")
-    if v_pool is None:
+    if fused:
         paged_attention.fused_launches += 1
+        paged_attention.fused_launches_by_route[route] += 1
     else:
         paged_attention.launches += 1
     return out
@@ -237,3 +287,5 @@ def paged_attention(q, k_pool, v_pool, tables, lengths, *,
 
 paged_attention.launches = 0          # kernel #6, the GQA form
 paged_attention.fused_launches = 0    # kernel #7, the fused-V form
+#: #7's launches by the kernel that ran (``fused_route``'s names)
+paged_attention.fused_launches_by_route = {k: 0 for k in _FUSED_ROUTES}

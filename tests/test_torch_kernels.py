@@ -284,6 +284,53 @@ def test_bsmm_dw_split_rule():
     assert set(tb.bsmm_dw.launches_by_route) == {"wgmma", "fma"}
 
 
+@pytest.mark.parametrize("M", [1, 8, 63, 64, 300, 1024])
+def test_bsmm_dx_route_by_rows_and_dtype(M):
+    """dx takes wgmma for bfloat16 from 64 rows and the CUDA-core
+    transposed walk otherwise; the plan caches what the rules say."""
+    plan = _llama_plan(3072, 8192)
+    bf, f32 = (tb.bsmm_dx_route(M, d) for d in (torch.bfloat16,
+                                                 torch.float32))
+    assert (bf, f32) == ("wgmma" if M >= 64 else "simt", "simt")
+    for d in (torch.bfloat16, torch.float32):
+        assert plan.route_and_splits("dx", M, d) == (
+            tb.bsmm_dx_route(M, d),
+            tb.bsmm_dx_splits(M, 3072, 8192, d, plan))
+    assert set(tb.bsmm_dx.launches_by_route) == {"wgmma", "simt"}
+
+
+@pytest.mark.parametrize("K,N", _LLAMA_SHAPES)
+@pytest.mark.parametrize("M", [8, 64, 128, 300, 1024])
+def test_bsmm_dx_splits_are_whole_tiles(K, N, M):
+    """dx cuts each K-row tile's live N list (counts_t) into contiguous
+    whole-tile pieces under the forward's wgmma rule: at most 4, each
+    piece of the longest list keeping 2 tiles, the grid within 96
+    blocks; never on simt."""
+    plan = _llama_plan(K, N)
+    top = int(plan.counts_t.max())
+    S = tb.bsmm_dx_splits(M, K, N, torch.bfloat16, plan)
+    grid = (K // 128) * -(-M // 128)
+    assert S == (max(1, min(4, top // 2, 96 // grid)) if M >= 64 else 1)
+    assert tb.bsmm_dx_splits(M, K, N, torch.float32, plan) == 1
+    for c in plan.counts_t:
+        pieces = tb.split_pieces(int(c), S)
+        assert pieces[0][0] == 0 and pieces[-1][1] == c
+        assert all(a[1] == b[0] for a, b in zip(pieces, pieces[1:]))
+        assert all(t1 > t0 for t0, t1 in pieces) or c == 0
+    assert S == 1 or min(t1 - t0 for t0, t1 in
+                         tb.split_pieces(top, S)) >= 2
+
+
+def test_bsmm_dx_splits_at_the_llama_shapes():
+    """At the retrain's 1024 rows every llama shape's dx grid holds
+    192-512 blocks, so its lists are uncut."""
+    for K, N in _LLAMA_SHAPES:
+        plan = _llama_plan(K, N)
+        assert 192 <= (K // 128) * 8 <= 512
+        assert plan.route_and_splits("dx", 1024, torch.bfloat16) == (
+            "wgmma", 1)
+
+
 def _split_fwd_plain(x, w, plan, S, bias=None, act=None):
     """The split forward as the kernels compute it, in numpy f32: each
     column tile's live list cut by ``split_pieces``, each piece's
@@ -322,6 +369,26 @@ def _split_dw_plain(x, g, plan, S, step):
     return dw
 
 
+def _split_dx_plain(g, w, plan, S):
+    """dx as the wgmma kernel computes it, in numpy f32: each K-row
+    tile's live N list idx_t[k, :counts_t[k]] cut by ``split_pieces``,
+    each piece's product g[:, n] @ w[k, n]^T summed over its tiles, the
+    pieces added in split order; an empty list gives zeros."""
+    M = g.shape[0]
+    T = plan.tile
+    out = np.zeros((M, w.shape[0]), np.float32)
+    for k, c in enumerate(plan.counts_t):
+        total = np.zeros((M, T), np.float32)
+        for z, (t0, t1) in enumerate(tb.split_pieces(int(c), S)):
+            part = np.zeros((M, T), np.float32)
+            for nt in plan.idx_t[k, t0:t1]:
+                part += g[:, nt * T:(nt + 1) * T] @ \
+                    w[k * T:(k + 1) * T, nt * T:(nt + 1) * T].T
+            total = part if z == 0 else total + part
+        out[:, k * T:(k + 1) * T] = total
+    return out
+
+
 def _pallas_fwd(x, w, mask, bias=None, act=None, bm=16):
     """The reference's Pallas forward in interpret mode, rows padded to
     its block."""
@@ -354,6 +421,28 @@ def test_bsmm_split_sum_matches_reference(M, S, act, with_bias):
     else:
         want = _pallas_fwd(x, w, mask, bias, act)
     np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("M", [13, 70])
+@pytest.mark.parametrize("S", [1, 2, 3])
+def test_bsmm_dx_split_sum_matches_reference(M, S):
+    """dx's split-order sum over the transposed plan against the plain
+    version and the reference's Pallas dx kernel (ragged rows padded
+    with zeros), float32 at 1e-5; an all-dead K-row tile gives zeros."""
+    x, w, _, mask = _operands(M + S, M, 640, 512, density=0.8)
+    mask[:128] = 0                    # K-row tile 0 all dead
+    g = np.random.default_rng(M * S).standard_normal((M, 512)).astype(
+        np.float32)
+    plan = tb.make_tile_plan(mask)
+    assert plan.counts_t[0] == 0 and plan.nmax >= 3
+    got = _split_dx_plain(g, w, plan, S)
+    plain = tb.bsmm_dx_plain(torch.from_numpy(g), torch.from_numpy(w), plan)
+    np.testing.assert_allclose(got, plain.numpy(), **TOL)
+    pad = ((0, -M % 16), (0, 0))
+    want = rb._bsmm_dx(jnp.asarray(np.pad(g, pad)), jnp.asarray(w),
+                       rb.make_tile_plan(mask), bm=16)
+    np.testing.assert_allclose(got, np.asarray(want)[:M], **TOL)
+    assert not got[:, :128].any()
 
 
 @pytest.mark.parametrize("act", ["silu", "gelu", "relu", None])
@@ -394,17 +483,26 @@ def test_bsmm_routes_count_nothing_on_the_cpu():
     plan = tb.make_tile_plan(mask)
     g = np.random.default_rng(0).standard_normal((70, 256)).astype(
         np.float32)
-    counters = (tb.bsmm, tb.bsmm_epilogue, tb.bsmm_dw)
+    counters = (tb.bsmm, tb.bsmm_epilogue, tb.bsmm_dx, tb.bsmm_dw)
     before = [(dict(f.launches_by_route), f.split_launches)
               for f in counters]
+    fused = dict(tpa.paged_attention.fused_launches_by_route)
+    q, kp, _, tables, lengths = _pool_setup(4, 2, 64, 1, 64, NB=2, P=6)
     for dtype in (torch.float32, torch.bfloat16):
         xt, wt, bt, gt = (torch.from_numpy(a).to(dtype) for a in (x, w, b, g))
         tb.bsmm(xt[:8].contiguous(), wt, plan)
         tb.bsmm(xt, wt, plan)
         tb.bsmm_epilogue(xt, wt, plan, bt, "silu")
+        tb.bsmm_dx(gt, wt, plan)
         tb.bsmm_dw(xt, gt, plan)
+        tpa.paged_attention(torch.from_numpy(q).to(dtype),
+                            torch.from_numpy(kp).to(dtype), None,
+                            *map(torch.from_numpy, (tables, lengths)),
+                            scale=0.125, v_dim=64)
     assert [(dict(f.launches_by_route), f.split_launches)
             for f in counters] == before
+    assert tpa.paged_attention.fused_launches_by_route == fused
+    assert set(fused) == {"wgmma", "simt"}
     assert not tb._SCRATCH
 
 
@@ -844,14 +942,16 @@ def test_paged_attention_fused_v_matches_reference():
 
 
 def _split_plain(q, k_pool, v_pool, tables, lengths, *,
-                 scale: float, v_dim=None):
+                 scale: float, v_dim=None, p_bf16=False):
     """The CUDA kernels' split and merge in plain PyTorch: per sequence b
     and live logical block j, over the block's live rows only, the
     partial ``m_j = max s``, ``l_j = sum exp(s - m_j)`` and ``acc_j =
     exp(s - m_j) @ v`` in f32; then ``m = max m_j``, ``l = sum l_j
     e^(m_j - m)`` and ``acc = sum acc_j e^(m_j - m)`` added in j order,
     and ``acc / l`` in q's dtype.  Each row is computed alone, from its
-    own length and blocks, so its bits do not depend on the batch."""
+    own length and blocks, so its bits do not depend on the batch.  With
+    ``p_bf16`` the weights are rounded to bfloat16 for ``acc_j`` (l_j
+    sums them unrounded), as the fused form's wgmma kernel does."""
     geo = tpa._check_geometry(q, k_pool, v_pool, tables, lengths, v_dim)
     G, T, dv = geo.Hq // geo.Hkv, geo.T, geo.dv
     out = torch.empty((geo.B, geo.Hq, dv), dtype=q.dtype, device=q.device)
@@ -868,7 +968,8 @@ def _split_plain(q, k_pool, v_pool, tables, lengths, *,
             s = torch.einsum("kgd,tkd->kgt", qg, k) * scale
             m = s.amax(-1)
             e = torch.exp(s - m[..., None])
-            parts.append((m, e.sum(-1), torch.einsum("kgt,tkd->kgd", e, v)))
+            pe = e.bfloat16().float() if p_bf16 else e
+            parts.append((m, e.sum(-1), torch.einsum("kgt,tkd->kgd", pe, v)))
         m = torch.stack([p[0] for p in parts]).amax(0)
         l = torch.zeros_like(m)
         acc = torch.zeros(geo.Hkv, G, dv, dtype=torch.float32,
@@ -900,6 +1001,56 @@ def test_paged_split_plain_matches_reference(seed, B, Hq, Hkv, hd, fused):
         *map(torch.from_numpy, (tables, lengths)), scale=hd ** -0.5,
         v_dim=dv)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_fused_bf16_weights_model_matches_reference():
+    """The fused form's wgmma kernel rounds each block's softmax weights
+    to bfloat16 for P V: that model, in plain PyTorch on float32 inputs,
+    stays within the bf16 gate (1e-2 of the output scale) of the
+    reference's Pallas kernel, and NaN past each length never reaches
+    it."""
+    q, kp, _, tables, lengths = _pool_setup(7, 3, 8, 1, 128, NB=3, P=14)
+    want = np.asarray(rpa.paged_attention(
+        *map(jnp.asarray, (q, kp)), None,
+        *map(jnp.asarray, (tables, lengths)), scale=0.09, v_dim=64))
+    T = tpa.BLOCK_TOKENS
+    for b, n in enumerate(lengths):
+        kp[tables[b, (n - 1) // T], n - (n - 1) // T * T:] = np.nan
+    got = _split_plain(*map(torch.from_numpy, (q, kp)), None,
+                       *map(torch.from_numpy, (tables, lengths)),
+                       scale=0.09, v_dim=64, p_bf16=True).numpy()
+    tol = 1e-2 * max(1.0, np.abs(want).max())
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() <= tol
+    assert not np.array_equal(got, want)      # the rounding is modelled
+
+
+def test_fused_route_and_smem_rule():
+    """deepseek-v3's absorbed MLA (128 heads over one latent head of 576
+    lanes, values its first 512) takes the wgmma kernel in bfloat16:
+    q's 64 heads and the block's 128 rows, 24 KB a 64-lane chunk, fit
+    the 227 KB a block may take; float32 and geometries it does not
+    take stay on the CUDA-core kernel, whose own limits still hold."""
+    mla = tpa.PagedGeometry(B=8, Hq=128, hd=576, Hkv=1, T=128, NB=8, P=64,
+                            dv=512)
+    assert tpa.fused_wgmma_smem_bytes(576) == 9 * (8192 + 16384 + 8) \
+        + 1024 + 1024 == 223304 <= tpa._SMEM_LIMIT
+    assert tpa.fused_wgmma_smem_bytes(640) > tpa._SMEM_LIMIT
+    assert tpa.fused_route(mla, torch.bfloat16) == "wgmma"
+    assert tpa.fused_route(mla._replace(Hq=256, Hkv=2), torch.bfloat16) \
+        == "wgmma"
+    tpa._check_kernel_geometry(mla, 2, fused=True, route="wgmma")
+    with pytest.raises(tb.GeometryError, match="shared"):
+        tpa._check_kernel_geometry(mla._replace(hd=640), 2, fused=True,
+                                   route="wgmma")
+    refused = [mla._replace(Hq=96), mla._replace(Hq=16), mla._replace(hd=600),
+               mla._replace(hd=640), mla._replace(dv=192),
+               mla._replace(dv=640, hd=640), mla._replace(hd=448),
+               mla._replace(T=64)]
+    for geo in refused:
+        assert tpa.fused_route(geo, torch.bfloat16) == "simt", geo
+    assert tpa.fused_route(mla, torch.float32) == "simt"
+    tpa._check_kernel_geometry(mla, 4, fused=True)
 
 
 def test_paged_split_plain_is_batch_invariant():
@@ -1287,6 +1438,41 @@ def test_cuda_bsmm_dw_routes_counted_and_repeatable(cuda, dtype, M):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [8, 64, 300, 1000])
+def test_cuda_bsmm_dx_routes_counted_and_repeatable(cuda, dtype, M):
+    """Each dx call runs on the route ``bsmm_dx_route`` names (wgmma for
+    bf16 from 64 rows, simt otherwise), is counted as split where
+    ``bsmm_dx_splits`` cuts the lists, repeats bitwise, keeps a row's
+    bits when the other rows change, zeroes an all-dead K-row tile and
+    agrees with the plain version."""
+    x, w, _, mask = _operands(M + 7, M, 1024, 1280, density=0.5)
+    mask[:128] = 0
+    g = np.random.default_rng(M).standard_normal((M, 1280)).astype(
+        np.float32)
+    plan = tb.make_tile_plan(mask)
+    wt, gt = (torch.from_numpy(a).to(cuda, dtype) for a in (w, g))
+    route, S = plan.route_and_splits("dx", M, dtype)
+    assert route == ("wgmma" if dtype == torch.bfloat16 and M >= 64
+                     else "simt")
+    before = dict(tb.bsmm_dx.launches_by_route)
+    splits = tb.bsmm_dx.split_launches
+    got = tb.bsmm_dx(gt, wt, plan)
+    assert torch.equal(got, tb.bsmm_dx(gt, wt, plan))
+    after = tb.bsmm_dx.launches_by_route
+    assert {k: after[k] - before[k] for k in after} == {
+        k: 2 * int(k == route) for k in after}
+    assert tb.bsmm_dx.split_launches - splits == 2 * int(S > 1)
+    other = gt.clone()
+    other[1:] = -other[1:]
+    assert torch.equal(tb.bsmm_dx(other, wt, plan)[0], got[0])
+    assert not got[:, :128].any()
+    tol = dict(rtol=1e-2, atol=1e-2) if dtype == torch.bfloat16 \
+        else dict(rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got, tb.bsmm_dx_plain(gt, wt, plan), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_paged_attention_matches_plain(cuda, dtype):
     q, kp, vp, tables, lengths = _pool_setup(5, 4, 6, 2, 128, NB=3, P=14)
     kp[0] = np.nan
@@ -1427,25 +1613,40 @@ def test_cuda_masked_nan_rules_and_determinism(cuda, M, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("fused", [False, True])
-def test_cuda_paged_attention_row_alone_equals_in_batch(cuda, fused):
+@pytest.mark.parametrize("form", ["gqa", "fused", "deepseek"])
+def test_cuda_paged_attention_row_alone_equals_in_batch(cuda, form):
     """Split-KV on the card: a row's output has the same bits alone as in
     a batch of other lengths, repeats bitwise, and agrees with the split
-    and merge in plain PyTorch."""
-    q, kp, vp, tables, lengths = _pool_setup(6, 5, 8, 2, 128, NB=3, P=16)
+    and merge in plain PyTorch; at deepseek-v3's geometry (128 heads,
+    hd 576, dv 512) on the fused form's wgmma kernel, with NaN past each
+    length."""
+    Hq, Hkv, hd = (128, 1, 576) if form == "deepseek" else (8, 2, 128)
+    q, kp, vp, tables, lengths = _pool_setup(6, 5, Hq, Hkv, hd, NB=3, P=16)
     kp[0] = np.nan
     vp[0] = np.nan
+    if form == "deepseek":
+        T = tpa.BLOCK_TOKENS
+        for b, n in enumerate(lengths):
+            kp[tables[b, (n - 1) // T], n - (n - 1) // T * T:] = np.nan
     args = [torch.from_numpy(a).to(cuda) for a in (q, kp, vp, tables,
                                                     lengths)]
     args[:3] = [a.bfloat16() for a in args[:3]]
-    if fused:
+    if form != "gqa":
         args[2] = None
-    kw = dict(scale=0.1, v_dim=64 if fused else None)
+    dv = {"gqa": None, "fused": 64, "deepseek": 512}[form]
+    kw = dict(scale=0.1, v_dim=dv)
+    by_route = dict(tpa.paged_attention.fused_launches_by_route)
     full = tpa.paged_attention(*args, **kw)
+    if form != "gqa":
+        route = "wgmma" if form == "deepseek" else "simt"
+        after = tpa.paged_attention.fused_launches_by_route
+        assert {k: after[k] - by_route[k] for k in after} == {
+            k: int(k == route) for k in after}
     assert torch.isfinite(full).all()
     assert torch.equal(full, tpa.paged_attention(*args, **kw))
-    torch.testing.assert_close(full, _split_plain(*args, **kw), rtol=1e-2,
-                               atol=1e-2)
+    torch.testing.assert_close(
+        full, _split_plain(*args, **kw, p_bf16=form == "deepseek"),
+        rtol=1e-2, atol=1e-2)
     for b in range(5):
         one = tpa.paged_attention(args[0][b:b + 1].contiguous(), args[1],
                                   args[2], args[3][b:b + 1].contiguous(),

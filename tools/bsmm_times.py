@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time the block-sparse matmul kernels of a checkout's PyTorch/CUDA port.
+"""Time the block-sparse matmul kernels (and fused-V paged attention) of
+a checkout's PyTorch/CUDA port.
 
     python3 tools/bsmm_times.py --root <checkout> [--label NAME] [--sweep]
 
@@ -15,18 +16,22 @@ dead) at the four llama3.2-3b projection shapes (3072x3072, 3072x1024,
 - ``bsmm_dx`` (#3) and ``bsmm_dw`` (#4) at 1024 rows;
 - ``bsmm_batched`` (#1b) at deepseek-v3's expert up/gate shape (256
   experts, 8 rows, 7168x2048);
+- ``paged_attention`` in its fused-V form (#7) at ``chip_smoke.py``'s
+  deepseek-v3 inputs (B = 8, 128 query heads over one latent head of
+  576 lanes, values its first 512, lengths 1-1000);
 
 each as the mean device milliseconds of a CUDA-graph replay
 (``chip_smoke.time_ms``), cycling weight copies so that weights come
 from device memory, beside one PyTorch call on the same inputs
 (``torch.matmul`` on the dense masked weight, ``x.T @ g``, ``torch.bmm``)
 and the bound (``chip_smoke.bsmm_bound_ms`` / ``grad_bound_ms``).
-Where the checkout's ``TilePlan`` names routes (``route_and_splits``) it
-records the route and split count of each call.  ``--sweep`` also times
-#1 and #4 with each live list (dw: each tile's rows) cut into 1-4
-pieces, on a fresh plan with the checkout's split rule
-(``bsmm_splits`` / ``bsmm_dw_splits``) set to that count.  It prints one
-JSON line.  Needs one CUDA card.
+Where the checkout names routes (``route_and_splits``, ``bsmm_dx_route``,
+``fused_route``) it records the route and split count of each call.
+``--sweep`` also times #1, #3 and #4 with each live list (dw: each
+tile's rows) cut into 1-4 pieces, on a fresh plan with the checkout's
+split rule (``bsmm_splits`` / ``bsmm_dx_splits`` / ``bsmm_dw_splits``)
+set to that count (#3 only where the checkout has a dx split rule).  It
+prints one JSON line.  Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -41,7 +46,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (BSMM_SHAPES, EXPERTS, bsmm_bound_ms,  # noqa: E402
-                        grad_bound_ms, random_bitmap, time_ms)
+                        grad_bound_ms, paged_inputs, random_bitmap, time_ms)
 
 FWD_ROWS = (8, 512, 1024)
 GRAD_ROWS = 1024
@@ -53,8 +58,11 @@ def _plan(B, rng, K, N):
     return bm, B.make_tile_plan(np.kron(bm, np.ones((128, 128), bool)))
 
 
-def _route(plan, kind, M):
-    if not hasattr(plan, "route_and_splits"):
+def _route(B, plan, kind, M):
+    """The checkout's (route, splits) of a call, or (None, None) where it
+    has no rule for ``kind``."""
+    if not hasattr(plan, "route_and_splits") or (
+            kind == "dx" and not hasattr(B, "bsmm_dx_route")):
         return None, None
     return plan.route_and_splits(kind, M, torch.bfloat16)
 
@@ -64,14 +72,20 @@ def _forced(B, bm, S):
     pieces (the checkout's split rules answer ``S`` while it is made and
     first used)."""
     plan = B.make_tile_plan(np.kron(bm, np.ones((128, 128), bool)))
-    rules = B.bsmm_splits, B.bsmm_dw_splits
-    B.bsmm_splits = B.bsmm_dw_splits = lambda *a: S
+    names = [n for n in ("bsmm_splits", "bsmm_dx_splits", "bsmm_dw_splits")
+             if hasattr(B, n)]
+    rules = [getattr(B, n) for n in names]
+    for n in names:
+        setattr(B, n, lambda *a: S)
     try:
-        for kind in ("fwd", "dw"):
+        for kind in ("fwd", "dx", "dw"):
+            if kind == "dx" and "bsmm_dx_splits" not in names:
+                continue
             for M in FWD_ROWS:
                 plan.route_and_splits(kind, M, torch.bfloat16)
     finally:
-        B.bsmm_splits, B.bsmm_dw_splits = rules
+        for n, rule in zip(names, rules):
+            setattr(B, n, rule)
     return plan
 
 
@@ -93,7 +107,7 @@ def forward_rows(B, rng, sweep):
         b = torch.randn(N, device="cuda", generator=g).bfloat16()
         for M in FWD_ROWS:
             x = torch.randn(M, K, device="cuda", generator=g).bfloat16()
-            route, S = _route(plan, "fwd", M)
+            route, S = _route(B, plan, "fwd", M)
             row = {"kernel": "bsmm", "M": M, "K": K, "N": N,
                    "route": route, "splits": S,
                    "live_tiles": plan.live_tiles}
@@ -129,10 +143,11 @@ def grad_rows(B, rng, sweep):
                 torch.randn(M, N, device="cuda", generator=g_).bfloat16())
                for _ in range(copies)]
         ds = [_masked(o[0], bm) for o in ops]
-        route, S = _route(plan, "dw", M)
+        route, S = _route(B, plan, "dw", M)
+        dx_route, dx_S = _route(B, plan, "dx", M)
         row = {"kernel": "bsmm_grads", "M": M, "K": K, "N": N,
-               "dw_route": route, "dw_splits": S,
-               "live_tiles": plan.live_tiles}
+               "dw_route": route, "dw_splits": S, "dx_route": dx_route,
+               "dx_splits": dx_S, "live_tiles": plan.live_tiles}
         row["dx_ms"] = time_ms(lambda i: B.bsmm_dx(ops[i % copies][2],
                                                    ops[i % copies][0], plan))
         row["dw_ms"] = time_ms(lambda i: B.bsmm_dw(ops[i % copies][1],
@@ -146,11 +161,17 @@ def grad_rows(B, rng, sweep):
                 kind, M, K, N, plan, 2, "bfloat16")
         if sweep:
             row["dw_ms_by_splits"] = {}
+            if dx_route is not None:
+                row["dx_ms_by_splits"] = {}
             for S in range(1, 5):
                 p = _forced(B, bm, S)
                 row["dw_ms_by_splits"][S] = time_ms(
                     lambda i: B.bsmm_dw(ops[i % copies][1],
                                         ops[i % copies][2], p))
+                if dx_route is not None:
+                    row["dx_ms_by_splits"][S] = time_ms(
+                        lambda i: B.bsmm_dx(ops[i % copies][2],
+                                            ops[i % copies][0], p))
         rows.append(row)
         del ops, ds
     return rows
@@ -174,13 +195,32 @@ def batched_row(B, rng):
     return row
 
 
+def fused_row(PA):
+    """#7 at chip_smoke.py's deepseek-v3 inputs (bf16), cycling pool
+    copies so that the latent rows come from device memory."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q, kp, _, tables, lens = paged_inputs(torch.bfloat16, g, 128, 1, 576,
+                                          True)
+    copies = int(400e6 // (kp.numel() * kp.element_size())) + 1
+    pools = [kp.clone() for _ in range(copies)]
+    row = {"kernel": "paged_attention_fused_v", "B": q.shape[0], "Hq": 128,
+           "Hkv": 1, "hd": 576, "dv": 512, "lengths": lens.tolist()}
+    if hasattr(PA, "fused_route"):
+        row["route"] = PA.fused_route(PA._check_geometry(
+            q, kp, None, tables, lens, 512), q.dtype)
+    row["ms"] = time_ms(lambda i: PA.paged_attention(
+        q, pools[i % copies], None, tables, lens, scale=192 ** -0.5,
+        v_dim=512))
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", required=True, type=Path,
                     help="checkout whose src/repro_torch is timed")
     ap.add_argument("--label", default="")
     ap.add_argument("--sweep", action="store_true",
-                    help="also time #1 and #4 cut into 1-4 pieces")
+                    help="also time #1, #3 and #4 cut into 1-4 pieces")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("bsmm_times: CUDA is not available", file=sys.stderr)
@@ -190,12 +230,13 @@ def main() -> int:
     import repro_torch
     from repro_torch.kernels import _build
     from repro_torch.kernels import bsmm as B
+    from repro_torch.kernels import paged_attention as PA
 
     if root not in Path(repro_torch.__file__).resolve().parents:
         print(f"bsmm_times: imported {repro_torch.__file__}, not the "
               f"package under {root}", file=sys.stderr)
         return 2
-    _build.build_all(("bsmm",))
+    _build.build_all(("bsmm", "paged_attention"))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
@@ -204,6 +245,7 @@ def main() -> int:
         rows = forward_rows(B, rng, args.sweep)
         rows += grad_rows(B, rng, args.sweep)
         rows.append(batched_row(B, rng))
+        rows.append(fused_row(PA))
     print(json.dumps({"label": args.label, "root": str(root), "device": smi,
                       "rows": rows}))
     return 0
