@@ -74,6 +74,19 @@ no result line otherwise):
    and batched launches match the
    model, that flash attention ran once per layer and prefill on the
    wgmma route, and that block-sparse prefill agrees with dense prefill;
+6b. free the serving model and retrain deepseek-v3 at full width with
+   two cuts, 61 layers to 2 (one dense, one MoE layer) and 256 routed
+   experts to 32 (4.10 G parameters, the most that fit the card with
+   bf16 grads and f32 AdamW moments): first the MoE layer alone, its
+   gradients through the ticket's plans against dense autograd on the
+   masked weights (x, router, experts, shared expert; 5e-2 of each
+   scale), then ``make_adapter(cfg).make_trainer(params, masks).run(1)``
+   four times, checking losses, the aux loss (finite, > 0), parameters,
+   pruned coordinates, ``sent_fraction``, and every bsmm kernel's
+   launches, routes and split launches per step (the experts' forward,
+   dx and dw batched, one launch each per projection); then one
+   profiled step, which must show the batched dx and dw, and the peak
+   memory beside its reckoning;
 7. run Algorithm 1 on vgg11 at its published widths through
    ``make_adapter("vgg11", scale="full")`` and ``PruningSession(...).run()``
    (the family's recipe cut to 4 prune rounds of 100 steps at a 5 %
@@ -90,6 +103,13 @@ no result line otherwise):
 8. check one full-width resnet18 train step on the card against the
    CPU (float32, TF32 off).
 
+Phase 2 also holds the expert-batched dx and dw (#3, #4 over E
+experts, one launch) at deepseek-v3's expert shapes, E = 32 and 320,
+200 and 40 rows an expert (and two E = 2 cases whose rule splits), bf16
+and f32, each call to its route and split count, twice bitwise equal,
+dw zero on tiles dead in the union and nonzero on a tile dead in one
+expert alone, dx zero under a K-row tile dead in the union; it times
+them and the batched forward (#1b) at C = 320 beside torch.bmm.
 Phase 2 holds the 2-D block-sparse forward (#1, #2) at 8, 63, 64, 128,
 300, 512, 1000 and 1024 rows and dx (#3) and dw (#4) at 1000 and 1024
 (dx also with an all-dead K-row tile), each call to the route and
@@ -112,7 +132,8 @@ kernel and in f32 on its CUDA-core one.  Before the last line it
 prints ``{"kernels": [...]}`` (per kernel: its launches in its path's
 run — llama serving for the 2-D forward kernels and GQA paged
 attention, retraining for dx and dw, deepseek serving for the batched
-bsmm and the fused-V kernel, the LTP MLP and the CNN path for #5, the
+bsmm and the fused-V kernel, the deepseek retrain for the batched dx and
+dw, the LTP MLP and the CNN path for #5, the
 CNN path for #9, the control plane for flash attention (#8) — its error
 against the plain version, its time, the plain version's, the bound and
 the library call's; #1–#5 and #7 their launches by route, #1–#5 their
@@ -338,39 +359,43 @@ def time_bsmm(B, x, w, bm, plan, M, K, N):
     return row
 
 
-def grad_bound_ms(kind, M, K, N, plan, elem, dtype_name) -> tuple:
-    """Least time for dx or dw: bytes each input read once and the
-    output written once (live columns and live tiles only), or the
-    live tiles' flops, whichever is larger."""
+def grad_bound_ms(kind, M, K, N, plan, elem, dtype_name,
+                  experts=1) -> tuple:
+    """Least time for dx or dw (of each of ``experts`` experts sharing
+    the plan, M rows each): bytes each input read once and the output
+    written once (live columns and live tiles of the inputs; dw's whole
+    dense grad, whose dead tiles are zeros), the plan's indices once, or
+    the live tiles' flops, whichever is larger."""
     live_n = int((plan.counts > 0).sum())
     live_k = int((plan.counts_t > 0).sum())
     L = plan.live_tiles
     if kind == "dx":
-        nbytes = (M * live_n * 128 * elem + L * 128 * 128 * elem
-                  + M * K * elem + plan.idx_t.size * 4
-                  + plan.counts_t.size * 4)
+        nbytes = (experts * (M * live_n * 128 * elem + L * 128 * 128 * elem
+                             + M * K * elem)
+                  + plan.idx_t.size * 4 + plan.counts_t.size * 4)
     else:
-        nbytes = (M * live_k * 128 * elem + M * live_n * 128 * elem
-                  + K * N * elem + 2 * L * 4)
-    flops = 2.0 * M * L * 128 * 128
+        nbytes = (experts * (M * live_k * 128 * elem + M * live_n * 128 * elem
+                             + K * N * elem) + 2 * L * 4)
+    flops = 2.0 * experts * M * L * 128 * 128
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_bsmm_grads(B):
-    """dx and dw kernels against their plain versions at the four
-    llama3.2-3b projection shapes, M = 1024 and a ragged 1000, bf16 and
-    f32; each call held to its route and split count, two dx and two dw
-    calls bitwise equal, dw exactly zero on dead tiles; then dx at a
-    plan with an all-dead K-row tile (zeros there); times at bf16 M =
-    1024.  Returns (errors, times)."""
-    rng = np.random.default_rng(2)
+def check_bsmm_grads(B, shapes=BSMM_SHAPES, timed=True, seed=2):
+    """dx and dw kernels against their plain versions at ``shapes`` (the
+    four llama3.2-3b projection shapes by default), M = 1024 and a
+    ragged 1000, bf16 and f32; each call held to its route and split
+    count, two dx and two dw calls bitwise equal, dw exactly zero on
+    dead tiles; then dx at a plan with an all-dead K-row tile (zeros
+    there); with ``timed``, times at bf16 M = 1024.  Returns (errors,
+    times)."""
+    rng = np.random.default_rng(seed)
     dev = "cuda"
     err = {"bsmm_dx": 0.0, "bsmm_dw": 0.0}
     times = []
     for dtype in (torch.bfloat16, torch.float32):
-        for K, N in BSMM_SHAPES:
+        for K, N in shapes:
             bm = random_bitmap(rng, K, N)
             plan = B.make_tile_plan(np.kron(bm, np.ones((128, 128), bool)))
             dead = ~torch.as_tensor(bm, device=dev).repeat_interleave(
@@ -406,8 +431,11 @@ def check_bsmm_grads(B):
                     err[name] = max(err[name], e)
                 require(bool((dw[dead] == 0).all().item()),
                         f"bsmm_dw wrote a dead tile at K={K} N={N}")
-                if dtype == torch.bfloat16 and M == GRAD_ROWS[0]:
+                if timed and dtype == torch.bfloat16 and M == GRAD_ROWS[0]:
                     times.append(time_grads(B, x, g, w, bm, plan, M, K, N))
+                del x, g, dx, dw, cases
+            del w, dead
+            torch.cuda.empty_cache()
     err["bsmm_dx"] = max(err["bsmm_dx"], check_dx_dead_rows(B, rng))
     return err, times
 
@@ -769,12 +797,14 @@ def require_flash_routes(FA, want: int, where: str) -> None:
 
 
 BSMM_ROUTED = ("bsmm", "bsmm_epilogue", "bsmm_dx", "bsmm_dw")
+# the expert-batched backward's wrappers, counted by route like dx and dw
+BATCHED_ROUTED = ("bsmm_batched_dx", "bsmm_batched_dw")
 
 
-def reset_bsmm_routes(B) -> None:
-    """Set the 2-D forward's, dx's and dw's launch, route and split
-    counts to 0."""
-    for name in BSMM_ROUTED:
+def reset_bsmm_routes(B, names=BSMM_ROUTED) -> None:
+    """Set the launch, route and split counts of the named wrappers (the
+    2-D forward's, dx's and dw's) to 0."""
+    for name in names:
         f = getattr(B, name)
         f.launches = 0
         f.split_launches = 0
@@ -782,13 +812,13 @@ def reset_bsmm_routes(B) -> None:
             f.launches_by_route[k] = 0
 
 
-def bsmm_routes(B) -> dict:
-    """The 2-D forward's, dx's and dw's launches by route and split
-    launches."""
+def bsmm_routes(B, names=BSMM_ROUTED) -> dict:
+    """The named wrappers' (the 2-D forward's, dx's and dw's) launches by
+    route and split launches."""
     return {name: {"launches_by_route": dict(getattr(B, name)
                                              .launches_by_route),
                    "split_launches": getattr(B, name).split_launches}
-            for name in BSMM_ROUTED}
+            for name in names}
 
 
 LLAMA_PROJECTIONS = (("attn", ("wq", "wk", "wv", "wo")),
@@ -1513,21 +1543,26 @@ def retrain(cfg, device, steps: int = 4):
 def _kernel_group(name: str) -> str:
     """A profiled CUDA kernel's group: the bsmm kernels by role (dx is
     ``bsmm_dx_wgmma_kernel``, or the forward template with its last
-    template argument, TRANS, true; the weight-streaming kernel runs the
-    expert-batched products), paged attention (with its combine kernel),
+    template argument, TRANS, true; the weight-streaming kernel and the
+    WMMA one run the expert-batched forward, the ``bsmm_batched_*``
+    kernels its backward), paged attention (with its combine kernel),
     flash attention, the LTP product's kernels (with the split-K
     reduction), cuBLAS products, PyTorch's elementwise kernels, the
     rest."""
     import re
 
+    if "bsmm_batched_dx" in name:
+        return "bsmm_batched_dx"
+    if "bsmm_batched_dw" in name:
+        return "bsmm_batched_dw"
+    if "bsmm_stream" in name or "bsmm_wmma" in name:
+        return "bsmm_batched"
     if "bsmm_dx" in name:
         return "bsmm_dx"
     if "bsmm_dw" in name:
         return "bsmm_dw"
     if "bsmm2d" in name:
         return "bsmm_forward"
-    if "bsmm_stream" in name:
-        return "bsmm_batched"
     if "paged_attention" in name:
         return "paged_attention"
     if "flash_attention" in name:
@@ -1593,9 +1628,10 @@ def _mask_pairs(params, masks):
 # ---------------------------------------------------------------------------
 EXPERT_SHAPES = ((7168, 2048), (2048, 7168))    # up/gate, down
 # the 2-D bsmm shapes of deepseek-v3's dense FFNs (up/gate, down) and
-# shared expert, at its decode rows, the 17-token prompt and the longest
+# shared expert, at its decode rows, the 17-token prompt, the longest
+# and the retrain's 8 x 128 tokens
 DEEPSEEK_BSMM_SHAPES = ((7168, 18432), (18432, 7168)) + EXPERT_SHAPES
-DEEPSEEK_BSMM_ROWS = (8, 17, 300)
+DEEPSEEK_BSMM_ROWS = (8, 17, 300) + GRAD_ROWS[:1]     # and the retrain's
 EXPERT_ROWS = (8, 16, 20)     # rows per expert: decode, prefill, ragged
 EXPERTS = 256
 
@@ -1857,6 +1893,411 @@ def deepseek_config():
 
     from repro_torch.configs import get_arch
     return dataclasses.replace(get_arch("deepseek-v3-671b"), n_layers=4)
+
+
+# ---------------------------------------------------------------------------
+# deepseek-v3 retraining: the expert-batched backward (#3 and #4 over E
+# experts), the MoE layer's gradients and the trainer at full width
+# ---------------------------------------------------------------------------
+RETRAIN_EXPERTS = 32          # routed experts of the retrain cut (of 256)
+# rows per expert: the retrain's capacity (1024 tokens x top-8 / 32
+# experts x 1.25 = 320: wgmma for bf16), a ragged 200 (not a multiple of
+# the 64- or 128-row box: the 3-D maps must zero-fill per expert), and 40
+# (simt for bf16 too)
+EXPERT_GRAD_ROWS = (320, 200, 40)
+# (E, C, K, N) cases whose rule cuts work, bf16 and f32: dx's clusters of
+# 3 pieces at the down shape, dw's of 2 at a small tile grid, ragged rows
+EXPERT_GRAD_SPLIT_CASES = ((2, 100, 2048, 7168), (2, 2088, 1024, 1024))
+
+
+def _tile_max(t, E, K, N):
+    """(E, K / 128, N / 128) largest |value| of each 128x128 tile."""
+    return t.view(E, K // 128, 128, N // 128, 128).abs().amax(dim=(2, 4))
+
+
+def check_bsmm_batched_grads(B):
+    """The expert-batched dx and dw against their plain versions at
+    deepseek-v3's expert shapes (up/gate 7168 x 2048 with an all-dead
+    K-row tile in the union, down 2048 x 7168), E = 32 sharing one ~25 %
+    union plan, C = 320, 200 and 40 rows an expert, bf16 and f32, and at
+    the split cases; each call held to the route and split count its
+    rule gives, two calls bitwise equal, dw exactly zero on tiles dead in
+    the union and nonzero on a tile live in the union but dead in expert
+    0's own weights, dx zero under the dead K-row tile; the batched
+    forward (#1b) at the same cases, one launch each, two calls bitwise
+    equal, against its plain version.  Times dx, dw and the batched
+    forward at C = 320, bf16.  Returns (errors, times)."""
+    rng = np.random.default_rng(6)
+    err = {"bsmm_batched_dx": 0.0, "bsmm_batched_dw": 0.0,
+           "bsmm_batched": 0.0}
+    times = []
+    cases = [(RETRAIN_EXPERTS, EXPERT_GRAD_ROWS, K, N)
+             for K, N in EXPERT_SHAPES]
+    cases += [(E, (M,), K, N) for E, M, K, N in EXPERT_GRAD_SPLIT_CASES]
+    for dtype in (torch.bfloat16, torch.float32):
+        for E, rows, K, N in cases:
+            bm = random_bitmap(rng, K, N)
+            dead_k_row = (K, N) == EXPERT_SHAPES[0]
+            if dead_k_row:
+                bm[0] = False
+                bm[1, 1] = True
+            plan = B.make_tile_plan(np.kron(bm, np.ones((128, 128), bool)))
+            dead = ~torch.as_tensor(bm, device="cuda")
+            g_ = torch.Generator(device="cuda").manual_seed(K + 7 * N + E)
+            w = (torch.randn(E, K, N, device="cuda", generator=g_)
+                 / K ** 0.5).to(dtype)
+            # the plan's first live tile, dead in expert 0's own mask
+            k0, n0 = int(plan.kk[0]) * 128, int(plan.nn[0]) * 128
+            w[0, k0:k0 + 128, n0:n0 + 128] = 0
+            for M in rows:
+                x = torch.randn(E, M, K, device="cuda", generator=g_).to(dtype)
+                g = torch.randn(E, M, N, device="cuda", generator=g_).to(dtype)
+                dx_route, dx_S = plan.route_and_splits("dx", M, dtype, E)
+                dw_route, dw_S = plan.route_and_splits("dw", M, dtype, E)
+                dx = held(B.bsmm_batched_dx, dx_route, dx_S, g, w, plan)
+                dw = held(B.bsmm_batched_dw, dw_route, dw_S, x, g, plan)
+                n0_ = B.bsmm_batched.launches
+                y = B.bsmm_batched(x, w, plan)
+                require(B.bsmm_batched.launches == n0_ + 1,
+                        f"bsmm_batched did not launch once at E={E} M={M}")
+                require(torch.equal(y, B.bsmm_batched(x, w, plan)),
+                        f"two bsmm_batched calls differ at E={E} M={M}")
+                require(torch.equal(dx, B.bsmm_batched_dx(g, w, plan)),
+                        f"two bsmm_batched_dx calls differ at E={E} M={M}")
+                require(torch.equal(dw, B.bsmm_batched_dw(x, g, plan)),
+                        f"two bsmm_batched_dw calls differ at E={E} M={M}")
+                torch.cuda.synchronize()
+                for name, got, want, route, S in (
+                        ("bsmm_batched", y,
+                         B.bsmm_batched_plain(x, w, plan), "fwd", 1),
+                        ("bsmm_batched_dx", dx,
+                         B.bsmm_batched_dx_plain(g, w, plan), dx_route, dx_S),
+                        ("bsmm_batched_dw", dw,
+                         B.bsmm_batched_dw_plain(x, g, plan), dw_route, dw_S)):
+                    e = (got.float() - want.float()).abs().max().item()
+                    tol = tolerance(dtype, want)
+                    print(f"check {name} {str(dtype)[6:]} E={E} M={M} K={K} "
+                          f"N={N} {route} splits={S} max_abs_err={e:.3e} "
+                          f"tol={tol:.3e}")
+                    require(torch.isfinite(got).all().item(),
+                            f"{name} non-finite")
+                    require(e <= tol, f"{name} disagrees with its plain "
+                            f"version at E={E} M={M} K={K} N={N} {dtype}")
+                    err[name] = max(err[name], e)
+                    del want
+                tiles = _tile_max(dw, E, K, N)
+                require(tiles[:, dead].max().item() == 0,
+                        f"bsmm_batched_dw wrote a tile dead in the union at "
+                        f"K={K} N={N}")
+                require(tiles[0, k0 // 128, n0 // 128].item() > 0,
+                        "bsmm_batched_dw: no grad on a tile live in the union "
+                        "but dead in expert 0")
+                if dead_k_row:
+                    require(not dx[..., :128].any().item(),
+                            "bsmm_batched_dx is not zero under a K-row tile "
+                            "dead in the union")
+                if dtype == torch.bfloat16 and M == EXPERT_GRAD_ROWS[0]:
+                    times.append(time_batched_grads(B, x, g, w, bm, plan, E,
+                                                    M, K, N))
+                del y, dx, dw, x, g
+            del w
+            torch.cuda.empty_cache()
+    return err, times
+
+
+def time_batched_grads(B, x, g, w, bm, plan, E, M, K, N):
+    """The batched dx, dw and forward (#1b): kernel, plain and torch.bmm
+    times (dx: g @ the masked dense experts transposed; dw: x^T @ g;
+    forward: x @ the masked dense experts) with their bounds; a call
+    reads more than the L2 holds."""
+    row = {"E": E, "M": M, "K": K, "N": N, "dtype": "bfloat16",
+           "live_tiles": plan.live_tiles, "total_tiles": plan.total_tiles}
+    for kind in ("dx", "dw"):
+        row[f"{kind}_route"], row[f"{kind}_splits"] = plan.route_and_splits(
+            kind, M, x.dtype, E)
+    row["dx_ms"] = time_ms(lambda i: B.bsmm_batched_dx(g, w, plan), iters=10)
+    row["dw_ms"] = time_ms(lambda i: B.bsmm_batched_dw(x, g, plan), iters=10)
+    row["fwd_ms"] = time_ms(lambda i: B.bsmm_batched(x, w, plan), iters=10)
+    row["dx_plain_ms"] = time_ms(
+        lambda i: B.bsmm_batched_dx_plain(g, w, plan), iters=3, graph=False)
+    row["dw_plain_ms"] = time_ms(
+        lambda i: B.bsmm_batched_dw_plain(x, g, plan), iters=3, graph=False)
+    row["fwd_plain_ms"] = time_ms(
+        lambda i: B.bsmm_batched_plain(x, w, plan), iters=3, graph=False)
+    dense = w * torch.as_tensor(np.kron(bm, np.ones((128, 128))),
+                                dtype=w.dtype, device=w.device)
+    row["dx_library_ms"] = time_ms(
+        lambda i: torch.bmm(g, dense.transpose(1, 2)), iters=10)
+    row["dw_library_ms"] = time_ms(
+        lambda i: torch.bmm(x.transpose(1, 2), g), iters=10)
+    row["fwd_library_ms"] = time_ms(lambda i: torch.bmm(x, dense), iters=10)
+    del dense
+    for kind in ("dx", "dw"):
+        row[f"{kind}_bound_ms"], row[f"{kind}_bound_by"] = grad_bound_ms(
+            kind, M, K, N, plan, 2, "bfloat16", experts=E)
+    row["fwd_bound_ms"], row["fwd_bound_by"] = bsmm_bound_ms(
+        M, K, N, plan, 2, "bfloat16", experts=E)
+    print("time bsmm_batched_grads " + json.dumps(row))
+    return row
+
+
+def deepseek_retrain_config():
+    """deepseek-v3-671b at its published widths with two cuts: 61 layers
+    -> 2 (one dense layer, one MoE layer: first_moe_layer 1) and 256
+    routed experts -> 32 (4.10 G parameters, the most whose bf16 weights,
+    grads and f32 AdamW moments fit the card's 80 GB)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    cfg = get_arch("deepseek-v3-671b")
+    return dataclasses.replace(
+        cfg, n_layers=2, moe=dataclasses.replace(
+            cfg.moe, num_experts=RETRAIN_EXPERTS, first_moe_layer=1))
+
+
+def moe_grad_check(cfg, device):
+    """The MoE layer's ``moe_forward`` alone at full width (bf16, the
+    retrain cut's experts) on one seeded input: the gradients of x, the
+    router, the experts and the shared expert of ``Σ y ⊙ c + aux``
+    through the ticket's plans (batched dx/dw for the experts, 2-D for
+    the shared expert) against dense autograd on the masked weights,
+    within 5e-2 of each gradient's scale.  The router's product is dense
+    on both sides, so both route every token alike."""
+    from repro_torch._bridge import tree_leaves, tree_map
+    from repro_torch.core.masks import apply_masks_
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models.plans import build_decode_plan
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    params = moe_lib.moe_init(gen, cfg.d_model, cfg.moe, cfg.gated_mlp,
+                              torch.bfloat16, torch.device(device))
+    masks = build_expert_ticket({"segments": [[{"moe": params}]]},
+                                device)["segments"][0][0]["moe"]
+    apply_masks_(params, masks)
+    plan = build_decode_plan({"segments": [[{"moe": masks}]]})[0][0][0]["moe"]
+    x = torch.randn(8, 128, cfg.d_model, device=device, generator=gen,
+                    dtype=torch.bfloat16)
+    c = torch.randn(8, 128, cfg.d_model, device=device, generator=gen,
+                    dtype=torch.bfloat16)
+
+    def grads(plan):
+        p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        xx = x.detach().requires_grad_(True)
+        mo = moe_lib.moe_forward(p, xx, cfg.moe, cfg.act, cfg.gated_mlp,
+                                 plan=plan)
+        loss = (mo.y.float() * c.float()).sum() + mo.aux_loss
+        leaves = [xx] + tree_leaves(p)
+        return mo, torch.autograd.grad(loss, leaves)
+
+    mo_p, g_plan = grads(plan)
+    mo_d, g_dense = grads(None)
+    mask_of = {"up": masks["up"], "gate": masks["gate"],
+               "down": masks["down"], "shared.up": masks["shared"]["up"],
+               "shared.gate": masks["shared"]["gate"],
+               "shared.down": masks["shared"]["down"]}
+    order = ["x"] + [n for n, _ in _named_leaves(params)]
+    worst = 0.0
+    for name, gp, gd in zip(order, g_plan, g_dense):
+        m = mask_of.get(name)
+        gpm = gp.float() if m is None else gp.float() * m
+        gdm = gd.float() if m is None else gd.float() * m
+        e = (gpm - gdm).abs().max().item()
+        scale = gdm.abs().max().item()
+        worst = max(worst, e / max(scale, 1e-30))
+        print(f"check moe grad {name} {tuple(gp.shape)} plan vs dense "
+              f"max_abs_err={e:.4e} max|grad|={scale:.4e} "
+              f"tol={5e-2 * scale:.4e}")
+        require(bool(torch.isfinite(gp).all().item()), f"non-finite {name} "
+                "grad")
+        require(e <= 5e-2 * scale, f"the plan's {name} grad disagrees with "
+                "the dense grad")
+        del gpm, gdm
+    drop = float(mo_p.drop_fraction)
+    print(f"check moe grad: aux plan {mo_p.aux_loss.item():.6f} dense "
+          f"{mo_d.aux_loss.item():.6f} drop_fraction {drop:.4f}")
+    return {"grad_rel_err_max": worst, "aux_loss": mo_p.aux_loss.item(),
+            "drop_fraction": drop}
+
+
+def _named_leaves(tree, prefix=""):
+    """(dotted path, leaf) in ``tree_leaves`` order (insertion order)."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _named_leaves(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def _ticket_mask_pairs(params, masks):
+    """(parameter, bool mask) for every masked leaf of a deepseek ticket
+    (``build_expert_ticket``)."""
+    def walk(p, m):
+        for k, v in m.items():
+            if isinstance(v, dict):
+                yield from walk(p[k], v)
+            else:
+                yield p[k], v
+    for seg_p, seg_m in zip(params["segments"], masks["segments"]):
+        for pos_p, pos_m in zip(seg_p, seg_m):
+            yield from walk(pos_p, pos_m)
+
+
+def retrain_deepseek(cfg, device, steps: int = 4):
+    """``make_adapter(cfg).make_trainer(params, masks).run`` on deepseek-v3
+    at full width (2 layers, 32 experts), a ticket of one seeded ~25 %
+    bitmap per projection shared by the experts: finite losses and aux
+    loss (> 0), finite parameters, pruned coordinates exactly zero,
+    ``sent_fraction`` equal to the host count, and the launches a step
+    must make of every bsmm kernel, each on the route its rows give;
+    then one profiled step, which must show the batched dx and dw."""
+    from repro_torch._bridge import tree_leaves
+    from repro_torch.api import make_adapter
+    from repro_torch.kernels import bsmm as B
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.moe import expert_capacity
+    from repro_torch.train import lm_train_plan
+
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    adapter = make_adapter(cfg, device=device, batch_size=8, seq_len=128)
+    params = adapter.init_params(
+        torch.Generator(device=device).manual_seed(0))
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    masks = build_expert_ticket(params, device)
+    trainer = adapter.make_trainer(params, masks, learning_rate=1e-4)
+    del params
+    sync(device)
+    setup_s = time.perf_counter() - t0
+    # what the trainer holds between steps, before the first step and
+    # after the last: the peak less these is the step's own transient
+    held_setup = torch.cuda.memory_allocated() if on_card else None
+    pairs = list(_ticket_mask_pairs(trainer.state.params, masks))
+    prunable = sum(p.numel() for p, _ in pairs)
+    pruned = sum(p.numel() - int(m.count_nonzero().item()) for p, m in pairs)
+    want_sent = (n_params - pruned) / n_params
+    # the planned peak, in GB (1e9 bytes): bf16 weights and grads, f32
+    # AdamW moments, f32 masks on the prunable leaves, and the ~7 GB of
+    # activations and temporaries llama's retrain leaves over its state
+    reckoning = {"bf16_parameters": 2 * n_params / 1e9,
+                 "bf16_grads": 2 * n_params / 1e9,
+                 "f32_adamw_moments": 8 * n_params / 1e9,
+                 "f32_masks_on_prunable": 4 * prunable / 1e9,
+                 "activations_logits_temporaries": 7.0}
+    reckoning["total"] = sum(reckoning.values())
+
+    names = ("bsmm", "bsmm_epilogue", "bsmm_dx", "bsmm_dw", "bsmm_batched",
+             "bsmm_batched_dx", "bsmm_batched_dw")
+    reset_bsmm_routes(B, BSMM_ROUTED + BATCHED_ROUTED)
+    B.bsmm_batched.launches = 0
+    losses, auxes, sent, step_s = [], [], [], []
+    for _ in range(steps):
+        ts = time.perf_counter()
+        m = trainer.run(1)
+        step_s.append(time.perf_counter() - ts)
+        losses.append(m["loss"])
+        auxes.append(m["aux"])
+        sent.append(m["sent_fraction"])
+    launches = {k: getattr(B, k).launches for k in names}
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    held_steps = torch.cuda.memory_allocated() if on_card else None
+
+    # per step: every MLP (the dense layer's and the MoE layer's shared
+    # expert) runs up and down through bsmm and the gate through the
+    # epilogue (once more in the backward's pre-activation), one dx and
+    # one dw each; every MoE layer runs its three expert products
+    # batched, forward, dx and dw; remat runs every forward twice
+    n_moe = sum(1 for i in range(cfg.n_layers)
+                if tfm.layer_signature(cfg, i)[1])
+    mlps = cfg.n_layers - n_moe + n_moe * (cfg.moe.num_shared_experts > 0)
+    r = 2 if tfm.remat_enabled() else 1
+    want = {"bsmm": 2 * r * mlps, "bsmm_epilogue": (r + 1) * mlps,
+            "bsmm_dx": 3 * mlps, "bsmm_dw": 3 * mlps,
+            "bsmm_batched": 3 * r * n_moe, "bsmm_batched_dx": 3 * n_moe,
+            "bsmm_batched_dw": 3 * n_moe}
+    C = expert_capacity(8 * 128, cfg.moe)
+    print(f"retrain_deepseek: remat={r == 2} layers={cfg.n_layers} "
+          f"experts={cfg.moe.num_experts} capacity={C} losses={losses} "
+          f"aux={auxes} sent_fraction={sent[-1]} (host {want_sent}) "
+          f"launches={launches} per step want {want}")
+    require(all(np.isfinite(losses)), f"non-finite loss {losses}")
+    require(all(np.isfinite(auxes)) and all(a > 0 for a in auxes),
+            f"aux loss {auxes} is not finite and positive")
+    require(all(abs(s_ - want_sent) < 1e-12 for s_ in sent),
+            f"sent_fraction {sent} != host count {want_sent}")
+    require(all(launches[k] == steps * v for k, v in want.items()),
+            f"launch counts {launches} do not match {steps} steps of {want}")
+    # every routed product on its wgmma kernel (2-D at 1024 rows, the
+    # batched backward at C rows an expert), cut where its plan says
+    plan, _ = lm_train_plan(masks)
+    mlp_plans = [e.get("mlp") or e["moe"]["shared"] for seg in plan
+                 for e in seg]
+    expert_plans = [{k: e["moe"][k] for k in ("up", "gate", "down")}
+                    for seg in plan for e in seg if "moe" in e]
+    E = cfg.moe.num_experts
+
+    def cut(p, kind, M, experts=1):
+        return p.route_and_splits(kind, M, torch.bfloat16, experts)[1] > 1
+
+    M = 8 * 128
+    want_cut = {
+        "bsmm": steps * r * sum(cut(p[k], "fwd", M) for p in mlp_plans
+                                for k in ("up", "down")),
+        "bsmm_epilogue": steps * (r + 1) * sum(cut(p["gate"], "fwd", M)
+                                               for p in mlp_plans),
+        "bsmm_dx": steps * sum(cut(q, "dx", M) for p in mlp_plans
+                               for q in p.values()),
+        "bsmm_dw": steps * sum(cut(q, "dw", M) for p in mlp_plans
+                               for q in p.values()),
+        "bsmm_batched_dx": steps * sum(cut(q, "dx", C, E) for p in expert_plans
+                                       for q in p.values()),
+        "bsmm_batched_dw": steps * sum(cut(q, "dw", C, E) for p in expert_plans
+                                       for q in p.values())}
+    routes = bsmm_routes(B, BSMM_ROUTED + BATCHED_ROUTED)
+    for name, rt in routes.items():
+        want_routes = {k: launches[name] * (k == "wgmma")
+                       for k in rt["launches_by_route"]}
+        require(rt["launches_by_route"] == want_routes
+                and rt["split_launches"] == want_cut[name],
+                f"{name} routes {rt} in the deepseek retrain, want "
+                f"{want_routes} and {want_cut[name]} split launches")
+    finite = all(bool(torch.isfinite(p).all().item())
+                 for p in tree_leaves(trainer.state.params))
+    require(finite, "a parameter is non-finite after retraining deepseek")
+    for p, m in _ticket_mask_pairs(trainer.state.params, masks):
+        require(not bool(((p != 0) & ~m).any().item()),
+                "a pruned coordinate is non-zero after retraining deepseek")
+
+    tokens = 8 * 128
+    mid = sorted(step_s[1:])
+    step_med = mid[len(mid) // 2]
+    profile = profile_step(trainer) if on_card else None
+    if profile and profile["device_ms"] != "not measured":
+        groups = profile["by_group_ms"]
+        print("retrain_deepseek profile: " + json.dumps(
+            {k: v for k, v in profile.items() if k != "top_kernels"}))
+        for name in BATCHED_ROUTED:
+            require(groups.get(name, 0.0) > 0, f"the profiled deepseek step "
+                    f"shows no {name} kernel time")
+    print(f"retrain_deepseek: peak {peak} bytes allocated (held after set-up "
+          f"{held_setup}, after the steps {held_steps}); reckoning "
+          + json.dumps(reckoning))
+    return launches, {
+        "config": cfg.name, "n_layers": cfg.n_layers, "experts": E,
+        "capacity": C, "parameters": n_params, "prunable": prunable,
+        "setup_s": setup_s, "steps": steps, "remat": r == 2,
+        "step_s": step_s, "step_s_median_2_to_4": step_med,
+        "tokens_per_s": tokens / step_med, "losses": losses, "aux": auxes,
+        "sent_fraction": sent[-1], "sent_fraction_host": want_sent,
+        "max_memory_allocated_bytes": peak,
+        "allocated_after_setup_bytes": held_setup,
+        "allocated_after_steps_bytes": held_steps, "reckoning_gb": reckoning,
+        "launches_per_step": want, "bsmm_routes": routes,
+        "live_tiles": adapter.last_plan_stats.live_tiles,
+        "total_tiles": adapter.last_plan_stats.total_tiles,
+        "profile": profile}
 
 
 # ---------------------------------------------------------------------------
@@ -2588,11 +3029,17 @@ def main() -> int:
             PA, Hq=128, Hkv=1, hd=576, dv=512, scale=192 ** -0.5, seed=11,
             fused_routes={torch.bfloat16: "wgmma", torch.float32: "simt"})
         batched_err, batched_times = check_bsmm_batched(B)
+        bgrad_err, bgrad_times = check_bsmm_batched_grads(B)
+        batched_err = max(batched_err, bgrad_err["bsmm_batched"])
         # the dense FFN's gate and the shared expert's run the epilogue
         # with silu and no bias
         ds_err, _ = check_bsmm(B, DEEPSEEK_BSMM_SHAPES, DEEPSEEK_BSMM_ROWS,
                                ((None, "silu"),), timed=False, seed=5)
         bsmm_err = {k: max(v, ds_err[k]) for k, v in bsmm_err.items()}
+        # dx and dw at the retrain's 1024 rows on the same shapes
+        ds_grad_err, _ = check_bsmm_grads(B, DEEPSEEK_BSMM_SHAPES,
+                                          timed=False, seed=8)
+        grad_err = {k: max(v, ds_grad_err[k]) for k, v in grad_err.items()}
         stats_err, stats_times = check_tile_stats(TS)
         masked_err, masked_times, masked_smem = check_masked(B)
         # the wgmma ring of #1/#2/#4: two blocks an SM, or one alone
@@ -2625,8 +3072,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     ds_launches, ds_summary = serve_deepseek(deepseek_config(), "cuda")
     phase("serve_deepseek")
-    # deepseek-v3's ~30 GB are gone with its phase; the CNN slice needs
-    # a few GB
+    # the serving model's ~30 GB must be gone before the retrain's ~65 GB
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_grad_summary = moe_grad_check(deepseek_retrain_config(), "cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    rd_launches, rd_summary = retrain_deepseek(deepseek_retrain_config(),
+                                               "cuda")
+    phase("retrain_deepseek")
+    # deepseek-v3's models are gone with their phases; the CNN slice
+    # needs a few GB
     gc.collect()
     torch.cuda.empty_cache()
     cnn_launches, cnn_summary = cnn_phase("cuda")
@@ -2636,9 +3092,11 @@ def main() -> int:
 
     rep_row = next(r for r in bsmm_times if r["M"] == 8 and r["N"] == 8192)
     grad_row = next(r for r in grad_times if r["N"] == 8192)
-    # the expert up/gate shape at decode rows
+    # the expert up/gate shape at decode rows, and at the retrain's
+    # capacity (the batched forward, dx and dw)
     batched_row = next(r for r in batched_times
                        if r["M"] == 8 and r["N"] == 2048)
+    bgrad_row = next(r for r in bgrad_times if r["N"] == 2048)
     serve_routes = summary["bsmm_routes"]
     kernels = [
         {"name": "bsmm", "route": "cuda",
@@ -2688,7 +3146,16 @@ def main() -> int:
          "ms": batched_row["ms"], "plain_ms": batched_row["plain_ms"],
          "bound_ms": batched_row["bound_ms"],
          "bound_by": batched_row["bound_by"],
-         "library_ms": batched_row["library_ms"]},
+         "library_ms": batched_row["library_ms"],
+         # at training rows (C = 320, E = 32, the up/gate shape): the
+         # deepseek retrain's forward, launches from that run
+         "training_rows": {
+             "M": bgrad_row["M"], "E": bgrad_row["E"],
+             "launches": rd_launches["bsmm_batched"],
+             "ms": bgrad_row["fwd_ms"], "plain_ms": bgrad_row["fwd_plain_ms"],
+             "bound_ms": bgrad_row["fwd_bound_ms"],
+             "bound_by": bgrad_row["fwd_bound_by"],
+             "library_ms": bgrad_row["fwd_library_ms"]}},
         {"name": "paged_attention_fused_v", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:133",
@@ -2699,6 +3166,20 @@ def main() -> int:
          "bound_by": mla_row["bound_by"],
          "library_ms": mla_row["library_ms"]},
     ]
+    # the expert-batched backward at the up/gate shape, C = 320, bf16;
+    # launches from the deepseek retrain
+    for kind, line in (("dx", 322), ("dw", 399)):
+        name = f"bsmm_batched_{kind}"
+        kernels.append(
+            {"name": name, "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/bsmm.cu",
+             "replaces": f"src/repro/kernels/bsmm.py:{line}",
+             "launches": rd_launches[name], **rd_summary["bsmm_routes"][name],
+             "max_abs_err": bgrad_err[name], "ms": bgrad_row[f"{kind}_ms"],
+             "plain_ms": bgrad_row[f"{kind}_plain_ms"],
+             "bound_ms": bgrad_row[f"{kind}_bound_ms"],
+             "bound_by": bgrad_row[f"{kind}_bound_by"],
+             "library_ms": bgrad_row[f"{kind}_library_ms"]})
     # the LTP baseline at decode rows with its own (iid) mask, the LTP
     # MLP's up and gate shape; tile stats at the size of vgg11's largest
     # conv matrices
@@ -2746,9 +3227,11 @@ def main() -> int:
     (OUT / "chip_smoke_kernels.json").write_text(json.dumps(
         {"device": smi, "bsmm": bsmm_times, "paged_attention": paged_row,
          "bsmm_grads": grad_times, "paged_attention_fused_v": mla_row,
-         "bsmm_batched": batched_times, "serve": summary,
+         "bsmm_batched": batched_times,
+         "bsmm_batched_grads": bgrad_times, "serve": summary,
          "grad_check": grad_summary, "retrain": train_summary,
-         "serve_deepseek": ds_summary, "tile_stats": stats_times,
+         "serve_deepseek": ds_summary, "moe_grad_check": moe_grad_summary,
+         "retrain_deepseek": rd_summary, "tile_stats": stats_times,
          "masked_matmul": masked_times, "ltp_mlp": ltp_summary,
          "masked_matmul_wgmma_smem": masked_smem,
          "bsmm_wgmma_smem": bsmm_smem, "cnn": cnn_summary,
@@ -2766,6 +3249,10 @@ def main() -> int:
     print(json.dumps({"retrain": train_summary}, default=str))
     print(json.dumps({"serve_deepseek": {k: v for k, v in ds_summary.items()
                                          if k != "report"}}, default=str))
+    print(json.dumps({"moe_grad_check": moe_grad_summary}))
+    print(json.dumps({"retrain_deepseek": {
+        k: v for k, v in rd_summary.items() if k != "profile"}},
+        default=str))
     print(json.dumps({"cnn": {k: v for k, v in cnn_summary.items()
                               if k != "losses"}}, default=str))
     print(json.dumps({"phase_s": phases}))

@@ -239,14 +239,18 @@ class CNNAdapter(ModelAdapter):
 
 
 class LMAdapter(ModelAdapter):
-    """Decoder-only transformers (the ported all-GQA dense family).
+    """Decoder-only transformers of global attention, GQA or MLA, with
+    dense or MoE FFNs (the dense and moe families).
 
-    ``evaluate`` returns NEGATIVE mean cross-entropy on held-out batches.
+    ``evaluate`` returns NEGATIVE mean cross-entropy on held-out batches;
+    the training loss adds 0.01 x the MoE aux loss, as the reference's.
     ``use_bsmm``: retrain under masks through the block-sparse kernels
-    (attention q/k/v/o and MLP, forward and backward); ``None`` means
-    on whenever masks are given — on the CPU that runs the kernels'
-    plain versions.  ``device`` defaults to "cuda" and raises without a
-    card unless given "cpu".
+    (GQA q/k/v/o, MLP and shared-expert up/gate/down through the 2-D
+    kernels, the stacked experts through the batched ones, forward and
+    backward; MLA's projections and the router stay dense, as in the
+    reference); ``None`` means on whenever masks are given — on the CPU
+    that runs the kernels' plain versions.  ``device`` defaults to
+    "cuda" and raises without a card unless given "cpu".
     """
 
     family = "dense"
@@ -259,7 +263,7 @@ class LMAdapter(ModelAdapter):
                  step_deadline_s: Optional[float] = None,
                  use_bsmm: Optional[bool] = None, device="cuda"):
         from repro_torch.models import transformer as tfm
-        tfm.check_trainable(cfg)
+        tfm.check_ported(cfg)
         self._tfm = tfm
         self.cfg = cfg
         self.device = resolve_device(device)

@@ -6,12 +6,15 @@ the live K tiles ``idx[j, :counts[j]]``; the CUDA kernels in
 ``csrc/bsmm.cu`` walk exactly those.  They replace the Pallas TPU
 kernels of ``repro/kernels/bsmm.py``: ``_bsmm_kernel`` and
 ``_bsmm_epilogue_kernel`` (forward), ``_bsmm_dx_kernel`` and
-``_bsmm_dw_kernel`` (backward).  ``bsmm_batched`` is kernel #1 over a
-stack of experts sharing one plan, in one launch: the counterpart of
-the reference's ``jax.vmap`` of ``plan_matmul`` over the expert axis.
+``_bsmm_dw_kernel`` (backward).  ``bsmm_batched``, ``bsmm_batched_dx``
+and ``bsmm_batched_dw`` are kernels #1, #3 and #4 over a stack of
+experts sharing one plan, each in one launch: the counterpart of the
+reference's ``jax.vmap`` of ``plan_matmul`` (and of its VJP) over the
+expert axis.
 
-Dispatch: ``bsmm``, ``bsmm_epilogue``, ``bsmm_batched``, ``bsmm_dx`` and
-``bsmm_dw`` launch their kernel for CUDA tensors and run their plain PyTorch
+Dispatch: ``bsmm``, ``bsmm_epilogue``, ``bsmm_batched``, ``bsmm_dx``,
+``bsmm_dw``, ``bsmm_batched_dx`` and ``bsmm_batched_dw`` launch their
+kernel for CUDA tensors and run their plain PyTorch
 versions (``*_plain``) for CPU tensors; any other device raises.  The 2-D
 forward (#1 and #2) takes the CUDA route ``bsmm_route`` picks from the
 call's shape (weight streaming below 64 rows, TMA and ``wgmma`` for
@@ -36,7 +39,10 @@ counted by kernel in ``masked_matmul.launches_by_route``.  Each
 wrapper counts its kernel launches in ``.launches``.  ``bsmm_apply`` is
 the differentiable product (a ``torch.autograd.Function``): forward
 through ``bsmm``/``bsmm_epilogue``, backward through ``bsmm_dx`` and
-``bsmm_dw``, on either device.
+``bsmm_dw``, on either device; ``bsmm_batched_apply`` is its
+expert-batched twin, forward through ``bsmm_batched`` and backward
+through ``bsmm_batched_dx`` and ``bsmm_batched_dw`` (one launch each for
+all experts, counted like dx and dw).
 
 Every wrapper checks its operand contract (devices, dtypes, contiguity,
 16-byte aligned bases) on every device, so a CPU call refuses what the
@@ -168,13 +174,14 @@ class TilePlan:
             self._dev[device] = got
         return got
 
-    def route_and_splits(self, kind: str, M: int,
-                         dtype: torch.dtype) -> Tuple[str, int]:
+    def route_and_splits(self, kind: str, M: int, dtype: torch.dtype,
+                         experts: int = 1) -> Tuple[str, int]:
         """``(bsmm_route, bsmm_splits)`` for the forward (``kind`` "fwd"),
         ``(bsmm_dx_route, bsmm_dx_splits)`` for dx ("dx") or
         ``(bsmm_dw_route, bsmm_dw_splits)`` for dw ("dw") at M rows of
-        ``dtype``, computed once per shape."""
-        key = (kind, M, dtype)
+        ``dtype`` (each of ``experts`` experts' rows, for the batched dx
+        and dw), computed once per shape."""
+        key = (kind, M, dtype, experts)
         got = self._split.get(key)
         if got is None:
             K = len(self.counts_t) * self.tile if self.counts_t is not None \
@@ -185,10 +192,10 @@ class TilePlan:
                        bsmm_splits(M, K, N, dtype, self))
             elif kind == "dx":
                 got = (bsmm_dx_route(M, dtype),
-                       bsmm_dx_splits(M, K, N, dtype, self))
+                       bsmm_dx_splits(M, K, N, dtype, self, experts))
             else:
                 got = (bsmm_dw_route(dtype),
-                       bsmm_dw_splits(self.live_tiles, M, dtype))
+                       bsmm_dw_splits(self.live_tiles, M, dtype, experts))
             self._split[key] = got
         return got
 
@@ -331,46 +338,62 @@ def bsmm_batched_plain(a: torch.Tensor, w: torch.Tensor,
     return out.to(a.dtype)
 
 
-def bsmm_dx_plain(g: torch.Tensor, w: torch.Tensor,
-                  plan: TilePlan) -> torch.Tensor:
-    """Plain version of kernel #3: ``g (M, N) @ (w ⊙ tile bitmap)ᵀ`` →
-    (M, K), K-row tile by K-row tile over its live N tiles, f32
+def bsmm_batched_dx_plain(g: torch.Tensor, w: torch.Tensor,
+                          plan: TilePlan) -> torch.Tensor:
+    """Plain version of the expert-batched kernel #3: ``g[e] (M, N) @
+    (w[e] (K, N) ⊙ tile bitmap)ᵀ`` → (E, M, K) for every expert e, one
+    plan for all, K-row tile by K-row tile over its live N tiles, f32
     accumulation, output in g's dtype."""
-    M, N = g.shape
-    K = w.shape[0]
+    E, M, N = g.shape
+    K = w.shape[1]
     T = plan.tile
-    gt = g.reshape(M, N // T, T)
-    out = torch.zeros((M, K), dtype=torch.float32, device=g.device)
+    gt = g.reshape(E, M, N // T, T)
+    out = torch.zeros((E, M, K), dtype=torch.float32, device=g.device)
     for k in range(K // T):
         c = int(plan.counts_t[k])
         if c == 0:
             continue
         live = torch.as_tensor(plan.idx_t[k, :c], dtype=torch.long,
                                device=g.device)
-        gg = gt.index_select(1, live).reshape(M, c * T).float()
-        wk = w[k * T:(k + 1) * T].reshape(T, N // T, T).index_select(1, live) \
-            .reshape(T, c * T).float()
-        out[:, k * T:(k + 1) * T] = gg @ wk.T
+        gg = gt.index_select(2, live).reshape(E, M, c * T).float()
+        wk = w[:, k * T:(k + 1) * T].reshape(E, T, N // T, T) \
+            .index_select(2, live).reshape(E, T, c * T).float()
+        out[..., k * T:(k + 1) * T] = torch.bmm(gg, wk.transpose(1, 2))
     return out.to(g.dtype)
+
+
+def bsmm_dx_plain(g: torch.Tensor, w: torch.Tensor,
+                  plan: TilePlan) -> torch.Tensor:
+    """Plain version of kernel #3: ``g (M, N) @ (w ⊙ tile bitmap)ᵀ`` →
+    (M, K), the batched plain version at one expert."""
+    return bsmm_batched_dx_plain(g[None], w[None], plan)[0]
+
+
+def bsmm_batched_dw_plain(x: torch.Tensor, g: torch.Tensor,
+                          plan: TilePlan) -> torch.Tensor:
+    """Plain version of the expert-batched kernel #4: for each expert e
+    and live tile l of the shared plan, ``x[e][:, kk[l]]ᵀ @ g[e][:,
+    nn[l]]`` in f32, written into a zero dense (E, K, N) grad in x's dtype
+    (the weight's); tiles dead in the plan stay zero."""
+    E, M, K = x.shape
+    N = g.shape[2]
+    T = plan.tile
+    Kt, Nt = K // T, N // T
+    dw = torch.zeros((E, Kt, Nt, T, T), dtype=torch.float32, device=x.device)
+    if plan.live_tiles:
+        kk = torch.as_tensor(plan.kk, dtype=torch.long, device=x.device)
+        nn = torch.as_tensor(plan.nn, dtype=torch.long, device=x.device)
+        xg = x.reshape(E, M, Kt, T).index_select(2, kk).float()  # (E, M, L, T)
+        gg = g.reshape(E, M, Nt, T).index_select(2, nn).float()  # (E, M, L, T)
+        dw[:, kk, nn] = torch.einsum("emlk,emln->elkn", xg, gg)
+    return dw.permute(0, 1, 3, 2, 4).reshape(E, K, N).to(x.dtype)
 
 
 def bsmm_dw_plain(x2: torch.Tensor, g: torch.Tensor,
                   plan: TilePlan) -> torch.Tensor:
-    """Plain version of kernel #4: for each live tile l,
-    ``x2[:, kk[l]]ᵀ @ g[:, nn[l]]`` in f32, written into a zero dense
-    (K, N) grad in x2's dtype (the weight's); dead tiles stay zero."""
-    M, K = x2.shape
-    N = g.shape[1]
-    T = plan.tile
-    Kt, Nt = K // T, N // T
-    dw = torch.zeros((Kt, Nt, T, T), dtype=torch.float32, device=x2.device)
-    if plan.live_tiles:
-        kk = torch.as_tensor(plan.kk, dtype=torch.long, device=x2.device)
-        nn = torch.as_tensor(plan.nn, dtype=torch.long, device=x2.device)
-        xg = x2.reshape(M, Kt, T).index_select(1, kk).float()   # (M, L, T)
-        gg = g.reshape(M, Nt, T).index_select(1, nn).float()    # (M, L, T)
-        dw[kk, nn] = torch.einsum("mlk,mln->lkn", xg, gg)
-    return dw.permute(0, 2, 1, 3).reshape(K, N).to(x2.dtype)
+    """Plain version of kernel #4: the (K, N) weight grad of ``x2 @ w``,
+    live tiles only, the batched plain version at one expert."""
+    return bsmm_batched_dw_plain(x2[None], g[None], plan)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -396,6 +419,12 @@ def _lib():
     lib.bsmm_dw_launch.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
                                    _I, _I, _I, _I, _VP]
     lib.bsmm_dw_launch.restype = _I
+    lib.bsmm_batched_dx_launch.argtypes = [_VP, _VP, _VP, _VP, _VP, _I, _I, _I,
+                                           _I, _I, _I, _I, _I, _VP]
+    lib.bsmm_batched_dx_launch.restype = _I
+    lib.bsmm_batched_dw_launch.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                                           _I, _I, _I, _I, _I, _I, _I, _VP]
+    lib.bsmm_batched_dw_launch.restype = _I
     lib.bsmm_wgmma_smem.argtypes = [_I]
     lib.bsmm_wgmma_smem.restype = _I
     return lib
@@ -528,17 +557,18 @@ def bsmm_dx_route(M: int, dtype: torch.dtype) -> str:
 
 
 def bsmm_dx_splits(M: int, K: int, N: int, dtype: torch.dtype,
-                   plan: TilePlan) -> int:
+                   plan: TilePlan, experts: int = 1) -> int:
     """How many pieces dx cuts each K-row tile's live N list
     (``counts_t``) into, under the forward's ``wgmma`` rule: at most 4,
     each piece of the longest list keeping 2 tiles, the grid (K / 128
-    column tiles x 128-row blocks) within 96 blocks; 1 on ``simt``.  A
+    column tiles x 128-row blocks, times ``experts`` for the batched dx,
+    whose M is each expert's rows) within 96 blocks; 1 on ``simt``.  A
     function of the shape and the plan alone."""
     if bsmm_dx_route(M, dtype) != "wgmma":
         return 1
     counts = np.asarray(plan.counts_t)
     top = int(counts.max()) if counts.size else 0
-    grid = (K // MXU_TILE) * -(-M // _WGMMA_ROWS)
+    grid = experts * (K // MXU_TILE) * -(-M // _WGMMA_ROWS)
     cap = min(_MAX_TILE_PIECES, max(1, top // _MIN_PIECE_TILES))
     return max(1, min(cap, _CLUSTER_GRID // grid))
 
@@ -549,15 +579,19 @@ def bsmm_dw_route(dtype: torch.dtype) -> str:
     return "wgmma" if dtype == torch.bfloat16 else "fma"
 
 
-def bsmm_dw_splits(L: int, M: int, dtype: torch.dtype) -> int:
+def bsmm_dw_splits(L: int, M: int, dtype: torch.dtype,
+                   experts: int = 1) -> int:
     """How many pieces dw cuts each live tile's rows (its contraction)
-    into: pieces only while the ``L`` tiles' grid stays within one block
-    an SM, at most 4, each keeping at least 16 row steps (64 rows
-    bfloat16, 32 float32: shorter pieces measured slower); else 1."""
+    into: pieces only while the grid of ``L`` tiles (of each of
+    ``experts`` experts, for the batched dw, whose M is each expert's
+    rows) stays within one block an SM, at most 4, each keeping at least
+    16 row steps (64 rows bfloat16, 32 float32: shorter pieces measured
+    slower); else 1."""
     if L <= 0:
         return 1
     steps = -(-M // (64 if dtype == torch.bfloat16 else 32))
-    return max(1, min(_MAX_TILE_PIECES, steps // _MIN_PIECE_STEPS, _SMS // L))
+    return max(1, min(_MAX_TILE_PIECES, steps // _MIN_PIECE_STEPS,
+                      _SMS // (experts * L)))
 
 
 #: the split workspace and counters, one pair per (device, stream):
@@ -721,12 +755,12 @@ bsmm_epilogue.split_launches = 0
 _MAX_GRID_Z = 65535     # experts one batched launch takes (CUDA grid z)
 
 
-def batched_grid(E: int) -> None:
-    """The expert count one batched launch takes: the CUDA grid's z
-    extent (the plain version takes any)."""
+def batched_grid(E: int, where: str = "bsmm_batched") -> None:
+    """The expert count one batched launch (forward, dx or dw) takes:
+    the CUDA grid's z extent (the plain versions take any)."""
     if E > _MAX_GRID_Z:
-        raise GeometryError(f"bsmm_batched takes at most {_MAX_GRID_Z} "
-                            "experts", shape=(E,), where="bsmm_batched")
+        raise GeometryError(f"{where} takes at most {_MAX_GRID_Z} experts",
+                            shape=(E,), where=where)
 
 
 def bsmm_batched(a: torch.Tensor, w: torch.Tensor,
@@ -746,7 +780,7 @@ def bsmm_batched(a: torch.Tensor, w: torch.Tensor,
         return bsmm_batched_plain(a, w, plan)
     if a.device.type != "cuda":
         raise ValueError(f"bsmm_batched: unsupported device {a.device}")
-    batched_grid(E)
+    batched_grid(E, "bsmm_batched")
     kernel_tile("bsmm_batched", plan.tile)
     stream = _stream(a)
     dev = plan.device_tensors(a.device)
@@ -764,11 +798,15 @@ def bsmm_batched(a: torch.Tensor, w: torch.Tensor,
 bsmm_batched.launches = 0
 
 
-def _check_grad_operands(a, b, plan: TilePlan, where: str):
+def _check_grad_operands(a, b, plan: TilePlan, where: str,
+                         batched: bool = False):
     """``a`` (M, A) and ``b`` (M, B) with the plan covering (A, B)
-    (dw: x and g) — or, for dx, (M, N) and the (K, N) weight."""
-    if a.ndim != 2 or b.ndim != 2:
-        raise GeometryError(f"{where} takes 2-D operands",
+    (dw: x and g) — or, for dx, (M, N) and the (K, N) weight; with
+    ``batched``, each with a leading expert axis of one length."""
+    nd = 3 if batched else 2
+    if a.ndim != nd or b.ndim != nd or (batched and a.shape[0] != b.shape[0]):
+        raise GeometryError(f"{where} takes {nd}-D operands"
+                            + (" of one expert count" if batched else ""),
                             shape=(*a.shape, *b.shape), where=where)
     if plan.counts_t is None or plan.kk is None:
         raise ValueError(f"{where}: TilePlan lacks backward metadata — "
@@ -780,38 +818,106 @@ def _check_grad_operands(a, b, plan: TilePlan, where: str):
         raise ValueError(f"{where}: operands on {a.device} and {b.device}")
 
 
+def _plan_covers(plan: TilePlan, K: int, N: int) -> bool:
+    return (plan.counts.shape[0] * plan.tile == N
+            and plan.counts_t.shape[0] * plan.tile == K)
+
+
+def _dx(g, w, plan: TilePlan, where: str, batched: bool):
+    """dx of ``g`` and ``w`` (2-D, or with an expert axis when
+    ``batched``): the plain version on the CPU, else one launch.
+    Returns (dx, route, splits), route None for the plain version."""
+    _check_grad_operands(g, w, plan, where, batched)
+    *_, M, N = g.shape
+    K = w.shape[-2]
+    if w.shape[-1] != N or not _plan_covers(plan, K, N):
+        raise GeometryError(f"{where}: g, w and the TilePlan disagree",
+                            shape=(*g.shape, *w.shape), tile=plan.tile,
+                            where=where)
+    _check_layout(where, g, w)
+    if g.device.type == "cpu":
+        plain = bsmm_batched_dx_plain if batched else bsmm_dx_plain
+        return plain(g, w, plan), None, 0
+    if g.device.type != "cuda":
+        raise ValueError(f"{where}: unsupported device {g.device}")
+    E = g.shape[0] if batched else 1
+    batched_grid(E, where)
+    kernel_tile(where, plan.tile)
+    stream = _stream(g)
+    dev = plan.device_tensors(g.device)
+    route, S = plan.route_and_splits("dx", M, g.dtype, E)
+    lib = _lib()
+    out = torch.empty((*g.shape[:-1], K), dtype=g.dtype, device=g.device)
+    args = (g.data_ptr(), w.data_ptr(), out.data_ptr(), dev.idx_t.data_ptr(),
+            dev.counts_t.data_ptr())
+    tail = (M, K, N, plan.nmax, _DTYPE_CODES[g.dtype], _DX_ROUTES[route], S,
+            stream)
+    code = (lib.bsmm_batched_dx_launch(*args, E, *tail) if batched
+            else lib.bsmm_dx_launch(*args, *tail))
+    _build.check(lib, code, where)
+    return out, route, S
+
+
+def _dw(x, g, plan: TilePlan, where: str, batched: bool):
+    """dw of ``x`` and ``g`` (2-D, or with an expert axis when
+    ``batched``) into a zeroed grad: the plain version on the CPU, else
+    one launch (none when no tile is live).  Returns (dw, route, splits),
+    route None where no kernel ran."""
+    _check_grad_operands(x, g, plan, where, batched)
+    *_, M, K = x.shape
+    N = g.shape[-1]
+    if g.shape[-2] != M or not _plan_covers(plan, K, N):
+        raise GeometryError(f"{where}: x, g and the TilePlan disagree",
+                            shape=(*x.shape, *g.shape), tile=plan.tile,
+                            where=where)
+    _check_layout(where, x, g)
+    if x.device.type == "cpu":
+        plain = bsmm_batched_dw_plain if batched else bsmm_dw_plain
+        return plain(x, g, plan), None, 0
+    if x.device.type != "cuda":
+        raise ValueError(f"{where}: unsupported device {x.device}")
+    E = x.shape[0] if batched else 1
+    batched_grid(E, where)
+    kernel_tile(where, plan.tile)
+    stream = _stream(x)
+    out = torch.zeros((*x.shape[:-2], K, N), dtype=x.dtype, device=x.device)
+    L = plan.live_tiles
+    if L == 0:                          # nothing live: no launch
+        return out, None, 0
+    route, S = plan.route_and_splits("dw", M, x.dtype, E)
+    ws = cnt = None
+    if S > 1 and route == "fma":        # wgmma's pieces meet in a cluster
+        ws, cnt = _scratch(x.device, stream,
+                           E * S * L * MXU_TILE * MXU_TILE, E * L)
+    dev = plan.device_tensors(x.device)
+    lib = _lib()
+    args = (x.data_ptr(), g.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(),
+            None if cnt is None else cnt.data_ptr(), dev.kk.data_ptr(),
+            dev.nn.data_ptr())
+    tail = (L, M, K, N, _DTYPE_CODES[x.dtype], S, stream)
+    code = (lib.bsmm_batched_dw_launch(*args, E, *tail) if batched
+            else lib.bsmm_dw_launch(*args, *tail))
+    _build.check(lib, code, where)
+    return out, route, S
+
+
+def _count(fn, route: Optional[str], S: int) -> None:
+    """One launch of ``fn``'s kernel on ``route`` (none: no launch)."""
+    if route is None:
+        return
+    fn.launches += 1
+    fn.launches_by_route[route] += 1
+    fn.split_launches += S > 1
+
+
 def bsmm_dx(g: torch.Tensor, w: torch.Tensor, plan: TilePlan) -> torch.Tensor:
     """Kernel #3: ``g (M, N) @ (w ⊙ tile bitmap)ᵀ`` → (M, K) in g's
     dtype, over the transposed plan's live N tiles only, on the CUDA
     route ``bsmm_dx_route`` names, each K-row tile's live list cut as
     ``bsmm_dx_splits`` says."""
-    _check_grad_operands(g, w, plan, "bsmm_dx")
-    M, N = g.shape
-    K = w.shape[0]
-    if (w.shape[1] != N or plan.counts.shape[0] * plan.tile != N
-            or plan.counts_t.shape[0] * plan.tile != K):
-        raise GeometryError("bsmm_dx: g, w and the TilePlan disagree",
-                            shape=(M, N, *w.shape), tile=plan.tile,
-                            where="bsmm_dx")
-    _check_layout("bsmm_dx", g, w)
-    if g.device.type == "cpu":
-        return bsmm_dx_plain(g, w, plan)
-    if g.device.type != "cuda":
-        raise ValueError(f"bsmm_dx: unsupported device {g.device}")
-    kernel_tile("bsmm_dx", plan.tile)
-    stream = _stream(g)
-    dev = plan.device_tensors(g.device)
-    route, S = plan.route_and_splits("dx", M, g.dtype)
-    lib = _lib()
-    out = torch.empty((M, K), dtype=g.dtype, device=g.device)
-    code = lib.bsmm_dx_launch(g.data_ptr(), w.data_ptr(), out.data_ptr(),
-                              dev.idx_t.data_ptr(), dev.counts_t.data_ptr(),
-                              M, K, N, plan.nmax, _DTYPE_CODES[g.dtype],
-                              _DX_ROUTES[route], S, stream)
-    _build.check(lib, code, "bsmm_dx")
-    bsmm_dx.launches += 1
-    bsmm_dx.launches_by_route[route] += 1
-    bsmm_dx.split_launches += S > 1
+    out, route, S = _dx(g, w, plan, "bsmm_dx", False)
+    _count(bsmm_dx, route, S)
     return out
 
 
@@ -822,46 +928,32 @@ bsmm_dx.launches_by_route = {k: 0 for k in _DX_ROUTES}
 bsmm_dx.split_launches = 0
 
 
+def bsmm_batched_dx(g: torch.Tensor, w: torch.Tensor,
+                    plan: TilePlan) -> torch.Tensor:
+    """Kernel #3 batched over experts: ``g (E, M, N)`` and ``w (E, K, N)``
+    → ``dx[e] = g[e] @ (w[e] ⊙ tile bitmap)ᵀ``, (E, M, K) in g's dtype,
+    in ONE launch, the plan shared (the union of the expert masks).  The
+    route is ``bsmm_dx_route`` at each expert's M rows; the split count
+    ``bsmm_dx_splits`` with the grid counted over all E experts (96
+    blocks hold few experts, so at MoE shapes it is 1)."""
+    out, route, S = _dx(g, w, plan, "bsmm_batched_dx", True)
+    _count(bsmm_batched_dx, route, S)
+    return out
+
+
+bsmm_batched_dx.launches = 0
+bsmm_batched_dx.launches_by_route = {k: 0 for k in _DX_ROUTES}
+bsmm_batched_dx.split_launches = 0
+
+
 def bsmm_dw(x2: torch.Tensor, g: torch.Tensor, plan: TilePlan) -> torch.Tensor:
     """Kernel #4: the (K, N) weight grad of ``x2 (M, K) @ w`` for the
     cotangent ``g (M, N)``, live tiles only, in x2's dtype; dead tiles
     are exactly zero (never computed).  The CUDA kernel is
     ``bsmm_dw_route``'s, each tile's rows cut as ``bsmm_dw_splits``
     says and the pieces summed in order."""
-    _check_grad_operands(x2, g, plan, "bsmm_dw")
-    M, K = x2.shape
-    N = g.shape[1]
-    if (g.shape[0] != M or plan.counts.shape[0] * plan.tile != N
-            or plan.counts_t.shape[0] * plan.tile != K):
-        raise GeometryError("bsmm_dw: x, g and the TilePlan disagree",
-                            shape=(*x2.shape, *g.shape), tile=plan.tile,
-                            where="bsmm_dw")
-    _check_layout("bsmm_dw", x2, g)
-    if x2.device.type == "cpu":
-        return bsmm_dw_plain(x2, g, plan)
-    if x2.device.type != "cuda":
-        raise ValueError(f"bsmm_dw: unsupported device {x2.device}")
-    kernel_tile("bsmm_dw", plan.tile)
-    stream = _stream(x2)
-    out = torch.zeros((K, N), dtype=x2.dtype, device=x2.device)
-    if plan.live_tiles == 0:            # nothing live: no launch
-        return out
-    L = plan.live_tiles
-    route, S = plan.route_and_splits("dw", M, x2.dtype)
-    ws = cnt = None
-    if S > 1 and route == "fma":        # wgmma's pieces meet in a cluster
-        ws, cnt = _scratch(x2.device, stream, S * L * MXU_TILE * MXU_TILE, L)
-    dev = plan.device_tensors(x2.device)
-    lib = _lib()
-    code = lib.bsmm_dw_launch(x2.data_ptr(), g.data_ptr(), out.data_ptr(),
-                              None if ws is None else ws.data_ptr(),
-                              None if cnt is None else cnt.data_ptr(),
-                              dev.kk.data_ptr(), dev.nn.data_ptr(), L, M, K,
-                              N, _DTYPE_CODES[x2.dtype], S, stream)
-    _build.check(lib, code, "bsmm_dw")
-    bsmm_dw.launches += 1
-    bsmm_dw.launches_by_route[route] += 1
-    bsmm_dw.split_launches += S > 1
+    out, route, S = _dw(x2, g, plan, "bsmm_dw", False)
+    _count(bsmm_dw, route, S)
     return out
 
 
@@ -870,6 +962,26 @@ bsmm_dw.launches = 0
 bsmm_dw.launches_by_route = {k: 0 for k in _DW_ROUTES}
 #: launches whose rows were cut (``bsmm_dw_splits`` > 1)
 bsmm_dw.split_launches = 0
+
+
+def bsmm_batched_dw(x: torch.Tensor, g: torch.Tensor,
+                    plan: TilePlan) -> torch.Tensor:
+    """Kernel #4 batched over experts: the (E, K, N) grads of ``x[e] (M,
+    K) @ w[e]`` for the cotangents ``g (E, M, N)`` on the live tiles of
+    the shared plan (the union of the expert masks), in x's dtype, in
+    ONE launch; tiles dead in the plan are exactly zero.  A tile live in
+    the union but dead in one expert's own mask gets that expert's
+    nonzero grad there, as the reference's does: the masked optimizer
+    zeroes it.  The route is ``bsmm_dw_route``'s; the split count
+    ``bsmm_dw_splits`` with the grid counted over all E experts."""
+    out, route, S = _dw(x, g, plan, "bsmm_batched_dw", True)
+    _count(bsmm_batched_dw, route, S)
+    return out
+
+
+bsmm_batched_dw.launches = 0
+bsmm_batched_dw.launches_by_route = {k: 0 for k in _DW_ROUTES}
+bsmm_batched_dw.split_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1087,6 +1199,42 @@ class BsmmApply(torch.autograd.Function):
         dw = bsmm_dw(x2, dz, plan).to(w.dtype)
         db = None if bias is None else dz.sum(0).to(bias.dtype)
         return dx.reshape(*g.shape[:-1], x2.shape[1]), dw, db, None, None
+
+
+class BsmmBatchedApply(torch.autograd.Function):
+    """``a[e] (C, K) @ (w[e] ⊙ tile bitmap) (K, N)`` for every expert e,
+    one shared plan: forward through the batched kernel #1, backward
+    through the batched #3 (da) and #4 (dw), each one launch for all
+    experts — the port's counterpart of the reference's ``jax.vmap`` of
+    ``plan_matmul``'s custom VJP over the expert axis."""
+
+    @staticmethod
+    def forward(ctx, a, w, plan):
+        ctx.plan = plan
+        ctx.save_for_backward(a, w)
+        return bsmm_batched(a, w, plan)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        g = g.contiguous()
+        da = bsmm_batched_dx(g, w, ctx.plan).to(a.dtype)
+        dw = bsmm_batched_dw(a, g, ctx.plan).to(w.dtype)
+        return da, dw, None
+
+
+def bsmm_batched_apply(a, w, plan: TilePlan):
+    """Differentiable expert-batched ``a (E, C, K) @ (w (E, K, N) ⊙ tile
+    bitmap)`` → (E, C, N).  The backward always computes both grads (a
+    fixed number of launches a step); dw is zero on tiles dead in the
+    plan.  With gradients off the forward kernel is called directly."""
+    if plan.idx_t is None or plan.kk is None:
+        raise ValueError("TilePlan lacks backward metadata — rebuild it "
+                         "with make_tile_plan()")
+    a = a.contiguous()
+    if not torch.is_grad_enabled():
+        return bsmm_batched(a, w, plan)
+    return BsmmBatchedApply.apply(a, w, plan)
 
 
 def bsmm_apply(x, w, plan: TilePlan, bias=None, act: Optional[str] = None):

@@ -100,6 +100,19 @@
 // tile element against 2 * 2 bytes a row) and by the bytes of x's and
 // g's live columns when M is small.  Times against the bounds are in
 // PERF.md.
+//
+// The expert-batched backward (bsmm_batched_dx_launch,
+// bsmm_batched_dw_launch: the backward of the reference's jax.vmap of
+// plan_matmul over experts) runs the same kernels over E experts that
+// share one plan, in one launch: dx's wgmma grid folds the expert into x
+// (z holds the split's clusters), dw's grids and dx's simt grid take it
+// as z.  Each expert's rows are the MoE capacity C, a multiple of 8 but
+// not of the 64- or 128-row box, so the bf16 kernels read g, x and w
+// through 3-D tensor maps (cols, rows, E): a box that runs past row C
+// zero-fills instead of reading expert e + 1's rows, which dw would sum
+// into expert e's tile; dx masks its store at C.  At training capacity
+// (C = 320 for deepseek-v3's retrain) the live weight tiles' bytes, read
+// once per expert, bound both (PERF.md).
 #include <cuda.h>           // CUtensorMap and its enums (header only: no -lcuda)
 #include <cuda_runtime.h>
 #include <cooperative_groups.h>
@@ -1053,6 +1066,27 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// the same box of expert c2's slice of an (E, rows, cols) tensor: rows
+// past the slice's end zero-fill instead of reading expert c2 + 1's
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+         "r"(c2)
+      : "memory");
+}
+
+template <bool R3>
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         const int* c, int i) {
+  if constexpr (R3)
+    tma_load_3d(dst, map, bar, c[i], c[i + 1], c[8]);
+  else
+    tma_load_2d(dst, map, bar, c[i], c[i + 1]);
+}
+
 // wgmma shared-memory descriptor of a 128B-swizzled tile: start address,
 // leading and stride byte offsets (16-byte units), layout type 1 (128B)
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
@@ -1121,13 +1155,15 @@ __device__ __forceinline__ void consumers_sync() {
 // contraction rows, each A and B 16 KB by TMA; `coords(g, c)` gives
 // stage g's box coordinates as (inner, outer) pairs: A box 0, A box 1
 // (dw: two 64-row boxes of x; FWD and DX one 64 x 128 box), B box 0, B
-// box 1 (FWD and DW: two 64-column boxes; DX one 64 x 128 box of w).  The
+// box 1 (FWD and DW: two 64-column boxes; DX one 64 x 128 box of w);
+// with R3 (the expert-batched dx and dw) the maps are 3-D, (cols, rows,
+// E), and c[8] is the block's expert.  The
 // producer warp's first thread keeps every free slot of the ring
 // loading; the consumer warpgroup keeps one stage of wgmmas in flight
 // and frees a slot (its empty barrier) as soon as the wgmmas that read
 // it are done.  Returns in the producer warp once its loads are issued
 // (the warp stays in the block for the cluster's barriers).
-template <int MODE, int STAGES, typename Coords>
+template <int MODE, int STAGES, bool R3, typename Coords>
 __device__ __forceinline__ void mainloop(const CUtensorMap* amap, const CUtensorMap* bmap,
                                          uint32_t base, uint32_t full_bar, int nst,
                                          Coords coords, float (&d)[2][64]) {
@@ -1139,13 +1175,13 @@ __device__ __forceinline__ void mainloop(const CUtensorMap* amap, const CUtensor
       if (g >= STAGES) mbar_wait(empty_bar + 8 * s, ((g / STAGES) & 1) ^ 1);
       const uint32_t fb = full_bar + 8 * s;
       const uint32_t st = base + s * STAGE;
-      int c[8];
+      int c[9];
       coords(g, c);
       mbar_expect_tx(fb, STAGE);
-      tma_load_2d(st, amap, fb, c[0], c[1]);               // FWD, DX: 64 x 128
-      if (MODE == DW) tma_load_2d(st + BOX, amap, fb, c[2], c[3]);
-      tma_load_2d(st + 2 * BOX, bmap, fb, c[4], c[5]);     // DX: 64 x 128
-      if (MODE != DX) tma_load_2d(st + 3 * BOX, bmap, fb, c[6], c[7]);
+      tma_load<R3>(st, amap, fb, c, 0);                    // FWD, DX: 64 x 128
+      if (MODE == DW) tma_load<R3>(st + BOX, amap, fb, c, 2);
+      tma_load<R3>(st + 2 * BOX, bmap, fb, c, 4);          // DX: 64 x 128
+      if (MODE != DX) tma_load<R3>(st + 3 * BOX, bmap, fb, c, 6);
     }
     return;
   }
@@ -1304,7 +1340,7 @@ bsmm2d_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
 #pragma unroll
     for (int i = 0; i < 64; ++i) d[sl][i] = 0.f;
 
-  mainloop<FWD, ST>(&xmap, &wmap, base, full_bar, 2 * (t1 - t0),
+  mainloop<FWD, ST, false>(&xmap, &wmap, base, full_bar, 2 * (t1 - t0),
                 [&](int g, int* c) {
                   const int kc = live[g / 2] * TILE + (g % 2) * BKS;
                   c[0] = kc; c[1] = m0;                   // x (64 k) x (128 rows)
@@ -1322,17 +1358,21 @@ bsmm2d_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
               });
 }
 
-// dw: grid (L, S), clusters of the S pieces of a tile.  Block (l, z)
-// sums x[rows, kk[l]]^T g[rows, nn[l]] over piece z of the 64-row
-// stages; the cluster stores the tile into dw (K, N).
-template <int ST>
-__global__ void __launch_bounds__(THREADS, 2)
-bsmm_dw_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
-                     const __grid_constant__ CUtensorMap gmap,
-                     __nv_bfloat16* __restrict__ dw, const int* __restrict__ kk,
-                     const int* __restrict__ nn, int M, int N, int S) {
+// dw: grid (L, S, E), clusters of the S pieces of a tile.  Block (l, z,
+// e) sums x_e[rows, kk[l]]^T g_e[rows, nn[l]] over piece z of the 64-row
+// stages; the cluster stores the tile into dw_e (K, N).  BATCHED reads x
+// and g through 3-D maps (cols, M, E), so that a box past row M zero-fills
+// instead of summing expert e + 1's rows into expert e's tile (the 2-D
+// form has E = 1 and 2-D maps).
+template <int ST, bool BATCHED>
+__device__ __forceinline__ void dw_wgmma(const CUtensorMap* xmap, const CUtensorMap* gmap,
+                                         __nv_bfloat16* __restrict__ dw,
+                                         const int* __restrict__ kk,
+                                         const int* __restrict__ nn, int M, int K, int N,
+                                         int S) {
   const int l = blockIdx.x;
   const int z = blockIdx.y;
+  const int e = blockIdx.z;
   int parts, s0, s1;
   piece((M + BKS - 1) / BKS, S, z, parts, s0, s1);
   if (z >= parts) s0 = s1 = 0;
@@ -1341,6 +1381,7 @@ bsmm_dw_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
   const uint32_t full_bar = init_barriers<ST>(smem_raw, base);
   const int k0 = kk[l] * TILE;
   const int n0 = nn[l] * TILE;
+  __nv_bfloat16* out = dw + (size_t)e * K * N;
 
   float d[2][64];
 #pragma unroll
@@ -1348,32 +1389,59 @@ bsmm_dw_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
 #pragma unroll
     for (int i = 0; i < 64; ++i) d[sl][i] = 0.f;
 
-  mainloop<DW, ST>(&xmap, &gmap, base, full_bar, s1 - s0,
+  mainloop<DW, ST, BATCHED>(xmap, gmap, base, full_bar, s1 - s0,
                [&](int g, int* c) {
                  const int r = (s0 + g) * BKS;
                  c[0] = k0; c[1] = r;                    // x (64 k) x (64 rows), twice
                  c[2] = k0 + 64; c[3] = r;
                  c[4] = n0; c[5] = r;                    // g (64 n) x (64 rows), twice
                  c[6] = n0 + 64; c[7] = r;
+                 c[8] = e;
                },
                d);
   cluster_sum(d, smem_raw + (base - smem_u32(smem_raw)), parts, TILE,
               [&](int r, int c, float a, float b) {
-                store2(dw + (size_t)(k0 + r) * N + n0 + c, a, b);
+                store2(out + (size_t)(k0 + r) * N + n0 + c, a, b);
               });
 }
 
-// dx: grid (row blocks, K / 128 output column tiles, S).  Block (mb, k,
-// z) multiplies g's rows mb * 128.. by piece z of K-row tile k's live N
-// tiles, w read K-major (128 k rows of 64 n a stage); the cluster stores
-// the bf16 tile of dx (M, K), zeros where k's list is empty.
+// the 2-D and the expert-batched dw under their own names (a profile
+// tells them apart)
 template <int ST>
 __global__ void __launch_bounds__(THREADS, 2)
-bsmm_dx_wgmma_kernel(const __grid_constant__ CUtensorMap gmap,
-                     const __grid_constant__ CUtensorMap wmap,
-                     __nv_bfloat16* __restrict__ dx, const int* __restrict__ idx_t,
-                     const int* __restrict__ counts_t, int M, int K, int nmax, int S) {
-  const int m0 = blockIdx.x * BM;
+bsmm_dw_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                     const __grid_constant__ CUtensorMap gmap,
+                     __nv_bfloat16* __restrict__ dw, const int* __restrict__ kk,
+                     const int* __restrict__ nn, int M, int K, int N, int S) {
+  dw_wgmma<ST, false>(&xmap, &gmap, dw, kk, nn, M, K, N, S);
+}
+
+template <int ST>
+__global__ void __launch_bounds__(THREADS, 2)
+bsmm_batched_dw_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                             const __grid_constant__ CUtensorMap gmap,
+                             __nv_bfloat16* __restrict__ dw, const int* __restrict__ kk,
+                             const int* __restrict__ nn, int M, int K, int N, int S) {
+  dw_wgmma<ST, true>(&xmap, &gmap, dw, kk, nn, M, K, N, S);
+}
+
+// dx: grid (E x row blocks, K / 128 output column tiles, S).  Block (e *
+// row blocks + mb, k, z) multiplies g_e's rows mb * 128.. by piece z of
+// K-row tile k's live N tiles, w_e read K-major (128 k rows of 64 n a
+// stage); the cluster (its S pieces, along z) stores the bf16 tile of
+// dx_e (M, K), rows past M masked, zeros where k's list is empty.  The
+// expert rides grid x because the split's clusters take z.  BATCHED reads
+// g and w through 3-D maps (cols, rows, E): g's rows past M zero-fill
+// per expert (the 2-D form has E = 1 and 2-D maps).
+template <int ST, bool BATCHED>
+__device__ __forceinline__ void dx_wgmma(const CUtensorMap* gmap, const CUtensorMap* wmap,
+                                         __nv_bfloat16* __restrict__ dx,
+                                         const int* __restrict__ idx_t,
+                                         const int* __restrict__ counts_t, int M, int K,
+                                         int nmax, int S) {
+  const int mblocks = (M + BM - 1) / BM;
+  const int e = blockIdx.x / mblocks;
+  const int m0 = (blockIdx.x - e * mblocks) * BM;
   const int k = blockIdx.y;
   const int k0 = k * TILE;
   const int z = blockIdx.z;
@@ -1384,6 +1452,7 @@ bsmm_dx_wgmma_kernel(const __grid_constant__ CUtensorMap gmap,
   uint32_t base;
   const uint32_t full_bar = init_barriers<ST>(smem_raw, base);
   const int* live = idx_t + (size_t)k * nmax + t0;
+  __nv_bfloat16* out = dx + (size_t)e * M * K;
 
   float d[2][64];
 #pragma unroll
@@ -1391,17 +1460,37 @@ bsmm_dx_wgmma_kernel(const __grid_constant__ CUtensorMap gmap,
 #pragma unroll
     for (int i = 0; i < 64; ++i) d[sl][i] = 0.f;
 
-  mainloop<DX, ST>(&gmap, &wmap, base, full_bar, 2 * (t1 - t0),
+  mainloop<DX, ST, BATCHED>(gmap, wmap, base, full_bar, 2 * (t1 - t0),
                [&](int g, int* c) {
                  const int nc = live[g / 2] * TILE + (g % 2) * BKS;
                  c[0] = nc; c[1] = m0;                   // g (64 n) x (128 rows)
                  c[4] = nc; c[5] = k0;                   // w (64 n) x (128 k)
+                 c[8] = e;
                },
                d);
   cluster_sum(d, smem_raw + (base - smem_u32(smem_raw)), parts, min(BM, M - m0),
               [&](int r, int c, float a, float b) {
-                store2(dx + (size_t)(m0 + r) * K + k0 + c, a, b);
+                store2(out + (size_t)(m0 + r) * K + k0 + c, a, b);
               });
+}
+
+template <int ST>
+__global__ void __launch_bounds__(THREADS, 2)
+bsmm_dx_wgmma_kernel(const __grid_constant__ CUtensorMap gmap,
+                     const __grid_constant__ CUtensorMap wmap,
+                     __nv_bfloat16* __restrict__ dx, const int* __restrict__ idx_t,
+                     const int* __restrict__ counts_t, int M, int K, int nmax, int S) {
+  dx_wgmma<ST, false>(&gmap, &wmap, dx, idx_t, counts_t, M, K, nmax, S);
+}
+
+template <int ST>
+__global__ void __launch_bounds__(THREADS, 2)
+bsmm_batched_dx_wgmma_kernel(const __grid_constant__ CUtensorMap gmap,
+                             const __grid_constant__ CUtensorMap wmap,
+                             __nv_bfloat16* __restrict__ dx, const int* __restrict__ idx_t,
+                             const int* __restrict__ counts_t, int M, int K, int nmax,
+                             int S) {
+  dx_wgmma<ST, true>(&gmap, &wmap, dx, idx_t, counts_t, M, K, nmax, S);
 }
 
 // cuTensorMapEncodeTiled through the runtime's driver entry point, so that
@@ -1432,15 +1521,20 @@ EncodeTiled encode_fn() {
 constexpr int ENCODE_FAILED = 10000;   // + CUresult; see kernel_error_string
 
 // a row-major (rows, cols) bf16 matrix as a 2-D map read in 128B-swizzled
-// boxes of 64 columns x box_rows, zero-filled out of bounds
-int make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows) {
+// boxes of 64 columns x box_rows, zero-filled out of bounds; with experts
+// > 0, a stack of that many such matrices as a 3-D map (cols, rows,
+// experts) read one expert's box at a time, so that a box running past
+// `rows` zero-fills there instead of reaching the next expert's rows
+int make_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows,
+             int experts = 0) {
   const EncodeTiled encode = encode_fn();
   if (encode == nullptr) return ENCODE_FAILED + CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-  const cuuint32_t estr[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+  const cuuint32_t rank = experts > 0 ? 3 : 2;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)experts};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)rows * cols * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr),
                             dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -1506,59 +1600,70 @@ int launch_fwd(const void* x, const void* w, const void* bias, void* out, const 
                                       grid, s);
 }
 
-template <int ST>
+template <int ST, bool BATCHED>
 int launch_dw_ring(const CUtensorMap& xm, const CUtensorMap& gm, void* dw, const int* kk,
-                   const int* nn, int M, int N, int S, dim3 grid, cudaStream_t s) {
+                   const int* nn, int M, int K, int N, int S, dim3 grid, cudaStream_t s) {
   static bool ready = false;
-  auto kernel = bsmm_dw_wgmma_kernel<ST>;
+  auto kernel = BATCHED ? bsmm_batched_dw_wgmma_kernel<ST> : bsmm_dw_wgmma_kernel<ST>;
   const cudaError_t a = allow_smem(kernel, Ring<ST>::SMEM, ready);
   if (a != cudaSuccess) return a;
   return launch_clusters(kernel, grid, dim3(1, S, 1), Ring<ST>::SMEM, s, xm, gm,
-                         static_cast<__nv_bfloat16*>(dw), kk, nn, M, N, S);
+                         static_cast<__nv_bfloat16*>(dw), kk, nn, M, K, N, S);
 }
 
-template <int ST>
+template <int ST, bool BATCHED>
 int launch_dx_ring(const CUtensorMap& gm, const CUtensorMap& wm, void* dx, const int* idx_t,
                    const int* counts_t, int M, int K, int nmax, int S, dim3 grid,
                    cudaStream_t s) {
   static bool ready = false;
-  auto kernel = bsmm_dx_wgmma_kernel<ST>;
+  auto kernel = BATCHED ? bsmm_batched_dx_wgmma_kernel<ST> : bsmm_dx_wgmma_kernel<ST>;
   const cudaError_t a = allow_smem(kernel, Ring<ST>::SMEM, ready);
   if (a != cudaSuccess) return a;
   return launch_clusters(kernel, grid, dim3(1, 1, S), Ring<ST>::SMEM, s, gm, wm,
                          static_cast<__nv_bfloat16*>(dx), idx_t, counts_t, M, K, nmax, S);
 }
 
+// dx of E experts (E = 1 and 2-D maps unless BATCHED): g (E, M, N), w
+// (E, K, N), dx (E, M, K)
+template <bool BATCHED>
 int launch_dx(const void* g, const void* w, void* dx, const int* idx_t, const int* counts_t,
-              int M, int K, int N, int nmax, int S, cudaStream_t s) {
+              int E, int M, int K, int N, int nmax, int S, cudaStream_t s) {
   CUtensorMap gm, wm;
-  int e = make_map(&gm, g, M, N, BM);
-  if (e == 0) e = make_map(&wm, w, K, N, BM);   // 128 k rows of 64 n: K-major B
+  const int experts = BATCHED ? E : 0;
+  int e = make_map(&gm, g, M, N, BM, experts);
+  if (e == 0) e = make_map(&wm, w, K, N, BM, experts);   // 128 k rows of 64 n: K-major B
   if (e != 0) return e;
-  dim3 grid((M + BM - 1) / BM, K / BN, S);
+  dim3 grid(E * ((M + BM - 1) / BM), K / BN, S);
   if (alone(grid))
-    return launch_dx_ring<ALONE>(gm, wm, dx, idx_t, counts_t, M, K, nmax, S, grid, s);
-  return launch_dx_ring<SHARED>(gm, wm, dx, idx_t, counts_t, M, K, nmax, S, grid, s);
+    return launch_dx_ring<ALONE, BATCHED>(gm, wm, dx, idx_t, counts_t, M, K, nmax, S, grid,
+                                          s);
+  return launch_dx_ring<SHARED, BATCHED>(gm, wm, dx, idx_t, counts_t, M, K, nmax, S, grid, s);
 }
 
-int launch_dw(const void* x, const void* g, void* dw, const int* kk, const int* nn, int L,
-              int M, int K, int N, int S, cudaStream_t s) {
+// dw of E experts (E = 1 and 2-D maps unless BATCHED): x (E, M, K), g
+// (E, M, N), dw (E, K, N)
+template <bool BATCHED>
+int launch_dw(const void* x, const void* g, void* dw, const int* kk, const int* nn, int E,
+              int L, int M, int K, int N, int S, cudaStream_t s) {
   CUtensorMap xm, gm;
-  int e = make_map(&xm, x, M, K, BKS);
-  if (e == 0) e = make_map(&gm, g, M, N, BKS);
+  const int experts = BATCHED ? E : 0;
+  int e = make_map(&xm, x, M, K, BKS, experts);
+  if (e == 0) e = make_map(&gm, g, M, N, BKS, experts);
   if (e != 0) return e;
-  dim3 grid(L, S);
-  if (alone(grid)) return launch_dw_ring<ALONE>(xm, gm, dw, kk, nn, M, N, S, grid, s);
-  return launch_dw_ring<SHARED>(xm, gm, dw, kk, nn, M, N, S, grid, s);
+  dim3 grid(L, S, E);
+  if (alone(grid))
+    return launch_dw_ring<ALONE, BATCHED>(xm, gm, dw, kk, nn, M, K, N, S, grid, s);
+  return launch_dw_ring<SHARED, BATCHED>(xm, gm, dw, kk, nn, M, K, N, S, grid, s);
 }
 
 }  // namespace wg
 
 // ---------------------------------------------------------------------------
-// dw, float32 on the CUDA cores: grid (L, S).  Block (l, z) covers the
-// 128 x 128 tile with a 16 x 16 thread grid of 8 x 8 register tiles and
-// sums piece z of the 32-row steps, staging x[:, kk[l]] and g[:, nn[l]]
-// as f32 with 16-byte loads.
+// dw, float32 on the CUDA cores: grid (L, S, E).  Block (l, z, e) covers
+// the 128 x 128 tile of expert e (E = 1 for the 2-D form) with a 16 x 16
+// thread grid of 8 x 8 register tiles and sums piece z of the 32-row
+// steps, staging x_e[:, kk[l]] and g_e[:, nn[l]] as f32 with 16-byte
+// loads; rows past M load as zeros.
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(256)
 bsmm_dw_fma_kernel(const float* __restrict__ x, const float* __restrict__ g,
@@ -1570,9 +1675,13 @@ bsmm_dw_fma_kernel(const float* __restrict__ x, const float* __restrict__ g,
   __shared__ __align__(16) float gs[BR][TILE];   // (row, n)
   const int l = blockIdx.x;
   const int z = blockIdx.y;
+  const int e = blockIdx.z;
   int parts, s0, s1;
   piece((M + BR - 1) / BR, S, z, parts, s0, s1);
   if (z >= parts) return;
+  x += (size_t)e * M * K;
+  g += (size_t)e * M * N;
+  dw += (size_t)e * K * N;
   const int k0 = kk[l] * TILE;
   const int n0 = nn[l] * TILE;
   const int tid = threadIdx.x;
@@ -1585,8 +1694,8 @@ bsmm_dw_fma_kernel(const float* __restrict__ x, const float* __restrict__ g,
     for (int b = 0; b < TN; ++b) acc[a][b] = 0.f;
 
   for (int m0 = s0 * BR; m0 < s1 * BR; m0 += BR) {
-    for (int e = tid; e < BR * TILE / 4; e += 256) {
-      const int r = e / (TILE / 4), c = (e % (TILE / 4)) * 4;
+    for (int i = tid; i < BR * TILE / 4; i += 256) {
+      const int r = i / (TILE / 4), c = (i % (TILE / 4)) * 4;
       const int m = m0 + r;
       float4 xv = make_float4(0.f, 0.f, 0.f, 0.f), gv = xv;
       if (m < M) {
@@ -1615,12 +1724,13 @@ bsmm_dw_fma_kernel(const float* __restrict__ x, const float* __restrict__ g,
   constexpr size_t T2 = (size_t)TILE * TILE;
   const size_t lt = (size_t)gridDim.x * T2;
   if (parts > 1) {
+    ws += (size_t)e * S * lt;            // expert e's (S, L, 128, 128) partials
     float* wz = ws + z * lt + l * T2;
 #pragma unroll
     for (int a = 0; a < TM; ++a)
 #pragma unroll
       for (int b = 0; b < TN; ++b) wz[(ty + a * (TILE / TM)) * TILE + tx + b * NX] = acc[a][b];
-    if (!last_to_finish(cnt + l, parts)) return;
+    if (!last_to_finish(cnt + (size_t)e * gridDim.x + l, parts)) return;
     for (int p = 0; p < parts; ++p) {    // every piece in split order, own included
 #pragma unroll
       for (int a = 0; a < TM; ++a)
@@ -1739,6 +1849,56 @@ extern "C" int bsmm_batched_launch(const void* x, const void* w, void* out,
                          (long long)M * K, (long long)K * N, (long long)M * N);
 }
 
+namespace {
+
+constexpr int MAX_GRID_Z = 65535;   // experts a batched launch takes (grid z)
+
+// dx of E experts: the 2-D entry point's body (E = 1, 2-D maps) and the
+// batched one's (3-D maps, the expert in grid z on simt and folded into
+// grid x on wgmma, whose split clusters take z)
+int dx_launch(const void* g, const void* w, void* dx, const int* idx_t, const int* counts_t,
+              int E, int M, int K, int N, int nmax, int dtype, int route, int splits,
+              void* stream, bool batched) {
+  if (E <= 0 || E > MAX_GRID_Z || M <= 0 || K <= 0 || N <= 0 || K % TILE || N % TILE ||
+      nmax <= 0 || splits <= 0)
+    return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 1) {
+    if (dtype != 1 || M < 64 || splits > wg::MAX_PIECES) return cudaErrorInvalidValue;
+    return batched ? wg::launch_dx<true>(g, w, dx, idx_t, counts_t, E, M, K, N, nmax, splits, s)
+                   : wg::launch_dx<false>(g, w, dx, idx_t, counts_t, 1, M, K, N, nmax, splits,
+                                          s);
+  }
+  if (route != 0 || splits != 1 || (dtype == 1 && M >= 64)) return cudaErrorInvalidValue;
+  // the forward walk with contraction N and output width K, grid z = E
+  return dispatch<true>(g, w, dx, idx_t, counts_t, M, N, K, nmax, dtype, stream, E,
+                        (long long)M * N, (long long)K * N, (long long)M * K);
+}
+
+// dw of E experts (grid z = E on both routes); see bsmm_batched_dw_launch
+int dw_launch(const void* x, const void* g, void* dw, void* ws, int* cnt, const int* kk,
+              const int* nn, int E, int L, int M, int K, int N, int dtype, int splits,
+              void* stream, bool batched) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (L <= 0) return cudaSuccess;
+  if (E <= 0 || E > MAX_GRID_Z || M <= 0 || K % TILE || N % TILE || splits <= 0 ||
+      (dtype == 1 && splits > wg::MAX_PIECES) ||
+      (dtype == 0 && splits > 1 && (ws == nullptr || cnt == nullptr)))
+    return cudaErrorInvalidValue;
+  if (dtype == 0) {
+    bsmm_dw_fma_kernel<<<dim3(L, splits, E), 256, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(g), static_cast<float*>(dw),
+        static_cast<float*>(ws), cnt, kk, nn, M, K, N, splits);
+    return cudaGetLastError();
+  }
+  if (dtype == 1)
+    return batched ? wg::launch_dw<true>(x, g, dw, kk, nn, E, L, M, K, N, splits, s)
+                   : wg::launch_dw<false>(x, g, dw, kk, nn, 1, L, M, K, N, splits, s);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
 // dx (M, K) = g (M, N) @ (w (K, N) * tile bitmap)^T over the transposed
 // plan: idx_t (K / 128, nmax) live N tiles of each K-row tile, counts_t.
 // route (bsmm.bsmm_dx_route): 0 = simt (float32, or bfloat16 below 64
@@ -1749,16 +1909,21 @@ extern "C" int bsmm_dx_launch(const void* g, const void* w, void* dx,
                               const int* idx_t, const int* counts_t, int M,
                               int K, int N, int nmax, int dtype, int route,
                               int splits, void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0 || K % TILE || N % TILE || nmax <= 0 || splits <= 0)
-    return cudaErrorInvalidValue;
-  if (route == 1) {
-    if (dtype != 1 || M < 64 || splits > wg::MAX_PIECES) return cudaErrorInvalidValue;
-    return wg::launch_dx(g, w, dx, idx_t, counts_t, M, K, N, nmax, splits,
-                         static_cast<cudaStream_t>(stream));
-  }
-  if (route != 0 || splits != 1 || (dtype == 1 && M >= 64)) return cudaErrorInvalidValue;
-  // the forward walk with contraction N and output width K
-  return dispatch<true>(g, w, dx, idx_t, counts_t, M, N, K, nmax, dtype, stream);
+  return dx_launch(g, w, dx, idx_t, counts_t, 1, M, K, N, nmax, dtype, route, splits, stream,
+                   false);
+}
+
+// The expert-batched dx (the backward of the reference's jax.vmap of
+// plan_matmul over experts): dx[e] (M, K) = g[e] (M, N) @ (w[e] (K, N) *
+// tile bitmap)^T for e < E, contiguous (E, M, N), (E, K, N) and (E, M,
+// K), one transposed plan for every expert, one launch; routes and
+// splits as bsmm_dx_launch's, M being each expert's rows.
+extern "C" int bsmm_batched_dx_launch(const void* g, const void* w, void* dx,
+                                      const int* idx_t, const int* counts_t, int E,
+                                      int M, int K, int N, int nmax, int dtype,
+                                      int route, int splits, void* stream) {
+  return dx_launch(g, w, dx, idx_t, counts_t, E, M, K, N, nmax, dtype, route, splits, stream,
+                   true);
 }
 
 // dw (K, N): for each of the L live tiles l, rows kk[l] * 128.. and
@@ -1771,21 +1936,20 @@ extern "C" int bsmm_dx_launch(const void* g, const void* w, void* dx,
 extern "C" int bsmm_dw_launch(const void* x, const void* g, void* dw, void* ws, int* cnt,
                               const int* kk, const int* nn, int L, int M, int K, int N,
                               int dtype, int splits, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (L <= 0) return cudaSuccess;
-  if (M <= 0 || K % TILE || N % TILE || splits <= 0 ||
-      (dtype == 1 && splits > wg::MAX_PIECES) ||
-      (dtype == 0 && splits > 1 && (ws == nullptr || cnt == nullptr)))
-    return cudaErrorInvalidValue;
-  float* wsp = static_cast<float*>(ws);
-  if (dtype == 0) {
-    bsmm_dw_fma_kernel<<<dim3(L, splits), 256, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(g), static_cast<float*>(dw),
-        wsp, cnt, kk, nn, M, K, N, splits);
-    return cudaGetLastError();
-  }
-  if (dtype == 1) return wg::launch_dw(x, g, dw, kk, nn, L, M, K, N, splits, s);
-  return cudaErrorInvalidValue;
+  return dw_launch(x, g, dw, ws, cnt, kk, nn, 1, L, M, K, N, dtype, splits, stream, false);
+}
+
+// The expert-batched dw: dw[e] (K, N) gets x[e] (M, K)[:, tile]^T @ g[e]
+// (M, N)[:, tile] on each of the L live tiles of the shared plan (the
+// union of the expert masks), contiguous (E, M, K), (E, M, N) and (E, K,
+// N), one launch; the caller passes a zeroed dw.  As bsmm_dw_launch, with
+// a float32 split workspace of (E, splits, L, 128, 128) and E * L
+// counters.
+extern "C" int bsmm_batched_dw_launch(const void* x, const void* g, void* dw, void* ws,
+                                      int* cnt, const int* kk, const int* nn, int E, int L,
+                                      int M, int K, int N, int dtype, int splits,
+                                      void* stream) {
+  return dw_launch(x, g, dw, ws, cnt, kk, nn, E, L, M, K, N, dtype, splits, stream, true);
 }
 
 extern "C" const char* kernel_error_string(int code) {

@@ -1,7 +1,8 @@
 """Mixture-of-Experts FFN: top-k routing, grouped capacity dispatch,
 batched expert compute, optional shared experts.
 
-A port of ``repro.models.moe`` for serving.  Dispatch is the reference's
+A port of ``repro.models.moe``, for serving and training.  Dispatch is
+the reference's
 sort-based capacity scheme with one dispatch group (the reference's
 default with no mesh installed; the port has no mesh hook yet): the
 (token, expert) pairs are sorted by expert, the first C per expert are
@@ -11,9 +12,12 @@ buffer, and a scatter-add combines their outputs back into the tokens.
 Tie orders follow the reference exactly: top-k comes from a stable
 descending sort (``jax.lax.top_k`` breaks ties to the lower index) and
 the dispatch sort is stable (``jnp.argsort`` is).  With a plan the
-expert products run block-sparse through ``kernels.bsmm.bsmm_batched``,
-one launch per projection for all experts.  Training through expert
-plans (the batched backward) is not yet ported.
+expert products run block-sparse through ``kernels.bsmm.bsmm_batched_apply``,
+one launch per projection for all experts, forward and (with gradients
+on) each of the backward's dx and dw.  The router, the aux loss and the
+combine differentiate through plain autograd, as the reference's do
+through XLA; the aux loss's ``density`` term (expert counts) carries no
+gradient there either.
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels.bsmm import bsmm_batched
+from repro_torch.kernels.bsmm import bsmm_batched_apply
 from repro_torch.models.layers import _act, mlp, mlp_init, xavier
 
 
@@ -66,15 +70,12 @@ def _expert_matmul(a, w, plan, spec: str):
     (``models.plans``) — a tile is skipped only when it is dead in
     EVERY expert, which is exact because pruned weights are exact
     zeros.  With a plan, the C rows of each expert go through one
-    batched kernel launch; dense einsum when there is none.
+    batched kernel launch (and its backward through one batched dx and
+    one batched dw launch); dense einsum when there is none.
     """
     if plan is None:
         return torch.einsum(spec, a, w)
-    if torch.is_grad_enabled() and (a.requires_grad or w.requires_grad):
-        raise NotImplementedError("training through MoE expert plans (the "
-                                  "batched dx/dw) is not yet ported to "
-                                  "repro_torch")
-    return bsmm_batched(a, w, plan)
+    return bsmm_batched_apply(a, w, plan)
 
 
 def _top_k(probs, k: int):

@@ -5,8 +5,7 @@ block is global attention — GQA (llama-style) or MLA — with a dense or
 MoE FFN (deepseek-style).  A model is a list of *segments*; within a
 segment the per-layer parameters are stacked on a leading repeats axis,
 and the reference's ``lax.scan`` over it becomes a loop here.  Windowed
-or recurrent blocks raise "not yet ported", and so does training
-(``forward``/``loss_fn``) an MLA or MoE model.
+or recurrent blocks raise "not yet ported".
 
 Entry points: ``forward``/``loss_fn`` (training, full-sequence logits),
 ``prefill``, ``decode_step`` (dense per-slot caches) and
@@ -56,24 +55,16 @@ def _not_ported(what: str):
     return NotImplementedError(f"{what} is not yet ported to repro_torch")
 
 
-def _check_ported(cfg: ArchConfig, *, training: bool = False) -> None:
-    """Serving covers GQA and MLA attention with dense or MoE FFNs;
-    training (the forward with gradients) covers GQA with dense FFNs."""
+def check_ported(cfg: ArchConfig) -> None:
+    """Raise "not yet ported" unless serving and training (``forward``/
+    ``loss_fn``) cover cfg: GQA or MLA attention with dense or MoE
+    FFNs."""
     if set(cfg.blocks) != {ATTN}:
         raise _not_ported(f"block kinds {sorted(set(cfg.blocks))}")
-    if training and cfg.mla is not None:
-        raise _not_ported("training MLA attention")
-    if training and cfg.moe is not None:
-        raise _not_ported("training MoE")
     if cfg.norm != "rmsnorm":
         raise _not_ported(f"norm {cfg.norm!r}")
     if cfg.is_encoder_decoder or cfg.num_patch_tokens:
         raise _not_ported("encoder-decoder and patch-token inputs")
-
-
-def check_trainable(cfg: ArchConfig) -> None:
-    """Raise "not yet ported" unless ``forward``/``loss_fn`` cover cfg."""
-    _check_ported(cfg, training=True)
 
 
 # ---------------------------------------------------------------------------
@@ -149,7 +140,7 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, *, device="cuda"):
     """Full parameter pytree (embed, stacked segments, final norm, head),
     keyed like the reference's, drawn from ``gen`` (a generator on
     ``device``)."""
-    _check_ported(cfg)
+    check_ported(cfg)
     dev = resolve_device(device)
     dtype = _dtype(cfg.dtype)
     seg_params = []
@@ -180,7 +171,8 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, *, device="cuda"):
 # ---------------------------------------------------------------------------
 def _apply_block(cfg: ArchConfig, p, x, mode: str, cache, capacity,
                  valid_len=None, plan=None, paged=None):
-    """Returns (x, new_cache).  ``mode`` is "forward" (training),
+    """Returns (x, aux, new_cache) — aux the MoE layer's load-balance
+    loss, None for a dense FFN.  ``mode`` is "forward" (training),
     "prefill" or "decode"; ``paged`` (tables, lens) carries the paged
     decode's block tables, and decode without it runs over dense
     per-slot caches."""
@@ -199,7 +191,7 @@ def _apply_block(cfg: ArchConfig, p, x, mode: str, cache, capacity,
                 p["attn"], cache, h, tables=paged[0], lens=paged[1], **kw)
         else:
             out, new_cache = attn_lib.mla_decode(p["attn"], cache, h, **kw)
-        return _apply_ffn(cfg, p, x + out, plan), new_cache
+        return (*_apply_ffn(cfg, p, x + out, plan), new_cache)
     kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
               head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta)
     if mode == "forward":
@@ -215,20 +207,20 @@ def _apply_block(cfg: ArchConfig, p, x, mode: str, cache, capacity,
     else:
         out, new_cache = attn_lib.gqa_decode(
             p["attn"], cache, h, plan=plan.get("attn"), **kw)
-    return _apply_ffn(cfg, p, x + out, plan), new_cache
+    return (*_apply_ffn(cfg, p, x + out, plan), new_cache)
 
 
 def _apply_ffn(cfg: ArchConfig, p, x, plan):
-    """The block's second half: dense MLP or MoE (its aux loss only
-    matters to training, which does not run MoE here)."""
+    """The block's second half, dense MLP or MoE: (x, aux), aux the MoE
+    load-balance loss (None for a dense FFN)."""
     if cfg.d_ff <= 0:
-        return x
+        return x, None
     h2 = rmsnorm(p["norm2"], x)
     if "moe" in p:
         mo = moe_lib.moe_forward(p["moe"], h2, cfg.moe, cfg.act,
                                  cfg.gated_mlp, plan=plan.get("moe"))
-        return x + mo.y
-    return x + mlp(p["mlp"], h2, cfg.act, plan=plan.get("mlp"))
+        return x + mo.y, mo.aux_loss
+    return x + mlp(p["mlp"], h2, cfg.act, plan=plan.get("mlp")), None
 
 
 def _run_segments(cfg, params, x, mode, caches, capacity, valid_len=None,
@@ -238,8 +230,10 @@ def _run_segments(cfg, params, x, mode, caches, capacity, valid_len=None,
     views into the stacked tensors, so in-place pool writes land there;
     prefill caches are stacked back onto the repeats axis.  The training
     forward unbinds each stacked leaf once (see ``tree_unbind``) and,
-    with remat on, checkpoints every layer."""
+    with remat on, checkpoints every layer.  Returns (x, caches, the sum
+    of the MoE layers' aux losses, None without MoE)."""
     new_caches = []
+    total_aux = None
     remat = _REMAT_TRAIN and mode == "forward"
     for s_idx, (seg, pos_trees) in enumerate(zip(segments_of(cfg),
                                                  params["segments"])):
@@ -260,14 +254,16 @@ def _run_segments(cfg, params, x, mode, caches, capacity, valid_len=None,
                     c = tree_index(c, r) if c is not None else None
                 pe = seg_plan[pos] if seg_plan is not None else None
                 if remat:
-                    x = checkpoint(_forward_block, cfg, ptree, x, pe,
-                                   use_reentrant=False,
-                                   preserve_rng_state=False)
+                    x, aux = checkpoint(_forward_block, cfg, ptree, x, pe,
+                                        use_reentrant=False,
+                                        preserve_rng_state=False)
                     c_new = None
                 else:
-                    x, c_new = _apply_block(cfg, ptree, x, mode, c,
-                                            capacity, valid_len=valid_len,
-                                            plan=pe, paged=paged)
+                    x, aux, c_new = _apply_block(
+                        cfg, ptree, x, mode, c, capacity,
+                        valid_len=valid_len, plan=pe, paged=paged)
+                if aux is not None:
+                    total_aux = aux if total_aux is None else total_aux + aux
                 c_outs.append(c_new)
             per_rep.append(c_outs)
         if mode == "forward":
@@ -278,27 +274,30 @@ def _run_segments(cfg, params, x, mode, caches, capacity, valid_len=None,
             new_caches.append(tree_stack(per_rep))
         else:                      # pools and caches were written in place
             new_caches.append(seg_caches)
-    return x, (None if mode == "forward" else new_caches)
+    return x, (None if mode == "forward" else new_caches), total_aux
 
 
 def _forward_block(cfg, p, x, plan):
-    return _apply_block(cfg, p, x, "forward", None, None, plan=plan)[0]
+    """One training layer: (x, aux), what ``checkpoint`` recomputes."""
+    return _apply_block(cfg, p, x, "forward", None, None, plan=plan)[:2]
 
 
 def forward(params, cfg: ArchConfig, batch, plan=None):
-    """Training forward: full-sequence logits (B, S, V) and the MoE aux
-    loss (always 0 here: MoE is not yet ported).  ``batch["tokens"]``:
-    (B, S) integers.  ``plan`` (from ``train.plans.lm_train_plan``)
-    routes the attention and MLP projections through the block-sparse
-    kernels, forward and backward.  MLA and MoE models are not yet
-    trainable here."""
-    check_trainable(cfg)
+    """Training forward: full-sequence logits (B, S, V) and the sum of
+    the MoE layers' aux losses (an f32 scalar, 0 without MoE).
+    ``batch["tokens"]``: (B, S) integers.  ``plan`` (from
+    ``train.plans.lm_train_plan``) routes the attention, MLP and expert
+    projections through the block-sparse kernels, forward and backward
+    (MLA's projections run dense, as the reference's do)."""
+    check_ported(cfg)
     x = embed(params["embed"], batch["tokens"])
-    x, _ = _run_segments(cfg, params, x, "forward", None, None, plan=plan)
+    x, _, aux = _run_segments(cfg, params, x, "forward", None, None,
+                              plan=plan)
     x = rmsnorm(params["final_norm"], x)
     head = params.get("unembed", params["embed"])
-    return unembed(head, x), torch.zeros((), dtype=torch.float32,
-                                         device=x.device)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return unembed(head, x), aux
 
 
 def loss_fn(params, cfg: ArchConfig, batch, aux_weight: float = 0.01,
@@ -329,12 +328,12 @@ def prefill(params, cfg: ArchConfig, batch, capacity: int, valid_len=None,
     ``models.plans.build_decode_plan``) routes the attention and MLP
     projections through the block-sparse kernel.
     """
-    _check_ported(cfg)
+    check_ported(cfg)
     tokens = batch["tokens"]
     x = embed(params["embed"], tokens)
     none_caches = [[None for _ in seg.sigs] for seg in segments_of(cfg)]
-    x, caches = _run_segments(cfg, params, x, "prefill", none_caches,
-                              capacity, valid_len=valid_len, plan=plan)
+    x, caches, _ = _run_segments(cfg, params, x, "prefill", none_caches,
+                                 capacity, valid_len=valid_len, plan=plan)
     if valid_len is None:
         x_last = x[:, -1:]
     else:
@@ -352,10 +351,10 @@ def decode_step(params, cfg: ArchConfig, caches, token, plan=None):
     from them): each layer writes the new token's K/V (or MLA latents)
     at its cache index and attends over the valid rows, IN PLACE.
     ``plan`` routes the projections through the block-sparse kernel."""
-    _check_ported(cfg)
+    check_ported(cfg)
     x = embed(params["embed"], token)
-    x, caches = _run_segments(cfg, params, x, "decode", caches, None,
-                              plan=plan)
+    x, caches, _ = _run_segments(cfg, params, x, "decode", caches, None,
+                                 plan=plan)
     x = rmsnorm(params["final_norm"], x)
     head = params.get("unembed", params["embed"])
     return unembed(head, x), caches
@@ -389,7 +388,7 @@ def paged_cache_spec(cfg: ArchConfig, num_blocks: int):
     per attention layer (a ``PagedKVCache`` for GQA, a
     ``PagedLatentCache`` for MLA), a leading reps axis on stacked
     segments."""
-    _check_ported(cfg)
+    check_ported(cfg)
     dtype = _dtype(cfg.dtype)
     out = []
     for seg in segments_of(cfg):
@@ -444,10 +443,10 @@ def decode_step_paged(params, cfg: ArchConfig, caches, token, tables, lens,
     (B,) int32 tensors → (logits (B,1,V), pools).  Each layer appends
     the new token's KV at ``tables[b, lens[b] // BLOCK]`` (in place) and
     attends over ``lens[b] + 1`` tokens through the paged kernel."""
-    _check_ported(cfg)
+    check_ported(cfg)
     x = embed(params["embed"], token)
-    x, caches = _run_segments(cfg, params, x, "decode", caches, None,
-                              plan=plan, paged=(tables, lens))
+    x, caches, _ = _run_segments(cfg, params, x, "decode", caches, None,
+                                 plan=plan, paged=(tables, lens))
     x = rmsnorm(params["final_norm"], x)
     head = params.get("unembed", params["embed"])
     return unembed(head, x), caches

@@ -10,9 +10,13 @@ The updates run in float32 and cast back to the parameter dtype, as the
 reference does.  The optimizer state (momenta, moments) is updated IN
 PLACE, leaf by leaf: the reference's jitted step donates it, so the old
 state is dead either way, and a functional update would hold a second
-full copy of the f32 moments (25.7 GB for llama3.2-3b).  Stacked
-(≥3-D) leaves are updated one repeat at a time, so the f32 temporaries
-stay one layer's size.  New parameters are new tensors.
+full copy of the f32 moments (25.7 GB for llama3.2-3b).  A leaf of
+more than ``_CHUNK`` elements (an embedding table, a stack of layers or
+experts) is updated in blocks of leading-axis slices of at most that
+size, so the f32 temporaries stay small (a 926 M-element embedding
+would take ~3.7 GB per temporary); the update is elementwise, so the
+blocks give the bits the whole leaf would.  New parameters are new
+tensors.
 """
 from __future__ import annotations
 
@@ -40,14 +44,27 @@ def _step0():
     return torch.zeros((), dtype=torch.int32)
 
 
+#: elements of one block of a leaf's update (64 Mi: 256 MB an f32 temporary)
+_CHUNK = 1 << 26
+
+
 def _sliced(fn, p: torch.Tensor, *state) -> torch.Tensor:
-    """New ``p`` = ``fn(p, *state)`` (which may update ``state`` in
-    place), one leading-axis slice at a time for stacked leaves."""
-    if p.ndim < 3:
+    """New ``p`` = ``fn(p, *state)`` (an elementwise update, which may
+    update ``state`` in place), over blocks of leading-axis slices of at
+    most ``_CHUNK`` elements; a slice larger than that is cut the same
+    way along its own leading axis."""
+    if p.ndim < 2 or p.numel() <= _CHUNK:
         return fn(p, *state)
     out = torch.empty_like(p)
-    for i in range(p.shape[0]):
-        out[i] = fn(p[i], *(s[i] for s in state))
+    per = p[0].numel()
+    if per >= _CHUNK:
+        for i in range(p.shape[0]):
+            out[i] = _sliced(fn, p[i], *(s[i] for s in state))
+        return out
+    rows = _CHUNK // per
+    for i in range(0, p.shape[0], rows):
+        blk = slice(i, i + rows)
+        out[blk] = fn(p[blk], *(s[blk] for s in state))
     return out
 
 

@@ -49,6 +49,7 @@ from repro_torch.api import CNNAdapter, FunctionAdapter, PruningSession
 from repro_torch.api import make_adapter
 from repro_torch.api import ServeUnsupported
 from repro_torch.api import recipes as trecipes
+from repro_torch.api.registry import get_family
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import CNNConfig, ConvSpec, PruneConfig, get_cnn
 from repro_torch.configs import scaled_down_cnn
@@ -657,8 +658,11 @@ def test_registry_make_adapter():
     tiny = make_adapter("resnet18", scale="tiny", device="cpu")
     assert tiny.recipe is None and tiny.steps == 6
     assert tiny.cfg.convs[5].stride == 2
+    moe = make_adapter("deepseek-v3-671b", device="cpu")
+    assert moe.family == "moe" and moe.recipe is None and moe.steps == 6
+    assert moe.granularities[0] == "expert"
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        make_adapter("deepseek-v3-671b", device="cpu")
+        get_family("hybrid")
     with pytest.raises(KeyError):
         make_adapter("nope")
 

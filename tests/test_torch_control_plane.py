@@ -547,7 +547,10 @@ def test_cli_archs_and_refusals(capsys):
     by_arch = {r["arch"]: r for r in rows}
     assert code == 0 and by_arch["llama3.2-3b"]["serves"] is True
     assert by_arch["vgg11"]["serves"] is False
-    assert by_arch["deepseek-v3-671b"]["adapter"] is None
+    ds = by_arch["deepseek-v3-671b"]
+    assert (ds["adapter"], ds["family"], ds["recipe"], ds["serves"]) == \
+        ("LMAdapter", "moe", "moe-full", True)
+    assert ds["granularities"] == ["expert", "filter", "channel", "index"]
     code, out = _cli(capsys, ["serve", "--arch", "vgg11", "--device", "cpu",
                               "--json"])
     assert code == cli.EXIT_UNSUPPORTED

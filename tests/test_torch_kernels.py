@@ -1182,6 +1182,30 @@ def _dw_case(fault):
     return lambda: tb.bsmm_dw(x, g, plan)
 
 
+def _batched_dx_case(fault):
+    plan = tb.make_tile_plan(np.ones((256, 128), np.float32))
+    g, w = torch.zeros(2, 8, 128), torch.zeros(2, 256, 128)
+    if fault == "view":
+        w = _strided(2, 256, 128)
+    elif fault == "dtype":
+        g = g.bfloat16()
+    else:
+        g = _misaligned(2, 8, 128)
+    return lambda: tb.bsmm_batched_dx(g, w, plan)
+
+
+def _batched_dw_case(fault):
+    plan = tb.make_tile_plan(np.ones((256, 128), np.float32))
+    x, g = torch.zeros(2, 8, 256), torch.zeros(2, 8, 128)
+    if fault == "view":
+        x = _strided(2, 8, 256)
+    elif fault == "dtype":
+        g = g.bfloat16()
+    else:
+        g = _misaligned(2, 8, 128)
+    return lambda: tb.bsmm_batched_dw(x, g, plan)
+
+
 def _masked_case(fault):
     x, w, m = torch.zeros(8, 128), torch.zeros(128, 128), torch.ones(128, 128)
     if fault == "view":
@@ -1230,7 +1254,8 @@ _CONTRACT = {"view": (ValueError, "contiguous"),
 
 @pytest.mark.parametrize("case,fault", [
     *((c, f) for c in (_bsmm_case, _epilogue_case, _batched_case, _dx_case,
-                       _dw_case, _masked_case, _paged_case)
+                       _dw_case, _batched_dx_case, _batched_dw_case,
+                       _masked_case, _paged_case)
       for f in ("view", "dtype", "misaligned")),
     (_paged_case, "index_dtype"), (_tile_stats_case, "view"),
     (_tile_stats_case, "dtype"), (_flash_case, "view"),

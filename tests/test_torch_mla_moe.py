@@ -462,21 +462,6 @@ def test_engine_streams_match_reference(setup, temperature):
     eng.generations[-1].pool.check()
 
 
-def test_training_mla_moe_not_yet_ported(setup):
-    from repro_torch.api import LMAdapter
-    s = setup
-    batch = {"tokens": torch.zeros(1, 4, dtype=torch.long)}
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ttfm.forward(s["tparams"], s["tcfg"], batch)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        LMAdapter(s["tcfg"], device="cpu")
-    plan = tb.make_tile_plan(np.ones((256, 256)))
-    a = torch.zeros(1, 8, 2, 256, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tmoe._expert_matmul(a, torch.zeros(8, 256, 256), plan,
-                            "gecd,edf->gecf")
-
-
 def test_in_place_masking_matches_apply_masks(setup):
     s = setup
     params = _bridge.params_from_numpy(

@@ -295,13 +295,14 @@ def test_not_yet_ported_paths_raise(slice_setup, capsys):
                   "--mesh", "1x2", "--json"]):
         assert cli.main(argv) == cli.EXIT_UNSUPPORTED
         assert "not yet ported" in capsys.readouterr().out
-    # MoE serves; training it is not yet ported
+    # MoE serves and trains: the training forward returns its aux loss
     moe_cfg = tcfgs.scaled_down(tcfgs.get_arch("llama3.2-3b"),
                                 moe=tcfgs.MoEConfig(4, 2, 64))
     moe_params = ttfm.init_params(torch.Generator(), moe_cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        ttfm.forward(moe_params, moe_cfg,
-                     {"tokens": torch.zeros(1, 4, dtype=torch.long)})
+    logits, aux = ttfm.forward(moe_params, moe_cfg,
+                               {"tokens": torch.zeros(1, 4, dtype=torch.long)})
+    assert logits.shape == (1, 4, moe_cfg.padded_vocab)
+    assert bool(torch.isfinite(logits).all()) and float(aux) > 0
 
 
 @pytest.mark.parametrize("limit", [2, 9, 128, 640, 4096])

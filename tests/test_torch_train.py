@@ -372,6 +372,33 @@ def test_optimizers_match_reference(name):
         _assert_trees_close(ts, rs, **OPT_TOL)
 
 
+@pytest.mark.parametrize("name", ["adamw", "sgd"])
+def test_optimizer_blocks_give_the_whole_leafs_bits(name, monkeypatch):
+    """A leaf larger than ``_CHUNK`` is updated block by block (a 2-D
+    table by rows, a stack by slices cut again): the same parameters and
+    state, bit for bit, as one update of the whole leaf."""
+    rng = np.random.default_rng(11)
+    shapes = {"table": (37, 24), "stack": (3, 10, 16), "bias": (24,)}
+    params = {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+              .bfloat16() for k, s in shapes.items()}
+    grads = {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+             .bfloat16() for k, s in shapes.items()}
+    make = {"adamw": lambda: topt.adamw(topt.constant(1e-2)),
+            "sgd": lambda: topt.sgd(topt.constant(1e-2), momentum=0.9)}[name]
+    outs = []
+    for chunk in (1 << 26, 100):        # whole leaves, then blocks
+        monkeypatch.setattr(topt.optimizers, "_CHUNK", chunk)
+        opt = make()
+        state = opt.init(params)
+        p = params
+        for _ in range(2):
+            p, state = opt.update(grads, state, p)
+        outs.append((p, state))
+    (p1, s1), (p2, s2) = outs
+    for a, b in zip(_bridge.tree_leaves((p1, s1)), _bridge.tree_leaves((p2, s2))):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("name,make", [
     ("constant", lambda o: o.constant(3e-4)),
     ("exponential_epoch_decay", lambda o: o.exponential_epoch_decay(
