@@ -71,9 +71,10 @@ no result line otherwise):
    check that every request finishes with finite logits, that the
    fused-V kernel ran once per layer and decode step, every launch on
    its ``wgmma`` kernel (the GQA kernel never), that the bsmm, epilogue
-   and batched launches match the
-   model, that flash attention ran once per layer and prefill on the
-   wgmma route, and that block-sparse prefill agrees with dense prefill;
+   and batched launches match the model (every batched forward on its
+   ``stream`` kernel, none split), that flash attention ran once per
+   layer and prefill on the wgmma route, and that block-sparse prefill
+   agrees with dense prefill;
 6b. free the serving model and retrain deepseek-v3 at full width with
    two cuts, 61 layers to 2 (one dense, one MoE layer) and 256 routed
    experts to 32 (4.10 G parameters, the most that fit the card with
@@ -84,9 +85,10 @@ no result line otherwise):
    four times, checking losses, the aux loss (finite, > 0), parameters,
    pruned coordinates, ``sent_fraction``, and every bsmm kernel's
    launches, routes and split launches per step (the experts' forward,
-   dx and dw batched, one launch each per projection); then one
-   profiled step, which must show the batched dx and dw, and the peak
-   memory beside its reckoning;
+   dx and dw batched, one launch each per projection, all on their
+   ``wgmma`` kernels); then one profiled step, which must show the
+   batched forward, dx and dw, and the peak memory beside its
+   reckoning;
 7. run Algorithm 1 on vgg11 at its published widths through
    ``make_adapter("vgg11", scale="full")`` and ``PruningSession(...).run()``
    (the family's recipe cut to 4 prune rounds of 100 steps at a 5 %
@@ -103,13 +105,15 @@ no result line otherwise):
 8. check one full-width resnet18 train step on the card against the
    CPU (float32, TF32 off).
 
-Phase 2 also holds the expert-batched dx and dw (#3, #4 over E
-experts, one launch) at deepseek-v3's expert shapes, E = 32 and 320,
-200 and 40 rows an expert (and two E = 2 cases whose rule splits), bf16
-and f32, each call to its route and split count, twice bitwise equal,
-dw zero on tiles dead in the union and nonzero on a tile dead in one
-expert alone, dx zero under a K-row tile dead in the union; it times
-them and the batched forward (#1b) at C = 320 beside torch.bmm.
+Phase 2 also holds the expert-batched forward, dx and dw (#1, #3, #4
+over E experts, one launch) at deepseek-v3's expert shapes, E = 32 and
+320, 200 and 40 rows an expert (and three E = 2 cases whose rules
+split), bf16 and f32, each call to its route and split count, twice
+bitwise equal, dw zero on tiles dead in the union and nonzero on a tile
+dead in one expert alone, dx zero under a K-row tile dead in the union,
+and at C = 320 a row's forward and dx bits unchanged when the other
+rows and experts change; it times the three at C = 320 beside
+torch.bmm.
 Phase 2 holds the 2-D block-sparse forward (#1, #2) at 8, 63, 64, 128,
 300, 512, 1000 and 1024 rows and dx (#3) and dw (#4) at 1000 and 1024
 (dx also with an all-dead K-row tile), each call to the route and
@@ -136,8 +140,9 @@ bsmm and the fused-V kernel, the deepseek retrain for the batched dx and
 dw, the LTP MLP and the CNN path for #5, the
 CNN path for #9, the control plane for flash attention (#8) — its error
 against the plain version, its time, the plain version's, the bound and
-the library call's; #1–#5 and #7 their launches by route, #1–#5 their
-split launches, #5 also by path), the serving, LTP MLP,
+the library call's; #1–#5, the batched forms and #7 their launches by
+route, #1–#5 and the batched forms their split launches, #5 also by
+path), the serving, LTP MLP,
 control-plane, gradient-check, retrain, deepseek and CNN summaries,
 each phase's seconds and the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Longer records go to
@@ -797,13 +802,13 @@ def require_flash_routes(FA, want: int, where: str) -> None:
 
 
 BSMM_ROUTED = ("bsmm", "bsmm_epilogue", "bsmm_dx", "bsmm_dw")
-# the expert-batched backward's wrappers, counted by route like dx and dw
-BATCHED_ROUTED = ("bsmm_batched_dx", "bsmm_batched_dw")
+# the expert-batched wrappers, counted by route like the 2-D ones
+BATCHED_ROUTED = ("bsmm_batched", "bsmm_batched_dx", "bsmm_batched_dw")
 
 
 def reset_bsmm_routes(B, names=BSMM_ROUTED) -> None:
     """Set the launch, route and split counts of the named wrappers (the
-    2-D forward's, dx's and dw's) to 0."""
+    2-D or batched forward's, dx's and dw's) to 0."""
     for name in names:
         f = getattr(B, name)
         f.launches = 0
@@ -813,8 +818,8 @@ def reset_bsmm_routes(B, names=BSMM_ROUTED) -> None:
 
 
 def bsmm_routes(B, names=BSMM_ROUTED) -> dict:
-    """The named wrappers' (the 2-D forward's, dx's and dw's) launches by
-    route and split launches."""
+    """The named wrappers' (the 2-D or batched forward's, dx's and dw's)
+    launches by route and split launches."""
     return {name: {"launches_by_route": dict(getattr(B, name)
                                              .launches_by_route),
                    "split_launches": getattr(B, name).split_launches}
@@ -1543,9 +1548,10 @@ def retrain(cfg, device, steps: int = 4):
 def _kernel_group(name: str) -> str:
     """A profiled CUDA kernel's group: the bsmm kernels by role (dx is
     ``bsmm_dx_wgmma_kernel``, or the forward template with its last
-    template argument, TRANS, true; the weight-streaming kernel and the
-    WMMA one run the expert-batched forward, the ``bsmm_batched_*``
-    kernels its backward), paged attention (with its combine kernel),
+    template argument, TRANS, true; the weight-streaming kernel and
+    ``bsmm_batched_wgmma_kernel`` run the expert-batched forward, the
+    ``bsmm_batched_{dx,dw}_*`` kernels its backward), paged attention
+    (with its combine kernel),
     flash attention, the LTP product's kernels (with the split-K
     reduction), cuBLAS products, PyTorch's elementwise kernels, the
     rest."""
@@ -1555,7 +1561,7 @@ def _kernel_group(name: str) -> str:
         return "bsmm_batched_dx"
     if "bsmm_batched_dw" in name:
         return "bsmm_batched_dw"
-    if "bsmm_stream" in name or "bsmm_wmma" in name:
+    if "bsmm_stream" in name or "bsmm_batched_wgmma" in name:
         return "bsmm_batched"
     if "bsmm_dx" in name:
         return "bsmm_dx"
@@ -1639,8 +1645,10 @@ EXPERTS = 256
 def check_bsmm_batched(B):
     """The expert-batched bsmm against its plain version at deepseek-v3's
     expert shapes (E = 256, one shared plan), M = 8, 16 and a ragged 20,
-    bf16 and f32; timed in bf16 at M = 8 and 16 beside torch.bmm on the
-    dense masked experts."""
+    bf16 and f32, each call held to the route and split count its rule
+    gives (``stream`` at these rows) and two calls bitwise equal; timed
+    in bf16 at M = 8 and 16 beside torch.bmm on the dense masked
+    experts."""
     rng = np.random.default_rng(3)
     err = 0.0
     times = []
@@ -1654,13 +1662,17 @@ def check_bsmm_batched(B):
             for M in EXPERT_ROWS:
                 a = torch.randn(EXPERTS, M, K, device="cuda", generator=g,
                                 dtype=dtype)
-                got = B.bsmm_batched(a, w, plan)
+                route, S = plan.route_and_splits("fwd", M, dtype, EXPERTS)
+                got = held(B.bsmm_batched, route, S, a, w, plan)
+                require(torch.equal(got, B.bsmm_batched(a, w, plan)),
+                        f"two bsmm_batched calls differ at M={M} K={K} N={N}")
                 want = B.bsmm_batched_plain(a, w, plan)
                 torch.cuda.synchronize()
                 e = (got.float() - want.float()).abs().max().item()
                 tol = tolerance(dtype, want)
                 print(f"check bsmm_batched {str(dtype)[6:]} E={EXPERTS} M={M} "
-                      f"K={K} N={N} max_abs_err={e:.3e} tol={tol:.3e}")
+                      f"K={K} N={N} {route} splits={S} max_abs_err={e:.3e} "
+                      f"tol={tol:.3e}")
                 require(torch.isfinite(got).all().item(),
                         "bsmm_batched non-finite")
                 require(e <= tol, f"bsmm_batched disagrees with its plain "
@@ -1680,6 +1692,8 @@ def time_bsmm_batched(B, a, w, bm, plan, M, K, N):
     call reads gigabytes of weights, so nothing stays in the L2."""
     row = {"E": EXPERTS, "M": M, "K": K, "N": N, "dtype": "bfloat16",
            "live_tiles": plan.live_tiles, "total_tiles": plan.total_tiles}
+    row["route"], row["splits"] = plan.route_and_splits("fwd", M, a.dtype,
+                                                        EXPERTS)
     row["ms"] = time_ms(lambda i: B.bsmm_batched(a, w, plan), iters=10)
     row["plain_ms"] = time_ms(lambda i: B.bsmm_batched_plain(a, w, plan),
                               iters=3, graph=False)
@@ -1763,11 +1777,12 @@ def serve_deepseek(cfg, device):
         eng.submit(r)
 
     counters = ((B.bsmm, "launches"), (B.bsmm_epilogue, "launches"),
-                (B.bsmm_batched, "launches"), (PA.paged_attention, "launches"),
+                (PA.paged_attention, "launches"),
                 (PA.paged_attention, "fused_launches"),
                 (FA.flash_attention, "launches"))
     for f, attr in counters:
         setattr(f, attr, 0)
+    reset_bsmm_routes(B, ("bsmm_batched",))
     FA.flash_attention.launches_by_route.update(wgmma=0, simt=0)
     PA.paged_attention.fused_launches_by_route.update(wgmma=0, simt=0)
     step_ms = []
@@ -1814,6 +1829,15 @@ def serve_deepseek(cfg, device):
                              "simt": 0},
             "a deepseek decode step's fused-V attention left the wgmma "
             "kernel")
+    # decode and prefill give each expert at most 32 rows of 256 experts:
+    # every batched forward streams its weights, none cut
+    batched_routes = bsmm_routes(B, ("bsmm_batched",))["bsmm_batched"]
+    print(f"deepseek serving: batched forward routes {batched_routes}")
+    require(batched_routes == {
+        "launches_by_route": {k: want["bsmm_batched"] * (k == "stream")
+                              for k in B.bsmm_batched.launches_by_route},
+        "split_launches": 0},
+        "a deepseek serving pass's batched forward left the stream kernel")
 
     # block-sparse prefill through the plan vs dense prefill on the
     # masked weights, at one exact-length prompt
@@ -1848,6 +1872,7 @@ def serve_deepseek(cfg, device):
         "skipped_tile_fraction": rep.skipped_tile_fraction,
         "launches": launches, "launches_want": want,
         "fused_launches_by_route": fused_routes,
+        "bsmm_batched_routes": batched_routes,
         "prefill_plan_vs_dense_max_abs_err": diff,
         "prefill_plan_vs_dense_tol": tol,
         "decode_profile": profile,
@@ -1906,8 +1931,13 @@ RETRAIN_EXPERTS = 32          # routed experts of the retrain cut (of 256)
 # (simt for bf16 too)
 EXPERT_GRAD_ROWS = (320, 200, 40)
 # (E, C, K, N) cases whose rule cuts work, bf16 and f32: dx's clusters of
-# 3 pieces at the down shape, dw's of 2 at a small tile grid, ragged rows
-EXPERT_GRAD_SPLIT_CASES = ((2, 100, 2048, 7168), (2, 2088, 1024, 1024))
+# 3 pieces at the down shape, dw's of 2 at a small tile grid, ragged
+# rows, and the batched forward's clusters of 3 at the up/gate shape; at
+# C = 64 the one row block takes one 64-row slice, inside the forward's
+# (up/gate) and dx's (down) clusters of 3
+EXPERT_GRAD_SPLIT_CASES = ((2, 100, 2048, 7168), (2, 2088, 1024, 1024),
+                           (2, 100, 7168, 2048), (2, 64, 7168, 2048),
+                           (2, 64, 2048, 7168))
 
 
 def _tile_max(t, E, K, N):
@@ -1924,9 +1954,12 @@ def check_bsmm_batched_grads(B):
     rule gives, two calls bitwise equal, dw exactly zero on tiles dead in
     the union and nonzero on a tile live in the union but dead in expert
     0's own weights, dx zero under the dead K-row tile; the batched
-    forward (#1b) at the same cases, one launch each, two calls bitwise
-    equal, against its plain version.  Times dx, dw and the batched
-    forward at C = 320, bf16.  Returns (errors, times)."""
+    forward (#1b) at the same cases, held to its rule's route and split
+    count, two calls bitwise equal, against its plain version; at C =
+    320, bf16, a row's forward and dx bits unchanged when the other rows
+    and experts change (rows of the first 128-row block and of the
+    one-slice last block).  Times dx, dw and the batched forward at C =
+    320, bf16.  Returns (errors, times)."""
     rng = np.random.default_rng(6)
     err = {"bsmm_batched_dx": 0.0, "bsmm_batched_dw": 0.0,
            "bsmm_batched": 0.0}
@@ -1952,14 +1985,12 @@ def check_bsmm_batched_grads(B):
             for M in rows:
                 x = torch.randn(E, M, K, device="cuda", generator=g_).to(dtype)
                 g = torch.randn(E, M, N, device="cuda", generator=g_).to(dtype)
+                fwd_route, fwd_S = plan.route_and_splits("fwd", M, dtype, E)
                 dx_route, dx_S = plan.route_and_splits("dx", M, dtype, E)
                 dw_route, dw_S = plan.route_and_splits("dw", M, dtype, E)
                 dx = held(B.bsmm_batched_dx, dx_route, dx_S, g, w, plan)
                 dw = held(B.bsmm_batched_dw, dw_route, dw_S, x, g, plan)
-                n0_ = B.bsmm_batched.launches
-                y = B.bsmm_batched(x, w, plan)
-                require(B.bsmm_batched.launches == n0_ + 1,
-                        f"bsmm_batched did not launch once at E={E} M={M}")
+                y = held(B.bsmm_batched, fwd_route, fwd_S, x, w, plan)
                 require(torch.equal(y, B.bsmm_batched(x, w, plan)),
                         f"two bsmm_batched calls differ at E={E} M={M}")
                 require(torch.equal(dx, B.bsmm_batched_dx(g, w, plan)),
@@ -1969,7 +2000,7 @@ def check_bsmm_batched_grads(B):
                 torch.cuda.synchronize()
                 for name, got, want, route, S in (
                         ("bsmm_batched", y,
-                         B.bsmm_batched_plain(x, w, plan), "fwd", 1),
+                         B.bsmm_batched_plain(x, w, plan), fwd_route, fwd_S),
                         ("bsmm_batched_dx", dx,
                          B.bsmm_batched_dx_plain(g, w, plan), dx_route, dx_S),
                         ("bsmm_batched_dw", dw,
@@ -1997,6 +2028,22 @@ def check_bsmm_batched_grads(B):
                             "bsmm_batched_dx is not zero under a K-row tile "
                             "dead in the union")
                 if dtype == torch.bfloat16 and M == EXPERT_GRAD_ROWS[0]:
+                    # expert 0's rows 0..M/2 and its last 32 rows (inside
+                    # the last, one-slice 64-row block) against changed
+                    # other rows and experts (the second 128-row block
+                    # and the last one hold kept and changed rows)
+                    h, t = M // 2, M - 32
+                    x2, g2 = x.clone(), g.clone()
+                    x2[1:], g2[1:] = -x2[1:], -g2[1:]
+                    x2[0, h:t], g2[0, h:t] = 0, 0
+                    y2 = B.bsmm_batched(x2, w, plan)[0]
+                    dx2 = B.bsmm_batched_dx(g2, w, plan)[0]
+                    require(all(torch.equal(a[r], b[0, r]) for a, b in
+                                ((y2, y), (dx2, dx))
+                                for r in (slice(0, h), slice(t, M))),
+                            f"a row's batched forward or dx bits depend on "
+                            f"other rows at K={K} N={N}")
+                    del x2, g2
                     times.append(time_batched_grads(B, x, g, w, bm, plan, E,
                                                     M, K, N))
                 del y, dx, dw, x, g
@@ -2012,7 +2059,7 @@ def time_batched_grads(B, x, g, w, bm, plan, E, M, K, N):
     reads more than the L2 holds."""
     row = {"E": E, "M": M, "K": K, "N": N, "dtype": "bfloat16",
            "live_tiles": plan.live_tiles, "total_tiles": plan.total_tiles}
-    for kind in ("dx", "dw"):
+    for kind in ("fwd", "dx", "dw"):
         row[f"{kind}_route"], row[f"{kind}_splits"] = plan.route_and_splits(
             kind, M, x.dtype, E)
     row["dx_ms"] = time_ms(lambda i: B.bsmm_batched_dx(g, w, plan), iters=10)
@@ -2149,7 +2196,8 @@ def retrain_deepseek(cfg, device, steps: int = 4):
     loss (> 0), finite parameters, pruned coordinates exactly zero,
     ``sent_fraction`` equal to the host count, and the launches a step
     must make of every bsmm kernel, each on the route its rows give;
-    then one profiled step, which must show the batched dx and dw."""
+    then one profiled step, which must show the batched forward, dx and
+    dw."""
     from repro_torch._bridge import tree_leaves
     from repro_torch.api import make_adapter
     from repro_torch.kernels import bsmm as B
@@ -2188,10 +2236,8 @@ def retrain_deepseek(cfg, device, steps: int = 4):
                  "activations_logits_temporaries": 7.0}
     reckoning["total"] = sum(reckoning.values())
 
-    names = ("bsmm", "bsmm_epilogue", "bsmm_dx", "bsmm_dw", "bsmm_batched",
-             "bsmm_batched_dx", "bsmm_batched_dw")
-    reset_bsmm_routes(B, BSMM_ROUTED + BATCHED_ROUTED)
-    B.bsmm_batched.launches = 0
+    names = BSMM_ROUTED + BATCHED_ROUTED
+    reset_bsmm_routes(B, names)
     losses, auxes, sent, step_s = [], [], [], []
     for _ in range(steps):
         ts = time.perf_counter()
@@ -2230,7 +2276,8 @@ def retrain_deepseek(cfg, device, steps: int = 4):
     require(all(launches[k] == steps * v for k, v in want.items()),
             f"launch counts {launches} do not match {steps} steps of {want}")
     # every routed product on its wgmma kernel (2-D at 1024 rows, the
-    # batched backward at C rows an expert), cut where its plan says
+    # batched forward and backward at C rows an expert), cut where its
+    # plan says
     plan, _ = lm_train_plan(masks)
     mlp_plans = [e.get("mlp") or e["moe"]["shared"] for seg in plan
                  for e in seg]
@@ -2251,11 +2298,14 @@ def retrain_deepseek(cfg, device, steps: int = 4):
                                for q in p.values()),
         "bsmm_dw": steps * sum(cut(q, "dw", M) for p in mlp_plans
                                for q in p.values()),
+        "bsmm_batched": steps * r * sum(cut(q, "fwd", C, E)
+                                        for p in expert_plans
+                                        for q in p.values()),
         "bsmm_batched_dx": steps * sum(cut(q, "dx", C, E) for p in expert_plans
                                        for q in p.values()),
         "bsmm_batched_dw": steps * sum(cut(q, "dw", C, E) for p in expert_plans
                                        for q in p.values())}
-    routes = bsmm_routes(B, BSMM_ROUTED + BATCHED_ROUTED)
+    routes = bsmm_routes(B, names)
     for name, rt in routes.items():
         want_routes = {k: launches[name] * (k == "wgmma")
                        for k in rt["launches_by_route"]}
@@ -3142,7 +3192,8 @@ def main() -> int:
         {"name": "bsmm_batched", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/bsmm.cu",
          "replaces": "src/repro/kernels/bsmm.py:118",
-         "launches": ds_launches["bsmm_batched"], "max_abs_err": batched_err,
+         "launches": ds_launches["bsmm_batched"],
+         **ds_summary["bsmm_batched_routes"], "max_abs_err": batched_err,
          "ms": batched_row["ms"], "plain_ms": batched_row["plain_ms"],
          "bound_ms": batched_row["bound_ms"],
          "bound_by": batched_row["bound_by"],
@@ -3152,6 +3203,7 @@ def main() -> int:
          "training_rows": {
              "M": bgrad_row["M"], "E": bgrad_row["E"],
              "launches": rd_launches["bsmm_batched"],
+             **rd_summary["bsmm_routes"]["bsmm_batched"],
              "ms": bgrad_row["fwd_ms"], "plain_ms": bgrad_row["fwd_plain_ms"],
              "bound_ms": bgrad_row["fwd_bound_ms"],
              "bound_by": bgrad_row["fwd_bound_by"],

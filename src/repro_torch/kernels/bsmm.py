@@ -23,7 +23,14 @@ live list into ``bsmm_splits`` pieces, summed in split order inside the
 same launch; dw (#4) takes ``bsmm_dw_route`` and cuts each live tile's
 rows into ``bsmm_dw_splits`` pieces; dx (#3) takes ``bsmm_dx_route``
 (TMA and ``wgmma`` for bfloat16 from 64 rows) and cuts each K-row
-tile's live list into ``bsmm_dx_splits`` pieces.  On ``wgmma`` (and
+tile's live list into ``bsmm_dx_splits`` pieces.  The batched forward
+(#1b) takes ``bsmm_batched_route`` (TMA and ``wgmma`` for bfloat16 from
+64 rows an expert, weight streaming at up to 32 rows over a grid that
+fills the card twice, the CUDA-core walk otherwise) and cuts lists into
+``bsmm_batched_splits`` pieces; the batched dx (#3b) and dw (#4b) take
+dx's and dw's rules with their grids counted over all experts.  The
+batched ``wgmma`` kernels run one expert's blocks together and give a
+last row block of at most 64 rows one 64-row slice.  On ``wgmma`` (and
 bfloat16 dw) the pieces of a tile form one thread-block cluster and
 meet in shared memory; on ``stream`` and ``fma`` they meet in a
 workspace allocated once per device and stream (``_scratch``).  Those
@@ -42,7 +49,7 @@ through ``bsmm``/``bsmm_epilogue``, backward through ``bsmm_dx`` and
 ``bsmm_dw``, on either device; ``bsmm_batched_apply`` is its
 expert-batched twin, forward through ``bsmm_batched`` and backward
 through ``bsmm_batched_dx`` and ``bsmm_batched_dw`` (one launch each for
-all experts, counted like dx and dw).
+all experts, each counted by route).
 
 Every wrapper checks its operand contract (devices, dtypes, contiguity,
 16-byte aligned bases) on every device, so a CPU call refuses what the
@@ -176,18 +183,25 @@ class TilePlan:
 
     def route_and_splits(self, kind: str, M: int, dtype: torch.dtype,
                          experts: int = 1) -> Tuple[str, int]:
-        """``(bsmm_route, bsmm_splits)`` for the forward (``kind`` "fwd"),
+        """``(bsmm_route, bsmm_splits)`` for the 2-D forward (``kind``
+        "fwd"), ``(bsmm_batched_route, bsmm_batched_splits)`` for the
+        expert-batched forward ("batched", or "fwd" with ``experts`` > 1),
         ``(bsmm_dx_route, bsmm_dx_splits)`` for dx ("dx") or
         ``(bsmm_dw_route, bsmm_dw_splits)`` for dw ("dw") at M rows of
-        ``dtype`` (each of ``experts`` experts' rows, for the batched dx
-        and dw), computed once per shape."""
+        ``dtype`` (each of ``experts`` experts' rows, for the batched
+        forms), computed once per shape."""
+        if kind == "fwd" and experts > 1:
+            kind = "batched"
         key = (kind, M, dtype, experts)
         got = self._split.get(key)
         if got is None:
             K = len(self.counts_t) * self.tile if self.counts_t is not None \
                 else None
             N = len(self.counts) * self.tile
-            if kind == "fwd":
+            if kind == "batched":
+                got = (bsmm_batched_route(M, N, dtype, experts),
+                       bsmm_batched_splits(M, N, dtype, self, experts))
+            elif kind == "fwd":
                 got = (bsmm_route(M, K, N, dtype, self),
                        bsmm_splits(M, K, N, dtype, self))
             elif kind == "dx":
@@ -411,7 +425,7 @@ def _lib():
                                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP]
     lib.bsmm2d_launch.restype = _I
     lib.bsmm_batched_launch.argtypes = [_VP, _VP, _VP, _VP, _VP, _I, _I, _I,
-                                        _I, _I, _I, _VP]
+                                        _I, _I, _I, _I, _I, _VP]
     lib.bsmm_batched_launch.restype = _I
     lib.bsmm_dx_launch.argtypes = [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
                                    _I, _I, _VP]
@@ -569,6 +583,60 @@ def bsmm_dx_splits(M: int, K: int, N: int, dtype: torch.dtype,
     counts = np.asarray(plan.counts_t)
     top = int(counts.max()) if counts.size else 0
     grid = experts * (K // MXU_TILE) * -(-M // _WGMMA_ROWS)
+    cap = min(_MAX_TILE_PIECES, max(1, top // _MIN_PIECE_TILES))
+    return max(1, min(cap, _CLUSTER_GRID // grid))
+
+
+#: the expert-batched forward's route codes (csrc/bsmm.cu
+#: bsmm_batched_launch)
+_BATCHED_ROUTES = {"stream": 0, "simt": 1, "wgmma": 2}
+#: rows an expert up to which the batched forward may stream weights
+#: (four 8-row blocks of the streaming kernel)
+_BATCHED_STREAM_M = 32
+
+
+def bsmm_batched_route(M: int, N: int, dtype: torch.dtype,
+                       experts: int) -> str:
+    """Which CUDA kernel computes the expert-batched forward (#1b) at M
+    rows an expert of ``dtype`` over ``experts`` experts and N output
+    columns, by the name ``bsmm_batched.launches_by_route`` counts it
+    under:
+
+    - ``"wgmma"``: bfloat16 from 64 rows (training capacity): TMA and
+      ``wgmma`` over 3-D maps, one launch for all experts;
+    - ``"stream"``: at most 32 rows (decode, MoE prefill) of more than
+      one expert where the grid of experts x column tiles x 8-row blocks
+      fills the card twice: each live weight tile streamed through
+      registers;
+    - ``"simt"``: every other call (float32 from 33 rows or on a
+      narrow grid, bfloat16 at 33-63 rows or on a narrow grid): the
+      CUDA-core tile walk.
+
+    Like every rule here it counts the H100 SXM's ``_SMS`` = 132 SMs,
+    not the running card's, so that the route (and with it the bits) is
+    a function of the shape alone."""
+    if dtype == torch.bfloat16 and M >= _STREAM_M:
+        return "wgmma"
+    blocks = experts * (N // MXU_TILE) * -(-M // 8)
+    if experts > 1 and M <= _BATCHED_STREAM_M and blocks >= 2 * _SMS:
+        return "stream"
+    return "simt"
+
+
+def bsmm_batched_splits(M: int, N: int, dtype: torch.dtype, plan: TilePlan,
+                        experts: int) -> int:
+    """How many pieces the batched forward cuts each column tile's live
+    list into: on ``wgmma`` the 2-D forward's ``wgmma`` rule with the
+    grid (column tiles x 128-row blocks) counted over all ``experts``
+    experts (at most 4 pieces, each piece of the longest list keeping 2
+    tiles, the grid within 96 blocks: at MoE shapes it is 1); 1 on
+    ``stream`` and ``simt``.  A function of the shape and the plan
+    alone."""
+    if bsmm_batched_route(M, N, dtype, experts) != "wgmma":
+        return 1
+    counts = np.asarray(plan.counts)
+    top = int(counts.max()) if counts.size else 0
+    grid = experts * (N // MXU_TILE) * -(-M // _WGMMA_ROWS)
     cap = min(_MAX_TILE_PIECES, max(1, top // _MIN_PIECE_TILES))
     return max(1, min(cap, _CLUSTER_GRID // grid))
 
@@ -767,8 +835,10 @@ def bsmm_batched(a: torch.Tensor, w: torch.Tensor,
                  plan: TilePlan) -> torch.Tensor:
     """Kernel #1 batched over experts: ``a (E, M, K)`` and ``w (E, K, N)``
     → ``out[e] = a[e] @ (w[e] ⊙ tile bitmap)``, (E, M, N) in a's dtype,
-    in ONE launch whose grid runs over the experts.  The plan is shared:
-    build it from the union of the expert masks (``models.plans``)."""
+    in ONE launch over all experts, on the CUDA route
+    ``bsmm_batched_route`` names, each column tile's live list cut as
+    ``bsmm_batched_splits`` says.  The plan is shared: build it from the
+    union of the expert masks (``models.plans``)."""
     if a.ndim != 3 or w.ndim != 3 or a.shape[0] != w.shape[0]:
         raise GeometryError("bsmm_batched takes a (E, M, K) and w (E, K, N)",
                             shape=(*a.shape, *w.shape), where="bsmm_batched")
@@ -784,18 +854,24 @@ def bsmm_batched(a: torch.Tensor, w: torch.Tensor,
     kernel_tile("bsmm_batched", plan.tile)
     stream = _stream(a)
     dev = plan.device_tensors(a.device)
+    route, S = plan.route_and_splits("batched", M, a.dtype, E)
     lib = _lib()
     out = torch.empty((E, M, N), dtype=a.dtype, device=a.device)
     code = lib.bsmm_batched_launch(a.data_ptr(), w.data_ptr(), out.data_ptr(),
                                    dev.idx.data_ptr(), dev.counts.data_ptr(),
                                    E, M, K, N, plan.kmax,
-                                   _DTYPE_CODES[a.dtype], stream)
+                                   _DTYPE_CODES[a.dtype],
+                                   _BATCHED_ROUTES[route], S, stream)
     _build.check(lib, code, "bsmm_batched")
-    bsmm_batched.launches += 1
+    _count(bsmm_batched, route, S)
     return out
 
 
 bsmm_batched.launches = 0
+#: launches by the kernel that ran (``bsmm_batched_route``'s names)
+bsmm_batched.launches_by_route = {k: 0 for k in _BATCHED_ROUTES}
+#: launches whose live lists were cut (``bsmm_batched_splits`` > 1)
+bsmm_batched.split_launches = 0
 
 
 def _check_grad_operands(a, b, plan: TilePlan, where: str,
@@ -850,10 +926,9 @@ def _dx(g, w, plan: TilePlan, where: str, batched: bool):
     out = torch.empty((*g.shape[:-1], K), dtype=g.dtype, device=g.device)
     args = (g.data_ptr(), w.data_ptr(), out.data_ptr(), dev.idx_t.data_ptr(),
             dev.counts_t.data_ptr())
-    tail = (M, K, N, plan.nmax, _DTYPE_CODES[g.dtype], _DX_ROUTES[route], S,
-            stream)
-    code = (lib.bsmm_batched_dx_launch(*args, E, *tail) if batched
-            else lib.bsmm_dx_launch(*args, *tail))
+    shape = (M, K, N, plan.nmax, _DTYPE_CODES[g.dtype], _DX_ROUTES[route], S)
+    code = (lib.bsmm_batched_dx_launch(*args, E, *shape, stream) if batched
+            else lib.bsmm_dx_launch(*args, *shape, stream))
     _build.check(lib, code, where)
     return out, route, S
 

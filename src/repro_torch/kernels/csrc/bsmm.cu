@@ -62,14 +62,38 @@
 // bits never depend on the other rows' values (at a fixed M: a
 // different M may change the route or the split count).
 //
-// The expert-batched form (bsmm_batched_launch) is the legacy template
-// with grid z over E experts, each block offsetting x, w and out by its
-// expert's strides: the reference vmaps the Pallas call over the expert
-// axis into one launch, and so does this, with the one plan that the
-// union of the expert masks gives.  MoE rows per expert are few (8 at
-// decode, 16-24 at prefill) and the grid is wide (experts x column
-// tiles), so it takes bsmm_stream_kernel, which streams each live weight
-// tile through registers instead of staging it in shared memory.
+// The expert-batched forward (bsmm_batched_launch): the reference vmaps
+// the Pallas call over the expert axis into one launch, and so does
+// this, with the one plan that the union of the expert masks gives, on
+// one of three routes chosen on the host (bsmm.bsmm_batched_route /
+// bsmm_batched_splits):
+// - wgmma, bfloat16 from 64 rows an expert (training capacity, C = 320
+//   in deepseek-v3's retrain): route 2's mainloop over 3-D tensor maps
+//   (cols, rows, E), so that a box running past row C zero-fills
+//   instead of reading expert e + 1's rows, and the store masked at C.
+//   The grid is one-dimensional (E x column tiles x row blocks; z holds
+//   a split's clusters, and the split rule counts the grid over all
+//   experts, so at MoE shapes nothing splits), placed expert-major: an
+//   expert's row blocks innermost, then its column tiles, so that the
+//   row blocks of a column tile read its live w boxes together and the
+//   column tiles re-read x_e while it is in L2; each live w box leaves
+//   device memory about once per expert.  x comes in 64-row boxes, and
+//   a last row block of at most 64 rows (C = 320 = 2 x 128 + 64) loads
+//   one of them a stage and runs m64 wgmmas for it alone: no half-empty
+//   128-row block.  Both choices were timed against their alternatives
+//   on the H100 (PERF.md): tile-major placement (every expert's row
+//   blocks of a column tile, then the next tile) was 1.3-1.4x slower; a
+//   cluster of an (expert, tile)'s row blocks that loads each w box once
+//   and multicasts it 2.4-2.7x slower, each block's ring slot then
+//   waiting on the slowest block of its cluster.  What bounds it at C = 320:
+//   the bytes of x, the live w tiles and out, at 1.6-1.8x that bound
+//   (PERF.md).
+// - stream, at most 32 rows an expert over a grid that fills the card
+//   twice (decode and MoE prefill: 8-24 rows of 256 experts):
+//   bsmm_stream_kernel, each live weight tile streamed through
+//   registers instead of staged in shared memory, grid z = E.
+// - simt, otherwise (float32; bfloat16 below 64 rows on a narrow grid):
+//   bsmm_fwd_kernel, the CUDA-core tile walk, grid z = E.
 //
 // Backward.  dx walks, for its output column tile k (a K tile), the
 // live N tiles idx_t[k, :counts_t[k]] (the transposed plan), on one of
@@ -104,20 +128,24 @@
 // The expert-batched backward (bsmm_batched_dx_launch,
 // bsmm_batched_dw_launch: the backward of the reference's jax.vmap of
 // plan_matmul over experts) runs the same kernels over E experts that
-// share one plan, in one launch: dx's wgmma grid folds the expert into x
-// (z holds the split's clusters), dw's grids and dx's simt grid take it
-// as z.  Each expert's rows are the MoE capacity C, a multiple of 8 but
-// not of the 64- or 128-row box, so the bf16 kernels read g, x and w
-// through 3-D tensor maps (cols, rows, E): a box that runs past row C
-// zero-fills instead of reading expert e + 1's rows, which dw would sum
-// into expert e's tile; dx masks its store at C.  At training capacity
-// (C = 320 for deepseek-v3's retrain) the live weight tiles' bytes, read
-// once per expert, bound both (PERF.md).
+// share one plan, in one launch.  Each expert's rows are the MoE
+// capacity C, a multiple of 8 but not of the 64- or 128-row box, so the
+// bf16 kernels read g, x and w through 3-D tensor maps (cols, rows, E):
+// a box that runs past row C zero-fills instead of reading expert e +
+// 1's rows, which dw would sum into expert e's tile; dx masks its store
+// at C.  dx's wgmma grid is the batched forward's (one-dimensional,
+// expert-major, K-row tiles in place of column tiles, g in 64-row boxes
+// with the same one-slice last block; z for the split's clusters); on
+// simt the expert is grid z, as in dw's grids.  At C = 320 placing dx
+// expert-major made it 1.3-1.4x faster (each g_e re-read by its K-row
+// tiles while in L2, where tile-major re-read it after all 42 MB of g
+// had passed), the one-slice tail 4-5 % more (PERF.md).  At training capacity
+// the live weight tiles' bytes, read once per expert, and g's and dx's
+// bound dx and dw.
 #include <cuda.h>           // CUtensorMap and its enums (header only: no -lcuda)
 #include <cuda_runtime.h>
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -273,97 +301,6 @@ bsmm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict_
   }
 }
 
-// Tensor-core variant for bfloat16 at M >= 128 (prefill): the same walk
-// over live K tiles, with bf16 sub-tiles staged in shared memory as they
-// are and multiplied by WMMA 16x16x16 fragments into f32 accumulators.
-// 8 warps each own a 32 x 64 piece of the 128 x 128 output tile; the
-// flush goes fragment by fragment through a per-warp f32 staging tile.
-// Only the expert-batched forward takes it (dx has its own routes).
-__global__ void __launch_bounds__(256)
-bsmm_wmma_kernel(const __nv_bfloat16* __restrict__ x,
-                 const __nv_bfloat16* __restrict__ w,
-                 __nv_bfloat16* __restrict__ out, const int* __restrict__ idx,
-                 const int* __restrict__ counts, int M, int K, int N, int kmax,
-                 long long sx, long long sw, long long so) {
-  using namespace nvcuda;
-  constexpr int BM = 128, BN = 128, BK = 64;
-  constexpr int LDA = BK + 8;                    // padded, multiples of 8
-  constexpr int LDB = BN + 8;
-  __shared__ __align__(32) __nv_bfloat16 As[BM * LDA];
-  __shared__ __align__(32) __nv_bfloat16 Bs[BK * LDB];
-  __shared__ __align__(32) float Cs[8][16 * 16];
-
-  x += blockIdx.z * sx;                 // this block's expert (batched form)
-  w += blockIdx.z * sw;
-  out += blockIdx.z * so;
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;
-  const int j = n0 / TILE;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int wm = warp / 2;      // 4 warp rows of 32
-  const int wn = warp % 2;      // 2 warp columns of 64
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) wmma::fill_fragment(acc[a][b], 0.f);
-
-  const int cnt = counts[j];
-  for (int t = 0; t < cnt; ++t) {
-    const int kt = idx[j * kmax + t];
-    for (int kk = 0; kk < TILE; kk += BK) {
-      const int kb = kt * TILE + kk;
-      for (int e = tid; e < BM * BK / 8; e += 256) {   // 16 B loads
-        const int r = e / (BK / 8), c = (e % (BK / 8)) * 8;
-        const int m = m0 + r;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (m < M) v = *reinterpret_cast<const uint4*>(x + (size_t)m * K + kb + c);
-        *reinterpret_cast<uint4*>(As + r * LDA + c) = v;
-      }
-      for (int e = tid; e < BK * BN / 8; e += 256) {
-        const int r = e / (BN / 8), c = (e % (BN / 8)) * 8;
-        *reinterpret_cast<uint4*>(Bs + r * LDB + c) =
-            *reinterpret_cast<const uint4*>(w + (size_t)(kb + r) * N + n0 + c);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int k16 = 0; k16 < BK; k16 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[4];
-#pragma unroll
-        for (int a = 0; a < 2; ++a)
-          wmma::load_matrix_sync(fa[a], As + (wm * 32 + a * 16) * LDA + k16, LDA);
-#pragma unroll
-        for (int b = 0; b < 4; ++b)
-          wmma::load_matrix_sync(fb[b], Bs + k16 * LDB + wn * 64 + b * 16, LDB);
-#pragma unroll
-        for (int a = 0; a < 2; ++a)
-#pragma unroll
-          for (int b = 0; b < 4; ++b) wmma::mma_sync(acc[a][b], fa[a], fb[b], acc[a][b]);
-      }
-      __syncthreads();
-    }
-  }
-
-  float* cs = Cs[warp];
-#pragma unroll
-  for (int a = 0; a < 2; ++a) {
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      wmma::store_matrix_sync(cs, acc[a][b], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int m = m0 + wm * 32 + a * 16 + e / 16;
-        const int n = n0 + wn * 64 + b * 16 + e % 16;
-        if (m < M) out[(size_t)m * N + n] = __float2bfloat16(cs[e]);
-      }
-      __syncwarp();
-    }
-  }
-}
-
 // E > 1 is the expert-batched form: grid z runs over E (x, w, out)
 // triples, sx, sw, so elements apart, that share one plan.
 // Few rows, many blocks (the expert-batched decode): every weight byte
@@ -376,8 +313,9 @@ bsmm_wmma_kernel(const __nv_bfloat16* __restrict__ x,
 // over KG thread groups, whose partial sums meet once, after the last
 // tile, through shared memory.  It needs a wide grid to keep enough
 // loads in flight (one block per column tile, not per 32 columns), so
-// `launch` takes it only for the expert-batched form and only when the
-// grid fills the card twice over.
+// only the expert-batched forward takes it, on its `stream` route
+// (bsmm.bsmm_batched_route: at most 32 rows an expert, over a grid that
+// fills the card twice).
 template <typename T> struct Raw;     // CPT values of T in 16 bytes
 template <> struct Raw<float> {
   static constexpr int CPT = 4;
@@ -507,27 +445,19 @@ static int sm_count() {
   return n;
 }
 
+// The legacy CUDA-core walks of E (x, w, out) triples, grid z = E: the
+// weight-streaming kernel (`streamed`, the batched forward's `stream`
+// route) or bsmm_fwd_kernel (`simt`: the batched forward, and with TRANS
+// dx, below 64 bfloat16 rows or in float32).
 template <typename T, bool TRANS>
 cudaError_t launch(const void* x, const void* w, void* out, const int* idx,
                    const int* counts, int M, int K, int N, int kmax, int E,
-                   long long sx, long long sw, long long so, cudaStream_t stream) {
+                   long long sx, long long sw, long long so, bool streamed,
+                   cudaStream_t stream) {
   const T* xp = static_cast<const T*>(x);
   const T* wp = static_cast<const T*>(w);
   T* op = static_cast<T*>(out);
-  if constexpr (std::is_same<T, __nv_bfloat16>::value && !TRANS) {
-    if (M >= TILE) {
-      dim3 grid(N / TILE, (M + TILE - 1) / TILE, E);
-      bsmm_wmma_kernel<<<grid, 256, 0, stream>>>(
-          xp, wp, op, idx, counts, M, K, N, kmax, sx, sw, so);
-      return cudaGetLastError();
-    }
-  }
-  const long long stream_blocks =
-      (long long)E * (N / TILE) * ((M + SM_ROWS - 1) / SM_ROWS);
-  if (E > 1 && !TRANS && M <= 4 * SM_ROWS &&
-      stream_blocks >= 2 * sm_count()) {
-    // expert-batched, few rows over a grid that fills the card twice:
-    // stream the weights (the 2-D entry points keep their kernels)
+  if (streamed && !TRANS) {
     dim3 grid((M + SM_ROWS - 1) / SM_ROWS, N / TILE, E);
     bsmm_stream_kernel<T><<<grid, 256, 0, stream>>>(
         xp, wp, op, idx, counts, M, K, N, kmax, sx, sw, so);
@@ -551,14 +481,15 @@ cudaError_t launch(const void* x, const void* w, void* out, const int* idx,
 
 template <bool TRANS>
 int dispatch(const void* x, const void* w, void* out, const int* idx, const int* counts,
-             int M, int K, int N, int kmax, int dtype, void* stream, int E = 1,
-             long long sx = 0, long long sw = 0, long long so = 0) {
+             int M, int K, int N, int kmax, int dtype, void* stream, int E,
+             long long sx, long long sw, long long so, bool streamed = false) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float, TRANS>(x, w, out, idx, counts, M, K, N, kmax, E, sx, sw, so, s);
+    return launch<float, TRANS>(x, w, out, idx, counts, M, K, N, kmax, E, sx, sw, so,
+                                streamed, s);
   if (dtype == 1)
     return launch<__nv_bfloat16, TRANS>(x, w, out, idx, counts, M, K, N, kmax, E, sx, sw,
-                                        so, s);
+                                        so, streamed, s);
   return cudaErrorInvalidValue;
 }
 
@@ -1154,19 +1085,26 @@ __device__ __forceinline__ void consumers_sync() {
 // The mainloop shared by the forward, dw and dx: nst stages of BKS
 // contraction rows, each A and B 16 KB by TMA; `coords(g, c)` gives
 // stage g's box coordinates as (inner, outer) pairs: A box 0, A box 1
-// (dw: two 64-row boxes of x; FWD and DX one 64 x 128 box), B box 0, B
-// box 1 (FWD and DW: two 64-column boxes; DX one 64 x 128 box of w);
-// with R3 (the expert-batched dx and dw) the maps are 3-D, (cols, rows,
-// E), and c[8] is the block's expert.  The
+// (dw: two 64-row boxes of x; the 2-D FWD and DX one 64 x 128 box), B
+// box 0, B box 1 (FWD and DW: two 64-column boxes; the 2-D DX one 64 x
+// 128 box of w, the batched DX two 64-row ones); with R3 (the
+// expert-batched forms) the maps are 3-D, (cols, rows, E), c[8] is the
+// block's expert, and the batched FWD and DX read A as SL boxes of 64
+// rows: SL = 1 for a last row block of at most 64 rows, which loads and
+// multiplies one 64-row slice instead of a half-empty 128-row tile.  The
 // producer warp's first thread keeps every free slot of the ring
 // loading; the consumer warpgroup keeps one stage of wgmmas in flight
 // and frees a slot (its empty barrier) as soon as the wgmmas that read
 // it are done.  Returns in the producer warp once its loads are issued
 // (the warp stays in the block for the cluster's barriers).
-template <int MODE, int STAGES, bool R3, typename Coords>
+template <int MODE, int STAGES, bool R3, int SL = 2, typename Coords>
 __device__ __forceinline__ void mainloop(const CUtensorMap* amap, const CUtensorMap* bmap,
                                          uint32_t base, uint32_t full_bar, int nst,
                                          Coords coords, float (&d)[2][64]) {
+  static_assert(SL == 2 || (R3 && MODE != DW), "one slice: the batched FWD and DX only");
+  constexpr bool A64 = R3 && MODE != DW;            // A in SL boxes of 64 rows
+  constexpr bool B2 = MODE != DX || R3;             // B in two boxes
+  constexpr uint32_t BYTES = A64 ? (2 + SL) * BOX : STAGE;
   const uint32_t empty_bar = full_bar + 8 * STAGES;
   if (threadIdx.x >= CONSUMERS) {
     if (threadIdx.x != CONSUMERS) return;
@@ -1177,11 +1115,12 @@ __device__ __forceinline__ void mainloop(const CUtensorMap* amap, const CUtensor
       const uint32_t st = base + s * STAGE;
       int c[9];
       coords(g, c);
-      mbar_expect_tx(fb, STAGE);
-      tma_load<R3>(st, amap, fb, c, 0);                    // FWD, DX: 64 x 128
-      if (MODE == DW) tma_load<R3>(st + BOX, amap, fb, c, 2);
-      tma_load<R3>(st + 2 * BOX, bmap, fb, c, 4);          // DX: 64 x 128
-      if (MODE != DX) tma_load<R3>(st + 3 * BOX, bmap, fb, c, 6);
+      mbar_expect_tx(fb, BYTES);
+      tma_load<R3>(st, amap, fb, c, 0);                    // 2-D FWD, DX: 64 x 128
+      if (MODE == DW || (A64 && SL == 2)) tma_load<R3>(st + BOX, amap, fb, c, 2);
+#pragma unroll
+      for (int i = 0; i < (B2 ? 2 : 1); ++i)               // 2-D DX: one 64 x 128
+        tma_load<R3>(st + (2 + i) * BOX, bmap, fb, c, 4 + 2 * i);
     }
     return;
   }
@@ -1197,7 +1136,7 @@ __device__ __forceinline__ void mainloop(const CUtensorMap* amap, const CUtensor
       const uint64_t db = MODE == DX ? desc_sw128(b + kk * 32, 16, ATOM)
                                      : desc_sw128(b + kk * 16 * ROW, BOX, ATOM);
 #pragma unroll
-      for (int sl = 0; sl < 2; ++sl) {
+      for (int sl = 0; sl < SL; ++sl) {
         if (MODE == FWD)   // x rows sl * 64.., K-major: 16 columns = 32 bytes a step
           mma_n128<0, 1>(d[sl], desc_sw128(a + sl * BOX + kk * 32, 16, ATOM), db);
         else if (MODE == DX)   // g rows sl * 64.., as the forward's x
@@ -1358,6 +1297,85 @@ bsmm2d_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
               });
 }
 
+// The expert-batched grids (forward and dx) are one-dimensional in x
+// (z holds the split's clusters): block b covers expert e, output tile t
+// (the forward's column tile, dx's K-row tile) and row block mb of the
+// expert's M rows, placed expert-major: the row blocks innermost, then
+// the tiles, then the experts.  One expert's blocks run together, so the
+// row blocks of a tile read its w boxes at once and the tiles re-read
+// x_e (g_e) while it is in L2.
+__device__ __forceinline__ void place(int b, int tiles, int mblocks, int& e, int& t,
+                                      int& mb) {
+  mb = b % mblocks;
+  const int r = b / mblocks;
+  t = r % tiles;
+  e = r / tiles;
+}
+
+// whether the block at row m0 of M rows takes one 64-row slice: a last
+// row block of at most 64 rows does
+__device__ __forceinline__ bool one_slice(int M, int m0) { return M - m0 <= BM / 2; }
+
+// The expert-batched forward of E experts, x (E, M, K) @ w (E, K, N):
+// block (e, j, mb) of the grid (E x N / 128 x row blocks, 1, S) multiplies
+// x_e's rows mb * 128.. by piece z of column tile j's live list, reading
+// x and w through 3-D maps (boxes past row M zero-fill), and stores
+// out_e's rows below M.
+
+template <int ST, int SL>
+__device__ __forceinline__ void fwd_batched(const CUtensorMap* xmap, const CUtensorMap* wmap,
+                                            __nv_bfloat16* __restrict__ out,
+                                            const int* __restrict__ idx,
+                                            const int* __restrict__ counts, int M, int N,
+                                            int kmax, int S, int e, int j, int mb) {
+  const int m0 = mb * BM;
+  const int n0 = j * BN;
+  const int z = blockIdx.z;
+  int parts, t0, t1;
+  piece(counts[j], S, z, parts, t0, t1);
+  if (z >= parts) t0 = t1 = 0;           // an empty piece still sums a slice
+  extern __shared__ uint8_t smem_raw[];
+  uint32_t base;
+  const uint32_t full_bar = init_barriers<ST>(smem_raw, base);
+  const int* live = idx + (size_t)j * kmax + t0;
+  __nv_bfloat16* o = out + (size_t)e * M * N;
+
+  float d[2][64];
+#pragma unroll
+  for (int sl = 0; sl < 2; ++sl)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) d[sl][i] = 0.f;
+
+  mainloop<FWD, ST, true, SL>(xmap, wmap, base, full_bar, 2 * (t1 - t0),
+                [&](int g, int* c) {
+                  const int kc = live[g / 2] * TILE + (g % 2) * BKS;
+                  c[0] = kc; c[1] = m0;                   // x (64 k) x (64 rows), SL times
+                  c[2] = kc; c[3] = m0 + BM / 2;
+                  c[4] = n0; c[5] = kc;                   // w (64 n) x (64 k), twice
+                  c[6] = n0 + 64; c[7] = kc;
+                  c[8] = e;
+                },
+                d);
+  cluster_sum(d, smem_raw + (base - smem_u32(smem_raw)), parts, min(BM, M - m0),
+              [&](int r, int c, float a, float b) {
+                store2(o + (size_t)(m0 + r) * N + n0 + c, a, b);
+              });
+}
+
+template <int ST>
+__global__ void __launch_bounds__(THREADS, 2)
+bsmm_batched_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                          const __grid_constant__ CUtensorMap wmap,
+                          __nv_bfloat16* __restrict__ out, const int* __restrict__ idx,
+                          const int* __restrict__ counts, int M, int N, int kmax, int S) {
+  int e, j, mb;
+  place(blockIdx.x, N / BN, (M + BM - 1) / BM, e, j, mb);
+  if (one_slice(M, mb * BM))
+    fwd_batched<ST, 1>(&xmap, &wmap, out, idx, counts, M, N, kmax, S, e, j, mb);
+  else
+    fwd_batched<ST, 2>(&xmap, &wmap, out, idx, counts, M, N, kmax, S, e, j, mb);
+}
+
 // dw: grid (L, S, E), clusters of the S pieces of a tile.  Block (l, z,
 // e) sums x_e[rows, kk[l]]^T g_e[rows, nn[l]] over piece z of the 64-row
 // stages; the cluster stores the tile into dw_e (K, N).  BATCHED reads x
@@ -1425,24 +1443,21 @@ bsmm_batched_dw_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
   dw_wgmma<ST, true>(&xmap, &gmap, dw, kk, nn, M, K, N, S);
 }
 
-// dx: grid (E x row blocks, K / 128 output column tiles, S).  Block (e *
-// row blocks + mb, k, z) multiplies g_e's rows mb * 128.. by piece z of
+// dx: block (e, k, mb, z) multiplies g_e's rows mb * 128.. by piece z of
 // K-row tile k's live N tiles, w_e read K-major (128 k rows of 64 n a
 // stage); the cluster (its S pieces, along z) stores the bf16 tile of
 // dx_e (M, K), rows past M masked, zeros where k's list is empty.  The
-// expert rides grid x because the split's clusters take z.  BATCHED reads
-// g and w through 3-D maps (cols, rows, E): g's rows past M zero-fill
-// per expert (the 2-D form has E = 1 and 2-D maps).
-template <int ST, bool BATCHED>
+// 2-D grid is (row blocks, K / 128, S); the batched one (E x K / 128 x
+// row blocks, 1, S), placed expert-major, reads g and w through 3-D maps
+// (cols, rows, E), g in 64-row boxes (SL of them), so that its rows past
+// M zero-fill per expert.
+template <int ST, bool BATCHED, int SL>
 __device__ __forceinline__ void dx_wgmma(const CUtensorMap* gmap, const CUtensorMap* wmap,
                                          __nv_bfloat16* __restrict__ dx,
                                          const int* __restrict__ idx_t,
                                          const int* __restrict__ counts_t, int M, int K,
-                                         int nmax, int S) {
-  const int mblocks = (M + BM - 1) / BM;
-  const int e = blockIdx.x / mblocks;
-  const int m0 = (blockIdx.x - e * mblocks) * BM;
-  const int k = blockIdx.y;
+                                         int nmax, int S, int e, int k, int mb) {
+  const int m0 = mb * BM;
   const int k0 = k * TILE;
   const int z = blockIdx.z;
   int parts, t0, t1;
@@ -1460,11 +1475,13 @@ __device__ __forceinline__ void dx_wgmma(const CUtensorMap* gmap, const CUtensor
 #pragma unroll
     for (int i = 0; i < 64; ++i) d[sl][i] = 0.f;
 
-  mainloop<DX, ST, BATCHED>(gmap, wmap, base, full_bar, 2 * (t1 - t0),
+  mainloop<DX, ST, BATCHED, SL>(gmap, wmap, base, full_bar, 2 * (t1 - t0),
                [&](int g, int* c) {
                  const int nc = live[g / 2] * TILE + (g % 2) * BKS;
-                 c[0] = nc; c[1] = m0;                   // g (64 n) x (128 rows)
-                 c[4] = nc; c[5] = k0;                   // w (64 n) x (128 k)
+                 c[0] = nc; c[1] = m0;                   // g (64 n) x (128 rows), or
+                 c[2] = nc; c[3] = m0 + BM / 2;          // batched SL x (64 rows)
+                 c[4] = nc; c[5] = k0;                   // w (64 n) x (128 k), or
+                 c[6] = nc; c[7] = k0 + BM / 2;          // batched 2 x (64 k)
                  c[8] = e;
                },
                d);
@@ -1480,7 +1497,8 @@ bsmm_dx_wgmma_kernel(const __grid_constant__ CUtensorMap gmap,
                      const __grid_constant__ CUtensorMap wmap,
                      __nv_bfloat16* __restrict__ dx, const int* __restrict__ idx_t,
                      const int* __restrict__ counts_t, int M, int K, int nmax, int S) {
-  dx_wgmma<ST, false>(&gmap, &wmap, dx, idx_t, counts_t, M, K, nmax, S);
+  dx_wgmma<ST, false, 2>(&gmap, &wmap, dx, idx_t, counts_t, M, K, nmax, S, 0,
+                                blockIdx.y, blockIdx.x);
 }
 
 template <int ST>
@@ -1490,7 +1508,12 @@ bsmm_batched_dx_wgmma_kernel(const __grid_constant__ CUtensorMap gmap,
                              __nv_bfloat16* __restrict__ dx, const int* __restrict__ idx_t,
                              const int* __restrict__ counts_t, int M, int K, int nmax,
                              int S) {
-  dx_wgmma<ST, true>(&gmap, &wmap, dx, idx_t, counts_t, M, K, nmax, S);
+  int e, k, mb;
+  place(blockIdx.x, K / BN, (M + BM - 1) / BM, e, k, mb);
+  if (one_slice(M, mb * BM))
+    dx_wgmma<ST, true, 1>(&gmap, &wmap, dx, idx_t, counts_t, M, K, nmax, S, e, k, mb);
+  else
+    dx_wgmma<ST, true, 2>(&gmap, &wmap, dx, idx_t, counts_t, M, K, nmax, S, e, k, mb);
 }
 
 // cuTensorMapEncodeTiled through the runtime's driver entry point, so that
@@ -1611,33 +1634,62 @@ int launch_dw_ring(const CUtensorMap& xm, const CUtensorMap& gm, void* dw, const
                          static_cast<__nv_bfloat16*>(dw), kk, nn, M, K, N, S);
 }
 
-template <int ST, bool BATCHED>
+template <int ST>
 int launch_dx_ring(const CUtensorMap& gm, const CUtensorMap& wm, void* dx, const int* idx_t,
                    const int* counts_t, int M, int K, int nmax, int S, dim3 grid,
                    cudaStream_t s) {
   static bool ready = false;
-  auto kernel = BATCHED ? bsmm_batched_dx_wgmma_kernel<ST> : bsmm_dx_wgmma_kernel<ST>;
+  auto kernel = bsmm_dx_wgmma_kernel<ST>;
   const cudaError_t a = allow_smem(kernel, Ring<ST>::SMEM, ready);
   if (a != cudaSuccess) return a;
   return launch_clusters(kernel, grid, dim3(1, 1, S), Ring<ST>::SMEM, s, gm, wm,
                          static_cast<__nv_bfloat16*>(dx), idx_t, counts_t, M, K, nmax, S);
 }
 
-// dx of E experts (E = 1 and 2-D maps unless BATCHED): g (E, M, N), w
-// (E, K, N), dx (E, M, K)
-template <bool BATCHED>
+// dx (M, K) of g (M, N) and w (K, N)
 int launch_dx(const void* g, const void* w, void* dx, const int* idx_t, const int* counts_t,
-              int E, int M, int K, int N, int nmax, int S, cudaStream_t s) {
+              int M, int K, int N, int nmax, int S, cudaStream_t s) {
   CUtensorMap gm, wm;
-  const int experts = BATCHED ? E : 0;
-  int e = make_map(&gm, g, M, N, BM, experts);
-  if (e == 0) e = make_map(&wm, w, K, N, BM, experts);   // 128 k rows of 64 n: K-major B
+  int e = make_map(&gm, g, M, N, BM);
+  if (e == 0) e = make_map(&wm, w, K, N, BM);   // 128 k rows of 64 n: K-major B
   if (e != 0) return e;
-  dim3 grid(E * ((M + BM - 1) / BM), K / BN, S);
+  dim3 grid((M + BM - 1) / BM, K / BN, S);
   if (alone(grid))
-    return launch_dx_ring<ALONE, BATCHED>(gm, wm, dx, idx_t, counts_t, M, K, nmax, S, grid,
-                                          s);
-  return launch_dx_ring<SHARED, BATCHED>(gm, wm, dx, idx_t, counts_t, M, K, nmax, S, grid, s);
+    return launch_dx_ring<ALONE>(gm, wm, dx, idx_t, counts_t, M, K, nmax, S, grid, s);
+  return launch_dx_ring<SHARED>(gm, wm, dx, idx_t, counts_t, M, K, nmax, S, grid, s);
+}
+
+// The expert-batched forward and dx share their launch: FWD = x (E, M,
+// K) @ w (E, K, N) -> out (E, M, N), over N / 128 column tiles; DX = g
+// (E, M, N) @ w^T -> dx (E, M, K), over K / 128 K-row tiles.  A is read
+// in 64-row boxes, w in 64-row boxes of 64 columns (FWD: 64 k x 64 n,
+// MN-major B; DX: 64 k x 64 n, two making the K-major 128-k box).
+template <int MODE, int ST>
+int launch_batched_ring(const CUtensorMap& am, const CUtensorMap& wm, void* out,
+                        const int* idx, const int* counts, int M, int K, int N, int lmax,
+                        int S, dim3 grid, cudaStream_t s) {
+  static bool ready = false;
+  auto kernel = MODE == FWD ? bsmm_batched_wgmma_kernel<ST> : bsmm_batched_dx_wgmma_kernel<ST>;
+  const cudaError_t a = allow_smem(kernel, Ring<ST>::SMEM, ready);
+  if (a != cudaSuccess) return a;
+  return launch_clusters(kernel, grid, dim3(1, 1, S), Ring<ST>::SMEM, s, am, wm,
+                         static_cast<__nv_bfloat16*>(out), idx, counts, M,
+                         MODE == FWD ? N : K, lmax, S);
+}
+
+template <int MODE>
+int launch_batched(const void* a, const void* w, void* out, const int* idx, const int* counts,
+                   int E, int M, int K, int N, int lmax, int S, cudaStream_t s) {
+  CUtensorMap am, wm;
+  int e = make_map(&am, a, M, MODE == FWD ? K : N, BM / 2, E);
+  if (e == 0) e = make_map(&wm, w, K, N, BKS, E);
+  if (e != 0) return e;
+  dim3 grid(E * ((MODE == FWD ? N : K) / TILE) * ((M + BM - 1) / BM), 1, S);
+  if (alone(grid))
+    return launch_batched_ring<MODE, ALONE>(am, wm, out, idx, counts, M, K, N, lmax, S, grid,
+                                            s);
+  return launch_batched_ring<MODE, SHARED>(am, wm, out, idx, counts, M, K, N, lmax, S, grid,
+                                           s);
 }
 
 // dw of E experts (E = 1 and 2-D maps unless BATCHED): x (E, M, K), g
@@ -1837,25 +1889,13 @@ extern "C" int bsmm_wgmma_smem(int alone) {
   return alone ? wg::Ring<wg::ALONE>::SMEM : wg::Ring<wg::SHARED>::SMEM;
 }
 
-// The expert-batched forward (the reference's jax.vmap of plan_matmul over
-// experts, src/repro/models/moe.py:81-83): out[e] (M, N) = x[e] (M, K) @
-// (w[e] (K, N) * tile bitmap) for e < E, contiguous (E, M, K), (E, K, N)
-// and (E, M, N), one plan shared by every expert, one launch (grid z = e).
-extern "C" int bsmm_batched_launch(const void* x, const void* w, void* out,
-                                   const int* idx, const int* counts, int E,
-                                   int M, int K, int N, int kmax, int dtype,
-                                   void* stream) {
-  return dispatch<false>(x, w, out, idx, counts, M, K, N, kmax, dtype, stream, E,
-                         (long long)M * K, (long long)K * N, (long long)M * N);
-}
-
 namespace {
 
 constexpr int MAX_GRID_Z = 65535;   // experts a batched launch takes (grid z)
 
 // dx of E experts: the 2-D entry point's body (E = 1, 2-D maps) and the
-// batched one's (3-D maps, the expert in grid z on simt and folded into
-// grid x on wgmma, whose split clusters take z)
+// batched one's (3-D maps; the expert in grid z on simt and in grid x,
+// placed expert-major, on wgmma, whose split clusters take z)
 int dx_launch(const void* g, const void* w, void* dx, const int* idx_t, const int* counts_t,
               int E, int M, int K, int N, int nmax, int dtype, int route, int splits,
               void* stream, bool batched) {
@@ -1865,9 +1905,9 @@ int dx_launch(const void* g, const void* w, void* dx, const int* idx_t, const in
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 1) {
     if (dtype != 1 || M < 64 || splits > wg::MAX_PIECES) return cudaErrorInvalidValue;
-    return batched ? wg::launch_dx<true>(g, w, dx, idx_t, counts_t, E, M, K, N, nmax, splits, s)
-                   : wg::launch_dx<false>(g, w, dx, idx_t, counts_t, 1, M, K, N, nmax, splits,
-                                          s);
+    return batched ? wg::launch_batched<wg::DX>(g, w, dx, idx_t, counts_t, E, M, K, N, nmax,
+                                                splits, s)
+                   : wg::launch_dx(g, w, dx, idx_t, counts_t, M, K, N, nmax, splits, s);
   }
   if (route != 0 || splits != 1 || (dtype == 1 && M >= 64)) return cudaErrorInvalidValue;
   // the forward walk with contraction N and output width K, grid z = E
@@ -1911,6 +1951,33 @@ extern "C" int bsmm_dx_launch(const void* g, const void* w, void* dx,
                               int splits, void* stream) {
   return dx_launch(g, w, dx, idx_t, counts_t, 1, M, K, N, nmax, dtype, route, splits, stream,
                    false);
+}
+
+// The expert-batched forward (the reference's jax.vmap of plan_matmul over
+// experts, src/repro/models/moe.py:81-83): out[e] (M, N) = x[e] (M, K) @
+// (w[e] (K, N) * tile bitmap) for e < E, contiguous (E, M, K), (E, K, N)
+// and (E, M, N), one plan shared by every expert, one launch.  route
+// (bsmm.bsmm_batched_route): 0 = stream (at most 32 rows; the
+// weight-streaming kernel, grid z = e), 1 = simt (the CUDA-core tile
+// walk, grid z = e), 2 = wgmma (bfloat16 from 64 rows: TMA + wgmma,
+// 3-D maps, each column tile's live list cut into `splits` <= 4 pieces,
+// a cluster); splits must be 1 off wgmma.  Returns 0, a cudaError_t, or
+// 10000 + the CUresult of a failed tensor-map encoding.
+extern "C" int bsmm_batched_launch(const void* x, const void* w, void* out,
+                                   const int* idx, const int* counts, int E,
+                                   int M, int K, int N, int kmax, int dtype, int route,
+                                   int splits, void* stream) {
+  if (E <= 0 || E > MAX_GRID_Z || M <= 0 || K <= 0 || N <= 0 || K % TILE || N % TILE ||
+      kmax <= 0 || splits <= 0 || route < 0 || route > 2 || (route != 2 && splits != 1))
+    return cudaErrorInvalidValue;
+  if (route == 2) {
+    if (dtype != 1 || M < 64 || splits > wg::MAX_PIECES) return cudaErrorInvalidValue;
+    return wg::launch_batched<wg::FWD>(x, w, out, idx, counts, E, M, K, N, kmax, splits,
+                                       static_cast<cudaStream_t>(stream));
+  }
+  if (route == 0 && M > 4 * SM_ROWS) return cudaErrorInvalidValue;
+  return dispatch<false>(x, w, out, idx, counts, M, K, N, kmax, dtype, stream, E,
+                         (long long)M * K, (long long)K * N, (long long)M * N, route == 0);
 }
 
 // The expert-batched dx (the backward of the reference's jax.vmap of

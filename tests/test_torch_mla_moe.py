@@ -512,8 +512,10 @@ def test_cuda_fused_v_paged_attention_matches_plain(cuda, dtype, Hq, hd, dv):
 @pytest.mark.parametrize("E,M", [(5, 8), (5, 24), (5, 130), (96, 8),
                                  (96, 21)])
 def test_cuda_bsmm_batched_matches_plain(cuda, dtype, E, M):
-    """Few experts take the tiled kernels; 96 experts x 3 column tiles
-    fill the card twice over and take the weight-streaming one."""
+    """Few experts take the CUDA-core walk (bfloat16 from 64 rows the
+    wgmma kernel); 96 experts x 3 column tiles fill the card twice over
+    and take the weight-streaming one.  Each call launches once, on its
+    rule's route."""
     rng = np.random.default_rng(M)
     K, N = 256, 384
     bm = rng.random((K // 128, N // 128)) < 0.5
@@ -523,7 +525,9 @@ def test_cuda_bsmm_batched_matches_plain(cuda, dtype, E, M):
     w = torch.from_numpy(rng.standard_normal((E, K, N)) / 16).to(cuda, dtype)
     tol = dict(rtol=1e-2, atol=1e-2) if dtype == torch.bfloat16 \
         else dict(rtol=1e-4, atol=1e-4)
-    n0 = tb.bsmm_batched.launches
+    route, _ = plan.route_and_splits("batched", M, dtype, E)
+    n0, r0 = tb.bsmm_batched.launches, tb.bsmm_batched.launches_by_route[route]
     got = tb.bsmm_batched(a, w, plan)
     assert tb.bsmm_batched.launches == n0 + 1
+    assert tb.bsmm_batched.launches_by_route[route] == r0 + 1
     torch.testing.assert_close(got, tb.bsmm_batched_plain(a, w, plan), **tol)

@@ -212,6 +212,62 @@ def test_batched_split_rules_count_every_expert():
     assert plan.route_and_splits("dw", 320, torch.float32, 32) == ("fma", 1)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("E", [32, 2, 256])
+@pytest.mark.parametrize("C", [320, 200, 100, 40])
+def test_batched_forward_route_at_training_rows(C, E, dtype):
+    """The batched forward (#1b) takes TMA + wgmma for bfloat16 from 64
+    rows an expert and the CUDA-core walk otherwise at these rows (more
+    than 32: no weight streaming); only the wgmma route splits, under
+    the 2-D wgmma rule with its grid counted over all E experts (at the
+    up/gate shape only E = 2 at 100 rows: 32 blocks, clusters of 3)."""
+    bf = torch.bfloat16
+    for K, N in ((7168, 2048), (2048, 7168)):
+        plan = tb.make_tile_plan(np.ones((K, N), np.float32))
+        want = "wgmma" if dtype == bf and C >= 64 else "simt"
+        assert tb.bsmm_batched_route(C, N, dtype, E) == want
+        S = 3 if (want, E, C, N) == ("wgmma", 2, 100, 2048) else 1
+        assert tb.bsmm_batched_splits(C, N, dtype, plan, E) == S
+        assert plan.route_and_splits("fwd", C, dtype, E) == (want, S)
+        assert plan.route_and_splits("batched", C, dtype, E) == (want, S)
+    assert set(tb.bsmm_batched.launches_by_route) == {"stream", "simt",
+                                                      "wgmma"}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M", [8, 16, 20])
+def test_batched_forward_streams_decode_rows(M, dtype):
+    """Decode and MoE-prefill rows (at most 32 an expert) stream the
+    weights where the grid of experts x column tiles x 8-row blocks fills
+    the card's 132 SMs twice (256 experts), never split; two experts at
+    the up/gate shape leave the grid narrow and take the CUDA-core walk.  "fwd" at one
+    expert is the 2-D forward's rule."""
+    for K, N in ((7168, 2048), (2048, 7168)):
+        plan = tb.make_tile_plan(np.ones((K, N), np.float32))
+        assert plan.route_and_splits("fwd", M, dtype, 256) == ("stream", 1)
+        if N == 2048:                   # 2 x 16 x 3 blocks at most
+            assert plan.route_and_splits("batched", M, dtype, 2) == (
+                "simt", 1)
+        assert plan.route_and_splits("fwd", M, dtype) == (
+            tb.bsmm_route(M, K, N, dtype, plan),
+            tb.bsmm_splits(M, K, N, dtype, plan))
+    assert tb.bsmm_batched_route(33, 2048, dtype, 4096) == "simt"
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_batched_stream_rule_counts_132_sms(dtype):
+    """The stream threshold is twice the H100 SXM's 132 SMs of 8-row
+    blocks, whatever card runs it (the route, and so the bits, depend on
+    the shape alone), and one expert never streams."""
+    assert tb._SMS == 132
+    assert tb.bsmm_batched_route(8, 128, dtype, 264) == "stream"
+    assert tb.bsmm_batched_route(8, 128, dtype, 263) == "simt"
+    assert tb.bsmm_batched_route(32, 128, dtype, 66) == "stream"
+    assert tb.bsmm_batched_route(32, 128, dtype, 65) == "simt"
+    assert tb.bsmm_batched_route(8, 264 * 128, dtype, 1) == "simt"
+    assert tb.bsmm_batched_route(8, 132 * 128, dtype, 2) == "stream"
+
+
 def test_batched_grad_geometry_errors():
     plan = tb.make_tile_plan(np.ones((256, 128)))
     z = torch.zeros
