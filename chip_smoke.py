@@ -52,7 +52,8 @@ no result line otherwise):
    0.8 (in-flight sampled streams held to a sampled no-swap run, each
    with at least 2 distinct tokens), one heartbeat failover of engine 0
    on an injected clock (every uid done, moved greedy streams held to
-   the never-failed run, their distinct tokens printed), a dense-slot
+   the never-failed run, token by token and in their logits at the
+   bf16 gate, their distinct tokens printed), a dense-slot
    (``paged=False``) engine against the paged one, flash attention
    launched once per layer and prefill, all on the wgmma route, one
    profiled prefill, and ``api.cli serve --engines 2`` at full width;
@@ -63,6 +64,22 @@ no result line otherwise):
    parameters, pruned coordinates, ``sent_fraction`` and the launches
    of every kernel per step (dx and dw all on their ``wgmma`` kernels);
    then profile one more step, which must show dx kernel time;
+5b. run an LM pruning program through the entry points a user calls:
+   ``make_adapter`` on llama3.2-3b at its published widths with one
+   cut, 28 layers to 4 (the host-side prune scores every prunable
+   weight a round), and ``PruningSession(...).run()`` on the
+   ``dense-full`` recipe cut to one round of 4 retrain steps a prune
+   stage, printing every event with its wall time; its int8 quantize
+   stage must run and be accepted.  On the ticket: 4 plain and 4 int8
+   QAT retrain steps (step time, peak memory; the QAT steps' bsmm
+   launches, routes and split launches held to the model), the fake
+   pass checked on the card (masked weights 0, live ones within
+   scale/2 and one bf16 ulp), the int8 tree's bytes beside the dense
+   tree's and the hardware report's, ``pack_lm_params`` (the packed
+   model's dense logits against the pruned model's block-sparse ones,
+   or no change when no column packs away), the ticket's export, and
+   ``api.cli finetune`` (QAT) and ``api.cli report`` on it in process;
+   the 2-D bsmm counts are set to 0 before this phase and read after;
 6. free the llama models and serve 8 requests through ``ServeEngine`` on
    deepseek-v3 at full width with its one cut, 61 layers to 4 (three
    dense, one MoE layer of 256 experts, top-8, one shared expert; MLA
@@ -88,13 +105,19 @@ no result line otherwise):
    dx and dw batched, one launch each per projection, all on their
    ``wgmma`` kernels); then one profiled step, which must show the
    batched forward, dx and dw, and the peak memory beside its
-   reckoning;
+   reckoning; then, the plain trainer freed, 4 int8 QAT steps of
+   ``make_trainer(params, masks, quantize_bits=8)`` on the same cut,
+   timed, their peak printed and their launches held as the plain
+   steps' are;
 7. run Algorithm 1 on vgg11 at its published widths through
    ``make_adapter("vgg11", scale="full")`` and ``PruningSession(...).run()``
    (the family's recipe cut to 4 prune rounds of 100 steps at a 5 %
    rate, batch 128, ``SyntheticImages``), print every round's event, the accuracies, the
    round and step times and the hardware report's crossbar savings,
-   export, re-import and finetune the ticket; then run kernel #9 on
+   the paper's ReRAM model of the ticket (``core.perf_model``: the
+   iso-area training speedup and the iso-performance crossbars of the
+   modelled chip, not times of this card), export, re-import and
+   finetune the ticket; then run kernel #9 on
    every pruned leaf of the ticket (held to its plain version and to
    the host crossbar count, at the session's geometry and at 64 x 256),
    retrain an FC-tiling variant of vgg11 (``fc=(512,)``, a test variant)
@@ -138,12 +161,14 @@ run — llama serving for the 2-D forward kernels and GQA paged
 attention, retraining for dx and dw, deepseek serving for the batched
 bsmm and the fused-V kernel, the deepseek retrain for the batched dx and
 dw, the LTP MLP and the CNN path for #5, the
-CNN path for #9, the control plane for flash attention (#8) — its error
+CNN path for #9, the control plane for flash attention (#8), and for
+#1–#4 also the LM session's (``launches_lm_session``) — its error
 against the plain version, its time, the plain version's, the bound and
 the library call's; #1–#5, the batched forms and #7 their launches by
 route, #1–#5 and the batched forms their split launches, #5 also by
 path), the serving, LTP MLP,
-control-plane, gradient-check, retrain, deepseek and CNN summaries,
+control-plane, gradient-check, retrain, LM session, deepseek and CNN
+summaries,
 each phase's seconds and the card's name and power limit; the last line
 is ``{"ok": true, "device": {...}}``.  Longer records go to
 ``chiprun_out/``.
@@ -832,10 +857,12 @@ PLAIN_PROJECTIONS = ("wq", "wk", "wv", "wo", "up", "down")   # the gate: #2
 
 
 def ticket_plans(B, masks) -> dict:
-    """The tile plan of each projection of a llama ticket (its layers
-    share one mask)."""
-    seg = masks["segments"][0][0]
-    return {key: B.make_tile_plan(seg[group][key][0].cpu().numpy())
+    """The tile plan of each projection of a llama ticket: the union
+    over its layers, as the model runs them (one stacked segment)."""
+    from repro_torch.models.plans import build_decode_plan
+
+    entry = build_decode_plan(masks)[0][0][0]
+    return {key: entry[group][key]
             for group, keys in LLAMA_PROJECTIONS for key in keys}
 
 
@@ -1026,6 +1053,13 @@ CP_SWAP_AFTER = 2       # fleet ticks before the swap lands
 CP_DENSE_REQUESTS = 8
 CP_TEMPERATURE = 0.8    # the sampled swap leg
 CP_SAMPLE_SEED = 7
+# moved streams' logits against the never-failed run's, of each stream's
+# max |logit|: the model-level bf16 gate of the other cross-path checks
+# (plan vs dense prefill, dense-slot vs paged).  The re-admitted part of
+# a stream is prefilled again (flash attention, bsmm at prefill rows)
+# where the never-failed run decoded it (paged attention, 8 rows): 1-2
+# bf16 ulps of the largest logit apart, up to 1.07e-2 of it on the H100
+FAILOVER_LOGITS_TOL = 5e-2
 
 
 def ticket_masks(params, cfg, seed, device):
@@ -1044,6 +1078,16 @@ def ticket_masks(params, cfg, seed, device):
             return shared[group][key].bool()
         return torch.ones(w.shape, dtype=torch.bool, device=device)
     return tree_map_with_path(mk, params)
+
+
+def record_logits(router) -> dict:
+    """{uid: [f32 logits row of each token]} filled as the router's
+    engines sample (``ServeEngine.logits_sink``)."""
+    rows = {}
+    for fe in router.frontends:
+        fe.engine.logits_sink = (
+            lambda uid, row: rows.setdefault(uid, []).append(row.copy()))
+    return rows
 
 
 def _fleet_prefills(router) -> int:
@@ -1116,8 +1160,9 @@ def control_plane(cfg, device, requests=CP_REQUESTS):
         return FleetRouter([mgr.make_engine("a", batch_slots=8, capacity=512,
                                             **kw) for _ in range(2)])
 
-    # the no-swap, never-failed oracle
+    # the no-swap, never-failed oracle, its logits kept for the failover
     oracle_router = fleet()
+    oracle_logits = record_logits(oracle_router)
     _drive(oracle_router, prompts, CP_MAX_NEW)
     t0 = time.perf_counter()
     oracle_router.drain()
@@ -1218,8 +1263,10 @@ def control_plane(cfg, device, requests=CP_REQUESTS):
             [mgr.make_engine("a", batch_slots=8, capacity=512,
                              clock=lambda: t[0]) for _ in range(2)],
             monitor=monitor)
+        f_logits = record_logits(router)
         _drive(router, prompts, CP_MAX_NEW)
         router.pump(CP_SWAP_AFTER)               # both beat at t = 0
+        f_before = {u: len(r.tokens) for u, r in router.records.items()}
         t[0] = 6.0                               # engine 0 wedges
         monitor.beat("engine1")
         router.pump(1)
@@ -1235,14 +1282,34 @@ def control_plane(cfg, device, requests=CP_REQUESTS):
     fdiv = sorted(r.uid for r in moved if r.tokens != oracle[r.uid])
     # greedy only: a re-admitted request draws from a fresh sampler
     # (repro's fleet promises no identical sampled continuation), so
-    # this leg's streams may repeat one token and the check is weak
+    # this leg's streams may repeat one token; each moved stream's
+    # logits (the re-admitted part prefilled again on engine 1) are
+    # held to the never-failed run's as well
     f_distinct = {r.uid: len(set(r.tokens)) for r in moved}
+    f_logit_err, f_worst_at = {}, {}
+    for r in moved:
+        got, want = f_logits.get(r.uid, []), oracle_logits.get(r.uid, [])
+        require(len(got) == len(want) == len(r.tokens),
+                f"moved stream {r.uid}: {len(got)} logits rows, "
+                f"{len(want)} in the never-failed run, {len(r.tokens)} "
+                "tokens")
+        errs = [float(np.abs(a - b).max()) for a, b in zip(got, want)]
+        scale = max(float(np.abs(b).max()) for b in want)
+        f_logit_err[r.uid] = max(errs) / scale
+        f_worst_at[r.uid] = int(np.argmax(errs))
     print(f"failover: {router.report.failovers} failover, {len(moved)} "
           f"moved ({sum(1 for r in moved if r.tokens)} with tokens "
           f"emitted), {len(fdiv)} diverged from the never-failed run {fdiv}; "
-          f"distinct tokens per moved stream (greedy) {f_distinct}")
+          f"distinct tokens per moved stream (greedy) {f_distinct}; "
+          f"logits max_abs_err / max|logit| per moved stream {f_logit_err} "
+          f"at tokens {f_worst_at}, re-admitted after "
+          f"{ {r.uid: f_before[r.uid] for r in moved} } tokens (tol "
+          f"{FAILOVER_LOGITS_TOL})")
     require(moved and not fdiv, "re-admitted streams differ from the "
             "never-failed fleet")
+    require(max(f_logit_err.values()) <= FAILOVER_LOGITS_TOL,
+            "a moved stream's logits differ from the never-failed run's "
+            "beyond the bf16 gate")
     frep = router.report
     del router
 
@@ -1353,6 +1420,8 @@ def control_plane(cfg, device, requests=CP_REQUESTS):
         "swap_sampled_distinct_tokens_min": min(s_distinct.values()),
         "swap_sampled_distinct_tokens": s_distinct,
         "failover_distinct_tokens": f_distinct,
+        "failover_logits_rel_err": f_logit_err,
+        "failover_logits_worst_token": f_worst_at,
         "oracle_drain_s": oracle_s,
         "fleet_ttft_p50_s": orep.ttft_p50, "fleet_ttft_p95_s": orep.ttft_p95,
         "fleet_tokens_per_s": orep.tokens_per_s,
@@ -1372,6 +1441,7 @@ def control_plane(cfg, device, requests=CP_REQUESTS):
         {k: summary[k] for k in ("swap_verify_ms",
                                  "swap_sampled_distinct_tokens_min",
                                  "failover_distinct_tokens",
+                                 "failover_logits_rel_err",
                                  "fleet_ttft_p50_s",
                                  "fleet_ttft_p95_s", "fleet_tokens_per_s",
                                  "decode_step_ms_p50", "prefill_flash_share",
@@ -1475,47 +1545,19 @@ def retrain(cfg, device, steps: int = 4):
         step_s.append(time.perf_counter() - ts)
         losses.append(m["loss"])
         sent.append(m["sent_fraction"])
-    launches = {"bsmm": B.bsmm.launches,
-                "bsmm_epilogue": B.bsmm_epilogue.launches,
-                "bsmm_dx": B.bsmm_dx.launches, "bsmm_dw": B.bsmm_dw.launches}
+    launches = {name: getattr(B, name).launches for name in BSMM_ROUTED}
+    routes = bsmm_routes(B)
     peak = torch.cuda.max_memory_allocated() if on_card else None
 
     L = cfg.n_layers
     remat = tfm.remat_enabled()
-    r = 2 if remat else 1
-    want = {"bsmm": 6 * r * L, "bsmm_epilogue": (r + 1) * L,
-            "bsmm_dx": 7 * L, "bsmm_dw": 7 * L}
     print(f"retrain: remat={remat} layers={L} losses={losses} "
-          f"sent_fraction={sent[-1]} (host {want_sent}) launches={launches} "
-          f"per step want {want}")
+          f"sent_fraction={sent[-1]} (host {want_sent})")
     require(all(np.isfinite(losses)), f"non-finite loss {losses}")
     require(all(abs(s - want_sent) < 1e-12 for s in sent),
             f"sent_fraction {sent} != host count {want_sent}")
-    require(all(launches[k] == steps * v for k, v in want.items()),
-            f"launch counts {launches} do not match {steps} steps of {want}")
-    # every routed product at 8 x 128 rows in bf16 on the wgmma kernels,
-    # cut where its plan says: r forwards of the six plain projections,
-    # r + 1 of the gate (the backward recomputes its pre-activation), one
-    # dx and one dw of each of the seven
-    routes = bsmm_routes(B)
-    plans = ticket_plans(B, masks)
-    M = 8 * 128
-    want_cut = {
-        "bsmm": steps * r * L * sum(is_cut(plans[k], "fwd", M)
-                                    for k in PLAIN_PROJECTIONS),
-        "bsmm_epilogue": steps * (r + 1) * L * is_cut(plans["gate"], "fwd",
-                                                      M),
-        "bsmm_dx": steps * L * sum(is_cut(p, "dx", M)
-                                   for p in plans.values()),
-        "bsmm_dw": steps * L * sum(is_cut(p, "dw", M)
-                                   for p in plans.values())}
-    for name in BSMM_ROUTED:
-        want_routes = {k: launches[name] * (k == "wgmma")
-                       for k in routes[name]["launches_by_route"]}
-        require(routes[name]["launches_by_route"] == want_routes
-                and routes[name]["split_launches"] == want_cut[name],
-                f"{name} routes {routes[name]} in retraining, want "
-                f"{want_routes} and {want_cut[name]} split launches")
+    want = require_llama_steps(B, launches, routes, masks, L, steps,
+                               "retraining")
     finite = all(bool(torch.isfinite(p).all().item())
                  for p in tree_leaves(trainer.state.params))
     require(finite, "a parameter is non-finite after retraining")
@@ -1543,6 +1585,62 @@ def retrain(cfg, device, steps: int = 4):
         "live_tiles": adapter.last_plan_stats
         .live_tiles, "total_tiles": adapter.last_plan_stats.total_tiles,
         "profile": profile}
+
+
+def require_llama_steps(B, launches, routes, masks, L, steps,
+                        where) -> dict:
+    """Hold ``steps`` llama train steps' bsmm launches (by wrapper, and
+    ``routes`` as ``bsmm_routes`` gives them) to the model: every routed
+    product at 8 x 128 rows in bf16 on the wgmma kernels, cut where its
+    plan says; r forwards of the six plain projections, r + 1 of the
+    gate (the backward recomputes its pre-activation), one dx and one
+    dw of each of the seven, a layer (r = 2 with remat).  Returns the
+    launches a step must make."""
+    from repro_torch.models import transformer as tfm
+
+    r = 2 if tfm.remat_enabled() else 1
+    want = {"bsmm": 6 * r * L, "bsmm_epilogue": (r + 1) * L,
+            "bsmm_dx": 7 * L, "bsmm_dw": 7 * L}
+    plans = ticket_plans(B, masks)
+    M = 8 * 128
+    want_cut = {
+        "bsmm": steps * r * L * sum(is_cut(plans[k], "fwd", M)
+                                    for k in PLAIN_PROJECTIONS),
+        "bsmm_epilogue": steps * (r + 1) * L * is_cut(plans["gate"], "fwd",
+                                                      M),
+        "bsmm_dx": steps * L * sum(is_cut(p, "dx", M)
+                                   for p in plans.values()),
+        "bsmm_dw": steps * L * sum(is_cut(p, "dw", M)
+                                   for p in plans.values())}
+    print(f"{where}: launches {launches}, per step want {want}")
+    require(all(launches[k] == steps * v for k, v in want.items()),
+            f"{where}: launch counts {launches} do not match {steps} steps "
+            f"of {want}")
+    for name in BSMM_ROUTED:
+        want_routes = {k: launches[name] * (k == "wgmma")
+                       for k in routes[name]["launches_by_route"]}
+        require(routes[name]["launches_by_route"] == want_routes
+                and routes[name]["split_launches"] == want_cut[name],
+                f"{name} routes {routes[name]} in {where}, want "
+                f"{want_routes} and {want_cut[name]} split launches")
+    return want
+
+
+def counts_now(B, names=BSMM_ROUTED) -> tuple:
+    """(launches by wrapper, ``bsmm_routes``) as they stand."""
+    return ({n: getattr(B, n).launches for n in names},
+            bsmm_routes(B, names))
+
+
+def counts_since(B, before, names=BSMM_ROUTED) -> tuple:
+    """``counts_now`` less an earlier reading of it."""
+    (l0, r0), (l1, r1) = before, counts_now(B, names)
+    return ({n: l1[n] - l0[n] for n in names},
+            {n: {"launches_by_route": {
+                k: v - r0[n]["launches_by_route"][k]
+                for k, v in r1[n]["launches_by_route"].items()},
+                "split_launches": r1[n]["split_launches"]
+                - r0[n]["split_launches"]} for n in names})
 
 
 def _kernel_group(name: str) -> str:
@@ -1627,6 +1725,281 @@ def _mask_pairs(params, masks):
         for pos_p, pos_m in zip(seg_p, seg_m):
             for group, key in ROUTED:
                 yield pos_p[group][key], pos_m[group][key]
+
+
+# ---------------------------------------------------------------------------
+# the LM pruning program: llama3.2-3b's dense-full recipe through prune,
+# int8 QAT and export, then the ticket's deployable form
+# ---------------------------------------------------------------------------
+LM_LAYERS = 4           # llama3.2-3b's 28 layers cut: the host-side prune
+LM_STEPS = 4            # retrain steps a stage (dense-full: 200-300)
+# the gate, in nats of held-out cross-entropy: after 4 retrain steps on
+# synthetic tokens the score (-CE, ~-10.7) moved 0.14-0.25 under a
+# 15-20 % prune on an H100, and PruneConfig's default 0.0 refused every
+# prune stage (accepting only the quantize stage); 0.5 lets the program
+# prune, as CNN_TOLERANCE does for vgg11
+LM_TOLERANCE = 0.5
+LM_QAT_STEPS = 4        # the timed plain and QAT legs on the ticket
+LM_BATCH, LM_SEQ = 8, 128
+FAKE_BITS = 8
+
+
+def lm_session_config(layers=LM_LAYERS):
+    """llama3.2-3b at its published widths, ``layers`` deep, registered
+    under its own name so that the command line can build it."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, register
+    cfg = get_arch("llama3.2-3b")
+    return register(dataclasses.replace(
+        cfg, n_layers=layers, name=f"{cfg.name}-{layers}l"))
+
+
+def _bf16_ulp(t):
+    """One bf16 ulp at each |t| (the spacing of its binade)."""
+    _, e = torch.frexp(t.float())
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - 8)
+
+
+def check_fake_pass(params, masks, prunable):
+    """The QAT stage's fake pass on the card: every masked weight of the
+    fake-quantized tree exactly 0, each live weight within scale / 2
+    plus one bf16 ulp of its source.  Returns the worst excess over
+    scale / 2 in ulps."""
+    from repro_torch.core.masks import tree_flatten_with_path
+    from repro_torch.core.quantize import fake_quantize_tree, quantize
+
+    fake = dict(tree_flatten_with_path(
+        fake_quantize_tree(params, prunable, FAKE_BITS)))
+    mask = dict(tree_flatten_with_path(masks))
+    worst, leaves = 0.0, 0
+    with torch.no_grad():
+        for path, w in tree_flatten_with_path(params):
+            m = mask.get(path)
+            if m is None:
+                continue
+            f = fake[path]
+            require(f.device == w.device and f.dtype == w.dtype,
+                    f"fake pass of {path} left the card or its dtype")
+            dead = m.expand_as(w) == 0
+            require(not bool(f[dead].any().item()),
+                    f"a masked weight of {path} is non-zero after the fake "
+                    "pass")
+            half = quantize(w, FAKE_BITS).scale / 2
+            ulp = _bf16_ulp(torch.maximum(w.abs(), f.abs()))
+            err = (f.float() - w.float()).abs()
+            excess = ((err - half) / ulp).max().item()
+            require(bool((err <= half + ulp).all().item()),
+                    f"a live weight of {path} moved more than scale/2 + one "
+                    f"ulp in the fake pass ({excess:.3f} ulp over)")
+            worst = max(worst, excess)
+            leaves += 1
+            del f, dead, half, ulp, err
+    print(f"fake pass on the card: {leaves} leaves, masked weights 0, "
+          f"live within scale/2 + 1 ulp (worst {worst:.3f} ulp over "
+          "scale/2)")
+    return {"leaves": leaves, "worst_ulp_over_half_scale": worst}
+
+
+def check_packing(params, masks, cfg, device) -> dict:
+    """``pack_lm_params`` on a ticket: when a column packs away, the
+    packed model's dense logits against the pruned model's block-sparse
+    ones on one batch, within 1e-2 of their scale (bf16); when none
+    does, the input returned unchanged."""
+    from repro_torch.core.packing import pack_lm_params
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import lm_train_plan
+
+    packed, cfg_p = pack_lm_params(params, masks, cfg)
+    out = {"d_ff": cfg.d_ff, "packed_d_ff": cfg_p.d_ff}
+    if cfg_p.d_ff == cfg.d_ff:
+        print(f"packed FFN: no column of d_ff {cfg.d_ff} packs away")
+        require(packed is params and cfg_p is cfg, "pack_lm_params changed "
+                "a ticket with nothing to pack")
+        return out
+    b = SyntheticLM(256, LM_SEQ, seed=0).batch(20_000, LM_BATCH)
+    batch = {k: torch.as_tensor(v, device=device) for k, v in b.items()}
+    plan, _ = lm_train_plan(masks)
+    with torch.inference_mode():
+        want, _ = tfm.forward(params, cfg, batch, plan=plan)
+        got, _ = tfm.forward(packed, cfg_p, batch)
+    e = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    out.update(max_abs_err=e, scale=scale)
+    print(f"packed FFN {cfg.d_ff} -> {cfg_p.d_ff}: dense logits vs the "
+          f"pruned model's block-sparse ones max_abs_err={e:.4e} "
+          f"max|logit|={scale:.4e} tol={1e-2 * scale:.4e}")
+    require(e <= 1e-2 * scale, "the packed model's logits disagree with "
+            "the pruned model's")
+    return out
+
+
+def timed_steps(trainer, steps, on_card):
+    """``steps`` synchronised ``run(1)`` calls: (losses, step seconds,
+    median of steps 2-4, peak bytes allocated)."""
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for _ in range(steps):
+        ts = time.perf_counter()
+        losses.append(trainer.run(1)["loss"])
+        step_s.append(time.perf_counter() - ts)
+    mid = sorted(step_s[1:])
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    return losses, step_s, mid[len(mid) // 2], peak
+
+
+def lm_session(device, layers=LM_LAYERS, steps=LM_STEPS):
+    """An LM pruning program through the entry points a user calls:
+    ``make_adapter`` on llama3.2-3b at its published widths (``layers``
+    deep) and ``PruningSession(...).run()`` on the ``dense-full`` recipe
+    cut to one round of ``steps`` retrain steps a prune stage; every
+    event printed with its wall time, the quantize stage required.
+    Then on the ticket: a plain and an int8 QAT retrain leg (timed, peak
+    memory, the QAT leg's launches and routes held to the model), the
+    fake pass checked on the card, the deployable form (int8
+    ``quantize_tree`` and its bytes, the hardware report's, the packed
+    FFN width and, when a column packs away, the packed model's dense
+    logits against the pruned model's block-sparse ones), the ticket's
+    export, and ``api.cli finetune`` (QAT, from the ticket's bits) and
+    ``api.cli report`` on it in process."""
+    import contextlib
+    import dataclasses
+    import io
+    import tempfile
+
+    from repro_torch._bridge import tree_leaves
+    from repro_torch.api import PruningSession, cli, get_recipe, make_adapter
+    from repro_torch.configs import PruneConfig
+    from repro_torch.core import lottery
+    from repro_torch.core.quantize import quantize_tree, tree_bytes
+    from repro_torch.kernels import bsmm as B
+
+    on_card = torch.device(device).type == "cuda"
+    cfg = lm_session_config(layers)
+    adapter = make_adapter(cfg, device=device, steps=steps,
+                           batch_size=LM_BATCH, seq_len=LM_SEQ)
+    family = get_recipe("dense-full").with_retrain_steps(steps)
+    recipe = family.replace(stages=tuple(
+        dataclasses.replace(st, max_rounds=1) if st.kind == "prune" else st
+        for st in family.stages))
+    events, event_t = [], []
+
+    def on_event(e):
+        sync(device)
+        events.append(e)
+        event_t.append(time.perf_counter())
+
+    t0 = time.perf_counter()
+    sess = PruningSession(adapter, PruneConfig(
+        accuracy_tolerance=LM_TOLERANCE), recipe=recipe,
+        callbacks=[on_event])
+    res = sess.run()
+    sync(device)
+    session_s = time.perf_counter() - t0
+    round_s = [b - a for a, b in zip([t0] + event_t, event_t)]
+    for e, dt in zip(events, round_s):
+        print(f"lm event {e.iteration} [{e.stage}] {e.kind} {e.granularity}: "
+              f"{'accepted' if e.accepted else 'refused'} sparsity "
+              f"{e.sparsity_before:.4f} -> {e.sparsity_after:.4f} score "
+              f"{e.accuracy:.4f} ({dt:.2f} s)")
+    quant = [e for e in events if e.kind == "quantize"]
+    require(len(quant) == 1, "the session's quantize stage did not run")
+    require(quant[0].accepted and sess.quantize_bits == FAKE_BITS,
+            f"the quantize stage was refused (score {quant[0].accuracy}, "
+            f"gate {LM_TOLERANCE})")
+
+    # the plain and the QAT retrain legs on the ticket; the QAT leg's
+    # launches and routes held to the model
+    legs = {}
+    for bits in (None, FAKE_BITS):
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        trainer = adapter.make_trainer(res.params, res.masks,
+                                       learning_rate=1e-4,
+                                       quantize_bits=bits)
+        sync(device)
+        before = counts_now(B)
+        losses, step_s, med, peak = timed_steps(trainer, LM_QAT_STEPS,
+                                                on_card)
+        launches, routes = counts_since(B, before)
+        legs["qat" if bits else "plain"] = {
+            "losses": losses, "step_s": step_s,
+            "step_s_median_2_to_4": med,
+            "tokens_per_s": LM_BATCH * LM_SEQ / med,
+            "max_memory_allocated_bytes": peak}
+        require(all(np.isfinite(losses)), f"non-finite loss {losses}")
+        if bits:
+            want = require_llama_steps(B, launches, routes, res.masks,
+                                       layers, LM_QAT_STEPS, "the QAT leg")
+            legs["qat"].update(launches=launches, launches_per_step=want,
+                               bsmm_routes=routes)
+            tuned = trainer.state.params
+        del trainer
+    for p, m in _mask_pairs(tuned, res.masks):
+        require(not bool(((p != 0) & (m == 0)).any().item()),
+                "a pruned coordinate is non-zero after the QAT leg")
+    print("lm QAT legs: " + json.dumps(
+        {k: {kk: vv for kk, vv in v.items() if kk != "bsmm_routes"}
+         for k, v in legs.items()}))
+    fake = check_fake_pass(tuned, res.masks, adapter.prunable)
+
+    # the deployable form
+    ts = time.perf_counter()
+    qtree = quantize_tree(tuned, adapter.prunable, FAKE_BITS)
+    int8_bytes, dense_bytes = tree_bytes(qtree), tree_bytes(tuned)
+    del qtree
+    weight_bytes = sess.hardware_report().weight_bytes()
+    pack = check_packing(tuned, res.masks, cfg, device)
+    deploy_s = time.perf_counter() - ts
+    print(f"lm deployable form ({deploy_s:.1f} s): int8 tree {int8_bytes} "
+          f"bytes, dense {dense_bytes}; hardware report {weight_bytes}; "
+          f"{pack}")
+
+    # the ticket out, then the command line on it
+    cli_out = {}
+    with tempfile.TemporaryDirectory(dir=OUT) as tdir:
+        ts = time.perf_counter()
+        sess.export_ticket(tdir)
+        export_s = time.perf_counter() - ts
+        meta = lottery.ticket_meta(tdir)
+        print(f"lm ticket exported in {export_s:.1f} s, meta {meta}")
+        require(meta.get("quantize_bits") == FAKE_BITS,
+                f"ticket meta {meta}")
+        for verb, extra in (("finetune", ["--steps", "2"]), ("report", [])):
+            out = io.StringIO()
+            ts = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                code = cli.main([verb, "--arch", cfg.name, "--scale", "full",
+                                 "--device", str(device), "--ticket", tdir,
+                                 "--json", *extra])
+            row = json.loads(out.getvalue().strip().splitlines()[-1])
+            cli_out[verb] = {**row, "exit": code,
+                             "s": time.perf_counter() - ts}
+            print(f"cli {verb} ({cli_out[verb]['s']:.1f} s): exit {code}, "
+                  f"{json.dumps(row)[:300]}")
+            require(code == 0 and row["event"] == verb
+                    and row["quantize_bits"] == FAKE_BITS,
+                    f"cli {verb} on the QAT ticket failed")
+    require(np.isfinite(cli_out["finetune"]["loss"]),
+            "non-finite finetune loss")
+    require(all(bool(torch.isfinite(t).all().item())
+                for t in tree_leaves(tuned)), "a non-finite tuned weight")
+    return {
+        "config": cfg.name, "n_layers": layers, "steps_per_stage": steps,
+        "recipe": recipe.name, "accuracy_tolerance": LM_TOLERANCE,
+        "events": [{"stage": e.stage, "kind": e.kind,
+                    "granularity": e.granularity, "accepted": e.accepted,
+                    "sparsity": e.sparsity_after, "score": e.accuracy}
+                   for e in events],
+        "round_s": round_s, "session_s": session_s,
+        "sparsity": res.sparsity, "quantize_bits": sess.quantize_bits,
+        "legs": legs, "fake_pass": fake,
+        "int8_tree_bytes": int8_bytes, "dense_tree_bytes": dense_bytes,
+        "hardware_weight_bytes": weight_bytes, "packing": pack,
+        "deployable_s": deploy_s, "export_s": export_s, "cli": cli_out}
 
 
 # ---------------------------------------------------------------------------
@@ -2246,7 +2619,7 @@ def retrain_deepseek(cfg, device, steps: int = 4):
         losses.append(m["loss"])
         auxes.append(m["aux"])
         sent.append(m["sent_fraction"])
-    launches = {k: getattr(B, k).launches for k in names}
+    launches, routes = counts_now(B, names)
     peak = torch.cuda.max_memory_allocated() if on_card else None
     held_steps = torch.cuda.memory_allocated() if on_card else None
 
@@ -2273,8 +2646,6 @@ def retrain_deepseek(cfg, device, steps: int = 4):
             f"aux loss {auxes} is not finite and positive")
     require(all(abs(s_ - want_sent) < 1e-12 for s_ in sent),
             f"sent_fraction {sent} != host count {want_sent}")
-    require(all(launches[k] == steps * v for k, v in want.items()),
-            f"launch counts {launches} do not match {steps} steps of {want}")
     # every routed product on its wgmma kernel (2-D at 1024 rows, the
     # batched forward and backward at C rows an expert), cut where its
     # plan says
@@ -2305,20 +2676,29 @@ def retrain_deepseek(cfg, device, steps: int = 4):
                                        for q in p.values()),
         "bsmm_batched_dw": steps * sum(cut(q, "dw", C, E) for p in expert_plans
                                        for q in p.values())}
-    routes = bsmm_routes(B, names)
-    for name, rt in routes.items():
-        want_routes = {k: launches[name] * (k == "wgmma")
-                       for k in rt["launches_by_route"]}
-        require(rt["launches_by_route"] == want_routes
-                and rt["split_launches"] == want_cut[name],
-                f"{name} routes {rt} in the deepseek retrain, want "
-                f"{want_routes} and {want_cut[name]} split launches")
-    finite = all(bool(torch.isfinite(p).all().item())
-                 for p in tree_leaves(trainer.state.params))
-    require(finite, "a parameter is non-finite after retraining deepseek")
-    for p, m in _ticket_mask_pairs(trainer.state.params, masks):
-        require(not bool(((p != 0) & ~m).any().item()),
-                "a pruned coordinate is non-zero after retraining deepseek")
+
+    def require_steps(launches, routes, where):
+        require(all(launches[k] == steps * v for k, v in want.items()),
+                f"{where}: launch counts {launches} do not match {steps} "
+                f"steps of {want}")
+        for name, rt in routes.items():
+            want_routes = {k: launches[name] * (k == "wgmma")
+                           for k in rt["launches_by_route"]}
+            require(rt["launches_by_route"] == want_routes
+                    and rt["split_launches"] == want_cut[name],
+                    f"{name} routes {rt} in {where}, want {want_routes} "
+                    f"and {want_cut[name]} split launches")
+
+    def require_ticket(params, where):
+        require(all(bool(torch.isfinite(p).all().item())
+                    for p in tree_leaves(params)),
+                f"a parameter is non-finite after {where}")
+        for p, m in _ticket_mask_pairs(params, masks):
+            require(not bool(((p != 0) & ~m).any().item()),
+                    f"a pruned coordinate is non-zero after {where}")
+
+    require_steps(launches, routes, "the deepseek retrain")
+    require_ticket(trainer.state.params, "retraining deepseek")
 
     tokens = 8 * 128
     mid = sorted(step_s[1:])
@@ -2334,6 +2714,32 @@ def retrain_deepseek(cfg, device, steps: int = 4):
     print(f"retrain_deepseek: peak {peak} bytes allocated (held after set-up "
           f"{held_setup}, after the steps {held_steps}); reckoning "
           + json.dumps(reckoning))
+
+    # the QAT leg: the same cut, ticket and weights, a fresh optimizer
+    # (the plain trainer and its moments freed first), the prunable
+    # weights fake-quantized to int8 in the loss
+    params = trainer.state.params
+    del trainer
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    qtrainer = adapter.make_trainer(params, masks, learning_rate=1e-4,
+                                    quantize_bits=8)
+    del params
+    before = counts_now(B, names)
+    q_losses, q_step_s, q_med, q_peak = timed_steps(qtrainer, steps, on_card)
+    q_launches, q_routes = counts_since(B, before, names)
+    print(f"retrain_deepseek QAT: losses {q_losses} steps {q_step_s} median "
+          f"{q_med} s, peak {q_peak} bytes allocated (plain {peak})")
+    require(all(np.isfinite(q_losses)), f"non-finite QAT loss {q_losses}")
+    require_steps(q_launches, q_routes, "the deepseek QAT leg")
+    require_ticket(qtrainer.state.params, "the deepseek QAT leg")
+    del qtrainer
+    qat = {"losses": q_losses, "step_s": q_step_s,
+           "step_s_median_2_to_4": q_med, "tokens_per_s": 8 * 128 / q_med,
+           "max_memory_allocated_bytes": q_peak, "launches": q_launches,
+           "bsmm_routes": q_routes,
+           "fake_copies_gb": 2 * prunable / 1e9}
     return launches, {
         "config": cfg.name, "n_layers": cfg.n_layers, "experts": E,
         "capacity": C, "parameters": n_params, "prunable": prunable,
@@ -2347,7 +2753,7 @@ def retrain_deepseek(cfg, device, steps: int = 4):
         "launches_per_step": want, "bsmm_routes": routes,
         "live_tiles": adapter.last_plan_stats.live_tiles,
         "total_tiles": adapter.last_plan_stats.total_tiles,
-        "profile": profile}
+        "profile": profile, "qat": qat}
 
 
 # ---------------------------------------------------------------------------
@@ -2728,6 +3134,7 @@ def cnn_session(device, rounds=CNN_ROUNDS, steps=CNN_STEPS):
               f"sparsity {e.sparsity_before:.4f} -> {e.sparsity_after:.4f} "
               f"accuracy {e.accuracy:.4f}")
     rep = sess.hardware_report()
+    reram = reram_model(sess)
     ticket = OUT / "cnn_ticket"
     sess.export_ticket(str(ticket))
     w_back, m_back = lottery.import_ticket(str(ticket), sess.init_params,
@@ -2765,7 +3172,7 @@ def cnn_session(device, rounds=CNN_ROUNDS, steps=CNN_STEPS):
         "train_s": train_s, "round_s": round_s, "session_s": run_s,
         "train_steps_per_s": n_steps / sum(train_s),
         "profile_3_steps": profile,
-        "quantize_bits": sess.quantize_bits,
+        "quantize_bits": sess.quantize_bits, "reram_model": reram,
         "hardware": {"xbar_savings": rep.xbar_savings,
                      "cell_savings": rep.cell_savings,
                      "xbars_unpruned": rep.xbars_unpruned,
@@ -2775,6 +3182,39 @@ def cnn_session(device, rounds=CNN_ROUNDS, steps=CNN_STEPS):
     print("cnn session: " + json.dumps({k: v for k, v in summary.items()
                                         if k != "losses"}))
     return sess, res, summary
+
+
+def reram_model(sess) -> dict:
+    """The paper's pipelined ReRAM chip (``core.perf_model``) fed the
+    ticket's crossbar counts at the session's geometry and vgg11's
+    activation volumes: the training speedup at equal area (Fig. 7) and
+    the crossbars needed at equal performance (Fig. 6).  Numbers of the
+    modelled chip, not times of this device."""
+    from repro_torch.core import perf_model as pm
+    from repro_torch.core.hardware import cnn_activation_volumes
+
+    cfg = sess.adapter.cfg
+    vols = cnn_activation_volumes(cfg)
+    rep = sess.hardware_report(activation_volumes=vols)
+    cells = sess.geometry.cells
+    unpruned = pm.conv_layer_perf(
+        cfg, {lr.path: lr.stats.n_xbars for lr in rep.layers}, vols,
+        act_cells_per_xbar=cells)
+    pruned = pm.conv_layer_perf(
+        cfg, {lr.path: lr.stats.xbars_needed_packed for lr in rep.layers},
+        vols, act_cells_per_xbar=cells)
+    speedup = pm.iso_area_speedup(unpruned, pruned)
+    xbars = pm.iso_perf_xbars(unpruned, pruned)
+    print(f"ReRAM model (the paper's chip, {pm.TOTAL_XBARS} crossbars at "
+          f"{pm.XBAR_FREQ_HZ / 1e6:.0f} MHz): iso-area training speedup "
+          f"{speedup:.4f}x, iso-performance crossbars {json.dumps(xbars)}")
+    require(np.isfinite(speedup) and speedup >= 1.0,
+            f"the ReRAM model's iso-area speedup {speedup} is below 1")
+    require(0.0 <= xbars["savings"] < 1.0, f"iso-performance {xbars}")
+    return {"iso_area_speedup": speedup, "iso_perf_xbars": xbars,
+            "cycles_per_image_unpruned": pm.waterfill(unpruned)
+            .cycles_per_image,
+            "cycles_per_image_pruned": pm.waterfill(pruned).cycles_per_image}
 
 
 def cnn_ticket_stats(sess, res):
@@ -3116,6 +3556,17 @@ def main() -> int:
     grad_summary = grad_check(cfg, "cuda")
     t_launches, train_summary = retrain(cfg, "cuda")
     phase("grad_check_retrain")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the LM pruning program, with the 2-D bsmm counts set to 0 just
+    # before and read just after
+    reset_bsmm_routes(B)
+    lm_summary = lm_session("cuda")
+    lm_launches = {n: getattr(B, n).launches for n in BSMM_ROUTED}
+    print(f"lm_session launches {lm_launches}")
+    for name, n in lm_launches.items():
+        require(n > 0, f"the LM session never launched {name}")
+    phase("lm_session")
     # the llama models are gone (each phase's locals); hand their memory
     # back before the ~30 GB deepseek-v3 model is drawn
     gc.collect()
@@ -3153,6 +3604,7 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/bsmm.cu",
          "replaces": "src/repro/kernels/bsmm.py:118",
          "launches": launches["bsmm"], **serve_routes["bsmm"],
+         "launches_lm_session": lm_launches["bsmm"],
          "max_abs_err": bsmm_err["bsmm"],
          "ms": rep_row["bsmm_ms"], "plain_ms": rep_row["plain_ms"],
          "bound_ms": rep_row["bound_ms"], "bound_by": rep_row["bound_by"],
@@ -3162,6 +3614,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/bsmm.py:136",
          "launches": launches["bsmm_epilogue"],
          **serve_routes["bsmm_epilogue"],
+         "launches_lm_session": lm_launches["bsmm_epilogue"],
          "max_abs_err": bsmm_err["bsmm_epilogue"],
          "ms": rep_row["bsmm_epilogue_ms"],
          "plain_ms": rep_row["epilogue_plain_ms"],
@@ -3182,6 +3635,7 @@ def main() -> int:
              "replaces": f"src/repro/kernels/bsmm.py:{line}",
              "launches": t_launches[f"bsmm_{kind}"],
              **train_summary["bsmm_routes"].get(f"bsmm_{kind}", {}),
+             "launches_lm_session": lm_launches[f"bsmm_{kind}"],
              "max_abs_err": grad_err[f"bsmm_{kind}"],
              "ms": grad_row[f"{kind}_ms"],
              "plain_ms": grad_row[f"{kind}_plain_ms"],
@@ -3283,7 +3737,8 @@ def main() -> int:
          "bsmm_batched_grads": bgrad_times, "serve": summary,
          "grad_check": grad_summary, "retrain": train_summary,
          "serve_deepseek": ds_summary, "moe_grad_check": moe_grad_summary,
-         "retrain_deepseek": rd_summary, "tile_stats": stats_times,
+         "retrain_deepseek": rd_summary, "lm_session": lm_summary,
+         "tile_stats": stats_times,
          "masked_matmul": masked_times, "ltp_mlp": ltp_summary,
          "masked_matmul_wgmma_smem": masked_smem,
          "bsmm_wgmma_smem": bsmm_smem, "cnn": cnn_summary,
@@ -3299,6 +3754,8 @@ def main() -> int:
     print(json.dumps({"ltp_mlp": ltp_summary}))
     print(json.dumps({"grad_check": grad_summary}))
     print(json.dumps({"retrain": train_summary}, default=str))
+    print(json.dumps({"lm_session": {k: v for k, v in lm_summary.items()
+                                     if k != "cli"}}, default=str))
     print(json.dumps({"serve_deepseek": {k: v for k, v in ds_summary.items()
                                          if k != "report"}}, default=str))
     print(json.dumps({"moe_grad_check": moe_grad_summary}))

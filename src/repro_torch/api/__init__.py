@@ -7,6 +7,8 @@ command line is ``python -m repro_torch.api`` (``api.cli``).
     session = PruningSession(adapter, PruneConfig(max_iters=2))
     result = session.run()
     session.export_ticket("tickets/vgg11")
+
+plus ``structured_prune`` for one-shot (no accuracy gate) schedules.
 """
 from repro_torch.api.adapters import (  # noqa: F401
     CNNAdapter, FunctionAdapter, LMAdapter, ModelAdapter, ServeUnsupported,
@@ -19,7 +21,8 @@ from repro_torch.api.registry import (  # noqa: F401
     FamilySpec, available_families, get_family, list_adaptable, make_adapter,
     register_family,
 )
-from repro_torch.api.session import PruningSession  # noqa: F401
+from repro_torch.api.session import (PruningSession,  # noqa: F401
+                                     structured_prune)
 from repro_torch.core.algorithm import PruneEvent, PruneResult  # noqa: F401
 from repro_torch.core.strategies import (  # noqa: F401
     GranularityStrategy, TileGeometry, available_strategies, get_strategy,

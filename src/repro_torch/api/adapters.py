@@ -304,11 +304,11 @@ class LMAdapter(ModelAdapter):
         With ``masks`` (and ``use_bsmm``), the train step closes over a
         block-sparse plan derived from the CURRENT masks: the forward and
         both backward products of every routed projection skip dead
-        128×128 tiles.  Masks move to the device once, here.
+        128×128 tiles.  Masks move to the device once, here.  With
+        ``quantize_bits`` the loss sees the fake-quantized prunable
+        weights (straight-through), so those products run on the
+        fixed-point values.
         """
-        if quantize_bits is not None:
-            raise NotImplementedError("quantization-aware retraining is not "
-                                      "yet ported to repro_torch")
         steps = steps or self.steps
         sched = (constant(learning_rate) if learning_rate is not None
                  else warmup_cosine(self.peak_lr,
@@ -329,9 +329,10 @@ class LMAdapter(ModelAdapter):
             lm_train_plan(masks) if masks is not None and use_bsmm
             else (None, PlanStats()))
         cfg, tfm = self.cfg, self._tfm
+        qat = self._qat(quantize_bits)
 
         def loss(p, batch):
-            return tfm.loss_fn(p, cfg, batch, plan=plan)
+            return tfm.loss_fn(qat(p), cfg, batch, plan=plan)
 
         return Trainer(
             loss_fn=loss, optimizer=opt, params=params,

@@ -42,6 +42,9 @@ class FamilySpec:
     conv_pred: Optional[Callable[[str], bool]] = None
     # None → PruneConfig.granularities (the paper's schedule)
     granularities: Optional[Tuple[str, ...]] = None
+    # granularities that exist in the strategy registry but are inert
+    # for this family (``expert`` outside MoE exposes no prunable groups)
+    excluded_granularities: Tuple[str, ...] = ()
     # tuned full-scale prune program (registered recipe name); applied
     # at scale="full" only
     recipe: Optional[str] = None
@@ -74,6 +77,14 @@ def get_family(family: str) -> FamilySpec:
 
 def available_families() -> Tuple[str, ...]:
     return tuple(sorted(_FAMILIES))
+
+
+def family_granularities(spec: FamilySpec) -> Tuple[str, ...]:
+    """Granularities a recipe may schedule for this family: every
+    registered strategy minus the family's exclusions."""
+    from repro_torch.core.strategies import available_strategies
+    return tuple(g for g in available_strategies()
+                 if g not in spec.excluded_granularities)
 
 
 def _tiny_arch(cfg: ArchConfig) -> ArchConfig:
@@ -135,6 +146,7 @@ register_family(FamilySpec(
     family="dense",
     adapter_factory=LMAdapter,
     prunable=family_prunable("dense"),
+    excluded_granularities=("expert",),
     recipe="dense-full",
     scale_tiny=_tiny_arch,
     smoke_kwargs=_LM_SMOKE,
@@ -157,6 +169,7 @@ register_family(FamilySpec(
     adapter_factory=CNNAdapter,
     prunable=family_prunable("cnn"),
     conv_pred=cnn_conv_path,
+    excluded_granularities=("expert",),
     recipe="cnn-full",
     scale_tiny=scaled_down_cnn,
     smoke_kwargs=dict(steps=6, batch_size=8, eval_batches=1,

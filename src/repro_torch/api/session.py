@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +51,24 @@ _STATE_FIELDS = ("stage_idx", "step", "itr", "prune_rounds")
 # fills by path), so an explicit marker is the ONLY reliable way to
 # tell an older-layout checkpoint from a fresh one.
 _CKPT_FMT = 2
+
+
+def structured_prune(params, schedule: Sequence[Tuple[str, float]], *,
+                     prunable: Callable, conv_pred: Callable = None,
+                     cfg: Optional[PruneConfig] = None, block: int = 32):
+    """One-shot crossbar-aware pruning: apply a fixed (granularity,
+    fraction) schedule to trained weights without the accuracy gate.
+
+    The config's crossbar geometry drives every step.  Returns masks.
+    """
+    cfg = cfg or PruneConfig()
+    geom = TileGeometry.from_config(cfg)
+    conv_pred = conv_pred or (lambda p: False)
+    masks = make_masks(params, prunable)
+    for gran, frac in schedule:
+        masks = prune_step(params, masks, gran, frac, conv_pred,
+                           block=block, geometry=geom)
+    return masks
 
 
 def _resolve_session_recipe(recipe, granularities, adapter, cfg):

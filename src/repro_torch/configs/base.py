@@ -199,10 +199,12 @@ def _ensure_loaded():
     # architectures it can run
     import repro_torch.configs.deepseek_v3_671b  # noqa: F401
     import repro_torch.configs.llama3_2_3b  # noqa: F401
+    import repro_torch.configs.qwen2_72b  # noqa: F401
     import repro_torch.configs.resnet18  # noqa: F401
     import repro_torch.configs.vgg11  # noqa: F401
     import repro_torch.configs.vgg16  # noqa: F401
     import repro_torch.configs.vgg19  # noqa: F401
+    import repro_torch.configs.yi_6b  # noqa: F401
 
 
 def scaled_down_cnn(cfg: CNNConfig, *, max_channels: int = 16,

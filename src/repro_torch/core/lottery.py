@@ -5,7 +5,8 @@ The winning ticket is (w_initial, masks).  ``export_ticket`` /
 ``import_ticket`` serialise it in the reference's layout — one
 ``ticket.npz`` holding ``w:<path>`` and ``m:<path>`` arrays plus a
 ``ticket.json`` of metadata — so a ticket pruned by either package
-loads in the other.  The reference writes ``str(treedef)`` of a JAX
+loads in the other (``np.load`` reads stored and deflated members
+alike).  The reference writes ``str(treedef)`` of a JAX
 treedef into ``ticket.json``; the port writes its list of mask paths
 there instead.  Neither package reads that field back: loading fills
 the caller's templates by path.
@@ -14,6 +15,7 @@ from __future__ import annotations
 
 import json
 import os
+import zipfile
 
 import numpy as np
 import torch
@@ -37,14 +39,24 @@ def rewind(w_init, masks):
 def export_ticket(path: str, w_init, masks, meta=None):
     """Serialise (w_init, masks) plus optional JSON metadata (e.g. the
     resolved prune recipe, quantization bits), read back by
-    ``ticket_meta``."""
+    ``ticket_meta``.
+
+    Masks are deflated (they compress tenfold or more); weights are
+    stored as they are: random float data barely compresses, and
+    deflating it takes minutes for a full-width LM."""
     os.makedirs(path, exist_ok=True)
-    flat = {}
-    for prefix, tree in (("w", w_init), ("m", masks)):
-        for p, leaf in tree_flatten_with_path(tree):
-            if leaf is not None:
-                flat[f"{prefix}:{p}"] = to_numpy(leaf)
-    np.savez_compressed(os.path.join(path, "ticket.npz"), **flat)
+    with zipfile.ZipFile(os.path.join(path, "ticket.npz"), "w",
+                         allowZip64=True) as zf:
+        for prefix, tree in (("w", w_init), ("m", masks)):
+            for p, leaf in tree_flatten_with_path(tree):
+                if leaf is None:
+                    continue
+                info = zipfile.ZipInfo(f"{prefix}:{p}.npy")
+                info.compress_type = (zipfile.ZIP_DEFLATED if prefix == "m"
+                                      else zipfile.ZIP_STORED)
+                with zf.open(info, "w", force_zip64=True) as f:
+                    np.lib.format.write_array(f, to_numpy(leaf),
+                                              allow_pickle=False)
     treedef = [p for p, _ in tree_flatten_with_path(masks)]
     with open(os.path.join(path, "ticket.json"), "w") as f:
         json.dump({"treedef": f"repro_torch mask paths {treedef}",

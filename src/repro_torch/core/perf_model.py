@@ -1,0 +1,167 @@
+"""Deterministic pipelined ReRAM execution model (paper §V.A, Figs 7-8;
+port of the first half of ``repro.core.perf_model``).
+
+Target chip (paper): 256 tiles × 96 crossbars of 128×128 cells @10 MHz.
+CNN layers execute in a pipeline (PipeLayer [1]): every layer processes
+a different image simultaneously, so throughput is set by the slowest
+layer.  A conv layer with output O×O must stream O² windows through its
+crossbar grid — one window per crossbar cycle — so its per-image time is
+O²/r cycles given r-way weight replication.  Training ≈ 3 passes
+(forward, error backward, weight gradient) [1].
+
+Iso-area (Fig. 7): a fixed crossbar budget first stores every layer's
+(pruned) weights; the remainder replicates slow layers.  The optimal
+continuous waterfill equalises t = O²_l/r_l:
+    t* = Σ_l (xb_l · O²_l) / B_compute,   r_l = O²_l / t*.
+Pruning shrinks xb_l, freeing budget for replication — exactly the
+mechanism the paper credits for its 19.7× mean speedup.
+
+Iso-performance (Fig. 6): replication factors are fixed to the
+*unpruned* model's waterfill (equal parallelism ⇒ equal performance);
+pruned models then need Σ r_l·xb'_l crossbars.
+
+Every number here is of the paper's modelled ReRAM chip, not of the
+device the port runs on.  The reference's second half (``KernelCost``:
+the cost of its TPU kernels' grids) has no counterpart here.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+
+from repro_torch.core.crossbar import XBAR_COLS, XBAR_ROWS
+
+# paper / ISAAC [2] constants
+XBARS_PER_TILE = 96
+N_TILES = 256
+TOTAL_XBARS = XBARS_PER_TILE * N_TILES          # 24576
+XBAR_FREQ_HZ = 10e6
+TRAIN_PASSES = 3.0                              # fwd + err-bwd + wgrad
+ACT_CELLS_PER_XBAR = XBAR_ROWS * XBAR_COLS
+# ISAAC stores 16-bit fixed-point values in 2-bit cells: 8 cells/weight.
+# This is why an unpruned CNN nearly saturates the 24576-crossbar chip
+# (paper §V.C: ">80% of the crossbars" for ResNet-18 C11-C17) and why
+# pruning frees enough area for ~20× replication speedups.
+CELLS_PER_WEIGHT = 8
+
+
+@dataclass
+class LayerPerf:
+    name: str
+    out_positions: float        # O² (conv windows) or 1 (FC)
+    xbars: int                  # crossbars to store this layer's weights
+    act_xbars: float = 0.0      # crossbars to store activations
+
+
+def conv_layer_perf(cfg, xbars_per_layer: Dict[str, int],
+                    act_volumes: Optional[Dict[str, float]] = None,
+                    cells_per_weight: int = CELLS_PER_WEIGHT,
+                    pipelined_training: bool = True,
+                    act_cells_per_xbar: float = ACT_CELLS_PER_XBAR
+                    ) -> List[LayerPerf]:
+    """Build LayerPerf list for a CNNConfig given per-layer crossbar needs.
+
+    ``xbars_per_layer`` counts single-cell-per-weight crossbars (the
+    mapping unit of core.crossbar); the 16-bit/2-bit-cell encoding
+    multiplies physical crossbars by ``cells_per_weight``.
+    ``act_cells_per_xbar`` is the crossbar cell capacity — pass
+    ``xbar_rows * xbar_cols`` when using non-default geometry.
+
+    Pipelined training (PipeLayer [1]) keeps layer l's activations
+    resident until the backward pass returns to it: in-flight copies ≈
+    2·(L − l).  This is what makes an unpruned deep CNN saturate the
+    chip (paper §V.C) — and why filter-wise pruning, the only kind that
+    removes activations, matters for training.
+    """
+    size = cfg.image_size
+    acts = act_volumes or {}
+    L = len(cfg.convs)
+    layers = []
+    for i, spec in enumerate(cfg.convs):
+        if spec.stride > 1:
+            size //= spec.stride
+        copies = 2 * (L - i) if pipelined_training else 1
+        act_xb = np.ceil(acts.get(f"convs/{i}/w", 0.0) * copies
+                         * cells_per_weight / act_cells_per_xbar)
+        layers.append(LayerPerf(
+            f"C{i + 1}", float(size * size),
+            xbars_per_layer.get(f"convs/{i}/w", 0) * cells_per_weight,
+            act_xb))
+        if spec.pool:
+            size //= 2
+    for j in range(len(cfg.fc) + 1):
+        key = f"fc/{j}/w" if j < len(cfg.fc) else "head/w"
+        if key in xbars_per_layer:
+            layers.append(LayerPerf(key, 1.0,
+                                    xbars_per_layer[key] * cells_per_weight,
+                                    0.0))
+    return layers
+
+
+@dataclass
+class PipelineResult:
+    cycles_per_image: float
+    replication: List[float]
+    storage_xbars: float
+    compute_budget: float
+
+    @property
+    def time_per_image_s(self) -> float:
+        return self.cycles_per_image / XBAR_FREQ_HZ
+
+
+def waterfill(layers: Sequence[LayerPerf], budget: int = TOTAL_XBARS,
+              train: bool = True,
+              replication: Optional[Sequence[float]] = None
+              ) -> PipelineResult:
+    """Pipeline time under a crossbar budget with optimal replication.
+
+    If ``replication`` is given it is used as-is (iso-performance mode);
+    otherwise the continuous waterfill above allocates the budget.
+    """
+    storage = sum(l.xbars + l.act_xbars for l in layers)
+    passes = TRAIN_PASSES if train else 1.0
+    if replication is None:
+        b_compute = max(budget - storage, 1.0)
+        # replicas beyond the first copy: budget for (r_l - 1) · xb_l
+        num = sum(l.xbars * l.out_positions for l in layers)
+        t_star = num / (b_compute + sum(l.xbars for l in layers))
+        repl = [max(1.0, l.out_positions / max(t_star, 1e-12))
+                for l in layers]
+        # respect the budget exactly: scale down if the floor-at-1 pushed over
+        cost = sum((r - 1.0) * l.xbars for r, l in zip(repl, layers))
+        if cost > b_compute:
+            scale = b_compute / cost
+            repl = [1.0 + (r - 1.0) * scale for r in repl]
+    else:
+        repl = list(replication)
+    cycles = max(l.out_positions / r for l, r in zip(layers, repl)) * passes
+    return PipelineResult(cycles, repl, storage,
+                          max(budget - storage, 0.0))
+
+
+def iso_area_speedup(unpruned: Sequence[LayerPerf],
+                     pruned: Sequence[LayerPerf],
+                     budget: int = TOTAL_XBARS) -> float:
+    """Fig. 7: training speedup of the pruned model, equal crossbar budget."""
+    t0 = waterfill(unpruned, budget).cycles_per_image
+    t1 = waterfill(pruned, budget).cycles_per_image
+    return t0 / t1
+
+
+def iso_perf_xbars(unpruned: Sequence[LayerPerf],
+                   pruned: Sequence[LayerPerf],
+                   budget: int = TOTAL_XBARS) -> Dict[str, float]:
+    """Fig. 6: crossbars needed by the pruned model at equal parallelism."""
+    base = waterfill(unpruned, budget)
+    need_unpruned = sum(r * l.xbars + l.act_xbars
+                        for r, l in zip(base.replication, unpruned))
+    need_pruned = sum(r * l.xbars + l.act_xbars
+                      for r, l in zip(base.replication, pruned))
+    return {
+        "unpruned_xbars": need_unpruned,
+        "pruned_xbars": need_pruned,
+        "savings": 1.0 - need_pruned / max(need_unpruned, 1e-9),
+    }

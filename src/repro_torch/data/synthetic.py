@@ -8,6 +8,7 @@ SyntheticLM     — token streams with learnable n-gram structure.
 SyntheticImages — CIFAR-like 32×32×3 images: the class is which of 10
                   fixed random pattern templates is embedded (plus
                   noise), so accuracy is meaningful.
+``lm_batch`` and ``cifar_like_batch`` are one-call shortcuts to them.
 ``SyntheticAudio`` comes with the encoder-decoder slice.
 """
 from __future__ import annotations
@@ -75,3 +76,13 @@ class SyntheticImages:
             self.channels).astype(np.float32)
         return {"images": imgs.astype(np.float32),
                 "labels": labels.astype(np.int32)}
+
+
+def lm_batch(vocab: int, seq_len: int, batch: int, step: int = 0,
+             seed: int = 0) -> Dict[str, np.ndarray]:
+    return SyntheticLM(vocab, seq_len, seed).batch(step, batch)
+
+
+def cifar_like_batch(batch: int, step: int = 0, seed: int = 0
+                     ) -> Dict[str, np.ndarray]:
+    return SyntheticImages(seed=seed).batch(step, batch)

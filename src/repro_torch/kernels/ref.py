@@ -1,6 +1,6 @@
 """Plain torch oracles for the kernels (port of ``repro.kernels.ref``).
 
-Only the oracles the ported slices need are here; ``bsmm.py``,
+``bsmm_ref`` is the block-sparse product's oracle; ``bsmm.py``,
 ``tile_stats.py`` and ``paged_attention.py`` keep each kernel's plain
 version beside it.
 """
@@ -9,6 +9,25 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import MXU_TILE
+
+
+def expand_tile_mask(tile_mask, bk: int, bn: int, K: int, N: int):
+    """(K/bk, N/bn) {0,1} → (K, N) elementwise mask."""
+    m = torch.as_tensor(tile_mask)
+    m = m.repeat_interleave(bk, dim=0).repeat_interleave(bn, dim=1)
+    return m[:K, :N]
+
+
+def bsmm_ref(x, w, tile_mask, bk: int = MXU_TILE, bn: int = MXU_TILE):
+    """Block-sparse matmul oracle: x @ (w ⊙ expand(tile_mask)), f32
+    accumulation, output in x's dtype.
+
+    x: (M, K); w: (K, N); tile_mask: (ceil(K/bk), ceil(N/bn)).
+    """
+    K, N = w.shape
+    m = expand_tile_mask(torch.as_tensor(tile_mask, device=w.device)
+                         .to(w.dtype), bk, bn, K, N)
+    return torch.matmul(x.float(), (w * m).float()).to(x.dtype)
 
 
 def masked_matmul_ref(x, w, mask):

@@ -33,17 +33,42 @@ from repro_torch.models.layers import (_dtype, embed, embed_init, mlp,
 # Activation rematerialisation for the training forward: each layer
 # runs under torch.utils.checkpoint, so its internals are recomputed in
 # the backward instead of stored (the reference's jax.checkpoint around
-# each scanned block).  Policy "full" recomputes everything; the
-# reference's "dots" policy (save matmul outputs) is not yet ported.
+# each scanned block).  Policy "full" recomputes everything; "dots"
+# saves the outputs of aten's matmul ops (the reference's
+# checkpoint_dots saves dot_general outputs) and recomputes the rest —
+# compute↓ memory↑.  The bsmm kernels are ctypes launches inside
+# autograd Functions, which a dispatcher policy cannot see: their
+# outputs are recomputed, as the reference recomputes its pallas_calls.
 _REMAT_TRAIN = True
+_REMAT_POLICY = "full"
+_REMAT_POLICIES = ("full", "dots")
 
 
 def set_remat(flag: bool, policy: str = "full"):
-    global _REMAT_TRAIN
-    if policy != "full":
-        raise NotImplementedError(f"remat policy {policy!r} is not yet "
-                                  "ported to repro_torch")
+    global _REMAT_TRAIN, _REMAT_POLICY
+    if policy not in _REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {policy!r}; known: "
+                         f"{_REMAT_POLICIES}")
     _REMAT_TRAIN = flag
+    _REMAT_POLICY = policy
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of "dots": keep matmul outputs."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.bmm.default, aten.addmm.default,
+              aten.baddbmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpoint_kwargs() -> dict:
+    if _REMAT_POLICY != "dots":
+        return {}
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    return {"context_fn":
+            lambda: create_selective_checkpoint_contexts(_save_dots)}
 
 
 def remat_enabled() -> bool:
@@ -256,7 +281,8 @@ def _run_segments(cfg, params, x, mode, caches, capacity, valid_len=None,
                 if remat:
                     x, aux = checkpoint(_forward_block, cfg, ptree, x, pe,
                                         use_reentrant=False,
-                                        preserve_rng_state=False)
+                                        preserve_rng_state=False,
+                                        **_checkpoint_kwargs())
                     c_new = None
                 else:
                     x, aux, c_new = _apply_block(

@@ -11,3 +11,5 @@ from repro_torch.serve.manager import (FleetSwapEvent,  # noqa: F401
                                        load_ticket)
 from repro_torch.serve.paging import (BlockPool, PoolError,  # noqa: F401
                                       blocks_needed)
+from repro_torch.serve.ticket import (PlanStats,  # noqa: F401
+                                     build_decode_plan)

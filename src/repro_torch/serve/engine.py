@@ -240,6 +240,9 @@ class ServeEngine:
         self.sample_seed = sample_seed
         self._prefill_fn = prefill_fn or tfm.prefill
         self._decode_fn = decode_fn or tfm.decode_step
+        # (uid, f32 logits row) of every sampled token, when set: a
+        # check's view of the numbers behind a stream
+        self.logits_sink: Optional[Callable[[Any, np.ndarray], None]] = None
         self._use_bsmm = use_bsmm
         self._masked_prefill = tfm.supports_masked_prefill(cfg)
 
@@ -508,8 +511,10 @@ class ServeEngine:
             gen.params, self.cfg,
             {"tokens": torch.as_tensor(toks, device=self.device)}, cap,
             **kw, **self._plankw(gen))
-        tok = self._sample_row(logits[0, -1].float().cpu().numpy(), rng)
-        return tok, caches, cap
+        row = logits[0, -1].float().cpu().numpy()
+        if self.logits_sink is not None:
+            self.logits_sink(req.uid, row)
+        return self._sample_row(row, rng), caches, cap
 
     # -- lifecycle helpers -------------------------------------------------
     def _finish(self, req: Request, status: str,
@@ -674,6 +679,8 @@ class ServeEngine:
         logits_h = logits[:, 0].float().cpu().numpy()
         for s in active:
             req = gen.slot_reqs[s]
+            if self.logits_sink is not None:
+                self.logits_sink(req.uid, logits_h[s])
             t = self._sample_row(logits_h[s], gen.slot_rngs[s])
             self._emit_token(req, t)
             gen.cur[s] = t

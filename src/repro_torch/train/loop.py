@@ -184,10 +184,13 @@ class Trainer:
             params, init_opt_state(optimizer, params, compressor), 0,
             aux_state)
         self.step_deadline_s = step_deadline_s
+        # the default handler must not hold ``self``: a cycle would keep a
+        # dropped trainer (its optimizer moments) alive until a cyclic
+        # collection, gigabytes a round in a pruning session
         self.on_straggler = on_straggler or (
-            lambda step, dt: log.warning(
+            lambda step, dt, deadline=step_deadline_s: log.warning(
                 "straggler: step %d took %.2fs (deadline %.2fs)", step, dt,
-                self.step_deadline_s))
+                deadline))
         self._maybe_resume()
 
     def _maybe_resume(self):

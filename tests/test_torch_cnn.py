@@ -59,7 +59,6 @@ from repro_torch.core import lottery as tlot
 from repro_torch.core import masks as tmasks
 from repro_torch.core import quantize as tq
 from repro_torch.core import scoring as tsc
-from repro_torch.core import sparsity as tsp
 from repro_torch.core import strategies as tstr
 from repro_torch.core.algorithm import prune_step as t_prune_step
 from repro_torch.data import SyntheticImages
@@ -69,8 +68,10 @@ from repro_torch.train import Trainer, cnn_train_plan
 
 torch.set_num_threads(2)
 
-# ``repro.core`` re-exports the function ``sparsity`` under the module's name
+# ``repro.core`` (and so ``repro_torch.core``) re-exports the function
+# ``sparsity`` under the module's name
 rsp = importlib.import_module("repro.core.sparsity")
+tsp = importlib.import_module("repro_torch.core.sparsity")
 
 ROOT = Path(__file__).resolve().parent.parent
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
