@@ -23,7 +23,12 @@ no result line otherwise):
    dtype on its own route (bfloat16: the wgmma kernel, float32: the
    CUDA-core one), every bfloat16 shape faster than its plain version
    and closer to SDPA than the CUDA-core kernel was, where that was
-   timed; and
+   timed; recurrentgemma-2b's local attention (S 300 and 2048, 10
+   query heads over one KV head, hd = dv = 256, the wgmma kernel's
+   ``<4,4,64>`` instantiation; float32 at 300); #1/#2 at
+   recurrentgemma-2b's and command-r-35b's projections at 8 and 1024
+   rows (the gate's gelu and silu epilogues) and #3/#4 at
+   recurrentgemma's at 1000 and 1024; and
    print the wgmma kernel's registers, spills (``-Xptxas=-v``) and
    shared memory;
 3. serve 8 requests through ``ServeEngine`` at the full width and depth
@@ -109,6 +114,29 @@ no result line otherwise):
    ``make_trainer(params, masks, quantize_bits=8)`` on the same cut,
    timed, their peak printed and their launches held as the plain
    steps' are;
+6c. serve 8 requests through ``ServeEngine`` on recurrentgemma-2b at
+   its published width and depth (26 layers: 18 RG-LRU, 8 local
+   attention with window 2048; 2.66 G parameters) with a seeded ~25 %
+   ticket on every planned projection, on dense slots at capacity 4224:
+   seven prompts of 5-300 tokens and one of 4096 (two windows: the
+   two-chunk prefill and the ring's wrap), 32 new tokens each; check
+   finishing, finite logits, flash attention once per local layer and
+   prompt within a window (all on the wgmma route at hd = dv = 256;
+   never for the 4096-token prompt), #1/#2's launches, routes and split
+   launches held to the model, plan-vs-dense prefill, and the engine's
+   logits (``ServeEngine.logits_sink``) of the 4096- and 129-token
+   requests against a teacher-forced ``forward`` on the masked weights,
+   within 5e-2 of each row's max |logit|; profile one decode tick;
+6d. retrain that ticket 4 steps through ``make_adapter(
+   "recurrentgemma-2b", scale="full").make_trainer(params,
+   masks).run(1)`` at 8 x 128 tokens: finite losses and parameters,
+   pruned coordinates zero, #1-#4's launches, routes and split launches
+   per step held to the model; the median step, the peak memory and
+   one profiled step;
+6e. serve 8 requests of 5-300 prompt and 16 new tokens on command-r-35b
+   (LayerNorm) at its published widths with one cut, 40 layers to 8
+   (7.73 G parameters), paged, with the llama serving phase's checks
+   (#8 once a layer and prefill, #6 once a layer and decode step);
 7. run Algorithm 1 on vgg11 at its published widths through
    ``make_adapter("vgg11", scale="full")`` and ``PruningSession(...).run()``
    (the family's recipe cut to 4 prune rounds of 100 steps at a 5 %
@@ -162,7 +190,10 @@ attention, retraining for dx and dw, deepseek serving for the batched
 bsmm and the fused-V kernel, the deepseek retrain for the batched dx and
 dw, the LTP MLP and the CNN path for #5, the
 CNN path for #9, the control plane for flash attention (#8), and for
-#1–#4 also the LM session's (``launches_lm_session``) — its error
+#1–#4 also the LM session's (``launches_lm_session``) and this slice's
+paths' (``launches_serve_hybrid``, ``launches_retrain_hybrid``,
+``launches_serve_command_r``; #6 and #8 too, #8's ``hd256`` entry with
+the new instantiation's times, registers and spills) — its error
 against the plain version, its time, the plain version's, the bound and
 the library call's; #1–#5, the batched forms and #7 their launches by
 route, #1–#5 and the batched forms their split launches, #5 also by
@@ -689,7 +720,12 @@ FLASH_SHAPES = ((300, 24, 8, 128, 128, True, torch.bfloat16),
                 (512, 128, 128, 192, 128, True, torch.bfloat16),
                 # the smallest serving bucket, and one between
                 (128, 24, 8, 128, 128, True, torch.bfloat16),
-                (1024, 24, 8, 128, 128, True, torch.bfloat16))
+                (1024, 24, 8, 128, 128, True, torch.bfloat16),
+                # recurrentgemma-2b's local attention: one 256-wide KV
+                # head under 10 query heads, a prompt and a full window
+                (300, 10, 1, 256, 256, True, torch.bfloat16),
+                (2048, 10, 1, 256, 256, True, torch.bfloat16),
+                (300, 10, 1, 256, 256, True, torch.float32))
 # #8 / SDPA of the CUDA-core kernel that ran every dtype before the
 # wgmma route (an H100 80GB HBM3 at 700 W; PERF.md §6), keyed
 # (S, Hq, causal)
@@ -791,7 +827,7 @@ def flash_build_report(FA, log: str) -> dict:
                 "registers": int(used.group(1)),
                 "spill_bytes": int(spill.group(1)) + int(spill.group(2))}
     smem = {f"hd={hd},dv={dv}": FA.wgmma_smem_bytes(hd, dv)
-            for hd, dv in ((128, 128), (192, 128))}
+            for hd, dv in ((128, 128), (192, 128), (256, 256))}
     print(f"ptxas flash_attention_wgmma_kernel<HC,DC,BK>: "
           f"{json.dumps(regs) if regs else 'not rebuilt (cached library)'}; "
           f"dynamic shared memory {json.dumps(smem)} bytes")
@@ -881,8 +917,15 @@ def expected_splits(B, masks, rows, L) -> dict:
                                      for M in rows)}
 
 
-def serve(cfg, device):
-    from repro_torch._bridge import apply_masks
+def serve(cfg, device, max_new: int = 32, label: str = "llama",
+          dispatch: bool = True):
+    """Serve 8 requests of 5-300 prompt tokens and ``max_new`` new ones
+    on the paged engine of a GQA model (llama3.2-3b, or command-r-35b
+    under ``label``) with a shared ~25 % ticket; check finishing, finite
+    logits, the launch counts and routes the model implies and
+    plan-vs-dense prefill; with ``dispatch`` also time the decode
+    dispatch; profile one decode tick."""
+    from repro_torch._bridge import apply_masks, tree_leaves
     from repro_torch.kernels import bsmm as B
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import paged_attention as PA
@@ -909,7 +952,7 @@ def serve(cfg, device):
     prng = np.random.default_rng(5)
     lengths = (5, 17, 64, 127, 128, 129, 200, 300)
     reqs = [Request(uid=i, prompt=prng.integers(1, cfg.vocab_size, size=n)
-                    .astype(np.int32), max_new_tokens=32)
+                    .astype(np.int32), max_new_tokens=max_new)
             for i, n in enumerate(lengths)]
     for r in reqs:
         eng.submit(r)
@@ -933,7 +976,7 @@ def serve(cfg, device):
                 "paged_attention": PA.paged_attention.launches,
                 "flash_attention": FA.flash_attention.launches}
     rep = eng.report
-    require(all(r.done and len(r.tokens) == 32 for r in reqs),
+    require(all(r.done and len(r.tokens) == max_new for r in reqs),
             "not every request finished")
     require(nonfinite[0] == 0, f"{nonfinite[0]} non-finite logits")
     require(all(v > 0 for v in launches.values()),
@@ -946,7 +989,7 @@ def serve(cfg, device):
             and launches["flash_attention"] == rep.prefills * L,
             f"launch counts {launches} do not match {rep.prefills} prefills "
             f"and {rep.decode_steps} decode steps over {L} layers")
-    require_flash_routes(FA, rep.prefills * L, "llama serving")
+    require_flash_routes(FA, rep.prefills * L, f"{label} serving")
     # one pass a prefill (the prompt's bucket of rows) or a decode step
     # (8 rows): below 64 rows on the stream route, from 64 on wgmma
     rows = [8] * rep.decode_steps + [eng._bucket(len(r.prompt))
@@ -984,10 +1027,13 @@ def serve(cfg, device):
     require(bool(torch.isfinite(got).all().item()), "plan prefill non-finite")
     require(diff <= tol, "plan prefill disagrees with dense prefill")
 
-    dispatch = time_decode_dispatch(eng, cfg, B, device)
-    profile = profile_decode(eng, cfg, device, "llama")
+    dispatch = time_decode_dispatch(eng, cfg, B, device) if dispatch \
+        else None
+    profile = profile_decode(eng, cfg, device, label)
     step_ms.sort()
     summary = {
+        "config": cfg.name, "n_layers": L,
+        "parameters": sum(t.numel() for t in tree_leaves(params)),
         "setup_s": setup_s, "serve_s": serve_s,
         "decode_only_steps": len(step_ms),
         "decode_step_ms_p50": step_ms[len(step_ms) // 2] if step_ms else None,
@@ -3466,6 +3512,373 @@ def resnet_step_check(batch=16):
             "leaves": len(rows)}
 
 
+# ---------------------------------------------------------------------------
+# the hybrid family: recurrentgemma-2b (RG-LRU + sliding-window
+# attention) served and retrained at its published size; command-r-35b
+# (LayerNorm) served at full width
+# ---------------------------------------------------------------------------
+# #1/#2 at recurrentgemma-2b's projections (q/o, the 256-wide KV head,
+# the gelu gate and up, down) and command-r-35b's (q/o, k/v, the silu
+# gate and up, down), at decode and retrain rows
+RG_BSMM_SHAPES = ((2560, 2560), (2560, 256), (2560, 7680), (7680, 2560))
+CR_BSMM_SHAPES = ((8192, 8192), (8192, 1024), (8192, 22528), (22528, 8192))
+NEW_BSMM_ROWS = (8, 1024)
+# seven prompts up to a window's length and one of two windows
+HYBRID_LENGTHS = (5, 17, 64, 129, 200, 256, 300, 4096)
+HYBRID_MAX_NEW = 32
+HYBRID_CAPACITY = 4224
+TEACHER_TOL = 5e-2          # of each logits row's max |logit| (bf16 model)
+CR_LAYERS = 8               # command-r-35b's 40 layers cut (7.73 G params)
+CR_MAX_NEW = 16
+
+
+def build_planned_ticket(params, device, seed=1234):
+    """One seeded ~25 %-live 128x128 tile bitmap for every planned
+    projection (attention q/k/v/o, MLP up/gate/down) at every position
+    of every segment, shared by the position's stacked layers; the
+    RG-LRU's projections are never planned and carry no mask."""
+    rng = np.random.default_rng(seed)
+    segments = []
+    for pos_trees in params["segments"]:
+        seg = []
+        for tree in pos_trees:
+            entry = {}
+            for group, keys in LLAMA_PROJECTIONS:
+                if group not in tree:
+                    continue
+                entry[group] = {}
+                for key in keys:
+                    leaf = tree[group][key]
+                    K, N = leaf.shape[-2:]
+                    bm = torch.as_tensor(random_bitmap(rng, K, N),
+                                         device=device)
+                    m = bm.repeat_interleave(128, 0).repeat_interleave(128, 1)
+                    entry[group][key] = m.expand(leaf.shape)
+            seg.append(entry)
+        segments.append(seg)
+    return {"segments": segments}
+
+
+def ticket_pairs(params, masks):
+    """(parameter, bool mask) for every masked weight of a ticket."""
+    for seg_p, seg_m in zip(params["segments"], masks["segments"]):
+        for pos_p, pos_m in zip(seg_p, seg_m):
+            for group, keys in pos_m.items():
+                for key, m in keys.items():
+                    yield pos_p[group][key], m
+
+
+def planned_products(plan, cfg) -> list:
+    """(wrapper, TilePlan, layers) of every planned forward product: the
+    MLP gate on the epilogue kernel (its activation), every other
+    projection on bsmm; a segment position's plan serves its repeats."""
+    from repro_torch.models.transformer import segments_of
+
+    out = []
+    for seg, seg_plan in zip(segments_of(cfg), plan):
+        for entry in seg_plan:
+            for group, keys in (entry or {}).items():
+                for key, p in keys.items():
+                    name = "bsmm_epilogue" if (group, key) == ("mlp", "gate") \
+                        else "bsmm"
+                    out.append((name, p, seg.reps))
+    return out
+
+
+def expected_routes(B, products, passes, names=BSMM_ROUTED) -> dict:
+    """``bsmm_routes`` as the model implies it.  ``passes``: one (M,
+    forwards of a plain projection, forwards of the gate, dx and dw
+    each) per pass of M rows; each product of ``products`` is launched
+    that many times a layer (bf16), on the route and split count its
+    plan gives at M."""
+    want = {n: {"launches_by_route": {k: 0 for k in getattr(B, n)
+                                      .launches_by_route},
+                "split_launches": 0} for n in names}
+    for M, fwd, gate, back in passes:
+        for name, p, layers in products:
+            for kind, wrapper, n in (("fwd", name,
+                                      gate if name == "bsmm_epilogue"
+                                      else fwd),
+                                     ("dx", "bsmm_dx", back),
+                                     ("dw", "bsmm_dw", back)):
+                if n == 0:
+                    continue
+                route, S = p.route_and_splits(kind, M, torch.bfloat16)
+                want[wrapper]["launches_by_route"][route] += n * layers
+                want[wrapper]["split_launches"] += n * layers * (S > 1)
+    return want
+
+
+def teacher_forced(params, cfg, req, rows, device) -> float:
+    """The largest error, over a request's sampled positions, of the
+    engine's logits rows (prefill's, then each decode step's) against
+    ``forward`` (plain: no plan, the masked weights) over the prompt and
+    the tokens fed back, relative to each row's max |logit|.  Past one
+    window the sequence is padded to whole windows (the two-chunk form
+    needs them; causality keeps the pad out of earlier positions)."""
+    from repro_torch.models import transformer as tfm
+
+    n = len(req.prompt)
+    toks = np.concatenate([req.prompt, np.asarray(req.tokens[:-1])])
+    S = len(toks)
+    W = cfg.local_window
+    if S > W:
+        toks = np.pad(toks, (0, -S % W))
+    with torch.inference_mode():
+        lg, _ = tfm.forward(params, cfg, {"tokens": torch.as_tensor(
+            toks[None].astype(np.int64), device=device)})
+        want = lg[0, n - 1:n - 1 + len(req.tokens)].float()
+        del lg
+        got = torch.as_tensor(np.stack(rows), device=want.device)
+        err = ((got - want).abs().amax(-1)
+               / want.abs().amax(-1).clamp_min(1e-30)).max().item()
+    return err
+
+
+def serve_hybrid(cfg, device):
+    """Serve 8 requests through ``ServeEngine`` on recurrentgemma-2b at
+    its published width and depth (26 layers: 18 RG-LRU, 8 local
+    attention with window 2048) with a ~25 % ticket on every planned
+    projection: dense slots (a window's ring of 2048 rows, the RG-LRU
+    state), exact-length prefill, 7 prompts of 5-300 tokens and one of
+    4096 (two windows: the two-chunk prefill and the ring's wrap).
+    Checks finishing, finite logits, flash attention once per local
+    layer and prompt within a window (all ``wgmma``; never for the
+    4096-token one), #1/#2's launches, routes and split launches held
+    to the model, plan-vs-dense prefill, and the engine's logits of the
+    long request and a short one held to a teacher-forced ``forward``;
+    profiles one decode tick."""
+    from repro_torch._bridge import apply_masks, tree_leaves
+    from repro_torch.configs import LOCAL_ATTN
+    from repro_torch.kernels import bsmm as B
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import Request, ServeEngine
+
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = tfm.init_params(gen, cfg, device=device)
+    masks = build_planned_ticket(params, device)
+    params = apply_masks(params, masks)
+    sync(device)
+    setup_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    eng = ServeEngine(params=params, cfg=cfg, masks=masks, batch_slots=8,
+                      capacity=HYBRID_CAPACITY, device=device)
+    require(not eng.paged, "the hybrid engine is paged")
+    nonfinite = [0]
+    sample = eng._sample_row
+
+    def checked(row, rng):
+        nonfinite[0] += int((~np.isfinite(row)).sum())
+        return sample(row, rng)
+
+    eng._sample_row = checked
+    prng = np.random.default_rng(5)
+    reqs = [Request(uid=i, prompt=prng.integers(1, cfg.vocab_size, size=n)
+                    .astype(np.int32), max_new_tokens=HYBRID_MAX_NEW)
+            for i, n in enumerate(HYBRID_LENGTHS)]
+    held_to_forward = (reqs[-1], reqs[3])      # 4096 tokens, 129 tokens
+    rows = {r.uid: [] for r in held_to_forward}
+    eng.logits_sink = lambda uid, row: (rows[uid].append(row.copy())
+                                        if uid in rows else None)
+    for r in reqs:
+        eng.submit(r)
+
+    reset_bsmm_routes(B, ("bsmm", "bsmm_epilogue"))
+    FA.flash_attention.launches = 0
+    FA.flash_attention.launches_by_route.update(wgmma=0, simt=0)
+    step_ms = []
+    t0 = time.perf_counter()
+    while not eng.idle:
+        before = eng.report.prefills
+        ts = time.perf_counter()
+        eng.step()
+        sync(device)
+        if eng.report.prefills == before:       # a decode-only tick
+            step_ms.append((time.perf_counter() - ts) * 1e3)
+    serve_s = time.perf_counter() - t0
+    eng.logits_sink = None
+    launches = {"bsmm": B.bsmm.launches,
+                "bsmm_epilogue": B.bsmm_epilogue.launches,
+                "flash_attention": FA.flash_attention.launches}
+    routes = bsmm_routes(B, ("bsmm", "bsmm_epilogue"))
+    rep = eng.report
+    require(all(r.done and len(r.tokens) == HYBRID_MAX_NEW for r in reqs),
+            "not every recurrentgemma request finished")
+    require(nonfinite[0] == 0, f"{nonfinite[0]} non-finite logits")
+    n_local = sum(k == LOCAL_ATTN for k in cfg.blocks)
+    within = sum(len(r.prompt) <= cfg.local_window for r in reqs)
+    require_flash_routes(FA, n_local * within, "recurrentgemma serving")
+    # one pass a prefill (the prompt's own rows) or a decode step (8)
+    passes = [(8, 1, 1, 0)] * rep.decode_steps \
+        + [(len(r.prompt), 1, 1, 0) for r in reqs]
+    want = expected_routes(B, planned_products(eng.plan, cfg), passes,
+                           ("bsmm", "bsmm_epilogue"))
+    print(f"recurrentgemma serving: bsmm routes {routes}, want {want} "
+          f"({rep.prefills} prefills, {rep.decode_steps} decode steps)")
+    require(routes == want, "recurrentgemma's bsmm launches, routes or "
+            "split launches do not match the model")
+    require(all(launches[n] == sum(want[n]["launches_by_route"].values())
+                for n in want), "bsmm launch counts disagree with routes")
+
+    # block-sparse prefill through the plan vs dense prefill on the
+    # masked weights, at one exact-length prompt
+    n = len(reqs[3].prompt)
+    with torch.inference_mode():
+        batch = {"tokens": torch.as_tensor(reqs[3].prompt[None].astype(
+            np.int64), device=device)}
+        got, _ = tfm.prefill(params, cfg, batch, HYBRID_CAPACITY,
+                             plan=eng.plan)
+        want_l, _ = tfm.prefill(params, cfg, batch, HYBRID_CAPACITY)
+    diff = (got.float() - want_l.float()).abs().max().item()
+    scale = want_l.float().abs().max().item()
+    tol = 5e-2 * scale
+    print(f"check recurrentgemma plan prefill vs dense masked prefill "
+          f"({cfg.dtype}, {cfg.n_layers} layers, exact length {n}): "
+          f"max_abs_err={diff:.4e} max|logit|={scale:.4e} tol={tol:.4e}")
+    require(bool(torch.isfinite(got).all().item()), "plan prefill non-finite")
+    require(diff <= tol, "recurrentgemma plan prefill disagrees with dense "
+            "prefill")
+    del got, want_l
+    teacher = {}
+    for r in held_to_forward:
+        teacher[len(r.prompt)] = teacher_forced(params, cfg, r, rows[r.uid],
+                                                device)
+        print(f"check recurrentgemma teacher-forced forward vs engine "
+              f"logits (prompt {len(r.prompt)}, {len(r.tokens)} positions): "
+              f"max err {teacher[len(r.prompt)]:.4e} of each row's "
+              f"max|logit| (tol {TEACHER_TOL})")
+        require(teacher[len(r.prompt)] <= TEACHER_TOL,
+                f"the engine's logits of the {len(r.prompt)}-token request "
+                "disagree with the teacher-forced forward")
+    del rows
+    step_ms.sort()
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    profile = profile_decode(eng, cfg, device, "recurrentgemma") \
+        if on_card else None
+    summary = {
+        "config": cfg.name, "n_layers": cfg.n_layers, "parameters": n_params,
+        "setup_s": setup_s, "serve_s": serve_s,
+        "decode_only_steps": len(step_ms),
+        "decode_step_ms_p50": step_ms[len(step_ms) // 2] if step_ms else None,
+        "decode_step_ms_min": step_ms[0] if step_ms else None,
+        "tokens_per_s": rep.tokens_per_s,
+        "ttft_p50_s": rep.ttft_p50, "ttft_p95_s": rep.ttft_p95,
+        "ttft_4096_s": reqs[-1].ttft,
+        "max_memory_allocated_bytes": peak,
+        "skipped_tile_fraction": rep.skipped_tile_fraction,
+        "launches": launches, "bsmm_routes": routes,
+        "flash_launches_per_prefill_within_window": n_local,
+        "prefill_plan_vs_dense_max_abs_err": diff,
+        "prefill_plan_vs_dense_tol": tol,
+        "teacher_forced_rel_err": teacher,
+        "decode_profile": profile,
+        "report": rep.__dict__,
+    }
+    print("recurrentgemma serve: " + json.dumps(
+        {k: summary[k] for k in ("parameters", "decode_step_ms_p50",
+                                 "decode_step_ms_min", "tokens_per_s",
+                                 "ttft_p50_s", "ttft_p95_s", "ttft_4096_s",
+                                 "max_memory_allocated_bytes")}))
+    return launches, summary
+
+
+def retrain_hybrid(device, steps: int = 4, arch="recurrentgemma-2b"):
+    """``make_adapter(arch, scale="full").make_trainer(params,
+    masks).run(1)`` ``steps`` times at 8 x 128 tokens (1024 rows: #1-#4
+    on ``wgmma``): finite losses and parameters, pruned coordinates
+    exactly zero, and #1-#4's launches, routes and split launches per
+    step held to the model (r forwards of each plain projection, r + 1
+    of the gate, one dx and one dw of each; r = 2 with remat; the
+    RG-LRU's projections dense); the median step, the peak memory and
+    one profiled step."""
+    from repro_torch._bridge import tree_leaves
+    from repro_torch.api import make_adapter
+    from repro_torch.kernels import bsmm as B
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import lm_train_plan
+
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    adapter = make_adapter(arch, scale="full", batch_size=8, seq_len=128,
+                           device=device)
+    cfg = adapter.cfg
+    name = cfg.name
+    params = adapter.init_params(
+        torch.Generator(device=device).manual_seed(0))
+    masks = build_planned_ticket(params, device)
+    trainer = adapter.make_trainer(params, masks, learning_rate=1e-4)
+    del params
+    sync(device)
+    setup_s = time.perf_counter() - t0
+    reset_bsmm_routes(B)
+    losses, step_s = [], []
+    for _ in range(steps):
+        ts = time.perf_counter()
+        m = trainer.run(1)
+        step_s.append(time.perf_counter() - ts)
+        losses.append(m["loss"])
+    routes = bsmm_routes(B)
+    launches = {n: getattr(B, n).launches for n in BSMM_ROUTED}
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    r = 2 if tfm.remat_enabled() else 1
+    products = planned_products(lm_train_plan(masks)[0], cfg)
+    want = expected_routes(B, products, [(8 * 128, r, r + 1, 1)] * steps)
+    print(f"retrain {name}: remat={tfm.remat_enabled()} losses={losses} "
+          f"launches {launches}, routes {routes}, want {want}")
+    require(all(np.isfinite(losses)), f"non-finite loss {losses}")
+    require(routes == want, f"{name}'s bsmm launches, routes or split "
+            "launches in retraining do not match the model")
+    require(all(launches[n] == sum(want[n]["launches_by_route"].values())
+                for n in want), "bsmm launch counts disagree with routes")
+    require(all(bool(torch.isfinite(p).all().item())
+                for p in tree_leaves(trainer.state.params)),
+            "a parameter is non-finite after retraining")
+    for p, m in ticket_pairs(trainer.state.params, masks):
+        require(not bool(((p != 0) & ~m).any().item()),
+                "a pruned coordinate is non-zero after retraining")
+    mid = sorted(step_s[1:])
+    step_med = mid[len(mid) // 2]
+    profile = profile_step(trainer) if on_card else None
+    per_step = {n: launches[n] // steps for n in BSMM_ROUTED}
+    summary = {
+        "config": cfg.name, "n_layers": cfg.n_layers,
+        "parameters": sum(t.numel() for t in
+                          tree_leaves(trainer.state.params)),
+        "setup_s": setup_s, "steps": steps, "remat": tfm.remat_enabled(),
+        "step_s": step_s, "step_s_median_2_to_4": step_med,
+        "tokens_per_s": 8 * 128 / step_med, "losses": losses,
+        "max_memory_allocated_bytes": peak,
+        "launches_per_step": per_step, "bsmm_routes": routes,
+        "live_tiles": adapter.last_plan_stats.live_tiles,
+        "total_tiles": adapter.last_plan_stats.total_tiles,
+        "profile": profile}
+    print(f"retrain {name}: " + json.dumps(
+        {k: summary[k] for k in ("step_s_median_2_to_4", "tokens_per_s",
+                                 "max_memory_allocated_bytes",
+                                 "launches_per_step")}))
+    return launches, summary
+
+
+def command_r_config():
+    """command-r-35b at its published widths with one cut: 40 layers to
+    8 (the full 30.3 G parameters would take 60.6 GB of the card's 80
+    before any KV pool)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch("command-r-35b"),
+                               n_layers=CR_LAYERS)
+
+
 def sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
@@ -3530,6 +3943,17 @@ def main() -> int:
         ds_grad_err, _ = check_bsmm_grads(B, DEEPSEEK_BSMM_SHAPES,
                                           timed=False, seed=8)
         grad_err = {k: max(v, ds_grad_err[k]) for k, v in grad_err.items()}
+        # recurrentgemma-2b's projections (the gate's gelu epilogue) and
+        # command-r-35b's (silu), at decode and retrain rows; #3/#4 at
+        # recurrentgemma's at the retrain's rows
+        for shapes, act, seed in ((RG_BSMM_SHAPES, "gelu", 21),
+                                  (CR_BSMM_SHAPES, "silu", 22)):
+            new_err, _ = check_bsmm(B, shapes, NEW_BSMM_ROWS,
+                                    ((None, act),), timed=False, seed=seed)
+            bsmm_err = {k: max(v, new_err[k]) for k, v in bsmm_err.items()}
+        rg_grad_err, _ = check_bsmm_grads(B, RG_BSMM_SHAPES, timed=False,
+                                          seed=23)
+        grad_err = {k: max(v, rg_grad_err[k]) for k, v in grad_err.items()}
         stats_err, stats_times = check_tile_stats(TS)
         masked_err, masked_times, masked_smem = check_masked(B)
         # the wgmma ring of #1/#2/#4: two blocks an SM, or one alone
@@ -3582,6 +4006,23 @@ def main() -> int:
     rd_launches, rd_summary = retrain_deepseek(deepseek_retrain_config(),
                                                "cuda")
     phase("retrain_deepseek")
+    # deepseek-v3's models are gone; recurrentgemma-2b at its published
+    # size (5.3 GB of bf16 parameters), then its ticket retrained
+    gc.collect()
+    torch.cuda.empty_cache()
+    hy_launches, hy_summary = serve_hybrid(get_arch("recurrentgemma-2b"),
+                                           "cuda")
+    phase("serve_hybrid")
+    gc.collect()
+    torch.cuda.empty_cache()
+    rh_launches, rh_summary = retrain_hybrid("cuda")
+    phase("retrain_hybrid")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cr_launches, cr_summary = serve(command_r_config(), "cuda",
+                                    max_new=CR_MAX_NEW, label="command-r",
+                                    dispatch=False)
+    phase("serve_command_r")
     # deepseek-v3's models are gone with their phases; the CNN slice
     # needs a few GB
     gc.collect()
@@ -3590,6 +4031,14 @@ def main() -> int:
     resnet_summary = resnet_step_check()
     cnn_summary["resnet18_step_check"] = resnet_summary
     phase("cnn")
+
+    def new_path_launches(name):
+        """A 2-D bsmm wrapper's launches on this slice's paths."""
+        out = {"launches_retrain_hybrid": rh_launches[name]}
+        if name in hy_launches:
+            out["launches_serve_hybrid"] = hy_launches[name]
+            out["launches_serve_command_r"] = cr_launches[name]
+        return out
 
     rep_row = next(r for r in bsmm_times if r["M"] == 8 and r["N"] == 8192)
     grad_row = next(r for r in grad_times if r["N"] == 8192)
@@ -3605,6 +4054,7 @@ def main() -> int:
          "replaces": "src/repro/kernels/bsmm.py:118",
          "launches": launches["bsmm"], **serve_routes["bsmm"],
          "launches_lm_session": lm_launches["bsmm"],
+         **new_path_launches("bsmm"),
          "max_abs_err": bsmm_err["bsmm"],
          "ms": rep_row["bsmm_ms"], "plain_ms": rep_row["plain_ms"],
          "bound_ms": rep_row["bound_ms"], "bound_by": rep_row["bound_by"],
@@ -3615,6 +4065,7 @@ def main() -> int:
          "launches": launches["bsmm_epilogue"],
          **serve_routes["bsmm_epilogue"],
          "launches_lm_session": lm_launches["bsmm_epilogue"],
+         **new_path_launches("bsmm_epilogue"),
          "max_abs_err": bsmm_err["bsmm_epilogue"],
          "ms": rep_row["bsmm_epilogue_ms"],
          "plain_ms": rep_row["epilogue_plain_ms"],
@@ -3623,7 +4074,9 @@ def main() -> int:
         {"name": "paged_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
          "replaces": "src/repro/kernels/paged_attention.py:171",
-         "launches": launches["paged_attention"], "max_abs_err": paged_err,
+         "launches": launches["paged_attention"],
+         "launches_serve_command_r": cr_launches["paged_attention"],
+         "max_abs_err": paged_err,
          "ms": paged_row["ms"], "plain_ms": paged_row["plain_ms"],
          "bound_ms": paged_row["bound_ms"], "bound_by": paged_row["bound_by"],
          "library_ms": paged_row["library_ms"]},
@@ -3636,6 +4089,7 @@ def main() -> int:
              "launches": t_launches[f"bsmm_{kind}"],
              **train_summary["bsmm_routes"].get(f"bsmm_{kind}", {}),
              "launches_lm_session": lm_launches[f"bsmm_{kind}"],
+             **new_path_launches(f"bsmm_{kind}"),
              "max_abs_err": grad_err[f"bsmm_{kind}"],
              "ms": grad_row[f"{kind}_ms"],
              "plain_ms": grad_row[f"{kind}_plain_ms"],
@@ -3718,14 +4172,28 @@ def main() -> int:
          "plain_ms": stats_row["plain_ms"], "bound_ms": stats_row["bound_ms"],
          "bound_by": stats_row["bound_by"], "library_ms": None},
     ]
-    # llama3.2-3b's prefill at a 512-token bucket, causal, bf16
+    # llama3.2-3b's prefill at a 512-token bucket, causal, bf16; and
+    # recurrentgemma-2b's full window at hd = dv = 256 on the new
+    # <4,4,64> instantiation (bf16) and on the f32 route at 300
     flash_row = next(r for r in flash_times if r["S"] == 512 and r["causal"]
                      and r["Hq"] == 24 and r["dtype"] == "bfloat16")
+    hd256 = {}
+    for r in flash_times:
+        if r["hd"] == 256 and (r["S"], r["dtype"]) in (
+                (2048, "bfloat16"), (300, "float32")):
+            hd256[f"S={r['S']},{r['dtype']}"] = {
+                k: r[k] for k in ("route", "ms", "plain_ms", "bound_ms",
+                                  "bound_by", "library_ms", "max_abs_err")}
+    hd256["wgmma_ptxas"] = flash_build["ptxas"].get("<4,4,64>",
+                                                    "not rebuilt")
+    hd256["launches_serve_hybrid"] = hy_launches["flash_attention"]
     kernels.append(
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:68",
          "launches": cp_launches["flash_attention"],
+         "launches_serve_command_r": cr_launches["flash_attention"],
+         "hd256": hd256,
          "max_abs_err": flash_err, "ms": flash_row["ms"],
          "plain_ms": flash_row["plain_ms"], "bound_ms": flash_row["bound_ms"],
          "bound_by": flash_row["bound_by"],
@@ -3743,7 +4211,9 @@ def main() -> int:
          "masked_matmul_wgmma_smem": masked_smem,
          "bsmm_wgmma_smem": bsmm_smem, "cnn": cnn_summary,
          "flash_attention": flash_times, "flash_attention_build": flash_build,
-         "control_plane": cp_summary, "phase_s": phases},
+         "control_plane": cp_summary, "serve_hybrid": hy_summary,
+         "retrain_hybrid": rh_summary, "serve_command_r": cr_summary,
+         "phase_s": phases},
         indent=1, default=str))
     print(json.dumps({"serve": {**summary, "decode_profile": {
         k: v for k, v in summary["decode_profile"].items()
@@ -3764,6 +4234,13 @@ def main() -> int:
         default=str))
     print(json.dumps({"cnn": {k: v for k, v in cnn_summary.items()
                               if k != "losses"}}, default=str))
+    for name, summ in (("serve_hybrid", hy_summary),
+                       ("retrain_hybrid", rh_summary),
+                       ("serve_command_r", cr_summary)):
+        print(json.dumps({name: {k: v for k, v in summ.items()
+                                 if k not in ("report", "profile",
+                                              "decode_profile")}},
+                         default=str))
     print(json.dumps({"phase_s": phases}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -13,7 +13,12 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from repro_torch.core.masks import apply_masks, path_str  # noqa: F401
+from repro_torch.core.masks import (apply_masks, path_str,  # noqa: F401
+                                    tree_map_with_path)
+
+# leaves the reference keeps in float32 whatever the tree's dtype (the
+# RG-LRU's decay parameter Λ)
+_F32_LEAVES = ("lam",)
 
 
 def resolve_device(device) -> torch.device:
@@ -57,19 +62,44 @@ def _tensor_from_numpy(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True))
 
 
+def _port_tuple(node):
+    """The port's NamedTuple of the same name as ``node``'s (a reference
+    cache: ``KVCache``, ``MLACache``, ``RGLRUState``), else its own."""
+    from repro_torch.models import attention, recurrent
+    for mod in (attention, recurrent):
+        cls = getattr(mod, type(node).__name__, None)
+        if cls is not None and getattr(cls, "_fields", None) == node._fields:
+            return cls
+    return type(node)
+
+
 def params_from_numpy(tree, *, device, dtype=None):
     """numpy pytree → the same nesting of tensors on ``device``.
 
-    ``dtype`` casts floating leaves (integer leaves keep theirs)."""
+    ``dtype`` casts floating leaves (integer leaves keep theirs, and so
+    does an RG-LRU's float32 Λ).  The reference's cache NamedTuples
+    become the port's, so a reference prefill's caches decode here."""
     dev = resolve_device(device)
 
-    def conv(a):
+    def conv(path, a):
+        if a is None:
+            return None
         t = _tensor_from_numpy(a)
-        if dtype is not None and t.is_floating_point():
+        if (dtype is not None and t.is_floating_point()
+                and path.split("/")[-1] not in _F32_LEAVES):
             t = t.to(dtype)
         return t.to(dev)
 
-    return tree_map(conv, tree)
+    def retype(node):
+        if isinstance(node, dict):
+            return {k: retype(v) for k, v in node.items()}
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return _port_tuple(node)(*(retype(v) for v in node))
+        if isinstance(node, (list, tuple)):
+            return type(node)(retype(v) for v in node)
+        return node
+
+    return tree_map_with_path(conv, retype(tree))
 
 
 def to_numpy(tree):

@@ -240,7 +240,8 @@ class CNNAdapter(ModelAdapter):
 
 class LMAdapter(ModelAdapter):
     """Decoder-only transformers of global attention, GQA or MLA, with
-    dense or MoE FFNs (the dense and moe families).
+    dense or MoE FFNs (the dense and moe families), and of RG-LRU and
+    sliding-window attention blocks (the hybrid family).
 
     ``evaluate`` returns NEGATIVE mean cross-entropy on held-out batches;
     the training loss adds 0.01 x the MoE aux loss, as the reference's.

@@ -9,11 +9,11 @@ Algorithm 1 walks, how to scale the config down for CPU runs.
     adapter = make_adapter("vgg11", scale="full", batch_size=128)
     result = PruningSession(adapter, PruneConfig(max_iters=2)).run()
 
-Families → adapters in the port: dense and moe → ``LMAdapter`` (moe
-walks whole experts first: the ``expert`` granularity and the
-``moe-full`` recipe), cnn → ``CNNAdapter``.  The reference's hybrid,
-ssm, vlm and audio entries have no ported adapter: ``make_adapter``
-raises "not yet ported" for them.
+Families → adapters in the port: dense, moe and hybrid → ``LMAdapter``
+(moe walks whole experts first: the ``expert`` granularity and the
+``moe-full`` recipe), cnn → ``CNNAdapter``.  The reference's ssm, vlm
+and audio entries have no ported adapter: ``make_adapter`` raises "not
+yet ported" for them.
 """
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ from repro_torch.core.masks import cnn_conv_path, family_prunable
 
 SCALES = ("tiny", "full")
 # families the reference registers whose adapters this port lacks
-_NOT_YET_PORTED = ("hybrid", "ssm", "vlm", "audio")
+_NOT_YET_PORTED = ("ssm", "vlm", "audio")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,6 +159,17 @@ register_family(FamilySpec(
     prunable=family_prunable("moe"),
     granularities=("expert", "filter", "channel", "index"),
     recipe="moe-full",
+    scale_tiny=_tiny_arch,
+    smoke_kwargs=_LM_SMOKE,
+    serves=True,
+))
+
+register_family(FamilySpec(
+    family="hybrid",
+    adapter_factory=LMAdapter,
+    prunable=family_prunable("hybrid"),
+    excluded_granularities=("expert",),
+    recipe="dense-full",
     scale_tiny=_tiny_arch,
     smoke_kwargs=_LM_SMOKE,
     serves=True,

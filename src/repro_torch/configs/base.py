@@ -15,10 +15,13 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional, Sequence, Tuple
 
-# block kinds (only ATTN — GQA or MLA — is served by this port so far)
+# block kinds (the port runs ATTN — GQA or MLA —, LOCAL_ATTN and RGLRU;
+# MLSTM and SLSTM are not yet ported)
 ATTN = "attn"
 LOCAL_ATTN = "local"
 RGLRU = "rglru"
+MLSTM = "mlstm"
+SLSTM = "slstm"
 
 # The paper's 128x128 ReRAM crossbar: the unit every TilePlan skips.
 # Kernels may block inside a tile however suits the card, but a plan
@@ -197,9 +200,11 @@ def list_cnns() -> Sequence[str]:
 def _ensure_loaded():
     # configs register themselves on import; the port carries only the
     # architectures it can run
+    import repro_torch.configs.command_r_35b  # noqa: F401
     import repro_torch.configs.deepseek_v3_671b  # noqa: F401
     import repro_torch.configs.llama3_2_3b  # noqa: F401
     import repro_torch.configs.qwen2_72b  # noqa: F401
+    import repro_torch.configs.recurrentgemma_2b  # noqa: F401
     import repro_torch.configs.resnet18  # noqa: F401
     import repro_torch.configs.vgg11  # noqa: F401
     import repro_torch.configs.vgg16  # noqa: F401

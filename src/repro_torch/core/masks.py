@@ -120,12 +120,21 @@ def moe_prunable(path: str, leaf) -> bool:
     return lm_prunable(path, leaf)
 
 
+def recurrent_prunable(path: str, leaf) -> bool:
+    """RG-LRU / xLSTM (hybrid + ssm families): in/gate/out projections,
+    the block-diagonal per-head recurrence weights ``(H, bs, bs)``, and
+    sLSTM input/recurrent matrices.  Temporal conv1d kernels, Λ decay
+    vectors, and per-channel gate biases are excluded."""
+    return lm_prunable(path, leaf)
+
+
 _FAMILY_PRUNABLE = {
     "dense": lm_prunable,
     "moe": moe_prunable,
+    "hybrid": recurrent_prunable,
     "cnn": cnn_prunable,
 }
-_NOT_YET_PORTED = ("hybrid", "ssm", "vlm", "audio")
+_NOT_YET_PORTED = ("ssm", "vlm", "audio")
 
 
 def family_prunable(family: str):

@@ -12,7 +12,7 @@
 // keys are never materialised.  Beyond the TPU kernel's grid both kernels
 // below take any S >= 1 (ragged query and key tiles are masked, not
 // asserted away) and a value width dv <= hd (MLA prefill: hd = 192, dv =
-// 128).  Causal blocks stop at the diagonal key tile (the fully masked
+// 128; recurrentgemma's local attention: hd = dv = 256).  Causal blocks stop at the diagonal key tile (the fully masked
 // tiles past it are skipped, as pl.when skips them on the TPU), and the
 // grid runs the late (longest) query tiles first.  Two kernels, chosen by
 // dtype in the open (the wrapper never falls back from one to the other):
@@ -74,8 +74,12 @@
 //   hd 192, dv 128 (MLA):       BK 128: 48 + 2 (48 + 32) = 208 KB
 //   hd 192, dv 192:             BK  64: 48 + 2 (24 + 24) = 144 KB
 //   hd 256, dv <= 192:          BK  64: 64 + 2 (32 + 24) = 176 KB at most
+//   hd 256, dv 256:             BK  64: 64 + 2 (32 + 32) = 192 KB
 //   hd <= 64 (the tests' 64/32): BK 128: 16 + 2 (16 + 16) =  80 KB
-// all under the 227 KB one block may take; one block per SM.
+// all under the 227 KB one block may take; one block per SM.  At dv 256
+// each consumer thread holds a 64 x 256 f32 O accumulator (128 registers)
+// beside the 32 of s and 16 of p, inside the 232 that setmaxnreg gives it;
+// the build log's -Xptxas=-v line says whether it spills.
 //
 // What bounds it on the H100: at prefill lengths 4 S^2 hd Hq / 2 flops
 // (causal) against ~(2 hd + dv) S Hkv + dv S Hq bytes, far above the
@@ -703,7 +707,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 // the instantiations (HC, DC, BK): BK 128 where two stages of 128 keys fit
 #define WG_GEOMETRIES(X) \
   X(1, 1, 128) X(2, 1, 128) X(2, 2, 128) X(3, 1, 128) X(3, 2, 128) \
-  X(3, 3, 64) X(4, 1, 64) X(4, 2, 64) X(4, 3, 64)
+  X(3, 3, 64) X(4, 1, 64) X(4, 2, 64) X(4, 3, 64) X(4, 4, 64)
 
 int launch_geometry(const void* q, const void* k, const void* v, void* out,
                     int B, int S, int Hq, int Hkv, int hd, int dv, float scale,
@@ -733,9 +737,9 @@ int smem_bytes(int hd, int dv) {
 
 // float32 operands: the CUDA-core kernel.  The wrapper checks what it
 // needs: contiguous (B, S, H, d) operands, S >= 1, Hq % Hkv == 0, 1 <= dv
-// <= min(hd, 192), hd <= 256 (so that the (2 hd + 64) x 68 + 64 x 16
-// ceil(dv / 16) floats of shared memory fit in the 227 KB a block may
-// take).  Returns cudaGetLastError().
+// <= hd <= 256 (so that the (2 hd + 64) x 68 + 64 x 16 ceil(dv / 16)
+// floats of shared memory fit in the 227 KB a block may take: 222,208
+// bytes at hd = dv = 256).  Returns cudaGetLastError().
 extern "C" int flash_attention_f32_launch(const void* q, const void* k,
                                           const void* v, void* out, int B,
                                           int S, int Hq, int Hkv, int hd,
@@ -749,6 +753,7 @@ extern "C" int flash_attention_f32_launch(const void* q, const void* k,
   if (dv <= 64) return launch_f32<4>(fq, fk, fv, fo, B, S, Hq, Hkv, hd, dv, scale, causal, s);
   if (dv <= 128) return launch_f32<8>(fq, fk, fv, fo, B, S, Hq, Hkv, hd, dv, scale, causal, s);
   if (dv <= 192) return launch_f32<12>(fq, fk, fv, fo, B, S, Hq, Hkv, hd, dv, scale, causal, s);
+  if (dv <= 256) return launch_f32<16>(fq, fk, fv, fo, B, S, Hq, Hkv, hd, dv, scale, causal, s);
   return cudaErrorInvalidValue;
 }
 

@@ -12,7 +12,8 @@ Both compute what the TPU kernel computes: scores scaled by
 ``1/sqrt(hd)`` of q's width, masked positions at the finite ``-1e30``,
 an online softmax in float32, the output in q's dtype.  Query head ``h``
 reads KV head ``h // (Hq // Hkv)``.  Beyond the TPU kernel's grid they
-take any ``S >= 1`` and a value width ``dv <= hd`` (MLA prefill).
+take any ``S >= 1`` and a value width ``dv <= hd`` (MLA prefill), up to
+``hd = dv = 256`` (recurrentgemma's local attention).
 
 The operand contract (device agreement, one dtype of float32 or
 bfloat16, contiguity) is checked on every device, so a CPU run refuses
@@ -35,7 +36,7 @@ from repro_torch.kernels.bsmm import GeometryError
 
 _NEG = -1e30        # finite mask value (matches models.attention.attend)
 _MAX_HD = 256       # widths the CUDA kernels take (csrc/flash_attention.cu)
-_MAX_DV = 192
+_MAX_DV = 256
 _PLAIN_BLOCK_Q = 512    # query rows per score block of the plain version
 # dtype -> the card route that takes it
 _ROUTES = {torch.float32: "simt", torch.bfloat16: "wgmma"}
@@ -89,8 +90,9 @@ def flash_attention_plain(q, k, v, *, causal: bool = True):
 
 def kernel_widths(hd: int, dv: int) -> None:
     """The widths both CUDA kernels take: ``hd <= 256`` and
-    ``dv <= 192`` (the float32 kernel's shared memory holds two
-    transposed (hd, 68) tiles and a (64, 16 ceil(dv / 16)) value tile)."""
+    ``dv <= 256`` (the float32 kernel's shared memory holds two
+    transposed (hd, 68) tiles, a (64, 68) tile of p and a (64, 16
+    ceil(dv / 16)) value tile: 222,208 bytes at hd = dv = 256)."""
     if hd > _MAX_HD or dv > _MAX_DV:
         raise GeometryError(f"the CUDA kernels take hd <= {_MAX_HD} and "
                             f"dv <= {_MAX_DV}", shape=(hd, dv),

@@ -13,7 +13,19 @@ the reference wrote for its long-prefill cells.  Dense-slot decode
 as in the reference; paged decode reads the block pool through the CUDA
 paged attention kernel — the GQA form for GQA, the fused-V form for
 MLA's latent pool (absorbed decode: scores and values in the latent
-space).  Sliding windows are not yet ported.
+space).
+
+Sliding windows (the ``hybrid`` family's local attention): the training
+forward runs the reference's two-chunk form (``sliding_window_attention``,
+plain causal attention up to one window); a windowed prefill attends
+through kernel #8 up to one window and through the two-chunk form past
+it, as the reference computes it outside any Pallas kernel.  A windowed
+layer's cache is a ring of ``min(window, capacity)`` rows: the token at
+position p lives at row ``p % rows``, in prefill and in decode.  The
+reference writes its prefill keys from row 0 and decodes at ``p %
+capacity`` over ``min(p + 1, capacity)`` rows, which agrees with this
+ring wherever ``capacity <= window`` and attends to the wrong keys past
+it; the port follows the reference's own ``forward`` there.
 """
 from __future__ import annotations
 
@@ -89,6 +101,45 @@ def causal_attention(q, k, v, *, block_q: int = 512, q_offset: int = 0):
     return torch.cat(outs, dim=1)
 
 
+def sliding_window_attention(q, k, v, *, window: int, q_offset: int = 0):
+    """Exact sliding-window causal attention: token i sees keys in
+    (i - window, i].  Plain causal attention when S <= window; past it
+    the reference's two-chunk trick, which needs S % window == 0: each
+    query chunk of ``window`` rows attends to its own key chunk and the
+    one before (the first chunk's predecessor fully masked) under a
+    relative-position mask.  Scores and softmax in float32, the output
+    in q's dtype."""
+    B, S, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    if S <= window:
+        return causal_attention(q, k, v, q_offset=q_offset)
+    if S % window:
+        raise ValueError(f"sliding-window attention over S={S} > window="
+                         f"{window} needs S % window == 0")
+    W, G = window, Hq // Hkv
+    scale = 1.0 / math.sqrt(hd)
+    qpos = torch.arange(W, device=q.device)
+    kpos = torch.arange(-W, W, device=q.device)       # previous, own chunk
+    d = qpos[:, None] - kpos[None, :]
+    mask = (d >= 0) & (d < W)                         # (W, 2W)
+    first = mask & (kpos >= 0)[None, :]
+    kf, vf = k.float(), v.float()
+    outs = []
+    for c in range(S // W):
+        lo = max(c - 1, 0) * W
+        kc, vc = kf[:, lo:(c + 1) * W], vf[:, lo:(c + 1) * W]
+        if c == 0:                   # the zero chunk before the first one
+            kc = torch.cat([torch.zeros_like(kc), kc], dim=1)
+            vc = torch.cat([torch.zeros_like(vc), vc], dim=1)
+        qg = q[:, c * W:(c + 1) * W].float().reshape(B, W, Hkv, G, hd)
+        sc = torch.einsum("bqkgd,bskd->bkgqs", qg, kc) * scale
+        sc = torch.where(first if c == 0 else mask, sc, -1e30)
+        w = torch.softmax(sc, dim=-1)
+        o = torch.einsum("bkgqs,bskd->bqkgd", w, vc)
+        outs.append(o.reshape(B, W, Hq, v.shape[-1]).to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
 # ---------------------------------------------------------------------------
 # Prefill with a dense KV cache
 # ---------------------------------------------------------------------------
@@ -96,6 +147,15 @@ class KVCache(NamedTuple):
     k: torch.Tensor          # (B, C, Hkv, hd)
     v: torch.Tensor          # (B, C, Hkv, hd)
     index: torch.Tensor      # () or (B,) int32 — tokens already written
+
+
+def gqa_cache_spec(batch: int, capacity: int, n_kv_heads: int,
+                   head_dim: int, dtype) -> KVCache:
+    """Shape/dtype of one layer's dense cache, as meta tensors."""
+    kv = torch.empty((batch, capacity, n_kv_heads, head_dim), dtype=dtype,
+                     device="meta")
+    return KVCache(k=kv, v=kv, index=torch.empty((), dtype=torch.int32,
+                                                 device="meta"))
 
 
 def gqa_qkv(params, x, *, n_heads, n_kv_heads, head_dim, positions,
@@ -120,45 +180,59 @@ def gqa_forward(params, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
                 plan=None):
     """Training self-attention over a full sequence → projected output.
 
-    ``plan`` routes the q/k/v/o projections through the differentiable
-    block-sparse product, so the retrain backward skips dead tiles too.
-    Sliding windows are not yet ported.
+    ``window`` makes it sliding-window attention.  ``plan`` routes the
+    q/k/v/o projections through the differentiable block-sparse product,
+    so the retrain backward skips dead tiles too.
     """
-    if window is not None:
-        raise NotImplementedError("sliding-window attention is not yet "
-                                  "ported to repro_torch")
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     q, k, v = gqa_qkv(params, x, n_heads=n_heads, n_kv_heads=n_kv_heads,
                       head_dim=head_dim, positions=positions,
                       rope_theta=rope_theta, plan=plan)
-    out = causal_attention(q, k, v, block_q=block_q)
+    if window is not None:
+        out = sliding_window_attention(q, k, v, window=window)
+    else:
+        out = causal_attention(q, k, v, block_q=block_q)
     return bsmm.plan_matmul(out.reshape(B, S, n_heads * head_dim),
                             params["wo"], (plan or {}).get("wo"))
 
 
 def gqa_make_cache(params, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
-                   capacity: int, valid_len=None, plan=None):
+                   capacity: int, window: Optional[int] = None,
+                   valid_len=None, plan=None):
     """Prefill: returns (attn_out_projected, KVCache).
 
     ``valid_len`` (B,) marks right-padded rows: the cache index starts
     at ``valid_len`` instead of S, and decode masks the pad keys above
-    it.  ``plan`` routes q/k/v/o through the block-sparse kernel.
+    it.  With ``window`` the cache is a ring of ``min(window,
+    capacity)`` rows holding the last of them at row ``position %
+    rows``; attention runs through the flash kernel up to one window and
+    the two-chunk form past it.  ``plan`` routes q/k/v/o through the
+    block-sparse kernel.
     """
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     q, k, v = gqa_qkv(params, x, n_heads=n_heads, n_kv_heads=n_kv_heads,
                       head_dim=head_dim, positions=positions,
                       rope_theta=rope_theta, plan=plan)
-    if valid_len is not None and S > capacity:
-        raise ValueError("valid_len prefill needs S <= capacity, got "
-                         f"S={S}, capacity={capacity}")
-    out = flash_attention(q, k, v, causal=True)
-    keep = min(S, capacity)
-    kc = k.new_zeros((B, capacity, *k.shape[2:]))
+    if valid_len is not None and (window is not None or S > capacity):
+        raise ValueError("valid_len prefill needs full attention with "
+                         f"S <= capacity, got S={S}, capacity={capacity}, "
+                         f"window={window}")
+    if window is not None and S > window:
+        out = sliding_window_attention(q, k, v, window=window)
+    else:
+        out = flash_attention(q, k, v, causal=True)
+    rows = capacity if window is None else min(window, capacity)
+    keep = min(S, rows)
+    kc = k.new_zeros((B, rows, *k.shape[2:]))
     vc = torch.zeros_like(kc)
-    kc[:, :keep] = k[:, S - keep:]
-    vc[:, :keep] = v[:, S - keep:]
+    if window is None:                   # the last keep keys from row 0
+        at = slice(0, keep)
+    else:                                # each at row position % rows
+        at = torch.arange(S - keep, S, device=x.device) % rows
+    kc[:, at] = k[:, S - keep:]
+    vc[:, at] = v[:, S - keep:]
     proj = bsmm.plan_matmul(out.reshape(B, S, n_heads * head_dim),
                             params["wo"], (plan or {}).get("wo"))
     return proj, KVCache(kc, vc, _cache_index(valid_len, B, S, x.device))
@@ -173,15 +247,15 @@ def _cache_index(valid_len, B: int, S: int, device):
         torch.int32).reshape(B).clone()
 
 
-def _decode_positions(index, B: int, capacity: int):
+def _decode_positions(index, B: int, capacity: int, ring: bool = False):
     """Dense-slot decode bookkeeping for cache index ``index`` (a scalar
     for a batch in lockstep, or (B,) per slot): the new token's rope
-    positions (B, 1), the cache row it is written to (clamped to the last
-    one past capacity, as the reference) and the valid lengths after the
-    write."""
+    positions (B, 1), the cache row it is written to (``ring``: position
+    % capacity; else clamped to the last row past capacity, as the
+    reference) and the valid lengths after the write."""
     pos = index.long()
     positions = pos[:, None] if pos.ndim == 1 else pos.expand(B, 1)
-    slot = pos.clamp(max=capacity - 1)
+    slot = pos % capacity if ring else pos.clamp(max=capacity - 1)
     valid = (pos + 1).clamp(max=capacity)
     return positions, slot, valid
 
@@ -197,21 +271,22 @@ def _write_row(cache_t, slot, new):
 
 
 def gqa_decode(params, cache: KVCache, x, *, n_heads, n_kv_heads, head_dim,
-               rope_theta, plan=None):
+               rope_theta, window: Optional[int] = None, plan=None):
     """One dense-slot decode step.  x: (B, 1, d).
 
     ``cache.index`` is a scalar (the batch in lockstep) or (B,) (every
     slot at its own position); the new token's K/V go to that row of the
-    cache and attention runs over the valid rows of each slot (plain
-    torch ``attend``, as the reference).  The cache's K, V and index are
+    cache (with ``window``, row ``position % rows`` of the ring) and
+    attention runs over the valid rows of each slot (plain torch
+    ``attend``, as the reference).  The cache's K, V and index are
     updated IN PLACE (the reference returns new arrays); ``plan`` routes
     q/k/v/o through the block-sparse kernel.
     """
     B, S, _ = x.shape
     if S != 1:
         raise ValueError(f"decode takes one token per row, got S={S}")
-    positions, slot, valid = _decode_positions(cache.index, B,
-                                               cache.k.shape[1])
+    positions, slot, valid = _decode_positions(
+        cache.index, B, cache.k.shape[1], ring=window is not None)
     q, k, v = gqa_qkv(params, x, n_heads=n_heads, n_kv_heads=n_kv_heads,
                       head_dim=head_dim, positions=positions,
                       rope_theta=rope_theta, plan=plan)

@@ -52,6 +52,31 @@ def rmsnorm(params, x, eps: float = 1e-6):
     return (y * params["scale"].float()).to(x.dtype)
 
 
+def layernorm_init(d: int, dtype, device):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(params, x, eps: float = 1e-5):
+    """The reference's LayerNorm: mean and biased variance over the last
+    axis, scale and bias, all in float32, cast back at the end."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * params["scale"].float() + params["bias"].float()
+    return y.to(x.dtype)
+
+
+def norm_init(kind: str, d: int, dtype, device):
+    return (rmsnorm_init(d, dtype, device) if kind == "rmsnorm"
+            else layernorm_init(d, dtype, device))
+
+
+def apply_norm(kind: str, params, x):
+    return rmsnorm(params, x) if kind == "rmsnorm" else layernorm(params, x)
+
+
 # ---------------------------------------------------------------------------
 # MLP (gated SwiGLU / plain)
 # ---------------------------------------------------------------------------

@@ -1,16 +1,19 @@
 """Decoder-only LM assembly: training forward, prefill and paged decode.
 
-A port of ``repro.models.transformer`` for architectures whose every
-block is global attention — GQA (llama-style) or MLA — with a dense or
-MoE FFN (deepseek-style).  A model is a list of *segments*; within a
-segment the per-layer parameters are stacked on a leading repeats axis,
-and the reference's ``lax.scan`` over it becomes a loop here.  Windowed
-or recurrent blocks raise "not yet ported".
+A port of ``repro.models.transformer`` for architectures built of
+global attention — GQA (llama-style) or MLA — with a dense or MoE FFN
+(deepseek-style), sliding-window attention and RG-LRU blocks (the
+``hybrid`` family, recurrentgemma), under RMSNorm or LayerNorm.  A
+model is a list of *segments*; within a segment the per-layer
+parameters are stacked on a leading repeats axis, and the reference's
+``lax.scan`` over it becomes a loop here.  mLSTM/sLSTM blocks,
+encoder-decoder and patch-token inputs raise "not yet ported".
 
 Entry points: ``forward``/``loss_fn`` (training, full-sequence logits),
 ``prefill``, ``decode_step`` (dense per-slot caches) and
-``decode_step_paged`` (serving).  Prefill attends through the flash
-attention kernel; the training forward through plain torch.
+``decode_step_paged`` (serving; global attention only — windowed and
+recurrent layers decode on dense slots).  Prefill attends through the
+flash attention kernel; the training forward through plain torch.
 """
 from __future__ import annotations
 
@@ -26,8 +29,9 @@ from repro_torch._bridge import (resolve_device, tree_index, tree_leaves,
 from repro_torch.configs.base import ATTN, LOCAL_ATTN, RGLRU, ArchConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.layers import (_dtype, embed, embed_init, mlp,
-                                       mlp_init, rmsnorm, rmsnorm_init,
+from repro_torch.models import recurrent as rec_lib
+from repro_torch.models.layers import (_dtype, apply_norm, embed, embed_init,
+                                       mlp, mlp_init, norm_init,
                                        softmax_cross_entropy, unembed, xavier)
 
 # Activation rematerialisation for the training forward: each layer
@@ -80,13 +84,19 @@ def _not_ported(what: str):
     return NotImplementedError(f"{what} is not yet ported to repro_torch")
 
 
+_PORTED_KINDS = {ATTN, LOCAL_ATTN, RGLRU}
+_NORMS = ("rmsnorm", "layernorm")
+
+
 def check_ported(cfg: ArchConfig) -> None:
     """Raise "not yet ported" unless serving and training (``forward``/
-    ``loss_fn``) cover cfg: GQA or MLA attention with dense or MoE
-    FFNs."""
-    if set(cfg.blocks) != {ATTN}:
-        raise _not_ported(f"block kinds {sorted(set(cfg.blocks))}")
-    if cfg.norm != "rmsnorm":
+    ``loss_fn``) cover cfg: global (GQA or MLA) or sliding-window
+    attention and RG-LRU blocks, dense or MoE FFNs, RMSNorm or
+    LayerNorm."""
+    kinds = set(cfg.blocks)
+    if not kinds <= _PORTED_KINDS:
+        raise _not_ported(f"block kinds {sorted(kinds - _PORTED_KINDS)}")
+    if cfg.norm not in _NORMS:
         raise _not_ported(f"norm {cfg.norm!r}")
     if cfg.is_encoder_decoder or cfg.num_patch_tokens:
         raise _not_ported("encoder-decoder and patch-token inputs")
@@ -140,10 +150,13 @@ def segments_of(cfg: ArchConfig) -> List[Segment]:
 # Parameter init
 # ---------------------------------------------------------------------------
 def _layer_init(gen, cfg: ArchConfig, sig, dtype, device):
-    _kind, is_moe = sig
+    kind, is_moe = sig
     d = cfg.d_model
-    p = {"norm1": rmsnorm_init(d, dtype, device)}
-    if cfg.mla is not None:
+    p = {"norm1": norm_init(cfg.norm, d, dtype, device)}
+    if kind == RGLRU:
+        p["rnn"] = rec_lib.rglru_init(gen, d, cfg.rnn_width or d, cfg.n_heads,
+                                      cfg.conv1d_width, dtype, device)
+    elif cfg.mla is not None:
         p["attn"] = attn_lib.mla_init(gen, d, cfg.n_heads, cfg.mla, dtype,
                                       device)
     else:
@@ -151,7 +164,7 @@ def _layer_init(gen, cfg: ArchConfig, sig, dtype, device):
                                       cfg.head_dim_, cfg.qkv_bias, dtype,
                                       device)
     if cfg.d_ff > 0:
-        p["norm2"] = rmsnorm_init(d, dtype, device)
+        p["norm2"] = norm_init(cfg.norm, d, dtype, device)
         if is_moe:
             p["moe"] = moe_lib.moe_init(gen, d, cfg.moe, cfg.gated_mlp,
                                         dtype, device)
@@ -181,7 +194,7 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, *, device="cuda"):
         seg_params.append(pos_trees)
     params = {
         "embed": embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype, dev),
-        "final_norm": rmsnorm_init(cfg.d_model, dtype, dev),
+        "final_norm": norm_init(cfg.norm, cfg.d_model, dtype, dev),
         "segments": seg_params,
     }
     if not cfg.tie_embeddings:
@@ -194,16 +207,30 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, *, device="cuda"):
 # ---------------------------------------------------------------------------
 # Block application
 # ---------------------------------------------------------------------------
-def _apply_block(cfg: ArchConfig, p, x, mode: str, cache, capacity,
+def _apply_block(cfg: ArchConfig, sig, p, x, mode: str, cache, capacity,
                  valid_len=None, plan=None, paged=None):
     """Returns (x, aux, new_cache) — aux the MoE layer's load-balance
-    loss, None for a dense FFN.  ``mode`` is "forward" (training),
-    "prefill" or "decode"; ``paged`` (tables, lens) carries the paged
-    decode's block tables, and decode without it runs over dense
-    per-slot caches."""
+    loss, None for a dense FFN.  ``sig`` is the layer's (kind, is_moe);
+    ``mode`` is "forward" (training), "prefill" or "decode"; ``paged``
+    (tables, lens) carries the paged decode's block tables, and decode
+    without it runs over dense per-slot caches."""
+    kind = sig[0]
+    if valid_len is not None and (kind != ATTN or mode != "prefill"):
+        raise ValueError(
+            f"valid_len is only supported for full-attention prefill, "
+            f"got kind={kind!r} mode={mode!r}; use exact-length prefill "
+            "for windowed/recurrent blocks")
     plan = plan or {}
-    h = rmsnorm(p["norm1"], x)
+    h = apply_norm(cfg.norm, p["norm1"], x)
     new_cache = None
+    if kind == RGLRU:
+        if mode == "forward":
+            out = rec_lib.rglru_forward(p["rnn"], h)
+        elif mode == "prefill":
+            out, new_cache = rec_lib.rglru_make_cache(p["rnn"], h)
+        else:
+            out, new_cache = rec_lib.rglru_step(p["rnn"], cache, h)
+        return (*_apply_ffn(cfg, p, x + out, plan), new_cache)
     if cfg.mla is not None:
         kw = dict(n_heads=cfg.n_heads, mla=cfg.mla, rope_theta=cfg.rope_theta)
         if mode == "forward":
@@ -219,19 +246,21 @@ def _apply_block(cfg: ArchConfig, p, x, mode: str, cache, capacity,
         return (*_apply_ffn(cfg, p, x + out, plan), new_cache)
     kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
               head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta)
+    window = cfg.local_window if kind == LOCAL_ATTN else None
     if mode == "forward":
-        out = attn_lib.gqa_forward(p["attn"], h, plan=plan.get("attn"), **kw)
+        out = attn_lib.gqa_forward(p["attn"], h, window=window,
+                                   plan=plan.get("attn"), **kw)
     elif mode == "prefill":
         out, new_cache = attn_lib.gqa_make_cache(
-            p["attn"], h, capacity=capacity, valid_len=valid_len,
-            plan=plan.get("attn"), **kw)
+            p["attn"], h, capacity=capacity, window=window,
+            valid_len=valid_len, plan=plan.get("attn"), **kw)
     elif paged is not None:
         out, new_cache = attn_lib.gqa_paged_decode(
             p["attn"], cache, h, tables=paged[0], lens=paged[1],
             plan=plan.get("attn"), **kw)
     else:
         out, new_cache = attn_lib.gqa_decode(
-            p["attn"], cache, h, plan=plan.get("attn"), **kw)
+            p["attn"], cache, h, window=window, plan=plan.get("attn"), **kw)
     return (*_apply_ffn(cfg, p, x + out, plan), new_cache)
 
 
@@ -240,7 +269,7 @@ def _apply_ffn(cfg: ArchConfig, p, x, plan):
     load-balance loss (None for a dense FFN)."""
     if cfg.d_ff <= 0:
         return x, None
-    h2 = rmsnorm(p["norm2"], x)
+    h2 = apply_norm(cfg.norm, p["norm2"], x)
     if "moe" in p:
         mo = moe_lib.moe_forward(p["moe"], h2, cfg.moe, cfg.act,
                                  cfg.gated_mlp, plan=plan.get("moe"))
@@ -278,15 +307,16 @@ def _run_segments(cfg, params, x, mode, caches, capacity, valid_len=None,
                     ptree = tree_index(ptree, r)
                     c = tree_index(c, r) if c is not None else None
                 pe = seg_plan[pos] if seg_plan is not None else None
+                sig = seg.sigs[pos]
                 if remat:
-                    x, aux = checkpoint(_forward_block, cfg, ptree, x, pe,
-                                        use_reentrant=False,
+                    x, aux = checkpoint(_forward_block, cfg, sig, ptree, x,
+                                        pe, use_reentrant=False,
                                         preserve_rng_state=False,
                                         **_checkpoint_kwargs())
                     c_new = None
                 else:
                     x, aux, c_new = _apply_block(
-                        cfg, ptree, x, mode, c, capacity,
+                        cfg, sig, ptree, x, mode, c, capacity,
                         valid_len=valid_len, plan=pe, paged=paged)
                 if aux is not None:
                     total_aux = aux if total_aux is None else total_aux + aux
@@ -303,9 +333,10 @@ def _run_segments(cfg, params, x, mode, caches, capacity, valid_len=None,
     return x, (None if mode == "forward" else new_caches), total_aux
 
 
-def _forward_block(cfg, p, x, plan):
+def _forward_block(cfg, sig, p, x, plan):
     """One training layer: (x, aux), what ``checkpoint`` recomputes."""
-    return _apply_block(cfg, p, x, "forward", None, None, plan=plan)[:2]
+    return _apply_block(cfg, sig, p, x, "forward", None, None,
+                        plan=plan)[:2]
 
 
 def forward(params, cfg: ArchConfig, batch, plan=None):
@@ -319,7 +350,7 @@ def forward(params, cfg: ArchConfig, batch, plan=None):
     x = embed(params["embed"], batch["tokens"])
     x, _, aux = _run_segments(cfg, params, x, "forward", None, None,
                               plan=plan)
-    x = rmsnorm(params["final_norm"], x)
+    x = apply_norm(cfg.norm, params["final_norm"], x)
     head = params.get("unembed", params["embed"])
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -365,7 +396,7 @@ def prefill(params, cfg: ArchConfig, batch, capacity: int, valid_len=None,
     else:
         last = torch.as_tensor(valid_len, device=x.device).long() - 1
         x_last = x[torch.arange(x.shape[0], device=x.device), last][:, None]
-    x_last = rmsnorm(params["final_norm"], x_last)
+    x_last = apply_norm(cfg.norm, params["final_norm"], x_last)
     head = params.get("unembed", params["embed"])
     return unembed(head, x_last), caches
 
@@ -381,9 +412,47 @@ def decode_step(params, cfg: ArchConfig, caches, token, plan=None):
     x = embed(params["embed"], token)
     x, caches, _ = _run_segments(cfg, params, x, "decode", caches, None,
                                  plan=plan)
-    x = rmsnorm(params["final_norm"], x)
+    x = apply_norm(cfg.norm, params["final_norm"], x)
     head = params.get("unembed", params["embed"])
     return unembed(head, x), caches
+
+
+def _block_cache_spec(cfg: ArchConfig, sig, batch: int, capacity: int,
+                      dtype):
+    """One layer's decode state: a KV (or MLA latent) cache of
+    ``capacity`` rows, a window's ring of ``min(window, capacity)``
+    rows, or an RG-LRU state."""
+    kind = sig[0]
+    if kind == RGLRU:
+        return rec_lib.rglru_state_spec(batch, cfg.rnn_width or cfg.d_model,
+                                        cfg.conv1d_width, dtype)
+    cap = capacity if kind == ATTN else min(cfg.local_window, capacity)
+    if cfg.mla is not None:
+        meta = dict(dtype=dtype, device="meta")
+        return attn_lib.MLACache(
+            torch.empty((batch, cap, cfg.mla.kv_lora_rank), **meta),
+            torch.empty((batch, cap, cfg.mla.qk_rope_head_dim), **meta),
+            torch.empty((), dtype=torch.int32, device="meta"))
+    return attn_lib.gqa_cache_spec(batch, cap, cfg.n_kv_heads,
+                                   cfg.head_dim_, dtype)
+
+
+def cache_spec(cfg: ArchConfig, batch: int, capacity: int):
+    """Meta-tensor pytree of the decode caches, mirroring
+    params['segments'] (a leading reps axis on stacked segments): what
+    ``prefill`` returns for a batch of ``batch`` at ``capacity``."""
+    check_ported(cfg)
+    dtype = _dtype(cfg.dtype)
+    out = []
+    for seg in segments_of(cfg):
+        pos_specs = []
+        for sig in seg.sigs:
+            s = _block_cache_spec(cfg, sig, batch, capacity, dtype)
+            if seg.reps > 1:
+                s = type(s)(*(t.expand(seg.reps, *t.shape) for t in s))
+            pos_specs.append(s)
+        out.append(pos_specs)
+    return out
 
 
 def cache_batch_axes(cfg: ArchConfig, caches):
@@ -473,6 +542,6 @@ def decode_step_paged(params, cfg: ArchConfig, caches, token, tables, lens,
     x = embed(params["embed"], token)
     x, caches, _ = _run_segments(cfg, params, x, "decode", caches, None,
                                  plan=plan, paged=(tables, lens))
-    x = rmsnorm(params["final_norm"], x)
+    x = apply_norm(cfg.norm, params["final_norm"], x)
     head = params.get("unembed", params["embed"])
     return unembed(head, x), caches

@@ -15,9 +15,11 @@ the architecture allows it and ``decode_fn`` is the stock
 of a shared KV (or MLA latent) pool (``serve.paging.BlockPool``), decode
 reads only live blocks (``kernels.paged_attention``), and a request is
 admitted when ``ceil((prompt + budget) / BLOCK)`` blocks can be
-reserved.  **Dense-slot** (``paged=False``): every slot owns capacity
-rows of a dense cache, the prefill cache is spliced into its lane, and
-decode runs ``decode_fn`` over all slots.
+reserved.  **Dense-slot** (``paged=False``, and the only layout of
+windowed and recurrent models): every slot owns capacity rows of a
+dense cache (a windowed layer's ring of ``min(window, capacity)`` rows,
+an RG-LRU layer's state), the prefill cache is spliced into its lane,
+and decode runs ``decode_fn`` over all slots.
 
 **Ticket generations.**  The engine's params + tile plan + caches +
 slot state are a *generation*.  ``swap(params, masks)`` installs a new
@@ -34,7 +36,8 @@ Given the pruned ticket's ``masks``, every GQA attention, MLP and MoE
 expert projection of prefill and decode goes through the block-sparse
 kernels (``kernels.bsmm``), skipping dead 128x128 crossbar tiles, and
 every prefill attends through the flash attention kernel
-(``kernels.flash_attention``).  Sampling happens on the host from
+(``kernels.flash_attention``; a windowed layer past one window through
+the reference's two-chunk form).  Sampling happens on the host from
 per-request numpy streams, as in the reference, so greedy and sampled
 streams are comparable one to one.  Not yet ported: meshes and encoder
 frames.

@@ -45,7 +45,8 @@ from repro.data import SyntheticImages as RSyntheticImages
 from repro.models import cnn as rcnn
 from repro.train.plans import cnn_train_plan as r_cnn_train_plan
 from repro_torch import _bridge
-from repro_torch.api import CNNAdapter, FunctionAdapter, PruningSession
+from repro_torch.api import (CNNAdapter, FunctionAdapter, LMAdapter,
+                             PruningSession)
 from repro_torch.api import make_adapter
 from repro_torch.api import ServeUnsupported
 from repro_torch.api import recipes as trecipes
@@ -662,8 +663,9 @@ def test_registry_make_adapter():
     moe = make_adapter("deepseek-v3-671b", device="cpu")
     assert moe.family == "moe" and moe.recipe is None and moe.steps == 6
     assert moe.granularities[0] == "expert"
+    assert get_family("hybrid").adapter_factory is LMAdapter
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_family("hybrid")
+        get_family("ssm")
     with pytest.raises(KeyError):
         make_adapter("nope")
 

@@ -1284,12 +1284,13 @@ def test_card_only_geometry_rules():
     q = _misaligned(*q.shape, dtype=bf)
     with pytest.raises(ValueError, match="16-byte aligned"):
         tfa.wgmma_geometry(q, k, v)
-    tfa.kernel_widths(256, 192)
+    tfa.kernel_widths(256, 256)
+    tfa.wgmma_geometry(*(torch.zeros(1, 2, 1, 256, dtype=bf)
+                         for _ in range(3)))
     with pytest.raises(tb.GeometryError, match="hd <= 256"):
         tfa.kernel_widths(264, 128)
-    with pytest.raises(tb.GeometryError, match="dv <= 192"):
-        tfa.wgmma_geometry(*(torch.zeros(1, 2, 1, d, dtype=bf)
-                             for d in (256, 256, 200)))
+    with pytest.raises(tb.GeometryError, match="dv <= 256"):
+        tfa.kernel_widths(256, 264)
     tb.kernel_tile("bsmm", 128)
     tb.kernel_tile("masked_matmul", 128, 128)
     with pytest.raises(tb.GeometryError, match="tiles at 128"):
@@ -1759,7 +1760,7 @@ def test_flash_attention_rejects_bad_geometry():
 @pytest.mark.parametrize("S,Hq,Hkv,hd,dv,causal", [
     (300, 24, 8, 128, 128, True), (129, 6, 1, 64, 32, False),
     (64, 8, 8, 192, 128, True), (1, 24, 8, 128, 128, True),
-    (129, 24, 8, 128, 128, True)])
+    (129, 24, 8, 128, 128, True), (300, 10, 1, 256, 256, True)])
 def test_cuda_flash_attention_matches_plain(cuda, dtype, S, Hq, Hkv, hd, dv,
                                             causal):
     """Both routes against the plain version; bfloat16 runs the wgmma

@@ -113,7 +113,7 @@ def test_family_granularities_match_reference():
     """Every family the port registers: the same schedulable
     granularities (``expert`` only for moe)."""
     ported = treg.available_families()
-    assert set(ported) == {"cnn", "dense", "moe"}
+    assert set(ported) == {"cnn", "dense", "hybrid", "moe"}
     for fam in ported:
         want = rreg.family_granularities(rreg.get_family(fam))
         got = treg.family_granularities(treg.get_family(fam))

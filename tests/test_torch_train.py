@@ -39,7 +39,6 @@ from repro_torch.api import LMAdapter
 from repro_torch.core import masks as tmasks
 from repro_torch.data import DataPipeline, SyntheticLM
 from repro_torch.distributed import compression as tcomp
-from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 from repro_torch.models import transformer as ttfm
 from repro_torch.train import Trainer, init_opt_state, lm_train_plan, \
@@ -502,18 +501,19 @@ def test_entry_points_require_cuda_unless_cpu(setup, monkeypatch):
 
 
 def test_not_yet_ported_paths_raise(setup):
-    """Sliding windows are not ported yet; QAT and the "dots" remat
-    policy are (``tests/test_torch_qat.py``, ``test_torch_surface.py``),
-    and an unknown remat policy is refused."""
+    """mLSTM blocks are not ported yet (sliding windows and RG-LRU are:
+    ``tests/test_torch_hybrid.py``; QAT and the "dots" remat policy too:
+    ``tests/test_torch_qat.py``, ``test_torch_surface.py``), and an
+    unknown remat policy is refused."""
     s = setup
     with pytest.raises(ValueError, match="unknown remat policy"):
         ttfm.set_remat(True, "everything")
     assert ttfm.remat_enabled()
-    x = torch.zeros(1, 4, 256)
+    mlstm = tcfgs.scaled_down(s["tcfg"], block_pattern=(tcfgs.MLSTM,))
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        tattn.gqa_forward(_tparams(s)["segments"][0][0]["attn"], x,
-                          n_heads=4, n_kv_heads=2, head_dim=64,
-                          rope_theta=1e4, window=2)
+        ttfm.check_ported(mlstm)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        ttfm.init_params(torch.Generator(), mlstm, device="cpu")
 
 
 def test_new_modules_import_neither_jax_nor_repro():
