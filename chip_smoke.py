@@ -25,10 +25,16 @@ no result line otherwise):
    and closer to SDPA than the CUDA-core kernel was, where that was
    timed; recurrentgemma-2b's local attention (S 300 and 2048, 10
    query heads over one KV head, hd = dv = 256, the wgmma kernel's
-   ``<4,4,64>`` instantiation; float32 at 300); #1/#2 at
+   ``<4,4,64>`` instantiation; float32 at 300); phi-3-vision's
+   prompt (32 heads of 96, bf16 and f32), whisper-tiny's encoder (1500
+   frames, full) and a decoder prompt (6 heads of 64); paged attention
+   #6 at phi-3's decode (32 query and KV heads of 96); #1/#2 at
    recurrentgemma-2b's and command-r-35b's projections at 8 and 1024
    rows (the gate's gelu and silu epilogues) and #3/#4 at
-   recurrentgemma's at 1000 and 1024; and
+   recurrentgemma's at 1000 and 1024; #1/#2 at llama4-maverick's
+   projections (5120 wide) at 8, 129 and 300 rows and #1b over its 64
+   experts (5120 <-> 8192) at every expert capacity its serving passes
+   give; #1-#4 at phi-3-vision's retrain rows (8192); and
    print the wgmma kernel's registers, spills (``-Xptxas=-v``) and
    shared memory;
 3. serve 8 requests through ``ServeEngine`` at the full width and depth
@@ -137,6 +143,31 @@ no result line otherwise):
    (LayerNorm) at its published widths with one cut, 40 layers to 8
    (7.73 G parameters), paged, with the llama serving phase's checks
    (#8 once a layer and prefill, #6 once a layer and decode step);
+6f. the last four families, each with a seeded ~25 % ticket
+   (``build_planned_ticket`` on planned projections,
+   ``build_expert_ticket`` on experts, ``family_ticket`` from the
+   family's predicate where nothing is planned), each phase's model
+   freed before the next; each serving phase is ``serve`` (the llama
+   phase's skeleton and checks: every launch, route and split count
+   the model implies, #8's calls by length and causality) with the
+   family's ticket and reference: ``serve_xlstm`` (xlstm-125m at full
+   width and depth, 8 requests of 5-300 tokens, one of exactly 256, on
+   dense slots: no kernel launched, every request's logits held to a
+   teacher-forced ``forward``) and ``retrain_xlstm`` (4 steps of 8 x
+   128 tokens); ``serve_whisper`` (whisper-tiny through the engine's
+   frames lane, 8 requests with ``serve_frames`` and prompts of 4-64
+   tokens: #8 4 times full at S = 1500 and 4 times causal a request,
+   all ``wgmma``, the logits to a teacher-forced ``encdec.forward``;
+   then ``api.cli serve --arch whisper-tiny --scale full`` in process)
+   and ``retrain_whisper`` (``EncDecAdapter.train``, 8 x 128 tokens
+   over 1500 frames, every step's loss finite); ``serve_vlm``
+   (phi-3-vision at full width and depth, text-only prompts, paged: #6
+   and #8 at head width 96, plan-vs-dense prefill, the logits to a
+   teacher-forced ``forward``) and ``retrain_vlm`` (cut to 8 layers,
+   576 patches + 448 tokens a row through #1-#4); ``serve_llama4``
+   (llama4-maverick cut to 4 layers and 64 experts, dense slots: #1/#2
+   and #1b on their routes, each prefill row held to ``forward``
+   without a plan, the top-1 experts of both compared);
 7. run Algorithm 1 on vgg11 at its published widths through
    ``make_adapter("vgg11", scale="full")`` and ``PruningSession(...).run()``
    (the family's recipe cut to 4 prune rounds of 100 steps at a 5 %
@@ -192,8 +223,11 @@ dw, the LTP MLP and the CNN path for #5, the
 CNN path for #9, the control plane for flash attention (#8), and for
 #1–#4 also the LM session's (``launches_lm_session``) and this slice's
 paths' (``launches_serve_hybrid``, ``launches_retrain_hybrid``,
-``launches_serve_command_r``; #6 and #8 too, #8's ``hd256`` entry with
-the new instantiation's times, registers and spills) — its error
+``launches_serve_command_r``, ``launches_serve_vlm``,
+``launches_retrain_vlm``, ``launches_serve_llama4``; #1b's
+``launches_serve_llama4``; #6's ``hd96`` and #8's ``hd256`` and
+``hd64_hd96`` entries with those widths' times and their launches on
+the serving paths, #8's registers and spills) — its error
 against the plain version, its time, the plain version's, the bound and
 the library call's; #1–#5, the batched forms and #7 their launches by
 route, #1–#5 and the batched forms their split launches, #5 also by
@@ -206,6 +240,7 @@ is ``{"ok": true, "device": {...}}``.  Longer records go to
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import subprocess
@@ -443,10 +478,11 @@ def grad_bound_ms(kind, M, K, N, plan, elem, dtype_name,
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_bsmm_grads(B, shapes=BSMM_SHAPES, timed=True, seed=2):
+def check_bsmm_grads(B, shapes=BSMM_SHAPES, timed=True, seed=2,
+                     rows=GRAD_ROWS):
     """dx and dw kernels against their plain versions at ``shapes`` (the
-    four llama3.2-3b projection shapes by default), M = 1024 and a
-    ragged 1000, bf16 and f32; each call held to its route and split
+    four llama3.2-3b projection shapes by default) and ``rows`` (M =
+    1024 and a ragged 1000 by default), bf16 and f32; each call held to its route and split
     count, two dx and two dw calls bitwise equal, dw exactly zero on
     dead tiles; then dx at a plan with an all-dead K-row tile (zeros
     there); with ``timed``, times at bf16 M = 1024.  Returns (errors,
@@ -464,7 +500,7 @@ def check_bsmm_grads(B, shapes=BSMM_SHAPES, timed=True, seed=2):
             g_ = torch.Generator(device=dev).manual_seed(K * 7 + N)
             w = (torch.randn(K, N, device=dev, generator=g_) / K ** 0.5
                  ).to(dtype)
-            for M in GRAD_ROWS:
+            for M in rows:
                 x = torch.randn(M, K, device=dev, generator=g_).to(dtype)
                 g = torch.randn(M, N, device=dev, generator=g_).to(dtype)
                 route, S = plan.route_and_splits("dw", M, dtype)
@@ -725,7 +761,14 @@ FLASH_SHAPES = ((300, 24, 8, 128, 128, True, torch.bfloat16),
                 # head under 10 query heads, a prompt and a full window
                 (300, 10, 1, 256, 256, True, torch.bfloat16),
                 (2048, 10, 1, 256, 256, True, torch.bfloat16),
-                (300, 10, 1, 256, 256, True, torch.float32))
+                (300, 10, 1, 256, 256, True, torch.float32),
+                # phi-3-vision's prompt (32 heads of 96: the second 64-
+                # column chunk half past the inner dim), whisper-tiny's
+                # encoder over 1500 frames (full) and a decoder prompt
+                (300, 32, 32, 96, 96, True, torch.bfloat16),
+                (1500, 6, 6, 64, 64, False, torch.bfloat16),
+                (64, 6, 6, 64, 64, True, torch.bfloat16),
+                (300, 32, 32, 96, 96, True, torch.float32))
 # #8 / SDPA of the CUDA-core kernel that ran every dtype before the
 # wgmma route (an H100 80GB HBM3 at 700 W; PERF.md §6), keyed
 # (S, Hq, causal)
@@ -827,7 +870,8 @@ def flash_build_report(FA, log: str) -> dict:
                 "registers": int(used.group(1)),
                 "spill_bytes": int(spill.group(1)) + int(spill.group(2))}
     smem = {f"hd={hd},dv={dv}": FA.wgmma_smem_bytes(hd, dv)
-            for hd, dv in ((128, 128), (192, 128), (256, 256))}
+            for hd, dv in ((128, 128), (192, 128), (256, 256), (96, 96),
+                           (64, 64))}
     print(f"ptxas flash_attention_wgmma_kernel<HC,DC,BK>: "
           f"{json.dumps(regs) if regs else 'not rebuilt (cached library)'}; "
           f"dynamic shared memory {json.dumps(smem)} bytes")
@@ -906,61 +950,35 @@ def is_cut(plan, kind, M) -> bool:
     return plan.route_and_splits(kind, M, torch.bfloat16)[1] > 1
 
 
-def expected_splits(B, masks, rows, L) -> dict:
-    """Split launches of llama's 2-D products over passes of ``rows``
-    rows (bf16): the gate runs the epilogue kernel (silu), the other six
-    projections the plain one, once per layer."""
-    plans = ticket_plans(B, masks)
-    return {"bsmm": L * sum(is_cut(plans[k], "fwd", M) for M in rows
-                            for k in PLAIN_PROJECTIONS),
-            "bsmm_epilogue": L * sum(is_cut(plans["gate"], "fwd", M)
-                                     for M in rows)}
+SERVE_LENGTHS = (5, 17, 64, 127, 128, 129, 200, 300)
+PLAN_CHECK_LEN = 129        # the prompt of the plan-vs-dense prefill check
+TEACHER_TOL = 5e-2          # of each logits row's max |logit| (bf16 model)
+SERVE_KEYS = ("parameters", "decode_step_ms_p50", "decode_step_ms_min",
+              "tokens_per_s", "ttft_p50_s", "ttft_p95_s",
+              "max_memory_allocated_bytes")
+SERVE_ROUTED = ("bsmm", "bsmm_epilogue", "bsmm_batched")
 
 
-def serve(cfg, device, max_new: int = 32, label: str = "llama",
-          dispatch: bool = True):
-    """Serve 8 requests of 5-300 prompt tokens and ``max_new`` new ones
-    on the paged engine of a GQA model (llama3.2-3b, or command-r-35b
-    under ``label``) with a shared ~25 % ticket; check finishing, finite
-    logits, the launch counts and routes the model implies and
-    plan-vs-dense prefill; with ``dispatch`` also time the decode
-    dispatch; profile one decode tick."""
-    from repro_torch._bridge import apply_masks, tree_leaves
-    from repro_torch.kernels import bsmm as B
-    from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import paged_attention as PA
-    from repro_torch.models import transformer as tfm
-    from repro_torch.serve import Request, ServeEngine
-
-    t0 = time.perf_counter()
-    gen = torch.Generator(device=device).manual_seed(0)
-    params = tfm.init_params(gen, cfg, device=device)
-    masks = build_ticket(params, cfg, device)
-    params = apply_masks(params, masks)
-    sync(device)
-    setup_s = time.perf_counter() - t0
-    eng = ServeEngine(params=params, cfg=cfg, masks=masks, batch_slots=8,
-                      capacity=512, device=device)
+def watch(eng, uids=()):
+    """``logits_sink``: count the non-finite logits of every sampled
+    row, keep the rows of ``uids``."""
     nonfinite = [0]
-    sample = eng._sample_row
+    rows = {u: [] for u in uids}
 
-    def checked(row, rng):
+    def sink(uid, row):
         nonfinite[0] += int((~np.isfinite(row)).sum())
-        return sample(row, rng)
+        if uid in rows:
+            rows[uid].append(row.copy())
 
-    eng._sample_row = checked
-    prng = np.random.default_rng(5)
-    lengths = (5, 17, 64, 127, 128, 129, 200, 300)
-    reqs = [Request(uid=i, prompt=prng.integers(1, cfg.vocab_size, size=n)
-                    .astype(np.int32), max_new_tokens=max_new)
-            for i, n in enumerate(lengths)]
+    eng.logits_sink = sink
+    return nonfinite, rows
+
+
+def run_engine(eng, reqs, device):
+    """Submit ``reqs`` and step the engine to idle: (sorted decode-only
+    tick times in ms, seconds)."""
     for r in reqs:
         eng.submit(r)
-
-    reset_bsmm_routes(B)
-    PA.paged_attention.launches = 0
-    FA.flash_attention.launches = 0
-    FA.flash_attention.launches_by_route.update(wgmma=0, simt=0)
     step_ms = []
     t0 = time.perf_counter()
     while not eng.idle:
@@ -970,83 +988,377 @@ def serve(cfg, device, max_new: int = 32, label: str = "llama",
         sync(device)
         if eng.report.prefills == before:       # a decode-only tick
             step_ms.append((time.perf_counter() - ts) * 1e3)
-    serve_s = time.perf_counter() - t0
-    launches = {"bsmm": B.bsmm.launches,
-                "bsmm_epilogue": B.bsmm_epilogue.launches,
-                "paged_attention": PA.paged_attention.launches,
-                "flash_attention": FA.flash_attention.launches}
-    rep = eng.report
-    require(all(r.done and len(r.tokens) == max_new for r in reqs),
-            "not every request finished")
-    require(nonfinite[0] == 0, f"{nonfinite[0]} non-finite logits")
-    require(all(v > 0 for v in launches.values()),
-            f"a kernel was not launched on the serving path: {launches}")
-    L = cfg.n_layers
-    passes = rep.prefills + rep.decode_steps
-    require(launches["bsmm"] == passes * L * 6
-            and launches["bsmm_epilogue"] == passes * L
-            and launches["paged_attention"] == rep.decode_steps * L
-            and launches["flash_attention"] == rep.prefills * L,
-            f"launch counts {launches} do not match {rep.prefills} prefills "
-            f"and {rep.decode_steps} decode steps over {L} layers")
-    require_flash_routes(FA, rep.prefills * L, f"{label} serving")
-    # one pass a prefill (the prompt's bucket of rows) or a decode step
-    # (8 rows): below 64 rows on the stream route, from 64 on wgmma
-    rows = [8] * rep.decode_steps + [eng._bucket(len(r.prompt))
-                                     for r in reqs]
-    short = sum(M < 64 for M in rows)
-    routes = bsmm_routes(B)
-    want_splits = expected_splits(B, masks, rows, L)
-    for name, per in (("bsmm", 6 * L), ("bsmm_epilogue", L)):
-        want = {"stream": short * per, "wgmma": (len(rows) - short) * per,
-                "fma": 0, "split_launches": want_splits[name]}
-        got = {**routes[name]["launches_by_route"],
-               "split_launches": routes[name]["split_launches"]}
-        require(len(rows) == passes and got == want,
-                f"{name} routes {got} on the serving path, want {want}")
+    return sorted(step_ms), time.perf_counter() - t0
 
-    # block-sparse prefill through the plan vs dense prefill on the
-    # masked weights: same function, bf16 rounding in other places
-    n = 129
-    S = eng._bucket(n)
+
+def reset_kernel_counts(B, FA, PA) -> None:
+    """Launch, route and split counts of #1/#2, #1b, #6, #7 and #8 to 0."""
+    reset_bsmm_routes(B, SERVE_ROUTED)
+    PA.paged_attention.launches = 0
+    PA.paged_attention.fused_launches = 0
+    FA.flash_attention.launches = 0
+    FA.flash_attention.launches_by_route.update(wgmma=0, simt=0)
+
+
+def kernel_counts(B, FA, PA) -> dict:
+    return {"bsmm": B.bsmm.launches, "bsmm_epilogue": B.bsmm_epilogue.launches,
+            "bsmm_batched": B.bsmm_batched.launches,
+            "paged_attention": PA.paged_attention.launches,
+            "paged_attention_fused_v": PA.paged_attention.fused_launches,
+            "flash_attention": FA.flash_attention.launches}
+
+
+def record_flash_calls(where):
+    """Wrap ``flash_attention`` where ``where`` (modules) call it, to
+    record each call's (S, causal); the kernel's own counts stay the
+    wrapper's.  Returns (calls, undo)."""
+    from repro_torch.kernels import flash_attention as FA
+
+    calls = []
+
+    def rec(q, k, v, *, causal=True, **kw):
+        calls.append((q.shape[1], bool(causal)))
+        return FA.flash_attention(q, k, v, causal=causal, **kw)
+
+    saved = [(m, m.flash_attention) for m in where]
+    for m, _ in saved:
+        m.flash_attention = rec
+
+    def undo():
+        for m, f in saved:
+            m.flash_attention = f
+    return calls, undo
+
+
+@contextlib.contextmanager
+def moe_routes(replay=None):
+    """Within it, ``models.moe._top_k`` appends each call's chosen
+    experts to the yielded list; given ``replay`` (such a list), it
+    returns those experts instead, call by call in order, with the
+    caller's own probabilities at them."""
+    from repro_torch.models import moe
+
+    top_k, seen, queue = moe._top_k, [], list(replay or ())
+
+    def chosen(probs, k):
+        if queue:
+            idx = queue.pop(0)
+            return probs.gather(-1, idx), idx
+        vals, idx = top_k(probs, k)
+        seen.append(idx.clone())
+        return vals, idx
+
+    moe._top_k = chosen
+    try:
+        yield seen
+    finally:
+        moe._top_k = top_k
+
+
+def expected_serving_routes(B, plan, cfg, pass_tokens, names) -> dict:
+    """``bsmm_routes`` as a planned model implies it over passes of
+    ``pass_tokens`` tokens each (bf16): every 2-D product (attention,
+    MLP, shared expert; the gate on the epilogue kernel) at that many
+    rows, every expert product batched at the pass's expert capacity;
+    all zero without a plan."""
+    from repro_torch.models.moe import expert_capacity
+    from repro_torch.models.transformer import segments_of
+
+    want = {n: {"launches_by_route": {k: 0 for k in getattr(B, n)
+                                      .launches_by_route},
+                "split_launches": 0} for n in names}
+
+    def add(name, p, kind, M, n, experts=1):
+        route, S = p.route_and_splits(kind, M, torch.bfloat16, experts)
+        want[name]["launches_by_route"][route] += n
+        want[name]["split_launches"] += n * (S > 1)
+
+    for T in pass_tokens if plan is not None else ():
+        for seg, seg_plan in zip(segments_of(cfg), plan):
+            for entry in seg_plan:
+                for group, keys in (entry or {}).items():
+                    if group == "moe":
+                        C = expert_capacity(T, cfg.moe)
+                        for key in ("up", "gate", "down"):
+                            if key in keys:
+                                add("bsmm_batched", keys[key], "batched", C,
+                                    seg.reps, cfg.moe.num_experts)
+                        keys = keys.get("shared", {})
+                    for key, p in keys.items():
+                        add("bsmm_epilogue" if key == "gate" else "bsmm", p,
+                            "fwd", T, seg.reps)
+    return want
+
+
+def expected_flash_calls(cfg, S) -> list:
+    """(S, causal) of every flash call of one prefill of S rows: each
+    encoder layer over the frames (full), each attention layer over the
+    prompt (causal; a local layer only within its window)."""
+    from repro_torch.configs import ATTN, LOCAL_ATTN
+
+    n = sum(k == ATTN or (k == LOCAL_ATTN and S <= cfg.local_window)
+            for k in cfg.blocks)
+    return ([(cfg.encoder_seq_len, False)] * cfg.n_encoder_layers
+            + [(S, True)] * n)
+
+
+def rel_row_err(rows, want) -> float:
+    """Largest error of engine logits rows against reference rows,
+    relative to each reference row's max |logit|."""
+    got = torch.as_tensor(np.stack(rows), device=want.device)
+    return ((got - want).abs().amax(-1)
+            / want.abs().amax(-1).clamp_min(1e-30)).max().item()
+
+
+def serve_summary(cfg, params, eng, step_ms, serve_s, on_card) -> dict:
+    from repro_torch._bridge import tree_leaves
+
+    rep = eng.report
+    return {"config": cfg.name, "n_layers": cfg.n_layers,
+            "parameters": sum(t.numel() for t in tree_leaves(params)),
+            "serve_s": serve_s, "decode_only_steps": len(step_ms),
+            "decode_step_ms_p50": step_ms[len(step_ms) // 2]
+            if step_ms else None,
+            "decode_step_ms_min": step_ms[0] if step_ms else None,
+            "tokens_per_s": rep.tokens_per_s, "ttft_p50_s": rep.ttft_p50,
+            "ttft_p95_s": rep.ttft_p95,
+            "max_memory_allocated_bytes":
+            torch.cuda.max_memory_allocated() if on_card else None,
+            "report": rep.__dict__}
+
+
+def plan_prefill_check(params, cfg, eng, req, device, label) -> tuple:
+    """Block-sparse prefill of ``req``'s prompt through the engine's plan
+    against dense prefill on the masked weights (the same function,
+    bf16 rounding in other places), at the prompt's bucket where the
+    model takes masked rows, else at its length.  Returns (max abs
+    error, tolerance)."""
+    from repro_torch.models import transformer as tfm
+
+    n = len(req.prompt)
+    masked = tfm.supports_masked_prefill(cfg)
+    S = eng._bucket(n) if masked else n
     toks = np.zeros((1, S), np.int64)
-    toks[0, :n] = reqs[5].prompt
+    toks[0, :n] = req.prompt
+    kw = {"valid_len": torch.tensor([n], dtype=torch.int32, device=device)} \
+        if masked else {}
     with torch.inference_mode():
         batch = {"tokens": torch.as_tensor(toks, device=device)}
-        vl = torch.tensor([n], dtype=torch.int32, device=device)
-        got, _ = tfm.prefill(params, cfg, batch, S, valid_len=vl,
-                             plan=eng.plan)
-        want, _ = tfm.prefill(params, cfg, batch, S, valid_len=vl)
+        got, _ = tfm.prefill(params, cfg, batch, S, plan=eng.plan, **kw)
+        want, _ = tfm.prefill(params, cfg, batch, S, **kw)
     diff = (got.float() - want.float()).abs().max().item()
     scale = want.float().abs().max().item()
     tol = 5e-2 * scale
     same_argmax = bool((got.argmax(-1) == want.argmax(-1)).all().item())
-    print(f"check plan prefill vs dense masked prefill ({cfg.dtype}, "
-          f"{L} layers, prompt {n}, bucket {S}): max_abs_err={diff:.4e} "
-          f"max|logit|={scale:.4e} tol={tol:.4e} same_argmax={same_argmax}")
+    print(f"check {label} plan prefill vs dense masked prefill ({cfg.dtype}, "
+          f"{cfg.n_layers} layers, prompt {n}, {S} rows): "
+          f"max_abs_err={diff:.4e} max|logit|={scale:.4e} tol={tol:.4e} "
+          f"same_argmax={same_argmax}")
     require(bool(torch.isfinite(got).all().item()), "plan prefill non-finite")
-    require(diff <= tol, "plan prefill disagrees with dense prefill")
+    require(diff <= tol, f"{label}'s plan prefill disagrees with dense "
+            "prefill")
+    return diff, tol
 
-    dispatch = time_decode_dispatch(eng, cfg, B, device) if dispatch \
-        else None
-    profile = profile_decode(eng, cfg, device, label)
-    step_ms.sort()
-    summary = {
-        "config": cfg.name, "n_layers": L,
-        "parameters": sum(t.numel() for t in tree_leaves(params)),
-        "setup_s": setup_s, "serve_s": serve_s,
-        "decode_only_steps": len(step_ms),
-        "decode_step_ms_p50": step_ms[len(step_ms) // 2] if step_ms else None,
-        "decode_step_ms_min": step_ms[0] if step_ms else None,
-        "launches": launches, "bsmm_routes": routes,
-        "launches_per_decode_step": {"bsmm": 6 * L, "bsmm_epilogue": L,
-                                     "paged_attention": L},
-        "flash_launches_per_prefill": L,
-        "prefill_plan_vs_dense_max_abs_err": diff,
-        "decode_dispatch": dispatch,
-        "decode_profile": profile,
-        "report": rep.__dict__,
-    }
+
+def prefill_rows_check(params, cfg, reqs, rows, served, device,
+                       label) -> dict:
+    """Each request's prefill logits row (the engine's, through the plan)
+    against ``forward`` without a plan over its prompt, on the masked
+    weights.  ``served``: the top-1 experts the engine chose, by the
+    number of tokens routed (a prefill's: its prompt's).  Where the
+    dense forward routes a token to another expert (bf16 rounding
+    flips a near tie), it runs again with the engine's experts, and
+    that run is held to the tolerance; both errors and the flips are
+    reported."""
+    from repro_torch.models import transformer as tfm
+
+    by_tokens = {}
+    for idx in served:
+        by_tokens.setdefault(idx.shape[0], []).append(idx)
+    out = {}
+    for r in reqs:
+        n = len(r.prompt)
+        batch = {"tokens": torch.as_tensor(r.prompt[None].astype(np.int64),
+                                           device=device)}
+        engine_routes = by_tokens.get(n, [])
+        with torch.inference_mode(), moe_routes() as dense_routes:
+            lg, _ = tfm.forward(params, cfg, batch)
+        require(len(dense_routes) == len(engine_routes) > 0,
+                f"{label}: {len(engine_routes)} routed layers in the "
+                f"engine's prefill of {n} tokens, {len(dense_routes)} in "
+                "forward")
+        flips = sum(int((a != b).sum().item())
+                    for a, b in zip(dense_routes, engine_routes))
+        err = rel_row_err(rows[r.uid][:1], lg[0, -1:].float())
+        del lg
+        row = {"flips": flips, "rel_err": err}
+        if flips:
+            with torch.inference_mode(), moe_routes(replay=engine_routes):
+                lg, _ = tfm.forward(params, cfg, batch)
+            row["rel_err_engine_routes"] = rel_row_err(rows[r.uid][:1],
+                                                       lg[0, -1:].float())
+            del lg
+        out[n] = row
+    print(f"check {label} prefill rows vs forward without a plan over each "
+          f"prompt (tol {TEACHER_TOL} of the row's max|logit|; routed "
+          f"tokens whose top-1 expert differs, and the error with the "
+          f"engine's experts where any does): {json.dumps(out)}")
+    require(all(row.get("rel_err_engine_routes", row["rel_err"])
+                <= TEACHER_TOL for row in out.values()),
+            f"{label}'s prefill logits disagree with forward")
+    return out
+
+
+def serve(cfg, device, *, label: str = "llama", max_new=32,
+          lengths=SERVE_LENGTHS, prompt_seed: int = 5, ticket=None,
+          adapter=None, capacity: int = 512, planned: bool = True,
+          teacher=None, dispatch: bool = False):
+    """Serve a request of every prompt length in ``lengths`` with
+    ``max_new`` new tokens (one number, or one a request) through
+    ``ServeEngine`` (8 slots, ``capacity``) on ``cfg``, random weights
+    from a seeded generator, with ``ticket(params)``'s masks applied
+    (default: ``build_ticket``'s ~25 % tile bitmaps shared by all
+    layers).  ``adapter`` (an encoder-decoder's) gives the parameters,
+    the engine's prefill and decode and each request's encoder frames.
+
+    Checks: every request finishes; every logit is finite; the engine
+    has a plan exactly when ``planned``; #1/#2 and #1b launch on the
+    routes and split counts the plan gives at every pass's rows (a
+    prefill's bucket or exact length, a decode step's 8 slots; experts
+    at the pass's capacity); #6 once a global layer and decode step on
+    a paged engine; #8 once an encoder layer (full) and an attention
+    layer (causal) a prefill, each at its length, all on ``wgmma``; no
+    other launch; a planned dense model's plan-vs-dense prefill; and
+    ``teacher``: "all" holds every request's logits to a teacher-forced
+    forward without a plan, "prefill" each prefill row to ``forward``
+    without a plan (``prefill_rows_check``: MoE, whose capacity drops
+    at decode differ from a whole-sequence forward's).  With
+    ``dispatch`` it times the decode dispatch; it profiles one decode
+    tick.  Returns (launches, summary)."""
+    from repro_torch.configs import ATTN
+    from repro_torch.core.masks import apply_masks_
+    from repro_torch.kernels import bsmm as B
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.models import attention, encdec
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve import Request, ServeEngine
+
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = (adapter.init_params(gen) if adapter is not None
+              else tfm.init_params(gen, cfg, device=device))
+    masks = ticket(params) if ticket else build_ticket(params, cfg, device)
+    apply_masks_(params, masks)
+    sync(device)
+    setup_s = time.perf_counter() - t0
+    fns = {} if adapter is None else dict(zip(("prefill_fn", "decode_fn"),
+                                              adapter.serve_fns()))
+    eng = ServeEngine(params=params, cfg=cfg, masks=masks, batch_slots=8,
+                      capacity=capacity, device=device, **fns)
+    require((eng.plan is not None) == planned,
+            f"the {label} engine {'lacks' if planned else 'has'} a plan")
+    frames = adapter.serve_frames if cfg.is_encoder_decoder else None
+    budgets = [max_new] * len(lengths) if isinstance(max_new, int) \
+        else list(max_new)
+    prng = np.random.default_rng(prompt_seed)
+    reqs = [Request(uid=i, prompt=prng.integers(1, cfg.vocab_size, size=n)
+                    .astype(np.int32), max_new_tokens=budgets[i],
+                    frames=None if frames is None else frames(i))
+            for i, n in enumerate(lengths)]
+    if teacher == "prefill":        # prefills told apart by their tokens
+        require(len(set(lengths)) == len(lengths) and 8 not in lengths,
+                "prefill rows need distinct prompt lengths other than 8")
+    nonfinite, rows = watch(eng, [r.uid for r in reqs] if teacher else ())
+    calls, undo = record_flash_calls((attention, encdec))
+    reset_kernel_counts(B, FA, PA)
+    try:
+        with (moe_routes() if teacher == "prefill"
+              else contextlib.nullcontext([])) as served:
+            step_ms, serve_s = run_engine(eng, reqs, device)
+    finally:
+        undo()
+        eng.logits_sink = None
+    launches = kernel_counts(B, FA, PA)
+    rep = eng.report
+    require(all(r.done and len(r.tokens) == r.max_new_tokens for r in reqs),
+            f"not every {label} request finished")
+    require(nonfinite[0] == 0, f"{nonfinite[0]} non-finite {label} logits")
+
+    # one pass a prefill (the prompt's bucket where the model takes
+    # masked rows, else its own length) or a decode step (8 slots)
+    masked = tfm.supports_masked_prefill(cfg)
+    prefill_rows = [eng._bucket(len(r.prompt)) if masked else len(r.prompt)
+                    for r in reqs]
+    require(rep.prefills == len(reqs), f"{rep.prefills} {label} prefills "
+            f"for {len(reqs)} requests")
+    routes = bsmm_routes(B, SERVE_ROUTED)
+    want = expected_serving_routes(B, eng.plan, cfg,
+                                   [8] * rep.decode_steps + prefill_rows,
+                                   SERVE_ROUTED)
+    want_calls = sorted(c for S in prefill_rows
+                        for c in expected_flash_calls(cfg, S))
+    global_layers = sum(k == ATTN for k in cfg.blocks)
+    want_launches = {
+        **{n: sum(want[n]["launches_by_route"].values())
+           for n in SERVE_ROUTED},
+        "paged_attention": rep.decode_steps * global_layers
+        if eng.paged else 0,
+        "paged_attention_fused_v": 0, "flash_attention": len(want_calls)}
+    print(f"{label} serving ({rep.prefills} prefills, {rep.decode_steps} "
+          f"decode steps, {'paged' if eng.paged else 'dense slots'}): "
+          f"launches {launches}, want {want_launches}; bsmm routes "
+          f"{routes}, want {want}; flash calls {len(calls)}")
+    require(routes == want, f"{label}'s bsmm launches, routes or split "
+            "launches do not match the model")
+    require(sorted(calls) == want_calls, f"{label}'s flash calls (length, "
+            "causal) do not match the model")
+    require(launches == want_launches, f"{label}'s launch counts do not "
+            "match the model")
+    require_flash_routes(FA, len(want_calls), f"{label} serving")
+
+    checks = {}
+    if planned and cfg.moe is None:
+        plan_req = next(r for r in reqs if len(r.prompt) == PLAN_CHECK_LEN)
+        checks["prefill_plan_vs_dense_max_abs_err"], \
+            checks["prefill_plan_vs_dense_tol"] = plan_prefill_check(
+                params, cfg, eng, plan_req, device, label)
+    if teacher == "all":
+        held_to = teacher_forced_encdec if cfg.is_encoder_decoder \
+            else teacher_forced
+        errs = {r.uid: held_to(params, cfg, r, rows[r.uid], device)
+                for r in reqs}
+        print(f"check {label} teacher-forced forward vs engine logits "
+              f"({len(reqs)} requests, prompts {list(lengths)}): max err "
+              f"{max(errs.values()):.4e} of each row's max|logit| "
+              f"(tol {TEACHER_TOL})")
+        require(max(errs.values()) <= TEACHER_TOL, f"{label}'s engine "
+                "logits disagree with the teacher-forced forward")
+        checks["teacher_forced_rel_err"] = errs
+    elif teacher == "prefill":
+        checks["prefill_rows"] = prefill_rows_check(
+            params, cfg, reqs, rows, served, device, label)
+    del rows
+
+    summary = serve_summary(cfg, params, eng, step_ms, serve_s, on_card)
+    summary.update(setup_s=setup_s, launches=launches, bsmm_routes=routes,
+                   flash_calls_per_prefill=len(want_calls) // len(reqs)
+                   if want_calls else 0,
+                   skipped_tile_fraction=rep.skipped_tile_fraction, **checks)
+    if cfg.is_encoder_decoder:
+        summary["cross_kv_bytes_per_slot"] = sum(
+            t.numel() * t.element_size()
+            for layer in eng.generations[-1].slot_caches
+            for t in layer["cross"]) // eng.slots
+    summary["decode_dispatch"] = time_decode_dispatch(eng, cfg, B, device) \
+        if dispatch else None
+    summary["decode_profile"] = profile_decode(
+        eng, cfg, device, label, frames=frames) if on_card else None
+    print(f"{label} serve: " + json.dumps(
+        {k: summary[k] for k in SERVE_KEYS}))
     return launches, summary
 
 
@@ -1155,7 +1467,6 @@ def control_plane(cfg, device, requests=CP_REQUESTS):
     dense-slot engine against the paged one, and ``api.cli serve`` at
     full width.  Every prefill attends through kernel #8: its launches
     are held to one per layer per prefill."""
-    import contextlib
     import io
     import tempfile
 
@@ -1737,14 +2048,15 @@ def profile_step(trainer) -> dict:
 
 
 def profile_call(fn) -> dict:
-    """``fn()`` under ``torch.profiler``: device time by kernel name,
-    the call's host-clock time (``fn`` must end synchronised) and the
-    device's busy share (kernel time over it).  A measurement, not a
+    """``fn()`` under ``torch.profiler``, tracing the device alone (host
+    ops are never read, and a step of ~10^6 small ones, as xlstm's token
+    loops, costs minutes of trace processing): device time by kernel
+    name, the call's host-clock time (``fn`` must end synchronised) and
+    the device's busy share (kernel time over it).  A measurement, not a
     gate: where the profiler shows no device time it says so."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         ts = time.perf_counter()
         fn()
         wall_ms = (time.perf_counter() - ts) * 1e3
@@ -1910,7 +2222,6 @@ def lm_session(device, layers=LM_LAYERS, steps=LM_STEPS):
     logits against the pruned model's block-sparse ones), the ticket's
     export, and ``api.cli finetune`` (QAT, from the ticket's bits) and
     ``api.cli report`` on it in process."""
-    import contextlib
     import dataclasses
     import io
     import tempfile
@@ -2061,46 +2372,48 @@ EXPERT_ROWS = (8, 16, 20)     # rows per expert: decode, prefill, ragged
 EXPERTS = 256
 
 
-def check_bsmm_batched(B):
-    """The expert-batched bsmm against its plain version at deepseek-v3's
-    expert shapes (E = 256, one shared plan), M = 8, 16 and a ragged 20,
-    bf16 and f32, each call held to the route and split count its rule
-    gives (``stream`` at these rows) and two calls bitwise equal; timed
-    in bf16 at M = 8 and 16 beside torch.bmm on the dense masked
-    experts."""
-    rng = np.random.default_rng(3)
+def check_bsmm_batched(B, E=EXPERTS, shapes=EXPERT_SHAPES, rows=EXPERT_ROWS,
+                       timed=(8, 16), seed=3):
+    """The expert-batched bsmm against its plain version at ``shapes``
+    over ``E`` experts under one shared plan (deepseek-v3's by default:
+    E = 256, M = 8, 16 and a ragged 20 rows an expert), bf16 and f32,
+    each call held to the route and split count its rule gives and two
+    calls bitwise equal; timed in bf16 at the rows of ``timed`` beside
+    torch.bmm on the dense masked experts."""
+    rng = np.random.default_rng(seed)
     err = 0.0
     times = []
     for dtype in (torch.bfloat16, torch.float32):
-        for K, N in EXPERT_SHAPES:
+        for K, N in shapes:
             bm = random_bitmap(rng, K, N)
             plan = B.make_tile_plan(np.kron(bm, np.ones((128, 128), bool)))
             g = torch.Generator(device="cuda").manual_seed(K + 3 * N)
-            w = torch.randn(EXPERTS, K, N, device="cuda", generator=g,
+            w = torch.randn(E, K, N, device="cuda", generator=g,
                             dtype=dtype) / K ** 0.5
-            for M in EXPERT_ROWS:
-                a = torch.randn(EXPERTS, M, K, device="cuda", generator=g,
+            for M in rows:
+                a = torch.randn(E, M, K, device="cuda", generator=g,
                                 dtype=dtype)
-                route, S = plan.route_and_splits("fwd", M, dtype, EXPERTS)
+                route, S = plan.route_and_splits("fwd", M, dtype, E)
                 got = held(B.bsmm_batched, route, S, a, w, plan)
                 require(torch.equal(got, B.bsmm_batched(a, w, plan)),
-                        f"two bsmm_batched calls differ at M={M} K={K} N={N}")
+                        f"two bsmm_batched calls differ at E={E} M={M} K={K} "
+                        f"N={N}")
                 want = B.bsmm_batched_plain(a, w, plan)
                 torch.cuda.synchronize()
                 e = (got.float() - want.float()).abs().max().item()
                 tol = tolerance(dtype, want)
-                print(f"check bsmm_batched {str(dtype)[6:]} E={EXPERTS} M={M} "
+                print(f"check bsmm_batched {str(dtype)[6:]} E={E} M={M} "
                       f"K={K} N={N} {route} splits={S} max_abs_err={e:.3e} "
                       f"tol={tol:.3e}")
                 require(torch.isfinite(got).all().item(),
                         "bsmm_batched non-finite")
                 require(e <= tol, f"bsmm_batched disagrees with its plain "
-                        f"version at M={M} K={K} N={N} {dtype}")
+                        f"version at E={E} M={M} K={K} N={N} {dtype}")
                 err = max(err, e)
-                if dtype == torch.bfloat16 and M in (8, 16):
+                if dtype == torch.bfloat16 and M in timed:
                     times.append(time_bsmm_batched(B, a, w, bm, plan, M, K,
                                                    N))
-                del got, want
+                del got, want, a
             del w
             torch.cuda.empty_cache()
     return err, times
@@ -2109,10 +2422,10 @@ def check_bsmm_batched(B):
 def time_bsmm_batched(B, a, w, bm, plan, M, K, N):
     """Kernel, plain and torch.bmm (dense masked experts) times; one
     call reads gigabytes of weights, so nothing stays in the L2."""
-    row = {"E": EXPERTS, "M": M, "K": K, "N": N, "dtype": "bfloat16",
+    E = a.shape[0]
+    row = {"E": E, "M": M, "K": K, "N": N, "dtype": "bfloat16",
            "live_tiles": plan.live_tiles, "total_tiles": plan.total_tiles}
-    row["route"], row["splits"] = plan.route_and_splits("fwd", M, a.dtype,
-                                                        EXPERTS)
+    row["route"], row["splits"] = plan.route_and_splits("fwd", M, a.dtype, E)
     row["ms"] = time_ms(lambda i: B.bsmm_batched(a, w, plan), iters=10)
     row["plain_ms"] = time_ms(lambda i: B.bsmm_batched_plain(a, w, plan),
                               iters=3, graph=False)
@@ -2121,7 +2434,7 @@ def time_bsmm_batched(B, a, w, bm, plan, M, K, N):
     row["library_ms"] = time_ms(lambda i: torch.bmm(a, dense), iters=10)
     del dense
     row["bound_ms"], row["bound_by"] = bsmm_bound_ms(
-        M, K, N, plan, 2, "bfloat16", experts=EXPERTS)
+        M, K, N, plan, 2, "bfloat16", experts=E)
     print("time bsmm_batched " + json.dumps(row))
     return row
 
@@ -2305,16 +2618,18 @@ def serve_deepseek(cfg, device):
     return launches, summary
 
 
-def profile_decode(eng, cfg, device, label="deepseek") -> dict:
+def profile_decode(eng, cfg, device, label="deepseek", frames=None) -> dict:
     """One decode-only tick with 8 busy slots under ``torch.profiler``:
-    8 more requests are prefilled first, then the next tick is profiled
+    8 more requests are prefilled first (with ``frames(uid)`` as their
+    encoder frames where given), then the next tick is profiled
     (``profile_call``); the engine then runs to the end."""
     from repro_torch.serve import Request
 
     prng = np.random.default_rng(9)
     for i in range(8):
         eng.submit(Request(uid=200 + i, prompt=prng.integers(
-            1, cfg.vocab_size, size=64).astype(np.int32), max_new_tokens=4))
+            1, cfg.vocab_size, size=64).astype(np.int32), max_new_tokens=4,
+            frames=None if frames is None else frames(200 + i)))
     eng.step()                      # prefills all 8 and decodes once
     eng.step()                      # warm decode-only tick
     sync(device)
@@ -3527,7 +3842,6 @@ NEW_BSMM_ROWS = (8, 1024)
 HYBRID_LENGTHS = (5, 17, 64, 129, 200, 256, 300, 4096)
 HYBRID_MAX_NEW = 32
 HYBRID_CAPACITY = 4224
-TEACHER_TOL = 5e-2          # of each logits row's max |logit| (bf16 model)
 CR_LAYERS = 8               # command-r-35b's 40 layers cut (7.73 G params)
 CR_MAX_NEW = 16
 
@@ -3557,15 +3871,6 @@ def build_planned_ticket(params, device, seed=1234):
             seg.append(entry)
         segments.append(seg)
     return {"segments": segments}
-
-
-def ticket_pairs(params, masks):
-    """(parameter, bool mask) for every masked weight of a ticket."""
-    for seg_p, seg_m in zip(params["segments"], masks["segments"]):
-        for pos_p, pos_m in zip(seg_p, seg_m):
-            for group, keys in pos_m.items():
-                for key, m in keys.items():
-                    yield pos_p[group][key], m
 
 
 def planned_products(plan, cfg) -> list:
@@ -3614,15 +3919,16 @@ def teacher_forced(params, cfg, req, rows, device) -> float:
     engine's logits rows (prefill's, then each decode step's) against
     ``forward`` (plain: no plan, the masked weights) over the prompt and
     the tokens fed back, relative to each row's max |logit|.  Past one
-    window the sequence is padded to whole windows (the two-chunk form
-    needs them; causality keeps the pad out of earlier positions)."""
+    window (where the model has one) the sequence is padded to whole
+    windows (the two-chunk form needs them; causality keeps the pad out
+    of earlier positions)."""
     from repro_torch.models import transformer as tfm
 
     n = len(req.prompt)
     toks = np.concatenate([req.prompt, np.asarray(req.tokens[:-1])])
     S = len(toks)
     W = cfg.local_window
-    if S > W:
+    if W is not None and S > W:
         toks = np.pad(toks, (0, -S % W))
     with torch.inference_mode():
         lg, _ = tfm.forward(params, cfg, {"tokens": torch.as_tensor(
@@ -3715,10 +4021,9 @@ def serve_hybrid(cfg, device):
     within = sum(len(r.prompt) <= cfg.local_window for r in reqs)
     require_flash_routes(FA, n_local * within, "recurrentgemma serving")
     # one pass a prefill (the prompt's own rows) or a decode step (8)
-    passes = [(8, 1, 1, 0)] * rep.decode_steps \
-        + [(len(r.prompt), 1, 1, 0) for r in reqs]
-    want = expected_routes(B, planned_products(eng.plan, cfg), passes,
-                           ("bsmm", "bsmm_epilogue"))
+    want = expected_serving_routes(
+        B, eng.plan, cfg, [8] * rep.decode_steps
+        + [len(r.prompt) for r in reqs], ("bsmm", "bsmm_epilogue"))
     print(f"recurrentgemma serving: bsmm routes {routes}, want {want} "
           f"({rep.prefills} prefills, {rep.decode_steps} decode steps)")
     require(routes == want, "recurrentgemma's bsmm launches, routes or "
@@ -3788,15 +4093,21 @@ def serve_hybrid(cfg, device):
     return launches, summary
 
 
-def retrain_hybrid(device, steps: int = 4, arch="recurrentgemma-2b"):
+def retrain_lm(device, steps: int = 4, arch="recurrentgemma-2b",
+               seq_len: int = 128, ticket_seed=None):
     """``make_adapter(arch, scale="full").make_trainer(params,
-    masks).run(1)`` ``steps`` times at 8 x 128 tokens (1024 rows: #1-#4
-    on ``wgmma``): finite losses and parameters, pruned coordinates
-    exactly zero, and #1-#4's launches, routes and split launches per
-    step held to the model (r forwards of each plain projection, r + 1
-    of the gate, one dx and one dw of each; r = 2 with remat; the
-    RG-LRU's projections dense); the median step, the peak memory and
-    one profiled step."""
+    masks).run(1)`` ``steps`` times at 8 x ``seq_len`` tokens (1024 rows:
+    #1-#4 on ``wgmma``; a vlm config's batches carry its patch prefix
+    too, 8 x (576 + 448) = 8192 rows for phi-3-vision), on a seeded
+    ~25 % ticket of every planned projection (``build_planned_ticket``)
+    or, with ``ticket_seed``, of every leaf the family's predicate prunes
+    (``family_ticket``: xlstm-125m, whose projections are never planned):
+    finite losses and parameters, pruned coordinates exactly zero, and
+    #1-#4's launches, routes and split launches per step held to the
+    model (r forwards of each plain projection, r + 1 of the gate, one
+    dx and one dw of each; r = 2 with remat; recurrent projections
+    dense, so none at all for xlstm); the median step, the peak memory
+    and one profiled step."""
     from repro_torch._bridge import tree_leaves
     from repro_torch.api import make_adapter
     from repro_torch.kernels import bsmm as B
@@ -3808,13 +4119,15 @@ def retrain_hybrid(device, steps: int = 4, arch="recurrentgemma-2b"):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    adapter = make_adapter(arch, scale="full", batch_size=8, seq_len=128,
+    adapter = make_adapter(arch, scale="full", batch_size=8, seq_len=seq_len,
                            device=device)
     cfg = adapter.cfg
     name = cfg.name
     params = adapter.init_params(
         torch.Generator(device=device).manual_seed(0))
-    masks = build_planned_ticket(params, device)
+    masks = (build_planned_ticket(params, device) if ticket_seed is None
+             else family_ticket(params, adapter.prunable, device,
+                                ticket_seed))
     trainer = adapter.make_trainer(params, masks, learning_rate=1e-4)
     del params
     sync(device)
@@ -3830,8 +4143,10 @@ def retrain_hybrid(device, steps: int = 4, arch="recurrentgemma-2b"):
     launches = {n: getattr(B, n).launches for n in BSMM_ROUTED}
     peak = torch.cuda.max_memory_allocated() if on_card else None
     r = 2 if tfm.remat_enabled() else 1
-    products = planned_products(lm_train_plan(masks)[0], cfg)
-    want = expected_routes(B, products, [(8 * 128, r, r + 1, 1)] * steps)
+    rows = 8 * (seq_len + cfg.num_patch_tokens)
+    plan = lm_train_plan(masks)[0]
+    products = planned_products(plan, cfg) if plan is not None else []
+    want = expected_routes(B, products, [(rows, r, r + 1, 1)] * steps)
     print(f"retrain {name}: remat={tfm.remat_enabled()} losses={losses} "
           f"launches {launches}, routes {routes}, want {want}")
     require(all(np.isfinite(losses)), f"non-finite loss {losses}")
@@ -3839,12 +4154,7 @@ def retrain_hybrid(device, steps: int = 4, arch="recurrentgemma-2b"):
             "launches in retraining do not match the model")
     require(all(launches[n] == sum(want[n]["launches_by_route"].values())
                 for n in want), "bsmm launch counts disagree with routes")
-    require(all(bool(torch.isfinite(p).all().item())
-                for p in tree_leaves(trainer.state.params)),
-            "a parameter is non-finite after retraining")
-    for p, m in ticket_pairs(trainer.state.params, masks):
-        require(not bool(((p != 0) & ~m).any().item()),
-                "a pruned coordinate is non-zero after retraining")
+    require_ticket_held(trainer.state.params, masks, f"retrain {name}")
     mid = sorted(step_s[1:])
     step_med = mid[len(mid) // 2]
     profile = profile_step(trainer) if on_card else None
@@ -3855,7 +4165,8 @@ def retrain_hybrid(device, steps: int = 4, arch="recurrentgemma-2b"):
                           tree_leaves(trainer.state.params)),
         "setup_s": setup_s, "steps": steps, "remat": tfm.remat_enabled(),
         "step_s": step_s, "step_s_median_2_to_4": step_med,
-        "tokens_per_s": 8 * 128 / step_med, "losses": losses,
+        "rows": rows, "tokens_per_s": 8 * seq_len / step_med,
+        "losses": losses,
         "max_memory_allocated_bytes": peak,
         "launches_per_step": per_step, "bsmm_routes": routes,
         "live_tiles": adapter.last_plan_stats.live_tiles,
@@ -3877,6 +4188,290 @@ def command_r_config():
     from repro_torch.configs import get_arch
     return dataclasses.replace(get_arch("command-r-35b"),
                                n_layers=CR_LAYERS)
+
+
+# ---------------------------------------------------------------------------
+# the last four families: xlstm-125m (ssm), whisper-tiny (audio, the
+# frames lane), phi-3-vision (vlm: patch prefix) and llama4-maverick
+# ---------------------------------------------------------------------------
+# xlstm's prompts include one of exactly 256 (two whole chunks: the
+# chunkwise mLSTM) beside ragged ones (sequential)
+XLSTM_LENGTHS = (5, 17, 64, 127, 129, 200, 256, 300)
+WHISPER_LENGTHS = (4, 9, 17, 24, 33, 40, 57, 64)
+WHISPER_CAPACITY = 128
+VLM_RETRAIN_LAYERS = 8      # phi-3-vision's 32 layers cut (1.11 G params)
+# text tokens a retrain row: 576 patches + 448 = 1024 positions, since the
+# training attention (as the reference's) takes a sequence of at most
+# 512 or a multiple of 512, and 576 + 128 = 704 is neither
+VLM_SEQ = 448
+LLAMA4_LAYERS = 4           # one period of (local x 3, global), MoE on 1, 3
+LLAMA4_EXPERTS = 64         # of 128 (18.94 G params, ~37.9 GB in bf16)
+# #1/#2 at llama4-maverick's projections (q/o, k/v, the dense FFN's and
+# the shared expert's silu gate and up, down) at decode rows and at
+# prompts (ragged, the longest), and #1b at its experts over 64 at each
+# expert capacity its serving passes give (``llama4_capacities``)
+LLAMA4_BSMM_SHAPES = ((5120, 5120), (5120, 1024), (5120, 8192), (8192, 5120))
+LLAMA4_BSMM_ROWS = (8, 129, 300)
+LLAMA4_EXPERT_SHAPES = ((5120, 8192), (8192, 5120))
+# #1-#4 at phi-3-vision's retrain rows, 8 x (576 patches + 448 tokens)
+VLM_BSMM_SHAPES = ((3072, 3072), (3072, 8192), (8192, 3072))
+VLM_RETRAIN_ROWS = (8 * (576 + VLM_SEQ),)
+
+
+def family_ticket(params, prunable, device, seed):
+    """A seeded ~25 %-live crossbar ticket for a family whose projections
+    are never planned: one 128x128 tile bitmap per leaf the family's
+    predicate prunes (ragged edge tiles cropped), shared along the
+    leaf's leading axes as an expanded view; None elsewhere."""
+    from repro_torch.core.masks import tree_map_with_path
+
+    rng = np.random.default_rng(seed)
+
+    def mk(path, leaf):
+        if not prunable(path, leaf):
+            return None
+        K, N = leaf.shape[-2:]
+        bm = rng.random((-(-K // 128), -(-N // 128))) < LIVE_FRACTION
+        m = torch.as_tensor(bm, device=device).repeat_interleave(128, 0) \
+            .repeat_interleave(128, 1)[:K, :N]
+        return m.expand(leaf.shape)
+
+    return tree_map_with_path(mk, params)
+
+
+def masked_leaves(params, masks):
+    """(parameter, mask) for every masked leaf of a ticket whose mask
+    tree mirrors the parameters (None or absent where unmasked)."""
+    if masks is None:
+        return
+    if isinstance(masks, dict):
+        for k, m in masks.items():
+            yield from masked_leaves(params[k], m)
+    elif isinstance(masks, (list, tuple)):
+        for p, m in zip(params, masks):
+            yield from masked_leaves(p, m)
+    else:
+        yield params, masks
+
+
+def require_ticket_held(params, masks, where: str) -> None:
+    """Every parameter finite and every pruned coordinate exactly 0."""
+    from repro_torch._bridge import tree_leaves
+
+    require(all(bool(torch.isfinite(p).all().item())
+                for p in tree_leaves(params)),
+            f"{where}: a parameter is non-finite")
+    for p, m in masked_leaves(params, masks):
+        require(not bool(((p != 0) & ~m.bool()).any().item()),
+                f"{where}: a pruned coordinate is non-zero")
+
+
+def teacher_forced_encdec(params, cfg, req, rows, device) -> float:
+    """``teacher_forced`` for an encoder-decoder: ``encdec.forward`` on
+    the request's frames over the prompt and the tokens fed back."""
+    from repro_torch.models import encdec
+
+    n = len(req.prompt)
+    toks = np.concatenate([req.prompt, np.asarray(req.tokens[:-1])])
+    with torch.inference_mode():
+        lg, _ = encdec.forward(params, cfg, {
+            "frames": torch.as_tensor(np.asarray(req.frames, np.float32)[None],
+                                      device=device),
+            "tokens": torch.as_tensor(toks[None].astype(np.int64),
+                                      device=device)})
+        want = lg[0, n - 1:n - 1 + len(req.tokens)].float()
+        return rel_row_err(rows, want)
+
+
+def serve_xlstm(device, cfg=None, **kw):
+    """``serve`` on xlstm-125m at its published width and depth (12
+    layers, mLSTM and sLSTM alternating), prompts of 5-300 tokens with
+    one of exactly 256 (two whole chunks: the chunkwise mLSTM), dense
+    slots, a seeded ~25 % crossbar ticket on every leaf the ssm
+    predicate prunes (never planned: dense products on the masked
+    weights, so no kernel launches), every request's logits held to a
+    teacher-forced ``forward``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.masks import family_prunable
+
+    cfg = cfg or get_arch("xlstm-125m")
+    kw = {"lengths": XLSTM_LENGTHS, **kw}
+    return serve(cfg, device, label="xlstm", prompt_seed=6, planned=False,
+                 teacher="all", ticket=lambda p: family_ticket(
+                     p, family_prunable(cfg.family), device, 31), **kw)
+
+
+def serve_whisper(device, cfg=None, cli_check=True, **kw):
+    """``serve`` through the engine's frames lane on whisper-tiny at its
+    published width and depth (4 encoder and 4 decoder layers, 1500
+    frames), each request with ``EncDecAdapter.serve_frames(uid)`` and a
+    prompt of 4-64 tokens, a seeded ~25 % crossbar ticket from the audio
+    predicate (dense products on the masked weights): #8 a request 4
+    times full at S = 1500 and 4 times causal, every request's logits
+    held to a teacher-forced ``encdec.forward``; then ``api.cli serve
+    --arch whisper-tiny --scale full`` in process."""
+    import io
+
+    from repro_torch.api import cli, make_adapter
+
+    adapter = make_adapter(cfg or "whisper-tiny", scale="full", device=device)
+    kw = {"lengths": WHISPER_LENGTHS, "capacity": WHISPER_CAPACITY, **kw}
+    launches, summary = serve(
+        adapter.cfg, device, label="whisper", prompt_seed=7, adapter=adapter,
+        planned=False, teacher="all", ticket=lambda p: family_ticket(
+            p, adapter.prunable, device, 33), **kw)
+    if cli_check:
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            code = cli.main(["serve", "--arch", "whisper-tiny", "--scale",
+                             "full", "--device", str(device), "--requests",
+                             "4", "--json"])
+        row = json.loads(out.getvalue().strip().splitlines()[-1])
+        print(f"cli serve whisper-tiny: exit {code}, {json.dumps(row)[:300]}")
+        require(code == 0 and row["event"] == "serve"
+                and row["requests"] == 4, "cli serve whisper-tiny failed")
+        summary["cli"] = {**row, "exit": code, "s": time.perf_counter() - t0}
+    return launches, summary
+
+
+def serve_vlm(device, cfg=None, **kw):
+    """``serve`` on phi-3-vision at its published width and depth (32
+    layers, 32 query and KV heads of 96), text-only prompts, paged,
+    exact-length prefill (the patch prefix rules out masked rows), a
+    seeded ~25 % ticket on every planned projection: #6 and #8 at head
+    width 96, every request's logits held to a teacher-forced
+    ``forward``."""
+    from repro_torch.configs import get_arch
+
+    return serve(cfg or get_arch("phi-3-vision-4.2b"), device,
+                 label="phi-3-vision", prompt_seed=8, teacher="all",
+                 ticket=lambda p: build_planned_ticket(p, device, seed=35),
+                 **kw)
+
+
+def llama4_ticket(params, device):
+    """A seeded ~25 % ticket on every attention projection
+    (``build_planned_ticket``) and on the dense FFN, the experts and the
+    shared expert (``build_expert_ticket``)."""
+    attn = build_planned_ticket(params, device, seed=36)
+    ffn = build_expert_ticket(params, device)
+    return {"segments": [[{**({"attn": a["attn"]} if "attn" in a else {}),
+                           **f} for a, f in zip(seg_a, seg_f)]
+                         for seg_a, seg_f in zip(attn["segments"],
+                                                 ffn["segments"])]}
+
+
+def serve_llama4(device, cfg=None, **kw):
+    """``serve`` on the cut llama4-maverick (``llama4_config``), dense
+    slots (local windows), 16-32 new tokens a request,
+    ``llama4_ticket``: #1/#2 and #1b on their routes, each prefill row
+    held to ``forward`` without a plan (``prefill_rows_check``)."""
+    kw = {"max_new": [16 + (i * 16) // 7 for i in range(8)], **kw}
+    return serve(cfg or llama4_config(), device, label="llama4",
+                 prompt_seed=10, teacher="prefill",
+                 ticket=lambda p: llama4_ticket(p, device), **kw)
+
+
+@contextlib.contextmanager
+def trainer_losses():
+    """Within it, every step's loss as ``train.loop.Trainer`` logs it (at
+    ``log_every=1``) goes into the yielded list."""
+    import logging
+
+    losses = []
+    log = logging.getLogger("train")
+    handler = logging.Handler(logging.INFO)
+    handler.emit = lambda rec: losses.append(float(rec.args[1]))
+    level = log.level
+    log.setLevel(logging.INFO)
+    log.addHandler(handler)
+    try:
+        yield losses
+    finally:
+        log.removeHandler(handler)
+        log.setLevel(level)
+
+
+def retrain_whisper(device, cfg=None, steps: int = 4):
+    """``EncDecAdapter(cfg).train(params, masks, steps)`` on whisper-tiny
+    at its published size, 8 rows of 128 tokens over 1500 frames, with
+    a seeded ~25 % crossbar ticket from the audio predicate, after one
+    warm-up step: every step's loss finite (the warm-up's too), the
+    parameters finite and moved by the steps, pruned coordinates
+    exactly zero; the mean step and the peak memory."""
+    from repro_torch._bridge import tree_leaves
+    from repro_torch.api import EncDecAdapter
+    from repro_torch.configs import get_arch
+
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    adapter = EncDecAdapter(cfg or get_arch("whisper-tiny"), batch_size=8,
+                            seq_len=128, device=device, log_every=1)
+    params = adapter.init_params(torch.Generator(device=device).manual_seed(0))
+    masks = family_ticket(params, adapter.prunable, device, 34)
+    with trainer_losses() as losses:
+        t0 = time.perf_counter()
+        params = adapter.train(params, masks, steps=1)
+        warm_s = time.perf_counter() - t0
+        start = [t.clone() for t in tree_leaves(params)]
+        t0 = time.perf_counter()
+        params = adapter.train(params, masks, steps=steps)
+        train_s = time.perf_counter() - t0
+    moved = sum((a.float() - b.float()).abs().sum().item()
+                for a, b in zip(tree_leaves(params), start))
+    del start
+    print(f"retrain whisper: losses {losses} (warm-up first), {steps} steps "
+          f"in {train_s:.2f} s (warm-up step {warm_s:.2f} s), sum |dparams| "
+          f"{moved:.4e}")
+    require(len(losses) == steps + 1 and all(np.isfinite(losses)),
+            f"whisper losses {losses}: not one finite loss a step")
+    require(moved > 0, "whisper's parameters did not move in retraining")
+    require_ticket_held(params, masks, "retrain whisper")
+    summary = {"config": adapter.cfg.name, "rows": 8, "tokens": 128,
+               "frames": adapter.cfg.encoder_seq_len, "steps": steps,
+               "warmup_step_s": warm_s, "step_s_mean": train_s / steps,
+               "tokens_per_s": 8 * 128 * steps / train_s, "losses": losses,
+               "params_moved_abs_sum": moved,
+               "max_memory_allocated_bytes":
+               torch.cuda.max_memory_allocated() if on_card else None}
+    print("retrain whisper: " + json.dumps(summary))
+    return summary
+
+
+def vlm_retrain_config():
+    """phi-3-vision at its published widths with one cut, 32 layers to 8
+    (1.11 G parameters): at full depth (3.83 G) AdamW's state and the
+    1024-position rows would not fit beside each other."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch("phi-3-vision-4.2b"),
+                               n_layers=VLM_RETRAIN_LAYERS)
+
+
+def llama4_capacities(cfg=None) -> tuple:
+    """The expert capacities (rows an expert) of the cut llama4's serving
+    passes: a decode step's 8 tokens and each prompt's."""
+    from repro_torch.models.moe import expert_capacity
+
+    moe = (cfg or llama4_config()).moe
+    return tuple(sorted({expert_capacity(T, moe)
+                         for T in (8,) + SERVE_LENGTHS}))
+
+
+def llama4_config():
+    """llama4-maverick at its published widths with two cuts: 48 layers
+    to 4 (one period of local, local, local, global attention; MoE on
+    layers 1 and 3) and 128 routed experts to 64."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    cfg = get_arch("llama4-maverick-400b-a17b")
+    return dataclasses.replace(
+        cfg, n_layers=LLAMA4_LAYERS,
+        moe=dataclasses.replace(cfg.moe, num_experts=LLAMA4_EXPERTS))
 
 
 def sync(device) -> None:
@@ -3914,6 +4509,7 @@ def main() -> int:
 
     cfg = get_arch("llama3.2-3b")
     phases = {"build": build_s}
+    new_runs = {}
     mark = [time.perf_counter()]
 
     def phase(name):                 # seconds since the last mark
@@ -3931,6 +4527,9 @@ def main() -> int:
         mla_err, mla_row = check_paged(
             PA, Hq=128, Hkv=1, hd=576, dv=512, scale=192 ** -0.5, seed=11,
             fused_routes={torch.bfloat16: "wgmma", torch.float32: "simt"})
+        # phi-3-vision's decode: 32 query and KV heads of 96 (dv / 2 = 48
+        # lanes: 5 token groups of the p @ v pass, 16 threads idle)
+        hd96_err, hd96_row = check_paged(PA, Hq=32, Hkv=32, hd=96, seed=19)
         batched_err, batched_times = check_bsmm_batched(B)
         bgrad_err, bgrad_times = check_bsmm_batched_grads(B)
         batched_err = max(batched_err, bgrad_err["bsmm_batched"])
@@ -3954,6 +4553,21 @@ def main() -> int:
         rg_grad_err, _ = check_bsmm_grads(B, RG_BSMM_SHAPES, timed=False,
                                           seed=23)
         grad_err = {k: max(v, rg_grad_err[k]) for k, v in grad_err.items()}
+        # llama4-maverick's projections (silu gate) at decode and prompt
+        # rows, its 64 experts at every serving capacity; #1-#4 at
+        # phi-3-vision's retrain rows
+        for shapes, rows_, seed in ((LLAMA4_BSMM_SHAPES, LLAMA4_BSMM_ROWS, 26),
+                                    (VLM_BSMM_SHAPES, VLM_RETRAIN_ROWS, 28)):
+            new_err, _ = check_bsmm(B, shapes, rows_, ((None, "silu"),),
+                                    timed=False, seed=seed)
+            bsmm_err = {k: max(v, new_err[k]) for k, v in bsmm_err.items()}
+        caps = llama4_capacities()
+        l4_batched_err, l4_batched_times = check_bsmm_batched(
+            B, LLAMA4_EXPERTS, LLAMA4_EXPERT_SHAPES, caps, timed=caps, seed=27)
+        batched_err = max(batched_err, l4_batched_err)
+        vlm_grad_err, _ = check_bsmm_grads(B, VLM_BSMM_SHAPES, timed=False,
+                                           seed=29, rows=VLM_RETRAIN_ROWS)
+        grad_err = {k: max(v, vlm_grad_err[k]) for k, v in grad_err.items()}
         stats_err, stats_times = check_tile_stats(TS)
         masked_err, masked_times, masked_smem = check_masked(B)
         # the wgmma ring of #1/#2/#4: two blocks an SM, or one alone
@@ -3967,7 +4581,7 @@ def main() -> int:
         ltp_summary = ltp_mlp(cfg, "cuda")
     phase("ltp_mlp")
     torch.cuda.empty_cache()
-    launches, summary = serve(cfg, "cuda")
+    launches, summary = serve(cfg, "cuda", dispatch=True)
     phase("serve")
     # the serve phase's model is gone; the control plane holds two
     # tickets' weights, all freed before the retrain phase's 56.5 GB peak
@@ -4015,14 +4629,37 @@ def main() -> int:
     phase("serve_hybrid")
     gc.collect()
     torch.cuda.empty_cache()
-    rh_launches, rh_summary = retrain_hybrid("cuda")
+    rh_launches, rh_summary = retrain_lm("cuda")
     phase("retrain_hybrid")
     gc.collect()
     torch.cuda.empty_cache()
     cr_launches, cr_summary = serve(command_r_config(), "cuda",
-                                    max_new=CR_MAX_NEW, label="command-r",
-                                    dispatch=False)
+                                    max_new=CR_MAX_NEW, label="command-r")
     phase("serve_command_r")
+    # the last four families, each phase's model freed before the next
+    for name, fn in (("serve_xlstm", lambda: serve_xlstm("cuda")),
+                     ("retrain_xlstm",
+                      lambda: retrain_lm("cuda", arch="xlstm-125m",
+                                         ticket_seed=32)),
+                     ("serve_whisper", lambda: serve_whisper("cuda")),
+                     ("retrain_whisper", lambda: retrain_whisper("cuda")),
+                     ("serve_vlm", lambda: serve_vlm("cuda")),
+                     ("retrain_vlm",
+                      lambda: retrain_lm("cuda", arch=vlm_retrain_config(),
+                                         seq_len=VLM_SEQ)),
+                     ("serve_llama4", lambda: serve_llama4("cuda"))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        new_runs[name] = fn()
+        phase(name)
+    xl_launches, xl_summary = new_runs["serve_xlstm"]
+    _, rx_summary = new_runs["retrain_xlstm"]
+    wh_launches, wh_summary = new_runs["serve_whisper"]
+    rw_summary = new_runs["retrain_whisper"]
+    vl_launches, vl_summary = new_runs["serve_vlm"]
+    rv_launches, rv_summary = new_runs["retrain_vlm"]
+    l4_launches, l4_summary = new_runs["serve_llama4"]
+    del new_runs
     # deepseek-v3's models are gone with their phases; the CNN slice
     # needs a few GB
     gc.collect()
@@ -4033,11 +4670,14 @@ def main() -> int:
     phase("cnn")
 
     def new_path_launches(name):
-        """A 2-D bsmm wrapper's launches on this slice's paths."""
-        out = {"launches_retrain_hybrid": rh_launches[name]}
+        """A 2-D bsmm wrapper's launches on the later slices' paths."""
+        out = {"launches_retrain_hybrid": rh_launches[name],
+               "launches_retrain_vlm": rv_launches[name]}
         if name in hy_launches:
             out["launches_serve_hybrid"] = hy_launches[name]
             out["launches_serve_command_r"] = cr_launches[name]
+            out["launches_serve_vlm"] = vl_launches[name]
+            out["launches_serve_llama4"] = l4_launches[name]
         return out
 
     rep_row = next(r for r in bsmm_times if r["M"] == 8 and r["N"] == 8192)
@@ -4076,6 +4716,12 @@ def main() -> int:
          "replaces": "src/repro/kernels/paged_attention.py:171",
          "launches": launches["paged_attention"],
          "launches_serve_command_r": cr_launches["paged_attention"],
+         # phi-3-vision's head width, launches from its serving phase
+         "hd96": {"launches_serve_vlm": vl_launches["paged_attention"],
+                  "max_abs_err": hd96_err,
+                  **{k: hd96_row[k] for k in ("Hq", "Hkv", "ms", "plain_ms",
+                                              "bound_ms", "bound_by",
+                                              "library_ms")}},
          "max_abs_err": paged_err,
          "ms": paged_row["ms"], "plain_ms": paged_row["plain_ms"],
          "bound_ms": paged_row["bound_ms"], "bound_by": paged_row["bound_by"],
@@ -4101,7 +4747,15 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/bsmm.cu",
          "replaces": "src/repro/kernels/bsmm.py:118",
          "launches": ds_launches["bsmm_batched"],
-         **ds_summary["bsmm_batched_routes"], "max_abs_err": batched_err,
+         **ds_summary["bsmm_batched_routes"],
+         "launches_serve_llama4": l4_launches["bsmm_batched"],
+         "routes_serve_llama4": l4_summary["bsmm_routes"]["bsmm_batched"],
+         # llama4's up/gate over its 64 experts at each serving capacity
+         "llama4": [{k: r[k] for k in ("E", "M", "K", "N", "route", "ms",
+                                       "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms")}
+                    for r in l4_batched_times if r["N"] == 8192],
+         "max_abs_err": batched_err,
          "ms": batched_row["ms"], "plain_ms": batched_row["plain_ms"],
          "bound_ms": batched_row["bound_ms"],
          "bound_by": batched_row["bound_by"],
@@ -4187,13 +4841,26 @@ def main() -> int:
     hd256["wgmma_ptxas"] = flash_build["ptxas"].get("<4,4,64>",
                                                     "not rebuilt")
     hd256["launches_serve_hybrid"] = hy_launches["flash_attention"]
+    # whisper-tiny's widths (hd 64: the encoder over 1500 frames, full,
+    # and a decoder prompt) and phi-3-vision's (hd 96, bf16 and f32)
+    narrow = {}
+    for r in flash_times:
+        if r["hd"] in (64, 96):
+            narrow[f"hd={r['hd']},S={r['S']},causal={r['causal']},"
+                   f"{r['dtype']}"] = {
+                k: r[k] for k in ("Hq", "Hkv", "route", "ms", "plain_ms",
+                                  "bound_ms", "bound_by", "library_ms",
+                                  "max_abs_err")}
+    narrow["launches_serve_whisper"] = wh_launches["flash_attention"]
+    narrow["launches_serve_vlm"] = vl_launches["flash_attention"]
+    narrow["launches_serve_llama4"] = l4_launches["flash_attention"]
     kernels.append(
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:68",
          "launches": cp_launches["flash_attention"],
          "launches_serve_command_r": cr_launches["flash_attention"],
-         "hd256": hd256,
+         "hd256": hd256, "hd64_hd96": narrow,
          "max_abs_err": flash_err, "ms": flash_row["ms"],
          "plain_ms": flash_row["plain_ms"], "bound_ms": flash_row["bound_ms"],
          "bound_by": flash_row["bound_by"],
@@ -4201,7 +4868,7 @@ def main() -> int:
     (OUT / "chip_smoke_kernels.json").write_text(json.dumps(
         {"device": smi, "bsmm": bsmm_times, "paged_attention": paged_row,
          "bsmm_grads": grad_times, "paged_attention_fused_v": mla_row,
-         "bsmm_batched": batched_times,
+         "bsmm_batched": batched_times + l4_batched_times,
          "bsmm_batched_grads": bgrad_times, "serve": summary,
          "grad_check": grad_summary, "retrain": train_summary,
          "serve_deepseek": ds_summary, "moe_grad_check": moe_grad_summary,
@@ -4213,6 +4880,10 @@ def main() -> int:
          "flash_attention": flash_times, "flash_attention_build": flash_build,
          "control_plane": cp_summary, "serve_hybrid": hy_summary,
          "retrain_hybrid": rh_summary, "serve_command_r": cr_summary,
+         "paged_attention_hd96": hd96_row, "serve_xlstm": xl_summary,
+         "retrain_xlstm": rx_summary, "serve_whisper": wh_summary,
+         "retrain_whisper": rw_summary, "serve_vlm": vl_summary,
+         "retrain_vlm": rv_summary, "serve_llama4": l4_summary,
          "phase_s": phases},
         indent=1, default=str))
     print(json.dumps({"serve": {**summary, "decode_profile": {
@@ -4236,7 +4907,14 @@ def main() -> int:
                               if k != "losses"}}, default=str))
     for name, summ in (("serve_hybrid", hy_summary),
                        ("retrain_hybrid", rh_summary),
-                       ("serve_command_r", cr_summary)):
+                       ("serve_command_r", cr_summary),
+                       ("serve_xlstm", xl_summary),
+                       ("retrain_xlstm", rx_summary),
+                       ("serve_whisper", wh_summary),
+                       ("retrain_whisper", rw_summary),
+                       ("serve_vlm", vl_summary),
+                       ("retrain_vlm", rv_summary),
+                       ("serve_llama4", l4_summary)):
         print(json.dumps({name: {k: v for k, v in summ.items()
                                  if k not in ("report", "profile",
                                               "decode_profile")}},

@@ -17,8 +17,8 @@ from repro_torch.core.masks import (apply_masks, path_str,  # noqa: F401
                                     tree_map_with_path)
 
 # leaves the reference keeps in float32 whatever the tree's dtype (the
-# RG-LRU's decay parameter Λ)
-_F32_LEAVES = ("lam",)
+# RG-LRU's decay parameter Λ, the mLSTM's and sLSTM's gate biases)
+_F32_LEAVES = ("lam", "bi", "bf", "bz", "bo")
 
 
 def resolve_device(device) -> torch.device:
@@ -64,9 +64,10 @@ def _tensor_from_numpy(a) -> torch.Tensor:
 
 def _port_tuple(node):
     """The port's NamedTuple of the same name as ``node``'s (a reference
-    cache: ``KVCache``, ``MLACache``, ``RGLRUState``), else its own."""
-    from repro_torch.models import attention, recurrent
-    for mod in (attention, recurrent):
+    cache: ``KVCache``, ``MLACache``, ``RGLRUState``, ``MLSTMState``,
+    ``SLSTMState``, ``CrossKV``), else its own."""
+    from repro_torch.models import attention, encdec, recurrent
+    for mod in (attention, recurrent, encdec):
         cls = getattr(mod, type(node).__name__, None)
         if cls is not None and getattr(cls, "_fields", None) == node._fields:
             return cls
@@ -77,8 +78,9 @@ def params_from_numpy(tree, *, device, dtype=None):
     """numpy pytree → the same nesting of tensors on ``device``.
 
     ``dtype`` casts floating leaves (integer leaves keep theirs, and so
-    does an RG-LRU's float32 Λ).  The reference's cache NamedTuples
-    become the port's, so a reference prefill's caches decode here."""
+    do the recurrent cells' float32 Λ and gate biases).  The reference's
+    cache NamedTuples become the port's, so a reference prefill's caches
+    decode here."""
     dev = resolve_device(device)
 
     def conv(path, a):

@@ -1,6 +1,5 @@
 """``repro_torch.api`` — the entry point for pruning, retraining and
-serving (port of ``repro.api``; ``EncDecAdapter`` comes later).  The
-command line is ``python -m repro_torch.api`` (``api.cli``).
+serving (port of ``repro.api``).  The command line is ``python -m repro_torch.api`` (``api.cli``).
 
     from repro_torch.api import PruningSession, make_adapter
     adapter = make_adapter("vgg11", scale="full", batch_size=128)
@@ -11,7 +10,8 @@ command line is ``python -m repro_torch.api`` (``api.cli``).
 plus ``structured_prune`` for one-shot (no accuracy gate) schedules.
 """
 from repro_torch.api.adapters import (  # noqa: F401
-    CNNAdapter, FunctionAdapter, LMAdapter, ModelAdapter, ServeUnsupported,
+    CNNAdapter, EncDecAdapter, FunctionAdapter, LMAdapter, ModelAdapter,
+    ServeUnsupported,
 )
 from repro_torch.api.recipes import (  # noqa: F401
     Recipe, Stage, ablate_stage, available_recipes, from_granularities,

@@ -1,6 +1,5 @@
 """Model adapters: init/train/eval/prunability/serving behind one
-protocol (port of ``repro.api.adapters``; ``EncDecAdapter`` comes with
-its slice).
+protocol (port of ``repro.api.adapters``).
 
 Algorithm 1 is model-agnostic: the only model-specific pieces are how
 to initialise parameters, train them under a mask, score them, and
@@ -8,10 +7,10 @@ decide which leaves are prunable.  The family-specific pieces —
 prunability predicate, conv-path predicate, granularity schedule,
 recipe — are data on the adapter, set by ``api.registry.make_adapter``.
 
-``CNNAdapter`` and ``LMAdapter`` build their retraining on
-``train.loop.Trainer``: with masks, every routed product (the CNN's FC
-layers and head when they tile at 128; every LM projection) runs
-forward, dx and dw through the block-sparse kernels.  ``FunctionAdapter``
+``CNNAdapter``, ``LMAdapter`` and ``EncDecAdapter`` build their
+retraining on ``train.loop.Trainer``: with masks, every routed product
+(the CNN's FC layers and head when they tile at 128; every planned LM
+projection) runs forward, dx and dw through the block-sparse kernels.  ``FunctionAdapter``
 wraps plain closures.  Entry points take ``device=`` (default "cuda",
 raising without a card unless given "cpu").
 """
@@ -25,9 +24,10 @@ import torch
 
 from repro_torch._bridge import resolve_device, tree_leaves, tree_map
 from repro_torch.core.masks import (apply_masks, cnn_conv_path, cnn_prunable,
-                                    lm_prunable)
+                                    encdec_prunable, lm_prunable)
 from repro_torch.core.quantize import fake_quantize_tree
-from repro_torch.data import DataPipeline, SyntheticImages, SyntheticLM
+from repro_torch.data import (DataPipeline, SyntheticAudio, SyntheticImages,
+                              SyntheticLM)
 from repro_torch.distributed.compression import MaskAwareCompressor
 from repro_torch.models.plans import PlanStats
 from repro_torch.optim import (adamw, constant, exponential_epoch_decay,
@@ -240,8 +240,11 @@ class CNNAdapter(ModelAdapter):
 
 class LMAdapter(ModelAdapter):
     """Decoder-only transformers of global attention, GQA or MLA, with
-    dense or MoE FFNs (the dense and moe families), and of RG-LRU and
-    sliding-window attention blocks (the hybrid family).
+    dense or MoE FFNs (the dense and moe families), of RG-LRU and
+    sliding-window attention blocks (the hybrid family), of mLSTM and
+    sLSTM blocks (the ssm family) and with a patch prefix (the vlm
+    family: every batch carries ``patches``, and serving takes
+    text-only prompts, as the reference's does).
 
     ``evaluate`` returns NEGATIVE mean cross-entropy on held-out batches;
     the training loss adds 0.01 x the MoE aux loss, as the reference's.
@@ -291,10 +294,22 @@ class LMAdapter(ModelAdapter):
         device)."""
         return self._tfm.init_params(gen, self.cfg, device=self.device)
 
+    def _patches(self, step: int, size: int) -> np.ndarray:
+        """Deterministic patch-prefix embeddings (size, P, d_model) for a
+        vlm config, a pure function of the step like the synthetic data
+        sources."""
+        rng = np.random.RandomState((1_000_003 * step + 11) % (2 ** 31 - 1))
+        return rng.randn(size, self.cfg.num_patch_tokens,
+                         self.cfg.d_model).astype(np.float32)
+
     def _batch(self, step):
         b = self.data.batch(step, self.batch_size)
-        return {"tokens": torch.as_tensor(b["tokens"], device=self.device),
-                "labels": torch.as_tensor(b["labels"], device=self.device)}
+        out = {"tokens": torch.as_tensor(b["tokens"], device=self.device),
+               "labels": torch.as_tensor(b["labels"], device=self.device)}
+        if self.cfg.num_patch_tokens:
+            out["patches"] = torch.as_tensor(
+                self._patches(step, self.batch_size), device=self.device)
+        return out
 
     def make_trainer(self, params, masks=None, *, steps: Optional[int] = None,
                      start_step: int = 0, ckpt_dir: Optional[str] = None,
@@ -364,6 +379,8 @@ class LMAdapter(ModelAdapter):
         return trainer.state.params
 
     def serve_fns(self):
+        # vlm configs serve text-only prompts: the engine's prompts are
+        # tokens, and the transformer treats patches as an optional key
         return self._tfm.prefill, self._tfm.decode_step
 
     def evaluate(self, params, masks=None) -> float:
@@ -374,3 +391,98 @@ class LMAdapter(ModelAdapter):
                                             self._batch(10_000 + i))
                 losses.append(float(loss))
         return -float(np.mean(losses))
+
+
+class EncDecAdapter(ModelAdapter):
+    """Whisper-style encoder-decoder (the audio family) on synthetic
+    mel-frame / transcript pairs (``SyntheticAudio``), trained through
+    ``Trainer`` with AdamW.
+
+    ``evaluate`` returns NEGATIVE decoder cross-entropy (higher is
+    better).  Prunability covers encoder/decoder self-attention, MLPs
+    and the decoder's cross-attention (``encdec_prunable``); the model
+    has no tile plan, so a ticket retrains and serves dense on its
+    masked weights, as in the reference.  Serving takes the engine's
+    frames lane: a ``Request`` carries its encoder frames
+    (``serve_frames``) beside the decoder prompt.  ``device`` defaults
+    to "cuda" and raises without a card unless given "cpu".
+    """
+
+    family = "audio"
+
+    def __init__(self, cfg, *, data=None, steps: int = 60,
+                 batch_size: int = 4, seq_len: int = 32,
+                 peak_lr: float = 3e-4, warmup: int = 10,
+                 eval_batches: int = 2, log_every: int = 0, device="cuda"):
+        from repro_torch.models import encdec
+        self._mod = encdec
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.family = getattr(cfg, "family", "audio")
+        self.prunable_pred = encdec_prunable
+        self.data = data or SyntheticAudio(
+            vocab_size=min(int(cfg.vocab_size), 256), seq_len=seq_len,
+            n_frames=int(cfg.encoder_seq_len), d_model=int(cfg.d_model),
+            seed=0)
+        self.steps = steps
+        self.batch_size = batch_size
+        self.peak_lr, self.warmup = peak_lr, warmup
+        self.eval_batches = eval_batches
+        self.log_every = log_every
+        self.last_plan_stats = PlanStats()
+        self.last_metrics: Dict[str, float] = {}
+
+    # -- protocol ----------------------------------------------------------
+    def init_params(self, gen: torch.Generator):
+        """Parameters drawn from ``gen`` (a generator on the adapter's
+        device)."""
+        return self._mod.init_params(gen, self.cfg, device=self.device)
+
+    def _batch(self, step):
+        b = self.data.batch(step, self.batch_size)
+        return {k: torch.as_tensor(v, device=self.device)
+                for k, v in b.items()}
+
+    def train(self, params, masks=None, steps=None, *, quantize_bits=None):
+        steps = steps or self.steps
+        sched = warmup_cosine(self.peak_lr,
+                              min(self.warmup, max(steps // 2, 1)), steps)
+        opt = adamw(sched)
+        if masks is not None:
+            masks = _to_device(masks, self.device)
+            opt = masked(opt, masks)
+            params = apply_masks(params, masks)
+        qat = self._qat(quantize_bits)
+        cfg, mod = self.cfg, self._mod
+
+        def loss(p, batch):
+            return mod.loss_fn(qat(p), cfg, batch)
+
+        trainer = Trainer(
+            loss_fn=loss, optimizer=opt, params=params,
+            data_iter=DataPipeline(self._batch, prefetch=0),
+            device=self.device)
+        self.last_metrics = trainer.run(steps, log_every=self.log_every)
+        return trainer.state.params
+
+    def evaluate(self, params, masks=None) -> float:
+        losses = []
+        with torch.no_grad():
+            for i in range(self.eval_batches):
+                loss, _ = self._mod.loss_fn(params, self.cfg,
+                                            self._batch(10_000 + i))
+                losses.append(float(loss))
+        return -float(np.mean(losses))
+
+    def serve_fns(self):
+        # requests with frames take the engine's enc-dec prefill lane
+        # ({"tokens", "frames"}, exact length); the decoder's step has
+        # the LM signature
+        return self._mod.prefill, self._mod.decode_step
+
+    def serve_frames(self, uid: int = 0) -> np.ndarray:
+        """Deterministic synthetic encoder frames (T_enc, d_model) for
+        one request: the serving-side analogue of ``SyntheticAudio``."""
+        rng = np.random.RandomState(uid)
+        return rng.randn(self.cfg.encoder_seq_len,
+                         self.cfg.d_model).astype(np.float32) * 0.1

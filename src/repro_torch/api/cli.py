@@ -118,17 +118,10 @@ def _add_common(p: argparse.ArgumentParser, ticket_required: bool = False):
 
 
 def cmd_archs(args) -> int:
-    from repro_torch.api.registry import (list_adaptable, resolve_config,
-                                          unported_family)
+    from repro_torch.api.registry import list_adaptable, resolve_config
 
     rows = []
     for name in list_adaptable():
-        family = unported_family(name)
-        if family is not None:      # a family whose adapter is not ported
-            rows.append({"arch": name, "family": family, "adapter": None,
-                         "granularities": [], "recipe": None,
-                         "serves": False})
-            continue
         cfg, spec = resolve_config(name)
         rows.append({"arch": name, "family": spec.family,
                      "adapter": spec.adapter_factory.__name__,
@@ -142,7 +135,7 @@ def cmd_archs(args) -> int:
         for r in rows:
             grans = ",".join(r["granularities"]) or "(paper schedule)"
             print(f"{r['arch']:28s} {r['family']:7s} "
-                  f"{r['adapter'] or '(not yet ported)':16s} "
+                  f"{r['adapter']:14s} "
                   f"grans={grans} recipe={r['recipe']} "
                   f"serves={r['serves']}")
     return EXIT_OK
@@ -372,6 +365,13 @@ def _serve_setup(args):
     return adapter, fns, EXIT_OK
 
 
+def _request_frames(adapter, uid: int):
+    """Per-request encoder frames for enc-dec families (None for LMs)."""
+    if getattr(adapter.cfg, "is_encoder_decoder", False):
+        return adapter.serve_frames(uid)
+    return None
+
+
 def cmd_serve(args) -> int:
     from repro_torch.serve import Request, ServeEngine
 
@@ -405,7 +405,8 @@ def cmd_serve(args) -> int:
                     else rng.randint(4, 16))
             prompt = rng.randint(0, 200, size=plen)
             router.submit(prompt.astype(np.int32), uid=i,
-                          max_new_tokens=args.max_new)
+                          max_new_tokens=args.max_new,
+                          frames=_request_frames(adapter, i))
         router.drain()
         rep = router.report
         _emit({"event": "serve_fleet", "arch": args.arch,
@@ -420,7 +421,8 @@ def cmd_serve(args) -> int:
         plen = args.prompt_len if args.prompt_len else rng.randint(4, 16)
         prompt = rng.randint(0, 200, size=plen)
         engine.submit(Request(uid=i, prompt=prompt.astype(np.int32),
-                              max_new_tokens=args.max_new))
+                              max_new_tokens=args.max_new,
+                              frames=_request_frames(adapter, i)))
     engine.run()
     rep = engine.report
     _emit({"event": "serve", "arch": args.arch, **_report_dict(rep)},
@@ -554,6 +556,7 @@ def cmd_serve_daemon(args) -> int:
                         max_new_tokens=int(cmd.get("max_new_tokens",
                                                    args.max_new)),
                         deadline_s=cmd.get("deadline_s"),
+                        frames=_request_frames(adapter, uid),
                         on_token=mk_cb(uid))
                 except SubmitRejected as e:
                     _emit({"event": "rejected", "uid": uid,
@@ -688,7 +691,8 @@ def cmd_swap(args) -> int:
         return [Request(uid=i,
                         prompt=np.random.RandomState(1000 + i).randint(
                             1, 200, size=8).astype(np.int32),
-                        max_new_tokens=args.max_new)
+                        max_new_tokens=args.max_new,
+                        frames=_request_frames(adapter, i))
                 for i in range(args.requests)]
 
     kw = dict(batch_slots=args.slots, capacity=args.capacity)
@@ -709,7 +713,8 @@ def cmd_swap(args) -> int:
     probe = Request(uid=10_000,
                     prompt=np.random.RandomState(77).randint(
                         1, 200, size=8).astype(np.int32),
-                    max_new_tokens=args.max_new)
+                    max_new_tokens=args.max_new,
+                    frames=_request_frames(adapter, 10_000))
     frontend.submit(request=probe)
     frontend.drain()
 

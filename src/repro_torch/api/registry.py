@@ -9,18 +9,18 @@ Algorithm 1 walks, how to scale the config down for CPU runs.
     adapter = make_adapter("vgg11", scale="full", batch_size=128)
     result = PruningSession(adapter, PruneConfig(max_iters=2)).run()
 
-Families → adapters in the port: dense, moe and hybrid → ``LMAdapter``
-(moe walks whole experts first: the ``expert`` granularity and the
-``moe-full`` recipe), cnn → ``CNNAdapter``.  The reference's ssm, vlm
-and audio entries have no ported adapter: ``make_adapter`` raises "not
-yet ported" for them.
+Families → adapters, as in the reference: dense, moe, hybrid, ssm and
+vlm → ``LMAdapter`` (moe walks whole experts first: the ``expert``
+granularity and the ``moe-full`` recipe), audio → ``EncDecAdapter``,
+cnn → ``CNNAdapter``.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
-from repro_torch.api.adapters import CNNAdapter, LMAdapter, ModelAdapter
+from repro_torch.api.adapters import (CNNAdapter, EncDecAdapter, LMAdapter,
+                                      ModelAdapter)
 from repro_torch.api.recipes import (Recipe, prune_stage, quantize_stage,
                                      register_recipe)
 from repro_torch.configs import (ArchConfig, CNNConfig, get_arch, get_cnn,
@@ -29,8 +29,6 @@ from repro_torch.configs import (ArchConfig, CNNConfig, get_arch, get_cnn,
 from repro_torch.core.masks import cnn_conv_path, family_prunable
 
 SCALES = ("tiny", "full")
-# families the reference registers whose adapters this port lacks
-_NOT_YET_PORTED = ("ssm", "vlm", "audio")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,9 +64,6 @@ def register_family(spec: FamilySpec) -> FamilySpec:
 
 
 def get_family(family: str) -> FamilySpec:
-    if family in _NOT_YET_PORTED and family not in _FAMILIES:
-        raise NotImplementedError(f"the {family!r} adapter family is not "
-                                  "yet ported to repro_torch")
     if family not in _FAMILIES:
         raise KeyError(f"no adapter family {family!r}; "
                        f"registered: {sorted(_FAMILIES)}")
@@ -142,36 +137,28 @@ register_recipe(Recipe(
         quantize_stage(8, retrain_steps=200),
     )))
 
+for _fam in ("dense", "moe", "hybrid", "ssm", "vlm"):
+    register_family(FamilySpec(
+        family=_fam,
+        adapter_factory=LMAdapter,
+        prunable=family_prunable(_fam),
+        granularities=(("expert", "filter", "channel", "index")
+                       if _fam == "moe" else None),
+        excluded_granularities=() if _fam == "moe" else ("expert",),
+        recipe="moe-full" if _fam == "moe" else "dense-full",
+        scale_tiny=_tiny_arch,
+        smoke_kwargs=_LM_SMOKE,
+        serves=True,
+    ))
+
 register_family(FamilySpec(
-    family="dense",
-    adapter_factory=LMAdapter,
-    prunable=family_prunable("dense"),
+    family="audio",
+    adapter_factory=EncDecAdapter,
+    prunable=family_prunable("audio"),
     excluded_granularities=("expert",),
     recipe="dense-full",
     scale_tiny=_tiny_arch,
-    smoke_kwargs=_LM_SMOKE,
-    serves=True,
-))
-
-register_family(FamilySpec(
-    family="moe",
-    adapter_factory=LMAdapter,
-    prunable=family_prunable("moe"),
-    granularities=("expert", "filter", "channel", "index"),
-    recipe="moe-full",
-    scale_tiny=_tiny_arch,
-    smoke_kwargs=_LM_SMOKE,
-    serves=True,
-))
-
-register_family(FamilySpec(
-    family="hybrid",
-    adapter_factory=LMAdapter,
-    prunable=family_prunable("hybrid"),
-    excluded_granularities=("expert",),
-    recipe="dense-full",
-    scale_tiny=_tiny_arch,
-    smoke_kwargs=_LM_SMOKE,
+    smoke_kwargs=dict(steps=4, batch_size=2, seq_len=12, eval_batches=1),
     serves=True,
 ))
 
@@ -189,19 +176,8 @@ register_family(FamilySpec(
 
 
 def list_adaptable() -> Sequence[str]:
-    """Every registered arch name the port knows (``make_adapter``
-    raises "not yet ported" for those of an unported family)."""
+    """Every registered arch name ``make_adapter`` accepts."""
     return list(list_archs()) + list(list_cnns())
-
-
-def unported_family(name: str) -> Optional[str]:
-    """The family of a registered arch name whose adapter family is not
-    yet ported (None when it is, or the name is a CNN)."""
-    if name in list_archs():
-        family = get_arch(name).family
-        if family not in _FAMILIES:
-            return family
-    return None
 
 
 def resolve_config(arch):

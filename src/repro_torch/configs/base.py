@@ -15,8 +15,8 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional, Sequence, Tuple
 
-# block kinds (the port runs ATTN — GQA or MLA —, LOCAL_ATTN and RGLRU;
-# MLSTM and SLSTM are not yet ported)
+# block kinds: global attention (GQA or MLA), sliding-window attention,
+# RG-LRU, and xLSTM's mLSTM and sLSTM
 ATTN = "attn"
 LOCAL_ATTN = "local"
 RGLRU = "rglru"
@@ -198,17 +198,20 @@ def list_cnns() -> Sequence[str]:
 
 
 def _ensure_loaded():
-    # configs register themselves on import; the port carries only the
-    # architectures it can run
+    # configs register themselves on import
     import repro_torch.configs.command_r_35b  # noqa: F401
     import repro_torch.configs.deepseek_v3_671b  # noqa: F401
     import repro_torch.configs.llama3_2_3b  # noqa: F401
+    import repro_torch.configs.llama4_maverick_400b  # noqa: F401
+    import repro_torch.configs.phi3_vision_4_2b  # noqa: F401
     import repro_torch.configs.qwen2_72b  # noqa: F401
     import repro_torch.configs.recurrentgemma_2b  # noqa: F401
     import repro_torch.configs.resnet18  # noqa: F401
     import repro_torch.configs.vgg11  # noqa: F401
     import repro_torch.configs.vgg16  # noqa: F401
     import repro_torch.configs.vgg19  # noqa: F401
+    import repro_torch.configs.whisper_tiny  # noqa: F401
+    import repro_torch.configs.xlstm_125m  # noqa: F401
     import repro_torch.configs.yi_6b  # noqa: F401
 
 

@@ -10,8 +10,8 @@ Prunable (the reference's predicates, copied):
     fc/head) — BN scales/biases excluded.
   * LM: every ≥2-D projection matrix — embeddings, unembedding, norms,
     routers, biases and conv kernels excluded.
-``family_prunable`` maps each model family the port runs (dense, moe,
-cnn) to its predicate.
+``family_prunable`` maps each model family (dense, moe, hybrid, ssm,
+vlm, audio, cnn) to its predicate.
 
 ``tree_flatten_with_path`` walks a pytree in the reference's (JAX's)
 leaf order — dict keys sorted, ``None`` a leaf — so everything that
@@ -109,8 +109,8 @@ def cnn_conv_path(path: str) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# Per-family predicates (the reference's, copied, for the families the
-# port runs; the others come with their slices)
+# Per-family predicates (the reference's, copied): the data the adapter
+# registry hangs off each family entry
 # ---------------------------------------------------------------------------
 def moe_prunable(path: str, leaf) -> bool:
     """MoE transformers: dense projections plus the stacked per-expert
@@ -128,20 +128,26 @@ def recurrent_prunable(path: str, leaf) -> bool:
     return lm_prunable(path, leaf)
 
 
+def encdec_prunable(path: str, leaf) -> bool:
+    """Encoder-decoder (whisper-style): encoder/decoder self-attention,
+    MLPs, AND the decoder cross-attention ``xattn`` projections.  The
+    frame-adapter stub and embeddings are excluded."""
+    return lm_prunable(path, leaf)
+
+
 _FAMILY_PRUNABLE = {
     "dense": lm_prunable,
     "moe": moe_prunable,
     "hybrid": recurrent_prunable,
+    "ssm": recurrent_prunable,
+    "vlm": lm_prunable,
+    "audio": encdec_prunable,
     "cnn": cnn_prunable,
 }
-_NOT_YET_PORTED = ("ssm", "vlm", "audio")
 
 
 def family_prunable(family: str):
     """The prunability predicate for a registered config family."""
-    if family in _NOT_YET_PORTED:
-        raise NotImplementedError(f"the {family!r} prunability predicate is "
-                                  "not yet ported to repro_torch")
     if family not in _FAMILY_PRUNABLE:
         raise KeyError(f"no prunable predicate for family {family!r}; "
                        f"known: {sorted(_FAMILY_PRUNABLE)}")

@@ -1,5 +1,5 @@
-"""Deterministic synthetic datasets (port of ``repro.data.synthetic``
-without the audio set; numpy only, bit-identical batches).
+"""Deterministic synthetic datasets (port of ``repro.data.synthetic``;
+numpy only, bit-identical batches).
 
 Stateless: batch = f(seed, step), so a restart at step k reproduces the
 exact stream.
@@ -8,11 +8,13 @@ SyntheticLM     — token streams with learnable n-gram structure.
 SyntheticImages — CIFAR-like 32×32×3 images: the class is which of 10
                   fixed random pattern templates is embedded (plus
                   noise), so accuracy is meaningful.
+SyntheticAudio  — mel-frame / transcript pairs for the whisper-style
+                  encoder-decoder stub.
 ``lm_batch`` and ``cifar_like_batch`` are one-call shortcuts to them.
-``SyntheticAudio`` comes with the encoder-decoder slice.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Dict
 
@@ -76,6 +78,41 @@ class SyntheticImages:
             self.channels).astype(np.float32)
         return {"images": imgs.astype(np.float32),
                 "labels": labels.astype(np.int32)}
+
+
+@functools.lru_cache(maxsize=8)
+def _audio_codebook(seed: int, vocab: int, d_model: int) -> np.ndarray:
+    """Token → frame-embedding codebook; a pure function of its key, so
+    its randn is paid once per key."""
+    rng = np.random.RandomState(seed + 17)
+    return rng.randn(vocab, d_model).astype(np.float32)
+
+
+@dataclass(frozen=True)
+class SyntheticAudio:
+    """Mel-frame / transcript pairs: frames are deterministic per (seed,
+    step) noise whose leading rows encode the target tokens through a
+    fixed random codebook, so cross-attention has signal to learn from;
+    the tokens are ``SyntheticLM``'s Markov stream."""
+    vocab_size: int
+    seq_len: int
+    n_frames: int
+    d_model: int
+    seed: int = 0
+    noise: float = 0.1
+
+    def batch(self, step: int, batch_size: int) -> Dict[str, np.ndarray]:
+        b = SyntheticLM(self.vocab_size, self.seq_len, self.seed).batch(
+            step, batch_size)
+        rng = np.random.RandomState((self.seed * 999_983 + step + 3)
+                                    % (2 ** 31 - 1))
+        frames = self.noise * rng.randn(
+            batch_size, self.n_frames, self.d_model).astype(np.float32)
+        code = _audio_codebook(self.seed, self.vocab_size, self.d_model)
+        n = min(self.n_frames, self.seq_len)
+        frames[:, :n] += code[b["labels"][:, :n]]
+        return {"frames": frames, "tokens": b["tokens"],
+                "labels": b["labels"]}
 
 
 def lm_batch(vocab: int, seq_len: int, batch: int, step: int = 0,

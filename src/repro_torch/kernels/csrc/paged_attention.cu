@@ -42,9 +42,11 @@
 // T = 128, hd = 128 in bf16) while q is staged, then (1) scores, eight
 // threads per key row, summed with three shuffles; (2) max and exp-sum,
 // one warp per query head; (3) p @ v, threads along pairs of value dims
-// and TG token groups, partial sums combined through shared memory in a
-// fixed order.  The fused (MLA) form's rows are 576 lanes wide: a staged
-// block would not fit beside its state, so it reads K/V rows from the
+// and TG token groups (TG = THREADS / (dv / 2) rounded down: at dv = 96,
+// phi-3's head width, 5 groups of 48 threads and 16 threads idle in that
+// pass), partial sums combined through shared memory in a fixed order.
+// The fused (MLA) form's rows are 576 lanes wide: a staged block would
+// not fit beside its state, so it reads K/V rows from the
 // L2 in the same three passes (the head groups of one block read the
 // same rows).  Values are read through (v_pool, v_ld): the fused form
 // passes the key pool again with row stride hd.
@@ -209,7 +211,7 @@ paged_attention_split_kernel(const T* __restrict__ q, const T* __restrict__ k_po
   const int lane = tid % 32;
   const int warp = tid / 32;
   const int ND = dv / 2;            // value-dim pairs
-  const int TG = THREADS / ND;      // token groups in the p @ v pass
+  const int TG = THREADS / ND;      // token groups in the p @ v pass (floor)
 
   extern __shared__ __align__(16) uint8_t smem[];
   T* ks = reinterpret_cast<T*>(smem);                  // (T, hd), staged form
@@ -295,7 +297,7 @@ paged_attention_split_kernel(const T* __restrict__ q, const T* __restrict__ k_po
   // (3) partial p @ v over this thread's token group, live rows only
   const int dp = tid % ND;          // value-dim pair of this thread
   const int tg = tid / ND;          // token group of this thread
-  if (tg < TG) {
+  if (tg < TG) {                    // threads past TG whole groups idle
     float pa[GB][2];
 #pragma unroll
     for (int g = 0; g < GB; ++g) pa[g][0] = pa[g][1] = 0.f;
@@ -772,9 +774,9 @@ int launch_fused(const void* q, const void* k_pool, const int* tables, const int
 // workspace of B x Hq x NB x (dv + 2) floats.  The wrapper checks what
 // the kernels need (paged_attention._check_kernel_geometry): Hq % Hkv ==
 // 0; hd a multiple of 16 bytes of the dtype (and dv too in the GQA form);
-// T a multiple of 32; dv even with dv / 2 dividing 256 (dv <= hd in the
-// fused form); 16-byte aligned pools; and
-//   (GQA: T (hd + dv) x elem) + (g (hd + T) + (512 / dv) g dv + 2 g) x 4
+// T a multiple of 32; dv even and <= 512 (dv <= hd in the fused form);
+// 16-byte aligned pools; and
+//   (GQA: T (hd + dv) x elem) + (g (hd + T) + floor(512 / dv) g dv + 2 g) x 4
 // bytes of shared memory, g = min(Hq / Hkv, 8), within the 227 KB a
 // block may take.  route (paged_attention.fused_route): 0 = simt, 1 =
 // wgmma (fused form, bfloat16, Hq / Hkv a multiple of 64, hd a multiple

@@ -183,6 +183,8 @@ def _check_kernel_geometry(geo: PagedGeometry, elem: int,
                 where="paged_attention")
         return
     g = min(geo.Hq // geo.Hkv, _GB)
+    # the p @ v pass: dv / 2 threads a token group, as many whole groups
+    # as the block's threads hold (the rest idle in that pass)
     tg = _THREADS // (geo.dv // 2) if geo.dv >= 2 else 0
     vec = 16 // elem
     smem = 4 * (g * (geo.hd + geo.T) + tg * g * geo.dv + 2 * g)
@@ -190,13 +192,12 @@ def _check_kernel_geometry(geo: PagedGeometry, elem: int,
         smem += elem * geo.T * (geo.hd + geo.dv)
     if (geo.hd % vec or geo.T % 32 or geo.dv % 2
             or (not fused and geo.dv % vec)
-            or geo.dv > 2 * _THREADS or _THREADS % max(geo.dv // 2, 1)
-            or smem > _SMEM_LIMIT):
+            or geo.dv > 2 * _THREADS or smem > _SMEM_LIMIT):
         raise GeometryError(
             f"the CUDA kernel takes hd (and, with a value pool, dv) a "
-            f"multiple of {vec}, T a multiple of 32, an even dv with dv/2 "
-            f"dividing {_THREADS} and <= {_SMEM_LIMIT} bytes of shared "
-            f"memory (needs {smem})",
+            f"multiple of {vec}, T a multiple of 32, an even dv <= "
+            f"{2 * _THREADS} and <= {_SMEM_LIMIT} bytes of shared memory "
+            f"(needs {smem})",
             shape=(geo.Hq // geo.Hkv, geo.hd, geo.T, geo.dv),
             where="paged_attention")
 

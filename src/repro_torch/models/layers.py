@@ -133,6 +133,15 @@ def unembed(params, x):
     return x @ params["table"].T
 
 
+def sinusoidal_positions(seq_len: int, d: int, dtype, device):
+    """(seq_len, d) positions: ``[sin, cos]`` of pos / 10000^(2i/d)
+    concatenated (not interleaved), computed in float32 and cast."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos * torch.exp(-math.log(10000.0) * 2.0 * dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embeddings (split-half, not interleaved)
 # ---------------------------------------------------------------------------

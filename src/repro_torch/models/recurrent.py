@@ -1,24 +1,31 @@
-"""The RG-LRU block (RecurrentGemma / Griffin): the recurrent half of the
-``hybrid`` family.
+"""Recurrent blocks: the RG-LRU (RecurrentGemma / Griffin, the recurrent
+half of the ``hybrid`` family) and xLSTM's mLSTM and sLSTM cells (the
+``ssm`` family).
 
-A port of the RG-LRU part of ``repro.models.recurrent``: the
-block-diagonal gate projections, the causal depthwise conv1d with its
-decode state, and the real-gated linear recurrence
+A port of ``repro.models.recurrent``.  Every recurrence runs in float32
+whatever the parameter dtype.
 
-    h_t = a_t * h_{t-1} + b_t,   a_t = exp(log_a_t)
+* RG-LRU: the block-diagonal gate projections, the causal depthwise
+  conv1d with its decode state, and the real-gated linear recurrence
+  ``h_t = a_t * h_{t-1} + b_t``, ``a_t = exp(log_a_t)``.  The reference
+  computes the training forward and the prefill with
+  ``jax.lax.associative_scan`` over the pairs (log_a, b); torch has none,
+  so ``_linear_scan`` runs the same ``combine`` as a log-depth
+  (Hillis–Steele) scan of plain, differentiable torch ops.
+* mLSTM: the stabilised matrix memory (C, n, m), chunkwise-parallel
+  (``mlstm_chunkwise``, chunks of 128; a length that is not a whole
+  number of chunks runs the sequential form, as in the reference) and
+  sequential (``mlstm_sequential``, the oracle and the decode step).
+* sLSTM: exponential gating with a block-diagonal recurrence, a
+  token-by-token loop (the reference's ``lax.scan``).
 
-run in float32 whatever the parameter dtype.  The reference computes
-the training forward and the prefill with ``jax.lax.associative_scan``
-over the pairs (log_a, b); torch has none, so ``_linear_scan`` runs the
-same ``combine`` as a log-depth (Hillis–Steele) scan of plain,
-differentiable torch ops.  Decode is the O(1)-state step.
-
-The block has no Pallas kernel in the reference, so eager torch is its
-whole port.  Its projections ``w_in``/``w_gate``/``w_out`` are prunable
-but never planned (the reference's plan walker routes only attention,
-MLP and MoE groups): they stay dense products on the masked weights.
-``rglru_step`` updates the decode state IN PLACE (the reference returns
-a new one), as the port's other decode caches are.
+Decode is the O(1)-state step of each cell.  The cells have no Pallas
+kernel in the reference, so eager torch is their whole port.  Their
+projections are prunable but never planned (the reference's plan walker
+routes only attention, MLP and MoE groups): they stay dense products on
+the masked weights.  The decode steps (``rglru_step``, ``mlstm_step``,
+``slstm_step``) update the state IN PLACE (the reference returns a new
+one), as the port's other decode caches are.
 """
 from __future__ import annotations
 
@@ -196,3 +203,236 @@ def rglru_step(params, state: RGLRUState, x_t):
     state.conv.copy_(conv)
     y = (h.to(xt.dtype) * gate) @ params["w_out"]
     return y[:, None, :], state
+
+
+# ===========================================================================
+# mLSTM (xLSTM matrix-memory cell), stabilised
+# ===========================================================================
+class MLSTMState(NamedTuple):
+    C: torch.Tensor          # (B, H, dk, dv) float32
+    n: torch.Tensor          # (B, H, dk) float32
+    m: torch.Tensor          # (B, H) float32 stabiliser
+
+
+def mlstm_cell_init(gen, width: int, n_heads: int, dtype, device):
+    """Block-diagonal q/k/v, input and forget gate projections; the
+    gate biases stay float32, the forget gates open (bias 3)."""
+    return {
+        "wq": blockdiag_init(gen, width, n_heads, dtype, device),
+        "wk": blockdiag_init(gen, width, n_heads, dtype, device),
+        "wv": blockdiag_init(gen, width, n_heads, dtype, device),
+        "wi": xavier(gen, (width, n_heads), dtype, device),
+        "wf": xavier(gen, (width, n_heads), dtype, device),
+        "bi": torch.zeros((n_heads,), dtype=torch.float32, device=device),
+        "bf": torch.full((n_heads,), 3.0, dtype=torch.float32,
+                         device=device),
+    }
+
+
+def _mlstm_qkvif(params, u, n_heads):
+    """u: (B, S, w) -> q, k, v (B, S, H, hd) and the gate logits li, lf
+    (B, S, H), all float32.  q/k/v are the block-diagonal products in
+    u's dtype (k scaled by 1/sqrt(hd) there), cast afterwards."""
+    B, S, w = u.shape
+    hd = w // n_heads
+    q = blockdiag_apply(params["wq"], u).reshape(B, S, n_heads, hd)
+    k = blockdiag_apply(params["wk"], u).reshape(B, S, n_heads, hd)
+    v = blockdiag_apply(params["wv"], u).reshape(B, S, n_heads, hd)
+    li = (u @ params["wi"]).float() + params["bi"]
+    lf = F.logsigmoid((u @ params["wf"]).float() + params["bf"])
+    k = k / math.sqrt(hd)
+    return q.float(), k.float(), v.float(), li, lf
+
+
+def mlstm_init_state(batch: int, n_heads: int, hd: int,
+                     device) -> MLSTMState:
+    """Empty memory; the stabiliser starts at the finite -1e30."""
+    f32 = dict(dtype=torch.float32, device=device)
+    return MLSTMState(C=torch.zeros((batch, n_heads, hd, hd), **f32),
+                      n=torch.zeros((batch, n_heads, hd), **f32),
+                      m=torch.full((batch, n_heads), -1e30, **f32))
+
+
+def mlstm_state_spec(batch: int, n_heads: int, hd: int) -> MLSTMState:
+    """Shape and dtype of one layer's decode state, as meta tensors."""
+    meta = dict(dtype=torch.float32, device="meta")
+    return MLSTMState(C=torch.empty((batch, n_heads, hd, hd), **meta),
+                      n=torch.empty((batch, n_heads, hd), **meta),
+                      m=torch.empty((batch, n_heads), **meta))
+
+
+def mlstm_sequential(params, u, n_heads, state: MLSTMState = None):
+    """Step-by-step mLSTM, the oracle of the chunkwise form.  u: (B, S,
+    w) -> (h (B, S, w) float32, the state after the last token)."""
+    B, S, w = u.shape
+    hd = w // n_heads
+    q, k, v, li, lf = _mlstm_qkvif(params, u, n_heads)
+    if state is None:
+        state = mlstm_init_state(B, n_heads, hd, u.device)
+    C, n, m = state
+    hs = []
+    for t in range(S):
+        qt, kt, vt, lit, lft = q[:, t], k[:, t], v[:, t], li[:, t], lf[:, t]
+        m_new = torch.maximum(lft + m, lit)
+        fp = torch.exp(lft + m - m_new)[..., None]
+        ip = torch.exp(lit - m_new)[..., None]
+        C = fp[..., None] * C + ip[..., None] * (kt[..., :, None]
+                                                 * vt[..., None, :])
+        n = fp * n + ip * kt
+        num = torch.einsum("bhk,bhkv->bhv", qt, C)
+        den = torch.maximum(torch.einsum("bhk,bhk->bh", qt, n).abs(),
+                            torch.exp(-m_new))[..., None]
+        hs.append(num / den)
+        m = m_new
+    h = torch.stack(hs, dim=1).reshape(B, S, w)
+    return h, MLSTMState(C, n, m)
+
+
+def mlstm_chunkwise(params, u, n_heads, chunk: int = 128,
+                    state: MLSTMState = None):
+    """Chunkwise-parallel stabilised mLSTM, exact (held to
+    ``mlstm_sequential``): within a chunk of L tokens the decays are
+    cumulative sums b of the forget logits and the stabiliser the
+    running max (``cummax``) of li - b; across chunks (C, n, m) carry
+    over.  S not a multiple of ``chunk`` runs the sequential form."""
+    B, S, w = u.shape
+    hd = w // n_heads
+    if S % chunk:
+        return mlstm_sequential(params, u, n_heads, state)
+    L = chunk
+    q, k, v, li, lf = _mlstm_qkvif(params, u, n_heads)
+    if state is None:
+        state = mlstm_init_state(B, n_heads, hd, u.device)
+    C, n, m = state
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))        # (B, H, S, hd)
+    li, lf = li.transpose(1, 2), lf.transpose(1, 2)         # (B, H, S)
+    tri = torch.ones((L, L), dtype=torch.bool, device=u.device).tril()
+    hs = []
+    for c0 in range(0, S, L):
+        qt, kt, vt = q[:, :, c0:c0 + L], k[:, :, c0:c0 + L], v[:, :, c0:c0 + L]
+        lit, lft = li[:, :, c0:c0 + L], lf[:, :, c0:c0 + L]
+        b = torch.cumsum(lft, dim=-1)                       # inclusive decays
+        G = b[..., -1:]
+        m_intra = torch.cummax(lit - b, dim=-1).values + b
+        m_inter = b + m[..., None]
+        m_t = torch.maximum(m_inter, m_intra)               # (B, H, L)
+        # the memory carried in from earlier chunks
+        q_scaled = qt * torch.exp(m_inter - m_t)[..., None]
+        num_inter = torch.einsum("bhlk,bhkv->bhlv", q_scaled, C)
+        den_inter = torch.einsum("bhlk,bhk->bhl", q_scaled, n)
+        # within the chunk: D[t, s] = exp(b_t - b_s + li_s - m_t), s <= t
+        # (exp of the masked entries is exp(-inf) = 0, so no inf ever
+        # meets the backward's zero cotangent)
+        logD = (b[..., :, None] - b[..., None, :] + lit[..., None, :]
+                - m_t[..., :, None])
+        D = torch.exp(torch.where(tri, logD, float("-inf")))
+        scores = torch.einsum("bhlk,bhsk->bhls", qt, kt) * D
+        num = num_inter + torch.einsum("bhls,bhsv->bhlv", scores, vt)
+        den = den_inter + scores.sum(dim=-1)
+        hs.append(num / torch.maximum(den.abs(), torch.exp(-m_t))[..., None])
+        # the carry into the next chunk
+        m_next = torch.maximum(m + G[..., 0], (lit + G - b).amax(dim=-1))
+        scale_old = torch.exp(m + G[..., 0] - m_next)[..., None, None]
+        kw = kt * torch.exp(G - b + lit - m_next[..., None])[..., None]
+        C = C * scale_old + torch.einsum("bhlk,bhlv->bhkv", kw, vt)
+        n = n * scale_old[..., 0] + kw.sum(dim=2)
+        m = m_next
+    h = torch.cat(hs, dim=2).transpose(1, 2).reshape(B, S, w)
+    return h, MLSTMState(C, n, m)
+
+
+def _copy_state_(state, new):
+    for dst, src in zip(state, new):
+        dst.copy_(src)
+    return state
+
+
+def mlstm_step(params, state: MLSTMState, u_t, n_heads):
+    """One decode token.  u_t: (B, 1, w) -> (h (B, 1, w), state); the
+    state is written IN PLACE."""
+    h, new = mlstm_sequential(params, u_t, n_heads, state)
+    return h, _copy_state_(state, new)
+
+
+# ===========================================================================
+# sLSTM (xLSTM scalar cell: exponential gating, block-diagonal recurrence)
+# ===========================================================================
+class SLSTMState(NamedTuple):
+    c: torch.Tensor          # (B, w) float32
+    n: torch.Tensor
+    h: torch.Tensor
+    m: torch.Tensor
+
+
+_SLSTM_GATES = ("i", "f", "z", "o")
+
+
+def slstm_cell_init(gen, d_model: int, width: int, n_heads: int, dtype,
+                    device):
+    """Per gate g: input projection ``wg``, block-diagonal recurrence
+    ``rg`` and a float32 bias ``bg`` (the forget gate's 3)."""
+    p = {}
+    for g in _SLSTM_GATES:
+        p[f"w{g}"] = xavier(gen, (d_model, width), dtype, device)
+        p[f"r{g}"] = blockdiag_init(gen, width, n_heads, dtype, device)
+        p[f"b{g}"] = torch.full((width,), 3.0 if g == "f" else 0.0,
+                                dtype=torch.float32, device=device)
+    return p
+
+
+def slstm_init_state(batch: int, width: int, device) -> SLSTMState:
+    """Zero cell, normaliser and output (four tensors of their own, so
+    that a step may write each in place); the stabiliser at -1e30."""
+    def z():
+        return torch.zeros((batch, width), dtype=torch.float32,
+                           device=device)
+    return SLSTMState(c=z(), n=z(), h=z(),
+                      m=torch.full((batch, width), -1e30,
+                                   dtype=torch.float32, device=device))
+
+
+def slstm_state_spec(batch: int, width: int) -> SLSTMState:
+    """Shape and dtype of one layer's decode state, as meta tensors."""
+    def z():
+        return torch.empty((batch, width), dtype=torch.float32,
+                           device="meta")
+    return SLSTMState(c=z(), n=z(), h=z(), m=z())
+
+
+def _slstm_step(params, state: SLSTMState, xi, xf, xz, xo):
+    """One token from its precomputed float32 input projections (B, w):
+    (h, the new state)."""
+    c, n, h, m = state
+    li = xi + blockdiag_apply(params["ri"], h) + params["bi"]
+    lf = F.logsigmoid(xf + blockdiag_apply(params["rf"], h) + params["bf"])
+    z = torch.tanh(xz + blockdiag_apply(params["rz"], h) + params["bz"])
+    o = torch.sigmoid(xo + blockdiag_apply(params["ro"], h) + params["bo"])
+    m_new = torch.maximum(lf + m, li)
+    fp = torch.exp(lf + m - m_new)
+    ip = torch.exp(li - m_new)
+    c = fp * c + ip * z
+    n = torch.clamp(fp * n + ip, min=1e-6)
+    h = o * (c / n)
+    return h, SLSTMState(c=c, n=n, h=h, m=m_new)
+
+
+def slstm_forward(params, x, state: SLSTMState = None):
+    """x: (B, S, d) -> (h (B, S, w) float32, the state after the last
+    token): the input projections at once, then a loop over time."""
+    B, S, _ = x.shape
+    w = params["wi"].shape[1]
+    if state is None:
+        state = slstm_init_state(B, w, x.device)
+    proj = [(x @ params[f"w{g}"]).float() for g in _SLSTM_GATES]
+    hs = []
+    for t in range(S):
+        h, state = _slstm_step(params, state, *(p[:, t] for p in proj))
+        hs.append(h)
+    return torch.stack(hs, dim=1), state
+
+
+def slstm_step(params, state: SLSTMState, x_t):
+    """One decode token.  x_t: (B, 1, d) -> (h (B, 1, w), state); the
+    state is written IN PLACE."""
+    h, new = slstm_forward(params, x_t, state)
+    return h, _copy_state_(state, new)

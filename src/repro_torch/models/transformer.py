@@ -1,13 +1,16 @@
 """Decoder-only LM assembly: training forward, prefill and paged decode.
 
-A port of ``repro.models.transformer`` for architectures built of
-global attention — GQA (llama-style) or MLA — with a dense or MoE FFN
-(deepseek-style), sliding-window attention and RG-LRU blocks (the
-``hybrid`` family, recurrentgemma), under RMSNorm or LayerNorm.  A
+A port of ``repro.models.transformer`` for every decoder-only
+architecture of the reference: global attention — GQA (llama-style) or
+MLA — with a dense or MoE FFN (deepseek, llama4), sliding-window
+attention and RG-LRU blocks (the ``hybrid`` family, recurrentgemma),
+mLSTM and sLSTM blocks (the ``ssm`` family, xLSTM) and the vlm stub's
+patch prefix (phi-3-vision: precomputed patch embeddings through
+``patch_proj``, prepended to the text), under RMSNorm or LayerNorm.  A
 model is a list of *segments*; within a segment the per-layer
 parameters are stacked on a leading repeats axis, and the reference's
-``lax.scan`` over it becomes a loop here.  mLSTM/sLSTM blocks,
-encoder-decoder and patch-token inputs raise "not yet ported".
+``lax.scan`` over it becomes a loop here.  Encoder-decoder configs run
+through ``models.encdec``.
 
 Entry points: ``forward``/``loss_fn`` (training, full-sequence logits),
 ``prefill``, ``decode_step`` (dense per-slot caches) and
@@ -26,12 +29,13 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch._bridge import (resolve_device, tree_index, tree_leaves,
                                  tree_map, tree_stack, tree_unbind)
-from repro_torch.configs.base import ATTN, LOCAL_ATTN, RGLRU, ArchConfig
+from repro_torch.configs.base import (ATTN, LOCAL_ATTN, MLSTM, RGLRU, SLSTM,
+                                      ArchConfig)
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import recurrent as rec_lib
-from repro_torch.models.layers import (_dtype, apply_norm, embed, embed_init,
-                                       mlp, mlp_init, norm_init,
+from repro_torch.models.layers import (_act, _dtype, apply_norm, embed,
+                                       embed_init, mlp, mlp_init, norm_init,
                                        softmax_cross_entropy, unembed, xavier)
 
 # Activation rematerialisation for the training forward: each layer
@@ -80,26 +84,25 @@ def remat_enabled() -> bool:
     return _REMAT_TRAIN
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not yet ported to repro_torch")
-
-
-_PORTED_KINDS = {ATTN, LOCAL_ATTN, RGLRU}
+_KINDS = {ATTN, LOCAL_ATTN, RGLRU, MLSTM, SLSTM}
+# the block kinds followed by the FFN half (xLSTM blocks carry their own
+# up and down projections)
+_FFN_KINDS = (ATTN, LOCAL_ATTN, RGLRU)
 _NORMS = ("rmsnorm", "layernorm")
 
 
 def check_ported(cfg: ArchConfig) -> None:
-    """Raise "not yet ported" unless serving and training (``forward``/
-    ``loss_fn``) cover cfg: global (GQA or MLA) or sliding-window
-    attention and RG-LRU blocks, dense or MoE FFNs, RMSNorm or
-    LayerNorm."""
+    """Raise ``ValueError`` unless this module runs cfg: a decoder-only
+    model (encoder-decoder configs run through ``models.encdec``) of the
+    known block kinds under RMSNorm or LayerNorm."""
     kinds = set(cfg.blocks)
-    if not kinds <= _PORTED_KINDS:
-        raise _not_ported(f"block kinds {sorted(kinds - _PORTED_KINDS)}")
+    if not kinds <= _KINDS:
+        raise ValueError(f"unknown block kinds {sorted(kinds - _KINDS)}")
     if cfg.norm not in _NORMS:
-        raise _not_ported(f"norm {cfg.norm!r}")
-    if cfg.is_encoder_decoder or cfg.num_patch_tokens:
-        raise _not_ported("encoder-decoder and patch-token inputs")
+        raise ValueError(f"unknown norm {cfg.norm!r}")
+    if cfg.is_encoder_decoder:
+        raise ValueError(f"{cfg.name} is an encoder-decoder config: it "
+                         "runs through repro_torch.models.encdec")
 
 
 # ---------------------------------------------------------------------------
@@ -114,8 +117,7 @@ class Segment:
 
 def layer_signature(cfg: ArchConfig, i: int) -> Tuple[str, bool]:
     kind = cfg.blocks[i]
-    is_moe = (cfg.moe is not None and cfg.d_ff > 0
-              and kind in (ATTN, LOCAL_ATTN, RGLRU)
+    is_moe = (cfg.moe is not None and cfg.d_ff > 0 and kind in _FFN_KINDS
               and cfg.moe.is_moe_layer(i))
     return (kind, is_moe)
 
@@ -156,6 +158,24 @@ def _layer_init(gen, cfg: ArchConfig, sig, dtype, device):
     if kind == RGLRU:
         p["rnn"] = rec_lib.rglru_init(gen, d, cfg.rnn_width or d, cfg.n_heads,
                                       cfg.conv1d_width, dtype, device)
+    elif kind == MLSTM:
+        w = cfg.rnn_width or 2 * d
+        p["rnn"] = {
+            "cell": rec_lib.mlstm_cell_init(gen, w, cfg.n_heads, dtype,
+                                            device),
+            "up": xavier(gen, (d, w), dtype, device),
+            "gate": xavier(gen, (d, w), dtype, device),
+            "down": xavier(gen, (w, d), dtype, device),
+        }
+    elif kind == SLSTM:
+        # the post-cell gated MLP: up d -> 4d (gate and value halves),
+        # down 2d -> d
+        p["rnn"] = {
+            "cell": rec_lib.slstm_cell_init(gen, d, d, cfg.n_heads, dtype,
+                                            device),
+            "up": xavier(gen, (d, 4 * d), dtype, device),
+            "down": xavier(gen, (2 * d, d), dtype, device),
+        }
     elif cfg.mla is not None:
         p["attn"] = attn_lib.mla_init(gen, d, cfg.n_heads, cfg.mla, dtype,
                                       device)
@@ -163,7 +183,7 @@ def _layer_init(gen, cfg: ArchConfig, sig, dtype, device):
         p["attn"] = attn_lib.gqa_init(gen, d, cfg.n_heads, cfg.n_kv_heads,
                                       cfg.head_dim_, cfg.qkv_bias, dtype,
                                       device)
-    if cfg.d_ff > 0:
+    if cfg.d_ff > 0 and kind in _FFN_KINDS:
         p["norm2"] = norm_init(cfg.norm, d, dtype, device)
         if is_moe:
             p["moe"] = moe_lib.moe_init(gen, d, cfg.moe, cfg.gated_mlp,
@@ -175,9 +195,9 @@ def _layer_init(gen, cfg: ArchConfig, sig, dtype, device):
 
 
 def init_params(gen: torch.Generator, cfg: ArchConfig, *, device="cuda"):
-    """Full parameter pytree (embed, stacked segments, final norm, head),
-    keyed like the reference's, drawn from ``gen`` (a generator on
-    ``device``)."""
+    """Full parameter pytree (embed, stacked segments, final norm, head
+    and, for the vlm stub, ``patch_proj``), keyed like the reference's,
+    drawn from ``gen`` (a generator on ``device``)."""
     check_ported(cfg)
     dev = resolve_device(device)
     dtype = _dtype(cfg.dtype)
@@ -201,6 +221,10 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, *, device="cuda"):
         params["unembed"] = {
             "table": xavier(gen, (cfg.padded_vocab, cfg.d_model), dtype, dev,
                             in_axis=1, out_axis=0)}
+    if cfg.num_patch_tokens:
+        # the vlm stub: a learned projection of precomputed patch embeds
+        params["patch_proj"] = xavier(gen, (cfg.d_model, cfg.d_model), dtype,
+                                      dev)
     return params
 
 
@@ -231,6 +255,29 @@ def _apply_block(cfg: ArchConfig, sig, p, x, mode: str, cache, capacity,
         else:
             out, new_cache = rec_lib.rglru_step(p["rnn"], cache, h)
         return (*_apply_ffn(cfg, p, x + out, plan), new_cache)
+    if kind == MLSTM:
+        rp = p["rnn"]
+        u = h @ rp["up"]
+        g = h @ rp["gate"]
+        if mode == "decode":
+            hc, new_cache = rec_lib.mlstm_step(rp["cell"], cache, u,
+                                               cfg.n_heads)
+        else:
+            hc, st = rec_lib.mlstm_chunkwise(rp["cell"], u, cfg.n_heads)
+            new_cache = st if mode == "prefill" else None
+        out = (hc.to(x.dtype) * _act("silu", g)) @ rp["down"]
+        return x + out, None, new_cache
+    if kind == SLSTM:
+        rp = p["rnn"]
+        if mode == "decode":
+            hc, new_cache = rec_lib.slstm_step(rp["cell"], cache, h)
+        else:
+            hc, st = rec_lib.slstm_forward(rp["cell"], h)
+            new_cache = st if mode == "prefill" else None
+        y = hc.to(x.dtype) @ rp["up"]
+        half = y.shape[-1] // 2
+        out = (_act("gelu", y[..., :half]) * y[..., half:]) @ rp["down"]
+        return x + out, None, new_cache
     if cfg.mla is not None:
         kw = dict(n_heads=cfg.n_heads, mla=cfg.mla, rope_theta=cfg.rope_theta)
         if mode == "forward":
@@ -339,15 +386,27 @@ def _forward_block(cfg, sig, p, x, plan):
                         plan=plan)[:2]
 
 
+def _embed_inputs(cfg: ArchConfig, params, batch):
+    """The token embeddings, after the projected patch embeddings
+    (``batch["patches"]`` (B, P, d)) where a vlm batch carries them."""
+    x = embed(params["embed"], batch["tokens"])
+    if cfg.num_patch_tokens and "patches" in batch:
+        patches = batch["patches"].to(x.dtype) @ params["patch_proj"]
+        x = torch.cat([patches, x], dim=1)
+    return x
+
+
 def forward(params, cfg: ArchConfig, batch, plan=None):
     """Training forward: full-sequence logits (B, S, V) and the sum of
     the MoE layers' aux losses (an f32 scalar, 0 without MoE).
-    ``batch["tokens"]``: (B, S) integers.  ``plan`` (from
+    ``batch["tokens"]``: (B, S) integers, and for a vlm config
+    optionally ``batch["patches"]`` (B, P, d_model), prepended (the
+    logits then cover P + S positions).  ``plan`` (from
     ``train.plans.lm_train_plan``) routes the attention, MLP and expert
     projections through the block-sparse kernels, forward and backward
     (MLA's projections run dense, as the reference's do)."""
     check_ported(cfg)
-    x = embed(params["embed"], batch["tokens"])
+    x = _embed_inputs(cfg, params, batch)
     x, _, aux = _run_segments(cfg, params, x, "forward", None, None,
                               plan=plan)
     x = apply_norm(cfg.norm, params["final_norm"], x)
@@ -360,10 +419,13 @@ def forward(params, cfg: ArchConfig, batch, plan=None):
 def loss_fn(params, cfg: ArchConfig, batch, aux_weight: float = 0.01,
             plan=None):
     """Mean next-token cross-entropy (over ``batch["loss_mask"]`` when
-    given) plus ``aux_weight`` × the aux loss → (loss, metrics)."""
+    given; with patches, over the text tail only) plus ``aux_weight`` ×
+    the aux loss → (loss, metrics)."""
     logits, aux = forward(params, cfg, batch, plan=plan)
-    ce = softmax_cross_entropy(logits, batch["labels"],
-                               batch.get("loss_mask"))
+    labels = batch["labels"]
+    if cfg.num_patch_tokens and "patches" in batch:
+        logits = logits[:, -labels.shape[1]:]
+    ce = softmax_cross_entropy(logits, labels, batch.get("loss_mask"))
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
@@ -386,8 +448,7 @@ def prefill(params, cfg: ArchConfig, batch, capacity: int, valid_len=None,
     projections through the block-sparse kernel.
     """
     check_ported(cfg)
-    tokens = batch["tokens"]
-    x = embed(params["embed"], tokens)
+    x = _embed_inputs(cfg, params, batch)
     none_caches = [[None for _ in seg.sigs] for seg in segments_of(cfg)]
     x, caches, _ = _run_segments(cfg, params, x, "prefill", none_caches,
                                  capacity, valid_len=valid_len, plan=plan)
@@ -421,11 +482,16 @@ def _block_cache_spec(cfg: ArchConfig, sig, batch: int, capacity: int,
                       dtype):
     """One layer's decode state: a KV (or MLA latent) cache of
     ``capacity`` rows, a window's ring of ``min(window, capacity)``
-    rows, or an RG-LRU state."""
+    rows, or an RG-LRU, mLSTM or sLSTM state."""
     kind = sig[0]
     if kind == RGLRU:
         return rec_lib.rglru_state_spec(batch, cfg.rnn_width or cfg.d_model,
                                         cfg.conv1d_width, dtype)
+    if kind == MLSTM:
+        w = cfg.rnn_width or 2 * cfg.d_model
+        return rec_lib.mlstm_state_spec(batch, cfg.n_heads, w // cfg.n_heads)
+    if kind == SLSTM:
+        return rec_lib.slstm_state_spec(batch, cfg.d_model)
     cap = capacity if kind == ATTN else min(cfg.local_window, capacity)
     if cfg.mla is not None:
         meta = dict(dtype=dtype, device="meta")

@@ -9,6 +9,12 @@ length — and all slots then advance through one decode step per token,
 each at its own position; a finished slot is refilled from the queue at
 the next tick.
 
+Encoder-decoder models (``prefill_fn``/``decode_fn`` from
+``models.encdec``) take the **frames lane**: a request carries its
+encoder frames beside the decoder prompt, is prefilled at the prompt's
+exact length into a dense slot (the decoder's KV cache and each layer's
+cross K/V, made once), and decodes like any other slot.
+
 Two cache layouts, as in the reference.  **Paged** (the default where
 the architecture allows it and ``decode_fn`` is the stock
 ``transformer.decode_step``): the prefill cache is scattered into blocks
@@ -39,8 +45,7 @@ every prefill attends through the flash attention kernel
 (``kernels.flash_attention``; a windowed layer past one window through
 the reference's two-chunk form).  Sampling happens on the host from
 per-request numpy streams, as in the reference, so greedy and sampled
-streams are comparable one to one.  Not yet ported: meshes and encoder
-frames.
+streams are comparable one to one.  Not yet ported: meshes.
 """
 from __future__ import annotations
 
@@ -54,6 +59,7 @@ import torch
 
 from repro_torch._bridge import resolve_device, tree_zip
 from repro_torch.kernels.paged_attention import BLOCK_TOKENS
+from repro_torch.models import encdec
 from repro_torch.models import transformer as tfm
 from repro_torch.models.plans import PlanStats, build_decode_plan
 from repro_torch.serve.paging import BlockPool, blocks_needed
@@ -92,7 +98,7 @@ class Request:
     eos_id: Optional[int] = None
     tokens: List[int] = field(default_factory=list)
     done: bool = False
-    # encoder frames (enc-dec families): not yet ported, rejected at submit
+    # enc-dec lane: precomputed encoder frames (T_enc, d_model)
     frames: Optional[np.ndarray] = None
     # seconds from submission after which the request is cancelled
     deadline_s: Optional[float] = None
@@ -409,8 +415,6 @@ class ServeEngine:
 
     # -- request intake ----------------------------------------------------
     def submit(self, req: Request) -> None:
-        if req.frames is not None:
-            raise _not_ported("encoder frames (the enc-dec prefill lane)")
         if not self.health.healthy:
             raise SubmitRejected(
                 "unhealthy", f"request {req.uid}: engine is unhealthy "
@@ -461,7 +465,11 @@ class ServeEngine:
         """Zeros shaped like a single-request prefill cache with the batch
         axis = slot count (a scalar index gets a slot axis appended)."""
         if self._axes is None:
-            self._axes = tfm.cache_batch_axes(self.cfg, proto)
+            # an encoder-decoder's caches are a list of per-layer
+            # {"self", "cross"} dicts, batch axis 0 throughout
+            axes_of = (encdec.cache_batch_axes if self.cfg.is_encoder_decoder
+                       else tfm.cache_batch_axes)
+            self._axes = axes_of(self.cfg, proto)
 
         def mk(leaf, a):
             shape = list(leaf.shape)
@@ -480,6 +488,11 @@ class ServeEngine:
             dst.select(a, s).copy_(src)
         tree_zip(sp, slot_caches, caches, self._axes)
 
+    def _frames(self, frames) -> torch.Tensor:
+        """One request's encoder frames as a (1, T, d) float32 batch."""
+        return torch.as_tensor(np.asarray(frames, np.float32)[None],
+                               device=self.device)
+
     def _bucket(self, n: int) -> int:
         for b in self._buckets:
             if b >= n:
@@ -495,12 +508,16 @@ class ServeEngine:
         """Single-request prefill → (first token, caches, S).
 
         Bucketed and masked where the model supports it, else at the
-        prompt's exact length.  ``S`` is the dense cache length: the
+        prompt's exact length (always with encoder frames, which ride in
+        the batch as ``"frames"``).  ``S`` is the dense cache length: the
         padded prompt (paged: the cache lives only until it is scattered
         into pool blocks) or the engine's capacity (dense slots)."""
         prompt = np.asarray(req.prompt, np.int64)
         n = len(prompt)
-        if self._masked_prefill:
+        batch = {}
+        if req.frames is not None:
+            batch["frames"] = self._frames(req.frames)
+        if self._masked_prefill and req.frames is None:
             S = self._bucket(n)
             toks = np.zeros((1, S), np.int64)
             toks[0, :n] = prompt                            # right-pad
@@ -510,10 +527,9 @@ class ServeEngine:
             S = n
             toks, kw = prompt[None], {}
         cap = S if self.paged else self.capacity
-        logits, caches = self._prefill_fn(
-            gen.params, self.cfg,
-            {"tokens": torch.as_tensor(toks, device=self.device)}, cap,
-            **kw, **self._plankw(gen))
+        batch["tokens"] = torch.as_tensor(toks, device=self.device)
+        logits, caches = self._prefill_fn(gen.params, self.cfg, batch, cap,
+                                          **kw, **self._plankw(gen))
         row = logits[0, -1].float().cpu().numpy()
         if self.logits_sink is not None:
             self.logits_sink(req.uid, row)
@@ -741,18 +757,19 @@ class ServeEngine:
         ticket manager verifies a swapped-in generation against the
         ticket's recorded fingerprint before committing to it.  A probe
         longer than ``capacity`` (possible with paged admission) runs
-        through a dense cache sized to it."""
-        if frames is not None:
-            raise _not_ported("encoder frames (the enc-dec prefill lane)")
+        through a dense cache sized to it.  ``frames`` (enc-dec) ride in
+        the prefill batch, as in the frames lane."""
         gen = self._gens[-1] if gid is None else self._gen_by_gid(gid)
         prompt = np.asarray(prompt, np.int64)
         cap = max(self.capacity, len(prompt) + max_new)
         kw = self._plankw(gen)
         with torch.inference_mode():
-            logits, caches = self._prefill_fn(
-                gen.params, self.cfg,
-                {"tokens": torch.as_tensor(prompt[None], device=self.device)},
-                cap, **kw)
+            batch = {"tokens": torch.as_tensor(prompt[None],
+                                               device=self.device)}
+            if frames is not None:
+                batch["frames"] = self._frames(frames)
+            logits, caches = self._prefill_fn(gen.params, self.cfg, batch,
+                                              cap, **kw)
             tok = int(np.argmax(logits[0, -1].float().cpu().numpy()))
             out = [tok]
             for _ in range(max_new - 1):

@@ -664,8 +664,10 @@ def test_registry_make_adapter():
     assert moe.family == "moe" and moe.recipe is None and moe.steps == 6
     assert moe.granularities[0] == "expert"
     assert get_family("hybrid").adapter_factory is LMAdapter
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_family("ssm")
+    assert get_family("ssm").adapter_factory is LMAdapter
+    assert get_family("audio").adapter_factory.__name__ == "EncDecAdapter"
+    with pytest.raises(KeyError):
+        get_family("nope")
     with pytest.raises(KeyError):
         make_adapter("nope")
 

@@ -351,14 +351,11 @@ def test_family_prunable_matches_reference():
     leaf = np.zeros((4, 4))
     paths = ("segments/1/0/moe/up", "segments/1/0/moe/router",
              "segments/0/0/attn/w_dq", "segments/0/0/norm1/scale", "embed")
-    for fam in ("dense", "moe", "hybrid", "cnn"):
+    for fam in ("dense", "moe", "hybrid", "ssm", "vlm", "audio", "cnn"):
         for p in paths:
             assert tmasks.family_prunable(fam)(p, leaf) == \
                 r_family(fam)(p, leaf), (fam, p)
     assert not tmasks.moe_prunable("segments/1/0/moe/router", leaf)
-    for fam in ("ssm", "vlm", "audio"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            tmasks.family_prunable(fam)
     with pytest.raises(KeyError):
         tmasks.family_prunable("nope")
 

@@ -276,20 +276,29 @@ def test_engine_requires_cuda_unless_cpu(slice_setup, monkeypatch):
 
 def test_not_yet_ported_paths_raise(slice_setup, capsys):
     """What is still to port raises "not yet ported" (or, on the command
-    line, exits 2 with a structured refusal): sharded engines, encoder
-    frames, the CLI's lint and --mesh, and training MoE."""
+    line, exits 2 with a structured refusal): sharded engines, the CLI's
+    lint and --mesh.  Encoder frames are admitted now (the frames lane:
+    ``tests/test_torch_encdec.py``), and MoE trains."""
     from repro_torch.api import cli
+    from repro_torch.models import encdec
     s = slice_setup
     kw = dict(params=s["tparams"], cfg=s["tcfg"], device="cpu")
     with pytest.raises(NotImplementedError, match="not yet ported"):
         ServeEngine(**kw, mesh=object())
-    eng = ServeEngine(**kw)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        eng.submit(Request(uid=0, prompt=np.ones(3, np.int32),
-                           frames=np.zeros((4, 256), np.float32)))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        eng.smoke_decode(np.ones(3, np.int32), 2,
-                         frames=np.zeros((4, 256), np.float32))
+    wcfg = tcfgs.scaled_down(tcfgs.get_arch("whisper-tiny"),
+                             dtype="float32")
+    wparams = encdec.init_params(torch.Generator().manual_seed(0), wcfg,
+                                 device="cpu")
+    eng = ServeEngine(params=wparams, cfg=wcfg, prefill_fn=encdec.prefill,
+                      decode_fn=encdec.decode_step, batch_slots=2,
+                      capacity=16, device="cpu")
+    frames = np.zeros((wcfg.encoder_seq_len, wcfg.d_model), np.float32)
+    req = Request(uid=0, prompt=np.ones(3, np.int32), max_new_tokens=2,
+                  frames=frames)
+    eng.submit(req)
+    eng.run()
+    assert req.status == "done" and req.tokens == eng.smoke_decode(
+        np.ones(3, np.int32), 2, frames=frames)
     for argv in (["lint", "--all", "--json"],
                  ["serve", "--arch", "llama3.2-3b", "--device", "cpu",
                   "--mesh", "1x2", "--json"]):
@@ -332,7 +341,8 @@ def test_import_loads_neither_jax_nor_repro():
         "repro_torch.models.transformer, repro_torch.kernels._build, "
         "repro_torch.serve.frontend, repro_torch.serve.manager, "
         "repro_torch.serve.fleet, repro_torch.api.cli, "
-        "repro_torch.distributed.fault_tolerance\n"
+        "repro_torch.distributed.fault_tolerance, repro_torch.models.encdec, "
+        "repro_torch.models.recurrent, repro_torch.data\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', "
         "'jaxlib', 'repro')]\n"
         "assert not bad, bad\n")

@@ -110,10 +110,11 @@ def test_structured_prune_matches_reference():
 
 
 def test_family_granularities_match_reference():
-    """Every family the port registers: the same schedulable
-    granularities (``expert`` only for moe)."""
+    """Every family the reference registers, the port registers too,
+    with the same schedulable granularities (``expert`` only for moe)."""
     ported = treg.available_families()
-    assert set(ported) == {"cnn", "dense", "hybrid", "moe"}
+    assert set(ported) == set(rreg.available_families()) == {
+        "audio", "cnn", "dense", "hybrid", "moe", "ssm", "vlm"}
     for fam in ported:
         want = rreg.family_granularities(rreg.get_family(fam))
         got = treg.family_granularities(treg.get_family(fam))

@@ -10,6 +10,7 @@ schedule arithmetic at 1e-6.  One reference trainer run (module fixture)
 serves both the step-by-step and the end-to-end comparison, so the
 reference compiles its train step once.
 """
+import dataclasses
 import pathlib
 import subprocess
 import sys
@@ -501,19 +502,28 @@ def test_entry_points_require_cuda_unless_cpu(setup, monkeypatch):
 
 
 def test_not_yet_ported_paths_raise(setup):
-    """mLSTM blocks are not ported yet (sliding windows and RG-LRU are:
-    ``tests/test_torch_hybrid.py``; QAT and the "dots" remat policy too:
-    ``tests/test_torch_qat.py``, ``test_torch_surface.py``), and an
-    unknown remat policy is refused."""
+    """Every block kind trains now (mLSTM and sLSTM against the
+    reference: ``tests/test_torch_xlstm.py``); what ``transformer``
+    refuses is an unknown block kind or norm, an encoder-decoder config
+    (``models.encdec`` runs those) and an unknown remat policy."""
     s = setup
     with pytest.raises(ValueError, match="unknown remat policy"):
         ttfm.set_remat(True, "everything")
     assert ttfm.remat_enabled()
-    mlstm = tcfgs.scaled_down(s["tcfg"], block_pattern=(tcfgs.MLSTM,))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ttfm.check_ported(mlstm)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ttfm.init_params(torch.Generator(), mlstm, device="cpu")
+    mlstm = tcfgs.scaled_down(s["tcfg"], block_pattern=(tcfgs.MLSTM,),
+                              rnn_width=128)
+    ttfm.check_ported(mlstm)
+    params = ttfm.init_params(torch.Generator(), mlstm, device="cpu")
+    assert "cell" in params["segments"][0][0]["rnn"]
+    assert "mlp" not in params["segments"][0][0]
+    for bad, match in ((dataclasses.replace(mlstm, block_pattern=("x",)),
+                        "unknown block kinds"),
+                       (dataclasses.replace(mlstm, norm="batchnorm"),
+                        "unknown norm"),
+                       (tcfgs.scaled_down(tcfgs.get_arch("whisper-tiny")),
+                        "models.encdec")):
+        with pytest.raises(ValueError, match=match):
+            ttfm.check_ported(bad)
 
 
 def test_new_modules_import_neither_jax_nor_repro():
