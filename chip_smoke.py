@@ -185,7 +185,23 @@ no result line otherwise):
    CUDA-core ``fma`` kernel, split over K); with every kernel count set
    to 0 before and read after;
 8. check one full-width resnet18 train step on the card against the
-   CPU (float32, TF32 off).
+   CPU (float32, TF32 off);
+9. the sparsity lint (``repro_torch.analysis``), outside inference mode
+   and after every other phase: (a) ``lint --kernels`` clean, then every
+   ``default_cases()`` launch spec held to its kernel — outputs and split
+   workspaces filled with NaN before the launch and every element the
+   spec writes finite after it, nothing written outside the spec's
+   region, NaN under dead weight tiles (#1-#3, #1b, #3b) and in pool
+   rows past a length or off the table (#6, #7) kept out, the result
+   held to the plain version, the launch on the spec's route and split
+   count, and each wgmma case's shared memory the library's figure; (b)
+   with every kernel count set to 0, ``lint_arch`` on llama3.2-3b at
+   full width cut to 4 layers on the card: 0 errors, and real launches
+   in every audited closure (prefill: #1/#2 on ``wgmma`` and #8; decode:
+   ``stream``; paged decode: #6; the train step: #3 and #4); (c) the
+   tiny ``lint --all`` on the card, each arch's findings equal to the
+   CPU's; the counts read after (c) are the lint path's launches
+   (``launches_lint`` in the kernels line, the cases in ``lint_cases``).
 
 Phase 2 also holds the expert-batched forward, dx and dw (#1, #3, #4
 over E experts, one launch) at deepseek-v3's expert shapes, E = 32 and
@@ -4474,6 +4490,343 @@ def llama4_config():
         moe=dataclasses.replace(cfg.moe, num_experts=LLAMA4_EXPERTS))
 
 
+# ---------------------------------------------------------------------------
+# The sparsity lint on the card: its kernel cases held to their kernels,
+# a full-width llama3.2-3b linted through its real launches, and the
+# tiny --all lint on the card against the CPU's
+# ---------------------------------------------------------------------------
+#: llama3.2-3b at full width for leg (b), 28 layers cut to this many:
+#: the lint's structured prune scores every prunable weight on the host,
+#: and at full depth leg (b) took 148.0 s on the H100's machine (119.5 s
+#: of it that prune, 16.3 s the mask accounting), past the phase's 120 s
+LINT_LAYERS = 4
+#: the kernel wrappers the lint path's launches are read from
+LINT_COUNTED = BSMM_ROUTED + BATCHED_ROUTED
+#: a case's kernel (the kernel table's number) -> its kernels-line name
+LINT_KERNEL_NAMES = {"#1": "bsmm", "#2": "bsmm_epilogue", "#3": "bsmm_dx",
+                     "#4": "bsmm_dw", "#1b": "bsmm_batched",
+                     "#3b": "bsmm_batched_dx", "#4b": "bsmm_batched_dw",
+                     "#5": "masked_matmul", "#6": "paged_attention",
+                     "#7": "paged_attention_fused_v",
+                     "#8": "flash_attention", "#9": "tile_stats"}
+
+
+@contextlib.contextmanager
+def nan_outputs(B):
+    """Every floating tensor ``torch.empty`` makes while active starts as
+    NaN, and so does bsmm's persistent split workspace (its counters stay
+    0): an output element or partial a kernel fails to write stays NaN."""
+    real = torch.empty
+
+    def empty(*a, **k):
+        t = real(*a, **k)
+        if t.is_floating_point():
+            t.fill_(float("nan"))
+        return t
+
+    with torch.inference_mode():     # made there by the earlier phases
+        for ws, _ in B._SCRATCH.values():
+            ws.fill_(float("nan"))
+    torch.empty = empty
+    try:
+        yield
+    finally:
+        torch.empty = real
+
+
+def reset_lint_counts(B, FA, PA, TS) -> None:
+    """Every wrapper's launch, route and split counts to 0."""
+    reset_bsmm_routes(B, LINT_COUNTED)
+    for f in (B.masked_matmul,):
+        f.launches = f.split_launches = 0
+        f.launches_by_route.update({k: 0 for k in f.launches_by_route})
+    PA.paged_attention.launches = 0
+    PA.paged_attention.fused_launches = 0
+    PA.paged_attention.fused_launches_by_route.update(wgmma=0, simt=0)
+    FA.flash_attention.launches = 0
+    FA.flash_attention.launches_by_route.update(wgmma=0, simt=0)
+    TS.tile_stats.launches = 0
+
+
+def lint_counts(B, FA, PA, TS) -> dict:
+    """Launches of every kernel of the kernels line, by its name there."""
+    out = {n: getattr(B, n).launches for n in LINT_COUNTED}
+    out.update(masked_matmul=B.masked_matmul.launches,
+               paged_attention=PA.paged_attention.launches,
+               paged_attention_fused_v=PA.paged_attention.fused_launches,
+               flash_attention=FA.flash_attention.launches,
+               tile_stats=TS.tile_stats.launches)
+    return out
+
+
+def _route_counter(B, FA, PA, TS, spec):
+    """(the wrapper's count by route, its split count) a case's launch
+    moves."""
+    if spec.kernel in ("#6",):
+        return lambda: (PA.paged_attention.launches, 0)
+    if spec.kernel == "#7":
+        return lambda: (PA.paged_attention.fused_launches_by_route[
+            spec.route], 0)
+    if spec.kernel == "#8":
+        return lambda: (FA.flash_attention.launches_by_route[spec.route], 0)
+    if spec.kernel == "#9":
+        return lambda: (TS.tile_stats.launches, 0)
+    f = getattr(B, spec.name)
+    return lambda: (f.launches_by_route[spec.route], f.split_launches)
+
+
+def _case_call(case, B, FA, PA, TS, g, device):
+    """(kernel call, plain call) of a default case on the card, with NaN
+    under every dead tile of a weight (#1-#3, #1b, #3b) and in every
+    pool row past a length or off the table (#6, #7)."""
+    from repro_torch.analysis.kernel_audit import bitmap_mask, paged_case
+    from repro_torch.kernels.bsmm import make_tile_plan
+    i = case.inputs
+    kind = i["kind"]
+    nan = float("nan")
+
+    def rnd(*shape, dtype=torch.float32):
+        return (torch.randn(*shape, generator=g, device=device) * 0.5) \
+            .to(dtype).contiguous()
+
+    if kind in ("fwd", "dx", "dw", "batched", "batched_dx", "batched_dw"):
+        mask = bitmap_mask(i["bitmap"])
+        plan = make_tile_plan(mask, strict=True)
+        K, N = mask.shape
+        dt, M, E = i["dtype"], i["M"], i.get("E", 1)
+        dead = torch.from_numpy(mask == 0).to(device)
+        w = rnd(E, K, N, dtype=dt)
+        if kind not in ("dw", "batched_dw"):
+            w[:, dead] = nan                      # never read, never reaches
+        w2 = w[0].contiguous()
+        if kind == "fwd":
+            x = rnd(M, K, dtype=dt)
+            if i["epilogue"]:
+                bias = rnd(N, dtype=dt)
+                return (lambda: B.bsmm_epilogue(x, w2, plan, bias, "silu"),
+                        lambda: B.bsmm_epilogue_plain(x, w2, plan, bias,
+                                                      "silu"))
+            return (lambda: B.bsmm(x, w2, plan),
+                    lambda: B.bsmm_plain(x, w2, plan))
+        if kind == "dx":
+            gr = rnd(M, N, dtype=dt)
+            return (lambda: B.bsmm_dx(gr, w2, plan),
+                    lambda: B.bsmm_dx_plain(gr, w2, plan))
+        if kind == "dw":
+            x, gr = rnd(M, K, dtype=dt), rnd(M, N, dtype=dt)
+            return (lambda: B.bsmm_dw(x, gr, plan),
+                    lambda: B.bsmm_dw_plain(x, gr, plan))
+        if kind == "batched":
+            a = rnd(E, M, K, dtype=dt)
+            return (lambda: B.bsmm_batched(a, w, plan),
+                    lambda: B.bsmm_batched_plain(a, w, plan))
+        if kind == "batched_dx":
+            gr = rnd(E, M, N, dtype=dt)
+            return (lambda: B.bsmm_batched_dx(gr, w, plan),
+                    lambda: B.bsmm_batched_dx_plain(gr, w, plan))
+        x, gr = rnd(E, M, K, dtype=dt), rnd(E, M, N, dtype=dt)
+        return (lambda: B.bsmm_batched_dw(x, gr, plan),
+                lambda: B.bsmm_batched_dw_plain(x, gr, plan))
+    if kind == "masked":
+        dt = i["dtype"]
+        x, w = rnd(i["M"], i["K"], dtype=dt), rnd(i["K"], i["N"], dtype=dt)
+        m = (torch.rand(i["K"], i["N"], generator=g, device=device) < 0.3) \
+            .to(dt)
+        m[:128, :128] = 0                         # an all-dead tile
+        return (lambda: B.masked_matmul(x, w, m, bm=8),
+                lambda: B.masked_matmul_plain(x, w, m))
+    if kind == "paged":
+        geo, tables, lengths, blocks, dt, fused = paged_case(i["route"])
+        q = rnd(geo.B, geo.Hq, geo.hd, dtype=dt)
+        kp = rnd(geo.P, geo.T, geo.Hkv, geo.hd, dtype=dt)
+        vp = None if fused else rnd(geo.P, geo.T, geo.Hkv, geo.dv, dtype=dt)
+        live = torch.zeros(geo.P, geo.T, dtype=torch.bool, device=device)
+        for b, blks in enumerate(blocks):
+            for j, p in enumerate(blks):
+                live[p, :min(geo.T, lengths[b] - j * geo.T)] = True
+        for pool in (kp, vp):
+            if pool is not None:
+                pool[~live] = nan                 # past a length, off-table
+        tb = torch.as_tensor(tables, device=device)
+        ln = torch.as_tensor(lengths, dtype=torch.int32, device=device)
+        kw = dict(scale=geo.hd ** -0.5, v_dim=geo.dv if fused else None)
+        return (lambda: PA.paged_attention(q, kp, vp, tb, ln, **kw),
+                lambda: PA.paged_attention_ref(q, kp, vp, tb, ln, **kw))
+    if kind == "flash":
+        from repro_torch.analysis.kernel_audit import FLASH as F_
+        dt = i["dtype"]
+        q = rnd(F_["B"], F_["S"], F_["Hq"], F_["hd"], dtype=dt)
+        k = rnd(F_["B"], F_["S"], F_["Hkv"], F_["hd"], dtype=dt)
+        v = rnd(F_["B"], F_["S"], F_["Hkv"], F_["dv"], dtype=dt)
+        return (lambda: FA.flash_attention(q, k, v, causal=True),
+                lambda: FA.flash_attention_plain(q, k, v, causal=True))
+    w = rnd(i["K"], i["N"])
+    w[:128, :128] = 0
+    return (lambda: TS.tile_stats(w)[1], lambda: TS.tile_stats_plain(w)[1])
+
+
+def _library_smem(spec, B, FA, PA) -> int:
+    """The shared memory the kernel's own library says a wgmma launch of
+    this spec asks for."""
+    import ctypes
+    if spec.kernel == "#5":
+        return B.masked_wgmma_smem_bytes(torch.bfloat16)
+    if spec.kernel == "#8":
+        op = spec.operands
+        return FA.wgmma_smem_bytes(op["q"][1] // spec.grid[1],
+                                   op["out"][1] // spec.grid[1])
+    if spec.kernel == "#7":
+        lib = PA._lib()
+        lib.paged_attention_fused_wgmma_smem.argtypes = [ctypes.c_int]
+        lib.paged_attention_fused_wgmma_smem.restype = ctypes.c_int
+        hd = spec.operands["q"][1]
+        got = lib.paged_attention_fused_wgmma_smem(hd)
+        require(got == PA.fused_wgmma_smem_bytes(hd),
+                "the fused kernel's shared memory disagrees with "
+                "fused_wgmma_smem_bytes")
+        return got
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return B.wgmma_smem_bytes(int(np.prod(spec.grid)) <= sms)
+
+
+def lint_kernel_cases(B, FA, PA, TS, device="cuda") -> dict:
+    """Leg (a): ``lint --kernels`` clean, then every default case's kernel
+    launched once with NaN-filled outputs and workspaces (and NaN under
+    dead tiles and past lengths), its spec's region finite, nothing
+    outside it written (dw's dead tiles stay the wrapper's zeros), the
+    result held to the plain version, the launch on the spec's route and
+    split, and a wgmma case's shared memory the library's figure."""
+    from repro_torch.analysis import lint_kernels
+    from repro_torch.analysis.kernel_audit import default_cases
+    rep = lint_kernels()
+    require(rep.ok and not rep.findings,
+            f"lint --kernels on the card: {[str(f) for f in rep.findings]}")
+    g = torch.Generator(device=device).manual_seed(41)
+    rows = {}
+    for case in default_cases():
+        spec = case.spec
+        call, plain = _case_call(case, B, FA, PA, TS, g, device)
+        count = _route_counter(B, FA, PA, TS, spec)
+        before = count()
+        with nan_outputs(B):
+            out = call()
+        torch.cuda.synchronize()
+        after = count()
+        require(after[0] == before[0] + 1,
+                f"{case.name}: no launch on the {spec.route} route")
+        if spec.kernel in ("#1", "#2", "#1b", "#3", "#3b", "#4", "#4b"):
+            require(after[1] - before[1] == (spec.splits > 1),
+                    f"{case.name}: split launches disagree with the spec")
+        want = plain()
+        o2 = out.reshape(spec.operands[spec.output]).float()
+        region = torch.from_numpy(spec.region).to(device)
+        require(bool(torch.isfinite(o2[region]).all()),
+                f"{case.name}: an element the spec writes is not finite")
+        if not spec.region.all():
+            require(bool((o2[~region] == 0).all()),
+                    f"{case.name}: written outside the spec's region")
+        err = float((out.float() - want.float()).abs().max())
+        tol = tolerance(out.dtype, want)
+        require(err <= tol, f"{case.name}: |kernel - plain| = {err} > {tol}")
+        smem = None
+        if spec.route == "wgmma":
+            smem = _library_smem(spec, B, FA, PA)
+            require(smem == spec.smem,
+                    f"{case.name}: spec smem {spec.smem} != library {smem}")
+        rows[case.name] = {"kernel": spec.kernel, "route": spec.route,
+                           "splits": spec.splits, "launches": after[0]
+                           - before[0], "max_abs_err": err, "smem": smem}
+        print(f"lint case {case.name}: {rows[case.name]}")
+    return rows
+
+
+def lint_phase(B, FA, PA, TS, device="cuda") -> tuple:
+    """The lint on the card: leg (a) the kernel cases; then, with every
+    count set to 0, leg (b) ``lint_arch`` on llama3.2-3b at full width
+    (cut to ``LINT_LAYERS`` layers) with 0 errors and real launches in
+    each audited closure, and leg (c) the tiny ``lint --all`` on the card
+    equal to the CPU's, arch by arch.  Returns (launches of the lint
+    path, summary)."""
+    import dataclasses
+
+    from repro_torch.analysis import lint_arch
+    from repro_torch.api.registry import list_adaptable
+    from repro_torch.configs import get_arch
+
+    t0 = time.perf_counter()
+    cases = lint_kernel_cases(B, FA, PA, TS, device)
+    t_a = time.perf_counter() - t0
+
+    reset_lint_counts(B, FA, PA, TS)
+    per_closure = {}
+
+    @contextlib.contextmanager
+    def probe(where):
+        before = {**bsmm_routes(B, BSMM_ROUTED),
+                  "paged_attention": PA.paged_attention.launches,
+                  "flash_attention": dict(FA.flash_attention
+                                          .launches_by_route)}
+        yield
+        torch.cuda.synchronize()
+        now = {**bsmm_routes(B, BSMM_ROUTED),
+               "paged_attention": PA.paged_attention.launches,
+               "flash_attention": dict(FA.flash_attention.launches_by_route)}
+        grew = {}
+        for n in BSMM_ROUTED:
+            b, a = before[n]["launches_by_route"], now[n]["launches_by_route"]
+            grew[n] = {r: a[r] - b[r] for r in a if a[r] - b[r]}
+        grew["paged_attention"] = now["paged_attention"] \
+            - before["paged_attention"]
+        grew["flash_attention"] = {
+            r: now["flash_attention"][r] - before["flash_attention"][r]
+            for r in now["flash_attention"]}
+        per_closure[where.split("/", 1)[1]] = grew
+
+    t1 = time.perf_counter()
+    cfg = dataclasses.replace(get_arch("llama3.2-3b"), n_layers=LINT_LAYERS)
+    rep = lint_arch(cfg, scale="full", device=device, probe=probe)
+    t_b = time.perf_counter() - t1
+    print(f"lint llama3.2-3b full width, {LINT_LAYERS} layers: "
+          f"{rep.summary()} in {t_b:.1f} s; per closure {per_closure}")
+    require(rep.ok, f"the full-width lint: {[str(f) for f in rep.errors]}")
+    fwd = lambda c, r: sum(per_closure[c][n].get(r, 0)      # noqa: E731
+                           for n in ("bsmm", "bsmm_epilogue"))
+    require(fwd("prefill", "wgmma") > 0
+            and per_closure["prefill"]["flash_attention"]["wgmma"] > 0,
+            "the audited prefill launched no wgmma bsmm or flash kernel")
+    require(fwd("decode", "stream") > 0,
+            "the audited decode launched no stream bsmm kernel")
+    require(per_closure["decode_paged"]["paged_attention"] > 0,
+            "the audited paged decode launched no paged kernel")
+    require(sum(per_closure["train_step"]["bsmm_dx"].values()) > 0
+            and sum(per_closure["train_step"]["bsmm_dw"].values()) > 0,
+            "the audited train step launched no dx or dw kernel")
+    del rep
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t2 = time.perf_counter()
+    findings = {}
+    for name in list_adaptable():
+        on_card = lint_arch(name, device=device)
+        on_cpu = lint_arch(name, device="cpu")
+        got = sorted((f.code, f.where, f.severity) for f in on_card.findings)
+        want = sorted((f.code, f.where, f.severity) for f in on_cpu.findings)
+        require(got == want, f"lint {name}: the card's findings {got} != "
+                f"the CPU's {want}")
+        findings[name] = got
+    t_c = time.perf_counter() - t2
+    launches = lint_counts(B, FA, PA, TS)
+    print(f"lint --all tiny on the card: findings per arch {findings} in "
+          f"{t_c:.1f} s; lint path launches {launches}")
+    summary = {"seconds": {"kernel_cases": t_a, "llama_full": t_b,
+                           "all_tiny": t_c},
+               "cases": cases, "llama_full_layers": LINT_LAYERS,
+               "llama_full_per_closure": per_closure,
+               "findings_per_arch": findings}
+    return launches, summary
+
+
 def sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
@@ -4668,6 +5021,12 @@ def main() -> int:
     resnet_summary = resnet_step_check()
     cnn_summary["resnet18_step_check"] = resnet_summary
     phase("cnn")
+    # the sparsity lint, after every earlier phase (their held counts
+    # are read) and outside inference mode (it differentiates a step)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lint_launches, lint_summary = lint_phase(B, FA, PA, TS)
+    phase("lint")
 
     def new_path_launches(name):
         """A 2-D bsmm wrapper's launches on the later slices' paths."""
@@ -4865,6 +5224,14 @@ def main() -> int:
          "plain_ms": flash_row["plain_ms"], "bound_ms": flash_row["bound_ms"],
          "bound_by": flash_row["bound_by"],
          "library_ms": flash_row["library_ms"]})
+    # the lint path: every kernel's launches in legs (b) and (c), and the
+    # default cases held to it in leg (a)
+    for k in kernels:
+        k["launches_lint"] = lint_launches[k["name"]]
+        k["lint_cases"] = {
+            n: {f: r[f] for f in ("route", "splits", "max_abs_err", "smem")}
+            for n, r in lint_summary["cases"].items()
+            if LINT_KERNEL_NAMES[r["kernel"]] == k["name"]}
     (OUT / "chip_smoke_kernels.json").write_text(json.dumps(
         {"device": smi, "bsmm": bsmm_times, "paged_attention": paged_row,
          "bsmm_grads": grad_times, "paged_attention_fused_v": mla_row,
@@ -4884,7 +5251,7 @@ def main() -> int:
          "retrain_xlstm": rx_summary, "serve_whisper": wh_summary,
          "retrain_whisper": rw_summary, "serve_vlm": vl_summary,
          "retrain_vlm": rv_summary, "serve_llama4": l4_summary,
-         "phase_s": phases},
+         "lint": lint_summary, "phase_s": phases},
         indent=1, default=str))
     print(json.dumps({"serve": {**summary, "decode_profile": {
         k: v for k, v in summary["decode_profile"].items()
@@ -4919,6 +5286,8 @@ def main() -> int:
                                  if k not in ("report", "profile",
                                               "decode_profile")}},
                          default=str))
+    print(json.dumps({"lint": {k: v for k, v in lint_summary.items()
+                               if k != "cases"}}, default=str))
     print(json.dumps({"phase_s": phases}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

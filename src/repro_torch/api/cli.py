@@ -25,9 +25,11 @@ to one JSON object per line (machine-readable: round events carry the
 stage name/index and kind, sparsity, accuracy, and the bsmm live-tile
 fraction) for scripting and bench harnesses.
 
-Exit codes: 0 success; 2 structured refusal (e.g. ``serve`` on a
-family with no serving path, or ``lint`` and ``--mesh``, which are not
-yet ported — reported, not a traceback).
+    python -m repro_torch.api lint --all --kernels --device cpu --json
+
+Exit codes: 0 success; 1 ``lint`` found an error; 2 structured refusal
+(e.g. ``serve`` on a family with no serving path, or ``lint --hlo`` and
+``--mesh``, which are not yet ported — reported, not a traceback).
 """
 from __future__ import annotations
 
@@ -229,9 +231,69 @@ def cmd_recipes(args) -> int:
 
 
 def cmd_lint(args) -> int:
-    """The static sparsity lint needs the analysis package, which is not
-    yet ported: a structured refusal."""
-    return _not_ported(args, "lint")
+    """Static sparsity lint; exits 1 on any error-severity finding, 2 on
+    a structured refusal (an unknown rule code, no target, ``--hlo``)."""
+    from repro_torch.analysis import lint_arch, lint_kernels
+    from repro_torch.api.registry import list_adaptable
+
+    if args.explain is not None:
+        from repro_torch.analysis.findings import RULES, explain
+        code = args.explain.upper()
+        if code not in RULES:
+            _emit({"error": "unknown rule", "code": code,
+                   "known": sorted(RULES)}, args.json,
+                  f"unknown rule {code}; known: "
+                  f"{', '.join(sorted(RULES))}")
+            return EXIT_UNSUPPORTED
+        rule = RULES[code]
+        _emit({"code": rule.code, "family": rule.family,
+               "title": rule.title, "doc": rule.doc}, args.json,
+              explain(code))
+        return EXIT_OK
+
+    if args.hlo:
+        from repro_torch.analysis.lint import HLO_REFUSAL
+        _emit({"event": "not_yet_ported", "what": "lint --hlo",
+               "reason": HLO_REFUSAL}, args.json, f"error: {HLO_REFUSAL}")
+        return EXIT_UNSUPPORTED
+
+    if not (args.all or args.arch or args.kernels):
+        print("lint: one of --arch, --all, --kernels, or --explain "
+              "is required")
+        return EXIT_UNSUPPORTED
+
+    any_error = False
+    # the kernel audit (K3xx) is part of the full gate: on by default
+    # for --all, opt-in alongside --arch, standalone via bare --kernels
+    if args.kernels or args.all:
+        rep = lint_kernels()
+        any_error = not rep.ok
+        summary = rep.summary()
+        _emit({"arch": "kernels", **rep.to_dict()}, args.json,
+              f"{'kernels':28s} findings={summary['findings']} "
+              f"errors={summary['error']} "
+              f"warnings={summary['warning']} "
+              f"{'OK' if rep.ok else 'FAIL'}")
+        if not args.json:
+            for f in rep.findings:
+                print(f"  {f}")
+
+    names = (list_adaptable() if args.all
+             else [args.arch] if args.arch else [])
+    for name in names:
+        rep = lint_arch(name, recipe=args.recipe, scale=args.scale,
+                        seed=args.seed, device=args.device)
+        any_error = any_error or not rep.ok
+        summary = rep.summary()
+        _emit({"arch": name, **rep.to_dict()}, args.json,
+              f"{name:28s} findings={summary['findings']} "
+              f"errors={summary['error']} "
+              f"warnings={summary['warning']} "
+              f"{'OK' if rep.ok else 'FAIL'}")
+        if not args.json:
+            for f in rep.findings:
+                print(f"  {f}")
+    return 1 if any_error else EXIT_OK
 
 
 def cmd_finetune(args) -> int:
@@ -761,9 +823,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
     p = sub.add_parser("lint",
-                       help="static sparsity lint (not yet ported: exits "
-                            "2 with a structured refusal; the options are "
-                            "the reference's)")
+                       help="static sparsity lint: recipe programs, "
+                            "tile plans, serving state, the hot paths' "
+                            "dispatched ops and the kernels' launch "
+                            "geometry; exits 1 on any error finding")
     g = p.add_mutually_exclusive_group(required=False)
     g.add_argument("--arch", default=None,
                    help="any name from `python -m repro_torch.api archs`")
@@ -778,13 +841,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="recipe to lint instead of the family default: "
                         "a registered name or a path to a recipe .json")
     p.add_argument("--scale", default="tiny", choices=("tiny", "full"),
-                   help="config scale the masks/plans/traces are built "
-                        "at (tiny: CPU-seconds per arch)")
+                   help="config scale the masks/plans/audited closures "
+                        "are built at (tiny: CPU-seconds per arch)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--hlo", action="store_true",
-                   help="also cross-check the compiled serving prefill")
+                   help="the reference's compiled-HLO cross-check (not "
+                        "yet ported: exits 2 with a structured refusal)")
     p.add_argument("--json", action="store_true",
                    help="one JSON report object per arch line")
+    p.add_argument("--device", default="cuda",
+                   help="where the audited closures run (default cuda; "
+                        "cpu runs the kernels' plain versions)")
     p.set_defaults(fn=cmd_lint)
 
     p = sub.add_parser("prune", help="run a prune recipe (PruningSession)")

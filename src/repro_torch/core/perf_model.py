@@ -1,5 +1,5 @@
 """Deterministic pipelined ReRAM execution model (paper §V.A, Figs 7-8;
-port of the first half of ``repro.core.perf_model``).
+port of ``repro.core.perf_model``), and the H100 launch cost model.
 
 Target chip (paper): 256 tiles × 96 crossbars of 128×128 cells @10 MHz.
 CNN layers execute in a pipeline (PipeLayer [1]): every layer processes
@@ -20,9 +20,11 @@ Iso-performance (Fig. 6): replication factors are fixed to the
 *unpruned* model's waterfill (equal parallelism ⇒ equal performance);
 pruned models then need Σ r_l·xb'_l crossbars.
 
-Every number here is of the paper's modelled ReRAM chip, not of the
-device the port runs on.  The reference's second half (``KernelCost``:
-the cost of its TPU kernels' grids) has no counterpart here.
+Every number of this first half is of the paper's modelled ReRAM chip,
+not of the device the port runs on.  The second half (``KernelCost``)
+counts the port's own CUDA launches on the H100 — passes, flops and
+bytes, not time — for the kernel audit's K306, where the reference's
+counts its TPU kernels' grids.
 """
 from __future__ import annotations
 
@@ -165,3 +167,143 @@ def iso_perf_xbars(unpruned: Sequence[LayerPerf],
         "pruned_xbars": need_pruned,
         "savings": 1.0 - need_pruned / max(need_unpruned, 1e-9),
     }
+
+
+# ---------------------------------------------------------------------------
+# The H100 launch cost model (the counterpart of the reference's
+# ``KernelCost`` half, which costs its TPU grids): each CUDA launch's
+# traffic as it is launched, with no elision —
+#
+#   * passes    — blocks that do work;
+#   * flops     — the multiply-adds those blocks issue at the route's
+#                 block sizes (a block's full rows, even past M);
+#   * hbm_bytes — every operand rectangle a working block reads (rows
+#                 past M are the kernels' zero fill, not read), every
+#                 output element written once, and f32 split partials
+#                 stored and read back once.  #2's bias vector is not
+#                 counted.
+#
+# The numbers come from plan metadata and the wrappers' route rules in
+# closed form; ``analysis.kernel_audit`` (K306) enumerates the same
+# three from each ``kernels.spec.LaunchSpec`` block by block and
+# compares, so the cost model and the launch specs cannot silently
+# diverge.  A consistency oracle, not a clock.
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class KernelCost:
+    """Predicted cost of one CUDA launch under the no-elision model."""
+    passes: int
+    flops: float
+    hbm_bytes: float
+
+
+_TILE = XBAR_ROWS       # the plan's 128 tile
+
+
+def _elem(dtype) -> int:
+    import torch
+    return 2 if dtype == torch.bfloat16 else 4
+
+
+def _walk_cost(counts, S: int, *, E: int, M: int, B: int, BM: int, BN: int,
+               elem: int, cluster: bool) -> KernelCost:
+    """A block-sparse walk over output tiles whose live lists are
+    ``counts``, cut into ``S`` pieces each (pieces of a list of c tiles:
+    min(S, max(c, 1))), rows in blocks of BM, columns of BN."""
+    c = np.asarray(counts, np.int64)
+    parts = np.minimum(S, np.maximum(c, 1))
+    rb, cpt = -(-M // BM), _TILE // BN
+    live = int(c.sum())
+    passes = E * rb * cpt * (S * len(c) if cluster else int(parts.sum()))
+    flops = E * rb * cpt * live * 2.0 * BM * BN * _TILE
+    lhs = E * cpt * live * M * _TILE * elem
+    w = E * rb * cpt * live * _TILE * BN * elem
+    out = E * M * B * elem
+    part = 0 if cluster else \
+        2 * E * cpt * M * BN * 4 * int(parts[parts > 1].sum())
+    return KernelCost(passes, flops, float(lhs + w + out + part))
+
+
+def _walk(kind: str, plan, M: int, dtype, E: int = 1) -> KernelCost:
+    """A block-sparse walk's cost on the route and split count the
+    wrapper gives it, at the block sizes its launcher uses."""
+    from repro_torch.kernels.spec import block_geometry
+    route, S = plan.route_and_splits(kind, M, dtype, E)
+    counts = plan.counts_t if kind == "dx" else plan.counts
+    BM, BN = block_geometry(kind, route, M)
+    return _walk_cost(counts, S, E=E, M=M, B=len(counts) * _TILE, BM=BM,
+                      BN=BN, elem=_elem(dtype), cluster=route == "wgmma")
+
+
+def bsmm_fwd_cost(plan, M: int, dtype) -> KernelCost:
+    """The 2-D forward (#1, #2) at M rows of ``dtype``."""
+    return _walk("fwd", plan, M, dtype)
+
+
+def bsmm_batched_cost(plan, E: int, M: int, dtype) -> KernelCost:
+    """The expert-batched forward (#1b), M rows an expert."""
+    return _walk("batched", plan, M, dtype, E)
+
+
+def bsmm_dx_cost(plan, M: int, dtype, E: int = 1) -> KernelCost:
+    """dx (#3; #3b with E experts), over the transposed plan."""
+    return _walk("dx", plan, M, dtype, E)
+
+
+def bsmm_dw_cost(plan, M: int, dtype, E: int = 1) -> KernelCost:
+    """dw (#4; #4b): each of the L live tiles' rows cut into pieces."""
+    route, S = plan.route_and_splits("dw", M, dtype, E)
+    step = 64 if route == "wgmma" else 32
+    steps = -(-M // step)
+    n = min(S, max(steps, 1))
+    L, t2 = int(plan.live_tiles), _TILE * _TILE
+    cluster = route == "wgmma"
+    passes = E * L * (S if cluster else n)
+    flops = E * L * 2.0 * steps * step * t2
+    hbm = E * L * (2 * M * _TILE + t2) * _elem(dtype)
+    if not cluster and n > 1:
+        hbm += 2 * E * L * n * t2 * 4
+    return KernelCost(passes, flops, float(hbm))
+
+
+def paged_decode_cost(lengths, *, hq: int, hkv: int, hd: int, dv: int,
+                      block_tokens: int, route: str, fused: bool,
+                      dtype) -> KernelCost:
+    """Paged decode (#6, #7 with ``fused``): sequence b touches
+    ⌈len/T⌉ blocks for every head group; the simt kernels read a block's
+    live rows, the wgmma kernel all T (TMA); each working block stores
+    (heads, dv + 2) f32 partials, which the combine kernel reads back
+    before writing (B, Hq, dv)."""
+    from repro_torch.kernels import paged_attention as kp
+    T, G = block_tokens, hq // hkv
+    heads = kp._WG_HEADS if route == "wgmma" else kp._GB
+    groups = hkv * -(-G // heads)
+    nb = sum(-(-int(n) // T) for n in lengths)
+    rows = nb * T if route == "wgmma" else sum(int(n) for n in lengths)
+    e = _elem(dtype)
+    kv = rows * (hd + (0 if fused else dv)) * e
+    q = hq * nb * hd * e
+    part = 2 * hq * nb * (dv + 2) * 4
+    out = len(lengths) * hq * dv * e
+    flops = 2.0 * hq * rows * (hd + dv)
+    return KernelCost(groups * nb, flops,
+                      float(groups * kv + q + part + out))
+
+
+def flash_cost(*, batch: int, seq: int, hq: int, hkv: int, hd: int,
+               dv: int, bq: int, bk: int, causal: bool,
+               dtype) -> KernelCost:
+    """Flash attention (#8): query tile i of bq rows reads the key tiles
+    up to its last query under ``causal`` (all without)."""
+    e = _elem(dtype)
+    nkt = -(-seq // bk)
+    passes, flops, hbm = 0, 0.0, 0
+    for i in range(-(-seq // bq)):
+        q0, q1 = i * bq, min((i + 1) * bq, seq)
+        nk = min(nkt, -(-(q0 + bq) // bk)) if causal else nkt
+        keys = min(nk * bk, seq)
+        passes += 1
+        flops += 2.0 * bq * bk * (hd + dv) * nk
+        hbm += (q1 - q0) * (hd + dv) * e + keys * (hd + dv) * e
+    heads = batch * hq
+    return KernelCost(heads * passes, heads * flops, float(heads * hbm))

@@ -43,7 +43,8 @@ the product of all-zero mask tiles, through the CUDA kernel that
 ``masked_route`` picks from the shapes (split-K streaming below 64 rows,
 TMA and ``wgmma`` for bfloat16 from 64, CUDA-core FMA for float32),
 counted by kernel in ``masked_matmul.launches_by_route``.  Each
-wrapper counts its kernel launches in ``.launches``.  ``bsmm_apply`` is
+wrapper counts its kernel launches in ``.launches``, and marks its
+body for the lint's dispatch audit (``kernels._mark``).  ``bsmm_apply`` is
 the differentiable product (a ``torch.autograd.Function``): forward
 through ``bsmm``/``bsmm_epilogue``, backward through ``bsmm_dx`` and
 ``bsmm_dw``, on either device; ``bsmm_batched_apply`` is its
@@ -73,7 +74,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MXU_TILE
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _mark
 
 
 class GeometryError(ValueError):
@@ -772,6 +773,7 @@ def _launch_2d(x2, w, plan: TilePlan, bias, act, epi: int,
     return out, route, S
 
 
+@_mark.marked
 def bsmm(x2: torch.Tensor, w: torch.Tensor, plan: TilePlan) -> torch.Tensor:
     """Kernel #1: ``x2 (M, K) @ (w ⊙ tile bitmap) (K, N)`` in x2's dtype,
     on the CUDA route ``bsmm_route`` names, each column tile's live list
@@ -796,6 +798,7 @@ bsmm.launches_by_route = {k: 0 for k in _BSMM_ROUTES}
 bsmm.split_launches = 0
 
 
+@_mark.marked
 def bsmm_epilogue(x2: torch.Tensor, w: torch.Tensor, plan: TilePlan,
                   bias: Optional[torch.Tensor] = None,
                   act: Optional[str] = None) -> torch.Tensor:
@@ -831,6 +834,7 @@ def batched_grid(E: int, where: str = "bsmm_batched") -> None:
                             shape=(E,), where=where)
 
 
+@_mark.marked
 def bsmm_batched(a: torch.Tensor, w: torch.Tensor,
                  plan: TilePlan) -> torch.Tensor:
     """Kernel #1 batched over experts: ``a (E, M, K)`` and ``w (E, K, N)``
@@ -986,6 +990,7 @@ def _count(fn, route: Optional[str], S: int) -> None:
     fn.split_launches += S > 1
 
 
+@_mark.marked
 def bsmm_dx(g: torch.Tensor, w: torch.Tensor, plan: TilePlan) -> torch.Tensor:
     """Kernel #3: ``g (M, N) @ (w ⊙ tile bitmap)ᵀ`` → (M, K) in g's
     dtype, over the transposed plan's live N tiles only, on the CUDA
@@ -1003,6 +1008,7 @@ bsmm_dx.launches_by_route = {k: 0 for k in _DX_ROUTES}
 bsmm_dx.split_launches = 0
 
 
+@_mark.marked
 def bsmm_batched_dx(g: torch.Tensor, w: torch.Tensor,
                     plan: TilePlan) -> torch.Tensor:
     """Kernel #3 batched over experts: ``g (E, M, N)`` and ``w (E, K, N)``
@@ -1021,6 +1027,7 @@ bsmm_batched_dx.launches_by_route = {k: 0 for k in _DX_ROUTES}
 bsmm_batched_dx.split_launches = 0
 
 
+@_mark.marked
 def bsmm_dw(x2: torch.Tensor, g: torch.Tensor, plan: TilePlan) -> torch.Tensor:
     """Kernel #4: the (K, N) weight grad of ``x2 (M, K) @ w`` for the
     cotangent ``g (M, N)``, live tiles only, in x2's dtype; dead tiles
@@ -1039,6 +1046,7 @@ bsmm_dw.launches_by_route = {k: 0 for k in _DW_ROUTES}
 bsmm_dw.split_launches = 0
 
 
+@_mark.marked
 def bsmm_batched_dw(x: torch.Tensor, g: torch.Tensor,
                     plan: TilePlan) -> torch.Tensor:
     """Kernel #4 batched over experts: the (E, K, N) grads of ``x[e] (M,
@@ -1176,6 +1184,7 @@ def masked_wgmma_smem_bytes(mask_dtype: torch.dtype) -> int:
     return _masked_lib().masked_matmul_wgmma_smem(_MASK_CODES[mask_dtype])
 
 
+@_mark.marked
 def masked_matmul(x: torch.Tensor, w: torch.Tensor, mask: torch.Tensor, *,
                   bm: int = MXU_TILE, bk: int = MXU_TILE,
                   bn: int = MXU_TILE) -> torch.Tensor:

@@ -31,7 +31,7 @@ import math
 import torch
 
 from repro_torch.configs.base import MXU_TILE
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _mark
 from repro_torch.kernels.bsmm import GeometryError
 
 _NEG = -1e30        # finite mask value (matches models.attention.attend)
@@ -158,6 +158,7 @@ def wgmma_smem_bytes(hd: int, dv: int) -> int:
     return _lib().flash_attention_bf16_smem(hd, dv)
 
 
+@_mark.marked
 def flash_attention(q, k, v, *, causal: bool = True, bq: int = MXU_TILE,
                     bk: int = MXU_TILE):
     """Flash attention (kernel #8).

@@ -36,7 +36,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import MXU_TILE
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _mark
 from repro_torch.kernels.bsmm import GeometryError
 
 #: tokens per KV block — one crossbar tile edge, like the bsmm tile
@@ -238,6 +238,7 @@ def _lib():
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+@_mark.marked
 def paged_attention(q, k_pool, v_pool, tables, lengths, *,
                     scale: float, v_dim: Optional[int] = None):
     """Paged decode attention over a block pool (kernel #6, or #7 with

@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MXU_TILE
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _mark
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -62,6 +62,7 @@ def _lib():
     return lib
 
 
+@_mark.marked
 def tile_stats(w: torch.Tensor, *, bk: int = MXU_TILE,
                bn: int = MXU_TILE) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel #9: w (K, N) → (live (⌈K/bk⌉, ⌈N/bn⌉) int32, sums of |w|

@@ -150,10 +150,11 @@ class ServeReport:
 
 @dataclass
 class _Generation:
-    """One ticket's serving bundle: params + plan + the slot lanes it is
-    decoding.  Swaps append a new one; old ones drain."""
+    """One ticket's serving bundle: params + masks + plan + the slot
+    lanes it is decoding.  Swaps append a new one; old ones drain."""
     gid: int
     params: Any
+    masks: Any                      # the ticket's masks (None: unpruned)
     plan: Any
     plan_stats: PlanStats
     slot_reqs: List[Optional[Request]]
@@ -320,7 +321,8 @@ class ServeEngine:
             raise ValueError("use_bsmm=True needs masks with routable "
                              "dense projections")
         gen = _Generation(
-            gid=self._next_gid, params=params, plan=plan, plan_stats=stats,
+            gid=self._next_gid, params=params, masks=masks, plan=plan,
+            plan_stats=stats,
             slot_reqs=[None] * self.slots, slot_rngs=[None] * self.slots,
             cur=np.zeros((self.slots,), np.int64))
         if self.paged:
@@ -607,11 +609,18 @@ class ServeEngine:
         nb_total = blocks_needed(S, BLOCK_TOKENS)
         blocks = [gen.pool.alloc(req.uid) for _ in range(nb_real)]
         blocks += [0] * (nb_total - nb_real)
-        tfm.adopt_prefill(self.cfg, gen.paged_caches, caches, blocks)
+        self.adopt(gen, caches, blocks)
         gen.tables[s, :] = 0
         gen.tables[s, :nb_real] = blocks[:nb_real]
         gen.lens[s] = n
         gen.slot_nblocks[s] = nb_real
+
+    def adopt(self, gen: _Generation, caches, blocks) -> None:
+        """Copy a single-request prefill cache (capacity = its padded
+        length S) into ``gen``'s pool at ``blocks``, ⌈S/BLOCK⌉ physical
+        ids in logical order, in place: the copy every admission makes
+        (``_adopt_request``), callable without a request."""
+        tfm.adopt_prefill(self.cfg, gen.paged_caches, caches, blocks)
 
     def _refill(self, out: List[Request]) -> None:
         gen = self._gens[-1]            # admissions target: newest ticket
