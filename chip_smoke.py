@@ -168,6 +168,30 @@ no result line otherwise):
    (llama4-maverick cut to 4 layers and 64 experts, dense slots: #1/#2
    and #1b on their routes, each prefill row held to ``forward``
    without a plan, the top-1 experts of both compared);
+6g. distribution (``distributed_phase``; every count set to 0 before a
+   leg's run and read after it): (a) llama3.2-3b at full width and
+   depth, 8 requests x 16 tokens, on a (1, 1) mesh over NCCL against the
+   meshless engine on the same tree and ticket: streams and logits
+   bitwise equal, every kernel's launches by route and split equal, the
+   decode ticks beside each other; (b) two ranks sharing the card over
+   gloo (``launch.mesh.run_ranks``), llama3.2-3b at full width cut to 4
+   layers on (1, 2) and (2, 1) meshes: each rank's #1/#2 on its local
+   plans (on (1, 2): wq 1536, wk/wv 512, up/gate 4096 columns, wo 1536
+   and down 4096 rows), #8 and #6 at its local heads (12 and 4 on
+   (1, 2)), every kernel launched, each row's logits within 5e-2 of its
+   max |logit| of the rank's own single-rank engine, greedy divergences
+   counted, and every (rows, weight) shape of #1/#2, (S, heads) of #8
+   and head count of #6 that either rank launched then held to the
+   plain versions in the main process (bf16 and f32, usual
+   tolerances, routes and splits; timed at 8 decode rows); (c) grouped MoE dispatch at deepseek-v3's expert widths
+   (7168 <-> 2048, top-8) over its 256 experts, G = 1, 2, 4: one #1b
+   launch a projection, held to the same dispatch through #1b's plain
+   version, ``drop_fraction`` equal to the capacity formula's; (d)
+   llama4-maverick's MoE block (64 experts, 5120 <-> 8192, top-1) on
+   the two ranks, 32 experts each through #1b, the outputs gathered
+   and held to the one-rank block; (e) ``Supervisor`` around a
+   2-layer full-width llama3.2-3b retrain whose third step fails once:
+   it resumes from step 2's checkpoint and reaches its 4 steps;
 7. run Algorithm 1 on vgg11 at its published widths through
    ``make_adapter("vgg11", scale="full")`` and ``PruningSession(...).run()``
    (the family's recipe cut to 4 prune rounds of 100 steps at a 5 %
@@ -241,7 +265,9 @@ CNN path for #9, the control plane for flash attention (#8), and for
 paths' (``launches_serve_hybrid``, ``launches_retrain_hybrid``,
 ``launches_serve_command_r``, ``launches_serve_vlm``,
 ``launches_retrain_vlm``, ``launches_serve_llama4``; #1b's
-``launches_serve_llama4``; #6's ``hd96`` and #8's ``hd256`` and
+``launches_serve_llama4``; #1/#2/#1b/#6/#8's ``launches_distributed``,
+by leg and rank, and #1/#2/#6/#8's ``distributed_shapes``, their checks
+and times at leg (b)'s local shapes; #6's ``hd96`` and #8's ``hd256`` and
 ``hd64_hd96`` entries with those widths' times and their launches on
 the serving paths, #8's registers and spills) — its error
 against the plain version, its time, the plain version's, the bound and
@@ -804,8 +830,9 @@ def flash_bound_ms(S, Hq, Hkv, hd, dv, causal, elem, dtype_name) -> tuple:
     return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
-def check_flash(FA):
-    """Flash attention against its plain version at every shape above,
+def check_flash(FA, shapes=FLASH_SHAPES):
+    """Flash attention against its plain version at every shape above
+    (or ``shapes``),
     with the tolerance printed; times kernel, plain version and SDPA
     (the library yardstick, never on the path).  Each call must run the
     route of its dtype (bfloat16: the wgmma kernel, float32: the
@@ -814,7 +841,7 @@ def check_flash(FA):
     (error, rows)."""
     g = torch.Generator(device="cuda").manual_seed(13)
     err, rows = 0.0, []
-    for S, Hq, Hkv, hd, dv, causal, dtype in FLASH_SHAPES:
+    for S, Hq, Hkv, hd, dv, causal, dtype in shapes:
         q = torch.randn(1, S, Hq, hd, device="cuda", generator=g).to(dtype)
         k = torch.randn(1, S, Hkv, hd, device="cuda", generator=g).to(dtype)
         v = torch.randn(1, S, Hkv, dv, device="cuda", generator=g).to(dtype)
@@ -1189,8 +1216,8 @@ def prefill_rows_check(params, cfg, reqs, rows, served, device,
     from repro_torch.models import transformer as tfm
 
     by_tokens = {}
-    for idx in served:
-        by_tokens.setdefault(idx.shape[0], []).append(idx)
+    for idx in served:          # (G, T/G, k): the call's T tokens
+        by_tokens.setdefault(idx[..., 0].numel(), []).append(idx)
     out = {}
     for r in reqs:
         n = len(r.prompt)
@@ -4827,6 +4854,510 @@ def lint_phase(B, FA, PA, TS, device="cuda") -> tuple:
     return launches, summary
 
 
+# ---------------------------------------------------------------------------
+# distribution: meshes, tensor- and data-parallel serving, grouped MoE
+# dispatch, expert parallelism and the restart policy
+# ---------------------------------------------------------------------------
+DIST_LAYERS = 4             # legs (b) and (e): llama3.2-3b's 28 layers cut
+DIST_REQUESTS = 8
+DIST_MAX_NEW = 16
+DIST_CAPACITY = 256
+DIST_GROUPS = (1, 2, 4)     # leg (c)'s dispatch groups
+DIST_MOE_TOKENS = (2, 64)   # leg (c)'s batch: 128 tokens
+EP_EXPERTS, EP_SHAPE = 64, (5120, 8192)     # leg (d): llama4's MoE block
+EP_TOKENS = 64
+DIST_COUNTED = ("bsmm", "bsmm_epilogue", "bsmm_batched", "paged_attention",
+                "flash_attention")
+
+
+def dist_prompts(cfg):
+    rng = np.random.default_rng(41)
+    return [rng.integers(1, cfg.vocab_size, size=int(n))
+            for n in rng.integers(5, 200, size=DIST_REQUESTS)]
+
+
+def dist_serve(cfg, params, masks, mesh, device):
+    """Serve the distribution legs' requests (8 x 16 tokens, 8 slots):
+    ({uid: tokens}, {uid: (16, V) logits rows}, the engine)."""
+    from repro_torch.serve.engine import Request, ServeEngine
+    eng = ServeEngine(params=params, cfg=cfg, batch_slots=DIST_REQUESTS,
+                      capacity=DIST_CAPACITY, masks=masks, mesh=mesh,
+                      device=device)
+    nonfinite, rows = watch(eng, uids=range(DIST_REQUESTS))
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=DIST_MAX_NEW)
+            for i, p in enumerate(dist_prompts(cfg))]
+    eng.tick_ms, _ = run_engine(eng, reqs, device)
+    streams = {r.uid: list(r.tokens) for r in reqs}
+    require(all(r.done for r in reqs) and nonfinite[0] == 0,
+            "a distribution leg's request did not finish with finite logits")
+    return streams, {u: np.stack(v) for u, v in rows.items()}, eng
+
+
+def dist_counts(B, FA, PA) -> dict:
+    """#1/#2/#1b/#6/#8 launches, #1/#2/#1b's routes and split launches,
+    #8's routes."""
+    return {**kernel_counts(B, FA, PA),
+            "bsmm_routes": bsmm_routes(B, SERVE_ROUTED),
+            "flash_by_route": dict(FA.flash_attention.launches_by_route)}
+
+
+def dist_options(device="cuda", llama=None, ep=None, moe=None) -> dict:
+    """The legs' sizes: llama3.2-3b at full width and depth (``llama``:
+    another config), llama4's MoE block (``ep``: (experts, (d, f))) and
+    deepseek-v3's serving experts (``moe``: (d, MoEConfig)); smaller
+    ones rehearse the phase on the CPU."""
+    from repro_torch.configs import get_arch
+    if moe is None:
+        ds = deepseek_config()
+        moe = (ds.d_model, ds.moe)
+    return {"device": device, "llama": llama or get_arch("llama3.2-3b"),
+            "ep": ep or (EP_EXPERTS, EP_SHAPE), "moe": moe}
+
+
+def dist_llama(opts, layers=None):
+    """The options' llama (``layers`` deep, default all of them), seeded
+    weights and a ~25 %-live seeded ticket."""
+    import dataclasses
+
+    from repro_torch.models import transformer as tfm
+    device = opts["device"]
+    cfg = opts["llama"]
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=min(layers, cfg.n_layers))
+    params = tfm.init_params(torch.Generator(device=device).manual_seed(0),
+                             cfg, device=device)
+    return cfg, params, build_ticket(params, cfg, device)
+
+
+def dist_one_rank(B, FA, PA, opts) -> dict:
+    """Leg (a): a (1, 1) mesh over NCCL against the meshless engine on
+    the same full-depth tree: streams and logits bitwise equal, every
+    kernel's launches by route and split equal."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+    device = opts["device"]
+    cfg, params, masks = dist_llama(opts)
+    runs, ticks = {}, {"meshless": [], "mesh_1x1": []}
+    mesh = make_test_mesh(1, 1, device=device)
+    try:
+        # in turns (meshless, mesh, mesh, meshless) for the tick times;
+        # each kind's first run is held bitwise and launch for launch
+        for name in ("meshless", "mesh_1x1", "mesh_1x1", "meshless"):
+            reset_kernel_counts(B, FA, PA)
+            with torch.inference_mode():
+                streams, rows, eng = dist_serve(
+                    cfg, params, masks, mesh if name == "mesh_1x1" else None,
+                    device)
+            ticks[name].append(eng.tick_ms[len(eng.tick_ms) // 2])
+            runs.setdefault(name, (streams, rows, dist_counts(B, FA, PA)))
+            require(streams == runs[name][0], f"{name}: a repeated run's "
+                    "streams differ")
+            del eng
+    finally:
+        dist.destroy_process_group()
+    (s0, r0, c0), (s1, r1, c1) = runs["meshless"], runs["mesh_1x1"]
+    tick = {f"{k}_ms_p50_by_run": v for k, v in ticks.items()}
+    print(f"distributed (a): 1x1 mesh launches {c1}; decode ticks {tick}")
+    require(s1 == s0, "the 1x1 mesh engine's streams differ from the "
+            "meshless engine's")
+    require(all(np.array_equal(r1[u], r0[u]) for u in r0),
+            "the 1x1 mesh engine's logits are not bitwise the meshless "
+            "engine's")
+    require(c1 == c0, f"the 1x1 mesh engine's launches differ: {c1} vs {c0}")
+    require(all(c1[n] > 0 for n in ("bsmm", "bsmm_epilogue",
+                                    "paged_attention", "flash_attention")),
+            "the 1x1 mesh engine missed a kernel")
+    return {"layers": cfg.n_layers, "launches": c1, **tick,
+            "streams_equal": True, "logits_bitwise": True}
+
+
+def _record_shapes(fn):
+    """fn() with the block-sparse forward (#1/#2) and the attention
+    kernels (#6, #8) recording each call's shapes: (rows, K, N) of #1/#2,
+    (S, Hq, Hkv, hd, dv, causal) of #8 and (Hq, Hkv, hd) of #6, which
+    ``dist_kernel_checks`` holds to the plain versions."""
+    from repro_torch.kernels import bsmm as B
+    from repro_torch.models import attention
+    seen = {"w": set(), "flash": set(), "paged": set(), "bsmm_calls": set(),
+            "flash_calls": set(), "paged_calls": set()}
+    orig = (B._forward, attention.flash_attention, attention.paged_attention)
+
+    def fwd(x2, w, plan, bias, act):
+        seen["w"].add(tuple(w.shape))
+        seen["bsmm_calls"].add((x2.shape[0],) + tuple(w.shape))
+        return orig[0](x2, w, plan, bias, act)
+
+    def flash(q, k, v, **kw):
+        seen["flash"].add((q.shape[-2], k.shape[-2]))
+        seen["flash_calls"].add((q.shape[-3], q.shape[-2], k.shape[-2],
+                                 q.shape[-1], v.shape[-1],
+                                 bool(kw.get("causal", True))))
+        return orig[1](q, k, v, **kw)
+
+    def paged(q, kp, vp, *a, **kw):
+        seen["paged"].add((q.shape[-2], kp.shape[-2]))
+        seen["paged_calls"].add((q.shape[-2], kp.shape[-2], q.shape[-1]))
+        return orig[2](q, kp, vp, *a, **kw)
+
+    B._forward, attention.flash_attention, attention.paged_attention = \
+        fwd, flash, paged
+    try:
+        return fn(), seen
+    finally:
+        B._forward, attention.flash_attention, attention.paged_attention = \
+            orig
+
+
+def dist_rank(mesh12, ep_want, opts):
+    """Legs (b) and (d) on one of two ranks sharing the card over gloo:
+    llama3.2-3b at full width and 4 layers on (1, 2) and (2, 1) meshes
+    against the meshless engine on this rank, and llama4's MoE block
+    with this rank's 32 of 64 experts."""
+    from repro_torch.kernels import bsmm as B
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.launch.mesh import make_test_mesh
+    device = opts["device"]
+    cfg, params, masks = dist_llama(opts, DIST_LAYERS)
+    out = {"rank": mesh12.get_rank()}
+    with torch.inference_mode():
+        s0, r0, _ = dist_serve(cfg, params, masks, None, device)
+        mesh21 = make_test_mesh(2, 1, device=device, backend="gloo")
+        for name, mesh in (("1x2", mesh12), ("2x1", mesh21)):
+            reset_kernel_counts(B, FA, PA)
+            (streams, rows, eng), seen = _record_shapes(
+                lambda: dist_serve(cfg, params, masks, mesh, device))
+            counts = dist_counts(B, FA, PA)
+            err, diverged = 0.0, 0
+            for u, want in r0.items():
+                got = rows[u]
+                n = len(want)
+                first = next((i for i in range(n)
+                              if streams[u][i] != s0[u][i]), None)
+                if first is not None:
+                    diverged += 1
+                    n = first + 1            # rows up to the divergence
+                err = max(err, rel_row_err(list(got[:n]),
+                                           torch.as_tensor(want[:n])))
+            gen = eng.generations[-1]
+            out[name] = {
+                "launches": counts, "rel_row_err": err,
+                "tick_ms_p50": eng.tick_ms[len(eng.tick_ms) // 2],
+                "greedy_divergences": diverged,
+                "local_cfg": (gen.cfg.n_heads, gen.cfg.n_kv_heads),
+                "kept_whole": eng.kept_whole,
+                "weights": sorted(seen["w"]), "flash_heads":
+                sorted(seen["flash"]), "paged_heads": sorted(seen["paged"]),
+                **{k: sorted(seen[k]) for k in ("bsmm_calls", "flash_calls",
+                                                "paged_calls")}}
+            del eng, rows
+        del params, masks
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        out["ep"] = ep_rank(mesh12, ep_want, opts)
+    return out
+
+
+def ep_block(opts, experts, seed=77):
+    """llama4-maverick's MoE block (5120 <-> 8192, top-1) for
+    ``experts`` (a range of its 64): per-expert seeded weights, so any
+    range is a shard of the same block, under one ~25 %-live ticket
+    shared by the experts, the router and the input."""
+    from repro_torch.kernels.bsmm import make_tile_plan
+    device = opts["device"]
+    E, (d, f) = opts["ep"]
+    rng = np.random.default_rng(seed)
+    plans, masks = {}, {}
+    for key, (K, N) in (("up", (d, f)), ("gate", (d, f)), ("down", (f, d))):
+        bm = random_bitmap(rng, K, N)
+        plans[key] = make_tile_plan(np.kron(bm, np.ones((128, 128), bool)))
+        masks[key] = torch.as_tensor(bm, device=device) \
+            .repeat_interleave(128, 0).repeat_interleave(128, 1) \
+            .to(torch.bfloat16)
+    p = {}
+    for j, (key, (K, N)) in enumerate((("up", (d, f)), ("gate", (d, f)),
+                                       ("down", (f, d)))):
+        ws = []
+        for e in experts:
+            g = torch.Generator(device=device).manual_seed(
+                seed + 3 * (e + 1) + j)
+            ws.append(torch.randn(K, N, device=device, generator=g,
+                                  dtype=torch.bfloat16) / K ** 0.5
+                      * masks[key])
+        p[key] = torch.stack(ws)
+    g = torch.Generator(device=device).manual_seed(seed)
+    p["router"] = torch.randn(d, E, device=device, generator=g,
+                              dtype=torch.bfloat16) / d ** 0.5
+    x = torch.randn(1, EP_TOKENS, d, device=device, generator=g,
+                    dtype=torch.bfloat16)
+    return p, plans, x
+
+
+def ep_moe_cfg(opts):
+    from repro_torch.configs import MoEConfig
+    E, (_, f) = opts["ep"]
+    return MoEConfig(num_experts=E, top_k=1, d_ff_expert=f)
+
+
+def ep_rank(mesh, want, opts):
+    """Leg (d) on one rank: its 32 experts through #1b, the outputs
+    gathered over the model axis, held to the one-rank block."""
+    from repro_torch.distributed.tensor_parallel import (TensorParallel,
+                                                         scope)
+    from repro_torch.kernels import bsmm as B
+    from repro_torch.models.moe import moe_forward
+    r = mesh.get_local_rank("model")
+    half = opts["ep"][0] // 2
+    p, plans, x = ep_block(opts, range(r * half, (r + 1) * half))
+    tp = TensorParallel(mesh, [p["up"], p["gate"], p["down"]])
+    reset_bsmm_routes(B, ("bsmm_batched",))
+    with scope(None, tp):
+        y = moe_forward(p, x, ep_moe_cfg(opts), "silu", True, plan=plans).y
+    sync(opts["device"])
+    want = want.to(y.device)
+    return {"experts": half, "launches": B.bsmm_batched.launches,
+            "max_abs_err": (y.float() - want.float()).abs().max().item(),
+            "tol": tolerance(torch.bfloat16, want),
+            "local_up": tuple(p["up"].shape)}
+
+
+def dist_grouped_moe(B, opts) -> dict:
+    """Leg (c): grouped dispatch at deepseek-v3's expert widths (7168 <->
+    2048, top-8) over its 256 routed experts, G = 1, 2, 4: one #1b
+    launch per projection, held to the same dispatch through #1b's plain
+    version, and ``drop_fraction`` as the capacity formula predicts."""
+    import repro_torch.models.moe as moe_mod
+    from repro_torch.kernels.bsmm import make_tile_plan
+    device = opts["device"]
+    d, moe = opts["moe"]
+    f, E = moe.d_ff_expert, moe.num_experts
+    rng = np.random.default_rng(53)
+    g = torch.Generator(device=device).manual_seed(53)
+    p, plans = {}, {}
+    for key, (K, N) in (("up", (d, f)), ("gate", (d, f)), ("down", (f, d))):
+        bm = random_bitmap(rng, K, N)
+        plans[key] = make_tile_plan(np.kron(bm, np.ones((128, 128), bool)))
+        p[key] = torch.randn(E, K, N, device=device, generator=g,
+                             dtype=torch.bfloat16) / K ** 0.5
+    p["router"] = torch.randn(d, E, device=device, generator=g,
+                              dtype=torch.bfloat16) / d ** 0.5
+    x = torch.randn(*DIST_MOE_TOKENS, d, device=device, generator=g,
+                    dtype=torch.bfloat16)
+    T = x.shape[0] * x.shape[1]
+    out = {"experts": E, "tokens": T, "groups": {}}
+    plain_apply = moe_mod.bsmm_batched_apply
+    for G in DIST_GROUPS:
+        reset_bsmm_routes(B, ("bsmm_batched",))
+        with torch.inference_mode():
+            got = moe_mod.moe_forward(p, x, moe, "silu", True,
+                                      num_groups=G, plan=plans)
+            sync(device)
+            launches = B.bsmm_batched.launches
+            routes = bsmm_routes(B, ("bsmm_batched",))["bsmm_batched"]
+            moe_mod.bsmm_batched_apply = \
+                lambda a, w, plan: B.bsmm_batched_plain(a, w, plan)
+            try:
+                want = moe_mod.moe_forward(p, x, moe, "silu", True,
+                                           num_groups=G, plan=plans)
+            finally:
+                moe_mod.bsmm_batched_apply = plain_apply
+            # the capacity formula: pairs past C per (group, expert)
+            Tg = T // G
+            C = moe_mod.expert_capacity(Tg, moe)
+            logits = (x.reshape(G, Tg, d) @ p["router"]).float()
+            top_e = torch.sort(torch.softmax(logits, -1), dim=-1,
+                               descending=True,
+                               stable=True)[1][..., :moe.top_k]
+            per = torch.stack([torch.bincount(top_e[i].reshape(-1),
+                                              minlength=E) for i in range(G)])
+            drop = (per - C).clamp_min(0).sum().item() / (T * moe.top_k)
+        err = (got.y.float() - want.y.float()).abs().max().item()
+        tol = tolerance(torch.bfloat16, want.y)
+        print(f"distributed (c): G={G} C={C} #1b launches {launches} "
+              f"{routes} max_abs_err {err:.3e} (tol {tol:.3e}) "
+              f"drop {float(got.drop_fraction):.6f} (formula {drop:.6f})")
+        require(launches == 3, f"grouped MoE G={G}: {launches} #1b "
+                "launches, want one per projection")
+        require(err <= tol, f"grouped MoE G={G} disagrees with its plain "
+                "version")
+        require(abs(float(got.drop_fraction) - drop) < 1e-6,
+                f"grouped MoE G={G}: drop_fraction off the formula")
+        out["groups"][G] = {"capacity": C, "launches": launches,
+                            "routes": routes, "max_abs_err": err,
+                            "tol": tol,
+                            "drop_fraction": float(got.drop_fraction)}
+    return out
+
+
+def dist_restart(opts) -> dict:
+    """Leg (e): ``Supervisor`` around a 2-layer full-width llama3.2-3b
+    retrain (``make_trainer``, a blocking checkpoint every 2 steps)
+    whose third step fails once: it resumes from step 2's checkpoint and
+    reaches its 4 steps."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch._bridge import tree_leaves
+    from repro_torch.api import make_adapter
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.fault_tolerance import Supervisor
+    device = opts["device"]
+    adapter = make_adapter(
+        dataclasses.replace(opts["llama"], n_layers=2),
+        scale="full", batch_size=8, seq_len=128, device=device)
+    params = adapter.init_params(torch.Generator(device=device).manual_seed(0))
+    masks = build_planned_ticket(params, device)
+    failed, starts = [False], []
+    with tempfile.TemporaryDirectory() as ckpt:
+        def make():
+            tr = adapter.make_trainer(params, masks, ckpt_dir=ckpt,
+                                      learning_rate=1e-4)
+            tr.ckpt_every = 2               # committed before step 3 runs
+            tr.ckpt.async_save = False
+            starts.append(tr.state.step)
+            inner = tr.step_fn
+
+            def step_fn(*a):
+                if tr.state.step == 2 and not failed[0]:
+                    failed[0] = True
+                    raise RuntimeError("injected failure in step 3")
+                return inner(*a)
+            tr.step_fn = step_fn
+            return tr
+
+        sup = Supervisor(make, max_restarts=2)
+        tr = sup.run(4)
+    require(failed[0] and sup.restarts == 1 and tr.state.step == 4,
+            f"restart leg: step {tr.state.step}, restarts {sup.restarts}")
+    require(starts == [0, 2],
+            f"restart leg did not resume from its checkpoint: {starts}")
+    require(all(bool(torch.isfinite(t).all())
+                for t in tree_leaves(tr.state.params)),
+            "restart leg: non-finite parameters")
+    print(f"distributed (e): restarts {sup.restarts}, trainer starts at "
+          f"steps {starts}, final step {tr.state.step}")
+    return {"restarts": sup.restarts, "starts": starts,
+            "final_step": tr.state.step}
+
+
+def dist_kernel_checks(B, FA, PA, ranks) -> dict:
+    """#1/#2, #8 and #6 held to their plain versions (bf16 and f32, the
+    checks' usual tolerances, routes and splits) at every shape leg (b)
+    launched them at on either rank: each (K, N) at the rows it saw
+    (decode 8 on (1, 2) and 4 on (2, 1), the prompts' buckets), #8 at
+    each (S, heads) and #6 at each head count; timed at 8 decode rows
+    (#1/#2) and at every #8/#6 shape.  Run after the legs, so none of
+    these launches is counted as theirs."""
+    legs = [r[name] for r in ranks for name in ("1x2", "2x1")]
+    by_w: dict = {}
+    for leg in legs:
+        for M, K, N in leg["bsmm_calls"]:
+            by_w.setdefault((K, N), set()).add(M)
+    err = {"bsmm": 0.0, "bsmm_epilogue": 0.0}
+    times = []
+    with torch.inference_mode():
+        for i, ((K, N), rows) in enumerate(sorted(by_w.items())):
+            e, t = check_bsmm(B, ((K, N),), tuple(sorted(rows)),
+                              ((None, "silu"),), seed=60 + i)
+            err = {k: max(v, e[k]) for k, v in err.items()}
+            times += [r for r in t if r["M"] == 8]
+        flash = sorted({c for leg in legs for c in leg["flash_calls"]})
+        flash_err, flash_rows = check_flash(
+            FA, tuple(c + (torch.bfloat16,) for c in flash))
+        paged_err, paged_rows = 0.0, []
+        for j, (hq, hkv, hd) in enumerate(sorted(
+                {c for leg in legs for c in leg["paged_calls"]})):
+            e, row = check_paged(PA, Hq=hq, Hkv=hkv, hd=hd, seed=70 + j)
+            paged_err = max(paged_err, e)
+            paged_rows.append({"Hq": hq, "Hkv": hkv, "hd": hd,
+                               "max_abs_err": e, **row})
+    print(f"distributed kernel checks: #1/#2 at {len(by_w)} weight shapes "
+          f"{sorted(by_w.items())}, #8 at {flash}, #6 at "
+          f"{[(r['Hq'], r['Hkv']) for r in paged_rows]}: max_abs_err {err}, "
+          f"#8 {flash_err:.3e}, #6 {paged_err:.3e}")
+    return {"bsmm_err": err, "bsmm_times": times,
+            "bsmm_rows": {f"{K}x{N}": sorted(m) for (K, N), m in by_w.items()},
+            "flash_err": flash_err, "flash": flash_rows,
+            "paged_err": paged_err, "paged": paged_rows}
+
+
+def _free(device) -> None:
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def distributed_phase(B, FA, PA, opts=None) -> tuple:
+    """Legs (a)-(e) (see the module docstring) at ``opts``'s sizes
+    (``dist_options``); returns (launches by kernel and leg, summary)."""
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models.moe import moe_forward
+    opts = opts or dist_options()
+    device = opts["device"]
+    summary = {"one_rank": dist_one_rank(B, FA, PA, opts)}
+    _free(device)
+    # leg (d)'s one-rank block, freed before the two ranks start
+    p, plans, x = ep_block(opts, range(opts["ep"][0]))
+    with torch.inference_mode():
+        y_one = moe_forward(p, x, ep_moe_cfg(opts), "silu", True,
+                            plan=plans).y.cpu()
+    del p, plans, x
+    _free(device)
+    ranks = run_ranks(dist_rank, 1, 2, device=device, backend="gloo",
+                      args=(y_one, opts), timeout_s=600)
+    c = opts["llama"]
+    hq, hkv, hd, d, ff = (c.n_heads, c.n_kv_heads, c.head_dim_, c.d_model,
+                          c.d_ff)
+    for res in ranks:
+        for name, want_heads in (("1x2", (hq // 2, hkv // 2)),
+                                 ("2x1", (hq, hkv))):
+            leg = res[name]
+            print(f"distributed (b) rank {res['rank']} {name}: "
+                  f"heads {leg['local_cfg']} weights {leg['weights']} "
+                  f"flash {leg['flash_heads']} paged {leg['paged_heads']} "
+                  f"rel_row_err {leg['rel_row_err']:.3e} divergences "
+                  f"{leg['greedy_divergences']} launches {leg['launches']}")
+            require(leg["local_cfg"] == want_heads and not leg["kept_whole"],
+                    f"{name}: the rank's attention is not at its local heads")
+            require(leg["rel_row_err"] <= TEACHER_TOL,
+                    f"{name}: logits off the single-rank engine's")
+            require(set(leg["flash_heads"]) == {want_heads}
+                    and set(leg["paged_heads"]) == {want_heads},
+                    f"{name}: #8/#6 not at the local heads")
+            for n in ("bsmm", "bsmm_epilogue", "paged_attention",
+                      "flash_attention"):
+                require(leg["launches"][n] > 0, f"{name}: {n} not launched")
+        # wq 1536, wk/wv 512, up/gate 4096 columns; wo 1536 and down
+        # 4096 rows: every projection on the rank's local plan
+        q, kv, f = hq * hd // 2, hkv * hd // 2, ff // 2
+        require(set(map(tuple, res["1x2"]["weights"])) == {
+            (d, q), (d, kv), (q, d), (d, f), (f, d)},
+            "1x2: a projection ran off its local shape")
+        ep = res["ep"]
+        print(f"distributed (d) rank {res['rank']}: {ep}")
+        require(ep["max_abs_err"] <= ep["tol"], f"expert-parallel rank "
+                f"{res['rank']} disagrees with the one-rank block")
+        require(ep["launches"] == 3, f"expert-parallel rank {res['rank']}: "
+                f"{ep['launches']} #1b launches, want one per projection")
+    summary["ranks"] = ranks
+    _free(device)
+    summary["kernel_checks"] = dist_kernel_checks(B, FA, PA, ranks)
+    _free(device)
+    summary["grouped_moe"] = dist_grouped_moe(B, opts)
+    _free(device)
+    summary["restart"] = dist_restart(opts)
+    launches = {n: {"one_rank": summary["one_rank"]["launches"][n],
+                    "ranks_1x2": [r["1x2"]["launches"][n] for r in ranks],
+                    "ranks_2x1": [r["2x1"]["launches"][n] for r in ranks]}
+                for n in DIST_COUNTED}
+    launches["bsmm_batched"]["ep_1x2"] = [r["ep"]["launches"] for r in ranks]
+    launches["bsmm_batched"]["grouped_moe"] = {
+        G: v["launches"] for G, v in summary["grouped_moe"]["groups"].items()}
+    return launches, summary
+
+
 def sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
@@ -5005,6 +5536,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         new_runs[name] = fn()
         phase(name)
+    # distribution: legs (a)-(e), with the llama4 model gone
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist_launches, dist_summary = distributed_phase(B, FA, PA)
+    phase("distributed")
     xl_launches, xl_summary = new_runs["serve_xlstm"]
     _, rx_summary = new_runs["retrain_xlstm"]
     wh_launches, wh_summary = new_runs["serve_whisper"]
@@ -5224,6 +5760,46 @@ def main() -> int:
          "plain_ms": flash_row["plain_ms"], "bound_ms": flash_row["bound_ms"],
          "bound_by": flash_row["bound_by"],
          "library_ms": flash_row["library_ms"]})
+    # the distribution legs' launches: (a) one rank, (b) each of two
+    # ranks on (1, 2) and (2, 1), #1b's (c) grouped MoE and (d) experts
+    for k in kernels:
+        if k["name"] in dist_launches:
+            k["launches_distributed"] = dist_launches[k["name"]]
+    # ... and the kernels held to their plain versions at every shape
+    # leg (b) gave them on a rank, timed there (#1/#2 at 8 decode rows)
+    dk = dist_summary["kernel_checks"]
+    timed_keys = ("route", "ms", "plain_ms", "bound_ms", "bound_by",
+                  "library_ms", "max_abs_err")
+    for k in kernels:
+        name = k["name"]
+        if name in ("bsmm", "bsmm_epilogue"):
+            ms, plain = (("bsmm_ms", "plain_ms") if name == "bsmm" else
+                         ("bsmm_epilogue_ms", "epilogue_plain_ms"))
+            local = {"max_abs_err": dk["bsmm_err"][name],
+                     "rows_by_weight": dk["bsmm_rows"],
+                     "m8": [{"K": r["K"], "N": r["N"], "route": r["route"],
+                             "ms": r[ms], "plain_ms": r[plain],
+                             "bound_ms": r["bound_ms"],
+                             "bound_by": r["bound_by"],
+                             "library_ms": (r["matmul_ms"] if name == "bsmm"
+                                            else None)}
+                            for r in dk["bsmm_times"]]}
+            err = dk["bsmm_err"][name]
+        elif name == "flash_attention":
+            local = {"max_abs_err": dk["flash_err"], "shapes": [
+                {"S": r["S"], "Hq": r["Hq"], "Hkv": r["Hkv"],
+                 **{f: r[f] for f in timed_keys}} for r in dk["flash"]]}
+            err = dk["flash_err"]
+        elif name == "paged_attention":
+            local = {"max_abs_err": dk["paged_err"], "shapes": [
+                {"Hq": r["Hq"], "Hkv": r["Hkv"], "hd": r["hd"],
+                 **{f: r[f] for f in timed_keys if f in r}}
+                for r in dk["paged"]]}
+            err = dk["paged_err"]
+        else:
+            continue
+        k["distributed_shapes"] = local
+        k["max_abs_err"] = max(k["max_abs_err"], err)
     # the lint path: every kernel's launches in legs (b) and (c), and the
     # default cases held to it in leg (a)
     for k in kernels:
@@ -5251,7 +5827,8 @@ def main() -> int:
          "retrain_xlstm": rx_summary, "serve_whisper": wh_summary,
          "retrain_whisper": rw_summary, "serve_vlm": vl_summary,
          "retrain_vlm": rv_summary, "serve_llama4": l4_summary,
-         "lint": lint_summary, "phase_s": phases},
+         "lint": lint_summary, "distributed": dist_summary,
+         "phase_s": phases},
         indent=1, default=str))
     print(json.dumps({"serve": {**summary, "decode_profile": {
         k: v for k, v in summary["decode_profile"].items()
@@ -5288,6 +5865,15 @@ def main() -> int:
                          default=str))
     print(json.dumps({"lint": {k: v for k, v in lint_summary.items()
                                if k != "cases"}}, default=str))
+    print(json.dumps({"distributed": {
+        "one_rank": dist_summary["one_rank"],
+        "ranks": [{k: v for k, v in r.items() if k != "rank"}
+                  for r in dist_summary["ranks"]],
+        "kernel_checks": {k: v for k, v in
+                          dist_summary["kernel_checks"].items()
+                          if k.endswith("_err") or k == "bsmm_rows"},
+        "grouped_moe": dist_summary["grouped_moe"],
+        "restart": dist_summary["restart"]}}, default=str))
     print(json.dumps({"phase_s": phases}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

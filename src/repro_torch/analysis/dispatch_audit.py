@@ -26,9 +26,10 @@ reference: every public kernel wrapper marks its body
 inside a marked body are not examined.
 
 J206/J207 read compiled HLO, which the port does not have; J208 checks
-a mesh-backed engine, which the port does not have either
-(``audit_engine_sharding`` returns no finding).  Rule codes J201–J208;
-see ``analysis.findings.RULES``.
+a mesh-backed engine's parameter placements (``LeafSharding``s and
+their ``torch.distributed.tensor`` placements, where the reference
+checks ``NamedSharding``s).  Rule codes J201–J208; see
+``analysis.findings.RULES``.
 """
 from __future__ import annotations
 
@@ -203,8 +204,52 @@ def audit_closure(fn: Callable, args: Iterable[Any] = (), *,
 
 
 def audit_engine_sharding(engine, *, where: str = "engine") -> List[Finding]:
-    """J208 on a mesh-backed engine's parameter placement.  The port's
-    engines run on one device (``ServeEngine(mesh=)`` raises until
-    distribution is ported), so, as the reference on a single-device
-    engine, there is nothing to check."""
-    return []
+    """J208: a ``ServeEngine`` on a >1-rank mesh whose parameters never
+    got a placement.
+
+    A mesh engine places every parameter leaf by the sharding rules
+    (each generation's ``sharded.shardings``: a ``LeafSharding`` per
+    leaf).  None at all is an error — every rank would hold and run
+    the whole model.  Placements that are all ``Replicate()`` (no mesh
+    axis in any spec) are a warning — legal for degenerate configs,
+    almost certainly a divisibility bug at real scale."""
+    from repro_torch.core.masks import tree_flatten_with_path
+    from repro_torch.distributed.sharding import LeafSharding, Shard
+    from repro_torch.launch.mesh import mesh_axes
+
+    findings: List[Finding] = []
+    mesh = getattr(engine, "mesh", None)
+    if mesh is None:
+        return findings
+    size = getattr(mesh, "size", None)    # DeviceMesh.size() or an int
+    if callable(size):
+        size = size()
+    if size is None:
+        size = 1
+        for n in mesh_axes(mesh).values():
+            size *= n
+    if size <= 1:
+        return findings
+    for g in engine.generations:
+        gwhere = f"{where}/gen{g.gid}"
+        sm = getattr(g, "sharded", None)
+        placed = ([] if sm is None else
+                  [sh for _, sh in tree_flatten_with_path(sm.shardings)
+                   if isinstance(sh, LeafSharding)])
+        if not placed:
+            n = sum(1 for _, l in tree_flatten_with_path(g.params)
+                    if l is not None)
+            findings.append(error(
+                "J208", gwhere,
+                f"engine mesh has {size} ranks but none of the {n} param "
+                f"leaves carries a placement — every rank holds and runs "
+                f"the whole model"))
+            continue
+        if not any(isinstance(p, Shard) for sh in placed
+                   for p in sh.placements):
+            findings.append(warning(
+                "J208", gwhere,
+                f"all {len(placed)} placed param leaves are Replicate() on "
+                f"a {size}-rank mesh — no dimension divided (shape/mesh "
+                f"mismatch?)"))
+    return findings

@@ -202,10 +202,13 @@ _ALL_RULES: Tuple[Rule, ...] = (
     Rule("J208", "sharded engine's jitted hot path traced on a "
          ">1-device mesh with replicated-only params (missing "
          "NamedSharding placement — GSPMD runs every device dense)",
-         "Checks a mesh-backed engine's parameter placement.  The port's "
-         "engines run on one device (ServeEngine(mesh=) raises until "
-         "distribution is ported), so audit_engine_sharding returns no "
-         "finding and this code is never emitted."),
+         "Checks a mesh-backed engine's parameter placement: the port's "
+         "counterpart of a NamedSharding is a LeafSharding, whose "
+         "torch.distributed.tensor placements say which mesh axes cut "
+         "each leaf.  An engine on a >1-rank mesh with no placed "
+         "parameter leaf is an error (every rank holds and runs the whole "
+         "model); one whose placements are all Replicate() is a warning "
+         "(no dimension divided)."),
     # kernel auditor ------------------------------------------------------
     Rule("K300", "kernel spec malformed (grid/blocks inconsistent with "
          "declared shapes)",
@@ -264,7 +267,6 @@ RULES: Dict[str, Rule] = {r.code: r for r in _ALL_RULES}
 NEVER_EMITTED: Dict[str, str] = {
     "J206": "no compiled artifact in an eager port (lint --hlo exits 2)",
     "J207": "no compiled artifact in an eager port (lint --hlo exits 2)",
-    "J208": "engines run on one device: ServeEngine(mesh=) raises",
 }
 
 

@@ -279,7 +279,7 @@ def _lint_serving(report: Report, name: str, adapter, spec, params,
     # engines also get pool/table balance checks here (P113/P115)
     eng.swap(masked, masks)
     report.extend(verify_engine(eng, where=f"{name}/engine"))
-    # sharding placement (J208): nothing on a one-device engine
+    # sharding placement (J208): nothing to place on a meshless engine
     report.extend(audit_engine_sharding(eng, where=f"{name}/engine"))
 
 

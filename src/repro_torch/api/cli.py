@@ -27,15 +27,26 @@ fraction) for scripting and bench harnesses.
 
     python -m repro_torch.api lint --all --kernels --device cpu --json
 
+``serve`` and ``serve-daemon`` take ``--mesh DxM``: the command runs
+on D·M local ranks (``launch.mesh.run_ranks``; gloo on ``--device cpu``;
+on ``cuda`` NCCL with a card a rank, or gloo when the ranks outnumber
+the cards and share them), every rank driving its own copy of the engine on a
+(data, model) mesh, and rank 0's output is printed when the ranks end
+(the daemon reads its whole script — or stdin — before it starts).
+
 Exit codes: 0 success; 1 ``lint`` found an error; 2 structured refusal
-(e.g. ``serve`` on a family with no serving path, or ``lint --hlo`` and
-``--mesh``, which are not yet ported — reported, not a traceback).
+(e.g. ``serve`` on a family with no serving path, or ``lint --hlo``,
+which is not yet ported — reported, not a traceback).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
+import os
 import sys
+import tempfile
 from typing import List, Optional
 
 import numpy as np
@@ -62,14 +73,6 @@ def _hardware_dict(rep) -> dict:
         "xbars_needed": rep.xbars_needed,
         "xbar_savings": rep.xbar_savings,
     }
-
-
-def _not_ported(args, what: str) -> int:
-    _emit({"event": "not_yet_ported", "what": what,
-           "reason": f"{what} is not yet ported to repro_torch"},
-          getattr(args, "json", False),
-          f"error: {what} is not yet ported to repro_torch")
-    return EXIT_UNSUPPORTED
 
 
 def _generator(adapter, seed: int) -> torch.Generator:
@@ -412,8 +415,6 @@ def _serve_setup(args):
     from repro_torch.api.adapters import ServeUnsupported
     from repro_torch.api.registry import make_adapter
 
-    if getattr(args, "mesh", None):
-        return None, None, _not_ported(args, "serving on a mesh (--mesh)")
     adapter = make_adapter(args.arch, scale=args.scale, device=args.device)
     try:
         fns = adapter.serve_fns()
@@ -427,6 +428,42 @@ def _serve_setup(args):
     return adapter, fns, EXIT_OK
 
 
+def _on_mesh(args) -> int:
+    """Run ``args.fn`` on the D·M local ranks of ``--mesh DxM`` and
+    print rank 0's output; the daemon's ops are read here first (a
+    spawned rank has no stdin) and handed to every rank as a script."""
+    from repro_torch.launch.mesh import parse_mesh, run_ranks, spawn_backend
+    d, m = parse_mesh(args.mesh)
+    argd = {k: v for k, v in vars(args).items() if k != "fn"}
+    tmp = None
+    if args.fn is cmd_serve_daemon and not args.script:
+        fd, tmp = tempfile.mkstemp(suffix=".ops")
+        with os.fdopen(fd, "w") as f:
+            f.write(sys.stdin.read())
+        argd["script"] = tmp
+    try:
+        outs = run_ranks(_mesh_rank, d, m, device=args.device,
+                         backend=spawn_backend(args.device, d * m),
+                         args=(args.fn.__name__, argd))
+    finally:
+        if tmp is not None:
+            os.remove(tmp)
+    code, text = outs[0]
+    sys.stdout.write(text)
+    sys.stdout.flush()
+    return code
+
+
+def _mesh_rank(mesh, cmd: str, argd: dict):
+    """One rank of ``_on_mesh``: the command on ``mesh``, its standard
+    output captured (rank 0's is returned, the others' dropped)."""
+    args = argparse.Namespace(**{**argd, "mesh": None, "mesh_obj": mesh})
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = globals()[cmd](args)
+    return code, buf.getvalue() if mesh.get_rank() == 0 else ""
+
+
 def _request_frames(adapter, uid: int):
     """Per-request encoder frames for enc-dec families (None for LMs)."""
     if getattr(adapter.cfg, "is_encoder_decoder", False):
@@ -437,6 +474,8 @@ def _request_frames(adapter, uid: int):
 def cmd_serve(args) -> int:
     from repro_torch.serve import Request, ServeEngine
 
+    if args.mesh:
+        return _on_mesh(args)
     adapter, fns, code = _serve_setup(args)
     if fns is None:
         return code
@@ -456,6 +495,7 @@ def cmd_serve(args) -> int:
                            prefill_fn=prefill_fn, decode_fn=decode_fn,
                            batch_slots=args.slots, capacity=args.capacity,
                            temperature=args.temperature, masks=masks,
+                           mesh=getattr(args, "mesh_obj", None),
                            device=adapter.device)
 
     rng = np.random.RandomState(args.seed)
@@ -485,9 +525,11 @@ def cmd_serve(args) -> int:
         engine.submit(Request(uid=i, prompt=prompt.astype(np.int32),
                               max_new_tokens=args.max_new,
                               frames=_request_frames(adapter, i)))
-    engine.run()
+    done = engine.run()
     rep = engine.report
-    _emit({"event": "serve", "arch": args.arch, **_report_dict(rep)},
+    _emit({"event": "serve", "arch": args.arch, **_report_dict(rep),
+           "streams": {str(r.uid): [int(t) for t in r.tokens]
+                       for r in sorted(done, key=lambda r: r.uid)}},
           args.json,
           f"{args.arch}: served {rep.requests} requests, "
           f"{rep.tokens_generated} tokens in {rep.decode_steps} decode "
@@ -523,6 +565,8 @@ def cmd_serve_daemon(args) -> int:
                                    SubmitRejected, TicketError,
                                    TicketManager)
 
+    if args.mesh:
+        return _on_mesh(args)
     adapter, fns, code = _serve_setup(args)
     if fns is None:
         return code
@@ -553,7 +597,8 @@ def cmd_serve_daemon(args) -> int:
                            batch_slots=args.slots,
                            capacity=args.capacity,
                            temperature=args.temperature, masks=masks,
-                           heartbeat=hb, device=adapter.device)
+                           heartbeat=hb, mesh=getattr(args, "mesh_obj", None),
+                           device=adapter.device)
 
     if fleet:
         from repro_torch.serve import FleetRouter
@@ -906,8 +951,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="fleet size: front N engines with a FleetRouter "
                         "(least-loaded dispatch)")
     p.add_argument("--mesh", default=None,
-                   help="per-engine DxM mesh (not yet ported: exits 2 "
-                        "with a structured refusal)")
+                   help="serve on a DxM (data x model) mesh of D*M local "
+                        "ranks (gloo on --device cpu; on cuda NCCL with "
+                        "a card a rank, else gloo on shared cards)")
     p.set_defaults(fn=cmd_serve)
 
     p = sub.add_parser("serve-daemon",
@@ -933,7 +979,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "heartbeat failover; adds the kill op "
                         '({"op": "kill", "engine": 1})')
     p.add_argument("--mesh", default=None,
-                   help="per-engine DxM mesh (not yet ported)")
+                   help="serve on a DxM (data x model) mesh of D*M local "
+                        "ranks; the ops are read in full first")
     p.add_argument("--script", default=None,
                    help="read ops from this file instead of stdin")
     p.set_defaults(fn=cmd_serve_daemon)

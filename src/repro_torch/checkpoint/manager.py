@@ -17,6 +17,12 @@ template leaf comes back as a tensor of its dtype on its device (the
 port stores bfloat16 leaves as float32, which is exact), a numpy
 template leaf as the stored array.  Async mode serialises on a
 background thread once the leaves are on the host.
+
+On a mesh, ``restore(..., shardings=)`` reads each leaf as the full
+array and places this rank's shard of it (``distributed.sharding.
+place``), and ``save(..., shardings=)`` gathers each sharded leaf back
+to its full array and writes it from rank 0 alone, so the on-disk
+format stays the reference's whatever mesh wrote it.
 """
 from __future__ import annotations
 
@@ -30,9 +36,12 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch._bridge import to_numpy, tree_map
 from repro_torch.core.masks import tree_flatten_with_path, tree_map_with_path
+from repro_torch.distributed.sharding import (LeafSharding, gather_full,
+                                              place)
 
 
 def pack_json(obj) -> np.ndarray:
@@ -69,12 +78,25 @@ def save_pytree(tree, directory: str):
         json.dump(manifest, f)
 
 
-def load_pytree(directory: str, template):
+def _shardings_by_path(shardings) -> dict:
+    """{leaf path: LeafSharding} of a shardings pytree (None: {})."""
+    out = {}
+    if shardings is not None:
+        for p, sh in tree_flatten_with_path(shardings):
+            if isinstance(sh, LeafSharding):
+                out[p] = sh
+    return out
+
+
+def load_pytree(directory: str, template, shardings=None):
     """Load into the structure of ``template`` (leaves the checkpoint
-    lacks keep the template's value)."""
+    lacks keep the template's value); ``shardings`` (a pytree of
+    ``LeafSharding`` or None per leaf) places each listed leaf's
+    rank-local shard."""
     with open(os.path.join(directory, "manifest.json")) as f:
         manifest = json.load(f)
     by_path = {e["path"]: e for e in manifest["leaves"]}
+    flat_sh = _shardings_by_path(shardings)
 
     def fill(p, leaf):
         e = by_path.get(p)
@@ -82,11 +104,21 @@ def load_pytree(directory: str, template):
             return leaf
         arr = np.load(os.path.join(directory, e["file"]))
         if torch.is_tensor(leaf):
-            return torch.as_tensor(arr).to(device=leaf.device,
-                                           dtype=leaf.dtype)
+            out = torch.as_tensor(arr)
+            if p in flat_sh:
+                out = place(out, flat_sh[p])
+            return out.to(device=leaf.device, dtype=leaf.dtype)
         return arr
 
     return tree_map_with_path(fill, template)
+
+
+def gather_pytree(tree, shardings):
+    """Each leaf sharded by its ``LeafSharding`` gathered back to the
+    full array (every rank of the mesh takes part)."""
+    flat_sh = _shardings_by_path(shardings)
+    return tree_map_with_path(
+        lambda p, l: gather_full(l, flat_sh[p]) if p in flat_sh else l, tree)
 
 
 class CheckpointManager:
@@ -105,8 +137,18 @@ class CheckpointManager:
         return self._step_dir(step) + ".COMMITTED"
 
     # -- save -------------------------------------------------------------
-    def save(self, step: int, tree, blocking: Optional[bool] = None):
-        """Checkpoint ``tree`` at ``step`` (atomically)."""
+    def save(self, step: int, tree, blocking: Optional[bool] = None,
+             shardings=None):
+        """Checkpoint ``tree`` at ``step`` (atomically).  ``shardings``
+        (the tree's ``LeafSharding`` pytree): every rank calls, the
+        sharded leaves are gathered, rank 0 writes (blocking) and the
+        ranks meet at a barrier once it is committed."""
+        if shardings is not None:
+            full = gather_pytree(tree, shardings)
+            if dist.get_rank() == 0:
+                self.save(step, full, blocking=True)
+            dist.barrier()
+            return
         host_tree = tree_map(lambda x: np.array(to_numpy(x), copy=True), tree)
         # one write at a time: a blocking save of the step an async save
         # is still writing would race it on the same temporary directory
@@ -148,14 +190,15 @@ class CheckpointManager:
                 committed.append(int(m.group(1)))
         return max(committed) if committed else None
 
-    def restore(self, template, step: Optional[int] = None):
+    def restore(self, template, step: Optional[int] = None, shardings=None):
         """Load the newest committed checkpoint (or ``step``) into the
-        template's structure; returns (step, tree) or (None, template)."""
+        template's structure, each leaf ``shardings`` lists as this
+        rank's shard; returns (step, tree) or (None, template)."""
         if step is None:
             step = self.latest_step()
         if step is None:
             return None, template
-        return step, load_pytree(self._step_dir(step), template)
+        return step, load_pytree(self._step_dir(step), template, shardings)
 
     # -- retention ---------------------------------------------------------
     def _gc(self):

@@ -1,6 +1,5 @@
 """Prefetching, restartable data pipeline (port of
-``repro.data.pipeline.DataPipeline``; ``ShardedBatcher`` comes with
-distribution).
+``repro.data.pipeline``: ``DataPipeline`` and ``ShardedBatcher``).
 
 Because generators are stateless (batch = f(seed, step)), resuming from
 a step index reproduces the exact stream: there is no iterator state to
@@ -55,3 +54,33 @@ class DataPipeline:
 
     def close(self):
         self._stop.set()
+
+
+class ShardedBatcher:
+    """This rank's rows of each global batch, the batch dim sharded over
+    the mesh's data axes (``dp_axes``, outer first; a batch they do not
+    divide stays whole)."""
+
+    def __init__(self, batch_fn, mesh, dp_axes=("data",), prefetch: int = 0):
+        from repro_torch.launch.mesh import mesh_axes
+        self.mesh = mesh
+        axes = mesh_axes(mesh)
+        self.dp_axes = tuple(a for a in dp_axes if a in axes)
+        self._ways = int(np.prod([axes[a] for a in self.dp_axes]))
+        self.pipe = DataPipeline(batch_fn, prefetch=prefetch)
+
+    def sharding_for(self, arr: np.ndarray):
+        from repro_torch.distributed.sharding import LeafSharding, \
+            spec_placements
+        lead = self.dp_axes if arr.shape[0] % self._ways == 0 else None
+        spec = (lead,) + (None,) * (arr.ndim - 1)
+        return LeafSharding(self.mesh, spec, spec_placements(self.mesh, spec))
+
+    def __next__(self):
+        from repro_torch.distributed.sharding import place
+        batch = next(self.pipe)
+        return {k: place(np.asarray(v), self.sharding_for(v))
+                for k, v in batch.items()}
+
+    def __iter__(self):
+        return self

@@ -10,6 +10,12 @@ re-injected next step):
     every step, so they are dropped from communication entirely, then
     top-k is applied to the survivors.
 
+``compressed_psum`` is the collective: each rank contributes its
+top-k (values, indices); an ``all_gather`` of the sparse
+representation and a local ``index_add`` replace the dense all-reduce
+(2·k numbers per rank instead of the full gradient);
+``dp_allreduce_compressed`` wraps a per-rank grad function with it.
+
 The residual starts as zeros that take no memory (an expanded 0-d
 tensor): the lossless mask-aware compressor returns it unchanged, so it
 never needs the 4 bytes per parameter a dense f32 buffer would hold.
@@ -23,6 +29,7 @@ import torch
 
 from repro_torch._bridge import tree_leaves, tree_map, tree_unflatten
 from repro_torch.core.masks import apply_masks
+from repro_torch.distributed.tensor_parallel import collective
 
 
 def _zero_residual(params):
@@ -111,3 +118,33 @@ class MaskAwareCompressor:
             st["sent_fraction"] *= sent / max(total, 1)
             return sparse, new_res, st
         return masked, residual, {"sent_fraction": sent / max(total, 1)}
+
+
+def compressed_psum(x: torch.Tensor, group, k: int) -> torch.Tensor:
+    """Top-k sparse all-reduce over ``group``: each rank sends the
+    (values, indices) of its local top-k by magnitude; the gather and a
+    scatter-add reconstruct Σ_ranks topk(x_rank)."""
+    flat = x.reshape(-1)
+    idx = torch.topk(flat.abs(), k).indices
+    vals = flat[idx].contiguous()
+    all_vals = collective("all_gather", vals, group, dim=0)
+    all_idx = collective("all_gather", idx.contiguous(), group, dim=0)
+    out = torch.zeros_like(flat).index_add_(0, all_idx, all_vals)
+    return out.reshape(x.shape)
+
+
+def dp_allreduce_compressed(grads_fn, mesh, dp_axis: str,
+                            k_fraction: float):
+    """Wrap a per-rank grad function (its args are this rank's data
+    shard) with a compressed all-reduce over ``mesh``'s ``dp_axis``:
+    every leaf comes back as Σ_ranks topk(g_rank), the top-k a
+    ``k_fraction`` of the leaf."""
+    group = mesh.get_group(dp_axis)
+
+    def reduced(*args):
+        return tree_map(
+            lambda g: compressed_psum(g, group,
+                                      max(1, int(k_fraction * g.numel()))),
+            grads_fn(*args))
+
+    return reduced

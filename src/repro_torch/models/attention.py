@@ -37,6 +37,7 @@ import torch
 from repro_torch.kernels import bsmm
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import BLOCK_TOKENS, paged_attention
+from repro_torch.models import hooks
 from repro_torch.models.layers import apply_rope, rmsnorm, rmsnorm_init, xavier
 
 
@@ -158,15 +159,54 @@ def gqa_cache_spec(batch: int, capacity: int, n_kv_heads: int,
                                                  device="meta"))
 
 
+def _tensor_parallel(params):
+    """The tensor-parallel context when this attention's projections are
+    this rank's shards (its heads are the local ones), else None."""
+    tp = hooks.tensor_parallel()
+    return tp if tp is not None and tp.is_sharded(params["wo"]) else None
+
+
+def _kv_whole(params):
+    """The tensor-parallel context when this rank's q heads are local
+    but K/V are kept whole (all kv heads on every model rank), else
+    None: such a rank attends all Hq heads, its own among zeros."""
+    tp = _tensor_parallel(params)
+    return tp if tp is not None and not tp.is_sharded(params["wk"]) else None
+
+
+def _attend_local(params, q, fn):
+    """``fn(q)``'s attention over this rank's q heads (dim -2); with K/V
+    kept whole, through all heads (``TensorParallel.pad_heads``), the
+    local heads' outputs taken back."""
+    tp = _kv_whole(params)
+    if tp is None:
+        return fn(q)
+    return tp.local_heads(fn(tp.pad_heads(q)), q.shape[-2])
+
+
+def _out_proj(params, out, plan):
+    """The output projection of the attended heads: row-parallel (summed
+    over the model axis) on a rank's shard."""
+    tp = _tensor_parallel(params)
+    mm = bsmm.plan_matmul if tp is None else tp.row
+    return mm(out, params["wo"], (plan or {}).get("wo"))
+
+
 def gqa_qkv(params, x, *, n_heads, n_kv_heads, head_dim, positions,
             rope_theta, plan=None):
     B, S, _ = x.shape
     plan = plan or {}
+    tp = _tensor_parallel(params)
     q = bsmm.plan_matmul(x, params["wq"], plan.get("wq"))
     k = bsmm.plan_matmul(x, params["wk"], plan.get("wk"))
     v = bsmm.plan_matmul(x, params["wv"], plan.get("wv"))
     if "bq" in params:
-        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+        bq, bk, bv = params["bq"], params["bk"], params["bv"]
+        if tp is not None:          # replicated biases: the local heads'
+            bq = tp.cols(bq)
+            if tp.is_sharded(params["wk"]):
+                bk, bv = tp.cols(bk), tp.cols(bv)
+        q, k, v = q + bq, k + bk, v + bv
     q = q.reshape(B, S, n_heads, head_dim)
     k = k.reshape(B, S, n_kv_heads, head_dim)
     v = v.reshape(B, S, n_kv_heads, head_dim)
@@ -190,11 +230,12 @@ def gqa_forward(params, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
                       head_dim=head_dim, positions=positions,
                       rope_theta=rope_theta, plan=plan)
     if window is not None:
-        out = sliding_window_attention(q, k, v, window=window)
+        out = _attend_local(params, q, lambda q: sliding_window_attention(
+            q, k, v, window=window))
     else:
-        out = causal_attention(q, k, v, block_q=block_q)
-    return bsmm.plan_matmul(out.reshape(B, S, n_heads * head_dim),
-                            params["wo"], (plan or {}).get("wo"))
+        out = _attend_local(params, q, lambda q: causal_attention(
+            q, k, v, block_q=block_q))
+    return _out_proj(params, out.reshape(B, S, n_heads * head_dim), plan)
 
 
 def gqa_make_cache(params, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
@@ -220,9 +261,11 @@ def gqa_make_cache(params, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
                          f"S <= capacity, got S={S}, capacity={capacity}, "
                          f"window={window}")
     if window is not None and S > window:
-        out = sliding_window_attention(q, k, v, window=window)
+        out = _attend_local(params, q, lambda q: sliding_window_attention(
+            q, k, v, window=window))
     else:
-        out = flash_attention(q, k, v, causal=True)
+        out = _attend_local(params, q, lambda q: flash_attention(
+            q, k, v, causal=True))
     rows = capacity if window is None else min(window, capacity)
     keep = min(S, rows)
     kc = k.new_zeros((B, rows, *k.shape[2:]))
@@ -233,8 +276,7 @@ def gqa_make_cache(params, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
         at = torch.arange(S - keep, S, device=x.device) % rows
     kc[:, at] = k[:, S - keep:]
     vc[:, at] = v[:, S - keep:]
-    proj = bsmm.plan_matmul(out.reshape(B, S, n_heads * head_dim),
-                            params["wo"], (plan or {}).get("wo"))
+    proj = _out_proj(params, out.reshape(B, S, n_heads * head_dim), plan)
     return proj, KVCache(kc, vc, _cache_index(valid_len, B, S, x.device))
 
 
@@ -292,11 +334,10 @@ def gqa_decode(params, cache: KVCache, x, *, n_heads, n_kv_heads, head_dim,
                       rope_theta=rope_theta, plan=plan)
     _write_row(cache.k, slot, k)
     _write_row(cache.v, slot, v)
-    out = attend(q, cache.k, cache.v, causal=False, q_offset=0,
-                 kv_valid_len=valid)
+    out = _attend_local(params, q, lambda q: attend(
+        q, cache.k, cache.v, causal=False, q_offset=0, kv_valid_len=valid))
     cache.index.add_(1)
-    proj = bsmm.plan_matmul(out.reshape(B, 1, n_heads * head_dim),
-                            params["wo"], (plan or {}).get("wo"))
+    proj = _out_proj(params, out.reshape(B, 1, n_heads * head_dim), plan)
     return proj, cache
 
 
@@ -361,11 +402,10 @@ def gqa_paged_decode(params, cache: PagedKVCache, x, *, n_heads, n_kv_heads,
     off = pos % T
     cache.k_pool[blk, off] = k[:, 0]
     cache.v_pool[blk, off] = v[:, 0]
-    out = paged_attention(q[:, 0].contiguous(), cache.k_pool, cache.v_pool,
-                          tables, (lens + 1).to(torch.int32),
-                          scale=1.0 / math.sqrt(head_dim))
-    proj = bsmm.plan_matmul(out.reshape(B, 1, n_heads * head_dim),
-                            params["wo"], (plan or {}).get("wo"))
+    out = _attend_local(params, q[:, 0], lambda q: paged_attention(
+        q.contiguous(), cache.k_pool, cache.v_pool, tables,
+        (lens + 1).to(torch.int32), scale=1.0 / math.sqrt(head_dim)))
+    proj = _out_proj(params, out.reshape(B, 1, n_heads * head_dim), plan)
     return proj, cache
 
 

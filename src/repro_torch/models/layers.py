@@ -12,6 +12,7 @@ import math
 import torch
 
 from repro_torch.kernels.bsmm import plan_matmul
+from repro_torch.models import hooks
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -104,17 +105,22 @@ def _act(name: str, x):
 
 def mlp(params, x, act: str = "silu", plan=None):
     """``plan`` routes up/gate/down through the block-sparse kernel; bias
-    adds and the gate (or up) activation ride its fused epilogue."""
+    adds and the gate (or up) activation ride its fused epilogue.  Under
+    a tensor-parallel context whose ``down`` is this rank's shard, up and
+    gate are column-parallel and down row-parallel."""
     plan = plan or {}
+    col = row = plan_matmul
+    tp = hooks.tensor_parallel()
+    if tp is not None and tp.is_sharded(params["down"]):
+        col, row = tp.col, tp.row
     if "gate" in params:
-        up = plan_matmul(x, params["up"], plan.get("up"),
-                         bias=params.get("up_b"))
-        h = plan_matmul(x, params["gate"], plan.get("gate"), act=act) * up
+        up = col(x, params["up"], plan.get("up"), bias=params.get("up_b"))
+        h = col(x, params["gate"], plan.get("gate"), act=act) * up
     else:
-        h = plan_matmul(x, params["up"], plan.get("up"),
-                        bias=params.get("up_b"), act=act)
-    return plan_matmul(h, params["down"], plan.get("down"),
-                       bias=params.get("down_b"))
+        h = col(x, params["up"], plan.get("up"), bias=params.get("up_b"),
+                act=act)
+    return row(h, params["down"], plan.get("down"),
+               bias=params.get("down_b"))
 
 
 # ---------------------------------------------------------------------------
@@ -125,11 +131,17 @@ def embed_init(gen, vocab: int, d: int, dtype, device):
 
 
 def embed(params, tokens):
+    tp = hooks.tensor_parallel()
+    if tp is not None and tp.is_sharded(params["table"]):
+        return tp.embed(params["table"], tokens)
     return params["table"][tokens]
 
 
 def unembed(params, x):
     """Project hidden states to logits (optionally with a tied table)."""
+    tp = hooks.tensor_parallel()
+    if tp is not None and tp.is_sharded(params["table"]):
+        return tp.unembed(params["table"], x)
     return x @ params["table"].T
 
 

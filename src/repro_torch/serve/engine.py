@@ -45,10 +45,27 @@ every prefill attends through the flash attention kernel
 (``kernels.flash_attention``; a windowed layer past one window through
 the reference's two-chunk form).  Sampling happens on the host from
 per-request numpy streams, as in the reference, so greedy and sampled
-streams are comparable one to one.  Not yet ported: meshes.
+streams are comparable one to one.
+
+**Meshes.**  ``mesh=`` (a ``launch.mesh`` ``(data, model)`` mesh; every
+rank builds the same engine and drives it in lockstep) places the
+parameters by the sharding rules (``distributed.sharding``, with
+``head_dim=cfg.head_dim``) and runs the model rank-local
+(``distributed.tensor_parallel``): on a model axis M > 1 the attention
+runs at Hq/M and Hkv/M heads, the MLP at d_ff/M columns, the experts at
+E/M per rank and the vocabulary at V/M rows, each rank's block-sparse
+plans built from its own mask shard, and the paged and slot caches hold
+the local kv heads.  On the data axis every rank runs the same host
+scheduler (block tables replicated): slots ``[d·B/D, (d+1)·B/D)``
+belong to data rank d, which alone prefills their requests and decodes
+their rows; logits rows are gathered (prefill's broadcast) over the
+data axis before sampling, so every rank's scheduler state stays
+identical.  The rules are installed only for the engine's own calls, so
+engines on different meshes and meshless ones coexist in a process.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -58,6 +75,7 @@ import numpy as np
 import torch
 
 from repro_torch._bridge import resolve_device, tree_zip
+from repro_torch.distributed import tensor_parallel as tpar
 from repro_torch.kernels.paged_attention import BLOCK_TOKENS
 from repro_torch.models import encdec
 from repro_torch.models import transformer as tfm
@@ -157,6 +175,7 @@ class _Generation:
     masks: Any                      # the ticket's masks (None: unpruned)
     plan: Any
     plan_stats: PlanStats
+    cfg: Any                        # the config the model runs (local heads)
     slot_reqs: List[Optional[Request]]
     slot_rngs: List[Optional[np.random.Generator]]
     cur: np.ndarray
@@ -168,6 +187,8 @@ class _Generation:
     tables: Optional[np.ndarray] = None        # (slots, NB) int32
     lens: Optional[np.ndarray] = None          # (slots,) int32 tokens written
     slot_nblocks: Optional[np.ndarray] = None  # blocks allocated per slot
+    # the rank-local model on a mesh (None: meshless)
+    sharded: Optional[tpar.ShardedModel] = None
 
     def active_count(self) -> int:
         return sum(1 for r in self.slot_reqs if r is not None)
@@ -193,10 +214,6 @@ def _pct(xs: List[float], q: float) -> float:
     return float(np.percentile(np.asarray(xs), q)) if xs else 0.0
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not yet ported to repro_torch")
-
-
 class ServeEngine:
     """Continuous-batching scheduler over prefill/decode functions.
 
@@ -219,7 +236,10 @@ class ServeEngine:
     ``heartbeat`` (a ``distributed.fault_tolerance.HeartbeatMonitor``)
     is beaten as ``heartbeat_worker`` once per ``step``.  ``device``
     (default ``"cuda"``) must hold ``params``; ``device="cpu"`` runs the
-    kernels' plain versions.
+    kernels' plain versions.  ``mesh`` serves on a mesh under the rules
+    ``distributed.tensor_parallel.mesh_rules`` derives from it, every
+    rank driving its own copy of the engine with the same calls;
+    ``batch_slots`` must divide over the data axis.
     """
 
     def __init__(self, *, params, cfg, prefill_fn=None, decode_fn=None,
@@ -235,8 +255,6 @@ class ServeEngine:
                  kv_blocks: Optional[int] = None,
                  mesh=None, device="cuda"):
         self.device = resolve_device(device)
-        if mesh is not None:
-            raise _not_ported("ServeEngine(mesh=)")
         if batch_slots < 1:
             raise ValueError(f"batch_slots must be >= 1, got {batch_slots}")
         if capacity < 2:
@@ -244,6 +262,17 @@ class ServeEngine:
         self.cfg = cfg
         self.capacity = capacity
         self.slots = batch_slots
+        self.mesh = mesh
+        self.rules = rules = (tpar.mesh_rules(mesh, cfg) if mesh is not None
+                              else None)
+        dp = rules.dp_size if rules is not None else 1
+        if batch_slots % dp:
+            raise ValueError(f"batch_slots ({batch_slots}) must divide over "
+                             f"the {dp} data shards")
+        self._dp = dp
+        self._data_group = mesh.get_group("data") if dp > 1 else None
+        d = mesh.get_local_rank("data") if dp > 1 else 0
+        self._lo, self._hi = d * batch_slots // dp, (d + 1) * batch_slots // dp
         # greedy=None derives from temperature; an explicit greedy wins
         self.greedy = (temperature <= 0.0) if greedy is None else greedy
         self.temperature = temperature
@@ -312,6 +341,15 @@ class ServeEngine:
         if where != self.device:
             raise ValueError(f"params live on {where}, the engine on "
                              f"{self.device}")
+        sharded, cfg = None, self.cfg
+        if self.rules is not None:
+            # this rank's shards; its plans come from its own mask shard
+            sharded = tpar.ShardedModel.from_full(params, self.cfg,
+                                                  self.rules, masks)
+            params, cfg = sharded.params, sharded.cfg
+            if masks is not None:
+                masks = tpar.localize(masks, sharded.shardings,
+                                      contiguous=False)
         # the ticket's TilePlans drive both prefill and decode
         plan, stats = (build_decode_plan(masks) if masks is not None
                        else (None, PlanStats()))
@@ -322,14 +360,14 @@ class ServeEngine:
                              "dense projections")
         gen = _Generation(
             gid=self._next_gid, params=params, masks=masks, plan=plan,
-            plan_stats=stats,
+            plan_stats=stats, cfg=cfg,
             slot_reqs=[None] * self.slots, slot_rngs=[None] * self.slots,
-            cur=np.zeros((self.slots,), np.int64))
+            cur=np.zeros((self.slots,), np.int64), sharded=sharded)
         if self.paged:
             gen.pool = BlockPool(self.kv_blocks)
             with torch.inference_mode():
                 gen.paged_caches = tfm.make_paged_caches(
-                    self.cfg, self.kv_blocks, device=self.device)
+                    cfg, self.kv_blocks, device=self.device)
             nb = self.kv_blocks - 1     # one request may hold every block
             gen.tables = np.zeros((self.slots, nb), np.int32)
             gen.lens = np.zeros((self.slots,), np.int32)
@@ -357,6 +395,26 @@ class ServeEngine:
     def plan(self):
         """The newest generation's tile plan (None: dense)."""
         return self._gens[-1].plan
+
+    @property
+    def kept_whole(self) -> List[Tuple[str, tuple]]:
+        """[(path, spec)] of the newest generation's leaves kept whole on
+        every model rank against their spec (see
+        ``distributed.tensor_parallel``)."""
+        sm = self._gens[-1].sharded
+        return [] if sm is None else list(sm.whole)
+
+    # -- mesh plumbing -----------------------------------------------------
+    def _scope(self, gen: _Generation, groups: Optional[int] = None):
+        """The generation's rules and tensor-parallel context, installed
+        for one model call (nothing on a meshless engine)."""
+        if gen.sharded is None:
+            return contextlib.nullcontext()
+        return gen.sharded.scope(groups)
+
+    def _owns(self, s: int) -> bool:
+        """True when slot ``s`` belongs to this rank's data shard."""
+        return self._lo <= s < self._hi
 
     def swap(self, params, masks=None, use_bsmm: Optional[bool] = None
              ) -> int:
@@ -475,10 +533,11 @@ class ServeEngine:
 
         def mk(leaf, a):
             shape = list(leaf.shape)
+            lanes = self._hi - self._lo     # this data shard's slots
             if leaf.ndim <= a:
-                shape.append(self.slots)
+                shape.append(lanes)
             else:
-                shape[a] = self.slots
+                shape[a] = lanes
             return torch.zeros(shape, dtype=leaf.dtype, device=leaf.device)
         return tree_zip(mk, proto, self._axes)
 
@@ -506,8 +565,11 @@ class ServeEngine:
         # learned it keep working on unpruned engines
         return {} if gen.plan is None else {"plan": gen.plan}
 
-    def _prefill_request(self, gen: _Generation, req: Request, rng):
-        """Single-request prefill → (first token, caches, S).
+    def _prefill_request(self, gen: _Generation, req: Request, rng,
+                         s: int = 0):
+        """Single-request prefill into slot ``s`` → (first token, caches,
+        S); on a mesh only the slot's data shard runs it (caches None on
+        the other ranks) and broadcasts the logits row.
 
         Bucketed and masked where the model supports it, else at the
         prompt's exact length (always with encoder frames, which ride in
@@ -516,6 +578,8 @@ class ServeEngine:
         into pool blocks) or the engine's capacity (dense slots)."""
         prompt = np.asarray(req.prompt, np.int64)
         n = len(prompt)
+        owner_d = s * self._dp // self.slots
+        owner = self._owns(s)
         batch = {}
         if req.frames is not None:
             batch["frames"] = self._frames(req.frames)
@@ -530,9 +594,21 @@ class ServeEngine:
             toks, kw = prompt[None], {}
         cap = S if self.paged else self.capacity
         batch["tokens"] = torch.as_tensor(toks, device=self.device)
-        logits, caches = self._prefill_fn(gen.params, self.cfg, batch, cap,
-                                          **kw, **self._plankw(gen))
-        row = logits[0, -1].float().cpu().numpy()
+        caches = None
+        if owner:
+            with self._scope(gen):
+                logits, caches = self._prefill_fn(gen.params, gen.cfg, batch,
+                                                  cap, **kw,
+                                                  **self._plankw(gen))
+            row = logits[0, -1].float()
+        else:
+            row = torch.empty((self.cfg.padded_vocab,), dtype=torch.float32,
+                              device=self.device)
+        if self._dp > 1:            # the owner's row to every data rank
+            tpar.collective("broadcast", row, self._data_group,
+                            src=torch.distributed.get_global_rank(
+                                self._data_group, owner_d))
+        row = row.cpu().numpy()
         if self.logits_sink is not None:
             self.logits_sink(req.uid, row)
         return self._sample_row(row, rng), caches, cap
@@ -609,7 +685,8 @@ class ServeEngine:
         nb_total = blocks_needed(S, BLOCK_TOKENS)
         blocks = [gen.pool.alloc(req.uid) for _ in range(nb_real)]
         blocks += [0] * (nb_total - nb_real)
-        self.adopt(gen, caches, blocks)
+        if caches is not None:          # this rank's data shard owns s
+            self.adopt(gen, caches, blocks)
         gen.tables[s, :] = 0
         gen.tables[s, :nb_real] = blocks[:nb_real]
         gen.lens[s] = n
@@ -620,7 +697,7 @@ class ServeEngine:
         length S) into ``gen``'s pool at ``blocks``, ⌈S/BLOCK⌉ physical
         ids in logical order, in place: the copy every admission makes
         (``_adopt_request``), callable without a request."""
-        tfm.adopt_prefill(self.cfg, gen.paged_caches, caches, blocks)
+        tfm.adopt_prefill(gen.cfg, gen.paged_caches, caches, blocks)
 
     def _refill(self, out: List[Request]) -> None:
         gen = self._gens[-1]            # admissions target: newest ticket
@@ -643,7 +720,7 @@ class ServeEngine:
                         return
                     gen.pool.reserve(req.uid, need)
                 rng = self._rng_for(req)
-                tok, caches, S = self._prefill_request(gen, req, rng)
+                tok, caches, S = self._prefill_request(gen, req, rng, s)
                 self._prefills += 1
                 gen.served += 1
                 req.generation = gen.gid
@@ -657,10 +734,10 @@ class ServeEngine:
                     continue
                 if gen.pool is not None:
                     self._adopt_request(gen, req, s, caches, n, S)
-                else:
+                elif caches is not None:
                     if gen.slot_caches is None:
                         gen.slot_caches = self._empty_slot_caches(caches)
-                    self._splice(gen.slot_caches, caches, s)
+                    self._splice(gen.slot_caches, caches, s - self._lo)
                 gen.slot_reqs[s] = req
                 gen.slot_rngs[s] = rng
                 gen.cur[s] = tok
@@ -672,10 +749,15 @@ class ServeEngine:
         if not active:
             return
         dev = self.device
+        lo, hi = self._lo, self._hi     # this rank's slots (all: meshless)
+        # a data shard whose own slots are all idle (or, on dense slots,
+        # have never held a request) computes nothing this tick
+        mine = any(lo <= s < hi for s in active) and (
+            gen.pool is not None or gen.slot_caches is not None)
         # copy the host-side arrays at the device boundary: on the CPU
         # torch.as_tensor would alias the numpy buffers the scheduler
         # mutates in place below
-        tok = torch.as_tensor(gen.cur[:, None].copy(), device=dev)
+        tok = torch.as_tensor(gen.cur[lo:hi, None].copy(), device=dev)
         if gen.pool is not None:
             # alloc-on-append: the block the new token lands in must exist
             # before the decode step writes it (drawn from the reservation)
@@ -686,11 +768,13 @@ class ServeEngine:
                     gen.tables[s, gen.slot_nblocks[s]] = pid
                     gen.slot_nblocks[s] += 1
             self._kv_peak = max(self._kv_peak, self.kv_blocks_live)
-            logits, gen.paged_caches = tfm.decode_step_paged(
-                gen.params, self.cfg, gen.paged_caches, tok,
-                torch.as_tensor(gen.tables.copy(), device=dev),
-                torch.as_tensor(gen.lens.copy(), device=dev),
-                **self._plankw(gen))
+            if mine:
+                with self._scope(gen, groups=1):
+                    logits, gen.paged_caches = tfm.decode_step_paged(
+                        gen.params, gen.cfg, gen.paged_caches, tok,
+                        torch.as_tensor(gen.tables[lo:hi].copy(), device=dev),
+                        torch.as_tensor(gen.lens[lo:hi].copy(), device=dev),
+                        **self._plankw(gen))
             # analytic bytes: the kernel reads ceil((len+1)/BLOCK) live
             # blocks per active row
             self._kv_bytes += self._block_bytes * sum(
@@ -698,13 +782,20 @@ class ServeEngine:
                 for s in active)
             self._kv_tokens += len(active)
             gen.lens[active] += 1
-        else:
-            logits, gen.slot_caches = self._decode_fn(
-                gen.params, self.cfg, gen.slot_caches, tok,
-                **self._plankw(gen))
+        elif mine:
+            with self._scope(gen, groups=1):
+                logits, gen.slot_caches = self._decode_fn(
+                    gen.params, gen.cfg, gen.slot_caches, tok,
+                    **self._plankw(gen))
         self._decode_steps += 1
         self._busy_acc += len(active)
-        logits_h = logits[:, 0].float().cpu().numpy()
+        rows = (logits[:, 0].float() if mine else torch.zeros(
+            (hi - lo, self.cfg.padded_vocab), dtype=torch.float32,
+            device=dev))
+        if self._dp > 1:                # every data shard's rows, in order
+            rows = tpar.collective("all_gather", rows, self._data_group,
+                                   dim=0)
+        logits_h = rows.cpu().numpy()
         for s in active:
             req = gen.slot_reqs[s]
             if self.logits_sink is not None:
@@ -772,18 +863,18 @@ class ServeEngine:
         prompt = np.asarray(prompt, np.int64)
         cap = max(self.capacity, len(prompt) + max_new)
         kw = self._plankw(gen)
-        with torch.inference_mode():
+        with torch.inference_mode(), self._scope(gen):
             batch = {"tokens": torch.as_tensor(prompt[None],
                                                device=self.device)}
             if frames is not None:
                 batch["frames"] = self._frames(frames)
-            logits, caches = self._prefill_fn(gen.params, self.cfg, batch,
+            logits, caches = self._prefill_fn(gen.params, gen.cfg, batch,
                                               cap, **kw)
             tok = int(np.argmax(logits[0, -1].float().cpu().numpy()))
             out = [tok]
             for _ in range(max_new - 1):
                 logits, caches = self._decode_fn(
-                    gen.params, self.cfg, caches,
+                    gen.params, gen.cfg, caches,
                     torch.tensor([[tok]], device=self.device), **kw)
                 tok = int(np.argmax(logits[0, 0].float().cpu().numpy()))
                 out.append(tok)

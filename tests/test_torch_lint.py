@@ -646,6 +646,36 @@ def test_cli_lint_fails_on_error_findings(monkeypatch, capsys):
     capsys.readouterr()
 
 
+def test_j208_engine_sharding_placements():
+    """J208 on a mesh engine's placements: none at all is an error, all
+    Replicate() a warning, a sharded leaf clean; a meshless or one-rank
+    engine has nothing to check.  (A real (1, 2) engine audits clean in
+    ``tests/test_torch_distributed.py``.)"""
+    from repro_torch.distributed.sharding import LeafSharding, Replicate, Shard
+
+    class FakeMesh:
+        def __init__(self, **axes):
+            self.axis_names, self.shape = tuple(axes), dict(axes)
+
+    mesh = FakeMesh(data=1, model=2)
+    w = torch.ones(4, 4)
+
+    def engine(placements, m=mesh):
+        sharded = (None if placements is None else SimpleNamespace(
+            shardings={"w": LeafSharding(m, (None, None), placements)}))
+        gen = SimpleNamespace(gid=0, params={"w": w}, sharded=sharded)
+        return SimpleNamespace(mesh=m, generations=[gen])
+
+    got = ta.audit_engine_sharding(engine(None))
+    assert_code(got, "J208", "error")
+    got = ta.audit_engine_sharding(engine((Replicate(), Replicate())))
+    assert_code(got, "J208", "warning")
+    assert ta.audit_engine_sharding(engine((Replicate(), Shard(1)))) == []
+    assert ta.audit_engine_sharding(engine(None, FakeMesh(data=1,
+                                                          model=1))) == []
+    assert ta.audit_engine_sharding(SimpleNamespace(mesh=None)) == []
+
+
 # keep last: every R/P/J code the port emits has a seeded-defect test
 # above; the K codes are exercised by tests/test_torch_kernel_audit.py
 def test_every_emitted_rule_code_is_exercised():
@@ -655,7 +685,6 @@ def test_every_emitted_rule_code_is_exercised():
                                      "'closure raised' meaning is emitted",
         "J206": "no compiled artifact: lint --hlo exits 2",
         "J207": "no compiled artifact: lint --hlo exits 2",
-        "J208": "one-device engines: ServeEngine(mesh=) raises",
     }
     assert {k for k in never if " " not in k} == set(ta.NEVER_EMITTED)
     assert "never emitted" in ta.RULES["J204"].doc

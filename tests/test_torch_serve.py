@@ -276,20 +276,27 @@ def test_engine_requires_cuda_unless_cpu(slice_setup, monkeypatch):
 
 def test_not_yet_ported_paths_raise(slice_setup, capsys):
     """What is still to port raises "not yet ported" (or, on the command
-    line, exits 2 with a structured refusal): sharded engines and the
-    CLI's --mesh.  Encoder frames are admitted now (the frames lane:
+    line, exits 2 with a structured refusal): the encoder-decoder on a
+    model axis > 1 (meshes themselves serve now:
+    ``tests/test_torch_distributed.py``) and ``lint --hlo``.  Encoder
+    frames are admitted now (the frames lane:
     ``tests/test_torch_encdec.py``), MoE trains, and ``lint`` runs
     (``tests/test_torch_lint.py``)."""
     from repro_torch.api import cli
     from repro_torch.models import encdec
-    s = slice_setup
-    kw = dict(params=s["tparams"], cfg=s["tcfg"], device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ServeEngine(**kw, mesh=object())
+
+    class FakeMesh:                 # a (1, 2) mesh's axes, no group
+        axis_names = ("data", "model")
+        shape = {"data": 1, "model": 2}
+
     wcfg = tcfgs.scaled_down(tcfgs.get_arch("whisper-tiny"),
                              dtype="float32")
     wparams = encdec.init_params(torch.Generator().manual_seed(0), wcfg,
                                  device="cpu")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        ServeEngine(params=wparams, cfg=wcfg, prefill_fn=encdec.prefill,
+                    decode_fn=encdec.decode_step, mesh=FakeMesh(),
+                    device="cpu")
     eng = ServeEngine(params=wparams, cfg=wcfg, prefill_fn=encdec.prefill,
                       decode_fn=encdec.decode_step, batch_slots=2,
                       capacity=16, device="cpu")
@@ -300,8 +307,7 @@ def test_not_yet_ported_paths_raise(slice_setup, capsys):
     eng.run()
     assert req.status == "done" and req.tokens == eng.smoke_decode(
         np.ones(3, np.int32), 2, frames=frames)
-    for argv in (["serve", "--arch", "llama3.2-3b", "--device", "cpu",
-                  "--mesh", "1x2", "--json"],):
+    for argv in (["lint", "--arch", "vgg11", "--hlo", "--json"],):
         assert cli.main(argv) == cli.EXIT_UNSUPPORTED
         assert "not yet ported" in capsys.readouterr().out
     # MoE serves and trains: the training forward returns its aux loss
