@@ -18,8 +18,9 @@ no result line otherwise):
    paged attention of absorbed MLA, and bsmm batched over 256 experts),
    in bfloat16 and float32, with the tolerance printed, and time
    kernel, plain version and a library yardstick; flash attention at
-   llama3.2-3b's prefill shapes (S 128, 300, 512, 1024, 4096; full and
-   float32 at 512) and deepseek-v3's MLA prefill (hd 192, dv 128), each
+   llama3.2-3b's prefill shapes (S 128, 300, 512, 1024, 4096, and the
+   PREFILL_32K cell's 32767 and 32768; full and float32 at 512) and
+   deepseek-v3's MLA prefill (hd 192, dv 128), each
    dtype on its own route (bfloat16: the wgmma kernel, float32: the
    CUDA-core one), every bfloat16 shape faster than its plain version
    and closer to SDPA than the CUDA-core kernel was, where that was
@@ -54,7 +55,8 @@ no result line otherwise):
    products on its ``stream`` kernel and the prefill products on its
    ``wgmma`` kernel, the output held to the same MLP through the plain
    version, and timed beside ``torch.matmul`` on the masked weights;
-3b. the serving control plane at the same size: two crossbar tickets
+3b. the serving control plane at the same width cut to 8 of its 28
+   layers (``CP_LAYERS``; the script's time): two crossbar tickets
    (seeded bitmaps) exported through ``core.lottery`` and registered in
    a ``TicketManager`` (fingerprints through ``smoke_decode``), a
    ``FleetRouter`` of two engines fleet-swapped from ticket A to B
@@ -67,7 +69,8 @@ no result line otherwise):
    bf16 gate, their distinct tokens printed), a dense-slot
    (``paged=False``) engine against the paged one, flash attention
    launched once per layer and prefill, all on the wgmma route, one
-   profiled prefill, and ``api.cli serve --engines 2`` at full width;
+   profiled prefill, and ``api.cli serve --engines 2`` at full width
+   and depth;
 4. check one loss backward through the ticket's plan against dense
    autograd at full width and 2 layers;
 5. retrain the full-width, full-depth ticket for 4 steps through
@@ -192,6 +195,31 @@ no result line otherwise):
    and held to the one-rank block; (e) ``Supervisor`` around a
    2-layer full-width llama3.2-3b retrain whose third step fails once:
    it resumes from step 2's checkpoint and reaches its 4 steps;
+6h. the entry points a user starts the port with (``launch_phase``;
+   every count set to 0 before a leg and read after it): (a)
+   ``launch.serve.main`` on llama3.2-3b at full width and depth, pruned
+   75 % in the launcher's three crossbar-aware steps, 16 requests x 16
+   tokens on a (1, 1) mesh: every request done, every logit finite, the
+   engine's plan the ticket's 128x128 tile union, #1/#2 by route and
+   split, #6 (once a layer and decode step) and #8 (once a layer and
+   prefill, each call's length, all ``wgmma``) what the plan and the
+   engine's passes give; (b) the same launcher, dense, ``--engines 2
+   --heartbeat-dir``: #6 and #8 only, no failover; (c)
+   ``launch.train.main`` at full width and depth, 4 steps of 8 x 128
+   tokens (dense, plain attention: no kernel), each step timed, losses
+   finite, ``done at step 4``, the peak memory; (d) ``launch.steps``
+   cells on llama3.2-3b at full width and depth, each cut to one
+   sequence: TRAIN_4K (two steps; the meta specs drive the inputs and
+   match the real trees), PREFILL_32K fed 32767 tokens and then
+   DECODE_32K on its caches (their shapes ``cache_specs``') with token
+   32768, held to one prefill of all 32768 tokens at 5e-2 of the row's
+   max |logit|, #8 once a layer and prefill, LONG_500K's skip printed;
+   then recurrentgemma-2b's LONG_500K at its published B = 1: a
+   4096-token prefill at capacity 524288 (each window a ring of 2048
+   rows, the caches ``cache_specs``') and 8 decode steps, the peak
+   memory; (e) the five ``examples/torch_*.py`` at once as
+   subprocesses on the card at the smallest sizes their flags allow,
+   each exiting 0, their seconds printed;
 7. run Algorithm 1 on vgg11 at its published widths through
    ``make_adapter("vgg11", scale="full")`` and ``PruningSession(...).run()``
    (the family's recipe cut to 4 prune rounds of 100 steps at a 5 %
@@ -266,7 +294,8 @@ paths' (``launches_serve_hybrid``, ``launches_retrain_hybrid``,
 ``launches_serve_command_r``, ``launches_serve_vlm``,
 ``launches_retrain_vlm``, ``launches_serve_llama4``; #1b's
 ``launches_serve_llama4``; #1/#2/#1b/#6/#8's ``launches_distributed``,
-by leg and rank, and #1/#2/#6/#8's ``distributed_shapes``, their checks
+by leg and rank, #1/#2/#6/#8's ``launches_launch`` by leg of the
+entry points' phase, and #1/#2/#6/#8's ``distributed_shapes``, their checks
 and times at leg (b)'s local shapes; #6's ``hd96`` and #8's ``hd256`` and
 ``hd64_hd96`` entries with those widths' times and their launches on
 the serving paths, #8's registers and spills) — its error
@@ -283,10 +312,15 @@ is ``{"ok": true, "device": {...}}``.  Longer records go to
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
+import io
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -810,7 +844,15 @@ FLASH_SHAPES = ((300, 24, 8, 128, 128, True, torch.bfloat16),
                 (300, 32, 32, 96, 96, True, torch.bfloat16),
                 (1500, 6, 6, 64, 64, False, torch.bfloat16),
                 (64, 6, 6, 64, 64, True, torch.bfloat16),
-                (300, 32, 32, 96, 96, True, torch.float32))
+                (300, 32, 32, 96, 96, True, torch.float32),
+                # the launch phase's PREFILL_32K cell: llama3.2-3b's
+                # prefill of 32767 tokens (then DECODE_32K) and of 32768
+                (32767, 24, 8, 128, 128, True, torch.bfloat16),
+                (32768, 24, 8, 128, 128, True, torch.bfloat16))
+# above this length SDPA, the yardstick, gets k and v with their heads
+# repeated rather than ``enable_gqa``: a backend that materialised the
+# scores would hold Hq S^2 float32 of them (103 GB at S = 32767)
+FLASH_SDPA_GQA_MAX_S = 8192
 # #8 / SDPA of the CUDA-core kernel that ran every dtype before the
 # wgmma route (an H100 80GB HBM3 at 700 W; PERF.md §6), keyed
 # (S, Hq, causal)
@@ -872,8 +914,12 @@ def check_flash(FA, shapes=FLASH_SHAPES):
             lambda i: FA.flash_attention_plain(q, k, v, causal=causal),
             iters=3, graph=False)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        gqa = Hq != Hkv
+        if gqa and S > FLASH_SDPA_GQA_MAX_S:
+            kt, vt = (t.repeat_interleave(Hq // Hkv, 1) for t in (kt, vt))
+            gqa = False
         row["library_ms"] = time_ms(lambda i: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal, enable_gqa=Hq != Hkv))
+            qt, kt, vt, is_causal=causal, enable_gqa=gqa))
         row["bound_ms"], row["bound_by"] = flash_bound_ms(
             S, Hq, Hkv, hd, dv, causal, q.element_size(), name)
         row["sdpa_ratio"] = row["ms"] / row["library_ms"]
@@ -1448,6 +1494,7 @@ def time_decode_dispatch(eng, cfg, B, device) -> dict:
 # the serving control plane: tickets, a fleet, hot-swap, failover,
 # dense-slot decode and the command line, at full width
 # ---------------------------------------------------------------------------
+CP_LAYERS = 8           # llama3.2-3b's 28 layers cut: the script's time
 CP_REQUESTS = 16        # fleet requests (prompts 5-300 tokens)
 CP_MAX_NEW = 16
 CP_SWAP_AFTER = 2       # fleet ticks before the swap lands
@@ -5358,6 +5405,517 @@ def distributed_phase(B, FA, PA, opts=None) -> tuple:
     return launches, summary
 
 
+# ---------------------------------------------------------------------------
+# 6h. the entry points: launch/{serve,train,steps}.py and the examples
+# ---------------------------------------------------------------------------
+LAUNCH_ARCH = "llama3.2-3b"
+LAUNCH_HYBRID = "recurrentgemma-2b"
+LAUNCH_SERVE = ("--requests", "16", "--max-new", "16")
+LAUNCH_PRUNED = "0.75"
+LAUNCH_TRAIN = ("--steps", "4", "--batch", "8", "--seq", "128")
+# leg (d)'s cells cut to one sequence each (published global batch: 256,
+# 32, 128); LONG_500K keeps its published B = 1.  ``LAUNCH_SEQ`` shortens
+# a cell's sequence for a rehearsal at a small size (empty on the card)
+LAUNCH_BATCH = 1
+LAUNCH_SEQ: dict = {}
+LONG_PREFILL = 4096         # tokens recurrentgemma's 500k caches take first
+LONG_DECODE_STEPS = 8
+LAUNCH_TRAIN_STEPS = 2      # TRAIN_4K's build_step steps
+LAUNCH_COUNTED = ("bsmm", "bsmm_epilogue", "paged_attention",
+                  "flash_attention")
+# each example at the smallest sizes its own flags allow, on the card
+EXAMPLES = (
+    ("quickstart",),
+    ("prune_cnn_lottery", "--steps", "1", "--recipe", "paper",
+     "--ticket-dir", "{tmp}/ticket"),
+    ("train_lm_pruned", "--steps", "2", "--prune-steps", "1", "--batch", "1",
+     "--seq", "8", "--ckpt", "{tmp}/ckpt"),
+    ("serve_pruned", "--requests", "3", "--max-new", "3"),
+    ("serve_control_plane", "--max-new", "2"),
+)
+
+
+@contextlib.contextmanager
+def recorded_engines(module):
+    """Within it, ``module.ServeEngine`` keeps every engine it builds (its
+    ``logits_sink`` set by ``watch``) and ``module.init_params`` the time
+    its parameters were ready; yields (engines, non-finite counters,
+    marks: perf_counter of "params" and of the first "engine")."""
+    real_engine, real_init = module.ServeEngine, module.init_params
+    engines, nonfinite, marks = [], [], {}
+
+    def init_params(*a, **kw):
+        params = real_init(*a, **kw)
+        marks["params"] = time.perf_counter()
+        return params
+
+    def engine(**kw):
+        marks.setdefault("engine", time.perf_counter())
+        marks["masks"] = kw.get("masks")
+        eng = real_engine(**kw)
+        nonfinite.append(watch(eng)[0])
+        engines.append(eng)
+        return eng
+
+    module.ServeEngine, module.init_params = engine, init_params
+    try:
+        yield engines, nonfinite, marks
+    finally:
+        module.ServeEngine, module.init_params = real_engine, real_init
+
+
+def union_tiles(masks) -> tuple:
+    """(live, total) 128x128 tiles of llama's planned projections in a
+    mask tree: a tile is live when any layer keeps a weight in it (the
+    union a stacked segment's plan takes)."""
+    live = total = 0
+    for seg in masks["segments"]:
+        for entry in seg:
+            for group, keys in LLAMA_PROJECTIONS:
+                for key in keys:
+                    m = entry[group][key]
+                    m = (m != 0).reshape(-1, *m.shape[-2:]).any(0)
+                    K, N = m.shape
+                    tiles = m.reshape(K // 128, 128, N // 128, 128).any(3)
+                    tiles = tiles.any(1)
+                    live += int(tiles.sum())
+                    total += tiles.numel()
+    return live, total
+
+
+def launcher_prompt_lengths(n: int) -> list:
+    """The prompt lengths ``launch.serve`` draws from RandomState(0)."""
+    rng = np.random.RandomState(0)
+    lengths = []
+    for _ in range(n):
+        k = rng.randint(4, 32)
+        rng.randint(0, 200, k)
+        lengths.append(k)
+    return lengths
+
+
+def launch_serve_leg(B, FA, PA, argv, device, label) -> tuple:
+    """``launch.serve.main(argv)`` with every count set to 0 before and
+    read after: every request done with its tokens, every logit finite,
+    and #1/#2 by route and split, #6 and #8 (each call's length) what
+    the engines' plans and passes give.  A pruned run's plan must be the
+    ticket's tile union.  At ``--pruned 0.75`` on llama3.2-3b that union
+    over 28 layers is every 128x128 tile (three ~37 % steps kill 32-wide
+    groups spread over every tile), so this leg skips no tile: the skip
+    path of #1/#2 (dead tiles left out of their grids) is covered by the
+    ``serve`` phase's ~25 %-live tickets, not here.  Returns (launches,
+    summary)."""
+    from repro_torch.configs import ATTN
+    from repro_torch.launch import serve as lserve
+    from repro_torch.models import attention
+    from repro_torch.models import transformer as tfm
+
+    calls, undo = record_flash_calls((attention,))
+    reset_kernel_counts(B, FA, PA)
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with recorded_engines(lserve) as (engines, nonfinite, marks), \
+                contextlib.redirect_stdout(buf):
+            rep = lserve.main([*argv, "--device", device])
+        sync(device)
+    finally:
+        undo()
+    wall = time.perf_counter() - t0
+    out = buf.getvalue()
+    print(out, end="")
+    launches = kernel_counts(B, FA, PA)
+    routes = bsmm_routes(B, SERVE_ROUTED)
+    n_req = int(argv[argv.index("--requests") + 1])
+    max_new = int(argv[argv.index("--max-new") + 1])
+    cfg = engines[0].cfg
+    masked = tfm.supports_masked_prefill(cfg)
+    lengths = launcher_prompt_lengths(n_req)
+    require(sum(e.report.prefills for e in engines) == n_req,
+            f"{label}: one prefill a request")
+    require(rep.requests == n_req and rep.tokens_generated == n_req * max_new,
+            f"{label}: {rep.requests} requests, {rep.tokens_generated} "
+            f"tokens served")
+    require(sum(c[0] for c in nonfinite) == 0, f"{label}: non-finite logits")
+    # one pass a prefill (its bucket) and a decode step (8 slots); with
+    # one engine the plan's routes, with a fleet no plan (dense)
+    rows = [engines[0]._bucket(n) if masked else n for n in lengths]
+    decode_steps = [e.report.decode_steps for e in engines]
+    want = expected_serving_routes(
+        B, engines[0].plan, cfg, [8] * sum(decode_steps) + rows,
+        SERVE_ROUTED)
+    want_calls = sorted(c for S in rows for c in expected_flash_calls(cfg, S))
+    global_layers = sum(k == ATTN for k in cfg.blocks)
+    want_launches = {
+        **{n: sum(want[n]["launches_by_route"].values())
+           for n in SERVE_ROUTED},
+        "paged_attention": sum(d * global_layers for e, d in
+                               zip(engines, decode_steps) if e.paged),
+        "paged_attention_fused_v": 0, "flash_attention": len(want_calls)}
+    print(f"launch ({label}): launches {launches}, want {want_launches}; "
+          f"bsmm routes {routes}, want {want}; decode steps {decode_steps}")
+    require(routes == want, f"{label}: #1/#2 routes or splits off the plan")
+    require(sorted(calls) == want_calls, f"{label}: flash calls off the "
+            "engines' prefills")
+    require(launches == want_launches, f"{label}: launch counts off the "
+            "engines' passes")
+    require_flash_routes(FA, len(want_calls), f"launch ({label})")
+    on_card = torch.device(device).type == "cuda"
+    summary = {
+        "s": wall, "requests": rep.requests,
+        "tokens": rep.tokens_generated, "decode_steps": decode_steps,
+        "tokens_per_s": rep.tokens_per_s, "ttft_p50_s": rep.ttft_p50,
+        "ttft_p95_s": rep.ttft_p95, "launches": launches,
+        "bsmm_routes": routes, "report_lines": out.strip().splitlines(),
+        "max_memory_allocated_bytes":
+            torch.cuda.max_memory_allocated() if on_card else None}
+    if "params" in marks and "engine" in marks:
+        summary["prune_s"] = marks["engine"] - marks["params"]
+    if marks.get("masks") is not None:
+        live, total = union_tiles(marks["masks"])
+        print(f"launch ({label}): live tiles {rep.live_tiles}/"
+              f"{rep.total_tiles}, the ticket's union {live}/{total}")
+        require(rep.bsmm_enabled and (rep.live_tiles, rep.total_tiles)
+                == (live, total), f"{label}: the engine's plan is not the "
+                "ticket's tile union")
+    if len(engines) == 1:
+        summary.update(bsmm=rep.bsmm_enabled,
+                       live_tiles=rep.live_tiles, total_tiles=rep.total_tiles,
+                       skipped_tile_fraction=rep.skipped_tile_fraction,
+                       slot_occupancy=rep.slot_occupancy)
+    else:
+        summary.update(failovers=rep.failovers, live_engines=rep.live_engines,
+                       redispatched=rep.redispatched)
+    del engines, rep
+    return launches, summary
+
+
+def launch_train_leg(B, FA, PA, device) -> tuple:
+    """``launch.train.main`` at full width and depth (dense, plain
+    attention: no kernel): each step timed (``Trainer.step_fn`` wrapped,
+    the card synchronised), finite losses, ``done at step 4``, the peak."""
+    from repro_torch._bridge import tree_leaves
+    from repro_torch.launch import train as ltrain
+
+    real = ltrain.Trainer
+    steps = []
+
+    class Timed(real):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            inner = self.step_fn
+
+            def timed(*args):
+                t = time.perf_counter()
+                out = inner(*args)
+                sync(device)
+                steps.append((time.perf_counter() - t,
+                              float(out[-1]["loss"])))
+                return out
+            self.step_fn = timed
+
+    reset_kernel_counts(B, FA, PA)
+    reset_bsmm_routes(B)
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    ltrain.Trainer = Timed
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            trainer = ltrain.main(["--arch", LAUNCH_ARCH, *LAUNCH_TRAIN,
+                                   "--device", device])
+    finally:
+        ltrain.Trainer = real
+    wall = time.perf_counter() - t0
+    out = buf.getvalue()
+    print(out, end="")
+    n = int(LAUNCH_TRAIN[LAUNCH_TRAIN.index("--steps") + 1])
+    launches = {**kernel_counts(B, FA, PA),
+                **{k: getattr(B, k).launches for k in BSMM_ROUTED}}
+    losses = [loss for _, loss in steps]
+    times = [t for t, _ in steps]
+    print(f"launch (train): {n} steps, losses {losses}, step s {times}, "
+          f"launches {launches}")
+    require(f"done at step {n}" in out and trainer.state.step == n,
+            "launch.train.main did not reach its last step")
+    require(len(steps) == n and all(np.isfinite(losses)),
+            "launch.train.main's losses are not finite")
+    require(not any(launches.values()), "the dense train path launched a "
+            "kernel")
+    params = sum(t.numel() for t in tree_leaves(trainer.state.params))
+    del trainer
+    return launches, {
+        "s": wall, "steps": n, "losses": losses, "step_s": times,
+        "step_s_median_2_4": float(np.median(times[1:])),
+        "parameters": params,
+        "max_memory_allocated_bytes":
+            torch.cuda.max_memory_allocated() if on_card else None}
+
+
+def launch_cell(shape):
+    """A shape cell as leg (d) runs it: ``LAUNCH_BATCH`` sequences (but
+    LONG_500K, published at 1), its sequence ``LAUNCH_SEQ``'s if set."""
+    batch = shape.global_batch if shape.name == "long_500k" else LAUNCH_BATCH
+    return dataclasses.replace(shape, global_batch=batch,
+                               seq_len=LAUNCH_SEQ.get(shape.name,
+                                                      shape.seq_len))
+
+
+def spec_inputs(spec: dict, vocab: int, gen, device) -> dict:
+    """Random integer inputs of ``input_specs``'s meta shapes and dtypes."""
+    return {k: torch.randint(0, vocab, tuple(s.shape), generator=gen,
+                             device=device, dtype=s.dtype)
+            for k, s in spec.items()}
+
+
+def shapes_of(tree) -> list:
+    from repro_torch._bridge import tree_leaves
+    return [tuple(t.shape) for t in tree_leaves(tree)]
+
+
+def launch_cells_leg(B, FA, PA, device) -> tuple:
+    """``build_step``'s cells on llama3.2-3b at full width and depth:
+    TRAIN_4K (two steps), PREFILL_32K then DECODE_32K on its caches
+    against one prefill of every token (5e-2 of each row's max |logit|),
+    LONG_500K's skip; then recurrentgemma-2b's LONG_500K decode from a
+    ``LONG_PREFILL``-token prefill at its capacity.  Returns (launches,
+    summary)."""
+    from repro_torch._bridge import tree_leaves
+    from repro_torch.configs import (ATTN, DECODE_32K, LONG_500K,
+                                     PREFILL_32K, TRAIN_4K, get_arch)
+    from repro_torch.launch import steps as lsteps
+    from repro_torch.models import transformer as tfm
+
+    on_card = torch.device(device).type == "cuda"
+
+    def peak():
+        return torch.cuda.max_memory_allocated() if on_card else None
+
+    def reset_peak():
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+
+    summary = {}
+    cfg = get_arch(LAUNCH_ARCH)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = tfm.init_params(gen, cfg, device=device)
+    reset_kernel_counts(B, FA, PA)
+
+    # TRAIN_4K: the meta specs drive the inputs; two steps
+    cell = launch_cell(TRAIN_4K)
+    train = lsteps.build_step(cfg, cell)
+    require(train.kind == "train" and shapes_of(train.args[0])
+            == shapes_of(params), "train_4k: params_spec off the params")
+    opt_state = lsteps.make_optimizer(cfg).init(params)
+    require(shapes_of(train.args[1]) == shapes_of(opt_state),
+            "train_4k: opt_state_spec off the optimizer state")
+    batch = spec_inputs(train.args[2], cfg.vocab_size, gen, device)
+    reset_peak()
+    p, losses, times = params, [], []
+    for _ in range(LAUNCH_TRAIN_STEPS):
+        t = time.perf_counter()
+        p, opt_state, metrics = train.fn(p, opt_state, batch)
+        sync(device)
+        times.append(time.perf_counter() - t)
+        losses.append(float(metrics["loss"]))
+    summary["train_4k"] = {"batch": cell.global_batch, "seq": cell.seq_len,
+                           "losses": losses, "step_s": times,
+                           "max_memory_allocated_bytes": peak()}
+    print(f"launch (cells) train_4k at B = {cell.global_batch}: "
+          f"{summary['train_4k']}")
+    require(all(np.isfinite(losses)), "train_4k: non-finite loss")
+    del p, opt_state, batch, metrics
+    _free(device)
+
+    # PREFILL_32K fed S - 1 tokens, then DECODE_32K on its caches with
+    # token S, against one prefill of all S tokens
+    pre = lsteps.build_step(cfg, launch_cell(PREFILL_32K))
+    dec = lsteps.build_step(cfg, launch_cell(DECODE_32K))
+    S = launch_cell(PREFILL_32K).seq_len
+    tokens = spec_inputs(pre.args[1], cfg.vocab_size, gen, device)["tokens"]
+    reset_kernel_counts(B, FA, PA)
+    reset_peak()
+    t = time.perf_counter()
+    _, caches = pre.fn(params, {"tokens": tokens[:, :-1]})
+    sync(device)
+    prefill_s = time.perf_counter() - t
+    prefill_peak = peak()
+    require(shapes_of(caches) == shapes_of(dec.args[1]),
+            "decode_32k: the prefill's caches are not cache_specs'")
+    t = time.perf_counter()
+    logits, caches = dec.fn(params, caches, tokens[:, -1:])
+    sync(device)
+    decode_s = time.perf_counter() - t
+    del caches
+    _free(device)
+    full, caches = pre.fn(params, {"tokens": tokens})
+    del caches
+    err = ((logits.float() - full.float()).abs().amax(-1)
+           / full.float().abs().amax(-1).clamp_min(1e-30)).max().item()
+    flash = FA.flash_attention.launches
+    global_layers = sum(k == ATTN for k in cfg.blocks)
+    summary["prefill_decode_32k"] = {
+        "batch": LAUNCH_BATCH, "prefill_tokens": S - 1, "prefill_s": prefill_s,
+        "prefill_max_memory_allocated_bytes": prefill_peak,
+        "decode_s": decode_s, "decode_vs_full_prefill_rel_err": err,
+        "tol": TEACHER_TOL, "flash_launches": flash,
+        "logits_finite": bool(torch.isfinite(logits).all())}
+    print(f"launch (cells) prefill_32k + decode_32k: "
+          f"{summary['prefill_decode_32k']}")
+    require(summary["prefill_decode_32k"]["logits_finite"],
+            "decode_32k: non-finite logits")
+    require(err <= TEACHER_TOL, "decode_32k after prefill_32k is off the "
+            "full prefill's last row")
+    require(flash == 2 * global_layers, "prefill_32k: #8 not once a layer "
+            "and prefill")
+    require_flash_routes(FA, 2 * global_layers, "launch (cells) prefill_32k")
+    launches = kernel_counts(B, FA, PA)
+    skip = lsteps.cell_skip_reason(cfg, LONG_500K)
+    print(f"launch (cells) {cfg.name} x long_500k: SKIP ({skip})")
+    require(skip is not None, "long_500k is not skipped for a full-attention "
+            "arch")
+    summary["long_500k_skip"] = {cfg.name: skip}
+    del params, logits, full, tokens
+    _free(device)
+
+    # LONG_500K on recurrentgemma-2b at its published B = 1
+    rg = get_arch(LAUNCH_HYBRID)
+    require(lsteps.cell_skip_reason(rg, LONG_500K) is None,
+            "recurrentgemma-2b's long_500k is skipped")
+    long = launch_cell(LONG_500K)
+    rg_params = tfm.init_params(gen, rg, device=device)
+    prefill_cell = type(long)("long_500k_prefill", long.seq_len,
+                              long.global_batch, "prefill")
+    rpre = lsteps.build_step(rg, prefill_cell)
+    rdec = lsteps.build_step(rg, long)
+    toks = torch.randint(0, rg.vocab_size, (long.global_batch, LONG_PREFILL),
+                         generator=gen, device=device, dtype=torch.int32)
+    reset_peak()
+    t = time.perf_counter()
+    logits, caches = rpre.fn(rg_params, {"tokens": toks})
+    sync(device)
+    rprefill_s = time.perf_counter() - t
+    require(shapes_of(caches) == shapes_of(rdec.args[1]),
+            "long_500k: the prefill's caches are not cache_specs'")
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(caches))
+    tok = logits[:, -1:].argmax(-1).to(torch.int32)
+    finite, times = bool(torch.isfinite(logits).all()), []
+    for _ in range(LONG_DECODE_STEPS):
+        t = time.perf_counter()
+        logits, caches = rdec.fn(rg_params, caches, tok)
+        sync(device)
+        times.append(time.perf_counter() - t)
+        finite &= bool(torch.isfinite(logits).all())
+        tok = logits[:, -1:].argmax(-1).to(torch.int32)
+    summary["long_500k"] = {
+        "arch": rg.name, "batch": long.global_batch,
+        "capacity": long.seq_len, "prefill_tokens": LONG_PREFILL,
+        "prefill_s": rprefill_s, "decode_steps": LONG_DECODE_STEPS,
+        "decode_step_s": times, "cache_bytes": cache_bytes,
+        "logits_finite": finite, "max_memory_allocated_bytes": peak()}
+    print(f"launch (cells) {rg.name} x long_500k: {summary['long_500k']}")
+    require(finite, "long_500k: non-finite logits")
+    del rg_params, caches, logits
+    _free(device)
+    return launches, summary
+
+
+def launch_examples_leg(device) -> dict:
+    """The five ``examples/torch_*.py`` at once as subprocesses (their
+    default device, the card), each at the smallest sizes its flags
+    allow, its output in ``chiprun_out/``: each must exit 0; its own
+    seconds (start to exit, all running together) and last line printed."""
+    OUT.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="launch_examples_"))
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    procs, out = {}, {}
+    try:
+        for name, *args in EXAMPLES:
+            d = tmp / name
+            d.mkdir()
+            cmd = [sys.executable, str(ROOT / "examples" / f"torch_{name}.py"),
+                   *(a.format(tmp=d) for a in args)]
+            if torch.device(device).type != "cuda":
+                cmd += ["--device", device]
+            log = OUT / f"launch_example_{name}.log"
+            with open(log, "w") as f:
+                procs[name] = (time.perf_counter(), log, subprocess.Popen(
+                    cmd, cwd=ROOT, env=env, stdout=f,
+                    stderr=subprocess.STDOUT, text=True))
+        deadline = time.perf_counter() + 600
+        while len(out) < len(procs) and time.perf_counter() < deadline:
+            for name, (t0, log, proc) in procs.items():
+                if name not in out and proc.poll() is not None:
+                    lines = log.read_text().strip().splitlines() or [""]
+                    out[name] = {"rc": proc.returncode,
+                                 "s": time.perf_counter() - t0,
+                                 "last_line": lines[-1]}
+                    print(f"launch (examples) torch_{name}.py: {out[name]}")
+                    if proc.returncode:
+                        print("\n".join(lines[-40:]), file=sys.stderr)
+            time.sleep(0.05)
+    finally:
+        for _, _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name, _ in procs.items():
+        require(name in out, f"examples/torch_{name}.py did not end")
+        require(out[name]["rc"] == 0,
+                f"examples/torch_{name}.py exited {out[name]['rc']}")
+    return out
+
+
+def launch_phase(B, FA, PA, device="cuda") -> tuple:
+    """Legs (a)-(e) of the entry points (see the module docstring);
+    returns (#1/#2/#6/#8 launches by leg, summary)."""
+    summary, legs, t = {}, {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t
+        now = time.perf_counter()
+        summary.setdefault("leg_s", {})[name] = now - t
+        t = now
+
+    legs["serve_pruned"], summary["serve_pruned"] = launch_serve_leg(
+        B, FA, PA, ["--arch", LAUNCH_ARCH, "--pruned", LAUNCH_PRUNED,
+                    *LAUNCH_SERVE], device, "pruned serving")
+    require(summary["serve_pruned"]["bsmm"], "the pruned launcher served "
+            "dense")
+    _free(device)
+    lap("serve_pruned")
+    hb = tempfile.mkdtemp(prefix="launch_heartbeat_")
+    try:
+        legs["fleet"], summary["fleet"] = launch_serve_leg(
+            B, FA, PA, ["--arch", LAUNCH_ARCH, *LAUNCH_SERVE, "--engines",
+                        "2", "--heartbeat-dir", hb], device, "dense fleet")
+    finally:
+        shutil.rmtree(hb, ignore_errors=True)
+    f = summary["fleet"]
+    require(f["failovers"] == 0 and f["live_engines"] == 2,
+            "the dense fleet failed over")
+    _free(device)
+    lap("fleet")
+    legs["train"], summary["train"] = launch_train_leg(B, FA, PA, device)
+    _free(device)
+    lap("train")
+    legs["cells"], summary["cells"] = launch_cells_leg(B, FA, PA, device)
+    lap("cells")
+    summary["examples"] = launch_examples_leg(device)
+    lap("examples")
+    launches = {name: {leg: c.get(name, 0) for leg, c in legs.items()}
+                for name in LAUNCH_COUNTED}
+    print(f"launch: launches by leg {launches}; leg seconds "
+          f"{summary['leg_s']}")
+    return launches, summary
+
+
 def sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
@@ -5471,7 +6029,12 @@ def main() -> int:
     # tickets' weights, all freed before the retrain phase's 56.5 GB peak
     gc.collect()
     torch.cuda.empty_cache()
-    cp_launches, cp_summary = control_plane(cfg, "cuda")
+    # the control plane at full width cut to CP_LAYERS of its 28 layers,
+    # so that the script fits its time with the entry points' phase (at
+    # 28 the whole script took 807 s on an H100 80GB HBM3 at 700 W, the
+    # control plane 108 s of it; its full-scale CLI call keeps 28)
+    cp_launches, cp_summary = control_plane(
+        dataclasses.replace(cfg, n_layers=CP_LAYERS), "cuda")
     phase("control_plane")
     gc.collect()
     torch.cuda.empty_cache()
@@ -5541,6 +6104,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     dist_launches, dist_summary = distributed_phase(B, FA, PA)
     phase("distributed")
+    # the entry points a user starts the port with: legs (a)-(e)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launch_launches, launch_summary = launch_phase(B, FA, PA)
+    phase("launch")
     xl_launches, xl_summary = new_runs["serve_xlstm"]
     _, rx_summary = new_runs["retrain_xlstm"]
     wh_launches, wh_summary = new_runs["serve_whisper"]
@@ -5749,13 +6317,19 @@ def main() -> int:
     narrow["launches_serve_whisper"] = wh_launches["flash_attention"]
     narrow["launches_serve_vlm"] = vl_launches["flash_attention"]
     narrow["launches_serve_llama4"] = l4_launches["flash_attention"]
+    # the launch phase's PREFILL_32K shapes (llama3.2-3b, causal, bf16)
+    long_rows = {
+        f"S={r['S']}": {k: r[k] for k in ("route", "ms", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "library_ms", "max_abs_err")}
+        for r in flash_times if r["S"] > FLASH_SDPA_GQA_MAX_S}
     kernels.append(
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:68",
          "launches": cp_launches["flash_attention"],
          "launches_serve_command_r": cr_launches["flash_attention"],
-         "hd256": hd256, "hd64_hd96": narrow,
+         "hd256": hd256, "hd64_hd96": narrow, "prefill_32k": long_rows,
          "max_abs_err": flash_err, "ms": flash_row["ms"],
          "plain_ms": flash_row["plain_ms"], "bound_ms": flash_row["bound_ms"],
          "bound_by": flash_row["bound_by"],
@@ -5800,6 +6374,11 @@ def main() -> int:
             continue
         k["distributed_shapes"] = local
         k["max_abs_err"] = max(k["max_abs_err"], err)
+    # the entry points' legs: (a) pruned serving, (b) the dense fleet,
+    # (c) training, (d) the build_step cells
+    for k in kernels:
+        if k["name"] in launch_launches:
+            k["launches_launch"] = launch_launches[k["name"]]
     # the lint path: every kernel's launches in legs (b) and (c), and the
     # default cases held to it in leg (a)
     for k in kernels:
@@ -5828,7 +6407,7 @@ def main() -> int:
          "retrain_whisper": rw_summary, "serve_vlm": vl_summary,
          "retrain_vlm": rv_summary, "serve_llama4": l4_summary,
          "lint": lint_summary, "distributed": dist_summary,
-         "phase_s": phases},
+         "launch": launch_summary, "phase_s": phases},
         indent=1, default=str))
     print(json.dumps({"serve": {**summary, "decode_profile": {
         k: v for k, v in summary["decode_profile"].items()
@@ -5874,6 +6453,10 @@ def main() -> int:
                           if k.endswith("_err") or k == "bsmm_rows"},
         "grouped_moe": dist_summary["grouped_moe"],
         "restart": dist_summary["restart"]}}, default=str))
+    print(json.dumps({"launch": {
+        k: ({kk: vv for kk, vv in v.items() if kk != "bsmm_routes"}
+            if isinstance(v, dict) else v)
+        for k, v in launch_summary.items()}}, default=str))
     print(json.dumps({"phase_s": phases}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

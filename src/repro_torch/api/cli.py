@@ -41,8 +41,6 @@ which is not yet ported — reported, not a traceback).
 from __future__ import annotations
 
 import argparse
-import contextlib
-import io
 import json
 import os
 import sys
@@ -432,7 +430,7 @@ def _on_mesh(args) -> int:
     """Run ``args.fn`` on the D·M local ranks of ``--mesh DxM`` and
     print rank 0's output; the daemon's ops are read here first (a
     spawned rank has no stdin) and handed to every rank as a script."""
-    from repro_torch.launch.mesh import parse_mesh, run_ranks, spawn_backend
+    from repro_torch.launch.mesh import parse_mesh, run_printing_rank0
     d, m = parse_mesh(args.mesh)
     argd = {k: v for k, v in vars(args).items() if k != "fn"}
     tmp = None
@@ -442,26 +440,17 @@ def _on_mesh(args) -> int:
             f.write(sys.stdin.read())
         argd["script"] = tmp
     try:
-        outs = run_ranks(_mesh_rank, d, m, device=args.device,
-                         backend=spawn_backend(args.device, d * m),
-                         args=(args.fn.__name__, argd))
+        return run_printing_rank0(_mesh_rank, d, m, device=args.device,
+                                  args=(args.fn.__name__, argd))
     finally:
         if tmp is not None:
             os.remove(tmp)
-    code, text = outs[0]
-    sys.stdout.write(text)
-    sys.stdout.flush()
-    return code
 
 
-def _mesh_rank(mesh, cmd: str, argd: dict):
-    """One rank of ``_on_mesh``: the command on ``mesh``, its standard
-    output captured (rank 0's is returned, the others' dropped)."""
+def _mesh_rank(mesh, cmd: str, argd: dict) -> int:
+    """One rank of ``_on_mesh``: the command on ``mesh``."""
     args = argparse.Namespace(**{**argd, "mesh": None, "mesh_obj": mesh})
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        code = globals()[cmd](args)
-    return code, buf.getvalue() if mesh.get_rank() == 0 else ""
+    return globals()[cmd](args)
 
 
 def _request_frames(adapter, uid: int):

@@ -1,9 +1,13 @@
 """Architecture configs for the PyTorch port.
 
-A copy of the parts of ``repro.configs.base`` the ported slices need
-(``ArchConfig`` and the dataclasses its fields name, the CNN configs
-``ConvSpec``/``CNNConfig``, ``MXU_TILE``, ``scaled_down``,
-``scaled_down_cnn``, the registries).  The port keeps its own copy instead of
+A copy of ``repro.configs.base``: ``ArchConfig`` (with its analytic
+``param_count``/``active_param_count``) and the dataclasses its fields
+name, the shape cells (``ShapeSpec``, ``TRAIN_4K``, ``PREFILL_32K``,
+``DECODE_32K``, ``LONG_500K``, ``ALL_SHAPES``, ``get_shape``), the CNN
+configs ``ConvSpec``/``CNNConfig``, ``MXU_TILE``, ``scaled_down``,
+``scaled_down_cnn`` and the registries.  ``VMEM_BUDGET_BYTES`` and
+``vmem_budget`` stay out: they are a TPU VMEM budget, and the port's K
+rules bound each CUDA launch through ``kernels/spec.py`` instead.  The port keeps its own copy instead of
 importing ``repro``: the card's machine has no JAX, and importing any
 ``repro`` module pulls it in.  Field names, defaults and derived
 properties match the reference one for one, so a config built by either
@@ -53,6 +57,33 @@ class MLAConfig:
     qk_nope_head_dim: int = 128
     qk_rope_head_dim: int = 64
     v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    """One assigned input-shape cell."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+TRAIN_4K = ShapeSpec("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeSpec("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeSpec("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeSpec("long_500k", 524288, 1, "decode")
+ALL_SHAPES: Tuple[ShapeSpec, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+
+
+def get_shape(name: str) -> ShapeSpec:
+    for s in ALL_SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(f"unknown shape {name!r}; known: {[s.name for s in ALL_SHAPES]}")
 
 
 @dataclass(frozen=True)
@@ -120,6 +151,81 @@ class ArchConfig:
         """Vocab padded to a multiple of 2048 (16 shards x 128 lanes)."""
         mult = 2048
         return ((self.vocab_size + mult - 1) // mult) * mult
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embedding + blocks + norms)."""
+        d, v = self.d_model, self.padded_vocab
+        total = v * d  # embed
+        if not self.tie_embeddings:
+            total += v * d
+        for i, kind in enumerate(self.blocks):
+            total += self._block_params(kind, layer=i)
+        total += d  # final norm
+        if self.is_encoder_decoder:
+            for _ in range(self.n_encoder_layers):
+                total += self._block_params(ATTN, cross=False)
+            total += d
+        return total
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only routed top-k + shared)."""
+        if self.moe is None:
+            return self.param_count()
+        d = self.d_model
+        m = self.moe
+        total = self.param_count()
+        n_moe_layers = sum(
+            1 for i, _k in enumerate(self.blocks) if m.is_moe_layer(i)
+        )
+        ff_mult = 3 if self.gated_mlp else 2
+        dense_all = n_moe_layers * m.num_experts * ff_mult * d * m.d_ff_expert
+        dense_active = n_moe_layers * m.top_k * ff_mult * d * m.d_ff_expert
+        return total - dense_all + dense_active
+
+    def _block_params(self, kind: str, cross: bool = False, layer: int = 10**9) -> int:
+        d = self.d_model
+        hd = self.head_dim_
+        nq, nkv = self.n_heads, self.n_kv_heads
+        p = 2 * d  # two norms
+        if kind in (ATTN, LOCAL_ATTN):
+            if self.mla is not None:
+                m = self.mla
+                qk_hd = m.qk_nope_head_dim + m.qk_rope_head_dim
+                p += d * m.q_lora_rank + m.q_lora_rank * nq * qk_hd
+                p += d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                p += m.kv_lora_rank * nq * (m.qk_nope_head_dim + m.v_head_dim)
+                p += nq * m.v_head_dim * d
+            else:
+                p += d * nq * hd + 2 * d * nkv * hd + nq * hd * d
+                if self.qkv_bias:
+                    p += (nq + 2 * nkv) * hd
+        elif kind == RGLRU:
+            w = self.rnn_width or d
+            p += d * w * 2 + w * d        # in (x,gate) + out proj
+            p += w * self.conv1d_width    # temporal conv
+            p += 3 * w                    # a-gate, input-gate params, a_param
+        elif kind == MLSTM:
+            w = self.rnn_width or 2 * d
+            p += d * w * 2 + w * d        # up (x2) + down
+            p += 3 * (w // max(self.n_heads, 1)) * w  # q,k,v per-head proj approx
+            p += 3 * w                    # i,f,o gates (per-channel)
+        elif kind == SLSTM:
+            w = self.rnn_width or d
+            p += 4 * d * w + 4 * w * w    # ifzo input + recurrent
+            p += d * w * 2 + w * d        # up/down proj
+        # FFN
+        if kind in (ATTN, LOCAL_ATTN, RGLRU) and self.d_ff > 0:
+            mlt = 3 if self.gated_mlp else 2
+            if self.moe is not None and self.moe.is_moe_layer(layer):
+                m = self.moe
+                p += d * m.num_experts  # router
+                p += m.num_experts * mlt * d * m.d_ff_expert
+                p += m.num_shared_experts * mlt * d * (m.d_ff_shared or m.d_ff_expert)
+            else:
+                p += mlt * d * self.d_ff
+        if cross:
+            p += d + d * nq * hd + 2 * d * nkv * hd + nq * hd * d  # cross-attn + norm
+        return p
 
 
 # ---------------------------------------------------------------------------

@@ -53,7 +53,11 @@ class DataPipeline:
         return batch
 
     def close(self):
+        """Stop the prefetch thread and wait for it (it wakes at least
+        every half second)."""
         self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=10.0)
 
 
 class ShardedBatcher:

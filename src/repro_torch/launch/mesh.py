@@ -18,15 +18,20 @@ storage.
 
 ``run_ranks`` starts one process per mesh position on this host (the
 ``spawn`` start method), builds the mesh in each and calls ``fn(mesh,
-*args)`` there; the CLI's ``--mesh DxM``, the tests and
-``chip_smoke.py`` share it.
+*args)`` there; the tests and ``chip_smoke.py`` share it.
+``run_printing_rank0`` runs a command that prints on such ranks and
+prints rank 0's output: the ``--mesh DxM`` of the CLI and of
+``launch.serve`` go through it.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
+import io
 import os
 import queue as _queue
 import shutil
+import sys
 import tempfile
 import time
 import traceback
@@ -147,6 +152,46 @@ def mesh_axes(mesh) -> dict:
     return {a: int(mesh.shape[a]) for a in mesh.axis_names}
 
 
+def choose_config(arch: str, smoke: bool):
+    """The launchers' config: (config, multi-rank).  The reduced f32
+    config under ``--smoke``, else the full one; multi-rank when a
+    process group of more than one rank is running (the production
+    mesh's branch)."""
+    from repro_torch.configs import get_arch, scaled_down
+
+    if smoke:
+        return scaled_down(get_arch(arch), dtype="float32"), False
+    multi = dist.is_available() and dist.is_initialized() \
+        and dist.get_world_size() > 1
+    return get_arch(arch), multi
+
+
+@contextlib.contextmanager
+def launcher_mesh(arch: str, smoke: bool, *, multi_pod: bool, device):
+    """(config, mesh, multi-rank) of ``launch.train`` and
+    ``launch.serve``: ``choose_config``'s config on the production mesh
+    when multi-rank, else on a (1, 1) mesh on ``device``.  The process
+    group it starts (a one-rank group, when none ran) is torn down and
+    the sharding rules installed before are restored on exit, so that a
+    launcher's ``main`` can be called in process (also the excepthook
+    that starting a group installs: it prefixes every later traceback
+    with the rank)."""
+    from repro_torch.distributed import sharding
+
+    cfg, multi = choose_config(arch, smoke)
+    owned = not (dist.is_available() and dist.is_initialized())
+    prev, hook = sharding.installed(), sys.excepthook
+    mesh = (make_production_mesh(multi_pod=multi_pod, device=device)
+            if multi else make_test_mesh(device=device))
+    try:
+        yield cfg, mesh, multi
+    finally:
+        sharding.install(prev)
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
+            sys.excepthook = hook
+
+
 def parse_mesh(text: str):
     """"DxM" → (D, M) (the CLI's ``--mesh``)."""
     try:
@@ -247,3 +292,26 @@ def run_ranks(fn: Callable[..., Any], data: int, model: int, *,
     if errors:
         raise RuntimeError("run_ranks failed: " + errors[0])
     return [results[r] for r in range(world)]
+
+
+def _captured(mesh, fn, args):
+    """One rank of ``run_printing_rank0``: ``fn(mesh, *args)`` with its
+    standard output captured (rank 0's kept, the others' dropped)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = fn(mesh, *args)
+    return res, buf.getvalue() if mesh.get_rank() == 0 else ""
+
+
+def run_printing_rank0(fn: Callable[..., Any], data: int, model: int, *,
+                       device="cuda", args: Sequence[Any] = ()) -> Any:
+    """``run_ranks(fn, data, model)`` on the backend ``spawn_backend``
+    picks, each rank's standard output captured; rank 0's output is
+    printed here when the ranks end, and rank 0's result returned."""
+    outs = run_ranks(_captured, data, model, device=device,
+                     backend=spawn_backend(device, data * model),
+                     args=(fn, tuple(args)))
+    res, text = outs[0]
+    sys.stdout.write(text)
+    sys.stdout.flush()
+    return res

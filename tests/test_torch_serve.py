@@ -349,7 +349,14 @@ def test_import_loads_neither_jax_nor_repro():
         "repro_torch.serve.fleet, repro_torch.api.cli, "
         "repro_torch.distributed.fault_tolerance, repro_torch.models.encdec, "
         "repro_torch.models.recurrent, repro_torch.data, "
-        "repro_torch.analysis, repro_torch.kernels.spec\n"
+        "repro_torch.analysis, repro_torch.kernels.spec, "
+        "repro_torch.launch.steps, repro_torch.launch.train, "
+        "repro_torch.launch.serve\n"
+        "import glob, runpy\n"
+        "examples = sorted(glob.glob('examples/torch_*.py'))\n"
+        "assert len(examples) == 5, examples\n"
+        "for path in examples:\n"
+        "    runpy.run_path(path, run_name='example')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', "
         "'jaxlib', 'repro')]\n"
         "assert not bad, bad\n")
@@ -370,7 +377,11 @@ def _imported_roots(path: pathlib.Path):
 def test_sources_import_neither_jax_nor_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert len(examples) == 5
+    files += examples
     assert len(files) > 10
+    assert {"steps.py", "train.py", "serve.py"} <= {f.name for f in files}
     for f in files:
         roots = set(_imported_roots(f))
         assert not roots & {"jax", "jaxlib", "repro"}, f
