@@ -194,7 +194,20 @@ no result line otherwise):
    the two ranks, 32 experts each through #1b, the outputs gathered
    and held to the one-rank block; (e) ``Supervisor`` around a
    2-layer full-width llama3.2-3b retrain whose third step fails once:
-   it resumes from step 2's checkpoint and reaches its 4 steps;
+   it resumes from step 2's checkpoint and reaches its 4 steps; (f)
+   training on a tensor-parallel mesh: llama3.2-3b at full width cut to
+   4 layers under its ticket, 2 masked AdamW steps (lr 1e-3) through
+   #1-#4 on the local plans, on the two gloo ranks at (1, 2) and (2, 1)
+   against the meshless trainer on the same rank: each step's loss
+   within 1e-3 (relative), each step's gradient as the optimizer
+   receives it within 3e-2 of the meshless leaf's norm, the first
+   update within lr / 4 wherever the meshless one moved a coordinate
+   whose gradients share a sign, the meshless one at least the RMS of
+   its leaf's nonzero entries, and whose bf16 spacing is at most lr / 8
+   (``TP_*``); every (M, K, N) of #1-#4 that the ranks
+   launched then held to the plain versions in the main process; and
+   on leg (a)'s (1, 1) NCCL mesh the trainer bitwise the meshless one
+   (losses, gradients, parameters), launch for launch;
 6h. the entry points a user starts the port with (``launch_phase``;
    every count set to 0 before a leg and read after it): (a)
    ``launch.serve.main`` on llama3.2-3b at full width and depth, pruned
@@ -1087,6 +1100,40 @@ def reset_kernel_counts(B, FA, PA) -> None:
     PA.paged_attention.fused_launches = 0
     FA.flash_attention.launches = 0
     FA.flash_attention.launches_by_route.update(wgmma=0, simt=0)
+
+
+ALL_WRAPPERS = BSMM_ROUTED + BATCHED_ROUTED + ("masked_matmul",)
+
+
+def routes_now(B, FA, PA, TS) -> dict:
+    """{wrapper: {route: launches}} of every wrapper that launched, as
+    ``launch.hlo_analysis.StepTrace.launches`` records them (#6 and #9
+    launch one kernel: ``simt``)."""
+    out = {n: {r: k for r, k in getattr(B, n).launches_by_route.items() if k}
+           for n in ALL_WRAPPERS}
+    out["flash_attention"] = {r: k for r, k in
+                              FA.flash_attention.launches_by_route.items()
+                              if k}
+    fused = {r: k for r, k in
+             PA.paged_attention.fused_launches_by_route.items() if k}
+    out["paged_attention"] = dict(fused)
+    if PA.paged_attention.launches:
+        out["paged_attention"]["simt"] = out["paged_attention"].get(
+            "simt", 0) + PA.paged_attention.launches
+    if TS.tile_stats.launches:
+        out["tile_stats"] = {"simt": TS.tile_stats.launches}
+    return {n: v for n, v in out.items() if v}
+
+
+def routes_since(before: dict, after: dict) -> dict:
+    """``routes_now``'s growth between two snapshots."""
+    out = {}
+    for n, by in after.items():
+        grew = {r: k - before.get(n, {}).get(r, 0) for r, k in by.items()}
+        grew = {r: k for r, k in grew.items() if k}
+        if grew:
+            out[n] = grew
+    return out
 
 
 def kernel_counts(B, FA, PA) -> dict:
@@ -4818,9 +4865,10 @@ def lint_phase(B, FA, PA, TS, device="cuda") -> tuple:
     """The lint on the card: leg (a) the kernel cases; then, with every
     count set to 0, leg (b) ``lint_arch`` on llama3.2-3b at full width
     (cut to ``LINT_LAYERS`` layers) with 0 errors and real launches in
-    each audited closure, and leg (c) the tiny ``lint --all`` on the card
-    equal to the CPU's, arch by arch.  Returns (launches of the lint
-    path, summary)."""
+    each audited closure, with ``--hlo``: the meshless engine's traced
+    prefill has no J206 and no J207; and leg (c) the tiny ``lint --all``
+    on the card equal to the CPU's, arch by arch.  Returns (launches of
+    the lint path, summary)."""
     import dataclasses
 
     from repro_torch.analysis import lint_arch
@@ -4858,8 +4906,13 @@ def lint_phase(B, FA, PA, TS, device="cuda") -> tuple:
 
     t1 = time.perf_counter()
     cfg = dataclasses.replace(get_arch("llama3.2-3b"), n_layers=LINT_LAYERS)
-    rep = lint_arch(cfg, scale="full", device=device, probe=probe)
+    rep = lint_arch(cfg, scale="full", device=device, probe=probe, hlo=True)
     t_b = time.perf_counter() - t1
+    hlo = sorted((f.code, f.where) for f in rep.findings
+                 if f.code in ("J206", "J207"))
+    print(f"lint --hlo llama3.2-3b full width: J206/J207 findings {hlo}")
+    require(hlo == [], "the meshless engine's traced prefill has J206 or "
+            "J207 findings")
     print(f"lint llama3.2-3b full width, {LINT_LAYERS} layers: "
           f"{rep.summary()} in {t_b:.1f} s; per closure {per_closure}")
     require(rep.ok, f"the full-width lint: {[str(f) for f in rep.errors]}")
@@ -4897,6 +4950,7 @@ def lint_phase(B, FA, PA, TS, device="cuda") -> tuple:
                            "all_tiny": t_c},
                "cases": cases, "llama_full_layers": LINT_LAYERS,
                "llama_full_per_closure": per_closure,
+               "llama_full_hlo_findings": hlo,
                "findings_per_arch": findings}
     return launches, summary
 
@@ -4976,6 +5030,210 @@ def dist_llama(opts, layers=None):
     return cfg, params, build_ticket(params, cfg, device)
 
 
+TP_TRAIN_STEPS = 2          # leg (f): AdamW steps of the 4-layer llama
+TP_TRAIN_BATCH, TP_TRAIN_SEQ = 4, 128
+TP_TRAIN_LR = 1e-3
+#: leg (f)'s bf16 tolerances against the meshless trainer on the same
+#: rank.  Each step's loss within 1e-3 of it (relative).  Each step's
+#: gradient, as the optimizer receives it (summed over the data axis,
+#: gathered to full shape), within 3e-2 of the meshless leaf's norm
+#: (||g - g0|| <= 3e-2 ||g0||: some 8 bf16 spacings, 2^-8, of
+#: summation-order rounding through 4 layers).  The first update, w1 -
+#: w0, within lr / 4 of the meshless one on every coordinate where that
+#: one moved, both gradients share a sign, the meshless one is at least
+#: the RMS of its leaf's nonzero entries and one bf16 spacing at |w0| is
+#: at most lr / 8: there AdamW's first step moves a coordinate by lr
+#: sign(g) (1 +- 2^-7 with m and v in bf16), so a skipped or misapplied
+#: update is off by about lr, while the two runs' roundings are at most
+#: a spacing apart.  Sign flips (a gradient near 0 either way) are
+#: counted, not held: the gradient check bounds them
+TP_LOSS_TOL = 1e-3
+TP_GRAD_TOL = 3e-2
+TP_UPDATE_TOL = 0.25
+TP_TRAINED = ("bsmm", "bsmm_epilogue", "bsmm_dx", "bsmm_dw")
+
+
+def train_batches(cfg, device, rows=TP_TRAIN_BATCH, seq=TP_TRAIN_SEQ):
+    gen = torch.Generator(device=device).manual_seed(31)
+    return [{k: torch.randint(0, cfg.vocab_size, (rows, seq), generator=gen,
+                              device=device, dtype=torch.int32)
+             for k in ("tokens", "labels")} for _ in range(TP_TRAIN_STEPS)]
+
+
+class _Recorded:
+    """A kernel wrapper that calls ``rec(*args)`` before it: attributes
+    (the launch counters the wrapper updates through its module name)
+    read and write the wrapper's own."""
+
+    def __init__(self, fn, rec):
+        object.__setattr__(self, "_fn", fn)
+        object.__setattr__(self, "_rec", rec)
+
+    def __call__(self, *args, **kw):
+        self._rec(*args, **kw)
+        return self._fn(*args, **kw)
+
+    def __getattr__(self, name):
+        return getattr(self._fn, name)
+
+    def __setattr__(self, name, value):
+        setattr(self._fn, name, value)
+
+
+def _record_train_shapes(B, fn):
+    """fn() with #1-#4's wrappers recording each launch's (M, K, N) (and
+    #2's (bias, activation)), which ``dist_kernel_checks`` holds to the
+    plain versions.  The launch counters move as without it."""
+    seen = {n: set() for n in TP_TRAINED}
+    seen["epilogues"] = set()
+
+    def fwd(x2, w, plan):
+        seen["bsmm"].add((x2.shape[0],) + tuple(w.shape))
+
+    def epi(x2, w, plan, bias=None, act=None):
+        seen["bsmm_epilogue"].add((x2.shape[0],) + tuple(w.shape))
+        seen["epilogues"].add((None if bias is None else "bias", act))
+
+    def dx(g, w, plan):
+        seen["bsmm_dx"].add((g.shape[0],) + tuple(w.shape))
+
+    def dw(x2, g, plan):
+        seen["bsmm_dw"].add((x2.shape[0], x2.shape[1], g.shape[1]))
+
+    orig = {n: getattr(B, n) for n in TP_TRAINED}
+    for n, rec in zip(TP_TRAINED, (fwd, epi, dx, dw)):
+        setattr(B, n, _Recorded(orig[n], rec))
+    try:
+        return fn(), seen
+    finally:
+        for n, f in orig.items():
+            setattr(B, n, f)
+
+
+def dist_train(cfg, params, masks, mesh, device) -> dict:
+    """``TP_TRAIN_STEPS`` masked AdamW steps of llama (``cfg``, its
+    ticket ``masks``) through the ticket's plans, meshless (``mesh``
+    None: ``make_train_step`` as the trainer builds it) or rank-local on
+    ``mesh`` (``ShardedModel``, the local plans and masks, the
+    tensor-parallel loss, scope and data-axis gradient sum).  Returns the
+    losses; each step's gradients as the optimizer receives them and the
+    parameters after each step, gathered to full shapes ({path:
+    tensor}); #1-#4's launches by route and the (M, K, N) of each."""
+    from repro_torch._bridge import apply_masks
+    from repro_torch.core.masks import tree_flatten_with_path
+    from repro_torch.distributed import tensor_parallel as tpar
+    from repro_torch.distributed.sharding import gather_full
+    from repro_torch.kernels import bsmm as B
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import Optimizer, adamw, constant, masked
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.plans import lm_train_plan
+
+    batches = train_batches(cfg, device)
+    params = apply_masks(params, masks)
+    if mesh is None:
+        plan = lm_train_plan(masks)[0]
+        opt = masked(adamw(constant(TP_TRAIN_LR)), masks)
+        loss = lambda p, b: tfm.loss_fn(p, cfg, b, plan=plan)  # noqa: E731
+        model = shardings = None
+    else:
+        rules = tpar.mesh_rules(mesh, cfg)
+        model = tpar.ShardedModel.from_full(params, cfg, rules, masks)
+        lmasks = tpar.localize(masks, model.shardings, contiguous=False)
+        opt = masked(adamw(constant(TP_TRAIN_LR)), lmasks)
+        loss = tpar.train_loss(model, plan=lm_train_plan(lmasks)[0])
+        params, shardings = model.params, model.shardings
+        batches = [tpar.data_rows(b, rules) for b in batches]
+    grads = []
+
+    def update(g, state, p):            # what the optimizer receives
+        grads.append(full(g))
+        return opt.update(g, state, p)
+
+    step = make_train_step(loss, Optimizer(opt.init, update), sharded=model)
+
+    def full(tree):
+        out = {}
+        for path, leaf in tree_flatten_with_path(tree):
+            if shardings is not None:
+                leaf = gather_full(leaf.contiguous(),
+                                   tpar._lookup(shardings, path))
+            out[path] = leaf
+        return out
+
+    def run():
+        state = opt.init(params)
+        p, losses, after = params, [], []
+        for b in batches:
+            p, state, metrics = step(p, state, b)
+            losses.append(float(metrics["loss"]))
+            after.append(full(p))
+        sync(device)
+        return losses, after
+
+    reset_bsmm_routes(B)
+    (losses, after), shapes = _record_train_shapes(B, run)
+    out = {"losses": losses, "grads": grads, "params": after,
+           "launches": bsmm_routes(B), "shapes": shapes}
+    if mesh is None:                    # w0, the same on every mesh
+        out["before"] = full(params)
+    return out
+
+
+def _spacing(w: torch.Tensor) -> torch.Tensor:
+    """One bf16 spacing at |w| (the subnormal spacing near 0)."""
+    e = torch.frexp(w.float().abs().clamp_min(2.0 ** -126))[1]
+    return torch.ldexp(torch.ones_like(w, dtype=torch.float32), e - 8)
+
+
+def train_errors(got: dict, want: dict) -> dict:
+    """Leg (f)'s checks of a mesh trainer (``got``) against the meshless
+    one (``want``), both from ``dist_train``: the largest relative loss
+    error; the largest per-leaf gradient error over the meshless leaf's
+    norm (either step) and its leaf; the largest error of the first
+    update over lr on the coordinates named at ``TP_UPDATE_TOL``, its
+    leaf, and how many coordinates it covers."""
+    loss = max(abs(g - w) / abs(w) for g, w in zip(got["losses"],
+                                                    want["losses"]))
+    grad, grad_leaf = 0.0, None
+    for gs, ws in zip(got["grads"], want["grads"]):
+        for path, w in ws.items():
+            w = w.float()
+            e = ((gs[path].float() - w).norm()
+                 / w.norm().clamp_min(1e-30)).item()
+            if e > grad:
+                grad, grad_leaf = e, path
+    upd, upd_leaf, upd_g, covered, flips = 0.0, None, None, 0, 0
+    lr = TP_TRAIN_LR
+    for path, w0 in want["before"].items():
+        g0 = want["grads"][0][path].float()
+        g = got["grads"][0][path].float()
+        d_want = want["params"][0][path].float() - w0.float()
+        d_got = got["params"][0][path].float() - w0.float()
+        nz = g0[g0 != 0]
+        if not nz.numel():
+            continue
+        large = ((d_want != 0) & (g0.abs() >= nz.square().mean().sqrt())
+                 & (8 * _spacing(w0) <= lr))
+        firm = large & (torch.sign(g) == torch.sign(g0))
+        flips += int((large & ~firm).sum().item())
+        n = int(firm.sum().item())
+        if not n:
+            continue
+        covered += n
+        err = torch.where(firm, (d_got - d_want).abs(), 0.0)
+        i = int(err.argmax().item())
+        e = err.flatten()[i].item() / lr
+        if e > upd:
+            upd, upd_leaf = e, path
+            upd_g = (g0.flatten()[i].item(), g.flatten()[i].item(),
+                     nz.abs().max().item())
+    return {"loss_rel_err": loss, "grad_rel_err": grad,
+            "grad_leaf": grad_leaf, "update_err_lr": upd,
+            "update_leaf": upd_leaf, "update_grads": upd_g,
+            "update_covered": covered, "sign_flips": flips}
+
+
 def dist_one_rank(B, FA, PA, opts) -> dict:
     """Leg (a): a (1, 1) mesh over NCCL against the meshless engine on
     the same full-depth tree: streams and logits bitwise equal, every
@@ -5001,8 +5259,33 @@ def dist_one_rank(B, FA, PA, opts) -> dict:
             require(streams == runs[name][0], f"{name}: a repeated run's "
                     "streams differ")
             del eng
+        del params, masks
+        _free(device)
+        # leg (f) on one rank: the (1, 1) NCCL mesh's trainer bitwise the
+        # meshless trainer (losses, gradients, parameters), launch for
+        # launch
+        tcfg, tparams, tmasks = dist_llama(opts, DIST_LAYERS)
+        t0 = dist_train(tcfg, tparams, tmasks, None, device)
+        t1 = dist_train(tcfg, tparams, tmasks, mesh, device)
+        del tparams, tmasks
     finally:
         dist.destroy_process_group()
+    train_bitwise = t1["losses"] == t0["losses"] and all(
+        torch.equal(got[k], v)
+        for kind in ("grads", "params")
+        for got, want in zip(t1[kind], t0[kind]) for k, v in want.items())
+    print(f"distributed (f): 1x1 mesh trainer losses {t1['losses']} vs "
+          f"meshless {t0['losses']}, bitwise {train_bitwise}, launches "
+          f"{t1['launches']}")
+    require(train_bitwise, "the 1x1 mesh trainer is not bitwise the "
+            "meshless trainer")
+    require(t1["launches"] == t0["launches"], "the 1x1 mesh trainer's "
+            "launches differ from the meshless trainer's")
+    require(all(sum(t1["launches"][n]["launches_by_route"].values()) > 0
+                for n in BSMM_ROUTED), "the 1x1 mesh trainer missed a kernel")
+    train_one = {"layers": tcfg.n_layers, "losses": t1["losses"],
+                 "bitwise": train_bitwise, "launches": t1["launches"]}
+    del t0, t1
     (s0, r0, c0), (s1, r1, c1) = runs["meshless"], runs["mesh_1x1"]
     tick = {f"{k}_ms_p50_by_run": v for k, v in ticks.items()}
     print(f"distributed (a): 1x1 mesh launches {c1}; decode ticks {tick}")
@@ -5016,7 +5299,55 @@ def dist_one_rank(B, FA, PA, opts) -> dict:
                                     "paged_attention", "flash_attention")),
             "the 1x1 mesh engine missed a kernel")
     return {"layers": cfg.n_layers, "launches": c1, **tick,
-            "streams_equal": True, "logits_bitwise": True}
+            "streams_equal": True, "logits_bitwise": True,
+            "train_1x1": train_one}
+
+
+def dist_train_meshes(cfg, params, masks, meshes, device) -> dict:
+    """Leg (f) on one rank: ``dist_train`` meshless, then on each
+    (name, mesh) of ``meshes``, held to the meshless run by
+    ``train_errors``; with every (M, K, N) that #1-#4 launched in any of
+    the runs (``shapes``) and #2's (bias, activation) cases."""
+    want = dist_train(cfg, params, masks, None, device)
+    out = {"meshless_losses": want["losses"]}
+    shapes = {k: set(v) for k, v in want["shapes"].items()}
+    for name, mesh in meshes:
+        t = time.perf_counter()
+        got = dist_train(cfg, params, masks, mesh, device)
+        out[name] = {"losses": got["losses"], **train_errors(got, want),
+                     "launches": got["launches"],
+                     "seconds": time.perf_counter() - t}
+        for k, v in got["shapes"].items():
+            shapes[k] |= v
+        del got
+    out["shapes"] = {k: sorted(v, key=str) for k, v in shapes.items()}
+    return out
+
+
+def check_train_leg(rank, name, tr, meshless_losses) -> None:
+    """Print leg (f)'s reading of one rank's ``name`` mesh and require
+    it within the stated tolerances, #1-#4 launched."""
+    print(f"distributed (f) rank {rank} {name}: losses {tr['losses']} vs "
+          f"meshless {meshless_losses} (rel err {tr['loss_rel_err']:.3e}, "
+          f"tol {TP_LOSS_TOL}); gradients {tr['grad_rel_err']:.3e} of the "
+          f"leaf's norm at {tr['grad_leaf']} (tol {TP_GRAD_TOL}); first "
+          f"update {tr['update_err_lr']:.3e} lr at {tr['update_leaf']} "
+          f"(g meshless, mesh, leaf max {tr['update_grads']}) over "
+          f"{tr['update_covered']} coordinates, {tr['sign_flips']} sign "
+          f"flips left out (tol {TP_UPDATE_TOL}); "
+          f"launches {tr['launches']} in {tr['seconds']:.1f} s")
+    require(tr["loss_rel_err"] <= TP_LOSS_TOL, f"{name}: the "
+            "tensor-parallel trainer's losses are off the meshless "
+            "trainer's")
+    require(tr["grad_rel_err"] <= TP_GRAD_TOL, f"{name}: a gradient is "
+            f"off the meshless trainer's ({tr['grad_leaf']})")
+    require(tr["update_covered"] > 0, f"{name}: no coordinate to hold "
+            "the first update to")
+    require(tr["update_err_lr"] <= TP_UPDATE_TOL, f"{name}: the first "
+            f"update is off the meshless trainer's ({tr['update_leaf']})")
+    for n in TP_TRAINED:
+        require(sum(tr["launches"][n]["launches_by_route"].values()) > 0,
+                f"{name}: the trainer never launched {n}")
 
 
 def _record_shapes(fn):
@@ -5099,10 +5430,16 @@ def dist_rank(mesh12, ep_want, opts):
                 **{k: sorted(seen[k]) for k in ("bsmm_calls", "flash_calls",
                                                 "paged_calls")}}
             del eng, rows
-        del params, masks
-        gc.collect()
-        if device == "cuda":
-            torch.cuda.empty_cache()
+    # leg (f): the tensor-parallel trainer on both meshes against the
+    # meshless trainer on this rank
+    out["train"] = dist_train_meshes(cfg, params, masks,
+                                     (("1x2", mesh12), ("2x1", mesh21)),
+                                     device)
+    del params, masks
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    with torch.inference_mode():
         out["ep"] = ep_rank(mesh12, ep_want, opts)
     return out
 
@@ -5290,26 +5627,43 @@ def dist_restart(opts) -> dict:
 
 
 def dist_kernel_checks(B, FA, PA, ranks) -> dict:
-    """#1/#2, #8 and #6 held to their plain versions (bf16 and f32, the
-    checks' usual tolerances, routes and splits) at every shape leg (b)
-    launched them at on either rank: each (K, N) at the rows it saw
-    (decode 8 on (1, 2) and 4 on (2, 1), the prompts' buckets), #8 at
-    each (S, heads) and #6 at each head count; timed at 8 decode rows
+    """#1-#4, #8 and #6 held to their plain versions (bf16 and f32, the
+    checks' usual tolerances, routes and splits) at every shape legs (b)
+    and (f) launched them at on either rank: each (K, N) of #1/#2 at the
+    rows it saw (decode 8 on (1, 2) and 4 on (2, 1), the prompts'
+    buckets, the trainer's 512 and 256) with every (bias, activation)
+    case the trainer ran, each (K, N) of #3/#4 at the trainer's rows, #8
+    at each (S, heads) and #6 at each head count; timed at 8 decode rows
     (#1/#2) and at every #8/#6 shape.  Run after the legs, so none of
     these launches is counted as theirs."""
     legs = [r[name] for r in ranks for name in ("1x2", "2x1")]
+    trained = [r["train"]["shapes"] for r in ranks]
     by_w: dict = {}
-    for leg in legs:
-        for M, K, N in leg["bsmm_calls"]:
-            by_w.setdefault((K, N), set()).add(M)
+    for M, K, N in [c for leg in legs for c in leg["bsmm_calls"]] + [
+            c for sh in trained for n in ("bsmm", "bsmm_epilogue")
+            for c in sh[n]]:
+        by_w.setdefault((K, N), set()).add(M)
+    epilogues = tuple(sorted({(None, "silu")} | {
+        tuple(c) for sh in trained for c in sh["epilogues"]}, key=str))
+    by_g: dict = {}
+    for M, K, N in [c for sh in trained for n in ("bsmm_dx", "bsmm_dw")
+                    for c in sh[n]]:
+        by_g.setdefault((K, N), set()).add(M)
     err = {"bsmm": 0.0, "bsmm_epilogue": 0.0}
+    grad_err = {"bsmm_dx": 0.0, "bsmm_dw": 0.0}
     times = []
     with torch.inference_mode():
         for i, ((K, N), rows) in enumerate(sorted(by_w.items())):
-            e, t = check_bsmm(B, ((K, N),), tuple(sorted(rows)),
-                              ((None, "silu"),), seed=60 + i)
+            e, t = check_bsmm(B, ((K, N),), tuple(sorted(rows)), epilogues,
+                              seed=60 + i)
             err = {k: max(v, e[k]) for k, v in err.items()}
             times += [r for r in t if r["M"] == 8]
+    # leg (f)'s backward shapes (outside inference mode, as trained)
+    for i, ((K, N), rows) in enumerate(sorted(by_g.items())):
+        e, _ = check_bsmm_grads(B, ((K, N),), timed=False, seed=80 + i,
+                                rows=tuple(sorted(rows)))
+        grad_err = {k: max(v, e[k]) for k, v in grad_err.items()}
+    with torch.inference_mode():
         flash = sorted({c for leg in legs for c in leg["flash_calls"]})
         flash_err, flash_rows = check_flash(
             FA, tuple(c + (torch.bfloat16,) for c in flash))
@@ -5321,11 +5675,14 @@ def dist_kernel_checks(B, FA, PA, ranks) -> dict:
             paged_rows.append({"Hq": hq, "Hkv": hkv, "hd": hd,
                                "max_abs_err": e, **row})
     print(f"distributed kernel checks: #1/#2 at {len(by_w)} weight shapes "
-          f"{sorted(by_w.items())}, #8 at {flash}, #6 at "
+          f"{sorted(by_w.items())} with {epilogues}, #3/#4 at "
+          f"{sorted(by_g.items())}, #8 at {flash}, #6 at "
           f"{[(r['Hq'], r['Hkv']) for r in paged_rows]}: max_abs_err {err}, "
-          f"#8 {flash_err:.3e}, #6 {paged_err:.3e}")
+          f"{grad_err}, #8 {flash_err:.3e}, #6 {paged_err:.3e}")
     return {"bsmm_err": err, "bsmm_times": times,
             "bsmm_rows": {f"{K}x{N}": sorted(m) for (K, N), m in by_w.items()},
+            "grad_err": grad_err,
+            "grad_rows": {f"{K}x{N}": sorted(m) for (K, N), m in by_g.items()},
             "flash_err": flash_err, "flash": flash_rows,
             "paged_err": paged_err, "paged": paged_rows}
 
@@ -5382,6 +5739,9 @@ def distributed_phase(B, FA, PA, opts=None) -> tuple:
         require(set(map(tuple, res["1x2"]["weights"])) == {
             (d, q), (d, kv), (q, d), (d, f), (f, d)},
             "1x2: a projection ran off its local shape")
+        for name in ("1x2", "2x1"):
+            check_train_leg(res["rank"], name, res["train"][name],
+                            res["train"]["meshless_losses"])
         ep = res["ep"]
         print(f"distributed (d) rank {res['rank']}: {ep}")
         require(ep["max_abs_err"] <= ep["tol"], f"expert-parallel rank "
@@ -5682,15 +6042,19 @@ def launch_cells_leg(B, FA, PA, device) -> tuple:
     TRAIN_4K (two steps), PREFILL_32K then DECODE_32K on its caches
     against one prefill of every token (5e-2 of each row's max |logit|),
     LONG_500K's skip; then recurrentgemma-2b's LONG_500K decode from a
-    ``LONG_PREFILL``-token prefill at its capacity.  Returns (launches,
+    ``LONG_PREFILL``-token prefill at its capacity.  Each timed cell
+    records its first step's launches by wrapper and route and its peak
+    (the dry-run phase's cross-check reads them).  Returns (launches,
     summary)."""
     from repro_torch._bridge import tree_leaves
     from repro_torch.configs import (ATTN, DECODE_32K, LONG_500K,
                                      PREFILL_32K, TRAIN_4K, get_arch)
+    from repro_torch.kernels import tile_stats as TS
     from repro_torch.launch import steps as lsteps
     from repro_torch.models import transformer as tfm
 
     on_card = torch.device(device).type == "cuda"
+    snap = lambda: routes_now(B, FA, PA, TS)        # noqa: E731
 
     def peak():
         return torch.cuda.max_memory_allocated() if on_card else None
@@ -5716,14 +6080,18 @@ def launch_cells_leg(B, FA, PA, device) -> tuple:
     batch = spec_inputs(train.args[2], cfg.vocab_size, gen, device)
     reset_peak()
     p, losses, times = params, [], []
-    for _ in range(LAUNCH_TRAIN_STEPS):
+    for i in range(LAUNCH_TRAIN_STEPS):
+        before = snap()
         t = time.perf_counter()
         p, opt_state, metrics = train.fn(p, opt_state, batch)
         sync(device)
         times.append(time.perf_counter() - t)
         losses.append(float(metrics["loss"]))
+        if i == 0:
+            train_routes = routes_since(before, snap())
     summary["train_4k"] = {"batch": cell.global_batch, "seq": cell.seq_len,
                            "losses": losses, "step_s": times,
+                           "launches_by_route": train_routes,
                            "max_memory_allocated_bytes": peak()}
     print(f"launch (cells) train_4k at B = {cell.global_batch}: "
           f"{summary['train_4k']}")
@@ -5739,17 +6107,22 @@ def launch_cells_leg(B, FA, PA, device) -> tuple:
     tokens = spec_inputs(pre.args[1], cfg.vocab_size, gen, device)["tokens"]
     reset_kernel_counts(B, FA, PA)
     reset_peak()
+    before = snap()
     t = time.perf_counter()
     _, caches = pre.fn(params, {"tokens": tokens[:, :-1]})
     sync(device)
     prefill_s = time.perf_counter() - t
     prefill_peak = peak()
+    prefill_routes = routes_since(before, snap())
     require(shapes_of(caches) == shapes_of(dec.args[1]),
             "decode_32k: the prefill's caches are not cache_specs'")
+    reset_peak()
+    before = snap()
     t = time.perf_counter()
     logits, caches = dec.fn(params, caches, tokens[:, -1:])
     sync(device)
     decode_s = time.perf_counter() - t
+    decode_peak, decode_routes = peak(), routes_since(before, snap())
     del caches
     _free(device)
     full, caches = pre.fn(params, {"tokens": tokens})
@@ -5761,7 +6134,10 @@ def launch_cells_leg(B, FA, PA, device) -> tuple:
     summary["prefill_decode_32k"] = {
         "batch": LAUNCH_BATCH, "prefill_tokens": S - 1, "prefill_s": prefill_s,
         "prefill_max_memory_allocated_bytes": prefill_peak,
-        "decode_s": decode_s, "decode_vs_full_prefill_rel_err": err,
+        "prefill_launches_by_route": prefill_routes,
+        "decode_s": decode_s, "decode_max_memory_allocated_bytes": decode_peak,
+        "decode_launches_by_route": decode_routes,
+        "decode_vs_full_prefill_rel_err": err,
         "tol": TEACHER_TOL, "flash_launches": flash,
         "logits_finite": bool(torch.isfinite(logits).all())}
     print(f"launch (cells) prefill_32k + decode_32k: "
@@ -5805,11 +6181,16 @@ def launch_cells_leg(B, FA, PA, device) -> tuple:
                       for t in tree_leaves(caches))
     tok = logits[:, -1:].argmax(-1).to(torch.int32)
     finite, times = bool(torch.isfinite(logits).all()), []
-    for _ in range(LONG_DECODE_STEPS):
+    del logits
+    reset_peak()
+    for i in range(LONG_DECODE_STEPS):
+        before = snap()
         t = time.perf_counter()
         logits, caches = rdec.fn(rg_params, caches, tok)
         sync(device)
         times.append(time.perf_counter() - t)
+        if i == 0:
+            long_routes = routes_since(before, snap())
         finite &= bool(torch.isfinite(logits).all())
         tok = logits[:, -1:].argmax(-1).to(torch.int32)
     summary["long_500k"] = {
@@ -5817,7 +6198,9 @@ def launch_cells_leg(B, FA, PA, device) -> tuple:
         "capacity": long.seq_len, "prefill_tokens": LONG_PREFILL,
         "prefill_s": rprefill_s, "decode_steps": LONG_DECODE_STEPS,
         "decode_step_s": times, "cache_bytes": cache_bytes,
-        "logits_finite": finite, "max_memory_allocated_bytes": peak()}
+        "decode_launches_by_route": long_routes,
+        "logits_finite": finite,
+        "decode_max_memory_allocated_bytes": peak()}
     print(f"launch (cells) {rg.name} x long_500k: {summary['long_500k']}")
     require(finite, "long_500k: non-finite logits")
     del rg_params, caches, logits
@@ -5916,6 +6299,134 @@ def launch_phase(B, FA, PA, device="cuda") -> tuple:
     return launches, summary
 
 
+# ---------------------------------------------------------------------------
+# 6i. the dry-run: rank 0 of the production mesh traced on fake tensors
+# ---------------------------------------------------------------------------
+DRYRUN_ARCH = "llama3.2-3b"         # every shape, on 16x16 and 2x16x16
+DRYRUN_OTHERS = "prefill_32k"       # every other arch's cell, on 16x16
+#: the families the rank-local model does not run on a model axis > 1:
+#: their cells FAIL with an error naming the family (ROADMAP queue 1)
+DRYRUN_FAILS = {"deepseek-v3-671b": "MLA attention",
+                "recurrentgemma-2b": "recurrent blocks",
+                "xlstm-125m": "recurrent blocks",
+                "whisper-tiny": "the encoder-decoder"}
+
+
+def dryrun_cells(smi: str, archs) -> dict:
+    """Leg (a): ``launch.dryrun.run_cell`` on every shape of
+    ``DRYRUN_ARCH`` on both production meshes and on ``DRYRUN_OTHERS``
+    of every other of ``archs`` on 16x16, one line a cell; every cell OK
+    or SKIP but the ``DRYRUN_FAILS``, which must name their family."""
+    from repro_torch.configs import ALL_SHAPES
+    from repro_torch.launch import dryrun
+
+    cells = [(DRYRUN_ARCH, s.name, mp) for s in ALL_SHAPES
+             for mp in (False, True)]
+    cells += [(a, DRYRUN_OTHERS, False) for a in archs if a != DRYRUN_ARCH]
+    recs, counts = [], {"OK": 0, "SKIP": 0, "FAIL": 0}
+    for arch, shape, mp in cells:
+        rec = dryrun.run_cell(arch, shape, multi_pod=mp)
+        print(f"dryrun [{smi}] {dryrun.cell_line(rec)}", flush=True)
+        counts[rec["status"]] += 1
+        if rec["status"] == "FAIL":
+            require(arch in DRYRUN_FAILS and DRYRUN_FAILS[arch] in
+                    rec["error"] and "NotImplementedError" in rec["error"],
+                    f"dryrun {arch} x {shape}: {rec['error']}")
+        else:
+            require(arch not in DRYRUN_FAILS, f"dryrun {arch} x {shape}: "
+                    f"{rec['status']}, where a FAIL naming "
+                    f"{DRYRUN_FAILS.get(arch)} is expected")
+        recs.append(rec)
+    (OUT / "dryrun_results.json").write_text(json.dumps(recs, indent=1))
+    return {"counts": counts, "cells": [
+        {k: r.get(k) for k in ("arch", "shape", "mesh", "status")}
+        | ({"GiB_per_device": r["memory"]["total_bytes_per_device"] / 2 ** 30,
+            "bottleneck": r["roofline"]["bottleneck"],
+            "step_time_s": max(r["roofline"][k] for k in (
+                "compute_s", "memory_s", "collective_s")),
+            "trace_s": r["compile_s"]} if r["status"] == "OK" else {})
+        for r in recs]}
+
+
+def dryrun_cross_check(smi: str, cells: dict) -> dict:
+    """Leg (b): the launch phase's measured cells traced at the same cut
+    on a (1, 1) mesh: launches by wrapper and route equal to the real
+    step's, the roofline step time at or below the measured one, and the
+    predicted bytes a device (arguments + temporaries) printed beside
+    ``max_memory_allocated``."""
+    import dataclasses
+
+    from repro_torch.configs import (DECODE_32K, LONG_500K, PREFILL_32K,
+                                     TRAIN_4K, get_arch)
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hlo_analysis import roofline_from_trace
+
+    one = {"data": 1, "model": 1}
+    llama, rg = get_arch(LAUNCH_ARCH), get_arch(LAUNCH_HYBRID)
+    pd = cells["prefill_decode_32k"]
+    S = launch_cell(PREFILL_32K).seq_len
+    rows = (
+        ("train_4k", llama, launch_cell(TRAIN_4K), {},
+         cells["train_4k"]["launches_by_route"],
+         min(cells["train_4k"]["step_s"]),
+         cells["train_4k"]["max_memory_allocated_bytes"]),
+        ("prefill_32k", llama, launch_cell(PREFILL_32K),
+         {"prefill_tokens": S - 1}, pd["prefill_launches_by_route"],
+         pd["prefill_s"], pd["prefill_max_memory_allocated_bytes"]),
+        ("decode_32k", llama, launch_cell(DECODE_32K), {},
+         pd["decode_launches_by_route"], pd["decode_s"],
+         pd["decode_max_memory_allocated_bytes"]),
+        ("long_500k", rg, launch_cell(LONG_500K), {},
+         cells["long_500k"]["decode_launches_by_route"],
+         min(cells["long_500k"]["decode_step_s"]),
+         cells["long_500k"]["decode_max_memory_allocated_bytes"]))
+    out = {}
+    for name, cfg, shape, kw, launched, measured_s, peak in rows:
+        tr, out_bytes = dryrun.trace_cell(cfg, shape, one, **kw)
+        terms = roofline_from_trace(tr, 1)
+        mem = dryrun.memory_dict(tr, out_bytes)
+        predicted = mem["total_bytes_per_device"]
+        row = {"arch": cfg.name, "batch": shape.global_batch,
+               "seq": shape.seq_len, **kw,
+               "traced_launches": tr.launches(), "real_launches": launched,
+               "roofline_step_s": terms.step_time_s,
+               "bottleneck": terms.bottleneck, "measured_step_s": measured_s,
+               "predicted_bytes": predicted,
+               "max_memory_allocated_bytes": peak,
+               "predicted_over_measured_bytes":
+                   predicted / peak if peak else None,
+               "trace_s": tr.host_s}
+        print(f"dryrun [{smi}] cross-check {cfg.name} x {name} (1x1, B = "
+              f"{shape.global_batch}): launches traced {row['traced_launches']}"
+              f" real {launched}; roofline {terms.step_time_s:.4e} s "
+              f"({terms.bottleneck}) vs measured {measured_s:.4e} s; "
+              f"bytes predicted {predicted} vs max_memory_allocated {peak} "
+              f"({row['predicted_over_measured_bytes']})", flush=True)
+        require(row["traced_launches"] == launched, f"dryrun {name}: the "
+                "trace's launches differ from the real step's")
+        require(terms.step_time_s <= measured_s, f"dryrun {name}: the "
+                "roofline step time is above the measured one")
+        out[name] = row
+        del tr
+    return out
+
+
+def dryrun_phase(smi: str, launch_summary: dict, archs=None) -> dict:
+    """Leg (a) ``dryrun_cells`` over ``archs`` (default: every registered
+    arch), leg (b) ``dryrun_cross_check`` against the launch phase's
+    cells."""
+    from repro_torch.configs import list_archs
+    t0 = time.perf_counter()
+    summary = dryrun_cells(smi, archs or list_archs())
+    summary["cells_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    summary["cross_check"] = dryrun_cross_check(smi, launch_summary["cells"])
+    summary["cross_check_s"] = time.perf_counter() - t1
+    print(f"dryrun [{smi}]: {summary['counts']} in {summary['cells_s']:.1f} "
+          f"s; cross-check in {summary['cross_check_s']:.1f} s")
+    return summary
+
+
 def sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
@@ -5927,7 +6438,7 @@ def main() -> int:
               "on an NVIDIA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs import get_arch
+    from repro_torch.configs import get_arch, list_archs
     from repro_torch.kernels import _build
     from repro_torch.kernels import bsmm as B
     from repro_torch.kernels import flash_attention as FA
@@ -5950,6 +6461,8 @@ def main() -> int:
     print(f"build: {build_s:.1f} s ({', '.join(logs) or 'cached'})")
 
     cfg = get_arch("llama3.2-3b")
+    # the published archs, before a phase registers a cut variant
+    published = list(list_archs())
     phases = {"build": build_s}
     new_runs = {}
     mark = [time.perf_counter()]
@@ -6109,6 +6622,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     launch_launches, launch_summary = launch_phase(B, FA, PA)
     phase("launch")
+    # the dry-run: rank 0 of the production mesh on fake tensors, and the
+    # launch phase's cells traced at their cut against their measurements
+    gc.collect()
+    torch.cuda.empty_cache()
+    dryrun_summary = dryrun_phase(smi, launch_summary, published)
+    phase("dryrun")
     xl_launches, xl_summary = new_runs["serve_xlstm"]
     _, rx_summary = new_runs["retrain_xlstm"]
     wh_launches, wh_summary = new_runs["serve_whisper"]
@@ -6359,6 +6878,10 @@ def main() -> int:
                                             else None)}
                             for r in dk["bsmm_times"]]}
             err = dk["bsmm_err"][name]
+        elif name in ("bsmm_dx", "bsmm_dw"):
+            local = {"max_abs_err": dk["grad_err"][name],
+                     "rows_by_weight": dk["grad_rows"]}
+            err = dk["grad_err"][name]
         elif name == "flash_attention":
             local = {"max_abs_err": dk["flash_err"], "shapes": [
                 {"S": r["S"], "Hq": r["Hq"], "Hkv": r["Hkv"],
@@ -6407,7 +6930,8 @@ def main() -> int:
          "retrain_whisper": rw_summary, "serve_vlm": vl_summary,
          "retrain_vlm": rv_summary, "serve_llama4": l4_summary,
          "lint": lint_summary, "distributed": dist_summary,
-         "launch": launch_summary, "phase_s": phases},
+         "launch": launch_summary, "dryrun": dryrun_summary,
+         "phase_s": phases},
         indent=1, default=str))
     print(json.dumps({"serve": {**summary, "decode_profile": {
         k: v for k, v in summary["decode_profile"].items()
@@ -6450,13 +6974,14 @@ def main() -> int:
                   for r in dist_summary["ranks"]],
         "kernel_checks": {k: v for k, v in
                           dist_summary["kernel_checks"].items()
-                          if k.endswith("_err") or k == "bsmm_rows"},
+                          if k.endswith("_err") or k.endswith("_rows")},
         "grouped_moe": dist_summary["grouped_moe"],
         "restart": dist_summary["restart"]}}, default=str))
     print(json.dumps({"launch": {
         k: ({kk: vv for kk, vv in v.items() if kk != "bsmm_routes"}
             if isinstance(v, dict) else v)
         for k, v in launch_summary.items()}}, default=str))
+    print(json.dumps({"dryrun": dryrun_summary}, default=str))
     print(json.dumps({"phase_s": phases}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -13,7 +13,8 @@ stable rule codes (``findings.RULES``):
 * ``dispatch_audit`` — J201–J205, the hot paths run once under a
   dispatch mode that records every aten op (dense routing misses, f64
   values, host round trips; kernel bodies opaque) — the counterpart of
-  the reference's ``jaxpr_audit``;
+  the reference's ``jaxpr_audit``; J206/J207 on a closure's step trace
+  (``lint --hlo``); J208, a mesh engine's placements;
 * ``kernel_audit``   — K300–K306, each CUDA launch's ``LaunchSpec``
   (``kernels.spec``) enumerated block by block: final-writer coverage,
   read bounds, liveness against the truth source, f32 accumulators,
@@ -21,7 +22,8 @@ stable rule codes (``findings.RULES``):
 
 ``lint.lint_arch`` runs the first three against a registered arch and
 ``lint.lint_kernels`` the fourth; the CLI surface is ``python -m
-repro_torch.api lint [--arch NAME | --all] [--kernels] [--device cpu]``
+repro_torch.api lint [--arch NAME | --all] [--kernels] [--hlo] [--device
+cpu]``
 with ``--explain CODE`` documenting any rule.
 """
 from repro_torch.analysis.findings import (NEVER_EMITTED, RULES, SEVERITIES,
@@ -41,6 +43,7 @@ from repro_torch.analysis.invariants import (verify_block_pool,
                                              verify_xbar_stats)
 from repro_torch.analysis.dispatch_audit import (audit_closure,
                                                  audit_engine_sharding,
+                                                 audit_trace, audit_traced,
                                                  collect_covered,
                                                  unambiguous_covered)
 from repro_torch.analysis.lint import lint_all, lint_arch, lint_kernels
@@ -57,7 +60,8 @@ __all__ = [
     "verify_mask_accounting", "verify_engine", "verify_block_pool",
     "verify_block_tables", "verify_paged_engine",
     "verify_paged_reconstruction", "verify_fleet",
-    "audit_closure", "audit_engine_sharding",
+    "audit_closure", "audit_engine_sharding", "audit_traced",
+    "audit_trace",
     "collect_covered", "unambiguous_covered",
     "lint_arch", "lint_all", "lint_kernels",
 ]

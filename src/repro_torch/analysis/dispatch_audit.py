@@ -25,7 +25,12 @@ reference: every public kernel wrapper marks its body
 ``aten.mm`` on the weights is the kernel's own work, and the ops issued
 inside a marked body are not examined.
 
-J206/J207 read compiled HLO, which the port does not have; J208 checks
+J206/J207 read the reference's compiled HLO; the port reads its
+counterpart, the step trace (``launch.hlo_analysis.StepTrace``):
+``audit_traced`` runs a closure on fake copies of its arguments under a
+trace and ``audit_trace`` checks the trace — an f64 anywhere in its
+census, kernel bodies included, is J206 (J202 does not look inside a
+kernel body), and collective traffic is reported as J207.  J208 checks
 a mesh-backed engine's parameter placements (``LeafSharding``s and
 their ``torch.distributed.tensor`` placements, where the reference
 checks ``NamedSharding``s).  Rule codes J201–J208; see
@@ -39,7 +44,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
-from repro_torch.analysis.findings import Finding, error, warning
+from repro_torch.analysis.findings import Finding, error, info, warning
 from repro_torch.kernels import _mark
 
 _aten = torch.ops.aten
@@ -252,4 +257,59 @@ def audit_engine_sharding(engine, *, where: str = "engine") -> List[Finding]:
                 f"all {len(placed)} placed param leaves are Replicate() on "
                 f"a {size}-rank mesh — no dimension divided (shape/mesh "
                 f"mismatch?)"))
+    return findings
+
+
+def audit_traced(fn: Callable, args: Iterable[Any] = (), *,
+                 where: str = "traced",
+                 kwargs: Optional[dict] = None) -> List[Finding]:
+    """Trace ``fn(*args)`` on fake copies of its arguments
+    (``launch.hlo_analysis.StepTrace``) and cross-check the trace (the
+    counterpart of ``audit_compiled``).  Nothing runs: kernel wrappers
+    record their launches and collectives their traffic.  Under an
+    installed tensor-parallel context (a mesh engine's scope) the fake
+    copies of its shards are bound as the shards for the trace."""
+    from repro_torch.launch.hlo_analysis import StepTrace
+    from repro_torch.models import hooks
+
+    tp = hooks.tensor_parallel()
+    shards = list(tp._sharded.values()) if tp is not None else []
+    try:
+        with StepTrace() as tr:
+            fargs = tr.fake(list(args))
+            fkw = tr.fake(dict(kwargs or {}))
+            if tp is not None:
+                tp.bind(tr.fake(shards))
+            try:
+                fn(*fargs, **fkw)
+            finally:
+                if tp is not None:
+                    tp.bind(shards)
+    except Exception as e:
+        return [error("J204", where,
+                      f"could not trace the closure: {type(e).__name__}: "
+                      f"{e}")]
+    return audit_trace(tr, where=where)
+
+
+def audit_trace(trace, *, where: str = "trace") -> List[Finding]:
+    """The J206/J207 checks on a step trace (the counterpart of
+    ``audit_hlo_text``)."""
+    from repro_torch.launch.hlo_analysis import collective_bytes, dtype_census
+
+    findings: List[Finding] = []
+    census = dtype_census(trace)
+    if census.get("f64"):
+        findings.append(warning(
+            "J206", where,
+            f"optimized HLO contains {census['f64']} f64 shape(s) — an "
+            f"x64 promotion survived compilation"))
+    coll = collective_bytes(trace)
+    if coll.total_bytes:
+        findings.append(info(
+            "J207", where,
+            f"compiled module moves {coll.total_bytes} collective "
+            f"bytes: " +
+            ", ".join(f"{k}×{coll.count_by_kind[k]}"
+                      for k in sorted(coll.bytes_by_kind))))
     return findings

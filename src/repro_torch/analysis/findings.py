@@ -192,13 +192,17 @@ _ALL_RULES: Tuple[Rule, ...] = (
          "fell back to dense."),
     Rule("J206", "compiled artifact contains f64 tensors (HLO "
          "cross-check)",
-         "Reads a compiled artifact, which the eager port does not have: "
-         "never emitted.  `lint --hlo` exits 2 with a structured refusal "
-         "until a counterpart of launch/hlo_analysis is ported."),
+         "`lint --hlo` traces the serving prefill closure on fake copies "
+         "of its arguments (launch.hlo_analysis.StepTrace, the port's "
+         "counterpart of the compiled artifact) and warns when an f64 "
+         "appears anywhere in the trace's dtype census, kernel bodies and "
+         "launches included (J202 does not look inside a kernel body)."),
     Rule("J207", "collective traffic in a hot-path artifact (HLO "
          "cross-check)",
-         "Reads a compiled artifact, which the eager port does not have: "
-         "never emitted (see J206)."),
+         "Info: the traced closure's collectives (`lint --hlo`), their "
+         "output bytes per participant by kind.  A meshless engine's "
+         "prefill has none; a mesh-backed engine's tensor-parallel "
+         "prefill reports its all-reduces and all-gathers."),
     Rule("J208", "sharded engine's jitted hot path traced on a "
          ">1-device mesh with replicated-only params (missing "
          "NamedSharding placement — GSPMD runs every device dense)",
@@ -264,10 +268,7 @@ _ALL_RULES: Tuple[Rule, ...] = (
 RULES: Dict[str, Rule] = {r.code: r for r in _ALL_RULES}
 
 #: the codes this port never emits, with the reason (their docs say so)
-NEVER_EMITTED: Dict[str, str] = {
-    "J206": "no compiled artifact in an eager port (lint --hlo exits 2)",
-    "J207": "no compiled artifact in an eager port (lint --hlo exits 2)",
-}
+NEVER_EMITTED: Dict[str, str] = {}
 
 
 def rules_markdown() -> str:

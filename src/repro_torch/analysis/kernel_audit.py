@@ -513,9 +513,10 @@ def _flash_cases() -> List[AuditCase]:
 
 def default_cases() -> List[AuditCase]:
     """The canonical small concrete launches: every route a main path
-    launches.  #5 and #9 carry no liveness truth or cost (their work is
-    data-dependent or not a product), so K303 and K306 skip them, as in
-    the reference."""
+    launches.  #5 and #9 carry no liveness truth (every tile is read
+    whatever the mask holds), so K303 skips them, as in the reference;
+    K306 holds them to ``masked_matmul_cost`` and ``tile_stats_cost``."""
+    from repro_torch.core import perf_model as pm
     from repro_torch.kernels import spec as ks
 
     cases = _bsmm_cases()
@@ -525,10 +526,12 @@ def default_cases() -> List[AuditCase]:
                   (64, torch.float32)):
         spec = ks.masked_matmul_spec(M, 384, 256, dt, dt)
         cases.append(AuditCase(
-            f"masked_matmul_{spec.route}_m{M}", spec, None, None,
+            f"masked_matmul_{spec.route}_m{M}", spec, None,
+            pm.masked_matmul_cost(M, 384, 256, dt, dt),
             {"kind": "masked", "M": M, "K": 384, "N": 256, "dtype": dt}))
     cases.append(AuditCase(
-        "tile_stats", ks.tile_stats_spec(320, 256), None, None,
+        "tile_stats", ks.tile_stats_spec(320, 256), None,
+        pm.tile_stats_cost(320, 256, torch.float32),
         {"kind": "tile_stats", "K": 320, "N": 256}))
     return cases
 

@@ -23,9 +23,10 @@ At ``scale="tiny"`` on the CPU an arch takes seconds; on the card
 kernels.  The audited prefill is the reference's 8-token prompt on a
 64-row engine at tiny scale, a 128-token one on a 256-row engine at full
 scale (``_PROMPT``), so that full-width projections take the routes a
-real prompt takes.  ``hlo=True`` (the reference's compiled-HLO cross-check) is not
-ported: it raises ``NotImplementedError`` until a counterpart of
-``launch/hlo_analysis`` exists.
+real prompt takes.  ``hlo=True`` adds the reference's compiled-HLO
+cross-check on its counterpart: the serving prefill closure traced on
+fake copies of its arguments (``dispatch_audit.audit_traced``, J206 and
+J207 at ``<arch>/prefill.hlo``).
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ import torch
 
 from repro_torch.analysis.dispatch_audit import (audit_closure,
                                                  audit_engine_sharding,
+                                                 audit_traced,
                                                  unambiguous_covered)
 from repro_torch.analysis.findings import Report
 from repro_torch.analysis.invariants import (_walk_plan_leaves,
@@ -57,10 +59,6 @@ _EXPERT_FRACTION = 0.25
 #: (``wgmma`` from 64 bf16 rows)
 _PROMPT = {"tiny": (8, 64), "full": (128, 256)}
 
-HLO_REFUSAL = ("the compiled-HLO cross-check (J206/J207) waits on a "
-               "counterpart of launch/hlo_analysis, which is not yet "
-               "ported to repro_torch")
-
 #: ``probe(where)`` → a context manager entered around each audited
 #: closure (a caller's view of what the closure launched)
 Probe = Callable[[str], ContextManager]
@@ -79,10 +77,9 @@ def lint_arch(arch: Any, *, recipe: Any = None, scale: str = "tiny",
     arch, on ``device``.
 
     ``recipe`` overrides the family's tuned recipe (name, path, dict, or
-    instance); ``probe`` wraps each audited closure (see ``Probe``).
+    instance); ``probe`` wraps each audited closure (see ``Probe``);
+    ``hlo`` adds the traced prefill's J206/J207 check (serving families).
     """
-    if hlo:
-        raise NotImplementedError(HLO_REFUSAL)
     from repro_torch.api.registry import make_adapter, resolve_config
     from repro_torch.api.session import structured_prune
     from repro_torch.configs import PruneConfig
@@ -119,7 +116,7 @@ def lint_arch(arch: Any, *, recipe: Any = None, scale: str = "tiny",
 
     if spec.serves:
         _lint_serving(report, name, adapter, spec, params, masks, probe,
-                      *_PROMPT[scale])
+                      *_PROMPT[scale], hlo=hlo)
     return report
 
 
@@ -199,7 +196,8 @@ def _serving(fn: Callable) -> Callable:
 
 
 def _lint_serving(report: Report, name: str, adapter, spec, params,
-                  masks, probe: Probe, prompt: int, capacity: int) -> None:
+                  masks, probe: Probe, prompt: int, capacity: int, *,
+                  hlo: bool = False) -> None:
     from repro_torch.core.masks import apply_masks
     from repro_torch.kernels.paged_attention import BLOCK_TOKENS
     from repro_torch.models import transformer as tfm
@@ -281,6 +279,12 @@ def _lint_serving(report: Report, name: str, adapter, spec, params,
     report.extend(verify_engine(eng, where=f"{name}/engine"))
     # sharding placement (J208): nothing to place on a meshless engine
     report.extend(audit_engine_sharding(eng, where=f"{name}/engine"))
+
+    if hlo:
+        report.extend(audit_traced(
+            _serving(lambda p, cap: prefill_fn(p, cfg, batch, cap,
+                                               **plankw)),
+            [masked, eng.capacity], where=f"{name}/prefill.hlo"))
 
 
 def lint_kernels() -> Report:

@@ -35,8 +35,8 @@ the cards and share them), every rank driving its own copy of the engine on a
 (the daemon reads its whole script — or stdin — before it starts).
 
 Exit codes: 0 success; 1 ``lint`` found an error; 2 structured refusal
-(e.g. ``serve`` on a family with no serving path, or ``lint --hlo``,
-which is not yet ported — reported, not a traceback).
+(e.g. ``serve`` on a family with no serving path — reported, not a
+traceback).
 """
 from __future__ import annotations
 
@@ -233,7 +233,7 @@ def cmd_recipes(args) -> int:
 
 def cmd_lint(args) -> int:
     """Static sparsity lint; exits 1 on any error-severity finding, 2 on
-    a structured refusal (an unknown rule code, no target, ``--hlo``)."""
+    a structured refusal (an unknown rule code, no target)."""
     from repro_torch.analysis import lint_arch, lint_kernels
     from repro_torch.api.registry import list_adaptable
 
@@ -251,12 +251,6 @@ def cmd_lint(args) -> int:
                "title": rule.title, "doc": rule.doc}, args.json,
               explain(code))
         return EXIT_OK
-
-    if args.hlo:
-        from repro_torch.analysis.lint import HLO_REFUSAL
-        _emit({"event": "not_yet_ported", "what": "lint --hlo",
-               "reason": HLO_REFUSAL}, args.json, f"error: {HLO_REFUSAL}")
-        return EXIT_UNSUPPORTED
 
     if not (args.all or args.arch or args.kernels):
         print("lint: one of --arch, --all, --kernels, or --explain "
@@ -283,7 +277,7 @@ def cmd_lint(args) -> int:
              else [args.arch] if args.arch else [])
     for name in names:
         rep = lint_arch(name, recipe=args.recipe, scale=args.scale,
-                        seed=args.seed, device=args.device)
+                        seed=args.seed, hlo=args.hlo, device=args.device)
         any_error = any_error or not rep.ok
         summary = rep.summary()
         _emit({"arch": name, **rep.to_dict()}, args.json,
@@ -879,8 +873,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "are built at (tiny: CPU-seconds per arch)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--hlo", action="store_true",
-                   help="the reference's compiled-HLO cross-check (not "
-                        "yet ported: exits 2 with a structured refusal)")
+                   help="the reference's compiled-HLO cross-check, on the "
+                        "serving prefill's step trace (J206/J207)")
     p.add_argument("--json", action="store_true",
                    help="one JSON report object per arch line")
     p.add_argument("--device", default="cuda",

@@ -307,3 +307,32 @@ def flash_cost(*, batch: int, seq: int, hq: int, hkv: int, hd: int,
         hbm += (q1 - q0) * (hd + dv) * e + keys * (hd + dv) * e
     heads = batch * hq
     return KernelCost(heads * passes, heads * flops, float(heads * hbm))
+
+
+def masked_matmul_cost(M: int, K: int, N: int, dtype,
+                       mask_dtype) -> KernelCost:
+    """The LTP masked matmul (#5) on ``masked_route``'s kernel: every
+    (row block, column tile) pair walks all of K, cut into
+    ``masked_splits`` pieces (never on ``wgmma``), reading x's rows and
+    every tile of w and of the mask whatever the mask holds; split
+    partials are f32, stored and read back once."""
+    import torch
+    from repro_torch.kernels import bsmm as kb
+    route = kb.masked_route(M, K, N, dtype)
+    S = 1 if route == "wgmma" else len(kb.masked_splits(M, K, N))
+    BM = {"stream": 8 if M <= 8 else 32, "wgmma": 256, "fma": 64}[route]
+    rb, nt = -(-M // BM), N // _TILE
+    e = _elem(dtype)
+    me = torch.empty((), dtype=mask_dtype).element_size()
+    reads = nt * M * K * e + rb * K * N * (e + me)
+    part = 2 * S * M * N * 4 if S > 1 else 0
+    return KernelCost(rb * nt * S, rb * nt * 2.0 * BM * _TILE * K,
+                      float(reads + M * N * e + part))
+
+
+def tile_stats_cost(K: int, N: int, dtype, bk: int = _TILE,
+                    bn: int = _TILE) -> KernelCost:
+    """Tile stats (#9): one block a tile reads its part of w once and
+    writes the tile's live flag and |w| sum (8 bytes); no product."""
+    tiles = -(-K // bk) * -(-N // bn)
+    return KernelCost(tiles, 0.0, float(K * N * _elem(dtype) + 8 * tiles))

@@ -35,7 +35,31 @@ its own mask shard, which is exact because pruned weights are exact
 zeros.
 
 Collectives go through ``collective``: the one place where a gloo group
-(two ranks sharing a card) stages CUDA tensors through host memory.
+(two ranks sharing a card) stages CUDA tensors through host memory, and
+where a ``launch.hlo_analysis.StepTrace`` records them on fake tensors.
+
+Training on a mesh uses Megatron's conjugate operators
+(``torch.autograd.Function``s over ``collective``), entered only while
+autograd records, so that serving runs the collectives alone:
+
+  * copy-to-model (``TensorParallel.copy_in``): identity forward,
+    ``all_reduce`` backward — on the input of each column-parallel group
+    (q and sharded K/V, the MLP's up/gate, the unembedding, the experts'
+    rows), on a replicated bias cut to local columns, and on K/V kept
+    whole (each rank's heads read all of them);
+  * reduce-from-model: ``all_reduce`` forward, identity backward — the
+    row-parallel output and the vocab-parallel lookup;
+  * gather-from-model: ``all_gather`` forward, this rank's slice
+    backward — the unembedding's logits and the experts' outputs.
+
+So every replicated leaf gets the same gradient on every model rank.
+``train_loss`` is the global token mean (each data rank's token-loss
+sum over the global token count) and ``data_grad_sum`` sums the
+gradients over the data axes before the optimizer, so that unequal loss
+masks still give the single-device gradient.  ZeRO-1 (``Zero1``) cuts
+the optimizer state over ``data`` instead: each gradient is
+reduce-scattered to the data rank's part, the update runs on that part,
+and the parameter is all-gathered back.
 """
 from __future__ import annotations
 
@@ -45,12 +69,14 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.configs.base import (ATTN, LOCAL_ATTN, MXU_TILE,
                                       ArchConfig)
 from repro_torch.core.masks import tree_map_with_path
 from repro_torch.distributed.sharding import (LeafSharding, ShardingRules,
                                               place, spec_placements)
+from repro_torch.kernels import _mark
 from repro_torch.kernels.bsmm import plan_matmul
 from repro_torch.launch.mesh import mesh_axes
 from repro_torch.models import hooks
@@ -58,11 +84,18 @@ from repro_torch.models import hooks
 
 def collective(op: str, t: torch.Tensor, group, **kw) -> torch.Tensor:
     """Run ``all_reduce`` (in place, sum), ``all_gather`` (returns the
-    list's concatenation along ``dim``) or ``broadcast`` (in place,
-    from global rank ``src``) of ``t`` over ``group``.  A gloo group
+    list's concatenation along ``dim``), ``reduce_scatter`` (returns
+    this rank's part of the sum along ``dim``) or ``broadcast`` (in
+    place, from global rank ``src``) of ``t`` over ``group``.  A gloo group
     with a CUDA tensor stages it through host memory (gloo may lack the
     CUDA path of a collective); the kernels' tensors never leave the
-    card otherwise."""
+    card otherwise.  A fake ``t`` under an active ``StepTrace`` is
+    recorded there and nothing is sent."""
+    if isinstance(t, FakeTensor):
+        if _mark.trace is None:
+            raise RuntimeError("a fake tensor reached a collective with no "
+                               "StepTrace active")
+        return _mark.trace.collective(op, t, group, **kw)
     staged = t.is_cuda and dist.get_backend(group) == "gloo"
     h = t.cpu() if staged else t
     if op == "all_gather":
@@ -70,6 +103,11 @@ def collective(op: str, t: torch.Tensor, group, **kw) -> torch.Tensor:
         dist.all_gather(parts, h.contiguous(), group=group)
         out = torch.cat(parts, dim=kw.get("dim", 0))
         return out.to(t.device) if staged else out
+    if op == "reduce_scatter":            # the sum, this rank's part
+        whole = collective("all_reduce", t.clone(), group)
+        dim = kw.get("dim", 0)
+        n = t.shape[dim] // dist.get_world_size(group)
+        return whole.narrow(dim, dist.get_rank(group) * n, n).contiguous()
     if op == "all_reduce":
         dist.all_reduce(h, group=group)
     elif op == "broadcast":
@@ -82,7 +120,55 @@ def collective(op: str, t: torch.Tensor, group, **kw) -> torch.Tensor:
 
 
 def _storage(t: torch.Tensor) -> int:
-    return t.untyped_storage().data_ptr()
+    """The identity of ``t``'s storage (views of a stacked leaf share
+    it; a fake or meta storage has one too, where its data pointer is
+    0)."""
+    return t.untyped_storage()._cdata
+
+
+def _recording(t) -> bool:
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the gradient summed over the model axis."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return collective("all_reduce", g.contiguous().clone(),
+                          ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """``all_reduce`` forward; the gradient passes through."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return collective("all_reduce", x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """``all_gather`` along ``dim`` forward; this rank's slice of the
+    gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, rank):
+        ctx.dim, ctx.rank, ctx.n = dim, rank, x.shape[dim]
+        return collective("all_gather", x.contiguous(), group, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n).contiguous(),
+                None, None, None)
 
 
 class TensorParallel:
@@ -94,6 +180,12 @@ class TensorParallel:
         self.group = mesh.get_group("model")
         self.size = mesh_axes(mesh)["model"]
         self.rank = mesh.get_local_rank("model")
+        self.bind(sharded_leaves)
+
+    def bind(self, sharded_leaves) -> None:
+        """Recognise ``sharded_leaves`` as this rank's shards (an
+        optimizer step makes new parameter tensors: a train step binds
+        its own)."""
         self._sharded: Dict[int, torch.Tensor] = {}
         for t in sharded_leaves:
             self._sharded[_storage(t)] = t
@@ -102,10 +194,26 @@ class TensorParallel:
         return w is not None and _storage(w) in self._sharded
 
     def all_reduce(self, t):
-        return collective("all_reduce", t, self.group)
+        """Sum over ``model`` (reduce-from-model while autograd records)."""
+        if _recording(t):
+            return _ReduceFromModel.apply(t, self.group)
+        return collective("all_reduce", t.contiguous(), self.group)
 
     def all_gather(self, t, dim: int):
-        return collective("all_gather", t, self.group, dim=dim)
+        """Concatenate over ``model`` (gather-from-model while autograd
+        records)."""
+        if _recording(t):
+            return _GatherFromModel.apply(t, self.group, dim % t.ndim,
+                                          self.rank)
+        return collective("all_gather", t.contiguous(), self.group, dim=dim)
+
+    def copy_in(self, t):
+        """The input of a column-parallel group (copy-to-model): ``t``
+        itself, its gradient summed over ``model`` while autograd
+        records."""
+        if t is None or not _recording(t):
+            return t
+        return _CopyToModel.apply(t, self.group)
 
     def cols(self, v):
         """This rank's slice of the last dim of a replicated ``v``."""
@@ -128,15 +236,17 @@ class TensorParallel:
 
     # -- the projections ---------------------------------------------------
     def col(self, x, w, plan, bias=None, act=None):
-        """Column-parallel: this rank's columns of ``x @ w``."""
-        return plan_matmul(x, w, plan,
-                           bias=None if bias is None else self.cols(bias),
-                           act=act)
+        """Column-parallel: this rank's columns of ``x @ w`` (``x`` is
+        the group's input, already through ``copy_in``)."""
+        return plan_matmul(
+            x, w, plan,
+            bias=None if bias is None else self.cols(self.copy_in(bias)),
+            act=act)
 
     def row(self, x, w, plan, bias=None):
         """Row-parallel: the local partial product, summed over
         ``model``; the bias is added once, after the sum."""
-        y = self.all_reduce(plan_matmul(x, w, plan).contiguous())
+        y = self.all_reduce(plan_matmul(x, w, plan))
         return y if bias is None else y + bias
 
     def embed(self, table, tokens):
@@ -146,11 +256,11 @@ class TensorParallel:
         local = tokens - self.rank * v
         own = (local >= 0) & (local < v)
         x = table[local.clamp(0, v - 1)] * own[..., None].to(table.dtype)
-        return self.all_reduce(x.contiguous())
+        return self.all_reduce(x)
 
     def unembed(self, table, x):
         """Local logits over this rank's vocab rows, gathered."""
-        return self.all_gather((x @ table.T).contiguous(), dim=-1)
+        return self.all_gather(self.copy_in(x) @ table.T, dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -433,3 +543,182 @@ def sharded_loss(model: ShardedModel, batch) -> float:
     if model.rules.dp_size > 1:
         collective("all_reduce", tot, model.rules.mesh.get_group("data"))
     return float(tot[0] / tot[1].clamp_min(1.0))
+
+
+# ---------------------------------------------------------------------------
+# Training on a mesh
+# ---------------------------------------------------------------------------
+def _data_groups(rules: ShardingRules) -> list:
+    return [rules.mesh.get_group(a) for a in rules.dp_axes
+            if rules.axis_sizes[a] > 1]
+
+
+def check_trainable(cfg: ArchConfig, rules: ShardingRules) -> None:
+    """Raise ``NotImplementedError`` naming the family when ``cfg``
+    cannot train on ``rules``' mesh: MLA, the recurrent blocks and the
+    encoder-decoder on a model axis > 1, the MoE aux loss (global over
+    the batch) and the encoder-decoder's loss on a data axis > 1.
+    Nothing is drawn first: a launcher calls it before its
+    parameters."""
+    if rules.tp_size > 1:
+        _supports_model_axis(cfg)
+    if _data_groups(rules) and cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the MoE aux loss on a data axis > 1 is not yet "
+            "ported to repro_torch (it is global over the batch)")
+    if _data_groups(rules) and cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-decoder's loss on a data axis > 1 is "
+            "not yet ported to repro_torch")
+
+
+def train_loss(model: ShardedModel, *, plan=None, aux_weight: float = 0.01):
+    """``(params, batch) -> (loss, metrics)`` of this rank's rows on
+    ``model``'s mesh, the forward under the model's scope (one MoE
+    dispatch group: a rank's rows are its data shard's).  The train
+    step must enter ``train_scope(model)`` around the backward too:
+    remat recomputes each layer there, under the same scope.  On one data
+    rank it is the model's own ``loss_fn``; over a data axis the global
+    token mean: the same ``loss_fn`` with the token count summed over the
+    data axes as its denominator (``softmax_cross_entropy``'s ``count``;
+    ``data_grad_sum`` then sums the losses and the gradients)."""
+    from repro_torch.models import encdec
+    from repro_torch.models import transformer as tfm
+    cfg, rules = model.cfg, model.rules
+    check_trainable(cfg, rules)
+    groups = _data_groups(rules)
+    mod = encdec if cfg.is_encoder_decoder else tfm
+
+    def loss(p, batch):
+        kw = {} if cfg.is_encoder_decoder else {"aux_weight": aux_weight,
+                                                "plan": plan}
+        if groups:
+            mask = batch.get("loss_mask")
+            labels = batch["labels"]
+            count = (torch.full((), float(labels.numel()),
+                                device=labels.device) if mask is None
+                     else mask.float().sum().detach().clone())
+            for g in groups:
+                count = collective("all_reduce", count, g)
+            kw["count"] = count
+        with model.scope(groups=1):
+            return mod.loss_fn(p, cfg, batch, **kw)
+
+    return loss
+
+
+def train_scope(model: ShardedModel):
+    """``params -> context`` that a mesh's train step enters around its
+    forward and backward (``make_train_step(scope=)``): the model's scope
+    with the step's own parameters bound as the shards."""
+    def enter(params):
+        if model.tp is not None:
+            model.tp.bind(sharded_leaves(params, model.shardings))
+        return model.scope(groups=1)
+    return enter
+
+
+class Zero1:
+    """ZeRO-1 on a mesh's ``data`` axis: each data rank keeps the optimizer
+    state of its part of every leaf and updates only that part.
+
+    A leaf's part is cut on the dim ``ShardingRules.opt_state_shardings``
+    puts ``data`` on for the full-shape leaf (the first dim its spec
+    leaves whole that the axis divides; None keeps the moments whole).
+    The step (``train.loop.make_train_step(zero1=True)``) sums the loss
+    over the data axes, all-reduces each gradient over the other data
+    axes (``pod``) and reduce-scatters it over ``data`` (all-reduces it
+    where the moments stay whole), updates the parts, and all-gathers
+    each part back over ``data``.  The optimizer therefore sees parts:
+    its state is ``init(part(params))``, and a masked optimizer takes
+    ``part(masks)``."""
+
+    def __init__(self, model: "ShardedModel"):
+        from repro_torch.core.masks import tree_flatten_with_path
+        rules, tp = model.rules, model.rules.tp_size
+        self.mesh = rules.mesh
+        self.size = rules.axis_sizes.get("data", 1)
+        self.rank = self.mesh.get_local_rank("data") if self.size > 1 else 0
+        self.others = [self.mesh.get_group(a) for a in rules.dp_axes
+                       if a != "data" and rules.axis_sizes[a] > 1]
+
+        def full(path, leaf):
+            sh = _lookup(model.shardings, path)
+            shape = [n * tp if sh is not None and s == "model" else n
+                     for n, s in zip(leaf.shape, sh.spec if sh is not None
+                                     else (None,) * leaf.dim())]
+            return torch.empty(shape, device="meta")
+
+        specs = rules.opt_state_shardings(
+            {"m": tree_map_with_path(full, model.params)})["m"]
+        self.dims: Dict[str, Optional[int]] = {
+            path: (sh.spec.index("data") if self.size > 1
+                   and "data" in sh.spec else None)
+            for path, sh in tree_flatten_with_path(specs)}
+
+    def part(self, tree):
+        """This data rank's part of each leaf of a tree shaped like the
+        rank-local parameters (a leaf whose moments stay whole is
+        itself)."""
+        def cut(path, leaf):
+            d = self.dims.get(path)
+            if leaf is None or d is None:
+                return leaf
+            n = leaf.shape[d] // self.size
+            return leaf.narrow(d, self.rank * n, n)
+        return tree_map_with_path(cut, tree)
+
+    def reduce(self, loss, grads):
+        """(loss summed over the data axes, each gradient's part of its
+        sum over them)."""
+        def total(t, groups):
+            t = t.contiguous()
+            for g in groups:
+                t = collective("all_reduce", t, g)
+            return t
+
+        data = [self.mesh.get_group("data")] if self.size > 1 else []
+
+        def cut(path, g):
+            g = total(g, self.others)
+            d = self.dims.get(path)
+            if d is None:
+                return total(g, data)
+            return collective("reduce_scatter", g, data[0], dim=d)
+
+        return (total(loss.clone(), self.others + data),
+                tree_map_with_path(cut, grads))
+
+    def gather(self, parts):
+        """The updated parts gathered back to the rank-local leaves."""
+        def join(path, leaf):
+            d = self.dims.get(path)
+            if leaf is None or d is None:
+                return leaf
+            return collective("all_gather", leaf.contiguous(),
+                              self.mesh.get_group("data"), dim=d)
+        return tree_map_with_path(join, parts)
+
+
+def data_grad_sum(rules: ShardingRules):
+    """``(loss, grads) -> (loss, grads)``: the loss and every gradient
+    summed over the mesh's data axes (``data``, then ``pod``); nothing on
+    one data rank."""
+    groups = _data_groups(rules)
+
+    def reduce(loss, grads):
+        if not groups:
+            return loss, grads
+
+        def total(t):
+            if not torch.is_tensor(t):
+                return t
+            t = t.contiguous()
+            for g in groups:
+                t = collective("all_reduce", t, g)
+            return t
+
+        from repro_torch._bridge import tree_map
+        return total(loss.clone()), tree_map(total, grads)
+
+    return reduce

@@ -14,15 +14,39 @@ jaxpr audit does not descend into a ``pallas_call``, and reads
 The mark is two integer updates and one Python frame a call — no
 context manager, no registered op — and changes no result, route,
 split count or launch count.
+
+``trace`` is the ``launch.hlo_analysis.StepTrace`` being recorded (None
+outside one).  ``traced`` is each wrapper's first check: with fake
+operands under an active trace the wrapper launches nothing, records
+the launch its rule would make, and returns a fake output; a fake
+operand with no trace active raises.
 """
 from __future__ import annotations
 
 import functools
 
+from torch._subclasses.fake_tensor import FakeTensor
+
 #: kernel bodies being run right now (a wrapper may call another)
 depth = 0
 #: wrapper calls since import (the audit reads its growth)
 entered = 0
+#: the active StepTrace, set and cleared by the trace itself
+trace = None
+
+
+def traced(*ts) -> bool:
+    """True when an operand is a fake tensor and a ``StepTrace`` is
+    active (the wrapper's fake branch); a fake first operand with no
+    trace active raises: no launch can take it.  With no trace (every
+    real launch) the check is one ``isinstance`` of the first operand:
+    fakes and real tensors do not mix in one call."""
+    if trace is not None:
+        return any(isinstance(t, FakeTensor) for t in ts)
+    if isinstance(ts[0], FakeTensor):
+        raise RuntimeError("a fake tensor reached a kernel wrapper with no "
+                           "StepTrace active")
+    return False
 
 
 def marked(fn):

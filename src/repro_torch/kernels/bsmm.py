@@ -746,6 +746,27 @@ def _stream(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _fake_launch(where: str, route: str, S: int, cost, out, *ins):
+    """A wrapper's fake branch: check the layout the card would, record
+    the launch its rule gives in the active ``StepTrace`` and return the
+    fake output; no counter moves."""
+    if not all(t.is_contiguous() for t in ins):
+        raise ValueError(f"{where}: operands must be contiguous")
+    _mark.trace.record_kernel(where, route, S, cost, *ins, out)
+    return out
+
+
+def _fake_2d(x2, w, plan: TilePlan, bias, where: str) -> torch.Tensor:
+    from repro_torch.core import perf_model as pm
+    kernel_tile(where, plan.tile)
+    M = x2.shape[0]
+    route, S = plan.route_and_splits("fwd", M, x2.dtype)
+    out = x2.new_empty((M, w.shape[1]))
+    ins = (x2, w) if bias is None else (x2, w, bias)
+    return _fake_launch(where, route, S, pm.bsmm_fwd_cost(plan, M, x2.dtype),
+                        out, *ins)
+
+
 def _launch_2d(x2, w, plan: TilePlan, bias, act, epi: int,
                where: str) -> Tuple[torch.Tensor, str, int]:
     """Launch the 2-D forward on the route and split count ``plan``
@@ -779,6 +800,8 @@ def bsmm(x2: torch.Tensor, w: torch.Tensor, plan: TilePlan) -> torch.Tensor:
     on the CUDA route ``bsmm_route`` names, each column tile's live list
     cut as ``bsmm_splits`` says."""
     _check_operands(x2, w, plan, None, "bsmm")
+    if _mark.traced(x2, w):
+        return _fake_2d(x2, w, plan, None, "bsmm")
     _check_layout("bsmm", x2, w)
     if x2.device.type == "cpu":
         return bsmm_plain(x2, w, plan)
@@ -806,6 +829,8 @@ def bsmm_epilogue(x2: torch.Tensor, w: torch.Tensor, plan: TilePlan,
     the flush, in the f32 accumulator (after the split pieces' sum)."""
     _check_act(act)
     _check_operands(x2, w, plan, bias, "bsmm_epilogue")
+    if _mark.traced(x2, w, bias):
+        return _fake_2d(x2, w, plan, bias, "bsmm_epilogue")
     _check_layout("bsmm_epilogue", x2, w)
     if x2.device.type == "cpu":
         return bsmm_epilogue_plain(x2, w, plan, bias, act)
@@ -848,8 +873,16 @@ def bsmm_batched(a: torch.Tensor, w: torch.Tensor,
                             shape=(*a.shape, *w.shape), where="bsmm_batched")
     E, M, K = a.shape
     _check_operands(a[0], w[0], plan, None, "bsmm_batched")
-    _check_layout("bsmm_batched", a, w)
     N = w.shape[2]
+    if _mark.traced(a, w):
+        from repro_torch.core import perf_model as pm
+        batched_grid(E, "bsmm_batched")
+        kernel_tile("bsmm_batched", plan.tile)
+        route, S = plan.route_and_splits("batched", M, a.dtype, E)
+        return _fake_launch("bsmm_batched", route, S,
+                            pm.bsmm_batched_cost(plan, E, M, a.dtype),
+                            a.new_empty((E, M, N)), a, w)
+    _check_layout("bsmm_batched", a, w)
     if a.device.type == "cpu":
         return bsmm_batched_plain(a, w, plan)
     if a.device.type != "cuda":
@@ -914,6 +947,16 @@ def _dx(g, w, plan: TilePlan, where: str, batched: bool):
         raise GeometryError(f"{where}: g, w and the TilePlan disagree",
                             shape=(*g.shape, *w.shape), tile=plan.tile,
                             where=where)
+    if _mark.traced(g, w):
+        from repro_torch.core import perf_model as pm
+        E = g.shape[0] if batched else 1
+        batched_grid(E, where)
+        kernel_tile(where, plan.tile)
+        route, S = plan.route_and_splits("dx", M, g.dtype, E)
+        out = g.new_empty((*g.shape[:-1], K))
+        return _fake_launch(where, route, S,
+                            pm.bsmm_dx_cost(plan, M, g.dtype, E), out, g,
+                            w), None, 0
     _check_layout(where, g, w)
     if g.device.type == "cpu":
         plain = bsmm_batched_dx_plain if batched else bsmm_dx_plain
@@ -949,6 +992,18 @@ def _dw(x, g, plan: TilePlan, where: str, batched: bool):
         raise GeometryError(f"{where}: x, g and the TilePlan disagree",
                             shape=(*x.shape, *g.shape), tile=plan.tile,
                             where=where)
+    if _mark.traced(x, g):
+        from repro_torch.core import perf_model as pm
+        E = x.shape[0] if batched else 1
+        batched_grid(E, where)
+        kernel_tile(where, plan.tile)
+        out = x.new_zeros((*x.shape[:-2], K, N))
+        if plan.live_tiles == 0:        # nothing live: no launch
+            return out, None, 0
+        route, S = plan.route_and_splits("dw", M, x.dtype, E)
+        return _fake_launch(where, route, S,
+                            pm.bsmm_dw_cost(plan, M, x.dtype, E), out, x,
+                            g), None, 0
     _check_layout(where, x, g)
     if x.device.type == "cpu":
         plain = bsmm_batched_dw_plain if batched else bsmm_dw_plain
@@ -1203,6 +1258,17 @@ def masked_matmul(x: torch.Tensor, w: torch.Tensor, mask: torch.Tensor, *,
     if mask.dtype not in _MASK_CODES:
         raise TypeError(f"masked_matmul: the mask must be float32, "
                         f"bfloat16 or one byte a value, got {mask.dtype}")
+    if _mark.traced(x, w, mask):
+        from repro_torch.core import perf_model as pm
+        kernel_tile("masked_matmul", bk, bn)
+        M, K = x.shape
+        N = w.shape[1]
+        route = masked_route(M, K, N, x.dtype)
+        S = 1 if route == "wgmma" else len(masked_splits(M, K, N))
+        return _fake_launch(
+            "masked_matmul", route, S,
+            pm.masked_matmul_cost(M, K, N, x.dtype, mask.dtype),
+            x.new_empty((M, N)), x, w, mask)
     _check_layout("masked_matmul", x, w, mask)
     if x.device.type == "cpu":
         return masked_matmul_plain(x, w, mask, bk, bn)

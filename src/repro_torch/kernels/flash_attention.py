@@ -114,15 +114,18 @@ def wgmma_geometry(q, k, v) -> None:
     Every other geometry the float32 kernel takes is taken: any S >= 1,
     any head counts with Hq % Hkv == 0, dv <= hd (ragged S, hd and dv
     below a 64-column chunk are TMA's zero fill)."""
-    hd, dv = q.shape[3], v.shape[3]
+    _wgmma_widths(q.shape[3], v.shape[3])
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: the bfloat16 kernel needs q, k "
+                         "and v 16-byte aligned (TMA)")
+
+
+def _wgmma_widths(hd: int, dv: int) -> None:
     kernel_widths(hd, dv)
     if hd % 8 or dv % 8:
         raise GeometryError("the bfloat16 kernel's TMA maps need hd and dv "
                             "multiples of 8 (16-byte strides)",
                             shape=(hd, dv), where="flash_attention")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention: the bfloat16 kernel needs q, k "
-                         "and v 16-byte aligned (TMA)")
 
 
 def _check_operands(q, k, v) -> None:
@@ -158,6 +161,24 @@ def wgmma_smem_bytes(hd: int, dv: int) -> int:
     return _lib().flash_attention_bf16_smem(hd, dv)
 
 
+def _fake(q, k, v, causal, B, S, Hq, Hkv, hd, dv):
+    """The fake branch (see ``kernels._mark``)."""
+    from repro_torch.core import perf_model as pm
+    from repro_torch.kernels.spec import flash_wgmma_geometry
+    route = _ROUTES[q.dtype]
+    if route == "wgmma":
+        _wgmma_widths(hd, dv)
+        bq, bk = 128, flash_wgmma_geometry(hd, dv)[0]
+    else:
+        kernel_widths(hd, dv)
+        bq = bk = 64
+    out = q.new_empty((B, S, Hq, dv))
+    cost = pm.flash_cost(batch=B, seq=S, hq=Hq, hkv=Hkv, hd=hd, dv=dv, bq=bq,
+                         bk=bk, causal=causal, dtype=q.dtype)
+    _mark.trace.record_kernel("flash_attention", route, 1, cost, q, k, v, out)
+    return out
+
+
 @_mark.marked
 def flash_attention(q, k, v, *, causal: bool = True, bq: int = MXU_TILE,
                     bk: int = MXU_TILE):
@@ -172,6 +193,8 @@ def flash_attention(q, k, v, *, causal: bool = True, bq: int = MXU_TILE,
     del bq, bk
     B, S, Hq, Hkv, hd, dv = _check_geometry(q, k, v)
     _check_operands(q, k, v)
+    if _mark.traced(q, k, v):
+        return _fake(q, k, v, causal, B, S, Hq, Hkv, hd, dv)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
     if q.device.type != "cuda":

@@ -238,6 +238,25 @@ def _lib():
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _fake(q, k_pool, v_pool, tables, lengths, geo):
+    """The fake branch (see ``kernels._mark``): the launch costed at
+    every sequence's full table length, since the lengths are data."""
+    from repro_torch.core import perf_model as pm
+    fused = v_pool is None
+    route = fused_route(geo, q.dtype) if fused else "simt"
+    _check_kernel_geometry(geo, q.element_size(), fused=fused, route=route)
+    ops = (q, k_pool, tables, lengths) + (() if fused else (v_pool,))
+    if not all(t.is_contiguous() for t in ops):
+        raise ValueError("paged_attention: operands must be contiguous")
+    out = q.new_empty((geo.B, geo.Hq, geo.dv))
+    cost = pm.paged_decode_cost([geo.NB * geo.T] * geo.B, hq=geo.Hq,
+                                hkv=geo.Hkv, hd=geo.hd, dv=geo.dv,
+                                block_tokens=geo.T, route=route, fused=fused,
+                                dtype=q.dtype)
+    _mark.trace.record_kernel("paged_attention", route, 1, cost, *ops, out)
+    return out
+
+
 @_mark.marked
 def paged_attention(q, k_pool, v_pool, tables, lengths, *,
                     scale: float, v_dim: Optional[int] = None):
@@ -257,6 +276,8 @@ def paged_attention(q, k_pool, v_pool, tables, lengths, *,
     Returns (B, Hq, dv) in q's dtype.
     """
     geo = _check_geometry(q, k_pool, v_pool, tables, lengths, v_dim)
+    if _mark.traced(q, k_pool, v_pool, tables, lengths):
+        return _fake(q, k_pool, v_pool, tables, lengths, geo)
     _check_operands(q, k_pool, v_pool, tables, lengths)
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pool, v_pool, tables, lengths,

@@ -70,6 +70,16 @@ def tile_stats(w: torch.Tensor, *, bk: int = MXU_TILE,
     _check(w, bk, bn)
     if not w.is_contiguous():
         raise ValueError("tile_stats: w must be contiguous")
+    if _mark.traced(w):
+        from repro_torch.core import perf_model as pm
+        K, N = w.shape
+        shape = (-(-K // bk), -(-N // bn))
+        live = w.new_empty(shape, dtype=torch.int32)
+        sums = w.new_empty(shape, dtype=torch.float32)
+        _mark.trace.record_kernel("tile_stats", "simt", 1,
+                                  pm.tile_stats_cost(K, N, w.dtype, bk, bn),
+                                  w, live, sums)
+        return live, sums
     if w.device.type == "cpu":
         return tile_stats_plain(w, bk, bn)
     if w.device.type != "cuda":

@@ -138,9 +138,67 @@ def make_production_mesh(*, multi_pod: bool = False, device="cuda",
     (pod=2, data=16, model=16) over 512.  Raises unless the process
     group has exactly that many ranks."""
     dev = resolve_device(device)
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    names = ("pod",) + AXES if multi_pod else AXES
-    return _mesh(shape, names, dev, _backend_for(dev, backend))
+    axes = production_shape(multi_pod)
+    return _mesh(tuple(axes.values()), tuple(axes), dev,
+                 _backend_for(dev, backend))
+
+
+class AbstractGroup:
+    """A process group on paper: an axis of an ``AbstractMesh``, its size
+    and nothing to communicate over (``size()`` as a ProcessGroup)."""
+
+    def __init__(self, axis: str, size: int):
+        self.axis = axis
+        self._size = int(size)
+
+    def size(self) -> int:
+        return self._size
+
+    def __repr__(self) -> str:
+        return f"AbstractGroup({self.axis!r}, {self._size})"
+
+
+class AbstractMesh:
+    """The production mesh as one rank sees it, with no process group:
+    axis names, sizes, this rank's coordinate and a group per axis that
+    exists only on paper.  The dry-run traces rank 0 of it
+    (``launch.dryrun``); a collective over its groups can only be
+    recorded by a ``StepTrace``."""
+
+    def __init__(self, shape: dict, coord: Optional[Sequence[int]] = None):
+        self.axis_names = tuple(shape)
+        self.shape = {a: int(n) for a, n in shape.items()}
+        self._coord = tuple(coord) if coord is not None \
+            else (0,) * len(self.axis_names)
+        self._groups = {a: AbstractGroup(a, n) for a, n in self.shape.items()}
+
+    def get_coordinate(self):
+        return self._coord
+
+    def get_group(self, axis: str) -> AbstractGroup:
+        return self._groups[axis]
+
+    def get_local_rank(self, axis: str) -> int:
+        return self._coord[self.axis_names.index(axis)]
+
+    def get_rank(self) -> int:
+        r = 0
+        for a, c in zip(self.axis_names, self._coord):
+            r = r * self.shape[a] + c
+        return r
+
+    def size(self) -> int:
+        n = 1
+        for v in self.shape.values():
+            n *= v
+        return n
+
+
+def production_shape(multi_pod: bool = False) -> dict:
+    """{axis: size} of the production mesh: (data=16, model=16), or
+    (pod=2, data=16, model=16)."""
+    return ({"pod": 2, "data": 16, "model": 16} if multi_pod
+            else {"data": 16, "model": 16})
 
 
 def mesh_axes(mesh) -> dict:

@@ -20,27 +20,41 @@ full config on a pod):
     is the reference's production branch on one card.  When the
     process group has the production mesh's ranks (``torchrun
     --nproc-per-node 256``, 512 with ``--multi-pod``) it builds
-    ``make_production_mesh``; training on a tensor-parallel mesh needs
-    the backward's collectives, which the port does not have, so that
-    branch raises ``NotImplementedError`` once the mesh is built.
+    ``make_production_mesh`` and trains rank-local: each rank holds its
+    shards (``ShardedModel``), takes its data rows of every batch, runs
+    the tensor-parallel forward and backward (Megatron's conjugate
+    collectives) and sums the gradients over the data axes before the
+    update (``distributed.tensor_parallel.train_loss`` and
+    ``data_grad_sum``).  MLA, the recurrent blocks and the
+    encoder-decoder on a model axis, and the MoE aux loss on a data
+    axis, raise ``NotImplementedError`` naming the family.  ``python -m
+    repro_torch.launch.dryrun`` traces this branch's step on rank 0.
 
-``--zero1`` is accepted for the reference's flags; like the reference,
-the launcher does not read it.  Pipeline parallelism is not used, as
-in the reference.
+``--zero1`` on the production mesh cuts the optimizer state over
+``data`` (ZeRO-1: ``train.loop.make_train_step(zero1=True)``); with one
+rank there is no data axis and it changes nothing (the reference's
+launcher does not read it).  Pipeline parallelism is not used, as in
+the reference.
 """
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 from typing import List, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch._bridge import resolve_device
 from repro_torch.data import DataPipeline, SyntheticLM
 from repro_torch.distributed import sharding
 from repro_torch.distributed.fault_tolerance import SkipStraggler, Supervisor
 from repro_torch.distributed.sharding import ShardingRules
+from repro_torch.distributed.tensor_parallel import (ShardedModel,
+                                                     check_trainable,
+                                                     data_rows, mesh_rules,
+                                                     train_loss)
 from repro_torch.launch.mesh import launcher_mesh
 from repro_torch.launch.steps import model_module
 from repro_torch.models.layers import _dtype
@@ -77,14 +91,19 @@ def main(argv: Optional[List[str]] = None):
     dev = resolve_device(args.device)
     with launcher_mesh(args.arch, args.smoke, multi_pod=args.multi_pod,
                        device=dev) as (cfg, mesh, multi):
-        if multi:
-            raise NotImplementedError(
-                "training on a tensor-parallel mesh needs the backward's "
-                "collectives, which the port does not have; run one "
-                "process (a (1, 1) mesh on the card)")
-        sharding.install(ShardingRules(mesh))
+        rules = mesh_rules(mesh, cfg) if multi else ShardingRules(mesh)
+        if multi:                       # before a parameter is drawn
+            check_trainable(cfg, rules)
+        sharding.install(rules)
         mod = model_module(cfg)
         params = init_params(cfg, dev)
+        sharded = None
+        if multi:
+            sharded = ShardedModel.from_full(params, cfg, rules)
+            params, loss_fn = sharded.params, train_loss(sharded)
+        else:
+            def loss_fn(p, b):
+                return mod.loss_fn(p, cfg, b)
         gen = SyntheticLM(vocab_size=min(cfg.vocab_size, 1024),
                           seq_len=args.seq)
         # the reference's f32 zeros promote a bf16 model to f32; the
@@ -96,12 +115,13 @@ def main(argv: Optional[List[str]] = None):
             out = {"tokens": b["tokens"], "labels": b["labels"]}
             if cfg.is_encoder_decoder:
                 out["frames"] = torch.zeros(frames, dtype=_dtype(cfg.dtype))
-            return out
-
-        def loss_fn(p, b):
-            return mod.loss_fn(p, cfg, b)
+            return data_rows(out, rules) if multi else out
 
         pipes = []          # every trainer's prefetch thread, stopped at the end
+
+        ckpt = args.ckpt
+        if multi and ckpt:              # one directory a rank's shards
+            ckpt = os.path.join(ckpt, f"rank{dist.get_rank()}")
 
         def make_trainer():
             pipes.append(DataPipeline(batch_fn, prefetch=2))
@@ -110,9 +130,11 @@ def main(argv: Optional[List[str]] = None):
                 optimizer=adamw(warmup_cosine(args.lr, 20, args.steps)),
                 params=params,
                 data_iter=pipes[-1],
-                ckpt_dir=args.ckpt, ckpt_every=50, async_ckpt=True,
+                ckpt_dir=ckpt, ckpt_every=50, async_ckpt=True,
                 step_deadline_s=60.0,
-                on_straggler=SkipStraggler(deadline_s=60.0), device=dev)
+                on_straggler=SkipStraggler(deadline_s=60.0),
+                sharded=sharded, zero1=args.zero1 and multi,
+                device=dev)
 
         sup = Supervisor(make_trainer=make_trainer, max_restarts=3)
         try:

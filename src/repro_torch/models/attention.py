@@ -197,16 +197,21 @@ def gqa_qkv(params, x, *, n_heads, n_kv_heads, head_dim, positions,
     B, S, _ = x.shape
     plan = plan or {}
     tp = _tensor_parallel(params)
-    q = bsmm.plan_matmul(x, params["wq"], plan.get("wq"))
-    k = bsmm.plan_matmul(x, params["wk"], plan.get("wk"))
-    v = bsmm.plan_matmul(x, params["wv"], plan.get("wv"))
+    kv_whole = tp is not None and not tp.is_sharded(params["wk"])
+    xq = x if tp is None else tp.copy_in(x)
+    xkv = x if kv_whole else xq
+    q = bsmm.plan_matmul(xq, params["wq"], plan.get("wq"))
+    k = bsmm.plan_matmul(xkv, params["wk"], plan.get("wk"))
+    v = bsmm.plan_matmul(xkv, params["wv"], plan.get("wv"))
     if "bq" in params:
         bq, bk, bv = params["bq"], params["bk"], params["bv"]
         if tp is not None:          # replicated biases: the local heads'
-            bq = tp.cols(bq)
-            if tp.is_sharded(params["wk"]):
-                bk, bv = tp.cols(bk), tp.cols(bv)
+            bq = tp.cols(tp.copy_in(bq))
+            if not kv_whole:
+                bk, bv = tp.cols(tp.copy_in(bk)), tp.cols(tp.copy_in(bv))
         q, k, v = q + bq, k + bk, v + bv
+    if kv_whole:                    # every rank's heads read all of K/V
+        k, v = tp.copy_in(k), tp.copy_in(v)
     q = q.reshape(B, S, n_heads, head_dim)
     k = k.reshape(B, S, n_kv_heads, head_dim)
     v = v.reshape(B, S, n_kv_heads, head_dim)

@@ -113,6 +113,7 @@ def mlp(params, x, act: str = "silu", plan=None):
     tp = hooks.tensor_parallel()
     if tp is not None and tp.is_sharded(params["down"]):
         col, row = tp.col, tp.row
+        x = tp.copy_in(x)
     if "gate" in params:
         up = col(x, params["up"], plan.get("up"), bias=params.get("up_b"))
         h = col(x, params["gate"], plan.get("gate"), act=act) * up
@@ -177,15 +178,22 @@ def apply_rope(x, positions, theta: float = 10_000.0):
 # ---------------------------------------------------------------------------
 # Losses
 # ---------------------------------------------------------------------------
-def softmax_cross_entropy(logits, labels, mask=None, z_loss: float = 0.0):
+def softmax_cross_entropy(logits, labels, mask=None, z_loss: float = 0.0,
+                          count=None):
     """Mean CE over valid positions; logits (..., V) in any dtype, labels
-    of any integer dtype (``gather`` wants int64)."""
+    of any integer dtype (``gather`` wants int64).  ``count`` (a tensor)
+    replaces the denominator: a data-parallel mesh divides each rank's
+    sum by the token count of the global batch."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     loss = lse - ll
     if z_loss:
         loss = loss + z_loss * lse.square()
+    if count is not None:
+        if mask is not None:
+            loss = loss * mask.float()
+        return loss.sum() / count.clamp_min(1.0)
     if mask is not None:
         mask = mask.float()
         return (loss * mask).sum() / mask.sum().clamp_min(1.0)

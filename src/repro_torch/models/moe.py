@@ -111,7 +111,7 @@ def _experts(params, buf, act: str, gated: bool, plan):
     local = tp is not None and tp.is_sharded(params["up"])
     if local:
         El = params["up"].shape[0]
-        buf = buf[tp.rank * El:(tp.rank + 1) * El]
+        buf = tp.copy_in(buf)[tp.rank * El:(tp.rank + 1) * El]
     up = _expert_matmul(buf, params["up"], plan.get("up"), "ecd,edf->ecf")
     if gated:
         h = _act(act, _expert_matmul(buf, params["gate"], plan.get("gate"),

@@ -417,15 +417,17 @@ def forward(params, cfg: ArchConfig, batch, plan=None):
 
 
 def loss_fn(params, cfg: ArchConfig, batch, aux_weight: float = 0.01,
-            plan=None):
+            plan=None, count=None):
     """Mean next-token cross-entropy (over ``batch["loss_mask"]`` when
     given; with patches, over the text tail only) plus ``aux_weight`` ×
-    the aux loss → (loss, metrics)."""
+    the aux loss → (loss, metrics).  ``count`` divides the token-loss sum
+    instead of this batch's own count (``softmax_cross_entropy``)."""
     logits, aux = forward(params, cfg, batch, plan=plan)
     labels = batch["labels"]
     if cfg.num_patch_tokens and "patches" in batch:
         logits = logits[:, -labels.shape[1]:]
-    ce = softmax_cross_entropy(logits, labels, batch.get("loss_mask"))
+    ce = softmax_cross_entropy(logits, labels, batch.get("loss_mask"),
+                               count=count)
     return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 

@@ -12,10 +12,15 @@ update (``optim.optimizers``).
 ``Trainer`` adds the operational layer: auto-resume from the newest
 committed checkpoint (``checkpoint.CheckpointManager``, the reference's
 on-disk format), periodic saves, deterministic data, a straggler
-deadline and hook.
+deadline and hook.  On a mesh (``sharded``: the rank's
+``ShardedModel``) the forward and backward run under its
+tensor-parallel scope, and the loss and gradients are summed over its
+data axes before the update (or, with ``zero1``, reduce-scattered to the
+data rank's part of the optimizer state).
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 from dataclasses import dataclass
@@ -62,7 +67,9 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
                     microbatch: Optional[int] = None,
                     remat: bool = False,
                     compressor=None,
-                    has_aux_state: bool = False):
+                    has_aux_state: bool = False,
+                    sharded=None,
+                    zero1: bool = False):
     """Build a train step.
 
     loss_fn: (params, batch) -> (loss, metrics_dict)
@@ -77,16 +84,41 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
         step.  loss_fn then has signature (params, state, batch) ->
         (loss, (new_state, metrics)) and the step is (params, opt_state,
         state, batch) -> (params, opt_state, new_state, metrics).
+    sharded: the rank's ``distributed.tensor_parallel.ShardedModel`` on
+        a mesh (loss_fn its ``train_loss``): the forward and the backward
+        run under its scope (``train_scope``: remat's recompute in the
+        backward reads it too), and the loss and gradients are summed
+        over its data axes before the update (``data_grad_sum``).
+    zero1: with ``sharded``, ZeRO-1 over its ``data`` axis
+        (``distributed.tensor_parallel.Zero1``): opt_state holds this
+        data rank's part of every leaf (``Zero1(sharded).part``), each
+        gradient is reduce-scattered to that part, the update runs on
+        it and the parameters are all-gathered back.  Nothing changes
+        with one data rank.
     """
     lf = loss_fn
+    scope = grad_reduce = z1 = None
+    if sharded is not None:
+        from repro_torch.distributed import tensor_parallel as tpar
+        scope = tpar.train_scope(sharded)
+        grad_reduce = tpar.data_grad_sum(sharded.rules)
+        if zero1:
+            z1 = tpar.Zero1(sharded)
+    elif zero1:
+        raise ValueError("zero1 needs a mesh (sharded=)")
+    if z1 is not None and (microbatch is not None or compressor is not None):
+        raise ValueError("zero1 is not supported together with "
+                         "microbatching or gradient compression")
     if remat:
         def lf(*args):
             return checkpoint(loss_fn, *args, use_reentrant=False,
                               preserve_rng_state=False)
     if has_aux_state:
-        if microbatch is not None or compressor is not None:
+        if microbatch is not None or compressor is not None \
+                or sharded is not None:
             raise ValueError("aux state is not supported together with "
-                             "microbatching or gradient compression")
+                             "microbatching, gradient compression or a "
+                             "mesh")
 
         def aux_step_fn(params, opt_state, state, batch):
             loss, (new_state, metrics), grads = _value_and_grad(
@@ -105,8 +137,13 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
             opt_state, residual = (opt_state["_opt"],
                                    opt_state["_compress_residual"])
         if microbatch is None:
-            loss, metrics, grads = _value_and_grad(lf, params, batch)
+            with (scope(params) if scope is not None
+                  else contextlib.nullcontext()):
+                loss, metrics, grads = _value_and_grad(lf, params, batch)
         else:
+            if sharded is not None:
+                raise ValueError("a mesh is not supported together with "
+                                 "microbatching")
             n = tree_leaves(batch)[0].shape[0] // microbatch
             acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                    for p in tree_leaves(params)]
@@ -122,6 +159,16 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
             loss = loss / n
             metrics = {}
         metrics = dict(metrics)
+        if z1 is not None:
+            loss, grads = z1.reduce(loss, grads)
+            with torch.no_grad():
+                parts, new_opt = optimizer.update(grads, opt_state,
+                                                  z1.part(params))
+                new_params = z1.gather(parts)
+            metrics["loss"] = loss
+            return new_params, new_opt, metrics
+        if grad_reduce is not None:
+            loss, grads = grad_reduce(loss, grads)
         with torch.no_grad():
             if compressor is not None:
                 grads, residual, cstats = compressor.compress(grads, residual)
@@ -135,9 +182,10 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
     return step_fn
 
 
-def init_opt_state(optimizer: Optimizer, params, compressor=None):
-    """Optimizer state, wrapping the compressor residual when present."""
-    state = optimizer.init(params)
+def init_opt_state(optimizer: Optimizer, params, compressor=None, zero1=None):
+    """Optimizer state, wrapping the compressor residual when present;
+    with ``zero1`` (a ``Zero1``) the state of this data rank's parts."""
+    state = optimizer.init(params if zero1 is None else zero1.part(params))
     if compressor is not None:
         return {"_opt": state, "_compress_residual": compressor.init(params)}
     return state
@@ -167,21 +215,28 @@ class Trainer:
                  donate: bool = True,
                  step_deadline_s: Optional[float] = None,
                  on_straggler: Optional[Callable[[int, float], None]] = None,
+                 sharded=None,
+                 zero1: bool = False,
                  device="cuda"):
         self.device = resolve_device(device)
         self._has_aux = aux_state is not None
         self.step_fn = make_train_step(loss_fn, optimizer,
                                        microbatch=microbatch, remat=remat,
                                        compressor=compressor,
-                                       has_aux_state=self._has_aux)
+                                       has_aux_state=self._has_aux,
+                                       sharded=sharded, zero1=zero1)
         self.optimizer = optimizer
         self.data_iter = data_iter
         self.ckpt = (CheckpointManager(ckpt_dir, keep=keep,
                                        async_save=async_ckpt)
                      if ckpt_dir else None)
         self.ckpt_every = ckpt_every
+        z1 = None
+        if zero1:
+            from repro_torch.distributed.tensor_parallel import Zero1
+            z1 = Zero1(sharded)
         self.state = TrainState(
-            params, init_opt_state(optimizer, params, compressor), 0,
+            params, init_opt_state(optimizer, params, compressor, z1), 0,
             aux_state)
         self.step_deadline_s = step_deadline_s
         # the default handler must not hold ``self``: a cycle would keep a

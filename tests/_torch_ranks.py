@@ -6,6 +6,8 @@ test file: this module imports neither JAX nor the reference package.
 Every function takes the rank's mesh first and returns plain Python and
 numpy values, which the test compares with the single-device runs.
 """
+import contextlib
+
 import numpy as np
 import torch
 
@@ -246,3 +248,135 @@ def loss_rank(mesh, params_np, batch, ckpt_dir):
     return dict(loss=loss, whole=model.whole,
                 local_wo=tuple(model.params["segments"][0][0]["attn"]
                                ["wo"].shape))
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_tp_train.py and the J207 test of tests/test_torch_lint.py
+# ---------------------------------------------------------------------------
+def _gathered(tree, shardings):
+    """{path: numpy} of a rank-local tree gathered to full shapes."""
+    from repro_torch.distributed.sharding import gather_full
+    from repro_torch.distributed.tensor_parallel import _lookup
+    return {path: gather_full(leaf.contiguous(), _lookup(shardings, path))
+            .numpy() for path, leaf in tree_flatten_with_path(tree)}
+
+
+def tp_train_rank(mesh, scenarios, batches, lr):
+    """Per scenario ``(cfg, params_np, masks_np)``: the gradients of the
+    first batch and two AdamW steps of the tensor-parallel train step
+    (``masked`` over the local masks, the loss through the local plan
+    when masks are given), gathered to full shapes; plus which leaves
+    are replicated over ``model`` and their local bits; on a data axis
+    the same two steps under ZeRO-1 (``zero1``: losses, parameters and
+    how many leaves' moments the rank holds a part of)."""
+    from repro_torch.distributed.tensor_parallel import (Zero1,
+                                                         data_grad_sum,
+                                                         data_rows, localize,
+                                                         train_loss,
+                                                         train_scope)
+    from repro_torch.optim import adamw, constant, masked
+    from repro_torch.train.loop import _value_and_grad, make_train_step
+    from repro_torch.train.plans import lm_train_plan
+
+    out = []
+    for cfg, params_np, masks_np in scenarios:
+        params = _bridge.params_from_numpy(params_np, device="cpu")
+        masks = None
+        if masks_np is not None:
+            masks = _bridge.params_from_numpy(masks_np, device="cpu")
+            params = _bridge.apply_masks(params, masks)
+        rules = mesh_rules(mesh, cfg)
+        model = ShardedModel.from_full(params, cfg, rules, masks)
+        opt, plan = adamw(constant(lr)), None
+        if masks is not None:
+            lmasks = localize(masks, model.shardings, contiguous=False)
+            plan = lm_train_plan(lmasks)[0]
+            opt = masked(opt, lmasks)
+        loss, scope = train_loss(model, plan=plan), train_scope(model)
+        reduce = data_grad_sum(rules)
+        rows = [data_rows(b, rules) for b in batches]
+        with scope(model.params):
+            l0, _, g = _value_and_grad(loss, model.params, rows[0])
+        l0, g = reduce(l0, g)
+        step = make_train_step(loss, opt, sharded=model)
+        p, st, losses = model.params, opt.init(model.params), []
+        for b in rows:
+            p, st, m = step(p, st, b)
+            losses.append(float(m["loss"]))
+        replicated = [path for path, sh in tree_flatten_with_path(
+            model.shardings) if "model" not in sh.spec]
+        local = dict(tree_flatten_with_path(p))
+        zero1 = None
+        if rules.axis_sizes["data"] > 1:
+            z1 = Zero1(model)
+            zopt = adamw(constant(lr))
+            if masks is not None:
+                zopt = masked(zopt, z1.part(lmasks))
+            zstep = make_train_step(loss, zopt, sharded=model, zero1=True)
+            zp, zst, zlosses = model.params, zopt.init(z1.part(
+                model.params)), []
+            for b in rows:
+                zp, zst, m = zstep(zp, zst, b)
+                zlosses.append(float(m["loss"]))
+            parted = sum(a.shape != b.shape for a, b in zip(
+                _bridge.tree_leaves(zst["m"]), _bridge.tree_leaves(zp)))
+            zero1 = dict(losses=zlosses, params=_gathered(
+                zp, model.shardings), parted=parted)
+        out.append(dict(
+            loss0=float(l0), grads=_gathered(g, model.shardings),
+            losses=losses, params=_gathered(p, model.shardings),
+            replicated={k: local[k].numpy() for k in replicated},
+            zero1=zero1,
+            sharded=len(model.tp._sharded) if model.tp else 0))
+    return out
+
+
+def launcher_rank(mesh, arch, cfg, extra=()):
+    """``launch.train.main`` (and ``extra`` flags) on this rank's process
+    group, the production mesh's shape swapped for ``mesh``'s and the
+    arch's config for ``cfg``: its multi-rank branch.  Returns the step,
+    the final norm's bits, the table's shape and the shape of the first
+    moment of ``embed/table``."""
+    import repro_torch.configs as configs
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import train as ltrain
+
+    axes = lmesh.mesh_axes(mesh)
+    lmesh.production_shape = lambda multi_pod=False: axes
+    configs.get_arch = lambda name: cfg
+    trainer = ltrain.main(["--arch", arch, "--steps", "2", "--batch", "2",
+                           "--seq", "16", "--device", "cpu", *extra])
+    flat = dict(tree_flatten_with_path(trainer.state.params))
+    moment = dict(tree_flatten_with_path(trainer.state.opt_state["m"]))
+    return dict(step=trainer.state.step,
+                norm=flat["final_norm/scale"].numpy(),
+                table_shape=tuple(flat["embed/table"].shape),
+                moment_shape=tuple(moment["embed/table"].shape))
+
+
+def hlo_rank(mesh):
+    """J206/J207 of a mesh engine's traced prefill (``audit_traced``
+    under the generation's scope) and of the meshless engine's."""
+    from repro_torch.analysis import audit_traced
+
+    cfg = aligned_llama()
+    params = ttfm.init_params(torch.Generator().manual_seed(0), cfg,
+                              device="cpu")
+    toks = torch.ones((1, 8), dtype=torch.long)
+    got = {}
+    for label, m in (("mesh", mesh), ("meshless", None)):
+        eng = ServeEngine(params=params, cfg=cfg, mesh=m, batch_slots=2,
+                          capacity=64, device="cpu")
+        gen = eng.generations[-1]
+        sm = getattr(gen, "sharded", None)
+        p, c = (sm.params, sm.cfg) if sm is not None else (params, cfg)
+
+        def prefill(p, cap):
+            with torch.inference_mode():
+                return ttfm.prefill(p, c, {"tokens": toks}, cap)
+
+        scope = sm.scope() if sm is not None else contextlib.nullcontext()
+        with scope:
+            fs = audit_traced(prefill, [p, 64], where=f"{label}/prefill.hlo")
+        got[label] = [(f.code, f.severity, f.where, f.msg) for f in fs]
+    return got

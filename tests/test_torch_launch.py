@@ -427,13 +427,21 @@ def test_mains_raise_on_cuda_without_a_card(main):
              else ["--smoke", "--requests", "1"])
 
 
-def test_train_main_full_config_on_ranks_raises(monkeypatch):
-    """The production branch (more than one rank) builds its mesh, then
-    refuses: training on a tensor-parallel mesh is not ported."""
+@pytest.mark.parametrize("arch,axes,what", [
+    ("deepseek-v3-671b", {"data": 1, "model": 2}, "MLA attention"),
+    ("recurrentgemma-2b", {"data": 1, "model": 2}, "recurrent blocks"),
+    ("llama4-maverick-400b-a17b", {"data": 2, "model": 1}, "MoE aux loss")])
+def test_train_main_full_config_on_ranks_raises(monkeypatch, arch, axes,
+                                                what):
+    """The production branch (more than one rank) builds its mesh and
+    trains rank-local (``tests/test_torch_tp_train.py`` drives it on
+    gloo ranks); a family the rank-local trainer does not run on that
+    mesh is refused, naming it, before a parameter is drawn."""
+    from repro_torch.launch.mesh import AbstractMesh
     monkeypatch.setattr(tmesh, "choose_config",
-                        lambda arch, smoke: (tcfgs.get_arch(arch), True))
+                        lambda a, smoke: (tcfgs.get_arch(a), True))
     monkeypatch.setattr(tmesh, "make_production_mesh",
-                        lambda **kw: tmesh.make_test_mesh(device="cpu"))
-    with pytest.raises(NotImplementedError, match="tensor-parallel mesh"):
-        ttrain.main(["--device", "cpu"])
+                        lambda **kw: AbstractMesh(axes))
+    with pytest.raises(NotImplementedError, match=what):
+        ttrain.main(["--arch", arch, "--device", "cpu"])
     assert not torch.distributed.is_initialized()

@@ -489,6 +489,47 @@ def test_j205_no_kernel_at_all_matches_reference(plans):
     assert triples(got) == triples(want)
 
 
+def test_j206_float64_in_the_trace_port_only():
+    """An f64 anywhere in a traced closure is J206 — inside a kernel
+    body too, where J202 does not look.  Port-only, as J202: the
+    reference's x64 tests need ``jax.experimental.enable_x64``."""
+    f64 = lambda x: (x.double() * 2.0).float()   # noqa: E731
+    got = ta.audit_traced(f64, [torch.ones(4)], where="c.hlo")
+    assert_code(got, "J206", "warning")
+    assert [f.where for f in got] == ["c.hlo"]
+    assert got[0].msg.startswith("optimized HLO contains ") and \
+        got[0].msg.endswith(" f64 shape(s) — an x64 promotion survived "
+                            "compilation")
+    body = _mark.marked(f64)
+    assert ta.audit_closure(body, [torch.ones(4)]) == []
+    assert codes_of(ta.audit_traced(body, [torch.ones(4)])) == {"J206"}
+    assert ta.audit_traced(lambda x: x * 2.0, [torch.ones(4)]) == []
+    # nothing ran: a trace that raises is J204, as a compile that fails
+    bad = ta.audit_traced(lambda x: x.sum().item(), [torch.ones(4)])
+    assert codes_of(bad) == {"J204"}
+
+
+def test_j207_mesh_engine_prefill_moves_its_collectives():
+    """A mesh-backed engine's traced prefill reports its tensor-parallel
+    collectives (J207, info): one all-reduce per row-parallel projection
+    and one for the vocab-parallel lookup, one all-gather of the last
+    position's logits; the meshless engine's prefill reports none."""
+    import _torch_ranks as ranks
+    from repro_torch.launch.mesh import run_ranks
+
+    cfg = ranks.aligned_llama()
+    rows = 1 * 8 * cfg.d_model * 4              # B x S x d, float32
+    want = (f"compiled module moves "
+            f"{(2 * cfg.n_layers + 1) * rows + cfg.padded_vocab * 4} "
+            f"collective bytes: all-gather×1, "
+            f"all-reduce×{2 * cfg.n_layers + 1}")
+    for got in run_ranks(ranks.hlo_rank, 1, 2, device="cpu"):
+        assert got["meshless"] == []
+        assert got["mesh"] == [("J207", "info", "mesh/prefill.hlo", want)]
+        code, _, where, msg = got["mesh"][0]
+        assert_code([ta.info(code, where, msg)], "J207", "info")
+
+
 def test_j208_single_device_engine_is_silent():
     assert ta.audit_engine_sharding(SimpleNamespace(mesh=None)) == []
     assert ta.audit_engine_sharding(SimpleNamespace(
@@ -579,6 +620,28 @@ def ref_reports():
     return {name: ra.lint_arch(name) for name in E2E}
 
 
+HLO_E2E = ("llama3.2-3b", "whisper-tiny")
+
+
+@pytest.fixture(scope="module")
+def ref_hlo_reports():
+    return {name: ra.lint_arch(name, hlo=True) for name in HLO_E2E}
+
+
+@pytest.mark.parametrize("name", HLO_E2E)
+def test_lint_arch_hlo_matches_reference(name, ref_hlo_reports, capsys):
+    """``--hlo`` adds the traced prefill's J206/J207 (none on one
+    device, as the reference's compiled prefill has none), and the CLI
+    exits as the reference's report says."""
+    want = ref_hlo_reports[name]
+    got = ta.lint_arch(name, hlo=True, device="cpu")
+    assert triples(got.findings) == triples(want.findings)
+    code = cli.main(["lint", "--arch", name, "--hlo", "--json", "--device",
+                     "cpu"])
+    assert code == (cli.EXIT_OK if want.ok else 1)
+    assert json.loads(capsys.readouterr().out)["arch"] == name
+
+
 @pytest.mark.parametrize("name", E2E)
 def test_lint_arch_matches_reference(name, ref_reports):
     got = ta.lint_arch(name, device="cpu")
@@ -588,7 +651,8 @@ def test_lint_arch_matches_reference(name, ref_reports):
 
 def test_lint_arch_audits_each_serving_closure():
     """Every closure of a paged serving arch enters the kernels, P114
-    adopts a real prefill, and --hlo is refused."""
+    adopts a real prefill, and --hlo on a family with no serving prefill
+    adds nothing, as the reference's does."""
     import contextlib
     seen = {}
 
@@ -602,8 +666,9 @@ def test_lint_arch_audits_each_serving_closure():
     assert rep.ok
     assert set(seen) == {"train_step", "prefill", "decode", "decode_paged"}
     assert all(n > 0 for n in seen.values()), seen
-    with pytest.raises(NotImplementedError, match="hlo_analysis"):
-        ta.lint_arch("vgg11", hlo=True, device="cpu")
+    got = ta.lint_arch("vgg11", hlo=True, device="cpu")
+    assert got.ok and triples(got.findings) == triples(
+        ta.lint_arch("vgg11", device="cpu").findings)
 
 
 def test_cli_lint_all_kernels_cpu(capsys):
@@ -624,10 +689,10 @@ def test_cli_lint_explain_and_refusals(capsys):
         cli.EXIT_UNSUPPORTED
     out = json.loads(capsys.readouterr().out)
     assert out["error"] == "unknown rule" and out["known"] == sorted(ra.RULES)
-    assert cli.main(["lint", "--arch", "vgg11", "--hlo", "--json"]) == \
-        cli.EXIT_UNSUPPORTED
+    assert cli.main(["lint", "--arch", "vgg11", "--hlo", "--json",
+                     "--device", "cpu"]) == cli.EXIT_OK
     out = json.loads(capsys.readouterr().out)
-    assert out["event"] == "not_yet_ported" and "hlo" in out["what"]
+    assert out["arch"] == "vgg11" and out["summary"]["ok"]
     assert cli.main(["lint"]) == cli.EXIT_UNSUPPORTED
     capsys.readouterr()
 
@@ -683,8 +748,6 @@ def test_every_emitted_rule_code_is_exercised():
     never = {
         "J204 (closure not jitted)": "an eager port has no jit: only the "
                                      "'closure raised' meaning is emitted",
-        "J206": "no compiled artifact: lint --hlo exits 2",
-        "J207": "no compiled artifact: lint --hlo exits 2",
     }
     assert {k for k in never if " " not in k} == set(ta.NEVER_EMITTED)
     assert "never emitted" in ta.RULES["J204"].doc

@@ -8,6 +8,7 @@ in float32; greedy and sampled token streams are identical.  The config
 is llama3.2-3b scaled so that every projection tiles at 128.
 """
 import ast
+import json
 import pathlib
 import subprocess
 import sys
@@ -275,13 +276,14 @@ def test_engine_requires_cuda_unless_cpu(slice_setup, monkeypatch):
 
 
 def test_not_yet_ported_paths_raise(slice_setup, capsys):
-    """What is still to port raises "not yet ported" (or, on the command
-    line, exits 2 with a structured refusal): the encoder-decoder on a
-    model axis > 1 (meshes themselves serve now:
-    ``tests/test_torch_distributed.py``) and ``lint --hlo``.  Encoder
-    frames are admitted now (the frames lane:
-    ``tests/test_torch_encdec.py``), MoE trains, and ``lint`` runs
-    (``tests/test_torch_lint.py``)."""
+    """What is still to port raises "not yet ported": the
+    encoder-decoder on a model axis > 1, served or trained, and the MoE
+    aux loss on a data axis > 1 (meshes themselves serve and train now:
+    ``tests/test_torch_distributed.py``, ``tests/test_torch_tp_train.py``).
+    Encoder frames are admitted now (the frames lane:
+    ``tests/test_torch_encdec.py``), MoE trains, and ``lint`` runs,
+    ``--hlo`` too, which exits as the reference's does (0 on a family
+    with no serving prefill to trace: ``tests/test_torch_lint.py``)."""
     from repro_torch.api import cli
     from repro_torch.models import encdec
 
@@ -307,9 +309,14 @@ def test_not_yet_ported_paths_raise(slice_setup, capsys):
     eng.run()
     assert req.status == "done" and req.tokens == eng.smoke_decode(
         np.ones(3, np.int32), 2, frames=frames)
-    for argv in (["lint", "--arch", "vgg11", "--hlo", "--json"],):
-        assert cli.main(argv) == cli.EXIT_UNSUPPORTED
-        assert "not yet ported" in capsys.readouterr().out
+    from repro_torch.distributed import tensor_parallel as tpar
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        tpar.ShardedModel.from_full(wparams, wcfg,
+                                    tpar.mesh_rules(FakeMesh(), wcfg))
+    assert cli.main(["lint", "--arch", "vgg11", "--hlo", "--json",
+                     "--device", "cpu"]) == cli.EXIT_OK
+    out = json.loads(capsys.readouterr().out)
+    assert out["arch"] == "vgg11" and out["summary"]["ok"]
     # MoE serves and trains: the training forward returns its aux loss
     moe_cfg = tcfgs.scaled_down(tcfgs.get_arch("llama3.2-3b"),
                                 moe=tcfgs.MoEConfig(4, 2, 64))
@@ -318,6 +325,13 @@ def test_not_yet_ported_paths_raise(slice_setup, capsys):
                                {"tokens": torch.zeros(1, 4, dtype=torch.long)})
     assert logits.shape == (1, 4, moe_cfg.padded_vocab)
     assert bool(torch.isfinite(logits).all()) and float(aux) > 0
+
+    from repro_torch.launch.mesh import AbstractMesh
+    data_mesh = AbstractMesh({"data": 2, "model": 1})   # rank 0, no group
+    sm = tpar.ShardedModel.from_full(moe_params, moe_cfg,
+                                     tpar.mesh_rules(data_mesh, moe_cfg))
+    with pytest.raises(NotImplementedError, match="MoE aux loss"):
+        tpar.train_loss(sm)
 
 
 @pytest.mark.parametrize("limit", [2, 9, 128, 640, 4096])
@@ -351,7 +365,8 @@ def test_import_loads_neither_jax_nor_repro():
         "repro_torch.models.recurrent, repro_torch.data, "
         "repro_torch.analysis, repro_torch.kernels.spec, "
         "repro_torch.launch.steps, repro_torch.launch.train, "
-        "repro_torch.launch.serve\n"
+        "repro_torch.launch.serve, repro_torch.launch.dryrun, "
+        "repro_torch.launch.hlo_analysis, repro_torch.launch.costs\n"
         "import glob, runpy\n"
         "examples = sorted(glob.glob('examples/torch_*.py'))\n"
         "assert len(examples) == 5, examples\n"
@@ -381,7 +396,8 @@ def test_sources_import_neither_jax_nor_repro():
     assert len(examples) == 5
     files += examples
     assert len(files) > 10
-    assert {"steps.py", "train.py", "serve.py"} <= {f.name for f in files}
+    assert {"steps.py", "train.py", "serve.py", "dryrun.py",
+            "hlo_analysis.py", "costs.py"} <= {f.name for f in files}
     for f in files:
         roots = set(_imported_roots(f))
         assert not roots & {"jax", "jaxlib", "repro"}, f
