@@ -207,10 +207,34 @@ no result line otherwise):
    (``TP_*``); every (M, K, N) of #1-#4 that the ranks
    launched then held to the plain versions in the main process; and
    on leg (a)'s (1, 1) NCCL mesh the trainer bitwise the meshless one
-   (losses, gradients, parameters), launch for launch;
+   (losses, gradients, parameters), launch for launch; (g) the last
+   families on a mesh (``families_leg``, its own phase
+   ``distributed_g``): deepseek-v3's meshless engine here (4 layers,
+   256 experts), then two gloo ranks sharing the card, every count set
+   to 0 before and read after: recurrentgemma-2b at full width and
+   depth served on (1, 2) (5 q heads against K/V kept whole, the RG-LRU
+   channel-parallel) and (2, 1) with a 4096-token prompt past its
+   window, xlstm-125m (float32) and whisper-tiny (frames lane) on
+   (1, 2), deepseek-v3 on (1, 2) (MLA at 64 heads: #7 on ``wgmma``;
+   each rank drawing and cutting its tree in turn), each engine's rows
+   within 5e-2 of the meshless engine's, its local heads and kept-whole
+   leaves the designed ones; then 2 AdamW steps of recurrentgemma (4
+   layers), xlstm, whisper (both meshes), deepseek (1 MoE layer, 16
+   experts) and llama4 (2 layers, 4 experts, on (2, 1): the MoE aux
+   loss on a data axis) against the meshless trainer run on rank 0
+   alone, by leg (f)'s ``check_train_leg`` (the trainers in float32
+   but whisper's, the big ones' vocabularies cut to 32768 rows, every
+   other leaf held, deepseek's routed experts through host memory;
+   llama4's norms, router and shared expert), and recurrentgemma's again
+   in bf16 on (1, 2), each leaf's gradient held to float32 within twice
+   the meshless bf16 trainer's own distance (``fam_bf16_witness``);
+   every kernel of the leg (#1-#4, #1b, #3b, #4b, #7, #8) launched, then
+   held to its plain version at every shape and dtype either rank gave
+   it;
 6h. the entry points a user starts the port with (``launch_phase``;
    every count set to 0 before a leg and read after it): (a)
-   ``launch.serve.main`` on llama3.2-3b at full width and depth, pruned
+   ``launch.serve.main`` on llama3.2-3b at full width cut to 8 layers
+   (registered as ``llama3.2-3b-8l``: its host prune's time), pruned
    75 % in the launcher's three crossbar-aware steps, 16 requests x 16
    tokens on a (1, 1) mesh: every request done, every logit finite, the
    engine's plan the ticket's 128x128 tile union, #1/#2 by route and
@@ -307,7 +331,9 @@ paths' (``launches_serve_hybrid``, ``launches_retrain_hybrid``,
 ``launches_serve_command_r``, ``launches_serve_vlm``,
 ``launches_retrain_vlm``, ``launches_serve_llama4``; #1b's
 ``launches_serve_llama4``; #1/#2/#1b/#6/#8's ``launches_distributed``,
-by leg and rank, #1/#2/#6/#8's ``launches_launch`` by leg of the
+by leg and rank, every leg (g) kernel's ``launches_families`` by
+rank and ``families_max_abs_err`` at its ranks' shapes, #1/#2/#6/#8's
+``launches_launch`` by leg of the
 entry points' phase, and #1/#2/#6/#8's ``distributed_shapes``, their checks
 and times at leg (b)'s local shapes; #6's ``hd96`` and #8's ``hd256`` and
 ``hd64_hd96`` entries with those widths' times and their launches on
@@ -5054,10 +5080,21 @@ TP_TRAINED = ("bsmm", "bsmm_epilogue", "bsmm_dx", "bsmm_dw")
 
 
 def train_batches(cfg, device, rows=TP_TRAIN_BATCH, seq=TP_TRAIN_SEQ):
+    """The trainer legs' seeded batches (an encoder-decoder's with its
+    frames in the model's dtype)."""
+    from repro_torch.models.layers import _dtype
     gen = torch.Generator(device=device).manual_seed(31)
-    return [{k: torch.randint(0, cfg.vocab_size, (rows, seq), generator=gen,
+    out = []
+    for _ in range(TP_TRAIN_STEPS):
+        b = {k: torch.randint(0, cfg.vocab_size, (rows, seq), generator=gen,
                               device=device, dtype=torch.int32)
-             for k in ("tokens", "labels")} for _ in range(TP_TRAIN_STEPS)]
+             for k in ("tokens", "labels")}
+        if cfg.is_encoder_decoder:
+            b["frames"] = torch.randn(
+                rows, cfg.encoder_seq_len, cfg.d_model, generator=gen,
+                device=device).to(_dtype(cfg.dtype))
+        out.append(b)
+    return out
 
 
 class _Recorded:
@@ -5110,38 +5147,61 @@ def _record_train_shapes(B, fn):
             setattr(B, n, f)
 
 
-def dist_train(cfg, params, masks, mesh, device) -> dict:
-    """``TP_TRAIN_STEPS`` masked AdamW steps of llama (``cfg``, its
-    ticket ``masks``) through the ticket's plans, meshless (``mesh``
+def _mask_in_place(params, masks) -> None:
+    """Every masked weight times its mask, in place (idempotent: no
+    second tree)."""
+    with torch.no_grad():
+        for p, m in masked_leaves(params, masks):
+            p.mul_(m)
+
+
+def dist_train(cfg, params, masks, mesh, device, keep=None,
+               store=True, draw=None, host=None) -> dict:
+    """``TP_TRAIN_STEPS`` AdamW steps of ``cfg`` (masked by the ticket
+    ``masks`` and through its plans where given; an encoder-decoder's
+    on its frames; the weights masked in place), meshless (``mesh``
     None: ``make_train_step`` as the trainer builds it) or rank-local on
-    ``mesh`` (``ShardedModel``, the local plans and masks, the
-    tensor-parallel loss, scope and data-axis gradient sum).  Returns the
-    losses; each step's gradients as the optimizer receives them and the
-    parameters after each step, gathered to full shapes ({path:
-    tensor}); #1-#4's launches by route and the (M, K, N) of each."""
-    from repro_torch._bridge import apply_masks
+    ``mesh`` (``ShardedModel``, the
+    local plans and masks, the tensor-parallel loss, scope and data-axis
+    gradient sum).  Returns the losses; each step's gradients as the
+    optimizer receives them and the parameters after each step, gathered
+    to full shapes ({path: tensor}: the leaves ``keep(path)`` names, all
+    by default; with ``store`` False gathered and dropped, where another
+    rank keeps them; those ``host(path)`` names kept in host memory, and
+    of their parameters only the first step's, which ``train_errors``
+    reads); #1-#4's launches by route and the (M, K, N) of each.  ``draw()`` gives (params, masks) in place of the arguments:
+    then the full tree is freed once a mesh run has cut its shards."""
     from repro_torch.core.masks import tree_flatten_with_path
     from repro_torch.distributed import tensor_parallel as tpar
     from repro_torch.distributed.sharding import gather_full
     from repro_torch.kernels import bsmm as B
+    from repro_torch.models import encdec
     from repro_torch.models import transformer as tfm
     from repro_torch.optim import Optimizer, adamw, constant, masked
     from repro_torch.train.loop import make_train_step
     from repro_torch.train.plans import lm_train_plan
 
+    if draw is not None:
+        params, masks = draw()
     batches = train_batches(cfg, device)
-    params = apply_masks(params, masks)
+    mod = encdec if cfg.is_encoder_decoder else tfm
+    opt = adamw(constant(TP_TRAIN_LR))
+    _mask_in_place(params, masks)
     if mesh is None:
-        plan = lm_train_plan(masks)[0]
-        opt = masked(adamw(constant(TP_TRAIN_LR)), masks)
-        loss = lambda p, b: tfm.loss_fn(p, cfg, b, plan=plan)  # noqa: E731
+        plan = lm_train_plan(masks)[0] if masks is not None else None
+        opt = masked(opt, masks) if masks is not None else opt
+        kw = {} if cfg.is_encoder_decoder else {"plan": plan}
+        loss = lambda p, b: mod.loss_fn(p, cfg, b, **kw)  # noqa: E731
         model = shardings = None
     else:
         rules = tpar.mesh_rules(mesh, cfg)
         model = tpar.ShardedModel.from_full(params, cfg, rules, masks)
-        lmasks = tpar.localize(masks, model.shardings, contiguous=False)
-        opt = masked(adamw(constant(TP_TRAIN_LR)), lmasks)
-        loss = tpar.train_loss(model, plan=lm_train_plan(lmasks)[0])
+        plan = None
+        if masks is not None:
+            lmasks = tpar.localize(masks, model.shardings, contiguous=False)
+            opt = masked(opt, lmasks)
+            plan = lm_train_plan(lmasks)[0]
+        loss = tpar.train_loss(model, plan=plan)
         params, shardings = model.params, model.shardings
         batches = [tpar.data_rows(b, rules) for b in batches]
     grads = []
@@ -5152,13 +5212,19 @@ def dist_train(cfg, params, masks, mesh, device) -> dict:
 
     step = make_train_step(loss, Optimizer(opt.init, update), sharded=model)
 
-    def full(tree):
+    def full(tree, later=False):
         out = {}
         for path, leaf in tree_flatten_with_path(tree):
+            if keep is not None and not keep(path):
+                continue
+            if later and host is not None and host(path):
+                continue
             if shardings is not None:
                 leaf = gather_full(leaf.contiguous(),
                                    tpar._lookup(shardings, path))
-            out[path] = leaf
+            if store:
+                out[path] = (leaf.cpu() if host is not None and host(path)
+                             else leaf)
         return out
 
     def run():
@@ -5167,17 +5233,27 @@ def dist_train(cfg, params, masks, mesh, device) -> dict:
         for b in batches:
             p, state, metrics = step(p, state, b)
             losses.append(float(metrics["loss"]))
-            after.append(full(p))
+            after.append(full(p, later=bool(after)))
         sync(device)
         return losses, after
 
-    reset_bsmm_routes(B)
+    before = bsmm_routes(B)
     (losses, after), shapes = _record_train_shapes(B, run)
     out = {"losses": losses, "grads": grads, "params": after,
-           "launches": bsmm_routes(B), "shapes": shapes}
+           "launches": routes_grown(before, bsmm_routes(B)),
+           "shapes": shapes}
     if mesh is None:                    # w0, the same on every mesh
         out["before"] = full(params)
     return out
+
+
+def routes_grown(before: dict, after: dict) -> dict:
+    """``bsmm_routes``' growth between two readings."""
+    return {n: {"launches_by_route": {
+        r: k - before[n]["launches_by_route"][r]
+        for r, k in v["launches_by_route"].items()},
+        "split_launches": v["split_launches"] - before[n]["split_launches"]}
+        for n, v in after.items()}
 
 
 def _spacing(w: torch.Tensor) -> torch.Tensor:
@@ -5186,30 +5262,50 @@ def _spacing(w: torch.Tensor) -> torch.Tensor:
     return torch.ldexp(torch.ones_like(w, dtype=torch.float32), e - 8)
 
 
+def _zero_grad(path: str, norm: float, top: float) -> bool:
+    """A leaf whose gradient is zero in exact arithmetic, left out of
+    ``train_errors``, both runs' gradients there being rounding alone:
+    an attention key bias (``bk``; the softmax cancels the q·b it adds to
+    every key's score of a query), or any leaf whose meshless gradient
+    norm is below 1e-9 of the largest leaf's (the sLSTM's stabilised
+    input gate makes its bias's gradient ~1e-12)."""
+    return path.rpartition("/")[2] == "bk" or norm < 1e-9 * top
+
+
 def train_errors(got: dict, want: dict) -> dict:
     """Leg (f)'s checks of a mesh trainer (``got``) against the meshless
     one (``want``), both from ``dist_train``: the largest relative loss
     error; the largest per-leaf gradient error over the meshless leaf's
     norm (either step) and its leaf; the largest error of the first
     update over lr on the coordinates named at ``TP_UPDATE_TOL``, its
-    leaf, and how many coordinates it covers."""
+    leaf, and how many coordinates it covers.  A leaf kept in host
+    memory is compared on the card."""
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
     loss = max(abs(g - w) / abs(w) for g, w in zip(got["losses"],
                                                     want["losses"]))
     grad, grad_leaf = 0.0, None
-    for gs, ws in zip(got["grads"], want["grads"]):
+    norms = [{path: float(w.to(dev).float().norm()) for path, w in ws.items()}
+             for ws in want["grads"]]
+    tops = [max(ns.values()) for ns in norms]
+    for gs, ws, ns, top in zip(got["grads"], want["grads"], norms, tops):
         for path, w in ws.items():
-            w = w.float()
-            e = ((gs[path].float() - w).norm()
+            if _zero_grad(path, ns[path], top):
+                continue
+            w = w.to(dev).float()
+            e = ((gs[path].to(dev).float() - w).norm()
                  / w.norm().clamp_min(1e-30)).item()
             if e > grad:
                 grad, grad_leaf = e, path
     upd, upd_leaf, upd_g, covered, flips = 0.0, None, None, 0, 0
     lr = TP_TRAIN_LR
     for path, w0 in want["before"].items():
-        g0 = want["grads"][0][path].float()
-        g = got["grads"][0][path].float()
-        d_want = want["params"][0][path].float() - w0.float()
-        d_got = got["params"][0][path].float() - w0.float()
+        if _zero_grad(path, norms[0][path], tops[0]):
+            continue
+        w0 = w0.to(dev)
+        g0 = want["grads"][0][path].to(dev).float()
+        g = got["grads"][0][path].to(dev).float()
+        d_want = want["params"][0][path].to(dev).float() - w0.float()
+        d_got = got["params"][0][path].to(dev).float() - w0.float()
         nz = g0[g0 != 0]
         if not nz.numel():
             continue
@@ -5324,9 +5420,10 @@ def dist_train_meshes(cfg, params, masks, meshes, device) -> dict:
     return out
 
 
-def check_train_leg(rank, name, tr, meshless_losses) -> None:
-    """Print leg (f)'s reading of one rank's ``name`` mesh and require
-    it within the stated tolerances, #1-#4 launched."""
+def check_train_leg(rank, name, tr, meshless_losses, kernels=True) -> None:
+    """Print leg (f)'s (or (g)'s) reading of one rank's ``name`` mesh and
+    require it within the stated tolerances, #1-#4 launched (where the
+    model has ``kernels``: a planned projection)."""
     print(f"distributed (f) rank {rank} {name}: losses {tr['losses']} vs "
           f"meshless {meshless_losses} (rel err {tr['loss_rel_err']:.3e}, "
           f"tol {TP_LOSS_TOL}); gradients {tr['grad_rel_err']:.3e} of the "
@@ -5345,18 +5442,19 @@ def check_train_leg(rank, name, tr, meshless_losses) -> None:
             "the first update to")
     require(tr["update_err_lr"] <= TP_UPDATE_TOL, f"{name}: the first "
             f"update is off the meshless trainer's ({tr['update_leaf']})")
-    for n in TP_TRAINED:
+    for n in TP_TRAINED if kernels else ():
         require(sum(tr["launches"][n]["launches_by_route"].values()) > 0,
                 f"{name}: the trainer never launched {n}")
 
 
 def _record_shapes(fn):
     """fn() with the block-sparse forward (#1/#2) and the attention
-    kernels (#6, #8) recording each call's shapes: (rows, K, N) of #1/#2,
-    (S, Hq, Hkv, hd, dv, causal) of #8 and (Hq, Hkv, hd) of #6, which
-    ``dist_kernel_checks`` holds to the plain versions."""
+    kernels (#6, #8; #8 in the encoder too) recording each call's
+    shapes: (rows, K, N) of #1/#2, (S, Hq, Hkv, hd, dv, causal) of #8
+    and (Hq, Hkv, hd) of #6, which ``dist_kernel_checks`` holds to the
+    plain versions."""
     from repro_torch.kernels import bsmm as B
-    from repro_torch.models import attention
+    from repro_torch.models import attention, encdec
     seen = {"w": set(), "flash": set(), "paged": set(), "bsmm_calls": set(),
             "flash_calls": set(), "paged_calls": set()}
     orig = (B._forward, attention.flash_attention, attention.paged_attention)
@@ -5380,11 +5478,13 @@ def _record_shapes(fn):
 
     B._forward, attention.flash_attention, attention.paged_attention = \
         fwd, flash, paged
+    encdec.flash_attention = flash          # the encoder's full attention
     try:
         return fn(), seen
     finally:
         B._forward, attention.flash_attention, attention.paged_attention = \
             orig
+        encdec.flash_attention = orig[1]
 
 
 def dist_rank(mesh12, ep_want, opts):
@@ -5638,16 +5738,31 @@ def dist_kernel_checks(B, FA, PA, ranks) -> dict:
     these launches is counted as theirs."""
     legs = [r[name] for r in ranks for name in ("1x2", "2x1")]
     trained = [r["train"]["shapes"] for r in ranks]
-    by_w: dict = {}
-    for M, K, N in [c for leg in legs for c in leg["bsmm_calls"]] + [
+    return kernel_checks_at(
+        B, FA, PA,
+        [c for leg in legs for c in leg["bsmm_calls"]] + [
             c for sh in trained for n in ("bsmm", "bsmm_epilogue")
-            for c in sh[n]]:
+            for c in sh[n]],
+        tuple(c for sh in trained for c in sh["epilogues"]),
+        [c for sh in trained for n in ("bsmm_dx", "bsmm_dw")
+         for c in sh[n]],
+        sorted({c for leg in legs for c in leg["flash_calls"]}),
+        [c for leg in legs for c in leg["paged_calls"]])
+
+
+def kernel_checks_at(B, FA, PA, fwd, epilogues, grads, flash, paged) -> dict:
+    """#1/#2 at each (K, N) of ``fwd``'s (M, K, N) at the rows it saw,
+    with (None, silu) and each (bias, activation) of ``epilogues``;
+    #3/#4 at each (K, N) of ``grads``' at its rows; #8 at each (S, Hq,
+    Hkv, hd, dv, causal) of ``flash`` (bf16); #6 at each (Hq, Hkv, hd) of
+    ``paged``; timed at 8 rows (#1/#2) and at every #8/#6 shape."""
+    by_w: dict = {}
+    for M, K, N in fwd:
         by_w.setdefault((K, N), set()).add(M)
     epilogues = tuple(sorted({(None, "silu")} | {
-        tuple(c) for sh in trained for c in sh["epilogues"]}, key=str))
+        tuple(c) for c in epilogues}, key=str))
     by_g: dict = {}
-    for M, K, N in [c for sh in trained for n in ("bsmm_dx", "bsmm_dw")
-                    for c in sh[n]]:
+    for M, K, N in grads:
         by_g.setdefault((K, N), set()).add(M)
     err = {"bsmm": 0.0, "bsmm_epilogue": 0.0}
     grad_err = {"bsmm_dx": 0.0, "bsmm_dw": 0.0}
@@ -5658,24 +5773,22 @@ def dist_kernel_checks(B, FA, PA, ranks) -> dict:
                               seed=60 + i)
             err = {k: max(v, e[k]) for k, v in err.items()}
             times += [r for r in t if r["M"] == 8]
-    # leg (f)'s backward shapes (outside inference mode, as trained)
+    # the trainers' backward shapes (outside inference mode, as trained)
     for i, ((K, N), rows) in enumerate(sorted(by_g.items())):
         e, _ = check_bsmm_grads(B, ((K, N),), timed=False, seed=80 + i,
                                 rows=tuple(sorted(rows)))
         grad_err = {k: max(v, e[k]) for k, v in grad_err.items()}
     with torch.inference_mode():
-        flash = sorted({c for leg in legs for c in leg["flash_calls"]})
         flash_err, flash_rows = check_flash(
-            FA, tuple(c + (torch.bfloat16,) for c in flash))
+            FA, tuple(tuple(c) + (torch.bfloat16,) for c in flash))
         paged_err, paged_rows = 0.0, []
-        for j, (hq, hkv, hd) in enumerate(sorted(
-                {c for leg in legs for c in leg["paged_calls"]})):
+        for j, (hq, hkv, hd) in enumerate(sorted({tuple(c) for c in paged})):
             e, row = check_paged(PA, Hq=hq, Hkv=hkv, hd=hd, seed=70 + j)
             paged_err = max(paged_err, e)
             paged_rows.append({"Hq": hq, "Hkv": hkv, "hd": hd,
                                "max_abs_err": e, **row})
-    print(f"distributed kernel checks: #1/#2 at {len(by_w)} weight shapes "
-          f"{sorted(by_w.items())} with {epilogues}, #3/#4 at "
+    print(f"kernel checks at a leg's shapes: #1/#2 at {len(by_w)} weight "
+          f"shapes {sorted(by_w.items())} with {epilogues}, #3/#4 at "
           f"{sorted(by_g.items())}, #8 at {flash}, #6 at "
           f"{[(r['Hq'], r['Hkv']) for r in paged_rows]}: max_abs_err {err}, "
           f"{grad_err}, #8 {flash_err:.3e}, #6 {paged_err:.3e}")
@@ -5766,12 +5879,691 @@ def distributed_phase(B, FA, PA, opts=None) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# 6g. distribution, leg (g): the last families on a mesh
+# ---------------------------------------------------------------------------
+FAM_MAX_NEW = 8
+#: each family's prompts (recurrentgemma-2b: one past its 2048 window, a
+#: multiple of it, as the windowed prefill's two-chunk form takes it)
+FAM_LENGTHS = {"recurrentgemma-2b": (5, 130, 300, 4096),
+               "xlstm-125m": (5, 17, 64, 129),
+               "deepseek-v3-671b": (5, 17, 64, 129),
+               "whisper-tiny": (4, 9, 17, 24)}
+FAM_CAPACITY = {"recurrentgemma-2b": HYBRID_CAPACITY,
+                "whisper-tiny": WHISPER_CAPACITY}
+FAM_RG_TRAIN_LAYERS = 4     # recurrentgemma-2b's retrain: (R, R, A) + R
+#: deepseek-v3's retrain: one MoE layer (``first_moe_layer`` 0) of 16
+#: routed experts (top-8) and 32768 vocabulary rows (two f32 trainers of
+#: its 129280-row tables do not fit the shared card)
+FAM_DS_TRAIN = (1, 16, 32768)
+#: llama4-maverick's (2, 1) retrain: layers, routed experts and the
+#: vocabulary's rows (each data rank trains the whole model; two trainers
+#: of its 202048-row tables alone, 2.1 G parameters, would not fit the
+#: shared card)
+FAM_L4_TRAIN = (2, 4, 32768)
+FAM_DS_PREFILL = 300        # rank 0's dense prefill, traced by ``dryrun``
+#: the kernels of leg (g)'s path (``routes_now`` names; paged_attention:
+#: the fused-V form, #7)
+FAM_PATH = ("bsmm", "bsmm_epilogue", "bsmm_dx", "bsmm_dw", "bsmm_batched",
+            "bsmm_batched_dx", "bsmm_batched_dw", "flash_attention",
+            "paged_attention")
+FAM_BATCHED = ("bsmm_batched", "bsmm_batched_dx", "bsmm_batched_dw")
+
+
+def fam_options(device="cuda", configs=None) -> dict:
+    """Leg (g)'s models: recurrentgemma-2b (26 layers), xlstm-125m (in
+    float32) and whisper-tiny as published, deepseek-v3 at 4 layers and
+    256 experts
+    (``deepseek_config``), their retrain cuts and llama4-maverick's (2,
+    1) retrain cut; ``configs`` replaces any by key (smaller ones
+    rehearse the leg on the CPU)."""
+    from repro_torch.configs import get_arch
+    ds, l4 = get_arch("deepseek-v3-671b"), get_arch(
+        "llama4-maverick-400b-a17b")
+    rg = get_arch("recurrentgemma-2b")
+    out = {"device": device, "rg": rg,
+           # the trainers in float32 (whisper's in bf16): their bf16
+           # gradients differ from the meshless trainer's by the rounding
+           # of partial sums that cancel, 5.8e-2-1.3e-1 of a leaf's norm
+           # (a router whose top-8 of 8 renormalise, top-1 flips), past
+           # ``TP_GRAD_TOL``; recurrentgemma's also trains in bf16, held
+           # to float32 by ``fam_bf16_witness`` (PERF.md §6)
+           "rg_train": dataclasses.replace(rg, n_layers=FAM_RG_TRAIN_LAYERS,
+                                           dtype="float32"),
+           # float32: the random-weight xLSTM grows a rounding difference
+           # some 100-fold over its 12 layers (bf16: a block's 5e-3 becomes
+           # 0.27 of the logits), so a bf16 mesh engine cannot be held to
+           # the meshless one; in float32 it stays near 3e-5
+           "xl": dataclasses.replace(get_arch("xlstm-125m"),
+                                     dtype="float32"),
+           "ds": deepseek_config(),
+           "ds_train": dataclasses.replace(
+               ds, n_layers=FAM_DS_TRAIN[0], vocab_size=FAM_DS_TRAIN[2],
+               dtype="float32", moe=dataclasses.replace(
+                   ds.moe, num_experts=FAM_DS_TRAIN[1], first_moe_layer=0)),
+           "wh": get_arch("whisper-tiny"),
+           "l4_train": dataclasses.replace(
+               l4, n_layers=FAM_L4_TRAIN[0], vocab_size=FAM_L4_TRAIN[2],
+               dtype="float32", moe=dataclasses.replace(
+                   l4.moe, num_experts=FAM_L4_TRAIN[1]))}
+    out.update(configs or {})
+    return out
+
+
+def fam_draw(cfg, device):
+    """Seed-0 parameters of ``cfg`` on ``device`` (every rank draws the
+    same tree)."""
+    from repro_torch.models import encdec
+    from repro_torch.models import transformer as tfm
+    mod = encdec if cfg.is_encoder_decoder else tfm
+    return mod.init_params(torch.Generator(device=device).manual_seed(0),
+                           cfg, device=device)
+
+
+def fam_engine(cfg, params, masks, mesh, device):
+    from repro_torch.models import encdec
+    from repro_torch.serve.engine import ServeEngine
+    kw = (dict(prefill_fn=encdec.prefill, decode_fn=encdec.decode_step)
+          if cfg.is_encoder_decoder else {})
+    lengths = FAM_LENGTHS.get(cfg.name, (5, 17, 64, 129))
+    return ServeEngine(params=params, cfg=cfg, batch_slots=len(lengths),
+                       capacity=FAM_CAPACITY.get(cfg.name, 512), masks=masks,
+                       mesh=mesh, device=device, **kw)
+
+
+def fam_serve(eng, cfg, device):
+    """Serve the family's prompts (seeded; an encoder-decoder's with
+    seeded frames) on ``eng``, ``FAM_MAX_NEW`` tokens each: ({uid:
+    tokens}, {uid: logits rows}); every request done, every logit
+    finite."""
+    from repro_torch.serve.engine import Request
+    lengths = FAM_LENGTHS.get(cfg.name, (5, 17, 64, 129))
+    rng = np.random.default_rng(43)
+    reqs = []
+    for i, n in enumerate(lengths):
+        frames = (rng.standard_normal((cfg.encoder_seq_len, cfg.d_model))
+                  .astype(np.float32) if cfg.is_encoder_decoder else None)
+        reqs.append(Request(uid=i, prompt=rng.integers(1, cfg.vocab_size,
+                                                       size=int(n)),
+                            max_new_tokens=FAM_MAX_NEW, frames=frames))
+    nonfinite, rows = watch(eng, uids=range(len(reqs)))
+    eng.tick_ms, _ = run_engine(eng, reqs, device)
+    require(all(r.done for r in reqs) and nonfinite[0] == 0,
+            f"leg (g) {cfg.name}: a request did not finish with finite "
+            "logits")
+    return ({r.uid: list(r.tokens) for r in reqs},
+            {u: np.stack(v) for u, v in rows.items()})
+
+
+def fam_compare(streams, rows, s0, r0) -> tuple:
+    """(the largest logits-row error against the meshless engine's,
+    relative to each row's max |logit|, over the rows up to each
+    stream's first divergence; the greedy divergences)."""
+    err, diverged = 0.0, 0
+    for u, want in r0.items():
+        n = len(want)
+        first = next((i for i in range(n) if streams[u][i] != s0[u][i]),
+                     None)
+        if first is not None:
+            diverged += 1
+            n = first + 1
+        err = max(err, rel_row_err(list(rows[u][:n]),
+                                   torch.as_tensor(want[:n])))
+    return err, diverged
+
+
+def fam_serve_meshes(B, FA, PA, TS, cfg, params, masks, meshes, device,
+                     want=None, build=None, after=None) -> dict:
+    """The family's engine on each (name, mesh) of ``meshes`` against
+    the meshless engine's streams and rows (``want``, else this rank's
+    own meshless engine on ``params``): each mesh's row error and
+    divergences, local heads, kept-whole leaves, launches by route and
+    the kernels' entry shapes.  ``build(mesh)`` makes a mesh engine in
+    place of ``fam_engine`` on ``params``; ``after(engine)``'s reading
+    is kept too."""
+    out = {}
+    if want is None:
+        with torch.inference_mode():
+            want = fam_serve(fam_engine(cfg, params, masks, None, device),
+                             cfg, device)
+        _free(device)
+    s0, r0 = want
+    for name, mesh in meshes:
+        eng = (build(mesh) if build is not None
+               else fam_engine(cfg, params, masks, mesh, device))
+        before = routes_now(B, FA, PA, TS)
+        with torch.inference_mode():
+            (streams, rows), seen = _record_shapes(
+                lambda: fam_serve(eng, cfg, device))
+        err, diverged = fam_compare(streams, rows, s0, r0)
+        gen = eng.generations[-1]
+        out[name] = {
+            "rel_row_err": err, "greedy_divergences": diverged,
+            "tick_ms_p50": eng.tick_ms[len(eng.tick_ms) // 2],
+            "local_cfg": (gen.cfg.n_heads, gen.cfg.n_kv_heads),
+            "kept_whole": sorted(p for p, _ in eng.kept_whole),
+            "launches": routes_since(before, routes_now(B, FA, PA, TS)),
+            **{k: sorted(seen[k]) for k in ("bsmm_calls", "flash_calls",
+                                            "paged_calls")}}
+        if after is not None:
+            out[name]["after"] = after(eng)
+        del eng, rows
+        _free(device)
+    return out
+
+
+def fam_train(cfg, draw, meshes, device, rank, keep=None, host=None,
+              groups=1, witness=None) -> dict:
+    """``dist_train`` of ``cfg`` (each run on ``draw()``'s (params,
+    ticket), drawn anew: the other rank holds nothing meanwhile) meshless
+    on rank 0 (the other rank waits; an MoE model at ``groups`` dispatch
+    groups, one a data rank of the meshes) and on each (name, mesh),
+    held to it on rank 0 by ``train_errors`` (the leaves ``keep`` names,
+    those ``host`` names kept in host memory); ``witness`` (a bf16
+    config and its draw) adds ``fam_bf16_witness`` on the first mesh as
+    "bf16"; the (M, K, N) of every #1-#4 launch."""
+    import torch.distributed as dist
+
+    from repro_torch.models import hooks
+    want = None
+    if rank == 0:
+        prev = hooks.moe_groups()
+        hooks.set_moe_groups(groups)
+        try:
+            want = dist_train(cfg, None, None, None, device, keep=keep,
+                              draw=draw, host=host)
+        finally:
+            hooks.set_moe_groups(prev)
+        _free(device)
+    dist.barrier()
+    out = {"meshless_losses": want["losses"] if want else None}
+    shapes = {k: set(v) for k, v in want["shapes"].items()} if want else {}
+    for name, mesh in meshes:
+        t = time.perf_counter()
+        got = dist_train(cfg, None, None, mesh, device, keep=keep,
+                         store=rank == 0, draw=draw, host=host)
+        if rank == 0:
+            out[name] = {"losses": got["losses"], **train_errors(got, want),
+                         "launches": got["launches"],
+                         "seconds": time.perf_counter() - t}
+        for k, v in got["shapes"].items():
+            shapes.setdefault(k, set()).update(v)
+        del got
+        _free(device)
+    if witness is not None:
+        out["bf16"] = fam_bf16_witness(*witness, meshes[0][1], device, rank,
+                                       keep, want, shapes)
+    out["shapes"] = {k: sorted(v, key=str) for k, v in shapes.items()}
+    return out
+
+
+#: leg (g)'s bf16 mesh trainer: each leaf's gradient (over its float32
+#: norm) within twice the meshless bf16 trainer's own distance from the
+#: float32 meshless trainer, or ``TP_GRAD_TOL`` where that is larger.
+#: Both bf16 trainers round alike (their weights rounded from the same
+#: float32 tree, their sums in bf16), so a fault on the mesh path shows
+#: as the mesh trainer alone leaving float32 (a dropped all-reduce moved
+#: leg (f)'s leaves by 0.94-0.96 of their norm)
+FAM_BF16_RATIO = 2.0
+
+
+def fam_bf16_witness(cfg, draw, mesh, device, rank, keep, exact,
+                     shapes) -> dict:
+    """A bf16 ``cfg`` trained meshless on rank 0 and on ``mesh`` (both on
+    ``draw()``: the float32 run's tree cast), held on rank 0 to the
+    meshless bf16 trainer by ``train_errors`` (losses, first update) and
+    to ``exact``, the float32 meshless run, leaf by leaf as
+    ``FAM_BF16_RATIO`` says; adds the runs' #1-#4 shapes to ``shapes``.
+    Returns the reading (None on the other rank)."""
+    import torch.distributed as dist
+    plain = None
+    if rank == 0:
+        plain = dist_train(cfg, None, None, None, device, keep=keep,
+                           draw=draw)
+        _free(device)
+    dist.barrier()
+    t = time.perf_counter()
+    got = dist_train(cfg, None, None, mesh, device, keep=keep,
+                     store=rank == 0, draw=draw)
+    for run in (plain, got) if plain else (got,):
+        for k, v in run["shapes"].items():
+            shapes.setdefault(k, set()).update(v)
+    if rank != 0:
+        return None
+    out = {"losses": got["losses"], "meshless_losses": plain["losses"],
+           **train_errors(got, plain), "launches": got["launches"],
+           "seconds": time.perf_counter() - t}
+    leaves = {}
+    for gm, gp, ge in zip(got["grads"], plain["grads"], exact["grads"]):
+        norms = {p: float(w.float().norm()) for p, w in ge.items()}
+        top = max(norms.values())
+        for path, w in ge.items():
+            if _zero_grad(path, norms[path], top):
+                continue
+            w = w.float()
+            mesh_d, plain_d = (float((g[path].float() - w).norm())
+                               / norms[path] for g in (gm, gp))
+            gate = max(TP_GRAD_TOL, FAM_BF16_RATIO * plain_d)
+            if mesh_d / gate > leaves.get(path, (0.0,))[0]:
+                leaves[path] = (mesh_d / gate, mesh_d, plain_d)
+    worst = sorted(leaves.items(), key=lambda kv: -kv[1][1])[:6]
+    out["bf16_slack"] = max(v[0] for v in leaves.values())
+    out["bf16_leaves"] = {p: {"slack": v[0], "mesh_to_f32": v[1],
+                              "meshless_to_f32": v[2]} for p, v in worst}
+    del got, plain
+    _free(device)
+    return out
+
+
+def _held(path: str) -> bool:
+    """The leaves a big model's trainer check compares: all but the
+    vocabulary's tables (leg (f) holds the vocab-parallel path)."""
+    return not path.endswith("/table")
+
+
+def _experts(path: str) -> bool:
+    """An MoE model's routed experts: their gathered copies are kept in
+    host memory (they would not fit beside the trainers on the card)."""
+    return any(path.endswith(f"/moe/{w}") for w in ("up", "gate", "down"))
+
+
+def _record_batched(B, fn):
+    """fn() with #1b/#3b/#4b recording each launch's (E, M, K, N, dtype
+    name)."""
+    seen = {n: set() for n in FAM_BATCHED}
+
+    def name(t):
+        return str(t.dtype).removeprefix("torch.")
+
+    def fwd(a, w, plan):
+        seen["bsmm_batched"].add(tuple(a.shape) + (w.shape[-1], name(a)))
+
+    def dx(g, w, plan):
+        seen["bsmm_batched_dx"].add(tuple(g.shape[:2]) + tuple(w.shape[-2:])
+                                    + (name(g),))
+
+    def dw(x, g, plan):
+        seen["bsmm_batched_dw"].add(tuple(x.shape) + (g.shape[-1], name(x)))
+
+    orig = {n: getattr(B, n) for n in FAM_BATCHED}
+    for n, rec in zip(FAM_BATCHED, (fwd, dx, dw)):
+        setattr(B, n, _Recorded(orig[n], rec))
+    try:
+        return fn(), seen
+    finally:
+        for n, f in orig.items():
+            setattr(B, n, f)
+
+
+def fam_ds_engine(cfg, mesh, device, rank):
+    """deepseek-v3's engine on ``mesh``, each rank drawing the full tree
+    and cutting its shards in turn (the full 4-layer tree is ~30 GB:
+    two at once would not fit the shared card)."""
+    import torch.distributed as dist
+    eng = None
+    for r in range(2):
+        if r == rank:
+            params = fam_draw(cfg, device)
+            eng = fam_engine(cfg, params, build_expert_ticket(params, device),
+                             mesh, device)
+            del params
+            _free(device)
+        dist.barrier()
+    return eng
+
+
+def fam_ds_prefill(B, FA, PA, TS, eng, cfg, device) -> dict:
+    """A dense prefill of ``FAM_DS_PREFILL`` tokens on the engine's
+    rank-local model (no plan: what ``launch.dryrun`` traces): its
+    launches by route."""
+    from repro_torch.models import transformer as tfm
+    gen = eng.generations[-1]
+    toks = torch.arange(1, FAM_DS_PREFILL + 1, device=device)[None]
+    before = routes_now(B, FA, PA, TS)
+    with torch.inference_mode(), gen.sharded.scope(groups=1):
+        tfm.prefill(gen.params, gen.cfg, {"tokens": toks}, FAM_DS_PREFILL)
+    sync(device)
+    return routes_since(before, routes_now(B, FA, PA, TS))
+
+
+def fam_rank(mesh12, ds_want, opts):
+    """Leg (g) on one of two ranks sharing the card over gloo: each
+    family served on its meshes against the meshless engine, and
+    retrained against the meshless trainer; returns its readings, the
+    leg's launches by route and the kernels' entry shapes."""
+    import torch.distributed as dist
+
+    from repro_torch.core.masks import family_prunable
+    from repro_torch.kernels import bsmm as B
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import tile_stats as TS
+    from repro_torch.launch.mesh import make_test_mesh
+    device = opts["device"]
+    on_card = torch.device(device).type == "cuda"
+    rank = mesh12.get_rank()
+    mesh21 = make_test_mesh(2, 1, device=device, backend="gloo")
+    both = (("1x2", mesh12), ("2x1", mesh21))
+    out = {"rank": rank, "seconds": {}}
+    t = [time.perf_counter()]
+
+    def lap(name):
+        _free(device)
+        now = time.perf_counter()
+        out["seconds"][name] = now - t[0]
+        out.setdefault("mem_gib", {})[name] = (
+            torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else None)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t[0] = now
+
+    def ticketed(cfg, ticket):
+        """() -> (seeded parameters, ``ticket(params, device)`` or None)."""
+        def draw():
+            params = fam_draw(cfg, device)
+            return params, (ticket(params, device) if ticket else None)
+        return draw
+
+    def cast(cfg, draw32):
+        """() -> ``draw32()``'s tree cast to ``cfg``'s dtypes (as its
+        own initialiser gives them), and its ticket."""
+        from repro_torch.core.masks import tree_flatten_with_path
+
+        def draw():
+            params32, masks = draw32()
+            params = fam_draw(cfg, device)
+            with torch.no_grad():
+                for (_, a), (_, b) in zip(tree_flatten_with_path(params),
+                                          tree_flatten_with_path(params32)):
+                    a.copy_(b)
+            return params, masks
+        return draw
+
+    def xl_ticket(params, device=device):
+        return family_ticket(params, family_prunable("ssm"), device, 32)
+
+    def legs():
+        cfg = opts["rg"]
+        params = fam_draw(cfg, device)
+        out["rg_serve"] = fam_serve_meshes(
+            B, FA, PA, TS, cfg, params, build_planned_ticket(params, device),
+            both, device)
+        del params
+        lap("rg_serve")
+        cfg = opts["rg_train"]
+        draw = ticketed(cfg, build_planned_ticket)
+        bf16 = dataclasses.replace(cfg, dtype="bfloat16")
+        out["rg_train"] = fam_train(cfg, draw, both[:1], device, rank,
+                                    keep=_held,
+                                    witness=(bf16, cast(bf16, draw)))
+        lap("rg_train")
+        cfg = opts["xl"]
+        params = fam_draw(cfg, device)
+        masks = xl_ticket(params)
+        out["xl_serve"] = fam_serve_meshes(B, FA, PA, TS, cfg, params, masks,
+                                           both[:1], device)
+        del params, masks
+        _free(device)
+        out["xl_train"] = fam_train(cfg, ticketed(cfg, xl_ticket), both[:1],
+                                    device, rank)
+        lap("xl")
+        cfg = opts["wh"]
+        params = fam_draw(cfg, device)
+        out["wh_serve"] = fam_serve_meshes(B, FA, PA, TS, cfg, params, None,
+                                           both[:1], device)
+        del params
+        _free(device)
+        out["wh_train"] = fam_train(cfg, ticketed(cfg, None), both, device,
+                                    rank)
+        lap("wh")
+        cfg = opts["ds"]
+        out["ds_serve"] = fam_serve_meshes(
+            B, FA, PA, TS, cfg, None, None, both[:1], device, want=ds_want,
+            build=lambda mesh: fam_ds_engine(cfg, mesh, device, rank),
+            after=lambda eng: fam_ds_prefill(B, FA, PA, TS, eng, cfg,
+                                             device))
+        out["ds_prefill"] = out["ds_serve"]["1x2"].pop("after")
+        lap("ds_serve")
+        cfg = opts["ds_train"]
+        out["ds_train"] = fam_train(cfg, ticketed(cfg, build_expert_ticket),
+                                    both[:1], device, rank,
+                                    keep=_held, host=_experts)
+        lap("ds_train")
+        cfg = opts["l4_train"]
+        # the (2, 1) leg holds the MoE layer's router and shared expert
+        # and the norms (every rank trains the whole model beside them):
+        # on a data axis every leaf's gradient takes the one path, the
+        # rank's backward summed over the data ranks
+        out["l4_train"] = fam_train(
+            cfg, ticketed(cfg, build_expert_ticket), both[1:], device, rank,
+            keep=lambda p: _held(p) and not _experts(p)
+            and "/attn/" not in p and "/mlp/" not in p, groups=2)
+        lap("l4_train")
+
+    dist.barrier()
+    before = routes_now(B, FA, PA, TS)
+    _, out["batched_shapes"] = _record_batched(B, legs)
+    out["launches"] = routes_since(before, routes_now(B, FA, PA, TS))
+    return out
+
+
+def fam_ds_meshless(opts) -> tuple:
+    """deepseek-v3's meshless engine (in the parent, before the ranks:
+    its full tree once on the card): its streams and logits rows."""
+    device = opts["device"]
+    cfg = opts["ds"]
+    params = fam_draw(cfg, device)
+    eng = fam_engine(cfg, params, build_expert_ticket(params, device), None,
+                     device)
+    del params
+    with torch.inference_mode():
+        want = fam_serve(eng, cfg, device)
+    del eng
+    _free(device)
+    return want
+
+
+def check_batched_at(B, cases, seed=90) -> dict:
+    """#1b, #3b and #4b against their plain versions (under a seeded
+    ~25 %-live union plan) at each (E, M, K, N, dtype) a rank launched
+    them at, in that dtype, each call held to its rule's route and split
+    count there; the largest error of each."""
+    rng = np.random.default_rng(seed)
+    err = {n: 0.0 for n in FAM_BATCHED}
+    for name, (E, M, K, N, dtype) in cases:
+        dt = getattr(torch, dtype)
+        bm = random_bitmap(rng, K, N)
+        plan = B.make_tile_plan(np.kron(bm, np.ones((128, 128), bool)))
+        g_ = torch.Generator(device="cuda").manual_seed(E + M + K + N)
+        w = (torch.randn(E, K, N, device="cuda", generator=g_)
+             / K ** 0.5).to(dt)
+        x = torch.randn(E, M, K, device="cuda", generator=g_).to(dt)
+        g = torch.randn(E, M, N, device="cuda", generator=g_).to(dt)
+        kind = {"bsmm_batched": "fwd", "bsmm_batched_dx": "dx",
+                "bsmm_batched_dw": "dw"}[name]
+        route, S = plan.route_and_splits(kind, M, dt, E)
+        fn = getattr(B, name)
+        args = {"fwd": (x, w), "dx": (g, w), "dw": (x, g)}[kind]
+        got = held(fn, route, S, *args, plan)
+        want = getattr(B, f"{name}_plain")(*args, plan)
+        torch.cuda.synchronize()
+        e = (got.float() - want.float()).abs().max().item()
+        tol = tolerance(dt, want)
+        print(f"check (g) {name} {dtype} E={E} M={M} K={K} N={N} {route} "
+              f"splits={S} max_abs_err={e:.3e} tol={tol:.3e}")
+        require(bool(torch.isfinite(got).all().item()) and e <= tol,
+                f"{name} disagrees with its plain version at E={E} M={M} "
+                f"K={K} N={N} {dtype}")
+        err[name] = max(err[name], e)
+        del w, x, g, got, want
+    return err
+
+
+def fam_kernel_checks(B, FA, PA, ranks) -> dict:
+    """#1-#4, #1b/#3b/#4b, #7 and #8 held to their plain versions at
+    every shape leg (g) launched them at on either rank (as
+    ``dist_kernel_checks`` holds leg (b)'s): #1/#2 at each (K, N) and
+    the rows it saw, with the gelu and silu epilogues, #3/#4 at the
+    trainers' rows, the batched three at each (E, M, K, N), #8 at each
+    call, #7 at each head count.  Run after the leg, so none of these
+    launches counts as its."""
+    serving = [leg for r in ranks for k, v in r.items()
+               if k.endswith("_serve") for leg in v.values()]
+    trained = [r[k]["shapes"] for r in ranks for k in r
+               if k.endswith("_train")]
+    fwd = [c for leg in serving for c in leg["bsmm_calls"]] + [
+        tuple(c) for sh in trained for n in ("bsmm", "bsmm_epilogue")
+        for c in sh.get(n, ())]
+    grads = [tuple(c) for sh in trained for n in ("bsmm_dx", "bsmm_dw")
+             for c in sh.get(n, ())]
+    out = kernel_checks_at(
+        B, FA, PA, fwd, ((None, "gelu"), (None, "silu")) + tuple(
+            tuple(c) for sh in trained for c in sh.get("epilogues", ())),
+        grads, sorted({tuple(c) for leg in serving
+                       for c in leg["flash_calls"]}),
+        [c for leg in serving for c in leg["paged_calls"] if c[1] != 1])
+    cases = sorted({(n, tuple(c)) for r in ranks
+                    for n, cs in r["batched_shapes"].items() for c in cs})
+    with torch.inference_mode():
+        out["batched_err"] = check_batched_at(
+            B, [c for c in cases if c[0] == "bsmm_batched"])
+    grad_err = check_batched_at(
+        B, [c for c in cases if c[0] != "bsmm_batched"], seed=91)
+    out["batched_err"] = {k: max(v, grad_err[k])
+                          for k, v in out["batched_err"].items()}
+    out["batched_cases"] = [list(c) for c in cases]
+    fused = sorted({c[0] for leg in serving for c in leg["paged_calls"]
+                    if c[1] == 1})
+    out["fused_err"], out["fused"] = 0.0, []
+    with torch.inference_mode():
+        for j, hq in enumerate(fused):
+            e, row = check_paged(
+                PA, Hq=hq, Hkv=1, hd=576, dv=512, scale=192 ** -0.5,
+                seed=95 + j,
+                fused_routes={torch.bfloat16: "wgmma", torch.float32: "simt"})
+            out["fused_err"] = max(out["fused_err"], e)
+            out["fused"].append({"Hq": hq, "max_abs_err": e, **row})
+    print(f"leg (g) kernel checks: batched {out['batched_err']} at "
+          f"{len(cases)} cases, #7 at {fused} heads {out['fused_err']:.3e}")
+    return out
+
+
+def families_leg(B, FA, PA, opts=None) -> tuple:
+    """Leg (g) (see the module docstring): deepseek-v3's meshless engine
+    here, then ``fam_rank`` on two gloo ranks sharing the card, their
+    readings checked, then their kernels' shapes held to the plain
+    versions.  Returns (launches by kernel and rank, summary)."""
+    from repro_torch.launch.mesh import run_ranks
+    opts = opts or fam_options()
+    device = opts["device"]
+    t0 = time.perf_counter()
+    ds_want = fam_ds_meshless(opts)
+    if torch.device(device).type == "cuda":
+        free, total = torch.cuda.mem_get_info()
+        print(f"distributed (g): before the ranks, {free / 2 ** 30:.2f} of "
+              f"{total / 2 ** 30:.2f} GiB free, this process holding "
+              f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB", flush=True)
+    ranks = run_ranks(fam_rank, 1, 2, device=device, backend="gloo",
+                      args=(ds_want, opts), timeout_s=900)
+    ranks_s = time.perf_counter() - t0
+    rg, xl, wh, ds = (opts[k] for k in ("rg", "xl", "wh", "ds"))
+    # what each family keeps whole on a model axis of 2
+    whole = {
+        "rg_serve": sorted([f"segments/0/{p}/rnn/conv/w" for p in (0, 1)]
+                           + [f"segments/0/2/attn/{w}" for w in ("wk", "wv")]),
+        "xl_serve": ["segments/0/1/rnn/down", "segments/0/1/rnn/up"],
+        "wh_serve": ["frame_adapter"],
+        "ds_serve": sorted(f"segments/{s}/0/attn/{w}" for s in (0, 1)
+                           for w in ("w_dkv", "w_dq"))}
+    heads = {"rg_serve": {"1x2": (rg.n_heads // 2, rg.n_kv_heads),
+                          "2x1": (rg.n_heads, rg.n_kv_heads)},
+             "xl_serve": {"1x2": (xl.n_heads, xl.n_kv_heads)},
+             "wh_serve": {"1x2": (wh.n_heads // 2, wh.n_kv_heads // 2)},
+             "ds_serve": {"1x2": (ds.n_heads // 2, ds.n_kv_heads // 2)}}
+    for res in ranks:
+        for fam in ("rg_serve", "xl_serve", "wh_serve", "ds_serve"):
+            for name, leg in res[fam].items():
+                print(f"distributed (g) rank {res['rank']} {fam} {name}: "
+                      f"heads {leg['local_cfg']} kept whole "
+                      f"{leg['kept_whole']} rel_row_err "
+                      f"{leg['rel_row_err']:.3e} divergences "
+                      f"{leg['greedy_divergences']} launches "
+                      f"{leg['launches']}")
+                require(leg["rel_row_err"] <= TEACHER_TOL,
+                        f"(g) {fam} {name}: logits off the meshless "
+                        "engine's")
+                require(tuple(leg["local_cfg"]) == heads[fam][name],
+                        f"(g) {fam} {name}: not at the local heads")
+                require(leg["kept_whole"] == (whole[fam] if name == "1x2"
+                                              else []),
+                        f"(g) {fam} {name}: kept whole "
+                        f"{leg['kept_whole']}")
+                flash = leg["launches"].get("flash_attention", {})
+                require(set(flash) <= {"wgmma"}, f"(g) {fam} {name}: #8 "
+                        f"off its wgmma route ({flash})")
+        # MLA's 64 local heads decode on #7's wgmma kernel
+        fused = res["ds_serve"]["1x2"]["launches"].get("paged_attention", {})
+        require(fused.get("wgmma", 0) > 0 and set(fused) == {"wgmma"},
+                f"(g) deepseek: #7 at 64 heads off its wgmma route "
+                f"({fused})")
+        require(res["launches"].get("bsmm_batched"),
+                "(g): the experts never launched #1b")
+    for res in ranks[:1]:           # rank 0 holds the meshless trainer
+        for fam, kernels in (("rg_train", True), ("xl_train", False),
+                             ("wh_train", False), ("ds_train", True),
+                             ("l4_train", True)):
+            for name in ("1x2", "2x1"):
+                if name in res[fam]:
+                    check_train_leg(res["rank"], f"(g) {fam} {name}",
+                                    res[fam][name],
+                                    res[fam]["meshless_losses"],
+                                    kernels=kernels)
+        w = res["rg_train"]["bf16"]
+        print(f"distributed (g) rank {res['rank']} rg_train bf16 1x2: losses "
+              f"{w['losses']} vs meshless bf16 {w['meshless_losses']} (rel "
+              f"err {w['loss_rel_err']:.3e}, tol {TP_LOSS_TOL}); gradients "
+              f"{w['grad_rel_err']:.3e} of the leaf's norm off the meshless "
+              f"bf16 trainer's at {w['grad_leaf']}; against float32 (gate "
+              f"max({TP_GRAD_TOL}, {FAM_BF16_RATIO} x meshless bf16's), "
+              f"largest slack {w['bf16_slack']:.3f}): {w['bf16_leaves']}; "
+              f"first update {w['update_err_lr']:.3e} lr at "
+              f"{w['update_leaf']} over {w['update_covered']} coordinates "
+              f"(tol {TP_UPDATE_TOL}); launches {w['launches']} in "
+              f"{w['seconds']:.1f} s")
+        require(w["loss_rel_err"] <= TP_LOSS_TOL, "(g) rg_train bf16: the "
+                "mesh trainer's losses are off the meshless trainer's")
+        require(w["bf16_slack"] <= 1.0, "(g) rg_train bf16: a gradient "
+                "is further from float32 than the meshless bf16 trainer's "
+                "allows")
+        require(w["update_covered"] > 0
+                and w["update_err_lr"] <= TP_UPDATE_TOL, "(g) rg_train "
+                "bf16: the first update is off the meshless trainer's")
+        for n in TP_TRAINED:
+            require(sum(w["launches"][n]["launches_by_route"].values()) > 0,
+                    f"(g) rg_train bf16: the trainer never launched {n}")
+    launched = {n: sum(sum(r["launches"].get(n, {}).values())
+                       for r in ranks) for n in FAM_PATH}
+    print(f"distributed (g): launches {launched}; rank seconds "
+          f"{[r['seconds'] for r in ranks]}; peak GiB a rank "
+          f"{[r['mem_gib'] for r in ranks]}")
+    for n, k in launched.items():
+        require(k > 0, f"leg (g) never launched {n}")
+    checks = fam_kernel_checks(B, FA, PA, ranks)
+    summary = {"ranks_s": ranks_s, "ranks": ranks, "kernel_checks": checks,
+               "ds_prefill_launches": ranks[0]["ds_prefill"]}
+    return {n: [r["launches"].get(n, {}) for r in ranks]
+            for n in FAM_PATH}, summary
+
+
+# ---------------------------------------------------------------------------
 # 6h. the entry points: launch/{serve,train,steps}.py and the examples
 # ---------------------------------------------------------------------------
 LAUNCH_ARCH = "llama3.2-3b"
 LAUNCH_HYBRID = "recurrentgemma-2b"
 LAUNCH_SERVE = ("--requests", "16", "--max-new", "16")
 LAUNCH_PRUNED = "0.75"
+#: the pruned launcher's llama3.2-3b cut from 28 layers (its host prune
+#: took 138-151 s at 28 on an H100's host): the script's time
+LAUNCH_PRUNED_LAYERS = 8
 LAUNCH_TRAIN = ("--steps", "4", "--batch", "8", "--seq", "128")
 # leg (d)'s cells cut to one sequence each (published global batch: 256,
 # 32, 128); LONG_500K keeps its published B = 1.  ``LAUNCH_SEQ`` shortens
@@ -5860,11 +6652,10 @@ def launch_serve_leg(B, FA, PA, argv, device, label) -> tuple:
     and #1/#2 by route and split, #6 and #8 (each call's length) what
     the engines' plans and passes give.  A pruned run's plan must be the
     ticket's tile union.  At ``--pruned 0.75`` on llama3.2-3b that union
-    over 28 layers is every 128x128 tile (three ~37 % steps kill 32-wide
-    groups spread over every tile), so this leg skips no tile: the skip
-    path of #1/#2 (dead tiles left out of their grids) is covered by the
-    ``serve`` phase's ~25 %-live tickets, not here.  Returns (launches,
-    summary)."""
+    over 28 layers was every 128x128 tile (three ~37 % steps kill 32-wide
+    groups spread over every tile): the skip path of #1/#2 (dead tiles
+    left out of their grids) is covered by the ``serve`` phase's ~25
+    %-live tickets, not here.  Returns (launches, summary)."""
     from repro_torch.configs import ATTN
     from repro_torch.launch import serve as lserve
     from repro_torch.models import attention
@@ -6266,8 +7057,13 @@ def launch_phase(B, FA, PA, device="cuda") -> tuple:
         summary.setdefault("leg_s", {})[name] = now - t
         t = now
 
+    from repro_torch.configs import get_arch, register
+    base = get_arch(LAUNCH_ARCH)
+    cut = register(dataclasses.replace(
+        base, n_layers=LAUNCH_PRUNED_LAYERS,
+        name=f"{base.name}-{LAUNCH_PRUNED_LAYERS}l"))
     legs["serve_pruned"], summary["serve_pruned"] = launch_serve_leg(
-        B, FA, PA, ["--arch", LAUNCH_ARCH, "--pruned", LAUNCH_PRUNED,
+        B, FA, PA, ["--arch", cut.name, "--pruned", LAUNCH_PRUNED,
                     *LAUNCH_SERVE], device, "pruned serving")
     require(summary["serve_pruned"]["bsmm"], "the pruned launcher served "
             "dense")
@@ -6304,19 +7100,13 @@ def launch_phase(B, FA, PA, device="cuda") -> tuple:
 # ---------------------------------------------------------------------------
 DRYRUN_ARCH = "llama3.2-3b"         # every shape, on 16x16 and 2x16x16
 DRYRUN_OTHERS = "prefill_32k"       # every other arch's cell, on 16x16
-#: the families the rank-local model does not run on a model axis > 1:
-#: their cells FAIL with an error naming the family (ROADMAP queue 1)
-DRYRUN_FAILS = {"deepseek-v3-671b": "MLA attention",
-                "recurrentgemma-2b": "recurrent blocks",
-                "xlstm-125m": "recurrent blocks",
-                "whisper-tiny": "the encoder-decoder"}
 
 
 def dryrun_cells(smi: str, archs) -> dict:
     """Leg (a): ``launch.dryrun.run_cell`` on every shape of
     ``DRYRUN_ARCH`` on both production meshes and on ``DRYRUN_OTHERS``
     of every other of ``archs`` on 16x16, one line a cell; every cell OK
-    or SKIP but the ``DRYRUN_FAILS``, which must name their family."""
+    or SKIP (every family runs on the production mesh)."""
     from repro_torch.configs import ALL_SHAPES
     from repro_torch.launch import dryrun
 
@@ -6328,14 +7118,8 @@ def dryrun_cells(smi: str, archs) -> dict:
         rec = dryrun.run_cell(arch, shape, multi_pod=mp)
         print(f"dryrun [{smi}] {dryrun.cell_line(rec)}", flush=True)
         counts[rec["status"]] += 1
-        if rec["status"] == "FAIL":
-            require(arch in DRYRUN_FAILS and DRYRUN_FAILS[arch] in
-                    rec["error"] and "NotImplementedError" in rec["error"],
-                    f"dryrun {arch} x {shape}: {rec['error']}")
-        else:
-            require(arch not in DRYRUN_FAILS, f"dryrun {arch} x {shape}: "
-                    f"{rec['status']}, where a FAIL naming "
-                    f"{DRYRUN_FAILS.get(arch)} is expected")
+        require(rec["status"] != "FAIL",
+                f"dryrun {arch} x {shape}: {rec.get('error')}")
         recs.append(rec)
     (OUT / "dryrun_results.json").write_text(json.dumps(recs, indent=1))
     return {"counts": counts, "cells": [
@@ -6411,16 +7195,40 @@ def dryrun_cross_check(smi: str, cells: dict) -> dict:
     return out
 
 
-def dryrun_phase(smi: str, launch_summary: dict, archs=None) -> dict:
+def dryrun_family_check(smi: str, launched: dict) -> dict:
+    """Leg (c): deepseek-v3 at leg (g)'s cut (4 layers, 256 experts), a
+    dense prefill of ``FAM_DS_PREFILL`` tokens traced on rank 0 of a (1,
+    2) ``AbstractMesh``: its launches by wrapper and route equal to what
+    leg (g)'s rank 0 launched for the same prefill (MLA's 64 local heads
+    through #8)."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun
+    shape = ShapeSpec("fam_prefill", FAM_DS_PREFILL, 1, "prefill")
+    tr, _ = dryrun.trace_cell(deepseek_config(), shape,
+                              {"data": 1, "model": 2})
+    traced = tr.launches()
+    print(f"dryrun [{smi}] leg (g)'s deepseek prefill on 1x2: launches "
+          f"traced {traced} real {launched}", flush=True)
+    require(traced == launched, "dryrun: the traced 1x2 deepseek prefill's "
+            "launches differ from leg (g)'s rank 0")
+    return {"traced": traced, "real": launched, "trace_s": tr.host_s}
+
+
+def dryrun_phase(smi: str, launch_summary: dict, archs=None,
+                 family_launches=None) -> dict:
     """Leg (a) ``dryrun_cells`` over ``archs`` (default: every registered
     arch), leg (b) ``dryrun_cross_check`` against the launch phase's
-    cells."""
+    cells, leg (c) ``dryrun_family_check`` against leg (g)'s rank 0
+    (``family_launches``)."""
     from repro_torch.configs import list_archs
     t0 = time.perf_counter()
     summary = dryrun_cells(smi, archs or list_archs())
     summary["cells_s"] = time.perf_counter() - t0
+    require(summary["counts"]["FAIL"] == 0, "dryrun: a cell failed")
     t1 = time.perf_counter()
     summary["cross_check"] = dryrun_cross_check(smi, launch_summary["cells"])
+    if family_launches is not None:
+        summary["family_check"] = dryrun_family_check(smi, family_launches)
     summary["cross_check_s"] = time.perf_counter() - t1
     print(f"dryrun [{smi}]: {summary['counts']} in {summary['cells_s']:.1f} "
           f"s; cross-check in {summary['cross_check_s']:.1f} s")
@@ -6617,6 +7425,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     dist_launches, dist_summary = distributed_phase(B, FA, PA)
     phase("distributed")
+    # ... its leg (g): the last families on a mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+    fam_launches, fam_summary = families_leg(B, FA, PA)
+    phase("distributed_g")
     # the entry points a user starts the port with: legs (a)-(e)
     gc.collect()
     torch.cuda.empty_cache()
@@ -6626,7 +7439,8 @@ def main() -> int:
     # launch phase's cells traced at their cut against their measurements
     gc.collect()
     torch.cuda.empty_cache()
-    dryrun_summary = dryrun_phase(smi, launch_summary, published)
+    dryrun_summary = dryrun_phase(smi, launch_summary, published,
+                                  fam_summary["ds_prefill_launches"])
     phase("dryrun")
     xl_launches, xl_summary = new_runs["serve_xlstm"]
     _, rx_summary = new_runs["retrain_xlstm"]
@@ -6897,6 +7711,25 @@ def main() -> int:
             continue
         k["distributed_shapes"] = local
         k["max_abs_err"] = max(k["max_abs_err"], err)
+    # leg (g)'s launches on each rank (#7 under paged_attention_fused_v)
+    # and its kernels held at the ranks' shapes
+    fk = fam_summary["kernel_checks"]
+    fam_errs = {"bsmm": fk["bsmm_err"]["bsmm"],
+                "bsmm_epilogue": fk["bsmm_err"]["bsmm_epilogue"],
+                "bsmm_dx": fk["grad_err"]["bsmm_dx"],
+                "bsmm_dw": fk["grad_err"]["bsmm_dw"],
+                "flash_attention": fk["flash_err"],
+                "paged_attention_fused_v": fk["fused_err"],
+                **fk["batched_err"]}
+    for k in kernels:
+        name = k["name"]
+        key = ("paged_attention" if name == "paged_attention_fused_v"
+               else None if name == "paged_attention" else name)
+        if key in fam_launches:
+            k["launches_families"] = fam_launches[key]
+        if name in fam_errs:
+            k["families_max_abs_err"] = fam_errs[name]
+            k["max_abs_err"] = max(k["max_abs_err"], fam_errs[name])
     # the entry points' legs: (a) pruned serving, (b) the dense fleet,
     # (c) training, (d) the build_step cells
     for k in kernels:
@@ -6930,6 +7763,7 @@ def main() -> int:
          "retrain_whisper": rw_summary, "serve_vlm": vl_summary,
          "retrain_vlm": rv_summary, "serve_llama4": l4_summary,
          "lint": lint_summary, "distributed": dist_summary,
+         "distributed_g": fam_summary,
          "launch": launch_summary, "dryrun": dryrun_summary,
          "phase_s": phases},
         indent=1, default=str))
@@ -6977,6 +7811,13 @@ def main() -> int:
                           if k.endswith("_err") or k.endswith("_rows")},
         "grouped_moe": dist_summary["grouped_moe"],
         "restart": dist_summary["restart"]}}, default=str))
+    print(json.dumps({"distributed_g": {
+        "ranks_s": fam_summary["ranks_s"],
+        "ds_prefill_launches": fam_summary["ds_prefill_launches"],
+        "ranks": [{k: v for k, v in r.items() if k != "batched_shapes"}
+                  for r in fam_summary["ranks"]],
+        "kernel_checks": {k: v for k, v in fam_summary["kernel_checks"]
+                          .items() if k.endswith("_err")}}}, default=str))
     print(json.dumps({"launch": {
         k: ({kk: vv for kk, vv in v.items() if kk != "bsmm_routes"}
             if isinstance(v, dict) else v)

@@ -15,24 +15,48 @@ shard boundaries:
     ``all_reduce``, and the unembedding makes local logits, then an
     ``all_gather``;
   * stacked MoE experts split over ``model`` (expert parallelism): each
-    rank runs its experts' rows, then the outputs are gathered.
+    rank runs its experts' rows, then the outputs are gathered;
+  * MLA shards its heads (``w_uq``, ``w_uk``, ``w_uv`` and ``wo``); its
+    down-projections ``w_dq``/``w_dkv``, their norms and the latent
+    cache stay whole on every rank, since every head reads the latent;
+  * the RG-LRU runs channel-parallel: ``w_in``/``w_gate`` column
+    shards, its block-diagonal gates on the local blocks, the conv, Λ
+    and the decode state at the local channels, ``w_out`` row-parallel;
+    the recurrence is per channel, so no collective sits inside it;
+  * the mLSTM shards its heads: ``up``/``gate`` columns, the
+    block-diagonal q/k/v on the local blocks, the gate projections
+    ``wi``/``wf`` on the local heads — each head's gate reads all of the
+    up-projection, so that is gathered first — and ``down``
+    row-parallel;
+  * the sLSTM shards its heads inside the cell: ``wi/wf/wz`` columns,
+    the block-diagonal recurrences on the local blocks, and ``wo``,
+    which the rules cut by rows, as a row-parallel product cut to the
+    local channels (reduce-scatter); the cell's output is gathered and
+    the post-cell ``up``/``down`` stay whole (the rules' contiguous
+    column cut of ``up`` would not pair its gelu and value halves);
+  * the encoder-decoder shards its self- and cross-attention heads as
+    GQA does, and its MLP as the MLP does; ``frame_adapter`` stays whole.
 
 A block the rank-local model cannot run on a shard stays whole on every
 model rank ("kept whole against its spec", listed by ``layout``): an
 MLP whose ``d_ff`` does not divide (the rules' fallback splits its
-input dim), and any block with a block-sparse projection whose shard
-would split a 128-tile — ``plan_matmul`` needs its plan to cover the
-weight, so that projection runs on the full weight with the full plan,
-which is what GSPMD does to the reference's Pallas custom call.
-Attention shards as two groups: q (``wq``/``wo``, Hq/M heads a rank)
-and K/V (``wk``/``wv``).  When the K/V heads do not divide (or their
-shard would cut a tile) K/V stay whole on every model rank with their
-caches, and each rank attends its local q heads against the kv heads
-they map to (its q heads placed among zero heads, the other heads'
-outputs dropped); when the q heads do not divide, the whole attention
-stays whole.  Nothing drops to dense: each rank's plans are built from
-its own mask shard, which is exact because pruned weights are exact
-zeros.
+input dim), a recurrent block whose heads or blocks do not divide, and
+any block with a block-sparse projection whose shard would split a
+128-tile — ``plan_matmul`` needs its plan to cover the weight, so that
+projection runs on the full weight with the full plan, which is what
+GSPMD does to the reference's Pallas custom call.  A replicated leaf a
+sharded block reads at its local channels (a bias, Λ, a stacked
+RG-LRU's conv, whose rules put ``model`` on the repeats axis) is cut at
+use.  Attention shards as two groups: q (``wq``/``wo``, Hq/M heads a
+rank) and K/V (``wk``/``wv``).  When the K/V heads do not divide (or
+their shard would cut a tile) K/V stay whole on every model rank with
+their caches, and each rank attends its local q heads against the kv
+heads they map to (its q heads placed among zero heads, the other
+heads' outputs dropped); when the q heads do not divide, the whole
+attention stays whole (in the encoder-decoder, whose encoder and cross
+attention read only local K/V, q shards only with K/V).  Nothing drops
+to dense: each rank's plans are built from its own mask shard, which is
+exact because pruned weights are exact zeros.
 
 Collectives go through ``collective``: the one place where a gloo group
 (two ranks sharing a card) stages CUDA tensors through host memory, and
@@ -45,19 +69,31 @@ autograd records, so that serving runs the collectives alone:
   * copy-to-model (``TensorParallel.copy_in``): identity forward,
     ``all_reduce`` backward — on the input of each column-parallel group
     (q and sharded K/V, the MLP's up/gate, the unembedding, the experts'
-    rows), on a replicated bias cut to local columns, and on K/V kept
-    whole (each rank's heads read all of them);
+    rows, the recurrent blocks' inputs, MLA's latents), on a replicated
+    leaf cut to local columns, and on K/V kept whole (each rank's heads
+    read all of them);
   * reduce-from-model: ``all_reduce`` forward, identity backward — the
     row-parallel output and the vocab-parallel lookup;
   * gather-from-model: ``all_gather`` forward, this rank's slice
-    backward — the unembedding's logits and the experts' outputs.
+    backward — the unembedding's logits, the experts' outputs and the
+    sLSTM cell's output;
+  * gather-to-local (``gather_local``): ``all_gather`` forward,
+    reduce-scatter backward — the mLSTM's up-projection its local gates
+    read whole;
+  * reduce-to-local (``row_local``): reduce-scatter forward,
+    ``all_gather`` backward — the sLSTM's output-gate projection.
 
 So every replicated leaf gets the same gradient on every model rank.
 ``train_loss`` is the global token mean (each data rank's token-loss
 sum over the global token count) and ``data_grad_sum`` sums the
 gradients over the data axes before the optimizer, so that unequal loss
-masks still give the single-device gradient.  ZeRO-1 (``Zero1``) cuts
-the optimizer state over ``data`` instead: each gradient is
+masks still give the single-device gradient.  The MoE aux loss is
+global over the batch too: each data rank sums its layers' token
+statistics over the data axes (``hooks.moe_aux_sum``, an ``all_reduce``
+whose backward is an ``all_reduce``) and adds 1/D of the aux loss, so
+that the summed loss counts it once and every rank's gradient is its
+own tokens' share of the global one.  ZeRO-1 (``Zero1``) cuts the
+optimizer state over ``data`` instead: each gradient is
 reduce-scattered to the data rank's part, the update runs on that part,
 and the parameter is all-gathered back.
 """
@@ -71,7 +107,7 @@ import torch
 import torch.distributed as dist
 from torch._subclasses.fake_tensor import FakeTensor
 
-from repro_torch.configs.base import (ATTN, LOCAL_ATTN, MXU_TILE,
+from repro_torch.configs.base import (MLSTM, MXU_TILE, RGLRU, SLSTM,
                                       ArchConfig)
 from repro_torch.core.masks import tree_map_with_path
 from repro_torch.distributed.sharding import (LeafSharding, ShardingRules,
@@ -171,6 +207,57 @@ class _GatherFromModel(torch.autograd.Function):
                 None, None, None)
 
 
+class _GatherToLocal(torch.autograd.Function):
+    """``all_gather`` along ``dim`` forward, every rank reading the whole
+    for its own outputs; backward the gradient summed over the model
+    axis, this rank's slice (reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return collective("all_gather", x.contiguous(), group, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (collective("reduce_scatter", g.contiguous(), ctx.group,
+                           dim=ctx.dim), None, None)
+
+
+class _ReduceToLocal(torch.autograd.Function):
+    """The sum over the model axis cut to this rank's slice along ``dim``
+    forward (reduce-scatter); backward the slices' gradients gathered."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return collective("reduce_scatter", x.contiguous(), group, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (collective("all_gather", g.contiguous(), ctx.group,
+                           dim=ctx.dim), None, None)
+
+
+class _SumOverData(torch.autograd.Function):
+    """``all_reduce`` over each data group forward; the gradient summed
+    the same way backward (every data rank's loss reads the sum)."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return _sum_over(x.contiguous().clone(), groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_over(g.contiguous().clone(), ctx.groups), None
+
+
+def _sum_over(t, groups):
+    for g in groups:
+        t = collective("all_reduce", t, g)
+    return t
+
+
 class TensorParallel:
     """This rank's view of the ``model`` axis: its group, rank and size,
     and which parameter storages hold a shard (views of a stacked leaf
@@ -207,6 +294,34 @@ class TensorParallel:
                                           self.rank)
         return collective("all_gather", t.contiguous(), self.group, dim=dim)
 
+    def gather_local(self, t, dim: int):
+        """Every rank's slice of ``t`` along ``dim``, concatenated, where
+        each rank reads the whole for its own outputs (gather-to-local
+        while autograd records: the gradient's sum over ``model``, cut
+        to this rank's slice)."""
+        if _recording(t):
+            return _GatherToLocal.apply(t, self.group, dim % t.ndim)
+        return collective("all_gather", t.contiguous(), self.group, dim=dim)
+
+    def row_local(self, x, w):
+        """``x @ w`` for a ``w`` cut by rows (its input dim), read only at
+        this rank's output columns: the local input slice times the
+        local rows, summed over ``model`` and cut to this rank's columns
+        (reduce-to-local while autograd records).  ``x`` is whole, through
+        ``copy_in``."""
+        n = w.shape[-2]
+        part = x.narrow(-1, self.rank * n, n) @ w
+        if _recording(part):
+            return _ReduceToLocal.apply(part, self.group, part.ndim - 1)
+        return collective("reduce_scatter", part.contiguous(), self.group,
+                          dim=-1)
+
+    def cut(self, v):
+        """A replicated leaf ``v`` a sharded block reads at its local
+        columns: this rank's columns, its gradient summed over
+        ``model``."""
+        return self.cols(self.copy_in(v))
+
     def copy_in(self, t):
         """The input of a column-parallel group (copy-to-model): ``t``
         itself, its gradient summed over ``model`` while autograd
@@ -240,7 +355,7 @@ class TensorParallel:
         the group's input, already through ``copy_in``)."""
         return plan_matmul(
             x, w, plan,
-            bias=None if bias is None else self.cols(self.copy_in(bias)),
+            bias=None if bias is None else self.cut(bias),
             act=act)
 
     def row(self, x, w, plan, bias=None):
@@ -266,45 +381,73 @@ class TensorParallel:
 # ---------------------------------------------------------------------------
 # Layout: which leaves shard, which stay whole
 # ---------------------------------------------------------------------------
-def _supports_model_axis(cfg: ArchConfig) -> None:
-    if cfg.mla is not None:
-        what = "MLA attention"
-    elif not set(cfg.blocks) <= {ATTN, LOCAL_ATTN}:
-        what = "recurrent blocks"
-    elif cfg.is_encoder_decoder:
-        what = "the encoder-decoder"
-    else:
-        return
-    raise NotImplementedError(
-        f"{cfg.name}: {what} on a model axis > 1 is not yet ported to "
-        "repro_torch (a (D, 1) mesh serves it)")
-
-
 def _tiles(shape, tile: int = MXU_TILE) -> bool:
     return shape[-1] % tile == 0 and shape[-2] % tile == 0
 
 
-# the tensor dim each block's leaves shard on the model axis; a leaf of
-# a block runs sharded only when its spec puts "model" there and nowhere
-# else (the rules' fallbacks to another dim are kept whole)
-_SHARD_DIM = {"attn": {"wq": -1, "wk": -1, "wv": -1, "wo": -2},
-              "mlp": {"up": -1, "gate": -1, "down": -2},
-              "experts": {"up": -3, "gate": -3, "down": -3},
-              "table": {"table": -2}}
+# the tensor dim each block kind's leaves shard on over the model axis
+# (keyed by the leaf's path within its block); a leaf of a block runs
+# sharded only when its spec puts "model" there and nowhere else (the
+# rules' fallbacks to another dim are kept whole)
+_SHARD_DIM = {
+    "attn": {"wq": -1, "wk": -1, "wv": -1, "wo": -2},
+    "mla": {"w_uq": -1, "w_uk": -1, "w_uv": -1, "wo": -2},
+    "mlp": {"up": -1, "gate": -1, "down": -2},
+    "experts": {"up": -3, "gate": -3, "down": -3},
+    "table": {"table": -2},
+    "rglru": {"w_in": -1, "w_gate": -1, "w_out": -2, "rg/w": -3,
+              "ig/w": -3, "conv/w": -1},
+    "mlstm": {"up": -1, "gate": -1, "down": -2, "cell/wq/w": -3,
+              "cell/wk/w": -3, "cell/wv/w": -3, "cell/wi": -1,
+              "cell/wf": -1},
+    "slstm": {"cell/wi": -1, "cell/wf": -1, "cell/wz": -1, "cell/wo": -2,
+              "cell/ri/w": -3, "cell/rf/w": -3, "cell/rz/w": -3,
+              "cell/ro/w": -3},
+}
+# leaves a block runs sharded with when their spec lands on the block's
+# dim, and otherwise keeps whole and cuts at use: a stacked RG-LRU's conv,
+# whose rules put "model" on the repeats axis
+_CUT_AT_USE = {("rglru", "conv/w")}
+_RNN_KINDS = {RGLRU: "rglru", MLSTM: "mlstm", SLSTM: "slstm"}
 
 
-def _block_of(path: str):
-    """(block key, kind) of a leaf that shards with a block, else None."""
-    parent, _, name = path.rpartition("/")
-    kind = parent.rpartition("/")[2]
-    if kind == "moe" and name in _SHARD_DIM["experts"]:
-        return parent, "experts"
-    if kind == "attn" and name in _SHARD_DIM["attn"]:
-        return parent + ("/q" if name in ("wq", "wo") else "/kv"), "attn"
-    if name in _SHARD_DIM["mlp"]:
-        return parent, "mlp"
+def _layer_kinds(cfg: ArchConfig) -> Dict[str, str]:
+    """{"segments/s/p": the block kind} of a decoder-only model."""
+    if cfg.is_encoder_decoder:
+        return {}
+    from repro_torch.models.transformer import segments_of
+    return {f"segments/{s}/{p}": sig[0]
+            for s, seg in enumerate(segments_of(cfg))
+            for p, sig in enumerate(seg.sigs)}
+
+
+def _block_of(path: str, cfg: ArchConfig, kinds: Dict[str, str]):
+    """(block key, kind, the leaf's name in its block) of a leaf that
+    shards with a block, else None.  Attention keys q (``wq``/``wo``)
+    and K/V apart."""
+    comps = path.split("/")
+    name = comps[-1]
     if name == "table":
-        return path, "table"
+        return path, "table", name
+    if "rnn" in comps:
+        i = comps.index("rnn")
+        prefix = "/".join(comps[:i])
+        kind = _RNN_KINDS.get(kinds.get(prefix))
+        sub = "/".join(comps[i + 1:])
+        if kind is not None and sub in _SHARD_DIM[kind]:
+            return prefix + "/rnn", kind, sub
+        return None
+    parent = "/".join(comps[:-1])
+    owner = comps[-2] if len(comps) > 1 else ""
+    if owner == "attn" and cfg.mla is not None:
+        return (parent, "mla", name) if name in _SHARD_DIM["mla"] else None
+    if owner in ("attn", "xattn") and name in _SHARD_DIM["attn"]:
+        return (parent + ("/q" if name in ("wq", "wo") else "/kv"), "attn",
+                name)
+    if owner == "moe" and name in _SHARD_DIM["experts"]:
+        return parent, "experts", name
+    if owner in ("mlp", "shared") and name in _SHARD_DIM["mlp"]:
+        return parent, "mlp", name
     return None
 
 
@@ -322,25 +465,26 @@ def layout(params, cfg: ArchConfig, rules: ShardingRules, masks=None):
     the engine, ``ShardedModel`` and ``elastic_restore`` all take it
     from here."""
     m = rules.tp_size
-    if m > 1:
-        _supports_model_axis(cfg)
+    kinds = _layer_kinds(cfg)
     masked = set()
     if masks is not None:
         tree_map_with_path(lambda p, l: l is not None and masked.add(p),
                            masks)
     specs: Dict[str, tuple] = {}
+    fits: Dict[str, bool] = {}      # leaf -> its spec lands on its dim
     ok: Dict[str, bool] = {}        # block key -> runs sharded
+    kind_of: Dict[str, str] = {}
 
     def visit(path, leaf):
         if leaf is None:
             return
         shape = tuple(leaf.shape)
         spec = specs[path] = rules.param_spec(path, shape)
-        blk = _block_of(path)
+        blk = _block_of(path, cfg, kinds)
         if blk is None:
             return
-        key, kind = blk
-        dim = len(shape) + _SHARD_DIM[kind][path.rpartition("/")[2]]
+        key, kind, sub = blk
+        dim = len(shape) + _SHARD_DIM[kind][sub]
         good = spec[dim] == "model" and spec.count("model") == 1
         if good and kind in ("attn", "mlp") and path in masked \
                 and _tiles(shape):
@@ -348,26 +492,39 @@ def layout(params, cfg: ArchConfig, rules: ShardingRules, masks=None):
             local = tuple(n // m if e == "model" else n
                           for n, e in zip(shape, spec))
             good = _tiles(local)
-        ok[key] = ok.get(key, True) and good
+        fits[path] = good
+        kind_of[key] = kind
+        if (kind, sub) not in _CUT_AT_USE:
+            good = good and (kind != "mla" or cfg.n_heads % m == 0)
+            ok[key] = ok.get(key, True) and good
+        else:
+            ok.setdefault(key, True)
 
     tree_map_with_path(visit, params)
-    # one q and one kv head count for every attention layer; K/V shard
-    # only with the q heads
-    q_ok = all(v for k, v in ok.items() if k.endswith("/attn/q"))
-    kv_ok = q_ok and all(v for k, v in ok.items() if k.endswith("/attn/kv"))
+    # one q, one kv and one MLA head count for every attention layer;
+    # K/V shard only with the q heads (in the encoder-decoder, q only
+    # with K/V: its encoder and cross attention read local K/V alone)
+    q_ok = all(v for k, v in ok.items() if k.endswith("attn/q"))
+    kv_ok = q_ok and all(v for k, v in ok.items() if k.endswith("attn/kv"))
+    if cfg.is_encoder_decoder:
+        q_ok = kv_ok
+    mla_ok = all(v for k, v in ok.items() if kind_of[k] == "mla")
     for k in ok:
-        if k.endswith("/attn/q"):
+        if k.endswith("attn/q"):
             ok[k] = q_ok
-        elif k.endswith("/attn/kv"):
+        elif k.endswith("attn/kv"):
             ok[k] = kv_ok
+        elif kind_of[k] == "mla":
+            ok[k] = mla_ok
     whole: List[Tuple[str, tuple]] = []
 
     def mk(path, leaf):
         if leaf is None:
             return None
         spec = specs[path]
-        blk = _block_of(path)
-        if m > 1 and "model" in spec and not (blk and ok[blk[0]]):
+        blk = _block_of(path, cfg, kinds)
+        runs = blk is not None and ok[blk[0]] and fits[path]
+        if m > 1 and "model" in spec and not runs:
             whole.append((path, spec))
             spec = tuple(None if e == "model" else e for e in spec)
         return LeafSharding(rules.mesh, spec,
@@ -404,21 +561,14 @@ def _lookup(tree, path: str):
 
 
 def sharded_leaves(local, shardings) -> List[torch.Tensor]:
-    """The local leaves whose placement shards them over ``model``; a
-    leaf sharded where the rank-local model cannot run it raises."""
+    """The local leaves whose placement (``layout``'s) shards them over
+    ``model``."""
     out: List[torch.Tensor] = []
 
     def visit(path, leaf):
         sh = _lookup(shardings, path)
-        if leaf is None or sh is None or "model" not in sh.spec:
-            return leaf
-        blk = _block_of(path)
-        dim = blk and len(sh.spec) + _SHARD_DIM[blk[1]][
-            path.rpartition("/")[2]]
-        if not blk or sh.spec[dim] != "model":
-            raise ValueError(f"{path}: a {sh.spec} shard does not run "
-                             "rank-local; keep it whole (layout)")
-        out.append(leaf)
+        if leaf is not None and sh is not None and "model" in sh.spec:
+            out.append(leaf)
         return leaf
 
     tree_map_with_path(visit, local)
@@ -426,8 +576,8 @@ def sharded_leaves(local, shardings) -> List[torch.Tensor]:
 
 
 def _heads_sharded(shardings, leaf: str) -> bool:
-    """True when every attention layer's ``leaf`` (``wq`` or ``wk``)
-    is placed as a shard of its heads."""
+    """True when every attention layer's ``leaf`` (``wq``, ``wk`` or
+    MLA's ``w_uq``) is placed as a shard of its heads."""
     found = []
 
     def visit(path, sh):
@@ -442,34 +592,51 @@ def _heads_sharded(shardings, leaf: str) -> bool:
 def local_config(cfg: ArchConfig, model: int, shardings) -> ArchConfig:
     """The config the rank-local model runs: Hq/M query heads and Hkv/M
     kv heads where the placement shards them (the head width stays
-    explicit)."""
-    if model == 1 or not _heads_sharded(shardings, "wq"):
+    explicit).  The recurrent blocks read their local widths from their
+    parameters."""
+    q = "w_uq" if cfg.mla is not None else "wq"
+    if model == 1 or not _heads_sharded(shardings, q):
         return cfg
-    kv = _heads_sharded(shardings, "wk")
+    kv = cfg.mla is not None or _heads_sharded(shardings, "wk")
     return dataclasses.replace(
         cfg, n_heads=cfg.n_heads // model,
         n_kv_heads=cfg.n_kv_heads // model if kv else cfg.n_kv_heads,
         head_dim=cfg.head_dim_)
 
 
+def _aux_sum(groups):
+    """``t -> t`` summed over ``groups`` (``hooks.moe_aux_sum``): its
+    gradient summed the same way while autograd records."""
+    def total(t):
+        if _recording(t):
+            return _SumOverData.apply(t, groups)
+        return _sum_over(t.contiguous().clone(), groups)
+    return total
+
+
 @contextlib.contextmanager
 def scope(rules: Optional[ShardingRules], tp: Optional[TensorParallel],
-          groups: Optional[int] = None):
-    """Install ``rules`` (MoE groups — or ``groups`` in their place) and ``tp`` for the duration of a call;
-    whatever was installed before comes back afterwards."""
+          groups: Optional[int] = None, data_groups=()):
+    """Install ``rules`` (MoE groups — or ``groups`` in their place),
+    ``tp`` and, with ``data_groups``, the MoE aux loss's sum over them
+    for the duration of a call; whatever was installed before comes back
+    afterwards."""
     from repro_torch.distributed import sharding
     prev_rules, prev_tp = sharding.installed(), hooks.tensor_parallel()
-    prev_groups = hooks.moe_groups()
+    prev_groups, prev_aux = hooks.moe_groups(), hooks.moe_aux_sum()
     sharding.install(rules)
     if groups is not None:
         hooks.set_moe_groups(groups)
     hooks.set_tensor_parallel(tp)
+    hooks.set_moe_aux_sum(_aux_sum(list(data_groups)) if data_groups
+                          else None)
     try:
         yield
     finally:
         sharding.install(prev_rules)
         hooks.set_moe_groups(prev_groups)
         hooks.set_tensor_parallel(prev_tp)
+        hooks.set_moe_aux_sum(prev_aux)
 
 
 # ---------------------------------------------------------------------------
@@ -510,6 +677,13 @@ class ShardedModel:
     def scope(self, groups: Optional[int] = None):
         return scope(self.rules, self.tp, groups)
 
+    def global_scope(self):
+        """The scope of a forward every data rank runs over its rows of
+        one global batch (a train step, ``sharded_loss``): one MoE
+        dispatch group a rank, the aux loss's statistics summed over the
+        data axes."""
+        return scope(self.rules, self.tp, 1, _data_groups(self.rules))
+
 
 def data_rows(batch, rules: ShardingRules):
     """This rank's rows of a global batch (numpy or tensor leaves), as
@@ -521,28 +695,28 @@ def data_rows(batch, rules: ShardingRules):
 
 
 def sharded_loss(model: ShardedModel, batch) -> float:
-    """The mean next-token cross-entropy of a global ``batch`` on a mesh
-    (forward only): each data rank runs its rows through the
-    tensor-parallel model, and the token-loss sums and counts are summed
-    over the data axis.  Dense-FFN models (an MoE aux loss is global
-    over the batch, which this sum does not form)."""
+    """The loss of a global ``batch`` on a mesh (forward only), as the
+    model's ``loss_fn`` gives it on one device (the reference's MoE
+    dispatch groups at the data-axis size).  Each data rank runs its
+    rows through the tensor-parallel model's ``loss_fn`` with the global
+    token count as the denominator; the token losses are summed over the
+    data axes and the aux term, the global batch's on every rank, is
+    added once."""
+    from repro_torch.models import encdec
     from repro_torch.models import transformer as tfm
-    if model.cfg.moe is not None:
-        raise NotImplementedError("sharded_loss: MoE aux loss on a mesh")
+    mod = encdec if model.cfg.is_encoder_decoder else tfm
+    groups = _data_groups(model.rules)
     rows = data_rows(batch, model.rules)
     dev = model.params["embed"]["table"].device
     rows = {k: v.to(dev) for k, v in rows.items()}
-    with torch.no_grad(), model.scope():
-        logits, _ = tfm.forward(model.params, model.cfg, rows)
-        logits = logits.float()
-        lse = torch.logsumexp(logits, dim=-1)
-        ll = torch.gather(logits, -1, rows["labels"].long()[..., None])[..., 0]
-        mask = rows.get("loss_mask")
-        mask = (torch.ones_like(lse) if mask is None else mask.float())
-        tot = torch.stack([((lse - ll) * mask).sum(), mask.sum()]).double()
-    if model.rules.dp_size > 1:
-        collective("all_reduce", tot, model.rules.mesh.get_group("data"))
-    return float(tot[0] / tot[1].clamp_min(1.0))
+    mask = rows.get("loss_mask")
+    count = (torch.full((), float(rows["labels"].numel()), device=dev)
+             if mask is None else mask.float().sum())
+    with torch.no_grad(), model.global_scope():
+        loss, metrics = mod.loss_fn(model.params, model.cfg, rows,
+                                    count=_sum_over(count, groups))
+    ce = _sum_over(metrics["ce"].double(), groups)
+    return float(ce) + float(loss - metrics["ce"])
 
 
 # ---------------------------------------------------------------------------
@@ -553,55 +727,35 @@ def _data_groups(rules: ShardingRules) -> list:
             if rules.axis_sizes[a] > 1]
 
 
-def check_trainable(cfg: ArchConfig, rules: ShardingRules) -> None:
-    """Raise ``NotImplementedError`` naming the family when ``cfg``
-    cannot train on ``rules``' mesh: MLA, the recurrent blocks and the
-    encoder-decoder on a model axis > 1, the MoE aux loss (global over
-    the batch) and the encoder-decoder's loss on a data axis > 1.
-    Nothing is drawn first: a launcher calls it before its
-    parameters."""
-    if rules.tp_size > 1:
-        _supports_model_axis(cfg)
-    if _data_groups(rules) and cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE aux loss on a data axis > 1 is not yet "
-            "ported to repro_torch (it is global over the batch)")
-    if _data_groups(rules) and cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder's loss on a data axis > 1 is "
-            "not yet ported to repro_torch")
-
-
 def train_loss(model: ShardedModel, *, plan=None, aux_weight: float = 0.01):
     """``(params, batch) -> (loss, metrics)`` of this rank's rows on
-    ``model``'s mesh, the forward under the model's scope (one MoE
-    dispatch group: a rank's rows are its data shard's).  The train
-    step must enter ``train_scope(model)`` around the backward too:
-    remat recomputes each layer there, under the same scope.  On one data
-    rank it is the model's own ``loss_fn``; over a data axis the global
-    token mean: the same ``loss_fn`` with the token count summed over the
-    data axes as its denominator (``softmax_cross_entropy``'s ``count``;
-    ``data_grad_sum`` then sums the losses and the gradients)."""
+    ``model``'s mesh, the forward under ``model.global_scope()``.  The
+    train step must enter ``train_scope(model)`` around the backward
+    too: remat recomputes each layer there, under the same scope.  On one
+    data rank it is the model's own ``loss_fn``; over D data ranks the
+    global token mean (the same ``loss_fn`` with the token count summed
+    over the data axes as its denominator: ``softmax_cross_entropy``'s
+    ``count``) plus 1/D of ``aux_weight`` × the global MoE aux loss, so
+    that ``data_grad_sum``'s sum of the losses and the gradients is the
+    single-device step's on the global batch."""
     from repro_torch.models import encdec
     from repro_torch.models import transformer as tfm
     cfg, rules = model.cfg, model.rules
-    check_trainable(cfg, rules)
     groups = _data_groups(rules)
     mod = encdec if cfg.is_encoder_decoder else tfm
+    share = rules.dp_size
 
     def loss(p, batch):
-        kw = {} if cfg.is_encoder_decoder else {"aux_weight": aux_weight,
-                                                "plan": plan}
+        kw = {} if cfg.is_encoder_decoder else {"plan": plan}
+        kw["aux_weight"] = aux_weight / share
         if groups:
             mask = batch.get("loss_mask")
             labels = batch["labels"]
             count = (torch.full((), float(labels.numel()),
                                 device=labels.device) if mask is None
                      else mask.float().sum().detach().clone())
-            for g in groups:
-                count = collective("all_reduce", count, g)
-            kw["count"] = count
-        with model.scope(groups=1):
+            kw["count"] = _sum_over(count, groups)
+        with model.global_scope():
             return mod.loss_fn(p, cfg, batch, **kw)
 
     return loss
@@ -609,12 +763,13 @@ def train_loss(model: ShardedModel, *, plan=None, aux_weight: float = 0.01):
 
 def train_scope(model: ShardedModel):
     """``params -> context`` that a mesh's train step enters around its
-    forward and backward (``make_train_step(scope=)``): the model's scope
-    with the step's own parameters bound as the shards."""
+    forward and backward (``make_train_step(scope=)``): the model's
+    ``global_scope`` with the step's own parameters bound as the
+    shards."""
     def enter(params):
         if model.tp is not None:
             model.tp.bind(sharded_leaves(params, model.shardings))
-        return model.scope(groups=1)
+        return model.global_scope()
     return enter
 
 

@@ -158,7 +158,7 @@ def local_cell(cfg: ArchConfig, shape: ShapeSpec, axes: Dict[str, int], *,
                 (lshape.global_batch, prefill_tokens), torch.int32))
         args = (params, batch)
     else:
-        args = (params, steps_lib.cache_specs(lcfg, lshape),
+        args = (params, steps_lib.cache_specs(lcfg, lshape, params),
                 steps_lib.input_specs(lcfg, lshape)["tokens"])
     return LocalCell(lcfg, lshape, rules, shardings, whole, args)
 

@@ -42,6 +42,7 @@ nodes.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 import weakref
 from collections import Counter
@@ -256,6 +257,19 @@ class StepTrace:
         self.ops.append((packet.__name__, tuple(tuple(t.shape) for t in outs),
                          tuple(_HLO_DTYPE.get(t.dtype, str(t.dtype))
                                for t in outs), flops, nbytes))
+
+    @contextlib.contextmanager
+    def repeated(self, n: int):
+        """Record the ops, kernel launches and collectives issued inside as
+        ``n`` times over (a loop whose ``n`` iterations are alike runs one
+        of them: ``kernels._mark.alike_steps``)."""
+        marks = (len(self.ops), len(self.kernels), len(self.collectives))
+        try:
+            yield
+        finally:
+            for rec, i in zip((self.ops, self.kernels, self.collectives),
+                              marks):
+                rec.extend(rec[i:] * (n - 1))
 
     def record_kernel(self, name: str, route: str, splits: int, cost,
                       *tensors) -> None:

@@ -101,9 +101,14 @@ def params_spec(cfg: ArchConfig):
     return _abstract(lambda: init(torch.Generator(), cfg, device="cpu"))
 
 
-def cache_specs(cfg: ArchConfig, shape: ShapeSpec):
+def cache_specs(cfg: ArchConfig, shape: ShapeSpec, params=None):
+    """The decode caches of ``shape``; ``params`` (a rank's shards) gives
+    a decoder-only model's recurrent states their local widths."""
     cap = cache_capacity(cfg, shape)
-    return model_module(cfg).cache_spec(cfg, shape.global_batch, cap)
+    if cfg.is_encoder_decoder or params is None:
+        return model_module(cfg).cache_spec(cfg, shape.global_batch, cap)
+    return model_module(cfg).cache_spec(cfg, shape.global_batch, cap,
+                                        params=params)
 
 
 @dataclass

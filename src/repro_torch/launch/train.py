@@ -25,9 +25,7 @@ full config on a pod):
     the tensor-parallel forward and backward (Megatron's conjugate
     collectives) and sums the gradients over the data axes before the
     update (``distributed.tensor_parallel.train_loss`` and
-    ``data_grad_sum``).  MLA, the recurrent blocks and the
-    encoder-decoder on a model axis, and the MoE aux loss on a data
-    axis, raise ``NotImplementedError`` naming the family.  ``python -m
+    ``data_grad_sum``), every family on either axis.  ``python -m
     repro_torch.launch.dryrun`` traces this branch's step on rank 0.
 
 ``--zero1`` on the production mesh cuts the optimizer state over
@@ -52,7 +50,6 @@ from repro_torch.distributed import sharding
 from repro_torch.distributed.fault_tolerance import SkipStraggler, Supervisor
 from repro_torch.distributed.sharding import ShardingRules
 from repro_torch.distributed.tensor_parallel import (ShardedModel,
-                                                     check_trainable,
                                                      data_rows, mesh_rules,
                                                      train_loss)
 from repro_torch.launch.mesh import launcher_mesh
@@ -92,8 +89,6 @@ def main(argv: Optional[List[str]] = None):
     with launcher_mesh(args.arch, args.smoke, multi_pod=args.multi_pod,
                        device=dev) as (cfg, mesh, multi):
         rules = mesh_rules(mesh, cfg) if multi else ShardingRules(mesh)
-        if multi:                       # before a parameter is drawn
-            check_trainable(cfg, rules)
         sharding.install(rules)
         mod = model_module(cfg)
         params = init_params(cfg, dev)

@@ -26,6 +26,10 @@ reference writes its prefill keys from row 0 and decodes at ``p %
 capacity`` over ``min(p + 1, capacity)`` rows, which agrees with this
 ring wherever ``capacity <= window`` and attends to the wrong keys past
 it; the port follows the reference's own ``forward`` there.
+
+On a mesh's model axis a rank whose projections are its shards attends
+its local heads (GQA's q and K/V groups, MLA's heads over the whole
+latent) and sums the output projection over the axis (``_out_proj``).
 """
 from __future__ import annotations
 
@@ -442,11 +446,16 @@ class MLACache(NamedTuple):
 def _mla_qkv_latent(params, x, mla, n_heads, rope_theta, positions):
     """Shared front end: per-head q (nope, rope), latent c_kv and the
     shared k_rope.  The MLA projections run dense: the reference builds
-    no tile plan for them."""
+    no tile plan for them.  On a rank's head shard the down-projections
+    and their norms run whole (every local head reads the latents) and
+    ``w_uq`` makes the local heads."""
     B, S, _ = x.shape
     dn, dr = mla.qk_nope_head_dim, mla.qk_rope_head_dim
     r = mla.kv_lora_rank
+    tp = _tensor_parallel(params)
     cq = rmsnorm(params["q_norm"], x @ params["w_dq"])
+    if tp is not None:              # every local head reads all of it
+        cq = tp.copy_in(cq)
     q = (cq @ params["w_uq"]).reshape(B, S, n_heads, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope, positions, rope_theta)
@@ -454,6 +463,8 @@ def _mla_qkv_latent(params, x, mla, n_heads, rope_theta, positions):
     c_kv = rmsnorm(params["kv_norm"], dkv[..., :r])
     k_rope = apply_rope(dkv[..., r:][:, :, None, :], positions,
                         rope_theta)[:, :, 0, :]     # one shared rope head
+    if tp is not None:
+        c_kv, k_rope = tp.copy_in(c_kv), tp.copy_in(k_rope)
     return q_nope, q_rope, c_kv, k_rope
 
 
@@ -474,7 +485,7 @@ def _mla_attend(params, q_nope, q_rope, c_kv, k_rope, *, n_heads, mla,
         out = flash_attention(q, k.contiguous(), v, causal=True)
     else:
         out = causal_attention(q, k, v, block_q=block_q)
-    return out.reshape(B, S, n_heads * dv) @ params["wo"]
+    return _out_proj(params, out.reshape(B, S, n_heads * dv), None)
 
 
 def mla_forward(params, x, *, n_heads, mla, rope_theta, block_q: int = 512):
@@ -542,7 +553,7 @@ def mla_decode(params, cache: MLACache, x, *, n_heads, mla, rope_theta):
     out = torch.einsum("bhr,rhd->bhd", ctx_lat, w_uv.float())
     out = out.reshape(B, 1, n_heads * dv).to(x.dtype)
     cache.index.add_(1)
-    return out @ params["wo"], cache
+    return _out_proj(params, out, None), cache
 
 
 # ---------------------------------------------------------------------------
@@ -618,4 +629,4 @@ def mla_paged_decode(params, cache: PagedLatentCache, x, *, n_heads, mla,
     w_uv = params["w_uv"].reshape(r, n_heads, dv)
     out = torch.einsum("bhr,rhd->bhd", ctx.float(), w_uv.float())
     out = out.reshape(B, 1, n_heads * dv).to(x.dtype)
-    return out @ params["wo"], cache
+    return _out_proj(params, out, None), cache

@@ -85,11 +85,20 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, *, device="cuda"):
 
 def _proj(p, x, w, b, heads, cfg):
     """x @ p[w] (+ p[b] where the config has QKV biases), split into
-    (B, S, heads, hd)."""
+    (B, S, heads, hd).  On a rank's head shard (``x`` through
+    ``copy_in``) the bias is cut to the local heads."""
     y = x @ p[w]
     if b in p:
-        y = y + p[b]
+        tp = attn_lib._tensor_parallel(p)
+        y = y + (p[b] if tp is None else tp.cut(p[b]))
     return y.reshape(*x.shape[:2], heads, cfg.head_dim_)
+
+
+def _copy_in(p, x):
+    """``x`` as the input of a rank's head shard (copy-to-model), else
+    itself."""
+    tp = attn_lib._tensor_parallel(p)
+    return x if tp is None else tp.copy_in(x)
 
 
 def _attn_kw(cfg):
@@ -104,6 +113,7 @@ def _mha_full(p, x, cfg, causal: bool, flash: bool = False):
     if causal:
         return attn_lib.gqa_forward(p, x, **_attn_kw(cfg))
     B, S, _ = x.shape
+    x = _copy_in(p, x)
     q = _proj(p, x, "wq", "bq", cfg.n_heads, cfg)
     k = _proj(p, x, "wk", "bk", cfg.n_kv_heads, cfg)
     v = _proj(p, x, "wv", "bv", cfg.n_kv_heads, cfg)
@@ -111,19 +121,20 @@ def _mha_full(p, x, cfg, causal: bool, flash: bool = False):
         out = flash_attention(q, k, v, causal=False)
     else:
         out = attn_lib.attend(q, k, v, causal=False, q_offset=0)
-    return out.reshape(B, S, -1) @ p["wo"]
+    return attn_lib._out_proj(p, out.reshape(B, S, -1), None)
 
 
 def _cross_kv(p, enc_out, cfg) -> CrossKV:
+    enc_out = _copy_in(p, enc_out)
     return CrossKV(_proj(p, enc_out, "wk", "bk", cfg.n_kv_heads, cfg),
                    _proj(p, enc_out, "wv", "bv", cfg.n_kv_heads, cfg))
 
 
 def _cross_attend(p, x, ckv: CrossKV, cfg):
     B, S, _ = x.shape
-    q = _proj(p, x, "wq", "bq", cfg.n_heads, cfg)
+    q = _proj(p, _copy_in(p, x), "wq", "bq", cfg.n_heads, cfg)
     out = attn_lib.attend(q, ckv.k, ckv.v, causal=False, q_offset=0)
-    return out.reshape(B, S, -1) @ p["wo"]
+    return attn_lib._out_proj(p, out.reshape(B, S, -1), None)
 
 
 def encode(params, cfg: ArchConfig, frames, *, flash: bool = False):
@@ -182,11 +193,14 @@ def forward(params, cfg: ArchConfig, batch):
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
 
-def loss_fn(params, cfg: ArchConfig, batch, aux_weight: float = 0.0):
-    """Mean next-token cross-entropy of the decoder → (loss, metrics)."""
+def loss_fn(params, cfg: ArchConfig, batch, aux_weight: float = 0.0,
+            count=None):
+    """Mean next-token cross-entropy of the decoder → (loss, metrics).
+    ``count`` divides the token-loss sum instead of this batch's own
+    count (``softmax_cross_entropy``: a data axis's global count)."""
     logits, aux = forward(params, cfg, batch)
     ce = softmax_cross_entropy(logits, batch["labels"],
-                               batch.get("loss_mask"))
+                               batch.get("loss_mask"), count=count)
     return ce, {"ce": ce, "aux": aux}
 
 

@@ -9,12 +9,16 @@ activation already this rank's own rows and columns.
 The port also keeps the active tensor-parallel context here
 (``distributed.tensor_parallel.TensorParallel``, None outside a mesh
 with a model axis > 1): the projections, the embedding, the unembedding
-and the MoE experts read it to run rank-local on their shards.
+and the MoE experts read it to run rank-local on their shards.  A
+train step on a data axis > 1 installs ``moe_aux_sum``: the MoE layers
+sum their aux loss's token statistics over the data ranks with it, so
+that the loss stays global over the batch.
 """
 from __future__ import annotations
 
 _MOE_GROUPS = 1
 _TENSOR_PARALLEL = None
+_MOE_AUX_SUM = None
 
 
 def set_moe_groups(g: int):
@@ -38,3 +42,14 @@ def set_tensor_parallel(tp):
 
 def tensor_parallel():
     return _TENSOR_PARALLEL
+
+
+def set_moe_aux_sum(fn):
+    """Install (or, with None, remove) the data-axis sum of the MoE aux
+    loss's statistics: ``fn(t) -> t`` summed over every data rank."""
+    global _MOE_AUX_SUM
+    _MOE_AUX_SUM = fn
+
+
+def moe_aux_sum():
+    return _MOE_AUX_SUM

@@ -10,7 +10,10 @@ installs, and divides down until it divides T); each group sorts its
 from the group's tokens) and scatters them into its slice of a (G, E,
 C, d) buffer; the experts run batched over that buffer and a
 scatter-add combines their outputs back into each group's tokens.  The
-aux loss and ``drop_fraction`` stay global.  On a mesh with a model
+aux loss and ``drop_fraction`` span every group of a call; on a train
+step over a data axis the aux loss's counts and probabilities are also
+summed over the data ranks (``hooks.moe_aux_sum``), so that it is the
+global batch's.  On a mesh with a model
 axis the experts are split over it (expert parallelism): each rank runs
 its own experts' rows and the outputs are gathered over the experts.
 
@@ -151,9 +154,20 @@ def moe_forward(params, x, moe, act: str, gated: bool,
     top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
 
     # ---- aux load-balance loss (Switch/GShard form, global) ----
-    density = torch.zeros((E,), dtype=torch.float32, device=dev).index_add_(
-        0, top_e.reshape(-1), torch.ones(top_e.numel(), device=dev)) / T
-    density_proxy = probs.reshape(T, E).mean(dim=0)
+    counts = torch.zeros((E,), dtype=torch.float32, device=dev).index_add_(
+        0, top_e.reshape(-1), torch.ones(top_e.numel(), device=dev))
+    data_sum = hooks.moe_aux_sum()
+    if data_sum is None:
+        density = counts / T
+        density_proxy = probs.reshape(T, E).mean(dim=0)
+    else:
+        # over every data rank's tokens: one sum of (counts, the
+        # probabilities' sums, the token count)
+        tot = data_sum(torch.cat([
+            counts, probs.reshape(T, E).sum(dim=0),
+            torch.full((1,), float(T), device=dev)]))
+        density = tot[:E] / tot[-1]
+        density_proxy = tot[E:2 * E] / tot[-1]
     aux = (density * density_proxy).sum() * E / k
 
     # ---- per-group sort-based capacity dispatch ----

@@ -26,6 +26,12 @@ routes only attention, MLP and MoE groups): they stay dense products on
 the masked weights.  The decode steps (``rglru_step``, ``mlstm_step``,
 ``slstm_step``) update the state IN PLACE (the reference returns a new
 one), as the port's other decode caches are.
+
+On a mesh's model axis (``distributed.tensor_parallel``, installed in
+``models.hooks``) a cell whose leaves are this rank's shards runs at
+its local channels or heads, its state at the local width: the RG-LRU
+channel-parallel (``w_out`` row-parallel), the mLSTM and sLSTM over
+their local heads.  Every width is read from the parameters.
 """
 from __future__ import annotations
 
@@ -35,6 +41,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import _mark
+from repro_torch.models import hooks
 from repro_torch.models.layers import xavier
 
 _RGLRU_C = 8.0
@@ -86,6 +94,13 @@ def conv1d_step(params, conv_state, u_t):
     hist = torch.cat([conv_state, u_t[:, None, :]], dim=1)       # (B, cw, w)
     y = torch.einsum("bcw,cw->bw", hist, params["w"])
     return y, hist[:, 1:]
+
+
+def _sharded(leaf):
+    """The tensor-parallel context when ``leaf`` is this rank's shard
+    (its cell runs at the local channels or heads), else None."""
+    tp = hooks.tensor_parallel()
+    return tp if tp is not None and tp.is_sharded(leaf) else None
 
 
 # ===========================================================================
@@ -141,15 +156,37 @@ def _linear_scan(log_a, b):
     return h
 
 
+def _rglru_local(params, x):
+    """(tp, params, x): on a rank's channel shard the context, the
+    parameters with the replicated leaves it reads per channel (Λ, and
+    a conv the layout kept whole) cut to the local channels, and ``x``
+    through ``copy_in``; else (None, params, x)."""
+    tp = _sharded(params["w_out"])
+    if tp is None:
+        return None, params, x
+    conv = params["conv"]
+    if not tp.is_sharded(conv["w"]):
+        conv = {"w": tp.cut(conv["w"])}
+    return (tp, dict(params, conv=conv, lam=tp.cut(params["lam"])),
+            tp.copy_in(x))
+
+
+def _rglru_out(tp, params, y):
+    """The gated states' output projection (row-parallel on a shard)."""
+    y = y @ params["w_out"]
+    return y if tp is None else tp.all_reduce(y)
+
+
 def _rglru_core(params, x):
     """(y, u_raw, h): the block's output, its pre-conv input and the
     recurrence's states."""
+    tp, params, x = _rglru_local(params, x)
     gate = F.gelu(x @ params["w_gate"], approximate="tanh")
     u_raw = x @ params["w_in"]
     u = conv1d_apply(params["conv"], u_raw).float()
     log_a, b = _rglru_gates(params, u)
     h = _linear_scan(log_a, b)
-    y = (h.to(x.dtype) * gate) @ params["w_out"]
+    y = _rglru_out(tp, params, h.to(x.dtype) * gate)
     return y, u_raw, h
 
 
@@ -192,6 +229,7 @@ def rglru_make_cache(params, x):
 def rglru_step(params, state: RGLRUState, x_t):
     """One decode token.  x_t: (B, 1, d) -> (y_t (B, 1, d), state); the
     state's ``h`` and ``conv`` are written IN PLACE."""
+    tp, params, x_t = _rglru_local(params, x_t)
     xt = x_t[:, 0]
     gate = F.gelu(xt @ params["w_gate"], approximate="tanh")
     u = xt @ params["w_in"]
@@ -201,7 +239,7 @@ def rglru_step(params, state: RGLRUState, x_t):
     h = torch.exp(log_a) * state.h + b
     state.h.copy_(h)
     state.conv.copy_(conv)
-    y = (h.to(xt.dtype) * gate) @ params["w_out"]
+    y = _rglru_out(tp, params, h.to(xt.dtype) * gate)
     return y[:, None, :], state
 
 
@@ -232,14 +270,22 @@ def mlstm_cell_init(gen, width: int, n_heads: int, dtype, device):
 def _mlstm_qkvif(params, u, n_heads):
     """u: (B, S, w) -> q, k, v (B, S, H, hd) and the gate logits li, lf
     (B, S, H), all float32.  q/k/v are the block-diagonal products in
-    u's dtype (k scaled by 1/sqrt(hd) there), cast afterwards."""
+    u's dtype (k scaled by 1/sqrt(hd) there), cast afterwards.  On a
+    rank's head shard ``u`` holds the local heads' channels, and the
+    gates gather all of it (``TensorParallel.gather_local``)."""
     B, S, w = u.shape
     hd = w // n_heads
     q = blockdiag_apply(params["wq"], u).reshape(B, S, n_heads, hd)
     k = blockdiag_apply(params["wk"], u).reshape(B, S, n_heads, hd)
     v = blockdiag_apply(params["wv"], u).reshape(B, S, n_heads, hd)
-    li = (u @ params["wi"]).float() + params["bi"]
-    lf = F.logsigmoid((u @ params["wf"]).float() + params["bf"])
+    bi, bf = params["bi"], params["bf"]
+    tp = _sharded(params["wi"])
+    if tp is not None:
+        # a local head's gate logits read every channel of u
+        u = tp.gather_local(u, -1)
+        bi, bf = tp.cut(bi), tp.cut(bf)
+    li = (u @ params["wi"]).float() + bi
+    lf = F.logsigmoid((u @ params["wf"]).float() + bf)
     k = k / math.sqrt(hd)
     return q.float(), k.float(), v.float(), li, lf
 
@@ -307,38 +353,44 @@ def mlstm_chunkwise(params, u, n_heads, chunk: int = 128,
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))        # (B, H, S, hd)
     li, lf = li.transpose(1, 2), lf.transpose(1, 2)         # (B, H, S)
     tri = torch.ones((L, L), dtype=torch.bool, device=u.device).tril()
-    hs = []
-    for c0 in range(0, S, L):
-        qt, kt, vt = q[:, :, c0:c0 + L], k[:, :, c0:c0 + L], v[:, :, c0:c0 + L]
-        lit, lft = li[:, :, c0:c0 + L], lf[:, :, c0:c0 + L]
-        b = torch.cumsum(lft, dim=-1)                       # inclusive decays
-        G = b[..., -1:]
-        m_intra = torch.cummax(lit - b, dim=-1).values + b
-        m_inter = b + m[..., None]
-        m_t = torch.maximum(m_inter, m_intra)               # (B, H, L)
-        # the memory carried in from earlier chunks
-        q_scaled = qt * torch.exp(m_inter - m_t)[..., None]
-        num_inter = torch.einsum("bhlk,bhkv->bhlv", q_scaled, C)
-        den_inter = torch.einsum("bhlk,bhk->bhl", q_scaled, n)
-        # within the chunk: D[t, s] = exp(b_t - b_s + li_s - m_t), s <= t
-        # (exp of the masked entries is exp(-inf) = 0, so no inf ever
-        # meets the backward's zero cotangent)
-        logD = (b[..., :, None] - b[..., None, :] + lit[..., None, :]
-                - m_t[..., :, None])
-        D = torch.exp(torch.where(tri, logD, float("-inf")))
-        scores = torch.einsum("bhlk,bhsk->bhls", qt, kt) * D
-        num = num_inter + torch.einsum("bhls,bhsv->bhlv", scores, vt)
-        den = den_inter + scores.sum(dim=-1)
-        hs.append(num / torch.maximum(den.abs(), torch.exp(-m_t))[..., None])
-        # the carry into the next chunk
-        m_next = torch.maximum(m + G[..., 0], (lit + G - b).amax(dim=-1))
-        scale_old = torch.exp(m + G[..., 0] - m_next)[..., None, None]
-        kw = kt * torch.exp(G - b + lit - m_next[..., None])[..., None]
-        C = C * scale_old + torch.einsum("bhlk,bhlv->bhkv", kw, vt)
-        n = n * scale_old[..., 0] + kw.sum(dim=2)
-        m = m_next
-    h = torch.cat(hs, dim=2).transpose(1, 2).reshape(B, S, w)
+    # under a step trace the first chunk is recorded as all S / L
+    h, (C, n, m) = _mark.alike_steps(_mlstm_chunk, S // L, 2, (tri,),
+                                     (q, k, v, li, lf), (C, n, m))
+    h = h.transpose(1, 2).reshape(B, S, w)
     return h, MLSTMState(C, n, m)
+
+
+def _mlstm_chunk(consts, xs, carry):
+    """One chunk of ``mlstm_chunkwise`` (``xs``: q/k/v (B, H, L, hd), the
+    gate logits (B, H, L); ``consts``: the causal mask) from the carry
+    (C, n, m): (h (B, H, L, hd), the carry into the next chunk)."""
+    (tri,), (qt, kt, vt, lit, lft), (C, n, m) = consts, xs, carry
+    b = torch.cumsum(lft, dim=-1)                       # inclusive decays
+    G = b[..., -1:]
+    m_intra = torch.cummax(lit - b, dim=-1).values + b
+    m_inter = b + m[..., None]
+    m_t = torch.maximum(m_inter, m_intra)               # (B, H, L)
+    # the memory carried in from earlier chunks
+    q_scaled = qt * torch.exp(m_inter - m_t)[..., None]
+    num_inter = torch.einsum("bhlk,bhkv->bhlv", q_scaled, C)
+    den_inter = torch.einsum("bhlk,bhk->bhl", q_scaled, n)
+    # within the chunk: D[t, s] = exp(b_t - b_s + li_s - m_t), s <= t
+    # (exp of the masked entries is exp(-inf) = 0, so no inf ever
+    # meets the backward's zero cotangent)
+    logD = (b[..., :, None] - b[..., None, :] + lit[..., None, :]
+            - m_t[..., :, None])
+    D = torch.exp(torch.where(tri, logD, float("-inf")))
+    scores = torch.einsum("bhlk,bhsk->bhls", qt, kt) * D
+    num = num_inter + torch.einsum("bhls,bhsv->bhlv", scores, vt)
+    den = den_inter + scores.sum(dim=-1)
+    h = num / torch.maximum(den.abs(), torch.exp(-m_t))[..., None]
+    # the carry into the next chunk
+    m_next = torch.maximum(m + G[..., 0], (lit + G - b).amax(dim=-1))
+    scale_old = torch.exp(m + G[..., 0] - m_next)[..., None, None]
+    kw = kt * torch.exp(G - b + lit - m_next[..., None])[..., None]
+    C = C * scale_old + torch.einsum("bhlk,bhlv->bhkv", kw, vt)
+    n = n * scale_old[..., 0] + kw.sum(dim=2)
+    return h, (C, n, m_next)
 
 
 def _copy_state_(state, new):
@@ -418,17 +470,39 @@ def _slstm_step(params, state: SLSTMState, xi, xf, xz, xo):
 
 def slstm_forward(params, x, state: SLSTMState = None):
     """x: (B, S, d) -> (h (B, S, w) float32, the state after the last
-    token): the input projections at once, then a loop over time."""
+    token): the input projections at once, then a loop over time.  On a
+    rank's head shard h and the state are the local heads' channels."""
     B, S, _ = x.shape
     w = params["wi"].shape[1]
     if state is None:
         state = slstm_init_state(B, w, x.device)
-    proj = [(x @ params[f"w{g}"]).float() for g in _SLSTM_GATES]
-    hs = []
-    for t in range(S):
-        h, state = _slstm_step(params, state, *(p[:, t] for p in proj))
-        hs.append(h)
-    return torch.stack(hs, dim=1), state
+    tp = _sharded(params["wi"])
+    if tp is None:
+        proj = [(x @ params[f"w{g}"]).float() for g in _SLSTM_GATES]
+    else:
+        # the local heads' channels: wi/wf/wz column shards, wo (cut by
+        # rows) summed and cut to them; the biases cut at use
+        x = tp.copy_in(x)
+        proj = [(x @ params[f"w{g}"]).float() for g in _SLSTM_GATES[:3]]
+        proj.append(tp.row_local(x, params["wo"]).float())
+        params = dict(params, **{f"b{g}": tp.cut(params[f"b{g}"])
+                                 for g in _SLSTM_GATES})
+    consts = ([params[f"r{g}"]["w"] for g in _SLSTM_GATES]
+              + [params[f"b{g}"] for g in _SLSTM_GATES])
+    # under a step trace the first token is recorded as all S
+    h, state = _mark.alike_steps(_slstm_token, S, 1, consts, proj,
+                                 tuple(state))
+    return h, SLSTMState(*state)
+
+
+def _slstm_token(consts, xs, carry):
+    """``slstm_forward``'s step (``consts``: the four recurrent blocks'
+    weights, then the four biases; ``xs``: one token's projections
+    (B, 1, w)): (h (B, 1, w), the new state)."""
+    p = {f"r{g}": {"w": r} for g, r in zip(_SLSTM_GATES, consts[:4])}
+    p.update({f"b{g}": b for g, b in zip(_SLSTM_GATES, consts[4:])})
+    h, new = _slstm_step(p, SLSTMState(*carry), *(x[:, 0] for x in xs))
+    return h[:, None], tuple(new)
 
 
 def slstm_step(params, state: SLSTMState, x_t):

@@ -257,16 +257,22 @@ def _apply_block(cfg: ArchConfig, sig, p, x, mode: str, cache, capacity,
         return (*_apply_ffn(cfg, p, x + out, plan), new_cache)
     if kind == MLSTM:
         rp = p["rnn"]
+        # the cell's heads are its block-diagonal q's blocks (the local
+        # heads on a rank's shard: up/gate columns, down row-parallel)
+        heads = rp["cell"]["wq"]["w"].shape[-3]
+        tp = rec_lib._sharded(rp["down"])
+        if tp is not None:
+            h = tp.copy_in(h)
         u = h @ rp["up"]
         g = h @ rp["gate"]
         if mode == "decode":
-            hc, new_cache = rec_lib.mlstm_step(rp["cell"], cache, u,
-                                               cfg.n_heads)
+            hc, new_cache = rec_lib.mlstm_step(rp["cell"], cache, u, heads)
         else:
-            hc, st = rec_lib.mlstm_chunkwise(rp["cell"], u, cfg.n_heads)
+            hc, st = rec_lib.mlstm_chunkwise(rp["cell"], u, heads)
             new_cache = st if mode == "prefill" else None
         out = (hc.to(x.dtype) * _act("silu", g)) @ rp["down"]
-        return x + out, None, new_cache
+        return x + (out if tp is None else tp.all_reduce(out)), None, \
+            new_cache
     if kind == SLSTM:
         rp = p["rnn"]
         if mode == "decode":
@@ -274,6 +280,9 @@ def _apply_block(cfg: ArchConfig, sig, p, x, mode: str, cache, capacity,
         else:
             hc, st = rec_lib.slstm_forward(rp["cell"], h)
             new_cache = st if mode == "prefill" else None
+        tp = rec_lib._sharded(rp["cell"]["wi"])
+        if tp is not None:          # the local heads' channels, gathered
+            hc = tp.all_gather(hc, -1)
         y = hc.to(x.dtype) @ rp["up"]
         half = y.shape[-1] // 2
         out = (_act("gelu", y[..., :half]) * y[..., half:]) @ rp["down"]
@@ -481,19 +490,26 @@ def decode_step(params, cfg: ArchConfig, caches, token, plan=None):
 
 
 def _block_cache_spec(cfg: ArchConfig, sig, batch: int, capacity: int,
-                      dtype):
+                      dtype, rnn=None):
     """One layer's decode state: a KV (or MLA latent) cache of
     ``capacity`` rows, a window's ring of ``min(window, capacity)``
-    rows, or an RG-LRU, mLSTM or sLSTM state."""
+    rows, or an RG-LRU, mLSTM or sLSTM state (at the widths of the
+    layer's ``rnn`` parameters where given: a rank's local ones)."""
     kind = sig[0]
     if kind == RGLRU:
-        return rec_lib.rglru_state_spec(batch, cfg.rnn_width or cfg.d_model,
-                                        cfg.conv1d_width, dtype)
+        w = (rnn["w_in"].shape[-1] if rnn is not None
+             else cfg.rnn_width or cfg.d_model)
+        return rec_lib.rglru_state_spec(batch, w, cfg.conv1d_width, dtype)
     if kind == MLSTM:
-        w = cfg.rnn_width or 2 * cfg.d_model
-        return rec_lib.mlstm_state_spec(batch, cfg.n_heads, w // cfg.n_heads)
+        if rnn is not None:
+            w, heads = rnn["up"].shape[-1], rnn["cell"]["wq"]["w"].shape[-3]
+        else:
+            w, heads = cfg.rnn_width or 2 * cfg.d_model, cfg.n_heads
+        return rec_lib.mlstm_state_spec(batch, heads, w // heads)
     if kind == SLSTM:
-        return rec_lib.slstm_state_spec(batch, cfg.d_model)
+        return rec_lib.slstm_state_spec(
+            batch, rnn["cell"]["wi"].shape[-1] if rnn is not None
+            else cfg.d_model)
     cap = capacity if kind == ATTN else min(cfg.local_window, capacity)
     if cfg.mla is not None:
         meta = dict(dtype=dtype, device="meta")
@@ -505,17 +521,21 @@ def _block_cache_spec(cfg: ArchConfig, sig, batch: int, capacity: int,
                                    cfg.head_dim_, dtype)
 
 
-def cache_spec(cfg: ArchConfig, batch: int, capacity: int):
+def cache_spec(cfg: ArchConfig, batch: int, capacity: int, params=None):
     """Meta-tensor pytree of the decode caches, mirroring
     params['segments'] (a leading reps axis on stacked segments): what
-    ``prefill`` returns for a batch of ``batch`` at ``capacity``."""
+    ``prefill`` returns for a batch of ``batch`` at ``capacity``.  A
+    recurrent state takes its widths from ``params`` where given (a
+    rank's shards on a mesh)."""
     check_ported(cfg)
     dtype = _dtype(cfg.dtype)
     out = []
-    for seg in segments_of(cfg):
+    for s_idx, seg in enumerate(segments_of(cfg)):
         pos_specs = []
-        for sig in seg.sigs:
-            s = _block_cache_spec(cfg, sig, batch, capacity, dtype)
+        for pos, sig in enumerate(seg.sigs):
+            rnn = (params["segments"][s_idx][pos].get("rnn")
+                   if params is not None else None)
+            s = _block_cache_spec(cfg, sig, batch, capacity, dtype, rnn)
             if seg.reps > 1:
                 s = type(s)(*(t.expand(seg.reps, *t.shape) for t in s))
             pos_specs.append(s)

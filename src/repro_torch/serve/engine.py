@@ -52,10 +52,13 @@ rank builds the same engine and drives it in lockstep) places the
 parameters by the sharding rules (``distributed.sharding``, with
 ``head_dim=cfg.head_dim``) and runs the model rank-local
 (``distributed.tensor_parallel``): on a model axis M > 1 the attention
-runs at Hq/M and Hkv/M heads, the MLP at d_ff/M columns, the experts at
-E/M per rank and the vocabulary at V/M rows, each rank's block-sparse
-plans built from its own mask shard, and the paged and slot caches hold
-the local kv heads.  On the data axis every rank runs the same host
+runs at Hq/M and Hkv/M heads (MLA at H/M heads over the whole latent),
+the MLP at d_ff/M columns, the experts at E/M per rank, the RG-LRU at
+its local channels, the mLSTM and sLSTM at their local heads and the
+vocabulary at V/M rows, each rank's block-sparse plans built from its
+own mask shard; the paged and slot caches hold the local kv heads, the
+recurrent states their local widths, the MLA latent pool every head's
+latent, and the frames lane's cross K/V the local heads.  On the data axis every rank runs the same host
 scheduler (block tables replicated): slots ``[d·B/D, (d+1)·B/D)``
 belong to data rank d, which alone prefills their requests and decodes
 their rows; logits rows are gathered (prefill's broadcast) over the

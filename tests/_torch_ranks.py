@@ -380,3 +380,91 @@ def hlo_rank(mesh):
             fs = audit_traced(prefill, [p, 64], where=f"{label}/prefill.hlo")
         got[label] = [(f.code, f.severity, f.where, f.msg) for f in fs]
     return got
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_mesh_families.py
+# ---------------------------------------------------------------------------
+def _module(cfg):
+    from repro_torch.models import encdec
+    return encdec if cfg.is_encoder_decoder else ttfm
+
+
+def family_serve(mesh, cfg, params_np, requests, slots=2, capacity=48):
+    """The mesh engine of ``cfg`` over ``requests`` [(uid, prompt,
+    max_new, frames)]: its streams, every logits row in the order the
+    engine samples them (uid, row), the kept-whole list, the local
+    config's heads and the J208 audit."""
+    from repro_torch.models import encdec
+    params = _bridge.params_from_numpy(params_np, device="cpu")
+    kw = (dict(prefill_fn=encdec.prefill, decode_fn=encdec.decode_step)
+          if cfg.is_encoder_decoder else {})
+    eng = ServeEngine(params=params, cfg=cfg, batch_slots=slots,
+                      capacity=capacity, mesh=mesh, device="cpu", **kw)
+    rows = []
+    eng.logits_sink = lambda uid, row: rows.append(
+        (uid, np.array(row, copy=True)))
+    for uid, prompt, max_new, frames in requests:
+        eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=max_new,
+                           frames=frames))
+    streams = {r.uid: list(r.tokens) for r in eng.run()}
+    lcfg = eng.generations[-1].cfg
+    return dict(streams=streams, rows=rows, whole=eng.kept_whole,
+                heads=(lcfg.n_heads, lcfg.n_kv_heads),
+                audit=[(f.code, f.severity)
+                       for f in audit_engine_sharding(eng)])
+
+
+def family_train(mesh, cfg, params_np, masks_np, batches, lr):
+    """Two AdamW steps of ``cfg`` on ``mesh`` through ``train_loss``
+    (``masked`` over the local masks, the weights masked first): the
+    first batch's loss (and ``sharded_loss`` of it) and gradients, both
+    steps' losses and the parameters after them, gathered to full
+    shapes; the replicated leaves' local bits; how many leaves the rank
+    holds a shard of."""
+    from repro_torch.distributed.tensor_parallel import (data_grad_sum,
+                                                         data_rows, localize,
+                                                         train_loss,
+                                                         train_scope)
+    from repro_torch.optim import adamw, constant, masked
+    from repro_torch.train.loop import _value_and_grad, make_train_step
+
+    params = _bridge.params_from_numpy(params_np, device="cpu")
+    masks = _bridge.params_from_numpy(masks_np, device="cpu")
+    params = _bridge.apply_masks(params, masks)
+    rules = mesh_rules(mesh, cfg)
+    model = ShardedModel.from_full(params, cfg, rules)
+    opt = masked(adamw(constant(lr)),
+                 localize(masks, model.shardings, contiguous=False))
+    loss, scope = train_loss(model), train_scope(model)
+    rows = [data_rows(b, rules) for b in batches]
+    with scope(model.params):
+        l0, metrics, g = _value_and_grad(loss, model.params, rows[0])
+    l0, g = data_grad_sum(rules)(l0, g)
+    forward_loss = sharded_loss(model, batches[0])
+    step = make_train_step(loss, opt, sharded=model)
+    p, st, losses = model.params, opt.init(model.params), []
+    for b in rows:
+        p, st, m = step(p, st, b)
+        losses.append(float(m["loss"]))
+    replicated = [path for path, sh in tree_flatten_with_path(
+        model.shardings) if "model" not in sh.spec]
+    local = dict(tree_flatten_with_path(p))
+    return dict(loss0=float(l0), sharded_loss=forward_loss,
+                aux0=float(metrics["aux"]),
+                grads=_gathered(g, model.shardings), losses=losses,
+                params=_gathered(p, model.shardings),
+                replicated={k: local[k].numpy() for k in replicated},
+                sharded=len(model.tp._sharded) if model.tp else 0)
+
+
+def families_rank(mesh, serve_cases, train_cases, lr):
+    """Every family's mesh engine (``serve_cases``: (name, cfg,
+    params_np, requests)) and two train steps (``train_cases``: (name,
+    cfg, params_np, masks_np, batches)) on this rank's mesh."""
+    return dict(
+        rank=mesh.get_rank(),
+        serve={name: family_serve(mesh, cfg, p, reqs)
+               for name, cfg, p, reqs in serve_cases},
+        train={name: family_train(mesh, cfg, p, m, b, lr)
+               for name, cfg, p, m, b in train_cases})

@@ -296,7 +296,8 @@ def test_train_cell_on_a_mesh_and_zero1():
     assert math.isfinite(tr.flops) and tr.flops > 0
 
 
-def test_dryrun_main_writes_reference_records(tmp_path, capsys, ref):
+def test_dryrun_main_writes_reference_records(tmp_path, capsys, ref,
+                                             monkeypatch):
     out = tmp_path / "dryrun_results.json"
     assert tdry.main(["--arch", "llama3.2-3b", "--out", str(out)]) == 0
     recs = {r["shape"]: r for r in json.loads(out.read_text())}
@@ -324,6 +325,12 @@ def test_dryrun_main_writes_reference_records(tmp_path, capsys, ref):
     lines = capsys.readouterr().out.splitlines()
     assert lines[0].startswith("[OK] llama3.2-3b × train_4k × 16x16  ")
     assert lines[-1].startswith("3 OK, 1 SKIP, 0 FAIL")
+    # a cell whose trace raises records FAIL with the error (every family
+    # runs on the production mesh now: one is made to raise here)
+    def refuse(*a, **k):
+        raise NotImplementedError("MLA attention: refused for the test")
+    monkeypatch.setattr(tdry.tpar, "local_config", refuse)
     mla = tdry.run_cell("deepseek-v3-671b", "prefill_32k")
     assert mla["status"] == "FAIL" and "MLA" in mla["error"]
+    assert "NotImplementedError" in mla["error"] and mla["traceback"]
     assert tdry.cell_line(mla).startswith("[FAIL] deepseek-v3-671b")

@@ -16,6 +16,7 @@ jax; their sharding constraints need ``Auto`` axes (the unpatched
 launchers raise), so the reference runs here on an ``Auto`` mesh of the
 same shape.
 """
+import os
 import re
 import sys
 
@@ -434,14 +435,22 @@ def test_mains_raise_on_cuda_without_a_card(main):
 def test_train_main_full_config_on_ranks_raises(monkeypatch, arch, axes,
                                                 what):
     """The production branch (more than one rank) builds its mesh and
-    trains rank-local (``tests/test_torch_tp_train.py`` drives it on
-    gloo ranks); a family the rank-local trainer does not run on that
-    mesh is refused, naming it, before a parameter is drawn."""
-    from repro_torch.launch.mesh import AbstractMesh
-    monkeypatch.setattr(tmesh, "choose_config",
-                        lambda a, smoke: (tcfgs.get_arch(a), True))
-    monkeypatch.setattr(tmesh, "make_production_mesh",
-                        lambda **kw: AbstractMesh(axes))
-    with pytest.raises(NotImplementedError, match=what):
-        ttrain.main(["--arch", arch, "--device", "cpu"])
+    trains rank-local; the families it once refused (MLA and the
+    recurrent blocks on a model axis, the MoE aux loss on a data axis)
+    train now: ``main`` on gloo ranks, the production mesh's shape
+    swapped for ``axes`` and the arch's config for a scaled one, takes
+    its two steps and every rank ends with the same parameters."""
+    from repro_torch.launch.mesh import run_ranks
+    sys.path.insert(0, os.path.dirname(__file__))
+    import _torch_ranks as ranks
+    kw = dict(dtype="float32", n_layers=2)
+    if arch == "deepseek-v3-671b":       # the rules' head guard at MLA's
+        kw["head_dim"] = 16              # 24/16/16 head widths
+    cfg = tcfgs.scaled_down(tcfgs.get_arch(arch), **kw)
+    res = run_ranks(ranks.launcher_rank, axes["data"], axes["model"],
+                    device="cpu", args=(arch, cfg))
+    assert [r["step"] for r in res] == [2, 2], what
+    assert np.array_equal(res[0]["norm"], res[1]["norm"])
+    assert np.all(np.isfinite(res[0]["norm"]))
+    assert res[0]["table_shape"][0] == cfg.padded_vocab // axes["model"]
     assert not torch.distributed.is_initialized()

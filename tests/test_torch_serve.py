@@ -276,29 +276,32 @@ def test_engine_requires_cuda_unless_cpu(slice_setup, monkeypatch):
 
 
 def test_not_yet_ported_paths_raise(slice_setup, capsys):
-    """What is still to port raises "not yet ported": the
-    encoder-decoder on a model axis > 1, served or trained, and the MoE
-    aux loss on a data axis > 1 (meshes themselves serve and train now:
-    ``tests/test_torch_distributed.py``, ``tests/test_torch_tp_train.py``).
-    Encoder frames are admitted now (the frames lane:
-    ``tests/test_torch_encdec.py``), MoE trains, and ``lint`` runs,
-    ``--hlo`` too, which exits as the reference's does (0 on a family
-    with no serving prefill to trace: ``tests/test_torch_lint.py``)."""
+    """Nothing is left "not yet ported": the encoder-decoder places its
+    heads on a model axis > 1 (``frame_adapter`` alone kept whole) and
+    the MoE aux loss trains on a data axis > 1, global over the batch
+    (meshes serve and train every family:
+    ``tests/test_torch_mesh_families.py``).  Encoder frames are admitted
+    (the frames lane: ``tests/test_torch_encdec.py``), MoE trains, and
+    ``lint`` runs, ``--hlo`` too, which exits as the reference's does (0
+    on a family with no serving prefill to trace:
+    ``tests/test_torch_lint.py``)."""
     from repro_torch.api import cli
-    from repro_torch.models import encdec
+    from repro_torch.distributed import tensor_parallel as tpar
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models import encdec, hooks
 
-    class FakeMesh:                 # a (1, 2) mesh's axes, no group
-        axis_names = ("data", "model")
-        shape = {"data": 1, "model": 2}
-
+    model_mesh = AbstractMesh({"data": 1, "model": 2})  # rank 0, no group
     wcfg = tcfgs.scaled_down(tcfgs.get_arch("whisper-tiny"),
                              dtype="float32")
     wparams = encdec.init_params(torch.Generator().manual_seed(0), wcfg,
                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ServeEngine(params=wparams, cfg=wcfg, prefill_fn=encdec.prefill,
-                    decode_fn=encdec.decode_step, mesh=FakeMesh(),
-                    device="cpu")
+    sm = tpar.ShardedModel.from_full(wparams, wcfg,
+                                     tpar.mesh_rules(model_mesh, wcfg))
+    assert [p for p, _ in sm.whole] == ["frame_adapter"]
+    assert (sm.cfg.n_heads, sm.cfg.n_kv_heads) == (wcfg.n_heads // 2,
+                                                   wcfg.n_kv_heads // 2)
+    assert sm.params["dec"]["xattn"]["wq"].shape[-1] == \
+        wparams["dec"]["xattn"]["wq"].shape[-1] // 2
     eng = ServeEngine(params=wparams, cfg=wcfg, prefill_fn=encdec.prefill,
                       decode_fn=encdec.decode_step, batch_slots=2,
                       capacity=16, device="cpu")
@@ -309,10 +312,6 @@ def test_not_yet_ported_paths_raise(slice_setup, capsys):
     eng.run()
     assert req.status == "done" and req.tokens == eng.smoke_decode(
         np.ones(3, np.int32), 2, frames=frames)
-    from repro_torch.distributed import tensor_parallel as tpar
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tpar.ShardedModel.from_full(wparams, wcfg,
-                                    tpar.mesh_rules(FakeMesh(), wcfg))
     assert cli.main(["lint", "--arch", "vgg11", "--hlo", "--json",
                      "--device", "cpu"]) == cli.EXIT_OK
     out = json.loads(capsys.readouterr().out)
@@ -326,12 +325,17 @@ def test_not_yet_ported_paths_raise(slice_setup, capsys):
     assert logits.shape == (1, 4, moe_cfg.padded_vocab)
     assert bool(torch.isfinite(logits).all()) and float(aux) > 0
 
-    from repro_torch.launch.mesh import AbstractMesh
+    # on a data axis the train loss's scope sums the aux loss's
+    # statistics over the data ranks, and only there
     data_mesh = AbstractMesh({"data": 2, "model": 1})   # rank 0, no group
     sm = tpar.ShardedModel.from_full(moe_params, moe_cfg,
                                      tpar.mesh_rules(data_mesh, moe_cfg))
-    with pytest.raises(NotImplementedError, match="MoE aux loss"):
-        tpar.train_loss(sm)
+    assert callable(tpar.train_loss(sm))
+    with sm.global_scope():
+        assert hooks.moe_aux_sum() is not None and hooks.moe_groups() == 1
+    with sm.scope():
+        assert hooks.moe_aux_sum() is None and hooks.moe_groups() == 2
+    assert hooks.moe_aux_sum() is None
 
 
 @pytest.mark.parametrize("limit", [2, 9, 128, 640, 4096])
